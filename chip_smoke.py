@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with a CUDA card and
+``nvcc``.  It imports nothing of JAX or of the reference package ``repro``.
+Phases, each printing one JSON line:
+
+1. device — the card's name and ``nvidia-smi`` name and power limit;
+2. build  — compiles ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a);
+3. kernels — B1 ``wd_relax_lanes``, B2 ``relax_lanes`` and B3
+   ``find_offsets`` at the main path's shapes (rmat20: N = 2^20, frontiers
+   of 2^10..2^20 slots, up to 2^23 lanes), each held for exact equality
+   against its plain PyTorch version on the card for all four built-in
+   operators, and timed with CUDA events beside the plain version;
+4. path  — the paper's rmat20 (``rmat_graph(scale=20, edge_factor=8,
+   weighted=True, seed=1)``) from its highest-degree source: ``sssp`` with
+   WD, BS, HP and AD and ``bfs`` with WD on the card, each equal to an exact
+   Dijkstra oracle (scipy); WD equal to the same run on the CPU; all four
+   strategies at rmat16 equal to their CPU runs.  The launch counts are
+   set to 0 just before the five rmat20 runs and read just after them,
+   before anything else launches; they show B1 and B2 carried the path
+   (B3 is not on it and reads 0).  The find_offsets entry point
+   (``ops.wd_find_offsets``) is checked afterwards in its own phase, on
+   rmat20's whole-graph degree prefix; its launch is in no row.
+
+Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+line.  Any failed check raises, and the script exits non-zero.  Without a
+CUDA device, or outside a checkout, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+CSRC = "src/repro_torch/kernels/csrc/relax.cu"
+
+#: H100 SXM peaks (NVIDIA data sheet, full 700 W power limit): HBM3 rate,
+#: and the float32 rate outside the tensor cores — the closest the data
+#: sheet gives to the integer ALU work of these kernels
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+OP_NAMES = ("shortest_path", "min_label", "widest_path", "reach_count")
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_registers(build_log: list) -> dict:
+    """Registers per compiled kernel from nvcc's ``-Xptxas -v`` output."""
+    regs, current = {}, None
+    for line in "".join(build_log).splitlines():
+        m = re.search(r"Compiling entry function '\S*?([a-z_]+_kernel)"
+                      r"(?:I((?:Li\d+E)+)E)?", line)
+        if m:   # demangled enough: name<MSG,COMB>
+            args = re.findall(r"\d+", m.group(2) or "")
+            current = m.group(1) + (f"<{','.join(args)}>" if args else "")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            regs[current] = int(m.group(1))
+    return regs
+
+
+def time_ms(fn, *, reps: int = 10, flush=None) -> float:
+    """Median milliseconds of ``fn`` by CUDA events, after one warm-up
+    call; ``flush`` (a tensor larger than L2) is overwritten before each
+    timed call, so every run starts with a cold cache."""
+    import torch
+    fn()
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(got, want) -> int:
+    """Largest elementwise difference over paired outputs (bools as 0/1);
+    raises on a shape mismatch."""
+    err = 0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"output {tuple(a.shape)}/{a.dtype} vs "
+                                 f"plain {tuple(b.shape)}/{b.dtype}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def random_dist(rng, op, n, dev):
+    import numpy as np
+    import torch
+    if op.combine == "min":
+        d = rng.integers(0, 1 << 20, n)
+        d[rng.random(n) < 0.4] = op.identity
+    elif op.combine == "max":
+        d = rng.integers(0, 200, n)
+    else:
+        d = rng.integers(0, 4, n)
+    return torch.from_numpy(d.astype(np.int32)).to(dev)
+
+
+def wd_inputs(g, rng, f_slots, cursor_max, dev):
+    """The arguments of one WD step (as ``strategies.wd_relax`` builds
+    them) over a frontier of ``f_slots`` random nodes with random cursors
+    in ``[0, cursor_max]`` (non-zero cursors: HP's tail)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.worklist import bucket
+    nodes = np.sort(rng.choice(g.num_nodes, f_slots, replace=False))
+    f = torch.from_numpy(nodes.astype(np.int32)).to(dev)
+    cursor = torch.from_numpy(
+        rng.integers(0, cursor_max + 1, f_slots).astype(np.int32)).to(dev)
+    deg = (g.row_ptr[f + 1] - g.row_ptr[f] - cursor).clamp_(min=0)
+    prefix = torch.cumsum(deg, 0, dtype=torch.int32)
+    total = int(prefix[-1])
+    return dict(prefix=prefix, exclusive=prefix - deg,
+                start=g.row_ptr[f] + cursor, src_ids=f,
+                cap_work=bucket(total), total=total)
+
+
+def lane_inputs(rng, n, lanes, dev):
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    return dict(src=t(rng.integers(0, n, lanes).astype(np.int32)),
+                dst=t(rng.integers(0, n, lanes).astype(np.int32)),
+                w=t(rng.integers(1, 101, lanes).astype(np.int32)),
+                valid=t(rng.random(lanes) < 0.7))
+
+
+def kernel_phase(g, dev, *, frontiers, lanes_list, reps=10):
+    """Hold B1/B2/B3 against their plain versions (exact) at every shape
+    and operator; time each at the largest shape.  Returns the kernel
+    rows of the final JSON line (launches filled in later)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import operators
+    from repro_torch.kernels import find_offsets as fo
+    from repro_torch.kernels import relax
+
+    rng = np.random.default_rng(0)
+    n = g.num_nodes
+    err = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0}
+    checked = []
+    for f_slots in frontiers:
+        for weighted in (True, False):
+            wt = g.wt if weighted else None
+            for cursor_max in (0, 2):
+                a = wd_inputs(g, rng, f_slots, cursor_max, dev)
+                for name in OP_NAMES:
+                    op = operators.OPERATORS[name]
+                    dist = random_dist(rng, op, n, dev)
+                    args = (dist, a["prefix"], a["exclusive"], a["start"],
+                            a["src_ids"], g.col, wt)
+                    got = relax.wd_relax_lanes(*args, cap_work=a["cap_work"],
+                                               op=op)
+                    want = relax.wd_relax_lanes_plain(
+                        *args, cap_work=a["cap_work"], op=op)
+                    e = max_abs_err(got, want)
+                    err["wd_relax_lanes"] = max(err["wd_relax_lanes"], e)
+                    checked.append(["wd_relax_lanes", f_slots, weighted,
+                                    cursor_max, name, e])
+        a = wd_inputs(g, rng, f_slots, 0, dev)
+        e = max_abs_err([fo.find_offsets(a["prefix"], a["cap_work"])],
+                        [fo.find_offsets_plain(a["prefix"], a["cap_work"])])
+        err["find_offsets"] = max(err["find_offsets"], e)
+        checked.append(["find_offsets", f_slots, e])
+    for lanes in lanes_list:
+        b = lane_inputs(rng, n, lanes, dev)
+        for name in OP_NAMES:
+            op = operators.OPERATORS[name]
+            dist = random_dist(rng, op, n, dev)
+            args = (dist, b["src"], b["dst"], b["w"], b["valid"])
+            e = max_abs_err(relax.relax_lanes(*args, op=op),
+                            relax.relax_lanes_plain(*args, op=op))
+            err["relax_lanes"] = max(err["relax_lanes"], e)
+            checked.append(["relax_lanes", lanes, name, e])
+    bad = [c for c in checked if c[-1] != 0]
+    emit("kernels_check", cases=len(checked), mismatches=bad)
+    if bad:
+        raise AssertionError(f"kernel != plain version: {bad}")
+
+    # timing at the largest shapes, shortest_path (SSSP's operator)
+    op = operators.shortest_path
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
+    log2f = int(np.ceil(np.log2(max(frontiers) + 1)))
+    rows = []
+
+    a = wd_inputs(g, rng, max(frontiers), 0, dev)
+    dist = random_dist(rng, op, n, dev)
+    args = (dist, a["prefix"], a["exclusive"], a["start"], a["src_ids"],
+            g.col, g.wt)
+    cap, f_slots, total = a["cap_work"], max(frontiers), a["total"]
+    # dist read once, 4 slot tables, col+wt of the edges this frontier
+    # owns; proposal + updated written, improve per lane
+    b1_bytes = 4 * n + 16 * f_slots + 8 * total + 5 * n + cap
+    b1_ops = cap * log2f + 6 * total
+    t_b, by = bound(b1_bytes, b1_ops)
+    rows.append(dict(
+        name="wd_relax_lanes", route="cuda", source=CSRC,
+        replaces="src/repro/kernels/relax.py:349", launches=0,
+        max_abs_err=err["wd_relax_lanes"],
+        ms=time_ms(lambda: relax.wd_relax_lanes(*args, cap_work=cap, op=op),
+                   reps=reps, flush=flush),
+        plain_ms=time_ms(lambda: relax.wd_relax_lanes_plain(
+            *args, cap_work=cap, op=op), reps=reps, flush=flush),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        shape=dict(n=n, f=f_slots, cap_work=cap, edges=total,
+                   weighted=True, op=op.name)))
+
+    lanes = max(lanes_list)
+    b = lane_inputs(rng, n, lanes, dev)
+    dist = random_dist(rng, op, n, dev)
+    args = (dist, b["src"], b["dst"], b["w"], b["valid"])
+    valid_lanes = int(b["valid"].sum())
+    # dist read once, src/dst/w/valid per lane; proposal + updated +
+    # improve written
+    t_b, by = bound(4 * n + 13 * lanes + 5 * n + lanes, 6 * valid_lanes)
+    rows.append(dict(
+        name="relax_lanes", route="cuda", source=CSRC,
+        replaces="src/repro/kernels/relax.py:243", launches=0,
+        max_abs_err=err["relax_lanes"],
+        ms=time_ms(lambda: relax.relax_lanes(*args, op=op), reps=reps,
+                   flush=flush),
+        plain_ms=time_ms(lambda: relax.relax_lanes_plain(*args, op=op),
+                         reps=reps, flush=flush),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        shape=dict(n=n, lanes=lanes, valid=valid_lanes, op=op.name)))
+
+    prefix = a["prefix"]
+    k = torch.arange(cap, dtype=torch.int32, device=dev)
+    t_b, by = bound(4 * f_slots + 4 * cap, cap * log2f)
+    rows.append(dict(
+        name="find_offsets", route="cuda", source=CSRC,
+        replaces="src/repro/kernels/find_offsets.py:46", launches=0,
+        max_abs_err=err["find_offsets"],
+        ms=time_ms(lambda: fo.find_offsets(prefix, cap), reps=reps,
+                   flush=flush),
+        plain_ms=time_ms(lambda: fo.find_offsets_plain(prefix, cap),
+                         reps=reps, flush=flush),
+        bound_ms=t_b, bound_by=by,
+        library_ms=time_ms(lambda: torch.searchsorted(
+            prefix, k, right=True, out_int32=True), reps=reps, flush=flush),
+        shape=dict(f=f_slots, cap_work=cap)))
+    emit("kernels_time", rows=rows)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def dijkstra_oracle(g, source: int, weighted: bool):
+    """Exact distances by scipy's Dijkstra (float64 holds these integer
+    sums exactly); unreachable nodes get the port's INF."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.core.graph import INF
+    row_ptr = g.row_ptr.cpu().numpy()
+    col = g.col.cpu().numpy()
+    data = (g.wt.cpu().numpy().astype(np.float64) if weighted
+            else np.ones(g.num_edges))
+    m = sp.csr_matrix((data, col, row_ptr), shape=(g.num_nodes,) * 2)
+    d = dijkstra(m, directed=True, indices=source)
+    out = np.full(g.num_nodes, INF, np.int64)
+    reach = np.isfinite(d)
+    out[reach] = d[reach].astype(np.int64)
+    return out.astype(np.int32)
+
+
+def kernel_counts(r) -> dict:
+    """How often AD chose each kernel (empty for the fixed strategies)."""
+    counts: dict = {}
+    for st in r.iter_stats:
+        if st.kernel is not None:
+            counts[st.kernel] = counts.get(st.kernel, 0) + 1
+    return counts
+
+
+def same_run(a, b) -> bool:
+    import numpy as np
+    return (np.array_equal(a.dist, b.dist) and a.iterations == b.iterations
+            and a.edges_relaxed == b.edges_relaxed)
+
+
+def path_phase(g, dev):
+    """The main path on the rmat graph ``g``: the five runs, each equal to
+    the Dijkstra oracle.  The launch counts are set to 0 just before the
+    runs and read just after them; returns ``(launches, results)``."""
+    import numpy as np
+    from repro_torch.algos import bfs, sssp
+    from repro_torch.kernels.relax import LAUNCHES
+
+    name = f"rmat{g.num_nodes.bit_length() - 1}"
+    source = int(g.degrees.argmax())
+    oracle_w = dijkstra_oracle(g, source, weighted=True)
+    oracle_u = dijkstra_oracle(g, source, weighted=False)
+    sssp(g, source, strategy="WD", device=dev)           # warm-up, uncounted
+
+    runs = [("sssp", s, oracle_w) for s in ("WD", "BS", "HP", "AD")]
+    runs.append(("bfs", "WD", oracle_u))
+    results = {}
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    for algo, strategy, oracle in runs:
+        before = dict(LAUNCHES)
+        fn = sssp if algo == "sssp" else bfs
+        r = fn(g, source, strategy=strategy, device=dev)
+        if r.dist.shape != (g.num_nodes,) or not np.array_equal(r.dist,
+                                                                oracle):
+            raise AssertionError(f"{algo}-{strategy} on {name} != Dijkstra")
+        results[(algo, strategy)] = r
+        emit("path_run", graph=name, algo=algo, strategy=strategy,
+             device=str(dev), nodes=g.num_nodes, edges=g.num_edges,
+             source=source, iterations=r.iterations,
+             edges_relaxed=r.edges_relaxed,
+             traversal_seconds=r.traversal_seconds, mteps=r.mteps,
+             kernel_counts=kernel_counts(r),
+             launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+             equals_oracle=True)
+    launches = dict(LAUNCHES)
+    emit("path_launches", graph=name, launches=launches)
+    if launches["wd_relax_lanes"] < 1 or launches["relax_lanes"] < 1:
+        raise AssertionError(f"main path missed a kernel: {launches}")
+    return launches, results
+
+
+def find_offsets_entry_phase(g, dev) -> None:
+    """``ops.wd_find_offsets`` (the find_offsets entry point, which the
+    main path never calls: B1 does its own search) on the whole-graph
+    degree prefix of ``g`` (every node active), against
+    ``torch.searchsorted``."""
+    import torch
+    from repro_torch.core.worklist import bucket
+    from repro_torch.kernels import ops
+    prefix = torch.cumsum(g.degrees, 0, dtype=torch.int32)
+    offsets = ops.wd_find_offsets(prefix, bucket(g.num_edges))
+    want = torch.searchsorted(prefix, torch.arange(
+        offsets.numel(), dtype=torch.int32, device=dev), right=True,
+        out_int32=True)
+    if not torch.equal(offsets, want):
+        raise AssertionError("ops.wd_find_offsets failed")
+    emit("find_offsets_entry", graph=f"rmat{g.num_nodes.bit_length() - 1}",
+         f=g.num_nodes, cap_work=offsets.numel(), equal=True)
+
+
+def cpu_compare_phase(g, dev, results, *, cpu_scale: int) -> None:
+    """The card's sssp-WD run on ``g`` against the same run on the CPU,
+    and all four strategies at rmat-``cpu_scale`` on both devices."""
+    from repro_torch.algos import sssp
+    from repro_torch.data import rmat_graph
+
+    source = int(g.degrees.argmax())
+    t0 = time.perf_counter()
+    cpu = sssp(g, source, strategy="WD", device="cpu")
+    name = f"rmat{g.num_nodes.bit_length() - 1}"
+    if not same_run(cpu, results[("sssp", "WD")]):
+        raise AssertionError(f"{name} sssp-WD: cuda != cpu")
+    emit("path_cpu_compare", graph=name, strategy="WD", equal=True,
+         cpu_seconds=time.perf_counter() - t0)
+
+    small = rmat_graph(scale=cpu_scale, edge_factor=8, weighted=True,
+                       seed=1, device=dev)
+    s_src = int(small.degrees.argmax())
+    for strategy in ("WD", "BS", "HP", "AD"):
+        runs2 = [sssp(small, s_src, strategy=strategy, device=d)
+                 for d in (dev, "cpu")]
+        if not same_run(*runs2) or (kernel_counts(runs2[0])
+                                    != kernel_counts(runs2[1])):
+            raise AssertionError(f"rmat{cpu_scale} {strategy}: cuda != cpu")
+        emit("path_cpu_compare", graph=f"rmat{cpu_scale}", strategy=strategy,
+             equal=True, iterations=runs2[0].iterations,
+             edges_relaxed=runs2[0].edges_relaxed)
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: src/repro_torch not found next to this "
+              "script; run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device; nothing was run",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.data import rmat_graph
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    emit("device", name=kind, nvidia_smi=smi,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    _build.lib()
+    emit("build", seconds=time.perf_counter() - t0,
+         library=str(_build.library_path().relative_to(ROOT)),
+         registers=ptxas_registers(_build.BUILD_LOG))
+
+    t0 = time.perf_counter()
+    g = rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1,
+                   device=dev)
+    emit("graph", name="rmat20", nodes=g.num_nodes, edges=g.num_edges,
+         max_degree=g.max_degree, seconds=time.perf_counter() - t0)
+
+    rows = kernel_phase(g, dev, frontiers=(1 << 10, 1 << 14, 1 << 17, 1 << 20),
+                        lanes_list=(1 << 10, 1 << 16, 1 << 20, 1 << 23))
+    launches, results = path_phase(g, dev)
+    for row in rows:      # each row's launches: the main path's runs only
+        row["launches"] = launches[row["name"]]
+    find_offsets_entry_phase(g, dev)
+    cpu_compare_phase(g, dev, results, cpu_scale=16)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

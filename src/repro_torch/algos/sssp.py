@@ -1,0 +1,19 @@
+"""Single-source shortest paths (Bellman-Ford relaxation to a fixed point,
+paper Fig. 2): the ``shortest_path`` operator on a weighted graph."""
+
+from __future__ import annotations
+
+from repro_torch.core.engine import RunResult, make_strategy, run
+from repro_torch.core.graph import CSRGraph
+
+
+def sssp(graph: CSRGraph, source: int = 0, strategy: str = "WD",
+         record_degrees: bool = False, mode: str = "stepped",
+         device="cuda", **strategy_kwargs) -> RunResult:
+    """Shortest-path distances from ``source`` under ``strategy`` (BS, WD,
+    HP or AD), on the card unless ``device="cpu"``."""
+    if graph.wt is None:
+        raise ValueError("SSSP needs a weighted graph")
+    strat = make_strategy(strategy, **strategy_kwargs)
+    return run(graph, source, strat, record_degrees=record_degrees,
+               mode=mode, device=device)

@@ -1,0 +1,191 @@
+"""Data-driven execution engine of the port (paper Fig. 2 / Fig. 4 outer
+loop), stepped mode.
+
+:func:`run` relaxes from one source to a fixed point under a registered
+strategy, one frontier iteration per step: the strategy launches its
+relax kernels, the host counts the next frontier, and the loop goes on
+while it is non-empty.  *What* is propagated is an
+:class:`repro_torch.core.operators.EdgeOp` (``op=``, default
+``shortest_path``).
+
+The fused single-launch engine, sharding, delta-stepping and batching are
+later slices (ROADMAP.md A7, A11, A10, A8); asking for them raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import operators
+from repro_torch.core.graph import CSRGraph, INF, resolve_device
+from repro_torch.core.schedule import Schedule
+from repro_torch.core.strategies import (  # noqa: F401  (re-exported)
+    IterStats, StrategyBase, make_strategy)
+
+
+@dataclasses.dataclass
+class RunResult:
+    dist: np.ndarray                 # [N] final distances / levels
+    iterations: int
+    total_seconds: float
+    setup_seconds: float             # strategy overhead (prep, conversion)
+    kernel_seconds: float            # useful relax time (paper's split)
+    overhead_seconds: float          # scan/compaction/push bookkeeping
+    edges_relaxed: int
+    iter_stats: list
+    strategy: str
+    state_bytes: int                 # device bytes held by the strategy
+    mode: str = "stepped"
+    #: where the run went: "cuda" (hand-written kernels) or "cpu" (their
+    #: plain PyTorch versions).  Replaces the reference's ``backend``.
+    device: str = "cuda"
+    shards: int = 1
+    schedule: str = "bsp"
+    delta: Optional[int] = None
+    relax_rounds: Optional[int] = None
+    async_shards: bool = False
+    #: the resolved work-assignment Schedule the run executed under
+    work_schedule: Optional[Schedule] = None
+
+    def __post_init__(self):
+        if self.relax_rounds is None:
+            self.relax_rounds = self.iterations
+
+    @property
+    def traversal_seconds(self) -> float:
+        """Time in the fixed-point loop, excluding one-off setup."""
+        return max(self.total_seconds - self.setup_seconds, 0.0)
+
+    @property
+    def mteps(self) -> float:
+        """Millions of traversed edges per second of traversal time."""
+        if self.traversal_seconds <= 0:
+            return 0.0
+        return self.edges_relaxed / self.traversal_seconds / 1e6
+
+    @property
+    def mteps_with_setup(self) -> float:
+        if self.total_seconds <= 0:
+            return 0.0
+        return self.edges_relaxed / self.total_seconds / 1e6
+
+
+def ready(x: torch.Tensor) -> torch.Tensor:
+    """Wait until the device has finished ``x``, then return it."""
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    return x
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet ({item}); this slice "
+        f"runs mode='stepped', single device, schedule='bsp'")
+
+
+def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
+        max_iterations: int = 100000, record_degrees: bool = False,
+        mode: str = "stepped", op="shortest_path",
+        shards: Optional[int] = None, schedule: str = "bsp",
+        delta: Optional[int] = None, device="cuda") -> RunResult:
+    """Fixed-point driver.  With the default ``shortest_path`` operator,
+    ``graph.wt is None`` ⇒ BFS levels, else SSSP distances.
+
+    ``device="cuda"`` (the default) moves the graph to the card and runs
+    the hand-written kernels; ``device="cpu"`` runs their plain PyTorch
+    versions.  ``mode="fused"``, ``shards=`` and ``schedule="delta"``
+    raise ``NotImplementedError``."""
+    if mode == "fused":
+        raise _not_ported("mode='fused'", "ROADMAP.md A7")
+    if mode != "stepped":
+        raise ValueError(f"mode must be 'stepped' or 'fused', got {mode!r}")
+    if shards is not None:
+        raise _not_ported("shards=", "ROADMAP.md A11")
+    if schedule == "delta" or delta is not None:
+        raise _not_ported("schedule='delta'", "ROADMAP.md A10")
+    if schedule != "bsp":
+        raise ValueError(f"schedule must be 'bsp' or 'delta', got "
+                         f"{schedule!r}")
+    op = operators.resolve(op)
+    dev = resolve_device(device)
+    if not 0 <= int(source) < graph.num_nodes:
+        raise ValueError(f"source {source} outside [0, {graph.num_nodes})")
+    if graph.num_edges == 0:        # degenerate: nothing to relax
+        dist = np.full(graph.num_nodes, op.identity, np.int32)
+        dist[source] = op.seed(source)
+        return RunResult(dist=dist, iterations=0, total_seconds=0.0,
+                         setup_seconds=0.0, kernel_seconds=0.0,
+                         overhead_seconds=0.0, edges_relaxed=0,
+                         iter_stats=[], strategy=strategy.name,
+                         state_bytes=0, device=dev.type)
+
+    t0 = time.perf_counter()
+    graph = graph.to(dev)
+    state = strategy.setup(graph)
+    ready(graph.row_ptr)
+    setup_s = time.perf_counter() - t0
+
+    n = graph.num_nodes
+    dist = torch.full((n,), op.identity, dtype=op.dtype, device=dev)
+    dist[source] = op.seed(source)
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[source] = True
+
+    iter_stats: list[IterStats] = []
+    kernel_s = 0.0
+    edges = 0
+    count, it = 1, 0
+    t_start = time.perf_counter()
+    while count > 0 and it < max_iterations:
+        tk = time.perf_counter()
+        dist, mask, stats = strategy.iterate(
+            state, dist, mask, count, op=op, record_degrees=record_degrees)
+        ready(dist)
+        kernel_s += time.perf_counter() - tk
+        iter_stats.append(stats)
+        edges += stats.edges_processed
+        count = int(mask.sum())
+        it += 1
+    total_s = time.perf_counter() - t_start
+    return RunResult(
+        dist=dist.cpu().numpy(), iterations=len(iter_stats),
+        total_seconds=total_s + setup_s, setup_seconds=setup_s,
+        kernel_seconds=kernel_s,
+        overhead_seconds=max(total_s - kernel_s, 0.0) + setup_s,
+        edges_relaxed=int(edges), iter_stats=iter_stats,
+        strategy=strategy.name, state_bytes=strategy.state_bytes(state),
+        device=dev.type,
+        work_schedule=getattr(strategy, "resolved_schedule", None))
+
+
+def reference_distances(graph: CSRGraph, source: int) -> np.ndarray:
+    """Host-side Dijkstra/BFS oracle for correctness tests."""
+    import heapq
+    row_ptr = graph.row_ptr.cpu().numpy()
+    col = graph.col.cpu().numpy()
+    wt = (np.ones(graph.num_edges, np.int64) if graph.wt is None
+          else graph.wt.cpu().numpy().astype(np.int64))
+    n = graph.num_nodes
+    dist = np.full(n, np.iinfo(np.int64).max)
+    dist[source] = 0
+    heap = [(0, source)]
+    while heap:
+        d, u = heapq.heappop(heap)
+        if d > dist[u]:
+            continue
+        for e in range(row_ptr[u], row_ptr[u + 1]):
+            v = col[e]
+            nd = d + wt[e]
+            if nd < dist[v]:
+                dist[v] = nd
+                heapq.heappush(heap, (nd, v))
+    out = np.full(n, INF, np.int64)
+    reach = dist < np.iinfo(np.int64).max
+    out[reach] = dist[reach]
+    return out.astype(np.int32)

@@ -1,0 +1,192 @@
+"""Composable edge operators: algorithm semantics apart from the
+load-balancing schedule (the port of :mod:`repro.core.operators`).
+
+An :class:`EdgeOp` is a per-edge ``message`` plus a commutative monoid
+(``combine`` ∈ min/max/add with neutral ``identity``) that folds messages
+into the destination's value, and an activation predicate
+(:meth:`EdgeOp.improves`).  Callables take and return int32 tensors.
+
+The hand-written CUDA relax kernels cannot call Python, so
+:meth:`EdgeOp.kernel_codes` maps the built-in message functions (by
+identity) and ``combine`` to the integer codes the kernels switch on.  An
+operator with a message of its own or an ``update`` predicate has no such
+codes: it runs on CPU tensors only, and on CUDA tensors raises
+``NotImplementedError``.
+
+Built-ins (same semantics as the reference):
+
+=================  =======  ========  ===============  ======================
+operator           combine  identity  message(v, w)    computes
+=================  =======  ========  ===============  ======================
+``shortest_path``  min      INF       ``v + w``        SSSP / BFS levels
+``min_label``      min      INF       ``v``            CC labels
+``widest_path``    max      0         ``min(v, w)``    max-min bottleneck
+``reach_count``    add      0         ``v``            path counts on
+                                                       layered DAGs
+=================  =======  ========  ===============  ======================
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.graph import INF
+
+_COMBINES = ("min", "max", "add")
+
+#: combine codes shared with kernels/csrc/relax.cu (COMB_*)
+KERNEL_COMBINES = {"min": 0, "max": 1, "add": 2}
+
+_SCATTER_REDUCE = {"min": "amin", "max": "amax", "add": "sum"}
+
+#: where custom operators on CUDA tensors are tracked
+CUSTOM_OP_ROADMAP = ("ROADMAP.md queue C: custom EdgeOp callables raise on "
+                     "CUDA tensors")
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeOp:
+    """One relax-style algorithm, expressed as message + monoid."""
+
+    name: str
+    #: the fold monoid: "min" | "max" | "add"
+    combine: str
+    #: neutral element of ``combine``; also the "unreached" value
+    identity: int
+    #: value seeded at an active source; ``None`` = the node's own id
+    source_value: Optional[int]
+    #: ``(val_src, w) -> candidate`` on int32 tensors
+    message: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    #: optional activation override ``(candidate, current) -> bool``
+    update: Optional[Callable[[torch.Tensor, torch.Tensor],
+                              torch.Tensor]] = None
+    dtype: torch.dtype = torch.int32
+    #: delta-stepping hint, as in the reference (read once that lands)
+    weight_additive: bool = False
+    #: lower bound of the value domain, as in the reference
+    value_min: Optional[int] = None
+
+    def __post_init__(self):
+        if self.combine not in _COMBINES:
+            raise ValueError(
+                f"combine must be one of {_COMBINES}, got {self.combine!r}")
+
+    def improves(self, cand: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
+        """Does ``cand`` constitute progress over ``cur`` (activate dst)?"""
+        if self.update is not None:
+            return self.update(cand, cur)
+        if self.combine == "min":
+            return cand < cur
+        if self.combine == "max":
+            return cand > cur
+        return cand != self.identity          # add: any real contribution
+
+    def scatter(self, dist: torch.Tensor, dst: torch.Tensor,
+                cand: torch.Tensor, improve: torch.Tensor) -> torch.Tensor:
+        """Fold improving candidates into ``dist[dst]`` **in place** and
+        return ``dist``.  Masked lanes contribute ``identity``, which is
+        neutral for the monoid."""
+        vals = torch.where(improve, cand, self.identity)
+        return dist.scatter_reduce_(0, dst.long(), vals,
+                                    _SCATTER_REDUCE[self.combine],
+                                    include_self=True)
+
+    def seed(self, source: int) -> int:
+        """Initial value planted at an active source."""
+        return source if self.source_value is None else self.source_value
+
+    @property
+    def idempotent(self) -> bool:
+        return self.combine in ("min", "max")
+
+    def kernel_codes(self) -> tuple[int, int]:
+        """``(message code, combine code)`` for the CUDA kernels; raises
+        ``NotImplementedError`` for an operator the kernels cannot
+        evaluate (a custom message or ``update`` predicate)."""
+        msg = KERNEL_MESSAGES.get(self.message)
+        if msg is None or self.update is not None:
+            raise NotImplementedError(
+                f"operator {self.name!r} has a custom message/update "
+                f"callable, which the CUDA relax kernels cannot evaluate; "
+                f"run it with device='cpu' ({CUSTOM_OP_ROADMAP})")
+        # the kernels hard-code the add activation test as cand != 0
+        if self.dtype != torch.int32 or (self.combine == "add"
+                                         and self.identity != 0):
+            raise NotImplementedError(
+                f"operator {self.name!r}: the CUDA relax kernels take "
+                f"int32 values and the additive identity 0 "
+                f"({CUSTOM_OP_ROADMAP})")
+        return msg, KERNEL_COMBINES[self.combine]
+
+
+def _sum_message(v, w):
+    return v + w
+
+
+def _copy_message(v, w):
+    return v
+
+
+def _bottleneck_message(v, w):
+    return torch.minimum(v, w)
+
+
+#: message codes shared with kernels/csrc/relax.cu (MSG_*), keyed by the
+#: built-in message functions themselves
+KERNEL_MESSAGES = {_sum_message: 0, _copy_message: 1, _bottleneck_message: 2}
+
+
+shortest_path = EdgeOp(
+    name="shortest_path", combine="min", identity=INF, source_value=0,
+    message=_sum_message, weight_additive=True)
+
+min_label = EdgeOp(
+    name="min_label", combine="min", identity=INF, source_value=None,
+    message=_copy_message)
+
+widest_path = EdgeOp(
+    name="widest_path", combine="max", identity=0, source_value=INF,
+    message=_bottleneck_message, value_min=0)
+
+reach_count = EdgeOp(
+    name="reach_count", combine="add", identity=0, source_value=1,
+    message=_copy_message)
+
+#: name -> operator; extended via :func:`register_operator`
+OPERATORS: dict[str, EdgeOp] = {
+    op.name: op
+    for op in (shortest_path, min_label, widest_path, reach_count)
+}
+
+
+def register_operator(op: EdgeOp) -> EdgeOp:
+    """Add a user-defined operator to :data:`OPERATORS` (name must be new).
+
+    With ``REPRO_CHECK_CONTRACTS`` set (non-empty, not ``0``) this raises:
+    the monoid-law checker the reference runs at registration has not
+    been ported yet (ROADMAP.md A13)."""
+    if not isinstance(op, EdgeOp):
+        raise TypeError(f"{op!r} is not an EdgeOp")
+    if os.environ.get("REPRO_CHECK_CONTRACTS", "0") not in ("", "0"):
+        raise NotImplementedError(
+            "REPRO_CHECK_CONTRACTS is set, but the EdgeOp contract checker "
+            "is not ported to repro_torch yet (ROADMAP.md A13)")
+    if op.name in OPERATORS:
+        raise ValueError(f"operator {op.name!r} already registered")
+    OPERATORS[op.name] = op
+    return op
+
+
+def resolve(op) -> EdgeOp:
+    """Accept an :class:`EdgeOp` or a registered name, return the EdgeOp."""
+    if isinstance(op, EdgeOp):
+        return op
+    try:
+        return OPERATORS[op]
+    except (KeyError, TypeError):
+        raise KeyError(f"unknown operator {op!r}; registered: "
+                       f"{sorted(OPERATORS)}") from None

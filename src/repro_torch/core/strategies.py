@@ -1,0 +1,449 @@
+"""Load-balancing strategies of the port (paper §II–III), stepped drivers.
+
+Strategy        unit of work                     kernel
+--------        ------------                     ------
+BS  (baseline)  node; one lane per frontier      B2 per edge column
+                slot, looping over its edges
+WD  (workload   edge; merge-path search over     B1
+     decomp.)   the frontier's degree prefix
+HP  (hier.)     ≤MDT edges/node/sub-iteration;   B2 per [cap, MDT] tile,
+                WD for the small remainder       B1 for the tail
+AD  (adaptive)  per-iteration choice of BS/WD/HP from frontier statistics
+                (arXiv:1911.09135)
+
+EP and NS come in later slices (ROADMAP.md A6).  Strategies live in the
+:data:`STRATEGIES` registry (:func:`register`, :func:`make_strategy`).
+
+Every relax goes through :mod:`repro_torch.kernels.relax`, which runs the
+CUDA kernels for CUDA tensors and their plain PyTorch versions for CPU
+tensors.  The chunk schedule is the reference's (one B2 launch per BS
+column, per HP tile; one B1 launch per WD iteration and per HP tail), and
+each launch reads one snapshot of ``dist`` and folds its proposal in
+afterwards, so ``(dist, iterations, edges_relaxed)`` equal the reference's
+stepped engine bit for bit.  The drivers sync to the host between
+launches (frontier counts, column counts); that is what stepped mode is.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import operators
+from repro_torch.core.graph import CSRGraph
+from repro_torch.core.operators import EdgeOp
+from repro_torch.core.schedule import (
+    Schedule, default_schedule, resolve_overrides)
+from repro_torch.core.worklist import bucket, compact_mask
+from repro_torch.kernels import relax
+
+
+def _edge_weight(g: CSRGraph, eidx: torch.Tensor) -> torch.Tensor:
+    if g.wt is not None:
+        return g.wt[eidx]
+    return torch.ones_like(eidx)
+
+
+# ---------------------------------------------------------------------------
+# BS — node-based baseline
+# ---------------------------------------------------------------------------
+
+def bs_relax(g: CSRGraph, dist, frontier, *,
+             op: EdgeOp = operators.shortest_path):
+    """Each frontier slot walks its own adjacency list, one edge column
+    per B2 launch, for max-degree-in-frontier columns.  Each column is
+    folded into ``dist`` before the next one reads it, as in the
+    reference's ``while_loop``."""
+    mask = frontier >= 0
+    f = torch.where(mask, frontier, 0)
+    deg = torch.where(mask, g.row_ptr[f + 1] - g.row_ptr[f], 0)
+    base = g.row_ptr[f]
+    updated = torch.zeros(dist.numel(), dtype=torch.bool, device=dist.device)
+    for d in range(int(deg.max())):
+        valid = mask & (deg > d)
+        eidx = (base + d).clamp_(0, g.num_edges - 1)
+        dist, updated, _ = relax.apply_relax(
+            dist, updated, f, g.col[eidx], _edge_weight(g, eidx), valid,
+            op=op)
+    return dist, updated
+
+
+# ---------------------------------------------------------------------------
+# WD — workload decomposition (merge path over the frontier's edges)
+# ---------------------------------------------------------------------------
+
+def wd_relax(g: CSRGraph, dist, frontier, cursor, *, cap_work: int,
+             op: EdgeOp = operators.shortest_path):
+    """Block-distribute the frontier's remaining edges (past ``cursor``)
+    over ``cap_work`` lanes: one B1 launch ranks every lane in the degree
+    prefix and relaxes its edge."""
+    mask = frontier >= 0
+    f = torch.where(mask, frontier, 0)
+    deg = torch.where(mask, g.row_ptr[f + 1] - g.row_ptr[f] - cursor, 0)
+    deg = deg.clamp_(min=0)
+    prefix = torch.cumsum(deg, 0, dtype=torch.int32)
+    exclusive = prefix - deg
+    start = g.row_ptr[f] + cursor
+    prop, upd, _ = relax.wd_relax_lanes(
+        dist, prefix, exclusive, start, f, g.col, g.wt, cap_work=cap_work,
+        op=op)
+    return relax.apply_proposal(dist, prop, op), upd
+
+
+# ---------------------------------------------------------------------------
+# HP — hierarchical processing (≤ MDT edges per node per sub-iteration)
+# ---------------------------------------------------------------------------
+
+def hp_sub_relax(g: CSRGraph, dist, sub, cursor, *, mdt: int,
+                 op: EdgeOp = operators.shortest_path):
+    """One sub-iteration: every sublist node relaxes its next ≤MDT edges,
+    a dense ``[cap, MDT]`` tile in one B2 launch.  Returns ``(dist,
+    updated, new_cursor, alive)``."""
+    mask = sub >= 0
+    n = torch.where(mask, sub, 0)
+    deg = g.row_ptr[n + 1] - g.row_ptr[n]
+    j = torch.arange(mdt, dtype=torch.int32, device=dist.device)[None, :]
+    pos = cursor[:, None] + j
+    valid = mask[:, None] & (pos < deg[:, None])
+    eidx = (g.row_ptr[n][:, None] + pos).clamp_(0, g.num_edges - 1)
+    eidx = eidx.reshape(-1)
+    src = n[:, None].expand(-1, mdt).reshape(-1)
+    updated = torch.zeros(dist.numel(), dtype=torch.bool, device=dist.device)
+    dist, updated, _ = relax.apply_relax(
+        dist, updated, src, g.col[eidx], _edge_weight(g, eidx),
+        valid.reshape(-1), op=op)
+    new_cursor = cursor + mdt
+    alive = mask & (new_cursor < deg)
+    return dist, updated, new_cursor, alive
+
+
+def compact_pair(nodes, cursor, alive, *, cap_out: int):
+    """Compact the (node, cursor) pairs that survive a sub-iteration."""
+    idx = compact_mask(alive, cap_out)
+    ok = idx >= 0
+    idx_c = torch.where(ok, idx, 0)
+    return (torch.where(ok, nodes[idx_c], -1),
+            torch.where(ok, cursor[idx_c], 0))
+
+
+# ---------------------------------------------------------------------------
+# Strategy drivers (host-stepped)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class IterStats:
+    frontier_size: int
+    edges_processed: int
+    sub_iterations: int = 1
+    frontier_degrees: Optional[np.ndarray] = None  # for balance analysis
+    kernel: Optional[str] = None     # relax kernel used (AD records choices)
+    #: delta-stepping bucket (None for BSP iterations, the only schedule
+    #: of this slice)
+    bucket: Optional[int] = None
+
+
+#: capability: the strategy can start from an arbitrary dense
+#: (dist, frontier-mask) pair (multi-source seeding, CC)
+FRONTIER_INIT = "frontier_init"
+#: capability: the strategy has a multi-device lowering (ROADMAP.md A11)
+SHARDABLE = "shardable"
+#: capability: the strategy has delta-stepping lowerings (ROADMAP.md A10)
+PRIORITY_SCHEDULE = "priority_schedule"
+
+#: what a plain StrategyBase subclass declares.  The built-ins declare
+#: only what the port implements: SHARDABLE and PRIORITY_SCHEDULE arrive
+#: with their slices.
+DEFAULT_CAPABILITIES = frozenset({FRONTIER_INIT})
+
+#: built-ins the port has not reached yet -> the ROADMAP item
+NOT_PORTED = {"EP": "ROADMAP.md A6 (EP)", "NS": "ROADMAP.md A6 (NS)"}
+
+
+class StrategyBase:
+    """A strategy = host preprocessing + one frontier-relax iteration.
+
+    ``setup`` and ``iterate`` are host-stepped; ``iterate`` receives the
+    :class:`EdgeOp` and threads it to every kernel it launches.  Every
+    strategy carries a work-assignment :class:`Schedule`; ``setup``
+    resolves auto fields (MDT) into ``resolved_schedule``."""
+
+    name = "base"
+    capabilities: frozenset = DEFAULT_CAPABILITIES
+
+    def __init__(self, schedule: Optional[Schedule] = None):
+        self.schedule = (schedule if schedule is not None
+                         else default_schedule(self.name))
+        self.resolved_schedule = self.schedule
+
+    def setup(self, graph: CSRGraph) -> Any:
+        return graph
+
+    def state_bytes(self, state) -> int:
+        return state.device_bytes()
+
+    def iterate(self, state, dist, updated_mask, count, *,
+                op: EdgeOp = operators.shortest_path, record_degrees=False):
+        raise NotImplementedError
+
+
+#: name -> strategy class, populated by :func:`register`
+STRATEGIES: dict[str, type] = {}
+
+
+def register(cls=None, *, name: Optional[str] = None,
+             capabilities: Optional[frozenset] = None):
+    """Class decorator adding a :class:`StrategyBase` subclass to the
+    registry under ``name`` (default: the class's ``name``)."""
+    def _register(c):
+        if not (isinstance(c, type) and issubclass(c, StrategyBase)):
+            raise TypeError(f"{c!r} is not a StrategyBase subclass")
+        key = name or c.name
+        if key in STRATEGIES:
+            raise ValueError(f"strategy {key!r} already registered "
+                             f"({STRATEGIES[key]!r})")
+        caps = capabilities
+        if caps is None:
+            caps = getattr(c, "capabilities", DEFAULT_CAPABILITIES)
+        c.capabilities = frozenset(caps)
+        STRATEGIES[key] = c
+        return c
+    return _register(cls) if cls is not None else _register
+
+
+def _lookup(name: str) -> type:
+    if name in STRATEGIES:
+        return STRATEGIES[name]
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"strategy {name!r} is not ported to repro_torch yet "
+            f"({NOT_PORTED[name]})")
+    raise KeyError(f"unknown strategy {name!r}; registered: "
+                   f"{sorted(STRATEGIES)}")
+
+
+def make_strategy(name: str, **kwargs) -> StrategyBase:
+    """Instantiate a registered strategy by name."""
+    return _lookup(name)(**kwargs)
+
+
+def strategy_capabilities(name: str) -> frozenset:
+    """Declared capability flags of a registered strategy."""
+    return _lookup(name).capabilities
+
+
+def _frontier_stats(g: CSRGraph, frontier, count: int,
+                    record_degrees: bool) -> IterStats:
+    """Stats of one frontier (syncs its degree sum).  ``frontier`` comes
+    from :func:`compact_mask`, so its first ``count`` slots are the live
+    ones."""
+    f = frontier[:count]
+    degrees = g.row_ptr[f + 1] - g.row_ptr[f]
+    stats = IterStats(frontier_size=int(count),
+                      edges_processed=int(degrees.sum()))
+    if record_degrees:
+        stats.frontier_degrees = degrees.cpu().numpy()
+    return stats
+
+
+@register
+class NodeBased(StrategyBase):
+    name = "BS"
+
+    def iterate(self, g, dist, updated_mask, count, *,
+                op: EdgeOp = operators.shortest_path, record_degrees=False):
+        cap = bucket(count, self.schedule.min_bucket)
+        frontier = compact_mask(updated_mask, cap)
+        stats = _frontier_stats(g, frontier, count, record_degrees)
+        dist, new_mask = bs_relax(g, dist, frontier, op=op)
+        return dist, new_mask, stats
+
+
+@register
+class WorkloadDecomposition(StrategyBase):
+    name = "WD"
+
+    def iterate(self, g, dist, updated_mask, count, *,
+                op: EdgeOp = operators.shortest_path, record_degrees=False):
+        sched = self.schedule
+        cap = bucket(count, sched.min_bucket)
+        frontier = compact_mask(updated_mask, cap)
+        stats = _frontier_stats(g, frontier, count, record_degrees)
+        cursor = torch.zeros(cap, dtype=torch.int32, device=dist.device)
+        dist, new_mask = wd_relax(
+            g, dist, frontier, cursor,
+            cap_work=bucket(stats.edges_processed, sched.min_bucket), op=op)
+        return dist, new_mask, stats
+
+
+@register
+class HierarchicalProcessing(StrategyBase):
+    name = "HP"
+
+    def __init__(self, histogram_bins: Optional[int] = None,
+                 mdt: Optional[int] = None,
+                 switch_threshold: Optional[int] = None,
+                 schedule: Optional[Schedule] = None):
+        super().__init__(schedule=resolve_overrides(
+            self.name, schedule, histogram_bins=histogram_bins, mdt=mdt,
+            switch_threshold=switch_threshold))
+        self.histogram_bins = self.schedule.histogram_bins
+        self.mdt = self.schedule.mdt
+        self.switch_threshold = self.schedule.switch_threshold
+
+    def setup(self, graph: CSRGraph):
+        self.resolved_schedule = self.schedule.resolved(
+            graph.degrees.cpu().numpy())
+        self.mdt_value = self.resolved_schedule.mdt
+        self._wd = WorkloadDecomposition(schedule=self.schedule)
+        self._wd.setup(graph)
+        return graph
+
+    def iterate(self, g, dist, updated_mask, count, *,
+                op: EdgeOp = operators.shortest_path, record_degrees=False):
+        sched = self.schedule
+        cap = bucket(count, sched.min_bucket)
+        frontier = compact_mask(updated_mask, cap)
+        stats = _frontier_stats(g, frontier, count, record_degrees)
+        acc_mask = torch.zeros(dist.numel(), dtype=torch.bool,
+                               device=dist.device)
+
+        # hybrid: a small super list goes straight to WD (paper §III-C)
+        if count <= sched.switch_threshold:
+            dist, new_mask, sub_stats = self._wd.iterate(
+                g, dist, updated_mask, count, op=op)
+            stats.edges_processed = sub_stats.edges_processed
+            return dist, new_mask, stats
+
+        sub = frontier
+        cursor = torch.zeros(cap, dtype=torch.int32, device=dist.device)
+        live = count
+        subiters = 0
+        while live > sched.switch_threshold:
+            dist, upd, cursor, alive = hp_sub_relax(
+                g, dist, sub, cursor, mdt=self.mdt_value, op=op)
+            acc_mask |= upd
+            live = int(alive.sum())
+            subiters += 1
+            if live:
+                sub, cursor = compact_pair(
+                    sub, cursor, alive,
+                    cap_out=bucket(live, sched.min_bucket))
+        if live > 0:
+            # finish the small sublist with cursor-aware WD (B1)
+            mask = sub >= 0
+            n = torch.where(mask, sub, 0)
+            rem = torch.where(mask, g.row_ptr[n + 1] - g.row_ptr[n] - cursor,
+                              0)
+            total = int(rem.clamp_(min=0).sum())
+            if total > 0:
+                dist, upd = wd_relax(g, dist, sub, cursor,
+                                     cap_work=bucket(total, sched.min_bucket),
+                                     op=op)
+                acc_mask |= upd
+            subiters += 1
+        stats.sub_iterations = subiters
+        return dist, acc_mask, stats
+
+
+# ---------------------------------------------------------------------------
+# AD — adaptive strategy selection (Jatala et al., arXiv:1911.09135)
+# ---------------------------------------------------------------------------
+
+def choose_kernel(count: int, degree_sum: int, max_degree: int,
+                  imbalance: float, *, mdt: int,
+                  small_frontier: int = 512,
+                  imbalance_threshold: float = 4.0,
+                  hp_edges_threshold: int = 1 << 15) -> str:
+    """Pick the relax kernel for one iteration from frontier statistics
+    (the reference's decision tree, unchanged):
+
+    * empty or edgeless frontier → BS;
+    * small and near-uniform frontier → BS;
+    * large skewed frontier past ``hp_edges_threshold`` with nodes above
+      MDT → HP;
+    * everything else → WD.
+    """
+    if degree_sum == 0 or count == 0:
+        return "BS"
+    if not math.isfinite(imbalance):
+        imbalance = math.inf
+    if count <= small_frontier and imbalance <= imbalance_threshold:
+        return "BS"
+    if max_degree > mdt and degree_sum >= hp_edges_threshold:
+        return "HP"
+    return "WD"
+
+
+@register
+class AdaptiveStrategy(StrategyBase):
+    """AD: per-iteration switching among BS, WD and HP on frontier
+    statistics.  All three share the ``dist`` layout, so switching mid-run
+    costs nothing.  ``kernel_counts`` records the choices."""
+    name = "AD"
+
+    def __init__(self, small_frontier: Optional[int] = None,
+                 imbalance_threshold: Optional[float] = None,
+                 hp_edges_threshold: Optional[int] = None,
+                 histogram_bins: Optional[int] = None,
+                 mdt: Optional[int] = None,
+                 schedule: Optional[Schedule] = None,
+                 cost_model=None):
+        if cost_model is not None:
+            raise NotImplementedError(
+                "AD's measured cost model is not ported to repro_torch yet "
+                "(ROADMAP.md A9); AD uses the fixed decision tree")
+        super().__init__(schedule=resolve_overrides(
+            self.name, schedule, small_frontier=small_frontier,
+            imbalance_threshold=imbalance_threshold,
+            hp_edges_threshold=hp_edges_threshold,
+            histogram_bins=histogram_bins, mdt=mdt))
+        sched = self.schedule
+        self.small_frontier = sched.small_frontier
+        # float32-canonical (Schedule.__post_init__), like the reference
+        self.imbalance_threshold = sched.imbalance_threshold
+        self.hp_edges_threshold = sched.hp_edges_threshold
+        self.histogram_bins = sched.histogram_bins
+        self.mdt = sched.mdt
+        self.kernel_counts: dict[str, int] = {}
+
+    def setup(self, graph: CSRGraph):
+        self._degrees = graph.degrees
+        self.resolved_schedule = self.schedule.resolved(
+            self._degrees.cpu().numpy())
+        self.mdt_value = self.resolved_schedule.mdt
+        self._kernels = {
+            "BS": NodeBased(schedule=self.schedule),
+            "WD": WorkloadDecomposition(schedule=self.schedule),
+            "HP": HierarchicalProcessing(mdt=self.mdt_value,
+                                         schedule=self.schedule),
+        }
+        for k in self._kernels.values():
+            k.setup(graph)
+        self.kernel_counts = {}
+        return graph
+
+    def iterate(self, g, dist, updated_mask, count, *,
+                op: EdgeOp = operators.shortest_path, record_degrees=False):
+        fdeg = torch.where(updated_mask, self._degrees, 0)
+        degree_sum, max_degree = torch.stack(
+            [fdeg.sum(), fdeg.max().long()]).tolist()
+        # float32 with the reference's operation order, so the choice
+        # agrees with it at every threshold
+        mean = np.float32(degree_sum) / np.float32(max(int(count), 1))
+        imbalance = (float(np.float32(max_degree) / mean)
+                     if mean > 0 else 1.0)
+        choice = choose_kernel(
+            int(count), degree_sum, max_degree, imbalance,
+            mdt=self.mdt_value, small_frontier=self.small_frontier,
+            imbalance_threshold=self.imbalance_threshold,
+            hp_edges_threshold=self.hp_edges_threshold)
+        self.kernel_counts[choice] = self.kernel_counts.get(choice, 0) + 1
+        dist, new_mask, stats = self._kernels[choice].iterate(
+            g, dist, updated_mask, count, op=op,
+            record_degrees=record_degrees)
+        stats.kernel = choice
+        return dist, new_mask, stats

@@ -1,0 +1,4 @@
+from repro_torch.data.graphs import (  # noqa: F401
+    rmat_graph, erdos_renyi_graph, road_grid_graph, graph500_graph,
+    GRAPH_SUITE, make_graph,
+)

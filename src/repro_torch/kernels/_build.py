@@ -1,0 +1,145 @@
+"""Build and load the CUDA kernels of :mod:`repro_torch.kernels`.
+
+The sources under ``csrc/`` have a plain C interface.  At first use they
+are compiled by ``nvcc`` for ``sm_90a`` into a shared library named by the
+hash of the sources, under ``kernels/build/`` (listed in ``.gitignore``),
+and loaded with ``ctypes``.  A library whose hash matches is reused, so a
+process builds at most once per source change.  Nothing is built or
+loaded at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: kernel name -> launches so far; each wrapper adds one where it
+#: launches its kernel and nowhere else
+LAUNCHES = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0}
+
+#: compiler output of the build this process ran (``-Xptxas -v``
+#: registers and spills), empty when the library was already built
+BUILD_LOG: list[str] = []
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # dist, n, src, dst, w, valid, lanes, msg, comb, prop, upd, imp, stream
+    "repro_relax_lanes": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work,
+    # msg, comb, prop, upd, imp, stream
+    "repro_wd_relax_lanes": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                             _I, _I, _P, _P, _P, _P],
+    # prefix, f, cap_work, out, stream
+    "repro_find_offsets": [_P, _I, _I, _P, _P],
+}
+
+_lib = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError(
+            "nvcc not found on PATH or at /usr/local/cuda/bin/nvcc; the "
+            "CUDA kernels of repro_torch are built from source at first use")
+    return found
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"librepro_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library of the same hash exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    # compile to a private name, then rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
+                f"{proc.stderr}")
+        BUILD_LOG.append(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.repro_error_string.argtypes = [ctypes.c_int]
+        handle.repro_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(name: str, status: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if status != 0:
+        what = lib().repro_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {what} ({status})")
+
+
+def check_tensor(name: str, t: torch.Tensor, device: torch.device,
+                 dtype: torch.dtype, numel: int | None = None) -> None:
+    """What a kernel wrapper accepts: a contiguous 1-D tensor of ``dtype``
+    on ``device`` (of ``numel`` elements when given); anything else
+    raises."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != 1 or (numel is not None and t.numel() != numel):
+        raise ValueError(
+            f"{name} has shape {tuple(t.shape)}, expected "
+            f"[{'any' if numel is None else numel}]")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name} has {t.numel()} elements; the kernels "
+                         f"index with int32")
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,200 @@
+"""The relax kernels B1 and B2 of the port, their plain versions, and the
+proposal fold.
+
+* :func:`relax_lanes` (B2) relaxes ``L`` direct-mapped ``(src, dst, w,
+  valid)`` lanes: BS edge columns and HP's ``[cap, MDT]`` tiles.  It
+  replaces the reference's Pallas ``repro.kernels.relax.relax_lanes``.
+* :func:`wd_relax_lanes` (B1) fuses WD's merge-path search with the
+  relax: lane *k* ranks itself in the frontier's inclusive degree prefix,
+  reads its edge through the per-slot ``start``/``exclusive``/``src_ids``
+  tables, and relaxes it.  It replaces the reference's Pallas
+  ``repro.kernels.relax.wd_relax_lanes`` (WD, HP's tail, AD).
+
+Both return ``(proposal [N], updated [N] bool, improve [lanes] bool)``:
+``proposal`` is the monoid fold of every improving candidate per
+destination (the identity elsewhere), computed against the unmodified
+``dist``; :func:`apply_proposal` folds it in elementwise.  That keeps
+every lane of one launch on the same snapshot, so the port's
+``(dist, iterations, edges_relaxed)`` equal the reference's bit for bit.
+
+A wrapper takes its device from its tensors: for CUDA tensors it launches
+its kernel (``csrc/relax.cu``) and counts the launch in :data:`LAUNCHES`,
+for CPU tensors it runs its plain PyTorch version (``*_plain``), which
+is the reference's XLA lowering written in PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import operators
+from repro_torch.core.operators import EdgeOp
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import (  # noqa: F401  (LAUNCHES re-exported)
+    LAUNCHES, check_tensor, stream_of)
+from repro_torch.kernels.find_offsets import find_offsets_plain
+
+
+def _empty_result(dist: torch.Tensor, lanes: int, op: EdgeOp):
+    dev = dist.device
+    return (torch.full_like(dist, op.identity),
+            torch.zeros(dist.numel(), dtype=torch.bool, device=dev),
+            torch.zeros(lanes, dtype=torch.bool, device=dev))
+
+
+def _dispatch(dist: torch.Tensor, name: str):
+    if dist.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no {name} for device {dist.device}")
+    return dist.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# B2: direct-mapped lanes
+# ---------------------------------------------------------------------------
+
+def relax_lanes_plain(dist, src, dst, w, valid, *,
+                      op: EdgeOp = operators.shortest_path):
+    """B2's plain version: ``index_select`` gathers, then
+    ``scatter_reduce_`` folds the proposal and ``amax`` the updated
+    flags (the reference's ``strategies._apply_relax``)."""
+    n = dist.numel()
+    src_c = src.clamp(0, n - 1)
+    dst_c = dst.clamp(0, n - 1)
+    cand = op.message(dist.index_select(0, src_c), w)
+    improve = valid & op.improves(cand, dist.index_select(0, dst_c))
+    prop = op.scatter(torch.full_like(dist, op.identity), dst_c, cand,
+                      improve)
+    upd = torch.zeros(n, dtype=torch.uint8, device=dist.device)
+    upd.scatter_reduce_(0, dst_c.long(), improve.to(torch.uint8), "amax")
+    return prop, upd.bool(), improve
+
+
+def _relax_lanes_cuda(dist, src, dst, w, valid, op: EdgeOp):
+    msg, comb = op.kernel_codes()
+    dev = dist.device
+    n, lanes = dist.numel(), src.numel()
+    check_tensor("dist", dist, dev, torch.int32)
+    for name, t in (("src", src), ("dst", dst), ("w", w)):
+        check_tensor(name, t, dev, torch.int32, lanes)
+    check_tensor("valid", valid, dev, torch.bool, lanes)
+    if lanes == 0:
+        return _empty_result(dist, 0, op)
+    if n == 0:
+        raise ValueError("relax_lanes needs a non-empty dist")
+    prop = torch.full_like(dist, op.identity)
+    upd = torch.zeros(n, dtype=torch.bool, device=dev)
+    imp = torch.empty(lanes, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        _build.check("relax_lanes", _build.lib().repro_relax_lanes(
+            dist.data_ptr(), n, src.data_ptr(), dst.data_ptr(), w.data_ptr(),
+            valid.data_ptr(), lanes, msg, comb, prop.data_ptr(),
+            upd.data_ptr(), imp.data_ptr(), stream_of(dev)))
+    LAUNCHES["relax_lanes"] += 1
+    return prop, upd, imp
+
+
+def relax_lanes(dist, src, dst, w, valid, *,
+                op: EdgeOp = operators.shortest_path):
+    """One relax over ``L`` direct-mapped lanes: ``dist [N]`` int32;
+    ``src``/``dst``/``w`` ``[L]`` int32 (indices are clamped into
+    ``[0, N)``); ``valid [L]`` bool.  Returns ``(proposal [N],
+    updated [N] bool, improve [L] bool)``."""
+    if _dispatch(dist, "relax_lanes"):
+        return _relax_lanes_cuda(dist, src, dst, w, valid, op)
+    return relax_lanes_plain(dist, src, dst, w, valid, op=op)
+
+
+# ---------------------------------------------------------------------------
+# B1: merge-path search fused with the relax
+# ---------------------------------------------------------------------------
+
+def wd_relax_lanes_plain(dist, prefix, exclusive, start, src_ids, col,
+                         wt: Optional[torch.Tensor], *, cap_work: int,
+                         op: EdgeOp = operators.shortest_path):
+    """B1's plain version: ``searchsorted`` ranks, gathers of the slot
+    tables and ``col``/``wt``, then B2's plain relax (the reference's XLA
+    path of ``strategies.wd_relax``)."""
+    f, e = prefix.numel(), col.numel()
+    if f == 0 or cap_work == 0:
+        return _empty_result(dist, cap_work, op)
+    k = torch.arange(cap_work, dtype=torch.int32, device=dist.device)
+    i = find_offsets_plain(prefix, cap_work).clamp_(max=f - 1)
+    eidx = (start[i] + (k - exclusive[i])).clamp_(0, e - 1)
+    valid = k < prefix[f - 1]
+    w = torch.ones_like(k) if wt is None else wt[eidx]
+    return relax_lanes_plain(dist, src_ids[i], col[eidx], w, valid, op=op)
+
+
+def _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col, wt,
+                         cap_work: int, op: EdgeOp):
+    msg, comb = op.kernel_codes()
+    dev = dist.device
+    n, f, e = dist.numel(), prefix.numel(), col.numel()
+    check_tensor("dist", dist, dev, torch.int32)
+    for name, t in (("prefix", prefix), ("exclusive", exclusive),
+                    ("start", start), ("src_ids", src_ids)):
+        check_tensor(name, t, dev, torch.int32, f)
+    check_tensor("col", col, dev, torch.int32)
+    if wt is not None:
+        check_tensor("wt", wt, dev, torch.int32, e)
+    if f == 0 or cap_work == 0:
+        return _empty_result(dist, cap_work, op)
+    if n == 0 or e == 0:
+        raise ValueError("wd_relax_lanes needs a non-empty dist and col")
+    prop = torch.full_like(dist, op.identity)
+    upd = torch.zeros(n, dtype=torch.bool, device=dev)
+    imp = torch.empty(cap_work, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        _build.check("wd_relax_lanes", _build.lib().repro_wd_relax_lanes(
+            dist.data_ptr(), n, prefix.data_ptr(), exclusive.data_ptr(),
+            start.data_ptr(), src_ids.data_ptr(), f, col.data_ptr(),
+            None if wt is None else wt.data_ptr(), e, cap_work, msg, comb,
+            prop.data_ptr(), upd.data_ptr(), imp.data_ptr(), stream_of(dev)))
+    LAUNCHES["wd_relax_lanes"] += 1
+    return prop, upd, imp
+
+
+def wd_relax_lanes(dist, prefix, exclusive, start, src_ids, col,
+                   wt: Optional[torch.Tensor], *, cap_work: int,
+                   op: EdgeOp = operators.shortest_path):
+    """Merge-path search + relax over ``cap_work`` lanes.  ``prefix`` is
+    the inclusive scan of the frontier's remaining degrees ``[F]``;
+    ``exclusive``, ``start`` (first edge of each slot's remaining run) and
+    ``src_ids`` are per-slot ``[F]``; ``col``/``wt`` are the CSR arrays
+    (``wt=None``: weight 1).  Returns ``(proposal [N], updated [N] bool,
+    improve [cap_work] bool)``."""
+    if cap_work < 0 or cap_work >= 2 ** 31:
+        raise ValueError(f"cap_work must be in [0, 2**31), got {cap_work}")
+    if _dispatch(dist, "wd_relax_lanes"):
+        return _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids,
+                                    col, wt, cap_work, op)
+    return wd_relax_lanes_plain(dist, prefix, exclusive, start, src_ids, col,
+                                wt, cap_work=cap_work, op=op)
+
+
+# ---------------------------------------------------------------------------
+# applying a proposal
+# ---------------------------------------------------------------------------
+
+def apply_proposal(dist, proposal, op: EdgeOp):
+    """Fold a dense proposal into ``dist`` elementwise: the proposal holds
+    the identity for untouched destinations and the monoid is
+    associative, so this equals scattering every candidate into
+    ``dist``."""
+    if op.combine == "min":
+        return torch.minimum(dist, proposal)
+    if op.combine == "max":
+        return torch.maximum(dist, proposal)
+    return dist + proposal
+
+
+def apply_relax(dist, updated, src, dst, w, valid, *,
+                op: EdgeOp = operators.shortest_path):
+    """``dist[dst] = combine(dist[dst], message(dist[src], w))`` over the
+    valid lanes, against one snapshot of ``dist``.  Returns
+    ``(dist, updated | lanes' updated, improve)``; the port of the
+    reference's ``strategies._apply_relax``."""
+    prop, upd, imp = relax_lanes(dist, src, dst, w, valid, op=op)
+    return apply_proposal(dist, prop, op), updated | upd, imp

@@ -24,6 +24,23 @@ Phases, each printing one JSON line:
    (B3 is not on it and reads 0).  The find_offsets entry point
    (``ops.wd_find_offsets``) is checked afterwards in its own phase, on
    rmat20's whole-graph degree prefix; its launch is in no row.
+5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
+   heads, hd 128: S = 512 and 2048 bf16 causal, 512 f32, 512 bf16
+   non-causal, ragged 1000) and B5 ``ssd_chunk_dual`` (8 chunks of 256, 48
+   heads, P 64, N 128: bf16, f32, ragged c = 200) against their plain
+   versions on the card, each timed beside its plain version and, for B4,
+   ``scaled_dot_product_attention`` (timed only; the port never calls it);
+6. lm_cpu — ``qwen3_0_6b`` and ``mamba2_780m`` at full width in float32
+   (TF32 off): the same seeded weights on the card and the CPU, a 512-
+   (Qwen3) or 600-token (Mamba-2: three chunks, ragged tail) prefill and 4
+   greedy decode steps; every prefill and decode logit within 1e-3
+   (Qwen3) or 5e-3 (Mamba-2, see ``main``) of the largest logit, equal
+   greedy tokens;
+7. lm_serve — each config at full width in bf16: a ``ServeLoop`` of 4
+   slots over 8 requests (prompts of 256..2048 tokens, 32 new tokens
+   each).  The launch counts are set to 0 just before each run and read
+   just after it: every prefill layer launches its kernel once, so B4
+   reads 28 x 8 in the Qwen3 run and B5 48 x 8 in the Mamba-2 run.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises, and the script exits non-zero.  Without a
@@ -32,6 +49,8 @@ CUDA device, or outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import re
 import statistics
@@ -49,6 +68,10 @@ CSRC = "src/repro_torch/kernels/csrc/relax.cu"
 #: sheet gives to the integer ALU work of these kernels
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+#: dense bf16 tensor-core rate (the bound of bf16 attention)
+PEAK_BF16_OPS_PER_S = 989e12
+CSRC_FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
+CSRC_SSD = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
 
 OP_NAMES = ("shortest_path", "min_label", "widest_path", "reach_count")
 
@@ -65,14 +88,39 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _template_args(rest: str) -> list:
+    """The template arguments at the head of a mangled ``I...E`` list:
+    int literals, ``f32`` and ``bf16``."""
+    out, i = [], 1
+    while rest.startswith("I") and i < len(rest) and rest[i] != "E":
+        m = re.match(r"Li(\d+)E", rest[i:])
+        if m:
+            out.append(m.group(1))
+            i += m.end()
+            continue
+        m = re.match(r"(\d+)", rest[i:])
+        if m:
+            n = int(m.group(1))
+            name = rest[i + m.end(): i + m.end() + n]
+            out.append("bf16" if "bfloat16" in name else name)
+            i += m.end() + n
+            continue
+        if rest[i] == "f":
+            out.append("f32")
+            i += 1
+            continue
+        break
+    return out
+
+
 def ptxas_registers(build_log: list) -> dict:
     """Registers per compiled kernel from nvcc's ``-Xptxas -v`` output."""
     regs, current = {}, None
     for line in "".join(build_log).splitlines():
-        m = re.search(r"Compiling entry function '\S*?([a-z_]+_kernel)"
-                      r"(?:I((?:Li\d+E)+)E)?", line)
-        if m:   # demangled enough: name<MSG,COMB>
-            args = re.findall(r"\d+", m.group(2) or "")
+        m = re.search(r"Compiling entry function '\S*?\d+([a-z_]+_kernel)"
+                      r"(\S*)'", line)
+        if m:   # demangled enough: name<template args>
+            args = _template_args(m.group(2))
             current = m.group(1) + (f"<{','.join(args)}>" if args else "")
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
@@ -100,9 +148,10 @@ def time_ms(fn, *, reps: int = 10, flush=None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          peak_ops: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -413,6 +462,281 @@ def cpu_compare_phase(g, dev, results, *, cpu_scale: int) -> None:
              edges_relaxed=runs2[0].edges_relaxed)
 
 
+# ---------------------------------------------------------------------------
+# phases 5-7: the LM serving slice (B4, B5)
+# ---------------------------------------------------------------------------
+
+ATTN_HEADS = (16, 8, 128)       # qwen3_0_6b: query heads, KV heads, hd
+SSD_SHAPE = (8, 256, 48, 64, 128)   # mamba2_780m at S = 2048: BN c H P N
+
+
+def _allclose_err(got, want, tol: float) -> float:
+    """max |got - want|; raises unless |got - want| <= tol + tol·|want|
+    everywhere (``tests/test_kernels.py``'s check)."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"output {tuple(got.shape)}/{got.dtype} vs "
+                             f"plain {tuple(want.shape)}/{want.dtype}")
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if not bool(((g - w).abs() <= tol + tol * w.abs()).all()):
+        raise AssertionError(f"kernel != plain version: max |err| {err} "
+                             f"at tolerance {tol}")
+    return err
+
+
+def attention_cost(S: int, dtype, causal: bool) -> tuple:
+    """(bytes, operations) of one B4 call at the path's heads: q, k, v
+    read once and out written once; 2 FLOP per multiply-add of QK^T and
+    PV over the (query, key) pairs the mask keeps."""
+    hq, hkv, hd = ATTN_HEADS
+    size = 2 if str(dtype).endswith("bfloat16") else 4
+    nbytes = size * S * hd * (2 * hq + 2 * hkv)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return nbytes, 4 * hd * hq * pairs
+
+
+def ssd_cost(BN, c, H, P, N, dtype) -> tuple:
+    """(bytes, operations) of one B5 call: x̄, cum, B, C read once, y and
+    the states written once (f32); C·B's causal half once per chunk (it
+    is shared by the heads), and per head M·x̄'s causal half and the
+    state product, 2 FLOP per multiply-add."""
+    size = 2 if str(dtype).endswith("bfloat16") else 4
+    nbytes = (size * BN * c * (H * P + 2 * N) + 4 * BN * c * H
+              + 4 * BN * c * H * P + 4 * BN * H * N * P)
+    tri = c * (c + 1) // 2
+    ops = BN * tri * N * 2 + BN * H * (tri * P * 2 + c * N * P * 2)
+    return nbytes, ops
+
+
+def lm_kernel_phase(dev, reps: int = 10) -> list:
+    """Hold B4 and B5 against their plain versions on the card; time each
+    case beside its plain version (and B4 beside SDPA).  Returns the two
+    kernel rows of the final line, timed at the path's largest shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+
+    g = torch.Generator().manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
+    hq, hkv, hd = ATTN_HEADS
+    rows = []
+    b4_err, b4_row = 0.0, None
+    for S, dtype, causal in [(512, torch.bfloat16, True),
+                             (2048, torch.bfloat16, True),
+                             (512, torch.float32, True),
+                             (512, torch.bfloat16, False),
+                             (1000, torch.bfloat16, True)]:
+        q, k, v = (torch.randn(1, h, S, hd, generator=g).to(dev, dtype)
+                   for h in (hq, hkv, hkv))
+        tol = 2e-6 if dtype == torch.float32 else 2e-2
+        err = _allclose_err(fa.flash_attention(q, k, v, causal=causal),
+                            fa.flash_attention_plain(q, k, v, causal=causal),
+                            tol)
+        b4_err = max(b4_err, err)
+        nbytes, ops = attention_cost(S, dtype, causal)
+        t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
+                        if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
+        case = dict(
+            S=S, dtype=str(dtype).split(".")[-1], causal=causal,
+            max_abs_err=err, tolerance=tol,
+            ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                       reps=reps, flush=flush),
+            plain_ms=time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=causal), reps=reps, flush=flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), reps=reps,
+                flush=flush),
+            bound_ms=t_b, bound_by=by, bytes=nbytes, flop=ops)
+        emit("lm_kernel_case", kernel="flash_attention", **case)
+        if (S, dtype, causal) == (2048, torch.bfloat16, True):
+            b4_row = case
+    rows.append(dict(
+        name="flash_attention", route="cuda", source=CSRC_FLASH,
+        replaces="src/repro/kernels/flash_attention.py:69", launches=0,
+        max_abs_err=b4_err, ms=b4_row["ms"], plain_ms=b4_row["plain_ms"],
+        bound_ms=b4_row["bound_ms"], bound_by=b4_row["bound_by"],
+        library_ms=b4_row["library_ms"],
+        shape=dict(B=1, Hq=hq, Hkv=hkv, S=2048, hd=hd, dtype="bfloat16",
+                   causal=True)))
+
+    b5_err, b5_row = 0.0, None
+    BN, c, H, P, N = SSD_SHAPE
+    for c_len, dtype in [(c, torch.bfloat16), (c, torch.float32),
+                         (200, torch.bfloat16)]:
+        xb = (torch.randn(BN, c_len, H, P, generator=g) * 0.1).to(dev, dtype)
+        cum = torch.cumsum(-torch.randn(BN, c_len, H, generator=g).abs()
+                           * 0.05, 1).to(dev)
+        Bm, Cm = ((torch.randn(BN, c_len, N, generator=g) * 0.3).to(dev, dtype)
+                  for _ in range(2))
+        tol = 1e-5 if dtype == torch.float32 else 5e-2
+        got = sc.ssd_chunk_dual(xb, cum, Bm, Cm)
+        want = sc.ssd_chunk_dual_plain(xb, cum, Bm, Cm)
+        err = max(_allclose_err(a, b, tol) for a, b in zip(got, want))
+        b5_err = max(b5_err, err)
+        nbytes, ops = ssd_cost(BN, c_len, H, P, N, dtype)
+        t_b, by = bound(nbytes, ops)
+        case = dict(
+            BN=BN, c=c_len, H=H, P=P, N=N, dtype=str(dtype).split(".")[-1],
+            max_abs_err=err, tolerance=tol,
+            ms=time_ms(lambda: sc.ssd_chunk_dual(xb, cum, Bm, Cm), reps=reps,
+                       flush=flush),
+            plain_ms=time_ms(lambda: sc.ssd_chunk_dual_plain(xb, cum, Bm, Cm),
+                             reps=reps, flush=flush),
+            library_ms=None, bound_ms=t_b, bound_by=by, bytes=nbytes,
+            flop=ops)
+        emit("lm_kernel_case", kernel="ssd_chunk_dual", **case)
+        if (c_len, dtype) == (c, torch.bfloat16):
+            b5_row = case
+    rows.append(dict(
+        name="ssd_chunk_dual", route="cuda", source=CSRC_SSD,
+        replaces="src/repro/kernels/ssd_chunk.py:53", launches=0,
+        max_abs_err=b5_err, ms=b5_row["ms"], plain_ms=b5_row["plain_ms"],
+        bound_ms=b5_row["bound_ms"], bound_by=b5_row["bound_by"],
+        library_ms=None,
+        shape=dict(BN=BN, c=c, H=H, P=P, N=N, dtype="bfloat16")))
+    return rows
+
+
+def lm_cpu_phase(dev, arch: str, prompt_len: int, rel_tol: float,
+                 steps: int = 4) -> None:
+    """One config at full width in float32: the same seeded weights on the
+    card and on the CPU, a prefill and ``steps`` greedy decode steps on
+    each.  Every logit agrees within ``rel_tol`` of the largest, and the
+    greedy tokens are equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LanguageModel
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    t0 = time.perf_counter()
+    cpu_model = LanguageModel(cfg, seed=0, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to_device(dev)
+    init_s = time.perf_counter() - t0
+    prompt = np.random.default_rng(1).integers(2, cfg.vocab_size, prompt_len)
+    runs = {}
+    for name, model in (("cuda", card_model), ("cpu", cpu_model)):
+        d = model.device
+        t0 = time.perf_counter()
+        cache = model.new_cache(1, prompt_len + steps + 1)
+        logits, cache = model(torch.as_tensor(prompt[None], device=d),
+                              cache=cache)
+        full, outs, toks = logits.float().cpu(), [], []
+        for t in range(steps):
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            toks.append(int(tok))
+            logits, cache = model.decode_step(cache, tok[:, None],
+                                              prompt_len + t)
+            outs.append(logits[:, -1].float().cpu())
+        runs[name] = (full, outs, toks, time.perf_counter() - t0)
+    (full_g, outs_g, toks_g, sec_g), (full_c, outs_c, toks_c, sec_c) = (
+        runs["cuda"], runs["cpu"])
+    scale = float(full_c.abs().max())
+    diff = (full_g - full_c)[0]                         # [S, V]
+    rms_rel = float(diff.pow(2).mean().sqrt() / full_c.pow(2).mean().sqrt())
+    dec_errs = [float((a - b).abs().max()) for a, b in zip(outs_g, outs_c)]
+    err = max(float(diff.abs().max()), *dec_errs)
+    ok = (err <= rel_tol * scale and toks_g == toks_c
+          and bool(torch.isfinite(full_g).all()))
+    emit("lm_cpu_compare", arch=arch, dtype="float32", prompt=prompt_len,
+         steps=steps, logit_scale=scale,
+         prefill_max_abs_err=float(diff.abs().max()),
+         prefill_rms_rel_err=rms_rel, decode_max_abs_err=dec_errs,
+         tolerance=rel_tol * scale, tokens_cuda=toks_g, tokens_cpu=toks_c,
+         equal=ok, init_seconds=init_s, cuda_seconds=sec_g,
+         cpu_seconds=sec_c)
+    if not ok:
+        raise AssertionError(f"{arch}: card != cpu")
+
+
+def prefill_kernel_ms(dev, cfg, kernel: str, lens) -> float:
+    """The serving run's kernel time in its prefills, estimated: the
+    kernel timed alone on random inputs of each prompt's shape, times the
+    layers.  Run after the launch counts are read."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_dual
+    g = torch.Generator().manual_seed(1)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+    total = 0.0
+    for S in (int(n) for n in lens):
+        if kernel == "flash_attention":
+            hd = cfg.resolved_head_dim
+            q = randn(1, cfg.num_heads, S, hd)
+            k, v = randn(1, cfg.num_kv_heads, S, hd), randn(
+                1, cfg.num_kv_heads, S, hd)
+            ms = time_ms(lambda: flash_attention(q, k, v), reps=5)
+        else:
+            c = min(cfg.ssm_chunk, S)
+            BN, H, P, N = -(-S // c), cfg.ssm_heads, cfg.ssm_head_dim, \
+                cfg.ssm_state
+            xb, Bm, Cm = randn(BN, c, H, P), randn(BN, c, N), randn(BN, c, N)
+            cum = torch.cumsum(-randn(BN, c, H, dtype=torch.float32).abs()
+                               * 0.05, 1)
+            ms = time_ms(lambda: ssd_chunk_dual(xb, cum, Bm, Cm), reps=5)
+        total += cfg.num_layers * ms
+    return total
+
+
+def lm_serve_phase(dev, arch: str, kernel: str, *, requests: int = 8,
+                   slots: int = 4, max_new: int = 32,
+                   max_len: int = 2112) -> dict:
+    """One config at full width in bf16 through ``ServeLoop``.  The launch
+    counts are set to 0 just before the run and read just after it."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.runtime.serve import Request, ServeLoop
+
+    cfg = get_config(arch)
+    model = LanguageModel(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 2049, requests)
+    if all(n % 64 == 0 for n in lens):
+        raise AssertionError(f"no ragged prompt among {lens}")
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab_size, int(n)),
+                    max_new_tokens=max_new) for i, n in enumerate(lens)]
+    loop = ServeLoop(model, num_slots=slots, max_len=max_len, eos_id=-1,
+                     device=dev)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    done = loop.run(reqs)
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    tokens = sum(len(r.generated) for r in done)
+    want = {k: 0 for k in LAUNCHES}
+    want[kernel] = cfg.num_layers * requests
+    ok = (sorted(r.uid for r in done) == list(range(requests))
+          and all(len(r.generated) == max_new
+                  and all(0 <= t < cfg.vocab_size for t in r.generated)
+                  for r in done)
+          and loop.nonfinite_logits == 0 and launches == want)
+    kernel_ms = prefill_kernel_ms(dev, cfg, kernel, lens)
+    emit("lm_serve", arch=arch, dtype=cfg.dtype, requests=requests,
+         slots=slots, prompt_lens=[int(n) for n in lens], max_new=max_new,
+         tokens=tokens, seconds=seconds, tok_per_s=tokens / seconds,
+         prefill_ms_median=statistics.median(loop.prefill_seconds) * 1e3,
+         prefill_ms_max=max(loop.prefill_seconds) * 1e3,
+         decode_ms_median=statistics.median(loop.decode_seconds) * 1e3,
+         decode_ms_max=max(loop.decode_seconds) * 1e3,
+         prefill_s_total=sum(loop.prefill_seconds),
+         decode_s_total=sum(loop.decode_seconds),
+         decode_steps=len(loop.decode_seconds),
+         prefill_kernel_ms=kernel_ms,
+         prefill_kernel_share=kernel_ms / (sum(loop.prefill_seconds) * 1e3),
+         nonfinite_logits=loop.nonfinite_logits, launches=launches,
+         launches_expected=want, ok=ok)
+    if not ok:
+        raise AssertionError(f"{arch} serving run failed the checks")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -429,6 +753,12 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
+    # float32 comparisons run in full float32: no TF32 in matmuls or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("TF32 could not be switched off")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -455,6 +785,23 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     find_offsets_entry_phase(g, dev)
     cpu_compare_phase(g, dev, results, cpu_scale=16)
+    del g, results
+
+    lm_rows = lm_kernel_phase(dev)
+    # float32 on both devices (TF32 off), which differ in summation order
+    # and libm ulps.  Mamba-2's SSD decay exp(cum_i - cum_j) subtracts
+    # float32 cumsums of |cum| ~ 250 within a chunk, where one ulp is
+    # 1.5e-5: a last-bit difference in dt moves a decay 100x more than it
+    # moves a matmul, and 48 random-init layers amplify it
+    lm_cpu_phase(dev, "qwen3_0_6b", 512, rel_tol=1e-3)
+    lm_cpu_phase(dev, "mamba2_780m", 600, rel_tol=5e-3)
+    served = {"flash_attention": lm_serve_phase(dev, "qwen3_0_6b",
+                                                "flash_attention"),
+              "ssd_chunk_dual": lm_serve_phase(dev, "mamba2_780m",
+                                               "ssd_chunk_dual")}
+    for row in lm_rows:   # each row's launches: its own serving run
+        row["launches"] = served[row["name"]][row["name"]]
+    rows += lm_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of :mod:`repro_torch.kernels`.
 
-The sources under ``csrc/`` have a plain C interface.  At first use they
-are compiled by ``nvcc`` for ``sm_90a`` into a shared library named by the
+The sources under ``csrc/`` have a plain C interface.  At first use each
+``.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all started
+together, and the objects are linked into one shared library named by the
 hash of the sources, under ``kernels/build/`` (listed in ``.gitignore``),
 and loaded with ``ctypes``.  A library whose hash matches is reused, so a
 process builds at most once per source change.  Nothing is built or
@@ -23,11 +24,15 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> launches so far; each wrapper adds one where it
 #: launches its kernel and nowhere else
-LAUNCHES = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0}
+LAUNCHES = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0,
+            "flash_attention": 0, "ssd_chunk_dual": 0}
+
+#: ``dtype`` argument of the float kernels
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: compiler output of the build this process ran (``-Xptxas -v``
 #: registers and spills), empty when the library was already built
@@ -44,6 +49,12 @@ _SIGNATURES = {
                              _I, _I, _P, _P, _P, _P],
     # prefix, f, cap_work, out, stream
     "repro_find_offsets": [_P, _I, _I, _P, _P],
+    # q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, causal, dtype, scale, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, ctypes.c_float, _P],
+    # xbar, cum, Bm, Cm, y, state, BN, c, H, P, N, dtype, stream
+    "repro_ssd_chunk_dual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P],
 }
 
 _lib = None
@@ -77,23 +88,33 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # compile to a private name, then rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
+    nvcc = _nvcc()
+    # compile and link in a private directory, then rename: a concurrent
+    # build never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = str(Path(tmp) / f"{src.stem}.o")
+            jobs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for name, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            BUILD_LOG.append(stdout + stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc {name} failed ({proc.returncode}):\n"
+                              f"{stdout}\n{stderr}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib_tmp = str(Path(tmp) / out.name)
+        proc = subprocess.run(
+            [nvcc, "-shared", "-o", lib_tmp, *(obj for _, obj, _ in jobs)],
+            capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
-                f"{proc.stderr}")
-        BUILD_LOG.append(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(lib_tmp, out)
     return out
 
 
@@ -139,6 +160,26 @@ def check_tensor(name: str, t: torch.Tensor, device: torch.device,
     if t.numel() >= 2 ** 31:
         raise ValueError(f"{name} has {t.numel()} elements; the kernels "
                          f"index with int32")
+
+
+def check_dense(name: str, t: torch.Tensor, device: torch.device,
+                dtype: torch.dtype, shape: tuple) -> None:
+    """What a float kernel wrapper accepts: a contiguous tensor of
+    ``dtype`` and exactly ``shape`` on ``device``; anything else raises."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name} has {t.numel()} elements; the kernels "
+                         f"index rows with int32")
 
 
 def stream_of(device: torch.device) -> int:

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version (exact), the wrappers' argument checks, and the stepped engine on
-the card against the CPU.  Every test here needs a CUDA device and skips
+version (the relax kernels exactly, B4/B5 within tests/test_kernels.py's
+tolerances), the wrappers' argument checks, the stepped engine and the
+serving loop on the card against the CPU.  Every test here needs a CUDA
+device and skips
 without one.  The file imports neither JAX nor ``repro``, so it runs on a
 machine without JAX:
 
@@ -126,3 +128,122 @@ def test_engine_on_the_card_matches_cpu(dev, strategy):
         np.testing.assert_array_equal(a.dist, b.dist)
         assert (a.iterations, a.edges_relaxed) == (b.iterations,
                                                    b.edges_relaxed)
+
+
+# ---------------------------------------------------------------------------
+# B4 flash attention and B5 SSD chunk against their plain versions
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = [
+    # B, Hq, Hkv, Sq, Sk, hd — tests/test_kernels.py's shapes, ragged
+    # lengths and the serving path's heads
+    (1, 1, 1, 128, 128, 64),
+    (2, 4, 2, 256, 256, 64),
+    (1, 8, 2, 128, 512, 128),
+    (2, 6, 3, 384, 384, 32),
+    (1, 4, 2, 200, 200, 64),
+    (1, 16, 8, 1000, 1000, 128),
+    (1, 2, 1, 70, 130, 32),
+]
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(dev, shape, dtype, causal):
+    from repro_torch.kernels import flash_attention as fa
+    B, Hq, Hkv, Sq, Sk, hd = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(s, generator=g).to(dev, dtype) for s in
+               [(B, Hq, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)])
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    _close(got, want, 2e-6 if dtype == torch.float32 else 2e-2)
+
+
+SSD_CASES = [
+    # BN, c, H, P, N — tests/test_kernels.py's cases, a ragged c, the
+    # serving path's heads
+    (1, 32, 1, 16, 8), (3, 64, 4, 32, 16), (2, 128, 2, 64, 128),
+    (2, 200, 3, 64, 128), (1, 77, 2, 16, 6), (2, 256, 48, 64, 128),
+]
+
+
+@pytest.mark.parametrize("shape", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_matches_plain(dev, shape, dtype):
+    from repro_torch.kernels import ssd_chunk as sc
+    BN, c, H, P, N = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    xb = (torch.randn(BN, c, H, P, generator=g) * 0.1).to(dev, dtype)
+    cum = torch.cumsum(-torch.randn(BN, c, H, generator=g).abs() * 0.05,
+                       1).to(dev)
+    Bm = (torch.randn(BN, c, N, generator=g) * 0.3).to(dev, dtype)
+    Cm = (torch.randn(BN, c, N, generator=g) * 0.3).to(dev, dtype)
+    before = sc.LAUNCHES["ssd_chunk_dual"]
+    y, st = sc.ssd_chunk_dual(xb, cum, Bm, Cm)
+    assert sc.LAUNCHES["ssd_chunk_dual"] == before + 1
+    y2, st2 = sc.ssd_chunk_dual_plain(xb, cum, Bm, Cm)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    _close(y, y2, tol)
+    _close(st, st2, tol)
+
+
+def test_lm_kernel_wrappers_reject_bad_arguments(dev):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+    q = torch.randn(1, 2, 8, 48, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.randn(1, 2, 8, 64, device=dev)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           q, q)
+    xb = torch.randn(1, 8, 2, 256, device=dev)
+    cum = torch.zeros(1, 8, 2, device=dev)
+    Bm = torch.randn(1, 8, 16, device=dev)
+    with pytest.raises(ValueError, match="P, N"):
+        sc.ssd_chunk_dual(xb, cum, Bm, Bm)
+    with pytest.raises(TypeError):
+        sc.ssd_chunk_dual(xb[..., :16].contiguous(), cum.double(), Bm, Bm)
+
+
+@pytest.mark.parametrize("arch,kernel", [("qwen3_0_6b", "flash_attention"),
+                                         ("mamba2_780m", "ssd_chunk_dual")])
+def test_serve_loop_on_the_card_matches_cpu(dev, arch, kernel):
+    """A float32 smoke model served on the card: every prefill layer
+    launches its kernel once, and the greedy tokens equal the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.runtime.serve import Request, ServeLoop
+    cfg = get_config(arch).smoke(dtype="float32")
+
+    def requests():
+        rng = np.random.default_rng(0)
+        return [Request(uid=i, prompt=rng.integers(2, cfg.vocab_size, n),
+                        max_new_tokens=m)
+                for i, (n, m) in enumerate([(70, 5), (33, 3), (100, 4)])]
+
+    card = LanguageModel(cfg, seed=0, device=dev)
+    before = LAUNCHES[kernel]
+    got = ServeLoop(card, num_slots=2, max_len=128, eos_id=-1,
+                    device=dev).run(requests())
+    assert LAUNCHES[kernel] - before == cfg.num_layers * 3
+    cpu = LanguageModel(cfg, seed=0, device="cpu")
+    want = ServeLoop(cpu, num_slots=2, max_len=128, eos_id=-1,
+                     device="cpu").run(requests())
+    assert [r.uid for r in got] == [r.uid for r in want]
+    for a, b in zip(got, want):
+        assert a.generated == b.generated

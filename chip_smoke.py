@@ -8,7 +8,10 @@ Run from the root of a checkout, on a machine with a CUDA card and
 Phases, each printing one JSON line:
 
 1. device — the card's name and ``nvidia-smi`` name and power limit;
-2. build  — compiles ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a);
+2. build  — compiles ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
+   prints each kernel's registers and spill bytes, and counts the
+   tensor-core instructions in the bf16 kernels' SASS (``cuobjdump``):
+   it fails if either bf16 kernel has none, or if cuobjdump is missing;
 3. kernels — B1 ``wd_relax_lanes``, B2 ``relax_lanes`` and B3
    ``find_offsets`` at the main path's shapes (rmat20: N = 2^20, frontiers
    of 2^10..2^20 slots, up to 2^23 lanes), each held for exact equality
@@ -21,7 +24,9 @@ Phases, each printing one JSON line:
    strategies at rmat16 equal to their CPU runs.  The launch counts are
    set to 0 just before the five rmat20 runs and read just after them,
    before anything else launches; they show B1 and B2 carried the path
-   (B3 is not on it and reads 0).  The find_offsets entry point
+   (B3 is not on it and reads 0).  Each run also prints its mean lanes a
+   launch of B1 and B2 (``_build.LANES``), and B1 and B2 are timed again
+   at the WD and BS runs' mean lanes.  The find_offsets entry point
    (``ops.wd_find_offsets``) is checked afterwards in its own phase, on
    rmat20's whole-graph degree prefix; its launch is in no row.
 5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
@@ -29,7 +34,10 @@ Phases, each printing one JSON line:
    non-causal, ragged 1000) and B5 ``ssd_chunk_dual`` (8 chunks of 256, 48
    heads, P 64, N 128: bf16, f32, ragged c = 200) against their plain
    versions on the card, each timed beside its plain version and, for B4,
-   ``scaled_dot_product_attention`` (timed only; the port never calls it);
+   ``scaled_dot_product_attention`` (timed only; the port never calls it).
+   bf16 runs the tensor-core kernels, float32 the CUDA-core ones.
+   Tolerances: B4 2e-2 (bf16) and 2e-6 (f32); B5 1e-4 (bf16) and 1e-5
+   (f32), ``ATTN_TOL`` and ``SSD_TOL``;
 6. lm_cpu — ``qwen3_0_6b`` and ``mamba2_780m`` at full width in float32
    (TF32 off): the same seeded weights on the card and the CPU, a 512-
    (Qwen3) or 600-token (Mamba-2: three chunks, ragged tail) prefill and 4
@@ -41,6 +49,10 @@ Phases, each printing one JSON line:
    each).  The launch counts are set to 0 just before each run and read
    just after it: every prefill layer launches its kernel once, so B4
    reads 28 x 8 in the Qwen3 run and B5 48 x 8 in the Mamba-2 run.
+   After each run, one 2048-token prefill of the same model is traced with
+   ``torch.profiler``: its kernel's share of device time, the number of
+   device activities, and the device's idle share (the traced device time
+   over the median wall time of five untraced prefills of that prompt).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises, and the script exits non-zero.  Without a
@@ -68,10 +80,13 @@ CSRC = "src/repro_torch/kernels/csrc/relax.cu"
 #: sheet gives to the integer ALU work of these kernels
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-#: dense bf16 tensor-core rate (the bound of bf16 attention)
+#: dense bf16 tensor-core rate (the bound of the bf16 B4 and B5 kernels)
 PEAK_BF16_OPS_PER_S = 989e12
 CSRC_FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
 CSRC_SSD = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
+#: cycles of the spin kernel ``time_ms`` queues ahead of each timed call
+#: (about 1 ms at the H100's 1.98 GHz boost clock)
+SLEEP_CYCLES = 2_000_000
 
 OP_NAMES = ("shortest_path", "min_label", "widest_path", "reach_count")
 
@@ -113,31 +128,97 @@ def _template_args(rest: str) -> list:
     return out
 
 
-def ptxas_registers(build_log: list) -> dict:
-    """Registers per compiled kernel from nvcc's ``-Xptxas -v`` output."""
-    regs, current = {}, None
+def kernel_name(mangled: str) -> str | None:
+    """``name<template args>`` of a mangled kernel symbol, or None: the
+    length-prefixed identifier ending in ``_kernel``.  The anonymous
+    namespace's file-unique prefix holds digits and lower-case letters
+    too, so a digit run inside it can pass for a length prefix that takes
+    in the real name; the real name is the candidate that starts last."""
+    found = None
+    for i, ch in enumerate(mangled):
+        if not ch.isdigit():
+            continue
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name = mangled[j:j + n]
+        if (len(name) == n and name.endswith("_kernel")
+                and re.fullmatch(r"[a-z_][a-z0-9_]*", name)):
+            found = (name, mangled[j + n:])
+    if found is None:
+        return None
+    args = _template_args(found[1])
+    return found[0] + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_summary(build_log: list) -> dict:
+    """Registers and spill bytes (stores + loads) per compiled kernel from
+    nvcc's ``-Xptxas -v`` output."""
+    out, current = {}, None
     for line in "".join(build_log).splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d+([a-z_]+_kernel)"
-                      r"(\S*)'", line)
-        if m:   # demangled enough: name<template args>
-            args = _template_args(m.group(2))
-            current = m.group(1) + (f"<{','.join(args)}>" if args else "")
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = kernel_name(m.group(1))
+            if current:
+                out[current] = {"registers": None, "spill_bytes": None}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[current]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
-        if m and current:
-            regs[current] = int(m.group(1))
-    return regs
+        if m:
+            out[current]["registers"] = int(m.group(1))
+    return out
 
 
-def time_ms(fn, *, reps: int = 10, flush=None) -> float:
-    """Median milliseconds of ``fn`` by CUDA events, after one warm-up
-    call; ``flush`` (a tensor larger than L2) is overwritten before each
-    timed call, so every run starts with a cold cache."""
+def sass_mma_counts(library: Path) -> dict:
+    """Tensor-core instructions (``HMMA`` from mma.sync, ``HGMMA`` from
+    wgmma) per compiled kernel of ``library``, read from ``cuobjdump
+    -sass``; raises when the toolkit has no cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise RuntimeError("cuobjdump not found on PATH or at "
+                           "/usr/local/cuda/bin/cuobjdump: the bf16 kernels' "
+                           "tensor-core instructions cannot be counted")
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = kernel_name(m.group(1))
+            if current:
+                counts[current] = {"HMMA": 0, "HGMMA": 0}
+        elif current and "HGMMA" in line:
+            counts[current]["HGMMA"] += 1
+        elif current and "HMMA" in line:
+            counts[current]["HMMA"] += 1
+    return counts
+
+
+def time_ms(fn, *, reps: int = 10, flush=None, spin: bool = True) -> float:
+    """Median device milliseconds of ``fn`` by CUDA events, after one
+    warm-up call; ``flush`` (a tensor larger than L2) is overwritten
+    before each timed call, so every run starts with a cold cache.  With
+    ``spin``, a spin kernel of about a millisecond (``torch.cuda._sleep``)
+    runs just before the start event, so the host has queued the whole
+    call before the card reaches it: the time is the card's, not the
+    wrapper's Python and launch overhead (which exceeds a small kernel's
+    device time).  Without it the time also holds whatever host enqueue
+    the card waits for."""
     import torch
     fn()
     pairs = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if spin:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -185,14 +266,17 @@ def random_dist(rng, op, n, dev):
     return torch.from_numpy(d.astype(np.int32)).to(dev)
 
 
-def wd_inputs(g, rng, f_slots, cursor_max, dev):
+def wd_inputs(g, rng, f_slots, cursor_max, dev, nodes=None):
     """The arguments of one WD step (as ``strategies.wd_relax`` builds
-    them) over a frontier of ``f_slots`` random nodes with random cursors
-    in ``[0, cursor_max]`` (non-zero cursors: HP's tail)."""
+    them) over a frontier of ``f_slots`` random nodes (or the sorted
+    ``nodes``) with random cursors in ``[0, cursor_max]`` (non-zero
+    cursors: HP's tail)."""
     import numpy as np
     import torch
     from repro_torch.core.worklist import bucket
-    nodes = np.sort(rng.choice(g.num_nodes, f_slots, replace=False))
+    if nodes is None:
+        nodes = np.sort(rng.choice(g.num_nodes, f_slots, replace=False))
+    f_slots = len(nodes)
     f = torch.from_numpy(nodes.astype(np.int32)).to(dev)
     cursor = torch.from_numpy(
         rng.integers(0, cursor_max + 1, f_slots).astype(np.int32)).to(dev)
@@ -214,6 +298,49 @@ def lane_inputs(rng, n, lanes, dev):
                 dst=t(rng.integers(0, n, lanes).astype(np.int32)),
                 w=t(rng.integers(1, 101, lanes).astype(np.int32)),
                 valid=t(rng.random(lanes) < 0.7))
+
+
+def time_b1(g, a, dist, op, reps, flush) -> dict:
+    """B1 timed on one WD step's arguments ``a`` (``wd_inputs``) beside
+    its plain version, with its bound."""
+    import numpy as np
+    from repro_torch.kernels import relax
+    n = g.num_nodes
+    cap, f_slots, total = a["cap_work"], a["prefix"].numel(), a["total"]
+    args = (dist, a["prefix"], a["exclusive"], a["start"], a["src_ids"],
+            g.col, g.wt)
+    # dist read once, 4 slot tables, col+wt of the edges this frontier
+    # owns; proposal + updated written, improve per lane
+    nbytes = 4 * n + 16 * f_slots + 8 * total + 5 * n + cap
+    t_b, by = bound(nbytes, cap * int(np.ceil(np.log2(f_slots + 1)))
+                    + 6 * total)
+    return dict(
+        ms=time_ms(lambda: relax.wd_relax_lanes(*args, cap_work=cap, op=op),
+                   reps=reps, flush=flush),
+        plain_ms=time_ms(lambda: relax.wd_relax_lanes_plain(
+            *args, cap_work=cap, op=op), reps=reps, flush=flush),
+        bound_ms=t_b, bound_by=by,
+        shape=dict(n=n, f=f_slots, cap_work=cap, edges=total,
+                   weighted=True, op=op.name))
+
+
+def time_b2(b, dist, op, reps, flush) -> dict:
+    """B2 timed on the lanes ``b`` (``lane_inputs``) beside its plain
+    version, with its bound."""
+    from repro_torch.kernels import relax
+    n, lanes = dist.numel(), b["src"].numel()
+    args = (dist, b["src"], b["dst"], b["w"], b["valid"])
+    valid_lanes = int(b["valid"].sum())
+    # dist read once, src/dst/w/valid per lane; proposal + updated +
+    # improve written
+    t_b, by = bound(4 * n + 13 * lanes + 5 * n + lanes, 6 * valid_lanes)
+    return dict(
+        ms=time_ms(lambda: relax.relax_lanes(*args, op=op), reps=reps,
+                   flush=flush),
+        plain_ms=time_ms(lambda: relax.relax_lanes_plain(*args, op=op),
+                         reps=reps, flush=flush),
+        bound_ms=t_b, bound_by=by,
+        shape=dict(n=n, lanes=lanes, valid=valid_lanes, op=op.name))
 
 
 def kernel_phase(g, dev, *, frontiers, lanes_list, reps=10):
@@ -271,50 +398,23 @@ def kernel_phase(g, dev, *, frontiers, lanes_list, reps=10):
     # timing at the largest shapes, shortest_path (SSSP's operator)
     op = operators.shortest_path
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
-    log2f = int(np.ceil(np.log2(max(frontiers) + 1)))
     rows = []
 
     a = wd_inputs(g, rng, max(frontiers), 0, dev)
-    dist = random_dist(rng, op, n, dev)
-    args = (dist, a["prefix"], a["exclusive"], a["start"], a["src_ids"],
-            g.col, g.wt)
-    cap, f_slots, total = a["cap_work"], max(frontiers), a["total"]
-    # dist read once, 4 slot tables, col+wt of the edges this frontier
-    # owns; proposal + updated written, improve per lane
-    b1_bytes = 4 * n + 16 * f_slots + 8 * total + 5 * n + cap
-    b1_ops = cap * log2f + 6 * total
-    t_b, by = bound(b1_bytes, b1_ops)
     rows.append(dict(
         name="wd_relax_lanes", route="cuda", source=CSRC,
         replaces="src/repro/kernels/relax.py:349", launches=0,
-        max_abs_err=err["wd_relax_lanes"],
-        ms=time_ms(lambda: relax.wd_relax_lanes(*args, cap_work=cap, op=op),
-                   reps=reps, flush=flush),
-        plain_ms=time_ms(lambda: relax.wd_relax_lanes_plain(
-            *args, cap_work=cap, op=op), reps=reps, flush=flush),
-        bound_ms=t_b, bound_by=by, library_ms=None,
-        shape=dict(n=n, f=f_slots, cap_work=cap, edges=total,
-                   weighted=True, op=op.name)))
-
-    lanes = max(lanes_list)
-    b = lane_inputs(rng, n, lanes, dev)
-    dist = random_dist(rng, op, n, dev)
-    args = (dist, b["src"], b["dst"], b["w"], b["valid"])
-    valid_lanes = int(b["valid"].sum())
-    # dist read once, src/dst/w/valid per lane; proposal + updated +
-    # improve written
-    t_b, by = bound(4 * n + 13 * lanes + 5 * n + lanes, 6 * valid_lanes)
+        max_abs_err=err["wd_relax_lanes"], library_ms=None,
+        **time_b1(g, a, random_dist(rng, op, n, dev), op, reps, flush)))
+    b = lane_inputs(rng, n, max(lanes_list), dev)
     rows.append(dict(
         name="relax_lanes", route="cuda", source=CSRC,
         replaces="src/repro/kernels/relax.py:243", launches=0,
-        max_abs_err=err["relax_lanes"],
-        ms=time_ms(lambda: relax.relax_lanes(*args, op=op), reps=reps,
-                   flush=flush),
-        plain_ms=time_ms(lambda: relax.relax_lanes_plain(*args, op=op),
-                         reps=reps, flush=flush),
-        bound_ms=t_b, bound_by=by, library_ms=None,
-        shape=dict(n=n, lanes=lanes, valid=valid_lanes, op=op.name)))
+        max_abs_err=err["relax_lanes"], library_ms=None,
+        **time_b2(b, random_dist(rng, op, n, dev), op, reps, flush)))
 
+    cap, f_slots = a["cap_work"], max(frontiers)
+    log2f = int(np.ceil(np.log2(f_slots + 1)))
     prefix = a["prefix"]
     k = torch.arange(cap, dtype=torch.int32, device=dev)
     t_b, by = bound(4 * f_slots + 4 * cap, cap * log2f)
@@ -375,10 +475,12 @@ def same_run(a, b) -> bool:
 def path_phase(g, dev):
     """The main path on the rmat graph ``g``: the five runs, each equal to
     the Dijkstra oracle.  The launch counts are set to 0 just before the
-    runs and read just after them; returns ``(launches, results)``."""
+    runs and read just after them; returns ``(launches, results,
+    lanes_by_run)``, the last the mean lanes a launch of B1/B2 in each
+    run."""
     import numpy as np
     from repro_torch.algos import bfs, sssp
-    from repro_torch.kernels.relax import LAUNCHES
+    from repro_torch.kernels.relax import LANES, LAUNCHES
 
     name = f"rmat{g.num_nodes.bit_length() - 1}"
     source = int(g.degrees.argmax())
@@ -388,30 +490,35 @@ def path_phase(g, dev):
 
     runs = [("sssp", s, oracle_w) for s in ("WD", "BS", "HP", "AD")]
     runs.append(("bfs", "WD", oracle_u))
-    results = {}
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    results, lanes_by_run = {}, {}
+    for counts in (LAUNCHES, LANES):
+        for key in counts:
+            counts[key] = 0
     for algo, strategy, oracle in runs:
-        before = dict(LAUNCHES)
+        before, lanes_before = dict(LAUNCHES), dict(LANES)
         fn = sssp if algo == "sssp" else bfs
         r = fn(g, source, strategy=strategy, device=dev)
         if r.dist.shape != (g.num_nodes,) or not np.array_equal(r.dist,
                                                                 oracle):
             raise AssertionError(f"{algo}-{strategy} on {name} != Dijkstra")
         results[(algo, strategy)] = r
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        mean_lanes = {k: (LANES[k] - lanes_before[k]) / launched[k]
+                      for k in LANES if launched[k]}
+        lanes_by_run[(algo, strategy)] = mean_lanes
         emit("path_run", graph=name, algo=algo, strategy=strategy,
              device=str(dev), nodes=g.num_nodes, edges=g.num_edges,
              source=source, iterations=r.iterations,
              edges_relaxed=r.edges_relaxed,
              traversal_seconds=r.traversal_seconds, mteps=r.mteps,
              kernel_counts=kernel_counts(r),
-             launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+             launches=launched, mean_lanes_per_launch=mean_lanes,
              equals_oracle=True)
     launches = dict(LAUNCHES)
     emit("path_launches", graph=name, launches=launches)
     if launches["wd_relax_lanes"] < 1 or launches["relax_lanes"] < 1:
         raise AssertionError(f"main path missed a kernel: {launches}")
-    return launches, results
+    return launches, results, lanes_by_run
 
 
 def find_offsets_entry_phase(g, dev) -> None:
@@ -431,6 +538,45 @@ def find_offsets_entry_phase(g, dev) -> None:
         raise AssertionError("ops.wd_find_offsets failed")
     emit("find_offsets_entry", graph=f"rmat{g.num_nodes.bit_length() - 1}",
          f=g.num_nodes, cap_work=offsets.numel(), equal=True)
+
+
+def path_lanes_phase(g, dev, rows, lanes_by_run, reps: int = 10) -> None:
+    """B1 and B2 timed again at the lane counts the path gives them: B1 at
+    the sssp-WD run's mean lanes a launch, B2 at the sssp-BS run's.  Adds
+    ``path_run``, ``path_mean_lanes`` and ``*_at_path_lanes`` to their
+    rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import operators
+
+    rng = np.random.default_rng(2)
+    op = operators.shortest_path
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
+    n = g.num_nodes
+    by_name = {row["name"]: row for row in rows}
+    for name, run in (("wd_relax_lanes", ("sssp", "WD")),
+                      ("relax_lanes", ("sssp", "BS"))):
+        mean = lanes_by_run[run][name]
+        lanes = max(1, int(round(mean)))
+        if name == "wd_relax_lanes":
+            # random nodes until their degrees cover the lanes
+            perm = rng.permutation(n)
+            deg = g.degrees.cpu().numpy()[perm]
+            f = int(np.searchsorted(np.cumsum(deg), lanes)) + 1
+            a = wd_inputs(g, rng, f, 0, dev, nodes=np.sort(perm[:f]))
+            a["cap_work"], a["total"] = lanes, min(a["total"], lanes)
+            t = time_b1(g, a, random_dist(rng, op, n, dev), op, reps, flush)
+        else:
+            t = time_b2(lane_inputs(rng, n, lanes, dev),
+                        random_dist(rng, op, n, dev), op, reps, flush)
+        by_name[name].update(
+            path_run="-".join(run), path_mean_lanes=mean,
+            ms_at_path_lanes=t["ms"], plain_ms_at_path_lanes=t["plain_ms"],
+            bound_ms_at_path_lanes=t["bound_ms"],
+            bound_by_at_path_lanes=t["bound_by"],
+            shape_at_path_lanes=t["shape"])
+        emit("path_lanes_time", kernel=name, run="-".join(run),
+             mean_lanes=mean, **t)
 
 
 def cpu_compare_phase(g, dev, results, *, cpu_scale: int) -> None:
@@ -468,6 +614,38 @@ def cpu_compare_phase(g, dev, results, *, cpu_scale: int) -> None:
 
 ATTN_HEADS = (16, 8, 128)       # qwen3_0_6b: query heads, KV heads, hd
 SSD_SHAPE = (8, 256, 48, 64, 128)   # mamba2_780m at S = 2048: BN c H P N
+#: B4's cases: S, dtype name, causal
+ATTN_TIMED = ((512, "bfloat16", True), (2048, "bfloat16", True),
+              (512, "float32", True), (512, "bfloat16", False),
+              (1000, "bfloat16", True))
+#: B5's cases: c, dtype name (BN, H, P, N of ``SSD_SHAPE``)
+SSD_TIMED = ((256, "bfloat16"), (256, "float32"), (200, "bfloat16"))
+#: tolerances against the plain version.  bf16 B5 is held to 1e-4, ten
+#: times its measured error: its f32 factors ``CB∘L`` and ``B∘decay``
+#: enter the tensor cores as bf16 hi + lo terms (16 significant bits),
+#: and a kernel that kept only the hi term would miss by far more
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-6}
+SSD_TOL = {"bfloat16": 1e-4, "float32": 1e-5}
+
+
+def attention_inputs(S: int, dtype, g, dev):
+    """Seeded q, k, v of one B4 case at the path's heads."""
+    import torch
+    hq, hkv, hd = ATTN_HEADS
+    return tuple(torch.randn(1, h, S, hd, generator=g).to(dev, dtype)
+                 for h in (hq, hkv, hkv))
+
+
+def ssd_inputs(c: int, dtype, g, dev):
+    """Seeded x̄, cum, B, C of one B5 case at the path's heads."""
+    import torch
+    BN, _, H, P, N = SSD_SHAPE
+    xb = (torch.randn(BN, c, H, P, generator=g) * 0.1).to(dev, dtype)
+    cum = torch.cumsum(-torch.randn(BN, c, H, generator=g).abs() * 0.05,
+                       1).to(dev)
+    Bm, Cm = ((torch.randn(BN, c, N, generator=g) * 0.3).to(dev, dtype)
+              for _ in range(2))
+    return xb, cum, Bm, Cm
 
 
 def _allclose_err(got, want, tol: float) -> float:
@@ -523,14 +701,10 @@ def lm_kernel_phase(dev, reps: int = 10) -> list:
     hq, hkv, hd = ATTN_HEADS
     rows = []
     b4_err, b4_row = 0.0, None
-    for S, dtype, causal in [(512, torch.bfloat16, True),
-                             (2048, torch.bfloat16, True),
-                             (512, torch.float32, True),
-                             (512, torch.bfloat16, False),
-                             (1000, torch.bfloat16, True)]:
-        q, k, v = (torch.randn(1, h, S, hd, generator=g).to(dev, dtype)
-                   for h in (hq, hkv, hkv))
-        tol = 2e-6 if dtype == torch.float32 else 2e-2
+    for S, dtype_name, causal in ATTN_TIMED:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = attention_inputs(S, dtype, g, dev)
+        tol = ATTN_TOL[dtype_name]
         err = _allclose_err(fa.flash_attention(q, k, v, causal=causal),
                             fa.flash_attention_plain(q, k, v, causal=causal),
                             tol)
@@ -563,20 +737,19 @@ def lm_kernel_phase(dev, reps: int = 10) -> list:
 
     b5_err, b5_row = 0.0, None
     BN, c, H, P, N = SSD_SHAPE
-    for c_len, dtype in [(c, torch.bfloat16), (c, torch.float32),
-                         (200, torch.bfloat16)]:
-        xb = (torch.randn(BN, c_len, H, P, generator=g) * 0.1).to(dev, dtype)
-        cum = torch.cumsum(-torch.randn(BN, c_len, H, generator=g).abs()
-                           * 0.05, 1).to(dev)
-        Bm, Cm = ((torch.randn(BN, c_len, N, generator=g) * 0.3).to(dev, dtype)
-                  for _ in range(2))
-        tol = 1e-5 if dtype == torch.float32 else 5e-2
+    for c_len, dtype_name in SSD_TIMED:
+        dtype = getattr(torch, dtype_name)
+        xb, cum, Bm, Cm = ssd_inputs(c_len, dtype, g, dev)
+        tol = SSD_TOL[dtype_name]
         got = sc.ssd_chunk_dual(xb, cum, Bm, Cm)
         want = sc.ssd_chunk_dual_plain(xb, cum, Bm, Cm)
         err = max(_allclose_err(a, b, tol) for a, b in zip(got, want))
         b5_err = max(b5_err, err)
         nbytes, ops = ssd_cost(BN, c_len, H, P, N, dtype)
-        t_b, by = bound(nbytes, ops)
+        # the units that do the work: bf16 tensor cores for bf16 inputs,
+        # the CUDA cores' f32 rate for f32 inputs
+        t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
+                        if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
         case = dict(
             BN=BN, c=c_len, H=H, P=P, N=N, dtype=str(dtype).split(".")[-1],
             max_abs_err=err, tolerance=tol,
@@ -682,6 +855,59 @@ def prefill_kernel_ms(dev, cfg, kernel: str, lens) -> float:
     return total
 
 
+def traced_prefill(dev, model, kernel_sym: str, S: int = 2048,
+                   untraced_reps: int = 5) -> dict:
+    """One ``S``-token prefill of ``model`` under ``torch.profiler``, after
+    an untraced warm-up: the device time of kernels named ``kernel_sym``
+    over all device time, the number of device activities, and the device
+    idle share.  The profiler adds host cost to every op, so the idle
+    share divides the traced device time by the median wall time of
+    ``untraced_reps`` untraced prefills of the same prompt (the traced
+    wall time is printed beside it)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        2, model.cfg.vocab_size, S)[None], device=dev)
+
+    def prefill():
+        logits, _ = model(prompt, cache=model.new_cache(1, S + 1))
+        return logits
+    prefill()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(untraced_reps):
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_untraced = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("traced prefill gave non-finite logits")
+    acts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time for e in acts)
+    kern_us = sum(e.device_time for e in acts if kernel_sym in e.name)
+    if not acts or kern_us <= 0:
+        raise AssertionError(f"the trace holds no device time of "
+                             f"{kernel_sym}: {len(acts)} activities")
+    return dict(prompt=S, traced_wall_ms=wall * 1e3,
+                untraced_wall_ms=wall_untraced * 1e3,
+                untraced_wall_ms_all=[w * 1e3 for w in walls],
+                device_ms=busy_us / 1e3, kernel_ms=kern_us / 1e3,
+                kernel_share_of_device=kern_us / busy_us,
+                device_idle_share=1.0 - busy_us / 1e6 / wall_untraced,
+                traced_idle_share=1.0 - busy_us / 1e6 / wall,
+                device_activities=len(acts))
+
+
 def lm_serve_phase(dev, arch: str, kernel: str, *, requests: int = 8,
                    slots: int = 4, max_new: int = 32,
                    max_len: int = 2112) -> dict:
@@ -718,6 +944,9 @@ def lm_serve_phase(dev, arch: str, kernel: str, *, requests: int = 8,
                   for r in done)
           and loop.nonfinite_logits == 0 and launches == want)
     kernel_ms = prefill_kernel_ms(dev, cfg, kernel, lens)
+    emit("lm_prefill_trace", arch=arch, kernel=kernel, **traced_prefill(
+        dev, model, {"flash_attention": "flash_bf16_kernel",
+                     "ssd_chunk_dual": "ssd_bf16_kernel"}[kernel]))
     emit("lm_serve", arch=arch, dtype=cfg.dtype, requests=requests,
          slots=slots, prompt_lens=[int(n) for n in lens], max_new=max_new,
          tokens=tokens, seconds=seconds, tok_per_s=tokens / seconds,
@@ -768,9 +997,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.lib()
+    sass = sass_mma_counts(_build.library_path())
     emit("build", seconds=time.perf_counter() - t0,
          library=str(_build.library_path().relative_to(ROOT)),
-         registers=ptxas_registers(_build.BUILD_LOG))
+         ptxas=ptxas_summary(_build.BUILD_LOG), sass_mma=sass)
+    # the bf16 kernels run on the tensor cores
+    bf16 = {k: v for k, v in sass.items() if "bf16_kernel" in k}
+    if len(bf16) < 2 or not all(v["HMMA"] + v["HGMMA"] for v in
+                                bf16.values()):
+        raise AssertionError(f"bf16 kernels without tensor-core "
+                             f"instructions: {bf16}")
 
     t0 = time.perf_counter()
     g = rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1,
@@ -780,9 +1016,10 @@ def main() -> int:
 
     rows = kernel_phase(g, dev, frontiers=(1 << 10, 1 << 14, 1 << 17, 1 << 20),
                         lanes_list=(1 << 10, 1 << 16, 1 << 20, 1 << 23))
-    launches, results = path_phase(g, dev)
+    launches, results, lanes_by_run = path_phase(g, dev)
     for row in rows:      # each row's launches: the main path's runs only
         row["launches"] = launches[row["name"]]
+    path_lanes_phase(g, dev, rows, lanes_by_run)
     find_offsets_entry_phase(g, dev)
     cpu_compare_phase(g, dev, results, cpu_scale=16)
     del g, results

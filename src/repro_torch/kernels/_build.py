@@ -31,6 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0,
             "flash_attention": 0, "ssd_chunk_dual": 0}
 
+#: kernel name -> lanes launched so far, for the two kernels whose work is
+#: a lane count (B1's ``cap_work``, B2's ``L``); summed where the launch
+#: is counted, so ``LANES[k] / LAUNCHES[k]`` is a run's mean lanes a launch
+LANES = {"wd_relax_lanes": 0, "relax_lanes": 0}
+
 #: ``dtype`` argument of the float kernels
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -180,6 +185,16 @@ def check_dense(name: str, t: torch.Tensor, device: torch.device,
     if t.numel() >= 2 ** 31:
         raise ValueError(f"{name} has {t.numel()} elements; the kernels "
                          f"index rows with int32")
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """The bf16 kernels copy rows in 16-byte pieces (``cp.async``), so
+    their wrappers hold each bf16 tensor to a 16-byte start (a fresh
+    allocation has one; a view with an offset may not).  The f32 kernels
+    load element by element and take any start."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def stream_of(device: torch.device) -> int:

@@ -13,35 +13,59 @@
 //   * out = acc / max(l, 1e-30), rounded to q's dtype;
 //   * query head h reads KV head h / G, G = Hq / Hkv.
 //
-// Design.  The Pallas kernel runs its grid in order on one core with the
-// whole KV row of a head in VMEM.  Here one block of 256 threads owns one
-// (batch, query head, 64-row query tile) and walks 64-key tiles of K and V
-// through shared memory; blocks run in parallel on the 132 SMs.  The query
-// tile, scaled, sits in shared memory as f32 for the whole walk; K and then
-// V of a tile share one f32 buffer; P goes through a third.  Thread (r, c)
-// of the block owns rows 4r..4r+3 of the tile and, of every 64-wide (or
-// hd-wide) row, the columns c, c+16, c+32, ...: its logits and its slice of
-// acc stay in f32 registers, and a row's max and sum are reduced across the
-// 16 threads of a half-warp with shuffles.  Both products are f32 FMA on
-// the CUDA cores (no tensor cores, no wgmma): simple, and the same code for
-// f32 and bf16 inputs.  Row strides of hd+4 floats keep the float4 reads of
-// Q and K free of bank conflicts.  Shared memory: (2*(hd+4) + 68)*64*4
-// bytes, 85 KB at hd = 128, so two blocks fit on an SM.
+// Two kernels, chosen by dtype (a fixed dispatch: neither falls back to
+// the other):
 //
-// Causal tiles that lie wholly above the diagonal are skipped.  Key tile 0
-// holds position 0, which every row may see, so every row's running max is
-// finite after it; a skipped tile would have given exp(-1e30 - m) = 0 to
-// every P and a factor exp(0) = 1 to acc and l, so skipping changes no bit.
-// Query tiles are issued in reverse order so the longest walks start first.
+// bf16: flash_bf16_kernel, on the tensor cores.  Both products are
+// mma.sync.m16n8k16 bf16 x bf16 -> f32 (mma.cuh), which matches the
+// reference's dot_general(..., preferred_element_type=f32) on bf16
+// operands up to the order of the sums.  One block of 4 warps owns 64
+// "packed" rows of one (batch, KV head): packed row m is query m / G of
+// query head hk*G + m % G, so the G = Hq/Hkv query heads of a KV head share
+// every K/V tile the block loads (at 16/8 heads that halves K/V traffic),
+// and the causal extent of a tile stays one range of query positions.
+// Each warp owns 16 rows.  The scaled Q tile sits in registers as A
+// fragments for the whole walk; 64-key tiles of K and V arrive through
+// cp.async into a two-stage ring (K of tile t+1 loads while tile t's logits
+// are formed, V of t+1 while t's PV runs).  QK^T reads K with ldmatrix as
+// the B operand; the f32 logit fragments, masked and exponentiated, are
+// rounded to bf16 pairs and become PV's A fragments in registers
+// (FlashAttention-2's layout), with V read by ldmatrix.trans.  Rows of
+// every shared tile are padded by 16 bytes, which keeps ldmatrix free of
+// bank conflicts.  Shared memory: 5 tiles of 64 x (hd+8) bf16, 87 KB at
+// hd = 128, so two blocks (8 warps) fit on an SM.  The query tile is 64
+// packed rows: the serving path's prompts of 285-1781 tokens at 16/8 heads
+// give 72-448 blocks, 0.3-1.7 waves of 264 resident blocks on the 132 SMs,
+// and 128-row tiles (two m-tiles a warp, as FlashAttention-2 takes them)
+// need 255 registers and spill at hd = 128; measured on the H100 they were
+// slower at S = 2048 (PERF.md).  This is the mma.sync design, not
+// wgmma: its fragments are register-resident and need no shared-memory
+// descriptors, so the accumulator-to-A-operand reuse is direct.  wgmma
+// (the full tensor-core rate) is later work.
+//
+// f32: flash_f32_kernel, f32 FMA on the CUDA cores.  The reference's f32
+// path needs f32 products (the tests hold it to 2e-6), which neither bf16
+// nor TF32 tensor cores give.  One block of 256 threads owns one (batch,
+// query head, 64-row query tile) and walks 64-key tiles of K and V through
+// shared memory.  Thread (r, c) owns rows 4r..4r+3 of the tile and the
+// columns c, c+16, ...; a row's max and sum are reduced across a half-warp
+// with shuffles.  Shared memory: (2*(hd+4) + 68)*64*4 bytes, 85 KB at
+// hd = 128.
+//
+// Causal tiles that lie wholly above the diagonal are skipped by both.
+// Key tile 0 holds position 0, which every row may see, so every row's
+// running max is finite after it; a skipped tile would have given
+// exp(-1e30 - m) = 0 to every P and a factor exp(0) = 1 to acc and l, so
+// skipping changes no bit.  Query tiles are issued in reverse order so the
+// longest walks start first.
 //
 // What bounds it on the H100: operations.  At the serving path's shape
 // (B=1, 16 query heads over 8 KV heads, hd=128, S=2048, bf16, causal) the
 // function needs 2*2*S*S/2*hd*16 = 17.2 GFLOP against 25 MB of Q, K, V and
 // out, so the bound is 17.2 GFLOP at 989 TFLOP/s (bf16 tensor cores) =
-// 0.017 ms, far above the 0.008 ms of bytes.  This kernel does that work on
-// the CUDA cores in f32, whose peak is 67 TFLOP/s, so it cannot come near
-// the bound; reaching it needs wgmma on bf16 tiles fed by TMA, which is
-// later work.  Its measured time is in PERF.md (chip_smoke.py).
+// 0.017 ms, above the 0.008 ms of bytes.  mma.sync reaches a part of that
+// rate (wgmma alone reaches all of it); the bf16 kernel's measured time
+// and the f32 kernel's are in PERF.md (chip_smoke.py).
 //
 // The entry point launches on the given stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() of its launch.
@@ -49,6 +73,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -60,28 +86,6 @@ constexpr float NEG_INF = -1e30f;
 
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// x rounded through T and back (the reference's casts to q's / V's dtype)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 // max / sum over the 16 threads of a half-warp that share a row group
 __device__ __forceinline__ float row_max(float x) {
@@ -102,11 +106,12 @@ constexpr size_t smem_bytes() {
   return (size_t)(2 * BQ * (HD + 4) + BQ * LDP) * sizeof(float);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Hq,
-                 int Hkv, int Sq, int Sk, int causal, float scale) {
+    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int Hq, int Hkv, int Sq, int Sk, int causal,
+                     float scale) {
   constexpr int LD = HD + 4;   // row stride of the Q and K/V tiles (floats)
   constexpr int NC = HD / 16;  // acc columns per thread
   extern __shared__ float4 smem4[];
@@ -118,10 +123,10 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int q0 = qt * BQ;
-  const T* qh = q + ((size_t)b * Hq + h) * Sq * HD;
-  const T* kh = k + ((size_t)b * Hkv + hk) * Sk * HD;
-  const T* vh = v + ((size_t)b * Hkv + hk) * Sk * HD;
-  T* oh = out + ((size_t)b * Hq + h) * Sq * HD;
+  const float* qh = q + ((size_t)b * Hq + h) * Sq * HD;
+  const float* kh = k + ((size_t)b * Hkv + hk) * Sk * HD;
+  const float* vh = v + ((size_t)b * Hkv + hk) * Sk * HD;
+  float* oh = out + ((size_t)b * Hq + h) * Sq * HD;
 
   const int tid = threadIdx.x;
   const int r = tid >> 4;   // rows 4r .. 4r+3
@@ -131,7 +136,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int i = idx / HD, d = idx % HD;
     const int qi = q0 + i;
     Qs[i * LD + d] =
-        qi < Sq ? round_to<T>(to_f(qh[(size_t)qi * HD + d]) * scale) : 0.f;
+        qi < Sq ? qh[(size_t)qi * HD + d] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][NC];
@@ -155,7 +160,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int idx = tid; idx < BK * HD; idx += THREADS) {
       const int j = idx / HD, d = idx % HD;
       const int kj = k0 + j;
-      KVs[j * LD + d] = kj < Sk ? to_f(kh[(size_t)kj * HD + d]) : 0.f;
+      KVs[j * LD + d] = kj < Sk ? kh[(size_t)kj * HD + d] : 0.f;
     }
     __syncthreads();
 
@@ -202,7 +207,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       for (int c = 0; c < 4; ++c) {
         const float p = expf(s[a][c] - m_new);
         sum += p;
-        Ps[(4 * r + a) * LDP + cg + 16 * c] = round_to<T>(p);
+        Ps[(4 * r + a) * LDP + cg + 16 * c] = p;
       }
       l[a] = l[a] * corr + row_sum(sum);
       m[a] = m_new;
@@ -214,7 +219,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int idx = tid; idx < BK * HD; idx += THREADS) {
       const int j = idx / HD, d = idx % HD;
       const int kj = k0 + j;
-      KVs[j * LD + d] = kj < Sk ? to_f(vh[(size_t)kj * HD + d]) : 0.f;
+      KVs[j * LD + d] = kj < Sk ? vh[(size_t)kj * HD + d] : 0.f;
     }
     __syncthreads();
 
@@ -248,53 +253,284 @@ __global__ void __launch_bounds__(THREADS, 2)
     const float den = fmaxf(l[a], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      oh[(size_t)qi * HD + cg + 16 * c] = from_f<T>(acc[a][c] / den);
+      oh[(size_t)qi * HD + cg + 16 * c] = acc[a][c] / den;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Sq, int Sk, int causal, float scale,
-           cudaStream_t st) {
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WARPS = 4;             // 16 packed rows each
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_ROWS = 16 * TC_WARPS;  // packed rows per block
+constexpr int TC_KEYS = 64;             // keys per K/V tile
+
+template <int HD>
+constexpr size_t tc_smem_bytes() {  // Q, and K and V in two stages each
+  return (size_t)(TC_ROWS + 4 * TC_KEYS) * (HD + 8) * sizeof(__nv_bfloat16);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+    flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
+                      int Sq, int Sk, int causal, float scale) {
+  using namespace repro_mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int LDS = HD + 8;     // row stride of every tile (bf16)
+  constexpr int CHUNKS = HD / 8;  // 16-byte chunks of a row
+  constexpr int KS = HD / 16;     // k-steps of QK^T
+  constexpr int NT = HD / 8;      // 8-column tiles of the output
+  constexpr int TILE = TC_KEYS * LDS;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [TC_ROWS][LDS]
+  bf16* Ks = Qs + TC_ROWS * LDS;              // [2][TC_KEYS][LDS]
+  bf16* Vs = Ks + 2 * TILE;                   // [2][TC_KEYS][LDS]
+
+  const int G = Hq / Hkv;
+  const int rows = G * Sq;                                   // packed rows
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * TC_ROWS;  // longest first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const bf16* kh = k + ((size_t)b * Hkv + hk) * Sk * HD;
+  const bf16* vh = v + ((size_t)b * Hkv + hk) * Sk * HD;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  for (int idx = tid; idx < TC_ROWS * CHUNKS; idx += TC_THREADS) {
+    const int r = idx / CHUNKS, ch = idx % CHUNKS;
+    const int m = m0 + r;
+    const bool ok = m < rows;
+    const int qi = ok ? m / G : 0, g = ok ? m % G : 0;
+    cp_async16(Qs + r * LDS + ch * 8,
+               q + (((size_t)b * Hq + hk * G + g) * Sq + qi) * HD + ch * 8,
+               ok);
+  }
+  auto load_tile = [&](bf16* dst, const bf16* src, int k0) {
+    for (int idx = tid; idx < TC_KEYS * CHUNKS; idx += TC_THREADS) {
+      const int r = idx / CHUNKS, ch = idx % CHUNKS;
+      const bool ok = k0 + r < Sk;
+      cp_async16(dst + r * LDS + ch * 8,
+                 src + (size_t)(ok ? k0 + r : 0) * HD + ch * 8, ok);
+    }
+  };
+
+  // query positions: the block's first, and the last its rows reach
+  const int q_first = m0 / G;
+  int n_tiles = (Sk + TC_KEYS - 1) / TC_KEYS;
+  if (causal)  // tiles past the block's last query are all masked
+    n_tiles = min(n_tiles, (min(m0 + TC_ROWS, rows) - 1) / G / TC_KEYS + 1);
+
+  load_tile(Ks, kh, 0);
+  cp_async_commit();  // group: Q and K tile 0
+  load_tile(Vs, vh, 0);
+  cp_async_commit();  // group: V tile 0
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // Q as A fragments, times the scale and rounded back to bf16
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * LDS + ks * 16 +
+                        (lane >> 4) * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = unpack_bf16(qf[ks][e]);
+      qf[ks][e] = pack_bf16(f.x * scale, f.y * scale);
+    }
+  }
+
+  // this thread's rows: packed rows r0 and r0 + 8 of the warp's 16
+  const int r0 = m0 + warp * 16 + (lane >> 2);
+  const int qpos[2] = {r0 / G, (r0 + 8) / G};
+  const int tq = 2 * (lane & 3);  // first of the thread's column pair
+  float o[NT][4], m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const bf16* Kt = Ks + (t & 1) * TILE;
+    const bf16* Vt = Vs + (t & 1) * TILE;
+    const bool more = t + 1 < n_tiles;
+    if (more) {  // K of t+1 into the stage K of t-1 left
+      load_tile(Ks + ((t + 1) & 1) * TILE, kh, (t + 1) * TC_KEYS);
+      cp_async_commit();
+    }
+
+    // S = Q K^T, 16 x 64 per warp, f32
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDS +
+                        ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+      }
+
+    const int k0 = t * TC_KEYS;
+    if (k0 + TC_KEYS > Sk || (causal && k0 + TC_KEYS - 1 > q_first)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + tq + (e & 1);
+          if (key >= Sk || (causal && qpos[e >> 1] < key)) s[j][e] = NEG_INF;
+        }
+    }
+
+    // online softmax in f32; a row is shared by the 4 lanes of a quad
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * a], s[j][2 * a + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[a], mx);
+      const float corr = expf(m_run[a] - m_new);
+      m_run[a] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * a; e < 2 * a + 2; ++e) {
+          s[j][e] = expf(s[j][e] - m_new);
+          sum += s[j][e];
+        }
+      l_run[a] = l_run[a] * corr + sum;  // this lane's columns only
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        o[nt][2 * a] *= corr;
+        o[nt][2 * a + 1] *= corr;
+      }
+    }
+
+    if (more)
+      cp_async_wait<1>();  // V of t (K of t+1 may still be in flight)
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // V of t visible; every warp is past PV of t-1
+    if (more) {  // V of t+1 into the stage V of t-1 left
+      load_tile(Vs + ((t + 1) & 1) * TILE, vh, (t + 1) * TC_KEYS);
+      cp_async_commit();
+    }
+
+    // O += P V: P rounded to bf16 pairs as the A fragments, V via .trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < NT / 2; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               LDS +
+                          dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+
+    if (more) {
+      cp_async_wait<1>();  // K of t+1
+      __syncthreads();     // visible, and every warp is done with K of t
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    float l = l_run[a];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int m = r0 + 8 * a;
+    if (m >= rows) continue;
+    const float den = fmaxf(l, 1e-30f);
+    bf16* dst = out + (((size_t)b * Hq + hk * G + m % G) * Sq + m / G) * HD;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      *reinterpret_cast<uint32_t*>(dst + nt * 8 + tq) =
+          pack_bf16(o[nt][2 * a] / den, o[nt][2 * a + 1] / den);
+  }
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int Hq, int Hkv, int Sq, int Sk, int causal, float scale,
+               cudaStream_t st) {
   const size_t bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_kernel<T, HD><<<grid, THREADS, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Sq, Sk,
-      causal, scale);
+  flash_f32_kernel<HD><<<grid, THREADS, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Sq,
+      Sk, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                void* out, int B, int Hq, int Hkv, int Sq, int Sk,
-                int causal, float scale, cudaStream_t st) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, scale,
-                           st);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, scale,
-                           st);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, scale,
-                            st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+                float scale, cudaStream_t st) {
+  const size_t bytes = tc_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)(Hq / Hkv) * Sq;
+  dim3 grid((unsigned)((rows + TC_ROWS - 1) / TC_ROWS), Hkv, B);
+  flash_bf16_kernel<HD><<<grid, TC_THREADS, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), Hq, Hkv, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
 }
+
+#define REPRO_FLASH_ARGS q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, scale, st
+
+int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
+             void* out, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+             float scale, cudaStream_t st) {
+  if (dtype == DTYPE_F32) switch (hd) {
+      case 32: return launch_f32<32>(REPRO_FLASH_ARGS);
+      case 64: return launch_f32<64>(REPRO_FLASH_ARGS);
+      case 128: return launch_f32<128>(REPRO_FLASH_ARGS);
+    }
+  if (dtype == DTYPE_BF16) switch (hd) {
+      case 32: return launch_bf16<32>(REPRO_FLASH_ARGS);
+      case 64: return launch_bf16<64>(REPRO_FLASH_ARGS);
+      case 128: return launch_bf16<128>(REPRO_FLASH_ARGS);
+    }
+  return (int)cudaErrorInvalidValue;
+}
+
+#undef REPRO_FLASH_ARGS
 
 }  // namespace
 
 extern "C" {
 
 // q [B,Hq,Sq,hd], k/v [B,Hkv,Sk,hd], out [B,Hq,Sq,hd], contiguous, all of
-// dtype `dtype` (0 f32, 1 bf16); hd in {32, 64, 128}; Hq % Hkv == 0;
-// B, Hq < 65536; Sq, Sk >= 1.  `scale` is hd^-0.5 rounded to the dtype.
+// dtype `dtype` (0 f32: CUDA-core kernel, 1 bf16: tensor-core kernel); hd
+// in {32, 64, 128}; Hq % Hkv == 0; B, Hq < 65536; Sq, Sk >= 1.  `scale` is
+// hd^-0.5 rounded to the dtype.
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* out, int B, int Hq, int Hkv, int Sq, int Sk,
                           int hd, int causal, int dtype, float scale,
@@ -302,14 +538,8 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 ||
       B > 65535 || Hq > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == DTYPE_F32)
-    return dispatch_hd<float>(hd, q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,
-                              scale, st);
-  if (dtype == DTYPE_BF16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, Hq, Hkv, Sq, Sk,
-                                      causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, hd, q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, scale,
+                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -6,7 +6,9 @@ causal (top-left: query ``i`` sees keys ``j <= i``) or not.
 
 :func:`flash_attention` launches the CUDA kernel ``repro_flash_attention``
 (``csrc/flash_attention.cu``) for CUDA tensors and runs
-:func:`flash_attention_plain` for CPU tensors.  Both keep the rounding
+:func:`flash_attention_plain` for CPU tensors.  The kernel is chosen by
+dtype: bfloat16 runs on the tensor cores (bf16 products, f32 sums),
+float32 on the CUDA cores in f32.  Both keep the rounding
 points of the reference kernel (``repro/kernels/flash_attention.py``):
 ``q * hd^-0.5`` in q's dtype, logits accumulated in float32, masked logits
 at ``-1e30``, P rounded to V's dtype before the PV product, and
@@ -20,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import DTYPE_CODES, LAUNCHES, check_dense
+from repro_torch.kernels._build import (DTYPE_CODES, LAUNCHES, check_aligned,
+                                        check_dense)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -79,6 +82,8 @@ def _flash_attention_cuda(q, k, v, causal: bool) -> torch.Tensor:
     check_dense("q", q, dev, dtype, (B, Hq, Sq, hd))
     check_dense("k", k, dev, dtype, (B, Hkv, Sk, hd))
     check_dense("v", v, dev, dtype, (B, Hkv, Sk, hd))
+    if dtype == torch.bfloat16:
+        check_aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         _build.check("flash_attention", _build.lib().repro_flash_attention(

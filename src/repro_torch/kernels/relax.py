@@ -32,8 +32,8 @@ import torch
 from repro_torch.core import operators
 from repro_torch.core.operators import EdgeOp
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import (  # noqa: F401  (LAUNCHES re-exported)
-    LAUNCHES, check_tensor, stream_of)
+from repro_torch.kernels._build import (  # noqa: F401  (re-exported)
+    LANES, LAUNCHES, check_tensor, stream_of)
 from repro_torch.kernels.find_offsets import find_offsets_plain
 
 
@@ -92,6 +92,7 @@ def _relax_lanes_cuda(dist, src, dst, w, valid, op: EdgeOp):
             valid.data_ptr(), lanes, msg, comb, prop.data_ptr(),
             upd.data_ptr(), imp.data_ptr(), stream_of(dev)))
     LAUNCHES["relax_lanes"] += 1
+    LANES["relax_lanes"] += lanes
     return prop, upd, imp
 
 
@@ -153,6 +154,7 @@ def _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col, wt,
             None if wt is None else wt.data_ptr(), e, cap_work, msg, comb,
             prop.data_ptr(), upd.data_ptr(), imp.data_ptr(), stream_of(dev)))
     LAUNCHES["wd_relax_lanes"] += 1
+    LANES["wd_relax_lanes"] += cap_work
     return prop, upd, imp
 
 

@@ -9,7 +9,10 @@ For each (chunk-batch, head) cell, with the chunk's discretised inputs
 :func:`ssd_chunk_dual` launches the CUDA kernel ``repro_ssd_chunk_dual``
 (``csrc/ssd_chunk.cu``) for CUDA tensors and runs
 :func:`ssd_chunk_dual_plain` for CPU tensors.  Inputs are upcast to
-float32; both outputs are float32 (``repro/kernels/ssd_chunk.py``).
+float32; both outputs are float32 (``repro/kernels/ssd_chunk.py``).  The
+kernel is chosen by dtype: bfloat16 inputs run on the tensor cores (C·B
+once per chunk and head group, the f32 factors as bf16 hi + lo terms),
+float32 inputs on the CUDA cores in f32.
 """
 
 from __future__ import annotations
@@ -17,10 +20,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import DTYPE_CODES, LAUNCHES, check_dense
+from repro_torch.kernels._build import (DTYPE_CODES, LAUNCHES, check_aligned,
+                                        check_dense)
 
 #: largest state size N and head dim P the kernel's register tiles hold
 MAX_NP = 128
+#: largest chunk the bf16 kernel takes: it keeps 64 rows of C·B, 64 x c
+#: float32, in shared memory beside its tiles (184 KB at c = 512, N = P =
+#: 128, 8 heads a block; the C entry point checks only that its shared
+#: memory fits the card)
+MAX_CHUNK_BF16 = 512
 
 
 def _shapes(xbar, cum, Bm, Cm):
@@ -64,12 +73,17 @@ def _ssd_chunk_dual_cuda(xbar, cum, Bm, Cm):
     if P > MAX_NP or N > MAX_NP:
         raise ValueError(f"ssd_chunk_dual's kernel takes P, N <= {MAX_NP}, "
                          f"got P={P}, N={N}")
+    if dtype == torch.bfloat16 and c > MAX_CHUNK_BF16:
+        raise ValueError(f"ssd_chunk_dual's bf16 kernel takes c <= "
+                         f"{MAX_CHUNK_BF16}, got c={c}")
     if BN > 65535 or H > 65535:
         raise ValueError(f"BN {BN} or H {H} exceed the grid")
     check_dense("xbar", xbar, dev, dtype, (BN, c, H, P))
     check_dense("cum", cum, dev, torch.float32, (BN, c, H))
     check_dense("Bm", Bm, dev, dtype, (BN, c, N))
     check_dense("Cm", Cm, dev, dtype, (BN, c, N))
+    if dtype == torch.bfloat16:
+        check_aligned(xbar=xbar, Bm=Bm, Cm=Cm)
     y = torch.empty((BN, c, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((BN, H, N, P), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -86,7 +100,8 @@ def ssd_chunk_dual(xbar, cum, Bm, Cm):
     (``BN`` = batch × chunks) -> ``(y_intra [BN,c,H,P], state [BN,H,N,P])``
     in float32, on the inputs' device: the CUDA kernel for CUDA tensors
     (xbar/Bm/Cm of one dtype, float32 or bfloat16, contiguous; P, N <= 128;
-    anything else raises), the plain version for CPU tensors."""
+    c <= 512 in bfloat16; anything else raises), the plain version for CPU
+    tensors."""
     if xbar.device.type == "cuda":
         return _ssd_chunk_dual_cuda(xbar, cum, Bm, Cm)
     if xbar.device.type == "cpu":

@@ -77,3 +77,28 @@ def test_chip_smoke_fails_without_a_card():
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode != 0 and out.stdout == ""
+
+
+@pytest.mark.parametrize("mangled,name", [
+    # the file-unique namespace prefix ends in digits that pass for a
+    # length prefix taking in the real name
+    ("_ZN49_GLOBAL__N__e75102249_18_flash_attention_cu_c45a2b1816"
+     "flash_f32_kernelILi128EEEvPKfS2_S2_Pfiiiiif", "flash_f32_kernel<128>"),
+    ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1817"
+     "flash_bf16_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiif",
+     "flash_bf16_kernel<64>"),
+    ("_ZN45_GLOBAL__N__189746bc_12_ssd_chunk_cu_fe19706a15ssd_bf16_kernelEP"
+     "K13__nv_bfloat16PKfS2_S2_PfS5_iiiii", "ssd_bf16_kernel"),
+    ("_ZN12_GLOBAL__N_121wd_relax_lanes_kernelILi2ELi1EEEvPKiiS2_S2_",
+     "wd_relax_lanes_kernel<2,1>"),
+    ("_Z3foov", None),
+])
+def test_chip_smoke_reads_kernel_names_from_mangled_symbols(mangled, name):
+    """``chip_smoke.py`` keys its registers, spills and SASS counts by the
+    kernel names it reads from nvcc's mangled symbols."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    assert module.kernel_name(mangled) == name

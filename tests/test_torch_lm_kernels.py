@@ -161,3 +161,13 @@ def test_ssd_chunked_matches_reference(S, chunk):
                                else start[1])
         _close(y_t, y_j, 1e-4)
         _close(s_t, s_j, 1e-4)
+
+
+def test_check_aligned_rejects_views_off_a_16_byte_boundary():
+    """The bf16 kernels copy rows in 16-byte pieces; their wrappers hold
+    a tensor to a 16-byte start before they launch."""
+    from repro_torch.kernels._build import check_aligned
+    base = torch.zeros(64, dtype=torch.bfloat16)
+    check_aligned(a=base, b=base[8:])
+    with pytest.raises(ValueError, match="b must start on a 16-byte"):
+        check_aligned(a=base, b=base[1:])

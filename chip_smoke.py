@@ -16,7 +16,13 @@ Phases, each printing one JSON line:
    ``find_offsets`` at the main path's shapes (rmat20: N = 2^20, frontiers
    of 2^10..2^20 slots, up to 2^23 lanes), each held for exact equality
    against its plain PyTorch version on the card for all four built-in
-   operators, and timed with CUDA events beside the plain version;
+   operators, B1 and B2 in both contracts (the proposal, and the fold into
+   a copy of dist and a running mask: ``wd_apply_relax``,
+   ``apply_relax``), with the cases that take the kernels' other paths:
+   B2 lane counts that are not multiples of its tile, HP-shaped tiles of
+   mostly invalid lanes, and a B1 frontier whose zero-degree runs outgrow
+   a tile's shared memory.  Each is timed with CUDA events beside the plain
+   version;
 4. path  — the paper's rmat20 (``rmat_graph(scale=20, edge_factor=8,
    weighted=True, seed=1)``) from its highest-degree source: ``sssp`` with
    WD, BS, HP and AD and ``bfs`` with WD on the card, each equal to an exact
@@ -25,8 +31,12 @@ Phases, each printing one JSON line:
    set to 0 just before the five rmat20 runs and read just after them,
    before anything else launches; they show B1 and B2 carried the path
    (B3 is not on it and reads 0).  Each run also prints its mean lanes a
-   launch of B1 and B2 (``_build.LANES``), and B1 and B2 are timed again
-   at the WD and BS runs' mean lanes.  The find_offsets entry point
+   launch of B1 and B2 (``_build.LANES``).  Then the WD (B1) and BS, HP
+   and AD (B2) runs are run again, some of their kernel calls are kept
+   with the lanes and dist the path gave them (``path_calls``), and B1
+   and B2 are timed on those, in both contracts, L2-cold and warm; a
+   traced ``apply_relax`` and ``wd_apply_relax`` must each be two device
+   activities (the copy of dist and the launch).  The find_offsets entry point
    (``ops.wd_find_offsets``) is checked afterwards in its own phase, on
    rmat20's whole-graph degree prefix; its launch is in no row.
 5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
@@ -266,11 +276,12 @@ def random_dist(rng, op, n, dev):
     return torch.from_numpy(d.astype(np.int32)).to(dev)
 
 
-def wd_inputs(g, rng, f_slots, cursor_max, dev, nodes=None):
+def wd_inputs(g, rng, f_slots, cursor_max, dev, nodes=None, runs=()):
     """The arguments of one WD step (as ``strategies.wd_relax`` builds
     them) over a frontier of ``f_slots`` random nodes (or the sorted
     ``nodes``) with random cursors in ``[0, cursor_max]`` (non-zero
-    cursors: HP's tail)."""
+    cursors: HP's tail).  The slots of each ``(lo, hi)`` of ``runs`` get
+    a cursor past the end: runs of zero-degree slots."""
     import numpy as np
     import torch
     from repro_torch.core.worklist import bucket
@@ -278,8 +289,10 @@ def wd_inputs(g, rng, f_slots, cursor_max, dev, nodes=None):
         nodes = np.sort(rng.choice(g.num_nodes, f_slots, replace=False))
     f_slots = len(nodes)
     f = torch.from_numpy(nodes.astype(np.int32)).to(dev)
-    cursor = torch.from_numpy(
-        rng.integers(0, cursor_max + 1, f_slots).astype(np.int32)).to(dev)
+    cursor = rng.integers(0, cursor_max + 1, f_slots).astype(np.int32)
+    for lo, hi in runs:
+        cursor[lo:hi] = 1 << 20
+    cursor = torch.from_numpy(cursor).to(dev)
     deg = (g.row_ptr[f + 1] - g.row_ptr[f] - cursor).clamp_(min=0)
     prefix = torch.cumsum(deg, 0, dtype=torch.int32)
     total = int(prefix[-1])
@@ -300,53 +313,134 @@ def lane_inputs(rng, n, lanes, dev):
                 valid=t(rng.random(lanes) < 0.7))
 
 
-def time_b1(g, a, dist, op, reps, flush) -> dict:
-    """B1 timed on one WD step's arguments ``a`` (``wd_inputs``) beside
-    its plain version, with its bound."""
+def hp_tile_inputs(g, rng, rows, mdt, dev):
+    """One HP sub-iteration's ``[rows, mdt]`` tile over random nodes from
+    cursor 0, built as ``strategies.hp_sub_relax`` builds it: most lanes
+    are invalid (a node has fewer than ``mdt`` edges left)."""
     import numpy as np
+    import torch
+    nodes = np.sort(rng.choice(g.num_nodes, rows, replace=rows > g.num_nodes))
+    n = torch.from_numpy(nodes.astype(np.int32)).to(dev)
+    deg = g.row_ptr[n + 1] - g.row_ptr[n]
+    pos = torch.arange(mdt, dtype=torch.int32, device=dev)[None, :]
+    eidx = (g.row_ptr[n][:, None] + pos).clamp_(0, g.num_edges - 1)
+    eidx = eidx.reshape(-1)
+    return dict(src=n[:, None].expand(-1, mdt).reshape(-1),
+                dst=g.col[eidx], w=g.wt[eidx],
+                valid=(pos < deg[:, None]).reshape(-1))
+
+
+def time_pair(fn, plain, reps, flush) -> dict:
+    """``fn`` timed L2-cold (``flush`` overwritten before each call) and
+    warm (no flush: what consecutive BS columns see), and ``plain``
+    cold."""
+    return dict(ms=time_ms(fn, reps=reps, flush=flush),
+                ms_warm=time_ms(fn, reps=reps),
+                plain_ms=time_ms(plain, reps=reps, flush=flush))
+
+
+def fold_bytes(n: int, contract: str, improving: int) -> int:
+    """The bytes over ``dist [n]`` and the outputs of a B1/B2 call with
+    ``improving`` improving lanes.  The proposal contract reads dist once
+    and writes the whole proposal and ``updated``: 9n.  The fold into a
+    copy of dist (``apply_relax``, ``wd_apply_relax``) reads dist once
+    and writes the next dist once, 8n, and writes ``updated`` only where
+    a lane improves: the running mask is neither read nor cleared."""
+    if contract in ("relax_lanes", "wd_relax_lanes"):
+        return 9 * n
+    return 8 * n + improving
+
+
+def time_b1(g, a, dist, op, reps, flush, contract="wd_relax_lanes") -> dict:
+    """B1 timed on one WD step's arguments ``a`` (``wd_inputs``,
+    ``path_calls``) beside its plain version, with its bound.
+    ``contract`` "wd_relax_lanes" returns the proposal; "wd_apply_relax"
+    times what ``wd_relax`` runs per WD iteration: a fresh mask, the copy
+    of dist, the launch."""
+    import numpy as np
+    import torch
     from repro_torch.kernels import relax
     n = g.num_nodes
     cap, f_slots, total = a["cap_work"], a["prefix"].numel(), a["total"]
-    args = (dist, a["prefix"], a["exclusive"], a["start"], a["src_ids"],
-            g.col, g.wt)
-    # dist read once, 4 slot tables, col+wt of the edges this frontier
-    # owns; proposal + updated written, improve per lane
-    nbytes = 4 * n + 16 * f_slots + 8 * total + 5 * n + cap
+    args = (a["prefix"], a["exclusive"], a["start"], a["src_ids"], g.col,
+            g.wt)
+    if contract == "wd_relax_lanes":
+        def fn():
+            return relax.wd_relax_lanes(dist, *args, cap_work=cap, op=op)
+
+        def plain():
+            return relax.wd_relax_lanes_plain(dist, *args, cap_work=cap,
+                                              op=op)
+    else:
+        def fn():
+            return relax.wd_apply_relax(
+                dist, torch.zeros(n, dtype=torch.bool, device=dist.device),
+                *args, cap_work=cap, op=op)
+
+        def plain():
+            return relax.wd_apply_relax_plain(
+                dist, torch.zeros(n, dtype=torch.bool, device=dist.device),
+                *args, cap_work=cap, op=op)
+    improving = int(plain()[2].sum())
+    nbytes = fold_bytes(n, contract, improving) + 16 * f_slots + 8 * total \
+        + cap
     t_b, by = bound(nbytes, cap * int(np.ceil(np.log2(f_slots + 1)))
                     + 6 * total)
-    return dict(
-        ms=time_ms(lambda: relax.wd_relax_lanes(*args, cap_work=cap, op=op),
-                   reps=reps, flush=flush),
-        plain_ms=time_ms(lambda: relax.wd_relax_lanes_plain(
-            *args, cap_work=cap, op=op), reps=reps, flush=flush),
-        bound_ms=t_b, bound_by=by,
-        shape=dict(n=n, f=f_slots, cap_work=cap, edges=total,
-                   weighted=True, op=op.name))
+    return dict(contract=contract, **time_pair(fn, plain, reps, flush),
+                bound_ms=t_b, bound_by=by,
+                shape=dict(n=n, f=f_slots, cap_work=cap, edges=total,
+                           improving=improving, weighted=True, op=op.name))
 
 
-def time_b2(b, dist, op, reps, flush) -> dict:
-    """B2 timed on the lanes ``b`` (``lane_inputs``) beside its plain
-    version, with its bound."""
+def time_b2(b, dist, op, reps, flush, contract="relax_lanes") -> dict:
+    """B2 timed on the lanes ``b`` (``lane_inputs``, ``path_calls``)
+    beside its plain version, with its bound.  ``contract``
+    "relax_lanes" returns the proposal; "apply_relax" is what a BS column
+    or HP tile runs: the copy of dist and the launch, folding into a
+    running mask."""
+    import torch
     from repro_torch.kernels import relax
     n, lanes = dist.numel(), b["src"].numel()
-    args = (dist, b["src"], b["dst"], b["w"], b["valid"])
+    lane_args = (b["src"], b["dst"], b["w"], b["valid"])
     valid_lanes = int(b["valid"].sum())
-    # dist read once, src/dst/w/valid per lane; proposal + updated +
-    # improve written
-    t_b, by = bound(4 * n + 13 * lanes + 5 * n + lanes, 6 * valid_lanes)
-    return dict(
-        ms=time_ms(lambda: relax.relax_lanes(*args, op=op), reps=reps,
-                   flush=flush),
-        plain_ms=time_ms(lambda: relax.relax_lanes_plain(*args, op=op),
-                         reps=reps, flush=flush),
-        bound_ms=t_b, bound_by=by,
-        shape=dict(n=n, lanes=lanes, valid=valid_lanes, op=op.name))
+    mask = torch.zeros(n, dtype=torch.bool, device=dist.device)
+    if contract == "relax_lanes":
+        def fn():
+            return relax.relax_lanes(dist, *lane_args, op=op)
+
+        def plain():
+            return relax.relax_lanes_plain(dist, *lane_args, op=op)
+    else:
+        def fn():
+            return relax.apply_relax(dist, mask, *lane_args, op=op)
+
+        def plain():
+            return relax.apply_relax_plain(dist, mask, *lane_args, op=op)
+    improving = int(plain()[2].sum())
+    # valid read and improve written per lane, src/dst/w per valid lane
+    # (an invalid lane needs nothing else)
+    nbytes = fold_bytes(n, contract, improving) + 2 * lanes \
+        + 12 * valid_lanes
+    t_b, by = bound(nbytes, 6 * valid_lanes)
+    return dict(contract=contract, **time_pair(fn, plain, reps, flush),
+                bound_ms=t_b, bound_by=by,
+                shape=dict(n=n, lanes=lanes, valid=valid_lanes,
+                           improving=improving, op=op.name))
+
+
+#: B1's case whose block tiles outgrow the shared memory that stages their
+#: slot slice: every node of rmat20 in the frontier, with runs of
+#: thousands of zero-degree slots (cursors past the end, as in HP's tail)
+ZERO_RUNS = ((100, 5100), (6000, 8500), (9000, 9001), (500000, 800000))
 
 
 def kernel_phase(g, dev, *, frontiers, lanes_list, reps=10):
     """Hold B1/B2/B3 against their plain versions (exact) at every shape
-    and operator; time each at the largest shape.  Returns the kernel
-    rows of the final JSON line (launches filled in later)."""
+    and operator, B1 and B2 in both contracts: the proposal
+    (``wd_relax_lanes``, ``relax_lanes``) and the fold into dist and a
+    running mask (``wd_apply_relax``, ``apply_relax``).  Time each at the
+    largest shape.  Returns the kernel rows of the final JSON line
+    (launches filled in later)."""
     import numpy as np
     import torch
     from repro_torch.core import operators
@@ -357,39 +451,60 @@ def kernel_phase(g, dev, *, frontiers, lanes_list, reps=10):
     n = g.num_nodes
     err = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0}
     checked = []
-    for f_slots in frontiers:
-        for weighted in (True, False):
-            wt = g.wt if weighted else None
-            for cursor_max in (0, 2):
-                a = wd_inputs(g, rng, f_slots, cursor_max, dev)
-                for name in OP_NAMES:
-                    op = operators.OPERATORS[name]
-                    dist = random_dist(rng, op, n, dev)
-                    args = (dist, a["prefix"], a["exclusive"], a["start"],
-                            a["src_ids"], g.col, wt)
-                    got = relax.wd_relax_lanes(*args, cap_work=a["cap_work"],
-                                               op=op)
-                    want = relax.wd_relax_lanes_plain(
-                        *args, cap_work=a["cap_work"], op=op)
-                    e = max_abs_err(got, want)
-                    err["wd_relax_lanes"] = max(err["wd_relax_lanes"], e)
-                    checked.append(["wd_relax_lanes", f_slots, weighted,
-                                    cursor_max, name, e])
-        a = wd_inputs(g, rng, f_slots, 0, dev)
-        e = max_abs_err([fo.find_offsets(a["prefix"], a["cap_work"])],
-                        [fo.find_offsets_plain(a["prefix"], a["cap_work"])])
-        err["find_offsets"] = max(err["find_offsets"], e)
-        checked.append(["find_offsets", f_slots, e])
-    for lanes in lanes_list:
-        b = lane_inputs(rng, n, lanes, dev)
+
+    def check(kernel, case, got, want):
+        e = max_abs_err(got, want)
+        err[kernel] = max(err[kernel], e)
+        checked.append([kernel, *case, e])
+
+    def running_mask():
+        return torch.from_numpy(rng.random(n) < 0.2).to(dev)
+
+    def check_b1(a, wt, case):
+        for name in OP_NAMES:
+            op = operators.OPERATORS[name]
+            dist = random_dist(rng, op, n, dev)
+            args = (a["prefix"], a["exclusive"], a["start"], a["src_ids"],
+                    g.col, wt)
+            kw = dict(cap_work=a["cap_work"], op=op)
+            check("wd_relax_lanes", case + ["proposal", name],
+                  relax.wd_relax_lanes(dist, *args, **kw),
+                  relax.wd_relax_lanes_plain(dist, *args, **kw))
+            mask = running_mask()
+            want = relax.wd_apply_relax_plain(dist, mask.clone(), *args,
+                                              **kw)
+            check("wd_relax_lanes", case + ["apply", name],
+                  relax.wd_apply_relax(dist, mask, *args, **kw), want)
+
+    def check_b2(b, case):
         for name in OP_NAMES:
             op = operators.OPERATORS[name]
             dist = random_dist(rng, op, n, dev)
             args = (dist, b["src"], b["dst"], b["w"], b["valid"])
-            e = max_abs_err(relax.relax_lanes(*args, op=op),
-                            relax.relax_lanes_plain(*args, op=op))
-            err["relax_lanes"] = max(err["relax_lanes"], e)
-            checked.append(["relax_lanes", lanes, name, e])
+            check("relax_lanes", case + ["proposal", name],
+                  relax.relax_lanes(*args, op=op),
+                  relax.relax_lanes_plain(*args, op=op))
+            mask = running_mask()
+            want = relax.apply_relax_plain(dist, mask.clone(), *args[1:],
+                                           op=op)
+            check("relax_lanes", case + ["apply", name],
+                  relax.apply_relax(dist, mask, *args[1:], op=op), want)
+
+    for f_slots in frontiers:
+        for weighted in (True, False):
+            for cursor_max in (0, 2):
+                a = wd_inputs(g, rng, f_slots, cursor_max, dev)
+                check_b1(a, g.wt if weighted else None,
+                         [f_slots, weighted, cursor_max])
+        a = wd_inputs(g, rng, f_slots, 0, dev)
+        check("find_offsets", [f_slots],
+              [fo.find_offsets(a["prefix"], a["cap_work"])],
+              [fo.find_offsets_plain(a["prefix"], a["cap_work"])])
+    a = wd_inputs(g, rng, n, 1, dev, nodes=np.arange(n), runs=ZERO_RUNS)
+    check_b1(a, g.wt, [n, "zero-degree runs"])
+    for lanes in lanes_list:
+        check_b2(lane_inputs(rng, n, lanes, dev), [lanes])
+    check_b2(hp_tile_inputs(g, rng, 4096, 64, dev), ["hp tile", 4096, 64])
     bad = [c for c in checked if c[-1] != 0]
     emit("kernels_check", cases=len(checked), mismatches=bad)
     if bad:
@@ -476,8 +591,8 @@ def path_phase(g, dev):
     """The main path on the rmat graph ``g``: the five runs, each equal to
     the Dijkstra oracle.  The launch counts are set to 0 just before the
     runs and read just after them; returns ``(launches, results,
-    lanes_by_run)``, the last the mean lanes a launch of B1/B2 in each
-    run."""
+    per_run)``, the last each run's launches and mean lanes a launch of
+    B1/B2."""
     import numpy as np
     from repro_torch.algos import bfs, sssp
     from repro_torch.kernels.relax import LANES, LAUNCHES
@@ -490,7 +605,7 @@ def path_phase(g, dev):
 
     runs = [("sssp", s, oracle_w) for s in ("WD", "BS", "HP", "AD")]
     runs.append(("bfs", "WD", oracle_u))
-    results, lanes_by_run = {}, {}
+    results, per_run = {}, {}
     for counts in (LAUNCHES, LANES):
         for key in counts:
             counts[key] = 0
@@ -505,7 +620,8 @@ def path_phase(g, dev):
         launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         mean_lanes = {k: (LANES[k] - lanes_before[k]) / launched[k]
                       for k in LANES if launched[k]}
-        lanes_by_run[(algo, strategy)] = mean_lanes
+        per_run[(algo, strategy)] = dict(launches=launched,
+                                         mean_lanes=mean_lanes)
         emit("path_run", graph=name, algo=algo, strategy=strategy,
              device=str(dev), nodes=g.num_nodes, edges=g.num_edges,
              source=source, iterations=r.iterations,
@@ -518,7 +634,7 @@ def path_phase(g, dev):
     emit("path_launches", graph=name, launches=launches)
     if launches["wd_relax_lanes"] < 1 or launches["relax_lanes"] < 1:
         raise AssertionError(f"main path missed a kernel: {launches}")
-    return launches, results, lanes_by_run
+    return launches, results, per_run
 
 
 def find_offsets_entry_phase(g, dev) -> None:
@@ -540,43 +656,190 @@ def find_offsets_entry_phase(g, dev) -> None:
          f=g.num_nodes, cap_work=offsets.numel(), equal=True)
 
 
-def path_lanes_phase(g, dev, rows, lanes_by_run, reps: int = 10) -> None:
-    """B1 and B2 timed again at the lane counts the path gives them: B1 at
-    the sssp-WD run's mean lanes a launch, B2 at the sssp-BS run's.  Adds
-    ``path_run``, ``path_mean_lanes`` and ``*_at_path_lanes`` to their
-    rows."""
-    import numpy as np
+def device_activities(fn) -> list:
+    """Names of the device activities (kernels, copies, fills) of one call
+    of ``fn``, after a warm-up call, by ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+#: (kernel, run) pairs of the path_lanes phase
+PATH_LANES = (("wd_relax_lanes", ("sssp", "WD")),
+              ("relax_lanes", ("sssp", "BS")),
+              ("relax_lanes", ("sssp", "HP")),
+              ("relax_lanes", ("sssp", "AD")))
+
+#: the wrapper through which each kernel runs on the path
+PATH_WRAPPER = {"wd_relax_lanes": "wd_apply_relax",
+                "relax_lanes": "apply_relax"}
+
+
+def _on_launches(g, dev, run, kernel, on_launch) -> int:
+    """Run ``run`` (``(algo, strategy)``) on ``g`` with ``kernel``'s
+    wrapper (``PATH_WRAPPER``) wrapped: ``on_launch(i, dist, call)`` sees
+    the arguments of its ``i``-th call that launched the kernel (B2:
+    ``src``, ``dst``, ``w``, ``valid``; B1: ``prefix``, ``exclusive``,
+    ``start``, ``src_ids``, ``cap_work``).  Returns the launches."""
+    from repro_torch.algos import bfs, sssp
+    from repro_torch.kernels import relax
+
+    wrapper = PATH_WRAPPER[kernel]
+    real = getattr(relax, wrapper)
+    seen = [0]
+
+    def recording(dist, updated, *args, **kw):
+        before = relax.LAUNCHES[kernel]
+        out = real(dist, updated, *args, **kw)      # reads, never writes,
+        if relax.LAUNCHES[kernel] == before:        # dist and the lanes
+            return out
+        if kernel == "relax_lanes":
+            call = dict(zip(("src", "dst", "w", "valid"), args))
+        else:
+            call = dict(zip(("prefix", "exclusive", "start", "src_ids"),
+                            args[:4]), cap_work=kw["cap_work"])
+        on_launch(seen[0], dist, call)
+        seen[0] += 1
+        return out
+
+    setattr(relax, wrapper, recording)
+    try:
+        fn = sssp if run[0] == "sssp" else bfs
+        fn(g, int(g.degrees.argmax()), strategy=run[1], device=dev)
+    finally:
+        setattr(relax, wrapper, real)
+    return seen[0]
+
+
+def _lanes_and_valid(kernel: str, call: dict):
+    """A launch's lanes (an int) and valid lanes (a device scalar)."""
+    if kernel == "relax_lanes":
+        return call["src"].numel(), call["valid"].sum()
+    return call["cap_work"], call["prefix"][-1].clamp(max=call["cap_work"])
+
+
+def path_calls(g, dev, run, kernel, calls):
+    """The launches of ``kernel`` in ``run`` as the path makes them: its
+    frontier, the column or tile cursor of that moment, and dist as it
+    then stood.  The run is made twice.  The first time records each of
+    its ``calls`` launches' lanes and valid lanes, and groups the launches
+    into strata by the power of 2 each count falls in.  The second keeps
+    the arguments of the middle launch of each stratum, weighted by the
+    stratum's size, so that weighted means over the kept launches estimate
+    means over all of the run's.  Returns ``(kept, valid)``: each kept
+    launch as a dict of its arguments and ``weight`` (B2: ``dist``,
+    ``src``, ``dst``, ``w``, ``valid``; B1: ``dist``, ``prefix``,
+    ``exclusive``, ``start``, ``src_ids``, ``cap_work``, ``total``), and
+    the valid lanes over all of the run's launches."""
+    import torch
+
+    counts = []
+    seen = _on_launches(g, dev, run, kernel, lambda i, dist, call: counts
+                        .append(_lanes_and_valid(kernel, call)))
+    if seen != calls:
+        raise AssertionError(f"{'-'.join(run)} launched {kernel} {seen} "
+                             f"times again, not {calls}")
+    valid = torch.stack([v for _, v in counts]).tolist() if counts else []
+    strata: dict = {}
+    for i, (lanes, _) in enumerate(counts):
+        key = (int(lanes).bit_length(), int(valid[i]).bit_length())
+        strata.setdefault(key, []).append(i)
+    picks = {m[len(m) // 2]: len(m) for m in strata.values()}
+    kept = []
+
+    def keep(i, dist, call):
+        if i in picks:
+            call = {k: v.clone() if torch.is_tensor(v) else v
+                    for k, v in call.items()}
+            if kernel == "wd_relax_lanes":
+                call["total"] = int(valid[i])
+            kept.append(dict(dist=dist.clone(), weight=picks[i], **call))
+    _on_launches(g, dev, run, kernel, keep)
+    return kept, int(sum(valid))
+
+
+def mean_timing(timed: list, weights: list) -> dict:
+    """The weighted mean over kept launches of each time, bound and shape
+    count of ``time_b1``/``time_b2`` results of one contract."""
+    total = sum(weights)
+
+    def mean(values):
+        return sum(w * v for w, v in zip(weights, values)) / total
+    out = dict(timed[0], launches_timed=len(timed))
+    for key in ("ms", "ms_warm", "plain_ms", "bound_ms"):
+        out[key] = mean([t[key] for t in timed])
+    out["bound_by"] = statistics.mode(t["bound_by"] for t in timed)
+    out["shape"] = dict(timed[0]["shape"])
+    for key, v in timed[0]["shape"].items():
+        if isinstance(v, int) and not isinstance(v, bool):
+            out["shape"][key] = mean([t["shape"][key] for t in timed])
+    return out
+
+
+def path_lanes_phase(g, dev, rows, per_run, reps: int = 10) -> None:
+    """B1 and B2 timed again on the launches the path makes, in both
+    contracts, L2-cold and warm: each run of ``PATH_LANES`` is made again
+    and one launch of each stratum of its launches is kept
+    (``path_calls``) and timed; the entry holds the means over the run's
+    launches (weighted by stratum) beside the run's launches, its valid
+    lanes a launch and ``launches × (ms − bound)``.  Adds
+    ``at_path_lanes`` to the kernel rows.  Then one ``apply_relax`` and
+    one ``wd_apply_relax`` are traced: each is two device activities, the
+    copy of dist and the launch."""
     import torch
     from repro_torch.core import operators
+    from repro_torch.kernels import relax
 
-    rng = np.random.default_rng(2)
     op = operators.shortest_path
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
-    n = g.num_nodes
     by_name = {row["name"]: row for row in rows}
-    for name, run in (("wd_relax_lanes", ("sssp", "WD")),
-                      ("relax_lanes", ("sssp", "BS"))):
-        mean = lanes_by_run[run][name]
-        lanes = max(1, int(round(mean)))
-        if name == "wd_relax_lanes":
-            # random nodes until their degrees cover the lanes
-            perm = rng.permutation(n)
-            deg = g.degrees.cpu().numpy()[perm]
-            f = int(np.searchsorted(np.cumsum(deg), lanes)) + 1
-            a = wd_inputs(g, rng, f, 0, dev, nodes=np.sort(perm[:f]))
-            a["cap_work"], a["total"] = lanes, min(a["total"], lanes)
-            t = time_b1(g, a, random_dist(rng, op, n, dev), op, reps, flush)
-        else:
-            t = time_b2(lane_inputs(rng, n, lanes, dev),
-                        random_dist(rng, op, n, dev), op, reps, flush)
-        by_name[name].update(
-            path_run="-".join(run), path_mean_lanes=mean,
-            ms_at_path_lanes=t["ms"], plain_ms_at_path_lanes=t["plain_ms"],
-            bound_ms_at_path_lanes=t["bound_ms"],
-            bound_by_at_path_lanes=t["bound_by"],
-            shape_at_path_lanes=t["shape"])
-        emit("path_lanes_time", kernel=name, run="-".join(run),
-             mean_lanes=mean, **t)
+    traced = {}
+    for name, run in PATH_LANES:
+        launched = per_run[run]["launches"][name]
+        kept, valid = path_calls(g, dev, run, name, launched)
+        timed = {}
+        for c in kept:
+            dist = c.pop("dist")
+            for contract in (name, PATH_WRAPPER[name]):
+                t = (time_b1(g, c, dist, op, reps, flush, contract)
+                     if name == "wd_relax_lanes" else
+                     time_b2(c, dist, op, reps, flush, contract))
+                timed.setdefault(contract, []).append(t)
+            traced.setdefault(name, (dist, c))
+        weights = [c["weight"] for c in kept]
+        for t in (mean_timing(ts, weights) for ts in timed.values()):
+            entry = dict(
+                run="-".join(run), mean_lanes=per_run[run]["mean_lanes"][name],
+                valid_lanes_per_launch=valid / launched,
+                launches_in_run=launched,
+                gap_ms=launched * (t["ms"] - t["bound_ms"]),
+                gap_ms_warm=launched * (t["ms_warm"] - t["bound_ms"]), **t)
+            by_name[name].setdefault("at_path_lanes", []).append(entry)
+            emit("path_lanes_time", kernel=name, **entry)
+        del kept
+
+    mask = torch.zeros(g.num_nodes, dtype=torch.bool, device=dev)
+    dist, b = traced["relax_lanes"]
+    b2 = device_activities(lambda: relax.apply_relax(
+        dist, mask, b["src"], b["dst"], b["w"], b["valid"], op=op))
+    dist, a = traced["wd_relax_lanes"]
+    b1 = device_activities(lambda: relax.wd_apply_relax(
+        dist, mask, a["prefix"], a["exclusive"], a["start"], a["src_ids"],
+        g.col, g.wt, cap_work=a["cap_work"], op=op))
+    emit("apply_activities", apply_relax=b2, wd_apply_relax=b1)
+    for acts, kernel in ((b2, "relax_lanes_kernel"),
+                         (b1, "wd_relax_lanes_kernel")):
+        ours = [x for x in acts if re.search(rf"(^|[^a-z_]){kernel}", x)]
+        if len(acts) != 2 or len(ours) != 1:
+            raise AssertionError(f"a fold into dist is not one copy and "
+                                 f"one {kernel}: {acts}")
 
 
 def cpu_compare_phase(g, dev, results, *, cpu_scale: int) -> None:
@@ -1014,12 +1277,15 @@ def main() -> int:
     emit("graph", name="rmat20", nodes=g.num_nodes, edges=g.num_edges,
          max_degree=g.max_degree, seconds=time.perf_counter() - t0)
 
+    # lane counts of B2 that are not multiples of its 512-lane block tile
+    # or of the 2 lanes a thread takes: 1001, 2^20 + 3
     rows = kernel_phase(g, dev, frontiers=(1 << 10, 1 << 14, 1 << 17, 1 << 20),
-                        lanes_list=(1 << 10, 1 << 16, 1 << 20, 1 << 23))
-    launches, results, lanes_by_run = path_phase(g, dev)
+                        lanes_list=(1001, 1 << 10, 1 << 16, (1 << 20) + 3,
+                                    1 << 23))
+    launches, results, per_run = path_phase(g, dev)
     for row in rows:      # each row's launches: the main path's runs only
         row["launches"] = launches[row["name"]]
-    path_lanes_phase(g, dev, rows, lanes_by_run)
+    path_lanes_phase(g, dev, rows, per_run)
     find_offsets_entry_phase(g, dev)
     cpu_compare_phase(g, dev, results, cpu_scale=16)
     del g, results

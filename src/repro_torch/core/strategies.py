@@ -18,9 +18,11 @@ Every relax goes through :mod:`repro_torch.kernels.relax`, which runs the
 CUDA kernels for CUDA tensors and their plain PyTorch versions for CPU
 tensors.  The chunk schedule is the reference's (one B2 launch per BS
 column, per HP tile; one B1 launch per WD iteration and per HP tail), and
-each launch reads one snapshot of ``dist`` and folds its proposal in
-afterwards, so ``(dist, iterations, edges_relaxed)`` equal the reference's
-stepped engine bit for bit.  The drivers sync to the host between
+each launch reads one snapshot of ``dist`` and folds its candidates into
+a copy of it (``apply_relax``, ``wd_apply_relax``), so ``(dist,
+iterations, edges_relaxed)`` equal the reference's stepped engine bit for
+bit.  The running ``updated`` mask of an iteration is set in place by
+each launch.  The drivers sync to the host between
 launches (frontier counts, column counts); that is what stepped mode is.
 """
 
@@ -48,6 +50,10 @@ def _edge_weight(g: CSRGraph, eidx: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(eidx)
 
 
+def _new_mask(dist):
+    return torch.zeros(dist.numel(), dtype=torch.bool, device=dist.device)
+
+
 # ---------------------------------------------------------------------------
 # BS — node-based baseline
 # ---------------------------------------------------------------------------
@@ -62,7 +68,7 @@ def bs_relax(g: CSRGraph, dist, frontier, *,
     f = torch.where(mask, frontier, 0)
     deg = torch.where(mask, g.row_ptr[f + 1] - g.row_ptr[f], 0)
     base = g.row_ptr[f]
-    updated = torch.zeros(dist.numel(), dtype=torch.bool, device=dist.device)
+    updated = _new_mask(dist)
     for d in range(int(deg.max())):
         valid = mask & (deg > d)
         eidx = (base + d).clamp_(0, g.num_edges - 1)
@@ -77,10 +83,12 @@ def bs_relax(g: CSRGraph, dist, frontier, *,
 # ---------------------------------------------------------------------------
 
 def wd_relax(g: CSRGraph, dist, frontier, cursor, *, cap_work: int,
-             op: EdgeOp = operators.shortest_path):
+             op: EdgeOp = operators.shortest_path, updated=None):
     """Block-distribute the frontier's remaining edges (past ``cursor``)
     over ``cap_work`` lanes: one B1 launch ranks every lane in the degree
-    prefix and relaxes its edge."""
+    prefix and relaxes its edge.  Returns ``(dist, updated)``; a given
+    ``updated`` mask (HP's running one) is set in place, else a new one
+    is made."""
     mask = frontier >= 0
     f = torch.where(mask, frontier, 0)
     deg = torch.where(mask, g.row_ptr[f + 1] - g.row_ptr[f] - cursor, 0)
@@ -88,21 +96,22 @@ def wd_relax(g: CSRGraph, dist, frontier, cursor, *, cap_work: int,
     prefix = torch.cumsum(deg, 0, dtype=torch.int32)
     exclusive = prefix - deg
     start = g.row_ptr[f] + cursor
-    prop, upd, _ = relax.wd_relax_lanes(
-        dist, prefix, exclusive, start, f, g.col, g.wt, cap_work=cap_work,
-        op=op)
-    return relax.apply_proposal(dist, prop, op), upd
+    dist, updated, _ = relax.wd_apply_relax(
+        dist, _new_mask(dist) if updated is None else updated, prefix,
+        exclusive, start, f, g.col, g.wt, cap_work=cap_work, op=op)
+    return dist, updated
 
 
 # ---------------------------------------------------------------------------
 # HP — hierarchical processing (≤ MDT edges per node per sub-iteration)
 # ---------------------------------------------------------------------------
 
-def hp_sub_relax(g: CSRGraph, dist, sub, cursor, *, mdt: int,
+def hp_sub_relax(g: CSRGraph, dist, sub, cursor, *, mdt: int, updated,
                  op: EdgeOp = operators.shortest_path):
     """One sub-iteration: every sublist node relaxes its next ≤MDT edges,
-    a dense ``[cap, MDT]`` tile in one B2 launch.  Returns ``(dist,
-    updated, new_cursor, alive)``."""
+    a dense ``[cap, MDT]`` tile in one B2 launch, setting ``updated`` (the
+    iteration's running mask) in place.  Returns ``(dist, updated,
+    new_cursor, alive)``."""
     mask = sub >= 0
     n = torch.where(mask, sub, 0)
     deg = g.row_ptr[n + 1] - g.row_ptr[n]
@@ -112,7 +121,6 @@ def hp_sub_relax(g: CSRGraph, dist, sub, cursor, *, mdt: int,
     eidx = (g.row_ptr[n][:, None] + pos).clamp_(0, g.num_edges - 1)
     eidx = eidx.reshape(-1)
     src = n[:, None].expand(-1, mdt).reshape(-1)
-    updated = torch.zeros(dist.numel(), dtype=torch.bool, device=dist.device)
     dist, updated, _ = relax.apply_relax(
         dist, updated, src, g.col[eidx], _edge_weight(g, eidx),
         valid.reshape(-1), op=op)
@@ -308,8 +316,7 @@ class HierarchicalProcessing(StrategyBase):
         cap = bucket(count, sched.min_bucket)
         frontier = compact_mask(updated_mask, cap)
         stats = _frontier_stats(g, frontier, count, record_degrees)
-        acc_mask = torch.zeros(dist.numel(), dtype=torch.bool,
-                               device=dist.device)
+        acc_mask = _new_mask(dist)
 
         # hybrid: a small super list goes straight to WD (paper §III-C)
         if count <= sched.switch_threshold:
@@ -323,9 +330,9 @@ class HierarchicalProcessing(StrategyBase):
         live = count
         subiters = 0
         while live > sched.switch_threshold:
-            dist, upd, cursor, alive = hp_sub_relax(
-                g, dist, sub, cursor, mdt=self.mdt_value, op=op)
-            acc_mask |= upd
+            dist, _, cursor, alive = hp_sub_relax(
+                g, dist, sub, cursor, mdt=self.mdt_value, updated=acc_mask,
+                op=op)
             live = int(alive.sum())
             subiters += 1
             if live:
@@ -340,10 +347,9 @@ class HierarchicalProcessing(StrategyBase):
                               0)
             total = int(rem.clamp_(min=0).sum())
             if total > 0:
-                dist, upd = wd_relax(g, dist, sub, cursor,
-                                     cap_work=bucket(total, sched.min_bucket),
-                                     op=op)
-                acc_mask |= upd
+                dist, _ = wd_relax(g, dist, sub, cursor,
+                                   cap_work=bucket(total, sched.min_bucket),
+                                   op=op, updated=acc_mask)
             subiters += 1
         stats.sub_iterations = subiters
         return dist, acc_mask, stats

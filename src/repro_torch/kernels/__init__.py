@@ -4,7 +4,7 @@
 #
 #   relax           - B1 wd_relax_lanes (merge-path search fused with the
 #                     relax) and B2 relax_lanes (direct-mapped lanes), plus
-#                     apply_proposal / apply_relax
+#                     their folds into dist: apply_relax / wd_apply_relax
 #   find_offsets    - B3, the paper's WD offset search
 #   flash_attention - B4, GQA flash attention forward (LM prefill)
 #   ssd_chunk       - B5, Mamba-2 SSD intra-chunk dual form (LM prefill)

@@ -46,10 +46,11 @@ BUILD_LOG: list[str] = []
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dist, n, src, dst, w, valid, lanes, msg, comb, prop, upd, imp, stream
+    # dist, n, src, dst, w, valid, lanes, msg, comb, target, upd, imp,
+    # stream
     "repro_relax_lanes": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work,
-    # msg, comb, prop, upd, imp, stream
+    # msg, comb, target, upd, imp, stream
     "repro_wd_relax_lanes": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                              _I, _I, _P, _P, _P, _P],
     # prefix, f, cap_work, out, stream

@@ -14,42 +14,66 @@
 //
 // The Pallas kernels fake every gather and scatter with broadcast compares
 // over 128-wide VMEM chunks because the TPU vector unit cannot gather per
-// lane.  Hopper gathers natively, so each kernel here is one thread per
-// lane: per-lane binary search (B1, B3), per-lane gathers, and an int32
-// atomic fold into a separate proposal buffer.
+// lane.  Hopper gathers natively, so B1 and B2 gather per lane and fold
+// with int32 atomics into a target buffer the caller gives.
 //
 // Parity with the reference (bit for bit on int32):
-//   * every lane reads dist[src] and dist[dst] from the unmodified input;
-//     improving candidates go to `prop`, which the wrapper fills with the
-//     monoid identity, and the wrapper folds `prop` into dist afterwards
-//     (apply_proposal).  No lane of a launch sees another lane's write.
+//   * every lane reads dist[src] and dist[dst] from the unmodified `dist`
+//     (through the read-only path) and folds improving candidates into
+//     `target`, which must not alias it.  The wrapper passes either the
+//     monoid identity (relax_lanes / wd_relax_lanes: the proposal) or a
+//     copy of dist (apply_relax / wd_apply_relax: the next dist, with no
+//     elementwise fold afterwards).  min, max and wrapping int32 add are
+//     associative and commutative, so both give the reference's bits.
+//     No lane of a launch sees another lane's write.
 //   * int32 atomicMin/atomicMax do not depend on order, and atomicAdd wraps
 //     like the reference's int32 add, so any atomic order gives the same
 //     bits.  The `sum` message v + w wraps through unsigned arithmetic
 //     (signed overflow is undefined in C++).
 //   * updated[dst] = 1 wherever a lane improves dst: a benign race, every
-//     writer stores the same byte.
+//     writer stores the same byte, into the caller's running mask.
 //
-// What bounds them on the H100: memory.  Per lane, B1 reads its slot
-// entries (prefix search, exclusive, start, src_ids: 4-byte each), the
-// edge's col and wt, and two dist values, and writes improve, a proposal
-// atomic and an updated byte -- on the order of 36 bytes against a handful
-// of integer operations, plus a log2(F) binary search over the prefix,
-// whose upper levels every lane shares in L2.  B2 moves ~21 bytes per lane
-// (src, dst, w, valid, two dist reads, the fold), B3 4 bytes per item plus
-// the search.  The design's answer is to move each byte once: the rank,
-// the gathered slot entry and the message stay in registers (the Pallas
-// version likewise never materialises the rank array), invalid lanes skip
-// every gather after the mask, and the fold is one atomic on the
-// destination.  No shared memory is used: at one int32 per lane there is
-// nothing to reuse within a block.  Coalescing is what the graph allows:
-// lane k reads lane-contiguous src/dst/w/valid (B2) and consecutive edges
-// of one node (B1), while dist[src], dist[dst] and prop[dst] are scattered
-// by nature.  Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a
-// 700 W power limit, at rmat20's shapes: B1 0.223 ms against a 0.030 ms
-// byte bound (2^23 lanes), B2 0.177 ms against 0.038 ms (2^23 lanes), B3
-// 0.135 ms against 0.011 ms; PERF.md has the table.
-//
+// What bounds them on the H100: memory and launch.  A lane is a chain of
+// dependent loads (B2: valid -> src/dst/w -> two dist gathers -> an
+// atomic; B1: a search -> the slot entries -> col/wt -> two dist gathers
+// -> an atomic) with a handful of integer operations.  The main path's
+// B2 launches are mostly invalid lanes: a BS column is ~340,000 lanes of
+// which ~0.6% are valid, an HP tile ~2% valid.  The design keeps several
+// chains in flight a thread and does shared work once a tile:
+//   * B2: a thread takes B2_LANES lanes of a block tile, strided by the
+//     block so that each load of a warp is coalesced, and issues all
+//     their independent loads before the dependent gathers; an invalid
+//     lane loads nothing past its valid byte and gathers nothing.
+//   * B1: Merrill and Garland's merge-path partition.  A block tile of
+//     B1_TILE lanes finds its first and last slot with one 32-ary search
+//     each (a warp probes 32 points per round: 4 rounds of one load a lane
+//     for 2^20 slots, not 20 dependent loads per lane), stages that slot
+//     slice of prefix/exclusive/start/src_ids in shared memory with
+//     cp.async, and every lane ranks itself in shared memory.  A slice
+//     wider than B1_SLOTS (long runs of zero-degree slots, HP's tail
+//     cursors past the end) keeps the per-lane global search, narrowed to
+//     the slice.
+//   * both grids are one wave of resident blocks on the card's SMs, each
+//     block striding over the tiles.
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
+// tools/compare_relax_kernels.py, against the one-lane-a-thread kernels
+// and the proposal fold they replaced, in one process, on launches kept
+// from the rmat20 runs themselves (device time, L2-cold / warm):
+//   * a BS column's apply_relax (copy + launch) 0.0128 / 0.0092 ms
+//     against 0.0228 / 0.0171 for fill + zero + launch + minimum + OR;
+//     an HP tile 0.229 ms against 0.316; a WD iteration's wd_relax
+//     0.0481 / 0.0416 ms against 0.0655 / 0.0594;
+//   * the kernels alone on the path (torch.profiler, the same launches,
+//     median us a launch): B2 2.57 a BS column against 2.52, 219.9 an HP
+//     tile against 319.8, 2.71 an AD launch against 3.08; B1 37.0 a WD
+//     launch against 44.8, but 5.1-5.4 a small HP-tail or AD launch
+//     against 3.7-3.9 (the tile's search and staging do not pay for
+//     ~30,000 lanes).
+// A BS column is mostly launch and the 4 MB copy: the kernel reads a
+// valid byte and writes an improve byte for ~340,000 lanes, ~0.6% of
+// them valid.  Four lanes a thread were about 17% slower there than two,
+// and a 16-byte vector branch for aligned groups 4-7% faster in BS and
+// 7% in HP, for a second code path.  PERF.md has the tables.
 // Each entry point launches on the given stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() of its launch.
 
@@ -68,6 +92,15 @@ constexpr int COMB_MAX = 1;
 constexpr int COMB_ADD = 2;
 
 constexpr int THREADS = 256;
+// B2: lanes a thread takes, and the lanes a block tile covers.  Two beat
+// one and four on the main path's own launches (PERF.md).
+constexpr int B2_LANES = 2;
+constexpr int B2_TILE = THREADS * B2_LANES;
+// B1: lanes a thread takes, and the lanes a block tile covers
+constexpr int B1_LANES = 4;
+constexpr int B1_TILE = THREADS * B1_LANES;
+// B1: slots a tile stages in shared memory (4 int32 tables: 32 KB)
+constexpr int B1_SLOTS = 2 * B1_TILE;
 
 template <int MSG>
 __device__ __forceinline__ int32_t message(int32_t v, int32_t w) {
@@ -97,7 +130,7 @@ __device__ __forceinline__ int32_t clamp_index(int64_t i, int32_t n) {
 }
 
 // #{i < f : prefix[i] <= k} for a non-decreasing prefix — searchsorted
-// side="right".  Shared by B1 and B3.
+// side="right".  One thread alone; B1's fallback and B3.
 __device__ __forceinline__ int32_t upper_bound(const int32_t* __restrict__ prefix,
                                                int32_t f, int32_t k) {
   int32_t lo = 0, hi = f;
@@ -109,20 +142,67 @@ __device__ __forceinline__ int32_t upper_bound(const int32_t* __restrict__ prefi
   return lo;
 }
 
-// the relax of one lane against the dist snapshot; returns "improves"
+// The same count by the 32 lanes of a warp together, all of which must
+// call it with the same arguments.  Each round probes 32 evenly spaced
+// points of [lo, hi); the answer lies between the last point <= k and the
+// next one, so the range shrinks 32-fold a round.
+__device__ __forceinline__ int32_t warp_upper_bound(
+    const int32_t* __restrict__ prefix, int32_t f, int32_t k) {
+  const int lane = threadIdx.x & 31;
+  int32_t lo = 0, hi = f;             // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int64_t step = ((int64_t)hi - lo + 31) / 32;
+    const int64_t p = lo + lane * step;
+    const bool le = p < hi && __ldg(prefix + p) <= k;
+    const int c = __popc(__ballot_sync(0xffffffffu, le));
+    if (c == 0) break;                // prefix[lo] > k: the answer is lo
+    const int64_t last = lo + (int64_t)(c - 1) * step;   // prefix <= k
+    lo = (int32_t)(last + 1);
+    if (last + step < hi) hi = (int32_t)(last + step);   // prefix > k
+  }
+  return lo;
+}
+
+// the same count over a slice in shared memory
+__device__ __forceinline__ int32_t smem_upper_bound(const int32_t* p,
+                                                    int32_t m, int32_t k) {
+  int32_t lo = 0, hi = m;
+  while (lo < hi) {
+    int32_t mid = (lo + hi) >> 1;
+    if (p[mid] <= k) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ void cp_async4(int32_t* smem, const int32_t* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the fold of one lane whose gathers are done; returns "improves"
 template <int MSG, int COMB>
-__device__ __forceinline__ bool relax_one(const int32_t* __restrict__ dist,
-                                          int32_t s, int32_t d, int32_t w,
-                                          int32_t* __restrict__ prop,
+__device__ __forceinline__ bool fold_lane(int32_t dsrc, int32_t ddst,
+                                          int32_t w, int32_t d,
+                                          int32_t* __restrict__ target,
                                           uint8_t* __restrict__ upd) {
-  int32_t cand = message<MSG>(__ldg(dist + s), w);
-  if (!improves<COMB>(cand, __ldg(dist + d))) return false;
-  fold<COMB>(prop + d, cand);
+  const int32_t cand = message<MSG>(dsrc, w);
+  if (!improves<COMB>(cand, ddst)) return false;
+  fold<COMB>(target + d, cand);
   upd[d] = 1;
   return true;
 }
 
 // ---------------------------------------------------------------- B2 ---
+// A block tile covers B2_TILE lanes; thread t takes lanes t and
+// t + THREADS of it, so every load of a warp is one coalesced run.
 template <int MSG, int COMB>
 __global__ void __launch_bounds__(THREADS)
 relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
@@ -130,16 +210,46 @@ relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
                    const int32_t* __restrict__ dst,
                    const int32_t* __restrict__ w,
                    const uint8_t* __restrict__ valid, int32_t lanes,
-                   int32_t* __restrict__ prop, uint8_t* __restrict__ upd,
+                   int32_t* __restrict__ target, uint8_t* __restrict__ upd,
                    uint8_t* __restrict__ imp) {
-  int64_t k = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (k >= lanes) return;
-  bool ok = false;
-  if (valid[k]) {
-    ok = relax_one<MSG, COMB>(dist, clamp_index(src[k], n),
-                              clamp_index(dst[k], n), w[k], prop, upd);
+  constexpr int L = B2_LANES;
+  const int64_t tiles = ((int64_t)lanes + B2_TILE - 1) / B2_TILE;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t k0 = t * B2_TILE + threadIdx.x;
+    bool v[L];
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int64_t k = k0 + j * THREADS;
+      v[j] = k < lanes && __ldg(valid + k);
+    }
+    int32_t s[L] = {}, d[L] = {}, wv[L] = {};
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      if (v[j]) {
+        const int64_t k = k0 + j * THREADS;
+        s[j] = __ldg(src + k);
+        d[j] = __ldg(dst + k);
+        wv[j] = __ldg(w + k);
+      }
+    }
+    int32_t ds[L] = {}, dd[L] = {};
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      if (v[j]) {
+        s[j] = clamp_index(s[j], n);
+        d[j] = clamp_index(d[j], n);
+        ds[j] = __ldg(dist + s[j]);
+        dd[j] = __ldg(dist + d[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int64_t k = k0 + j * THREADS;
+      if (k < lanes)
+        imp[k] = v[j] && fold_lane<MSG, COMB>(ds[j], dd[j], wv[j], d[j],
+                                              target, upd);
+    }
   }
-  imp[k] = ok;
 }
 
 // ---------------------------------------------------------------- B1 ---
@@ -152,22 +262,88 @@ wd_relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
                       const int32_t* __restrict__ src_ids, int32_t f,
                       const int32_t* __restrict__ col,
                       const int32_t* __restrict__ wt, int32_t e,
-                      int32_t cap_work, int32_t* __restrict__ prop,
+                      int32_t cap_work, int32_t* __restrict__ target,
                       uint8_t* __restrict__ upd, uint8_t* __restrict__ imp) {
-  int64_t k64 = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (k64 >= cap_work) return;
-  int32_t k = (int32_t)k64;
-  bool ok = false;
-  if (k < __ldg(prefix + f - 1)) {          // valid = k < total work
-    int32_t rank = upper_bound(prefix, f, k);
-    int32_t i = rank < f - 1 ? rank : f - 1;
-    int64_t eidx = (int64_t)__ldg(start + i) + (k - __ldg(excl + i));
-    int32_t ec = clamp_index(eidx, e);
-    int32_t wv = wt ? __ldg(wt + ec) : 1;
-    ok = relax_one<MSG, COMB>(dist, clamp_index(__ldg(src_ids + i), n),
-                              clamp_index(__ldg(col + ec), n), wv, prop, upd);
+  constexpr int L = B1_LANES;
+  __shared__ int32_t s_prefix[B1_SLOTS], s_excl[B1_SLOTS], s_start[B1_SLOTS],
+      s_src[B1_SLOTS];
+  __shared__ int32_t s_bounds[2];
+  const int64_t total = __ldg(prefix + f - 1);    // valid lanes: k < total
+  const int64_t tiles = ((int64_t)cap_work + B1_TILE - 1) / B1_TILE;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t k0 = t * B1_TILE;
+    const int64_t k_end = k0 + B1_TILE < cap_work ? k0 + B1_TILE : cap_work;
+    const int64_t v_end = k_end < total ? k_end : total;
+    if (k0 >= v_end) {                  // no valid lane in the tile
+      for (int64_t k = k0 + threadIdx.x; k < k_end; k += THREADS) imp[k] = 0;
+      continue;
+    }
+    // the slots of the tile's first and last valid lane; every valid lane
+    // ranks below f, since k < total = prefix[f - 1]
+    const int warp = threadIdx.x >> 5;
+    if (warp < 2) {
+      const int32_t r = warp_upper_bound(
+          prefix, f, (int32_t)(warp == 0 ? k0 : v_end - 1));
+      if ((threadIdx.x & 31) == 0) s_bounds[warp] = r;
+    }
+    __syncthreads();
+    const int32_t lo = s_bounds[0], hi = s_bounds[1];
+    const int32_t cnt = hi - lo + 1;    // slots [lo, hi]
+    const bool staged = cnt <= B1_SLOTS;
+    if (staged) {
+      for (int32_t i = threadIdx.x; i < cnt; i += THREADS) {
+        cp_async4(s_prefix + i, prefix + lo + i);
+        cp_async4(s_excl + i, excl + lo + i);
+        cp_async4(s_start + i, start + lo + i);
+        cp_async4(s_src + i, src_ids + lo + i);
+      }
+      cp_async_wait_all();
+    }
+    __syncthreads();
+
+    // rank(k) = lo + #{i in [lo, hi) : prefix[i] <= k} for k in the tile
+    bool v[L];
+    int32_t s[L] = {}, c[L] = {}, wv[L] = {};
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int64_t k = k0 + j * THREADS + threadIdx.x;
+      v[j] = k < v_end;
+      if (!v[j]) continue;
+      int32_t ex, st;
+      if (staged) {
+        const int32_t li = smem_upper_bound(s_prefix, cnt - 1, (int32_t)k);
+        ex = s_excl[li];
+        st = s_start[li];
+        s[j] = s_src[li];
+      } else {
+        const int32_t i = lo + upper_bound(prefix + lo, cnt - 1, (int32_t)k);
+        ex = __ldg(excl + i);
+        st = __ldg(start + i);
+        s[j] = __ldg(src_ids + i);
+      }
+      const int32_t ec = clamp_index((int64_t)st + (k - ex), e);
+      c[j] = __ldg(col + ec);
+      wv[j] = wt ? __ldg(wt + ec) : 1;
+    }
+    int32_t ds[L] = {}, dd[L] = {};
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      if (v[j]) {
+        s[j] = clamp_index(s[j], n);
+        c[j] = clamp_index(c[j], n);
+        ds[j] = __ldg(dist + s[j]);
+        dd[j] = __ldg(dist + c[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int64_t k = k0 + j * THREADS + threadIdx.x;
+      if (k < k_end)
+        imp[k] = v[j] && fold_lane<MSG, COMB>(ds[j], dd[j], wv[j], c[j],
+                                              target, upd);
+    }
+    __syncthreads();                    // the slice is free for the next tile
   }
-  imp[k] = ok;
 }
 
 // ---------------------------------------------------------------- B3 ---
@@ -179,44 +355,89 @@ find_offsets_kernel(const int32_t* __restrict__ prefix, int32_t f,
   out[k] = upper_bound(prefix, f, (int32_t)k);
 }
 
-inline unsigned blocks_for(int32_t items) {
-  return (unsigned)(((int64_t)items + THREADS - 1) / THREADS);
+inline unsigned blocks_for(int64_t items) {
+  return (unsigned)((items + THREADS - 1) / THREADS);
+}
+
+// The resident blocks of one wave of `kernel` on the current device,
+// `per_sm` cached by the caller (one static per instantiation).
+template <typename Kernel>
+int64_t wave_blocks(Kernel kernel, int* per_sm) {
+  static int sms[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& count = sms[dev & 63];
+  if (count == 0)
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  if (*per_sm == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, THREADS, 0);
+  return (int64_t)count * *per_sm;
+}
+
+inline unsigned grid_for(int64_t blocks, int64_t wave) {
+  return (unsigned)(blocks < wave ? blocks : wave);
+}
+
+template <int MSG, int COMB>
+void launch_lanes_t(cudaStream_t st, const int32_t* dist, int32_t n,
+                    const int32_t* src, const int32_t* dst, const int32_t* w,
+                    const uint8_t* valid, int32_t lanes, int32_t* target,
+                    uint8_t* upd, uint8_t* imp) {
+  static int per_sm = 0;
+  const int64_t tiles = ((int64_t)lanes + B2_TILE - 1) / B2_TILE;
+  const unsigned grid = grid_for(
+      tiles, wave_blocks(relax_lanes_kernel<MSG, COMB>, &per_sm));
+  relax_lanes_kernel<MSG, COMB><<<grid, THREADS, 0, st>>>(
+      dist, n, src, dst, w, valid, lanes, target, upd, imp);
 }
 
 template <int MSG>
-void launch_lanes(int comb, cudaStream_t st, unsigned grid,
-                  const int32_t* dist, int32_t n, const int32_t* src,
-                  const int32_t* dst, const int32_t* w, const uint8_t* valid,
-                  int32_t lanes, int32_t* prop, uint8_t* upd, uint8_t* imp) {
+void launch_lanes(int comb, cudaStream_t st, const int32_t* dist, int32_t n,
+                  const int32_t* src, const int32_t* dst, const int32_t* w,
+                  const uint8_t* valid, int32_t lanes, int32_t* target,
+                  uint8_t* upd, uint8_t* imp) {
   if (comb == COMB_MIN)
-    relax_lanes_kernel<MSG, COMB_MIN><<<grid, THREADS, 0, st>>>(
-        dist, n, src, dst, w, valid, lanes, prop, upd, imp);
+    launch_lanes_t<MSG, COMB_MIN>(st, dist, n, src, dst, w, valid, lanes,
+                                  target, upd, imp);
   else if (comb == COMB_MAX)
-    relax_lanes_kernel<MSG, COMB_MAX><<<grid, THREADS, 0, st>>>(
-        dist, n, src, dst, w, valid, lanes, prop, upd, imp);
+    launch_lanes_t<MSG, COMB_MAX>(st, dist, n, src, dst, w, valid, lanes,
+                                  target, upd, imp);
   else
-    relax_lanes_kernel<MSG, COMB_ADD><<<grid, THREADS, 0, st>>>(
-        dist, n, src, dst, w, valid, lanes, prop, upd, imp);
+    launch_lanes_t<MSG, COMB_ADD>(st, dist, n, src, dst, w, valid, lanes,
+                                  target, upd, imp);
+}
+
+template <int MSG, int COMB>
+void launch_wd_t(cudaStream_t st, const int32_t* dist, int32_t n,
+                 const int32_t* prefix, const int32_t* excl,
+                 const int32_t* start, const int32_t* src_ids, int32_t f,
+                 const int32_t* col, const int32_t* wt, int32_t e,
+                 int32_t cap_work, int32_t* target, uint8_t* upd,
+                 uint8_t* imp) {
+  static int per_sm = 0;
+  const int64_t tiles = ((int64_t)cap_work + B1_TILE - 1) / B1_TILE;
+  const unsigned grid = grid_for(
+      tiles, wave_blocks(wd_relax_lanes_kernel<MSG, COMB>, &per_sm));
+  wd_relax_lanes_kernel<MSG, COMB><<<grid, THREADS, 0, st>>>(
+      dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work, target,
+      upd, imp);
 }
 
 template <int MSG>
-void launch_wd(int comb, cudaStream_t st, unsigned grid, const int32_t* dist,
-               int32_t n, const int32_t* prefix, const int32_t* excl,
+void launch_wd(int comb, cudaStream_t st, const int32_t* dist, int32_t n,
+               const int32_t* prefix, const int32_t* excl,
                const int32_t* start, const int32_t* src_ids, int32_t f,
                const int32_t* col, const int32_t* wt, int32_t e,
-               int32_t cap_work, int32_t* prop, uint8_t* upd, uint8_t* imp) {
+               int32_t cap_work, int32_t* target, uint8_t* upd, uint8_t* imp) {
   if (comb == COMB_MIN)
-    wd_relax_lanes_kernel<MSG, COMB_MIN><<<grid, THREADS, 0, st>>>(
-        dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work, prop,
-        upd, imp);
+    launch_wd_t<MSG, COMB_MIN>(st, dist, n, prefix, excl, start, src_ids, f,
+                               col, wt, e, cap_work, target, upd, imp);
   else if (comb == COMB_MAX)
-    wd_relax_lanes_kernel<MSG, COMB_MAX><<<grid, THREADS, 0, st>>>(
-        dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work, prop,
-        upd, imp);
+    launch_wd_t<MSG, COMB_MAX>(st, dist, n, prefix, excl, start, src_ids, f,
+                               col, wt, e, cap_work, target, upd, imp);
   else
-    wd_relax_lanes_kernel<MSG, COMB_ADD><<<grid, THREADS, 0, st>>>(
-        dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work, prop,
-        upd, imp);
+    launch_wd_t<MSG, COMB_ADD>(st, dist, n, prefix, excl, start, src_ids, f,
+                               col, wt, e, cap_work, target, upd, imp);
 }
 
 bool codes_ok(int msg, int comb) {
@@ -228,50 +449,50 @@ bool codes_ok(int msg, int comb) {
 
 extern "C" {
 
-// B2: lanes >= 1, n >= 1; prop pre-filled with the identity, upd zeroed.
+// B2: lanes >= 1, n >= 1; target [n] (not dist) and upd [n] are folded
+// into, not initialised.
 int repro_relax_lanes(const int32_t* dist, int32_t n, const int32_t* src,
                       const int32_t* dst, const int32_t* w,
                       const uint8_t* valid, int32_t lanes, int msg, int comb,
-                      int32_t* prop, uint8_t* upd, uint8_t* imp,
+                      int32_t* target, uint8_t* upd, uint8_t* imp,
                       void* stream) {
-  if (!codes_ok(msg, comb) || lanes < 1 || n < 1)
+  if (!codes_ok(msg, comb) || lanes < 1 || n < 1 || target == dist)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  unsigned grid = blocks_for(lanes);
   if (msg == MSG_SUM)
-    launch_lanes<MSG_SUM>(comb, st, grid, dist, n, src, dst, w, valid, lanes,
-                          prop, upd, imp);
+    launch_lanes<MSG_SUM>(comb, st, dist, n, src, dst, w, valid, lanes,
+                          target, upd, imp);
   else if (msg == MSG_COPY)
-    launch_lanes<MSG_COPY>(comb, st, grid, dist, n, src, dst, w, valid, lanes,
-                           prop, upd, imp);
+    launch_lanes<MSG_COPY>(comb, st, dist, n, src, dst, w, valid, lanes,
+                           target, upd, imp);
   else
-    launch_lanes<MSG_BOTTLENECK>(comb, st, grid, dist, n, src, dst, w, valid,
-                                 lanes, prop, upd, imp);
+    launch_lanes<MSG_BOTTLENECK>(comb, st, dist, n, src, dst, w, valid, lanes,
+                                 target, upd, imp);
   return (int)cudaGetLastError();
 }
 
-// B1: f >= 1, e >= 1, cap_work >= 1; wt == nullptr means weight 1.
+// B1: f >= 1, e >= 1, cap_work >= 1; wt == nullptr means weight 1;
+// target [n] (not dist) and upd [n] are folded into, not initialised.
 int repro_wd_relax_lanes(const int32_t* dist, int32_t n,
                          const int32_t* prefix, const int32_t* excl,
                          const int32_t* start, const int32_t* src_ids,
                          int32_t f, const int32_t* col, const int32_t* wt,
                          int32_t e, int32_t cap_work, int msg, int comb,
-                         int32_t* prop, uint8_t* upd, uint8_t* imp,
+                         int32_t* target, uint8_t* upd, uint8_t* imp,
                          void* stream) {
-  if (!codes_ok(msg, comb) || f < 1 || e < 1 || n < 1 || cap_work < 1)
+  if (!codes_ok(msg, comb) || f < 1 || e < 1 || n < 1 || cap_work < 1 ||
+      target == dist)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  unsigned grid = blocks_for(cap_work);
   if (msg == MSG_SUM)
-    launch_wd<MSG_SUM>(comb, st, grid, dist, n, prefix, excl, start, src_ids,
-                       f, col, wt, e, cap_work, prop, upd, imp);
+    launch_wd<MSG_SUM>(comb, st, dist, n, prefix, excl, start, src_ids, f,
+                       col, wt, e, cap_work, target, upd, imp);
   else if (msg == MSG_COPY)
-    launch_wd<MSG_COPY>(comb, st, grid, dist, n, prefix, excl, start, src_ids,
-                        f, col, wt, e, cap_work, prop, upd, imp);
+    launch_wd<MSG_COPY>(comb, st, dist, n, prefix, excl, start, src_ids, f,
+                        col, wt, e, cap_work, target, upd, imp);
   else
-    launch_wd<MSG_BOTTLENECK>(comb, st, grid, dist, n, prefix, excl, start,
-                              src_ids, f, col, wt, e, cap_work, prop, upd,
-                              imp);
+    launch_wd<MSG_BOTTLENECK>(comb, st, dist, n, prefix, excl, start, src_ids,
+                              f, col, wt, e, cap_work, target, upd, imp);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 """The relax kernels B1 and B2 of the port, their plain versions, and the
-proposal fold.
+fold of their candidates into ``dist``.
 
 * :func:`relax_lanes` (B2) relaxes ``L`` direct-mapped ``(src, dst, w,
   valid)`` lanes: BS edge columns and HP's ``[cap, MDT]`` tiles.  It
@@ -10,12 +10,20 @@ proposal fold.
   tables, and relaxes it.  It replaces the reference's Pallas
   ``repro.kernels.relax.wd_relax_lanes`` (WD, HP's tail, AD).
 
-Both return ``(proposal [N], updated [N] bool, improve [lanes] bool)``:
-``proposal`` is the monoid fold of every improving candidate per
-destination (the identity elsewhere), computed against the unmodified
-``dist``; :func:`apply_proposal` folds it in elementwise.  That keeps
-every lane of one launch on the same snapshot, so the port's
-``(dist, iterations, edges_relaxed)`` equal the reference's bit for bit.
+Each kernel serves two contracts, and every lane of a launch reads the
+same unmodified ``dist``, so the port's ``(dist, iterations,
+edges_relaxed)`` equal the reference's bit for bit:
+
+* the reference kernel's own, ``(proposal [N], updated [N] bool,
+  improve [lanes] bool)`` (:func:`relax_lanes`, :func:`wd_relax_lanes`):
+  ``proposal`` is the monoid fold of every improving candidate per
+  destination, the identity elsewhere; :func:`apply_proposal` folds it
+  into ``dist`` elementwise;
+* the fold into ``dist`` itself, ``(next dist, updated, improve)``
+  (:func:`apply_relax`, :func:`wd_apply_relax`): the kernel folds the
+  candidates into a copy of ``dist`` and marks them in the caller's
+  running ``updated`` mask, **in place**.  On the card that is one copy
+  and one launch, with no proposal to fill or fold and no mask to OR.
 
 A wrapper takes its device from its tensors: for CUDA tensors it launches
 its kernel (``csrc/relax.cu``) and counts the launch in :data:`LAUNCHES`,
@@ -50,6 +58,26 @@ def _dispatch(dist: torch.Tensor, name: str):
     return dist.device.type == "cuda"
 
 
+def _launch(name: str, dev: torch.device, *args) -> None:
+    """Call the C entry point ``repro_<name>`` on ``dev``'s current stream
+    and raise if it reports an error; every launch goes through here."""
+    with torch.cuda.device(dev):
+        _build.check(name, getattr(_build.lib(), f"repro_{name}")(
+            *args, stream_of(dev)))
+
+
+def apply_proposal(dist, proposal, op: EdgeOp):
+    """Fold a dense proposal into ``dist`` elementwise: the proposal holds
+    the identity for untouched destinations and the monoid is
+    associative, so this equals scattering every candidate into
+    ``dist``."""
+    if op.combine == "min":
+        return torch.minimum(dist, proposal)
+    if op.combine == "max":
+        return torch.maximum(dist, proposal)
+    return dist + proposal
+
+
 # ---------------------------------------------------------------------------
 # B2: direct-mapped lanes
 # ---------------------------------------------------------------------------
@@ -71,7 +99,10 @@ def relax_lanes_plain(dist, src, dst, w, valid, *,
     return prop, upd.bool(), improve
 
 
-def _relax_lanes_cuda(dist, src, dst, w, valid, op: EdgeOp):
+def _relax_lanes_cuda(dist, src, dst, w, valid, target, updated,
+                      op: EdgeOp):
+    """Launch B2 folding into ``target`` (the wrapper's own buffer, never
+    ``dist``) and ``updated``; returns ``improve``."""
     msg, comb = op.kernel_codes()
     dev = dist.device
     n, lanes = dist.numel(), src.numel()
@@ -79,21 +110,18 @@ def _relax_lanes_cuda(dist, src, dst, w, valid, op: EdgeOp):
     for name, t in (("src", src), ("dst", dst), ("w", w)):
         check_tensor(name, t, dev, torch.int32, lanes)
     check_tensor("valid", valid, dev, torch.bool, lanes)
+    check_tensor("updated", updated, dev, torch.bool, n)
+    imp = torch.empty(lanes, dtype=torch.bool, device=dev)
     if lanes == 0:
-        return _empty_result(dist, 0, op)
+        return imp
     if n == 0:
         raise ValueError("relax_lanes needs a non-empty dist")
-    prop = torch.full_like(dist, op.identity)
-    upd = torch.zeros(n, dtype=torch.bool, device=dev)
-    imp = torch.empty(lanes, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        _build.check("relax_lanes", _build.lib().repro_relax_lanes(
-            dist.data_ptr(), n, src.data_ptr(), dst.data_ptr(), w.data_ptr(),
-            valid.data_ptr(), lanes, msg, comb, prop.data_ptr(),
-            upd.data_ptr(), imp.data_ptr(), stream_of(dev)))
+    _launch("relax_lanes", dev, dist.data_ptr(), n, src.data_ptr(),
+            dst.data_ptr(), w.data_ptr(), valid.data_ptr(), lanes, msg, comb,
+            target.data_ptr(), updated.data_ptr(), imp.data_ptr())
     LAUNCHES["relax_lanes"] += 1
     LANES["relax_lanes"] += lanes
-    return prop, upd, imp
+    return imp
 
 
 def relax_lanes(dist, src, dst, w, valid, *,
@@ -102,9 +130,35 @@ def relax_lanes(dist, src, dst, w, valid, *,
     ``src``/``dst``/``w`` ``[L]`` int32 (indices are clamped into
     ``[0, N)``); ``valid [L]`` bool.  Returns ``(proposal [N],
     updated [N] bool, improve [L] bool)``."""
-    if _dispatch(dist, "relax_lanes"):
-        return _relax_lanes_cuda(dist, src, dst, w, valid, op)
-    return relax_lanes_plain(dist, src, dst, w, valid, op=op)
+    if not _dispatch(dist, "relax_lanes"):
+        return relax_lanes_plain(dist, src, dst, w, valid, op=op)
+    prop = torch.full_like(dist, op.identity)
+    upd = torch.zeros(dist.numel(), dtype=torch.bool, device=dist.device)
+    imp = _relax_lanes_cuda(dist, src, dst, w, valid, prop, upd, op)
+    return prop, upd, imp
+
+
+def apply_relax_plain(dist, updated, src, dst, w, valid, *,
+                      op: EdgeOp = operators.shortest_path):
+    """:func:`apply_relax`'s plain version: B2's plain version, then
+    :func:`apply_proposal` and an OR into ``updated`` (in place)."""
+    prop, upd, imp = relax_lanes_plain(dist, src, dst, w, valid, op=op)
+    updated |= upd
+    return apply_proposal(dist, prop, op), updated, imp
+
+
+def apply_relax(dist, updated, src, dst, w, valid, *,
+                op: EdgeOp = operators.shortest_path):
+    """``dist[dst] = combine(dist[dst], message(dist[src], w))`` over the
+    valid lanes, against one snapshot of ``dist``; the port of the
+    reference's ``strategies._apply_relax``.  Returns ``(next dist,
+    updated, improve)``: ``next dist`` is new, ``updated`` is the
+    caller's bool mask with the improved destinations set **in place**."""
+    if not _dispatch(dist, "apply_relax"):
+        return apply_relax_plain(dist, updated, src, dst, w, valid, op=op)
+    target = dist.clone()
+    imp = _relax_lanes_cuda(dist, src, dst, w, valid, target, updated, op)
+    return target, updated, imp
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +183,9 @@ def wd_relax_lanes_plain(dist, prefix, exclusive, start, src_ids, col,
 
 
 def _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col, wt,
-                         cap_work: int, op: EdgeOp):
+                         cap_work: int, target, updated, op: EdgeOp):
+    """Launch B1 folding into ``target`` (the wrapper's own buffer, never
+    ``dist``) and ``updated``; returns ``improve``."""
     msg, comb = op.kernel_codes()
     dev = dist.device
     n, f, e = dist.numel(), prefix.numel(), col.numel()
@@ -140,22 +196,25 @@ def _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col, wt,
     check_tensor("col", col, dev, torch.int32)
     if wt is not None:
         check_tensor("wt", wt, dev, torch.int32, e)
+    check_tensor("updated", updated, dev, torch.bool, n)
     if f == 0 or cap_work == 0:
-        return _empty_result(dist, cap_work, op)
+        return torch.zeros(cap_work, dtype=torch.bool, device=dev)
     if n == 0 or e == 0:
         raise ValueError("wd_relax_lanes needs a non-empty dist and col")
-    prop = torch.full_like(dist, op.identity)
-    upd = torch.zeros(n, dtype=torch.bool, device=dev)
     imp = torch.empty(cap_work, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        _build.check("wd_relax_lanes", _build.lib().repro_wd_relax_lanes(
-            dist.data_ptr(), n, prefix.data_ptr(), exclusive.data_ptr(),
-            start.data_ptr(), src_ids.data_ptr(), f, col.data_ptr(),
-            None if wt is None else wt.data_ptr(), e, cap_work, msg, comb,
-            prop.data_ptr(), upd.data_ptr(), imp.data_ptr(), stream_of(dev)))
+    _launch("wd_relax_lanes", dev, dist.data_ptr(), n, prefix.data_ptr(),
+            exclusive.data_ptr(), start.data_ptr(), src_ids.data_ptr(), f,
+            col.data_ptr(), None if wt is None else wt.data_ptr(), e,
+            cap_work, msg, comb, target.data_ptr(), updated.data_ptr(),
+            imp.data_ptr())
     LAUNCHES["wd_relax_lanes"] += 1
     LANES["wd_relax_lanes"] += cap_work
-    return prop, upd, imp
+    return imp
+
+
+def _check_cap_work(cap_work: int) -> None:
+    if cap_work < 0 or cap_work >= 2 ** 31:
+        raise ValueError(f"cap_work must be in [0, 2**31), got {cap_work}")
 
 
 def wd_relax_lanes(dist, prefix, exclusive, start, src_ids, col,
@@ -167,36 +226,42 @@ def wd_relax_lanes(dist, prefix, exclusive, start, src_ids, col,
     ``src_ids`` are per-slot ``[F]``; ``col``/``wt`` are the CSR arrays
     (``wt=None``: weight 1).  Returns ``(proposal [N], updated [N] bool,
     improve [cap_work] bool)``."""
-    if cap_work < 0 or cap_work >= 2 ** 31:
-        raise ValueError(f"cap_work must be in [0, 2**31), got {cap_work}")
-    if _dispatch(dist, "wd_relax_lanes"):
-        return _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids,
-                                    col, wt, cap_work, op)
-    return wd_relax_lanes_plain(dist, prefix, exclusive, start, src_ids, col,
-                                wt, cap_work=cap_work, op=op)
+    _check_cap_work(cap_work)
+    if not _dispatch(dist, "wd_relax_lanes"):
+        return wd_relax_lanes_plain(dist, prefix, exclusive, start, src_ids,
+                                    col, wt, cap_work=cap_work, op=op)
+    prop = torch.full_like(dist, op.identity)
+    upd = torch.zeros(dist.numel(), dtype=torch.bool, device=dist.device)
+    imp = _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col,
+                               wt, cap_work, prop, upd, op)
+    return prop, upd, imp
 
 
-# ---------------------------------------------------------------------------
-# applying a proposal
-# ---------------------------------------------------------------------------
-
-def apply_proposal(dist, proposal, op: EdgeOp):
-    """Fold a dense proposal into ``dist`` elementwise: the proposal holds
-    the identity for untouched destinations and the monoid is
-    associative, so this equals scattering every candidate into
-    ``dist``."""
-    if op.combine == "min":
-        return torch.minimum(dist, proposal)
-    if op.combine == "max":
-        return torch.maximum(dist, proposal)
-    return dist + proposal
+def wd_apply_relax_plain(dist, updated, prefix, exclusive, start, src_ids,
+                         col, wt: Optional[torch.Tensor], *, cap_work: int,
+                         op: EdgeOp = operators.shortest_path):
+    """:func:`wd_apply_relax`'s plain version: B1's plain version, then
+    :func:`apply_proposal` and an OR into ``updated`` (in place)."""
+    prop, upd, imp = wd_relax_lanes_plain(dist, prefix, exclusive, start,
+                                          src_ids, col, wt,
+                                          cap_work=cap_work, op=op)
+    updated |= upd
+    return apply_proposal(dist, prop, op), updated, imp
 
 
-def apply_relax(dist, updated, src, dst, w, valid, *,
-                op: EdgeOp = operators.shortest_path):
-    """``dist[dst] = combine(dist[dst], message(dist[src], w))`` over the
-    valid lanes, against one snapshot of ``dist``.  Returns
-    ``(dist, updated | lanes' updated, improve)``; the port of the
-    reference's ``strategies._apply_relax``."""
-    prop, upd, imp = relax_lanes(dist, src, dst, w, valid, op=op)
-    return apply_proposal(dist, prop, op), updated | upd, imp
+def wd_apply_relax(dist, updated, prefix, exclusive, start, src_ids, col,
+                   wt: Optional[torch.Tensor], *, cap_work: int,
+                   op: EdgeOp = operators.shortest_path):
+    """:func:`wd_relax_lanes` folded into ``dist``: returns ``(next dist,
+    updated, improve)``, with ``updated`` (the caller's bool mask) set in
+    place where a lane improved its destination, as in
+    :func:`apply_relax`."""
+    _check_cap_work(cap_work)
+    if not _dispatch(dist, "wd_apply_relax"):
+        return wd_apply_relax_plain(dist, updated, prefix, exclusive, start,
+                                    src_ids, col, wt, cap_work=cap_work,
+                                    op=op)
+    target = dist.clone()
+    imp = _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col,
+                               wt, cap_work, target, updated, op)
+    return target, updated, imp

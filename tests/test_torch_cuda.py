@@ -47,8 +47,16 @@ def _same(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+#: B2's lane counts: not multiples of a block tile's 512 lanes (2, 7,
+#: 2050, 4099, 100000), odd ones, which leave a thread's second lane
+#: empty (7, 4099), and more lanes than one wave of blocks holds
+#: (3,000,001)
+B2_SHAPES = [(3, 2), (5, 7), (257, 2050), (1000, 4099), (5000, 100000),
+             (5000, 3000001)]
+
+
 @pytest.mark.parametrize("opname", OP_NAMES)
-@pytest.mark.parametrize("n,lanes", [(3, 2), (257, 2050), (5000, 100000)])
+@pytest.mark.parametrize("n,lanes", B2_SHAPES)
 def test_relax_lanes_kernel_matches_plain(dev, opname, n, lanes):
     op = operators.OPERATORS[opname]
     args = _lanes(np.random.default_rng(n + lanes), op, n, lanes, dev)
@@ -56,6 +64,79 @@ def test_relax_lanes_kernel_matches_plain(dev, opname, n, lanes):
     got = relax.relax_lanes(*args, op=op)
     assert relax.LAUNCHES["relax_lanes"] == before + 1
     _same(got, relax.relax_lanes_plain(*args, op=op))
+
+
+def _running_mask(rng, n, dev):
+    """A non-empty running ``updated`` mask, as BS's columns and HP's
+    sub-iterations carry it."""
+    return torch.from_numpy(rng.random(n) < 0.2).to(dev)
+
+
+def _check_apply_relax(dev, op, args, mask):
+    """B2's fold into ``dist`` against its plain version: one launch, the
+    caller's mask set in place."""
+    dist, src, dst, w, valid = args
+    want = relax.apply_relax_plain(dist, mask.clone(), src, dst, w, valid,
+                                   op=op)
+    before = relax.LAUNCHES["relax_lanes"]
+    got = relax.apply_relax(dist, mask, src, dst, w, valid, op=op)
+    assert relax.LAUNCHES["relax_lanes"] == before + 1
+    assert got[1] is mask
+    _same(got, want)
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+@pytest.mark.parametrize("n,lanes", B2_SHAPES)
+def test_apply_relax_kernel_matches_plain(dev, opname, n, lanes):
+    op = operators.OPERATORS[opname]
+    rng = np.random.default_rng(n * 7 + lanes)
+    args = _lanes(rng, op, n, lanes, dev)
+    _check_apply_relax(dev, op, args, _running_mask(rng, n, dev))
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+def test_relax_lanes_kernel_takes_views_off_a_16_byte_boundary(dev, opname):
+    """Lanes given as views that start one element into their storage,
+    off every vector boundary: the kernel loads lane by lane."""
+    op = operators.OPERATORS[opname]
+    rng = np.random.default_rng(11)
+    dist, *lane_args = _lanes(rng, op, 300, 1001, dev)
+    src, dst, w, valid = (t[1:] for t in lane_args)
+    args = (dist, src, dst, w, valid)
+    _same(relax.relax_lanes(*args, op=op),
+          relax.relax_lanes_plain(*args, op=op))
+    _check_apply_relax(dev, op, args, _running_mask(rng, 300, dev))
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+def test_relax_lanes_kernel_matches_plain_on_hp_tiles(dev, opname):
+    """HP's ``[cap, MDT]`` tiles (as ``strategies.hp_sub_relax`` builds
+    them): most lanes invalid, which load nothing past their valid
+    bytes."""
+    op = operators.OPERATORS[opname]
+    g = rmat_graph(scale=12, weighted=True, seed=2, device=dev)
+    rng = np.random.default_rng(5)
+    nodes = np.full(1024, -1, np.int32)
+    nodes[:700] = np.sort(rng.choice(g.num_nodes, 700, replace=False))
+    sub = torch.from_numpy(nodes).to(dev)
+    cursor = torch.from_numpy(rng.integers(0, 4, 1024).astype(np.int32)
+                              ).to(dev)
+    mdt = 64
+    mask = sub >= 0
+    nn = torch.where(mask, sub, 0)
+    deg = g.row_ptr[nn + 1] - g.row_ptr[nn]
+    pos = cursor[:, None] + torch.arange(mdt, dtype=torch.int32,
+                                         device=dev)[None, :]
+    valid = (mask[:, None] & (pos < deg[:, None])).reshape(-1)
+    eidx = (g.row_ptr[nn][:, None] + pos).clamp_(0, g.num_edges - 1)
+    eidx = eidx.reshape(-1)
+    src = nn[:, None].expand(-1, mdt).reshape(-1)
+    assert float(valid.float().mean()) < 0.5
+    dist = _lanes(rng, op, g.num_nodes, 1, dev)[0]
+    args = (dist, src, g.col[eidx], g.wt[eidx], valid)
+    _same(relax.relax_lanes(*args, op=op),
+          relax.relax_lanes_plain(*args, op=op))
+    _check_apply_relax(dev, op, args, _running_mask(rng, g.num_nodes, dev))
 
 
 @pytest.mark.parametrize("opname", OP_NAMES)
@@ -80,6 +161,52 @@ def test_wd_relax_lanes_kernel_matches_plain(dev, opname, weighted,
     got = relax.wd_relax_lanes(*args, cap_work=cap, op=op)
     assert relax.LAUNCHES["wd_relax_lanes"] == before + 1
     _same(got, relax.wd_relax_lanes_plain(*args, cap_work=cap, op=op))
+    _check_wd_apply_relax(op, args, cap, _running_mask(rng, g.num_nodes,
+                                                       dev))
+
+
+def _check_wd_apply_relax(op, args, cap, mask):
+    """B1's fold into ``dist`` against its plain version: one launch, the
+    caller's mask set in place."""
+    dist, *rest = args
+    want = relax.wd_apply_relax_plain(dist, mask.clone(), *rest,
+                                      cap_work=cap, op=op)
+    before = relax.LAUNCHES["wd_relax_lanes"]
+    got = relax.wd_apply_relax(dist, mask, *rest, cap_work=cap, op=op)
+    assert relax.LAUNCHES["wd_relax_lanes"] == before + 1
+    assert got[1] is mask
+    _same(got, want)
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+@pytest.mark.parametrize("weighted", [True, False])
+def test_wd_relax_lanes_kernel_matches_plain_past_shared_memory(
+        dev, opname, weighted):
+    """Runs of thousands of zero-degree slots (HP's tail cursors past the
+    end) between busy ones: a block tile's slot slice outgrows the shared
+    memory that stages it (2048 slots), and its lanes search ``prefix``
+    in global memory; the tiles beside it are staged.  The frontier
+    spans more tiles than one wave of blocks."""
+    op = operators.OPERATORS[opname]
+    g = rmat_graph(scale=18, weighted=True, seed=4, device=dev)
+    rng = np.random.default_rng(9)
+    f_slots = g.num_nodes
+    f = torch.arange(f_slots, dtype=torch.int32, device=dev)
+    cursor = rng.integers(0, 2, f_slots).astype(np.int32)
+    for lo, hi in ((100, 5100), (6000, 8500), (9000, 9001),
+                   (120000, 200000)):
+        cursor[lo:hi] = 1 << 20             # past the end: degree 0
+    cursor = torch.from_numpy(cursor).to(dev)
+    deg = (g.row_ptr[f + 1] - g.row_ptr[f] - cursor).clamp_(min=0)
+    prefix = torch.cumsum(deg, 0, dtype=torch.int32)
+    dist = _lanes(rng, op, g.num_nodes, 1, dev)[0]
+    args = (dist, prefix, prefix - deg, g.row_ptr[f] + cursor, f, g.col,
+            g.wt if weighted else None)
+    cap = int(prefix[-1]) + 3000
+    _same(relax.wd_relax_lanes(*args, cap_work=cap, op=op),
+          relax.wd_relax_lanes_plain(*args, cap_work=cap, op=op))
+    _check_wd_apply_relax(op, args, cap, _running_mask(rng, g.num_nodes,
+                                                       dev))
 
 
 @pytest.mark.parametrize("f,cap", [(0, 64), (1, 1), (200, 1025),

@@ -1,6 +1,8 @@
 """Import hygiene of the port: ``repro_torch`` (every subpackage, walked
 recursively: core, kernels, models, configs, runtime, launch, ...),
-``chip_smoke.py`` and ``tools/profile_torch_path.py`` import neither JAX,
+``chip_smoke.py`` and the tools that drive the port on the card
+(``tools/profile_torch_path.py``, ``tools/compare_lm_kernels.py``,
+``tools/compare_relax_kernels.py``) import neither JAX,
 ``ml_dtypes`` nor the reference package ``repro`` (``repro_torch`` is the
 port itself), and every port module imports with JAX unavailable."""
 
@@ -16,8 +18,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "tools" / "profile_torch_path.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "tools" / name for name in ("profile_torch_path.py",
+                                       "compare_lm_kernels.py",
+                                       "compare_relax_kernels.py")]
 
 
 def _imported_modules(path: pathlib.Path):

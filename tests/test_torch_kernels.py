@@ -149,6 +149,63 @@ def test_relax_lanes_proposal_matches_pallas(opname):
         _eq(g, w_)
 
 
+def _fold_case(rng, op, n, lanes):
+    """Lanes for the fold into ``dist``: destinations drawn from a few
+    nodes (many lanes per destination); for ``add`` (whose value domain
+    is all of int32) values near the int32 limit, so the fold wraps."""
+    dist, src, _, w, valid = _random_lanes(rng, op, n, lanes)
+    dst = rng.integers(0, max(n // 8, 1), lanes).astype(np.int32)
+    if op.combine == "add":
+        dist = rng.integers(2 ** 30, 2 ** 31 - 1, n).astype(np.int32)
+    return dist, src, dst, w, valid
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+@pytest.mark.parametrize("n,lanes", [(7, 40), (120, 900)])
+def test_apply_relax_folds_into_a_running_mask(opname, n, lanes):
+    """The fold into ``dist`` (B2's plain version + apply_proposal) with
+    duplicate destinations, ``add``'s int32 wrap and a running
+    ``updated`` mask that is not empty, against the reference's XLA
+    ``_apply_relax`` (which ORs into the given mask); the port sets the
+    caller's mask in place."""
+    jop, top = jops.OPERATORS[opname], tops.OPERATORS[opname]
+    rng = _rng("fold", opname, n, lanes)
+    arrays = _fold_case(rng, jop, n, lanes)
+    running = rng.random(n) < 0.3
+    want = jax_apply_relax(*(jnp.asarray(a) for a in arrays[:1]),
+                           jnp.asarray(running),
+                           *(jnp.asarray(a) for a in arrays[1:]), op=jop)
+    mask = _t(running)
+    got = trelax.apply_relax(_t(arrays[0]), mask, *(_t(a) for a in
+                                                     arrays[1:]), op=top)
+    assert got[1] is mask
+    for g, w in zip(got, want):
+        _eq(g, w)
+    if jop.combine == "add":                 # the fold did wrap
+        dist, src, dst, _, valid = arrays
+        total = dist.astype(np.int64)
+        np.add.at(total, dst, np.where(valid & (dist[src] != 0),
+                                       dist[src].astype(np.int64), 0))
+        assert (total > np.iinfo(np.int32).max).any()
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+def test_apply_relax_folds_like_the_pallas_kernel(opname):
+    """The same fold against the reference's Pallas ``apply_relax``
+    (``repro.kernels.relax``, interpret mode)."""
+    jop, top = jops.OPERATORS[opname], tops.OPERATORS[opname]
+    rng = _rng("fold-pallas", opname)
+    arrays = _fold_case(rng, jop, 64, 300)
+    running = rng.random(64) < 0.3
+    jargs = [jnp.asarray(a) for a in arrays]
+    want = jax_relax.apply_relax(jargs[0], jnp.asarray(running), *jargs[1:],
+                                 op=jop, interpret=True)
+    got = trelax.apply_relax(_t(arrays[0]), _t(running),
+                             *(_t(a) for a in arrays[1:]), op=top)
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
 def _slack_ops():
     def jupdate(cand, cur):
         return cand + 2 < cur
@@ -276,3 +333,107 @@ def test_wd_relax_matches_reference_xla(weighted, cap_extra):
     got = wd_relax(tg, _t(dist), _t(frontier), _t(cursor), cap_work=cap)
     for a, b in zip(got, want):
         _eq(a, b)
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+@pytest.mark.parametrize("weighted", [True, False])
+def test_wd_relax_folds_into_a_running_mask(opname, weighted):
+    """The port's ``wd_relax`` given HP's running mask (B1's fold into
+    ``dist``), through a frontier with runs of zero-degree slots (cursors
+    past the end, as HP's tail has them), against the reference's XLA
+    ``wd_relax`` ORed into the same mask."""
+    g = jax_rmat_graph(scale=8, edge_factor=6, weighted=weighted, seed=7)
+    tg = CSRGraph.from_arrays(np.asarray(g.row_ptr), np.asarray(g.col),
+                              None if g.wt is None else np.asarray(g.wt),
+                              device="cpu")
+    jop, top = jops.OPERATORS[opname], tops.OPERATORS[opname]
+    rng = _rng("wdfold", opname, weighted)
+    frontier = np.full(160, -1, np.int32)
+    frontier[:150] = np.sort(rng.choice(g.num_nodes, 150, replace=False))
+    cursor = rng.integers(0, 2, 160).astype(np.int32)
+    cursor[20:70] = 1 << 20                  # runs of zero-degree slots
+    cursor[90:91] = 1 << 20
+    dist = rng.integers(0, 500, g.num_nodes).astype(np.int32)
+    if jop.combine == "min":
+        dist[rng.random(g.num_nodes) < 0.3] = jop.identity
+    running = rng.random(g.num_nodes) < 0.3
+    cap = 2048
+    want_dist, want_upd = jax_wd_relax(
+        g, jnp.asarray(dist), jnp.asarray(frontier), jnp.asarray(cursor),
+        cap_work=cap, op=jop)
+    mask = _t(running)
+    got_dist, got_upd = wd_relax(tg, _t(dist), _t(frontier), _t(cursor),
+                                 cap_work=cap, op=top, updated=mask)
+    assert got_upd is mask
+    _eq(got_dist, want_dist)
+    _eq(got_upd, np.asarray(want_upd) | running)
+
+
+# ---------------------------------------------------------------------------
+# what a BS column or HP tile issues on the card
+# ---------------------------------------------------------------------------
+
+class _AtenLog(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the ATen operators that run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def _as_if_on_the_card(monkeypatch):
+    """Take the wrappers' CUDA branch with CPU tensors and a fake launch
+    that records its kernel; returns the list of launched kernels."""
+    launched = []
+    for counts in ("LAUNCHES", "LANES"):    # the fake launches count apart
+        monkeypatch.setattr(trelax, counts, dict(getattr(trelax, counts)))
+    monkeypatch.setattr(trelax, "_dispatch", lambda dist, name: True)
+    monkeypatch.setattr(trelax, "_launch",
+                        lambda name, dev, *args: launched.append(name))
+    return launched
+
+
+def test_apply_relax_on_the_card_is_one_copy_and_one_launch(monkeypatch):
+    """Per BS column or HP tile, ``apply_relax`` on a CUDA tensor issues
+    one copy of ``dist`` (the target) and one B2 launch: no proposal
+    fill, no zeroed mask, no elementwise fold and no OR."""
+    launched = _as_if_on_the_card(monkeypatch)
+    dist, src, dst, w, valid = (_t(a) for a in _random_lanes(
+        np.random.default_rng(3), tops.shortest_path, 50, 300))
+    mask = torch.zeros(50, dtype=torch.bool)
+    before = trelax.LAUNCHES["relax_lanes"]
+    with _AtenLog() as log:
+        out, upd, _ = trelax.apply_relax(dist, mask, src, dst, w, valid)
+    assert launched == ["relax_lanes"]
+    assert trelax.LAUNCHES["relax_lanes"] == before + 1
+    assert upd is mask and out.data_ptr() != dist.data_ptr()
+    # the copy, and the uninitialised improve buffer the kernel writes
+    assert sorted(log.ops) == ["clone", "empty"]
+    slots = [_t(np.array(a, np.int32)) for a in ([3, 9], [0, 3], [0, 4],
+                                                  [1, 2])]
+    with _AtenLog() as log:
+        trelax.wd_apply_relax(dist, mask, *slots, dst, w, cap_work=16)
+    assert launched == ["relax_lanes", "wd_relax_lanes"]
+    assert sorted(log.ops) == ["clone", "empty"]
+
+
+def test_bs_column_is_one_launch(monkeypatch):
+    """``bs_relax`` launches B2 once per edge column, each through
+    ``apply_relax`` (one copy, one launch), and zeroes its mask once."""
+    from repro_torch.core.strategies import bs_relax
+    g = jax_rmat_graph(scale=6, edge_factor=4, weighted=True, seed=3)
+    tg = CSRGraph.from_arrays(np.asarray(g.row_ptr), np.asarray(g.col),
+                              np.asarray(g.wt), device="cpu")
+    frontier = torch.tensor([1, 5, 9, 30, -1, -1], dtype=torch.int32)
+    deg = np.diff(np.asarray(g.row_ptr))[[1, 5, 9, 30]]
+    launched = _as_if_on_the_card(monkeypatch)
+    with _AtenLog() as log:
+        bs_relax(tg, torch.zeros(g.num_nodes, dtype=torch.int32), frontier)
+    assert launched == ["relax_lanes"] * int(deg.max()) and deg.max() > 1
+    assert log.ops.count("clone") == int(deg.max())
+    for banned in ("minimum", "bitwise_or", "logical_or", "full_like"):
+        assert banned not in log.ops

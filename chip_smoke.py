@@ -25,20 +25,33 @@ Phases, each printing one JSON line:
    version;
 4. path  — the paper's rmat20 (``rmat_graph(scale=20, edge_factor=8,
    weighted=True, seed=1)``) from its highest-degree source: ``sssp`` with
-   WD, BS, HP and AD and ``bfs`` with WD on the card, each equal to an exact
-   Dijkstra oracle (scipy); WD equal to the same run on the CPU; all four
-   strategies at rmat16 equal to their CPU runs.  The launch counts are
-   set to 0 just before the five rmat20 runs and read just after them,
-   before anything else launches; they show B1 and B2 carried the path
-   (B3 is not on it and reads 0).  Each run also prints its mean lanes a
-   launch of B1 and B2 (``_build.LANES``).  Then the WD (B1) and BS, HP
-   and AD (B2) runs are run again, some of their kernel calls are kept
-   with the lanes and dist the path gave them (``path_calls``), and B1
-   and B2 are timed on those, in both contracts, L2-cold and warm; a
+   WD, BS, HP, AD, EP (chunked pushes) and NS and ``bfs`` with WD on the
+   card (``PATH_RUNS``), each equal to an exact Dijkstra oracle (scipy);
+   WD equal to the same run on the CPU; WD, BS, HP and AD at rmat16 equal
+   to their CPU runs.  The launch counts are set to 0 just before the
+   seven rmat20 runs and read just after them, before anything else
+   launches: the kernel line's B1 and B2 launches are those of all seven,
+   and show B1 and B2 carried the path (B3 is not on it and reads 0).
+   Each run also prints its mean lanes a launch of B1 and B2
+   (``_build.LANES``).  Then the WD (B1) and BS, HP, AD, EP and NS (B2)
+   runs are run again (``PATH_LANES``), some of their kernel calls are
+   kept with the lanes and dist the path gave them (``path_calls``), and
+   B1 and B2 are timed on those, in both contracts, L2-cold and warm; a
    traced ``apply_relax`` and ``wd_apply_relax`` must each be two device
    activities (the copy of dist and the launch).  The find_offsets entry point
    (``ops.wd_find_offsets``) is checked afterwards in its own phase, on
    rmat20's whole-graph degree prefix; its launch is in no row.
+   strategies_cpu: at rmat16, ``sssp`` EP with chunked and unchunked
+   pushes and NS, ``bfs`` EP and NS, each on the card equal to the CPU
+   (dist, iterations, edges_relaxed, every iteration's accounting) and to
+   the oracle.  memory_wall: EP's, WD's and NS's ``state_bytes`` at
+   rmat20, NS's split (MDT, children), and EP with a budget of the CSR's
+   bytes raising ``MemoryError`` with nothing allocated.  algos:
+   ``connected_components`` on the symmetrized rmat20 with WD, HP and NS
+   and at rmat16 with BS and AD (card and CPU), each equal to scipy's
+   components labelled by their minimum id; ``widest_path`` with all six
+   strategies on rmat20, all equal, and at rmat16, each equal to
+   ``reference_widest``.  None of these runs is in the counted window.
 5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
    heads, hd 128: S = 512 and 2048 bf16 causal, 512 f32, 512 bf16
    non-causal, ragged 1000) and B5 ``ssd_chunk_dual`` (8 chunks of 256, 48
@@ -64,8 +77,9 @@ Phases, each printing one JSON line:
    device activities, and the device's idle share (the traced device time
    over the median wall time of five untraced prefills of that prompt).
 
-Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line.  Any failed check raises, and the script exits non-zero.  Without a
+Every phase prints its seconds (``phase_seconds``).  Then one
+``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+Any failed check raises, and the script exits non-zero.  Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no result.
 """
 
@@ -587,10 +601,17 @@ def same_run(a, b) -> bool:
             and a.edges_relaxed == b.edges_relaxed)
 
 
+#: the main path's runs on rmat20: (algo, strategy); EP is the chunked
+#: push (its default)
+PATH_RUNS = (("sssp", "WD"), ("sssp", "BS"), ("sssp", "HP"), ("sssp", "AD"),
+             ("bfs", "WD"), ("sssp", "EP"), ("sssp", "NS"))
+
+
 def path_phase(g, dev):
-    """The main path on the rmat graph ``g``: the five runs, each equal to
-    the Dijkstra oracle.  The launch counts are set to 0 just before the
-    runs and read just after them; returns ``(launches, results,
+    """The main path on the rmat graph ``g``: the seven ``PATH_RUNS``,
+    each equal to the Dijkstra oracle.  The launch counts are set to 0
+    just before the runs and read just after them, so B1's and B2's
+    launches are those of all seven; returns ``(launches, results,
     per_run)``, the last each run's launches and mean lanes a launch of
     B1/B2."""
     import numpy as np
@@ -603,8 +624,8 @@ def path_phase(g, dev):
     oracle_u = dijkstra_oracle(g, source, weighted=False)
     sssp(g, source, strategy="WD", device=dev)           # warm-up, uncounted
 
-    runs = [("sssp", s, oracle_w) for s in ("WD", "BS", "HP", "AD")]
-    runs.append(("bfs", "WD", oracle_u))
+    runs = [(algo, strategy, oracle_w if algo == "sssp" else oracle_u)
+            for algo, strategy in PATH_RUNS]
     results, per_run = {}, {}
     for counts in (LAUNCHES, LANES):
         for key in counts:
@@ -627,6 +648,7 @@ def path_phase(g, dev):
              source=source, iterations=r.iterations,
              edges_relaxed=r.edges_relaxed,
              traversal_seconds=r.traversal_seconds, mteps=r.mteps,
+             setup_seconds=r.setup_seconds, state_bytes=r.state_bytes,
              kernel_counts=kernel_counts(r),
              launches=launched, mean_lanes_per_launch=mean_lanes,
              equals_oracle=True)
@@ -675,7 +697,9 @@ def device_activities(fn) -> list:
 PATH_LANES = (("wd_relax_lanes", ("sssp", "WD")),
               ("relax_lanes", ("sssp", "BS")),
               ("relax_lanes", ("sssp", "HP")),
-              ("relax_lanes", ("sssp", "AD")))
+              ("relax_lanes", ("sssp", "AD")),
+              ("relax_lanes", ("sssp", "EP")),
+              ("relax_lanes", ("sssp", "NS")))
 
 #: the wrapper through which each kernel runs on the path
 PATH_WRAPPER = {"wd_relax_lanes": "wd_apply_relax",
@@ -869,6 +893,177 @@ def cpu_compare_phase(g, dev, results, *, cpu_scale: int) -> None:
         emit("path_cpu_compare", graph=f"rmat{cpu_scale}", strategy=strategy,
              equal=True, iterations=runs2[0].iterations,
              edges_relaxed=runs2[0].edges_relaxed)
+
+
+def iteration_trace(r) -> list:
+    return [(st.frontier_size, st.edges_processed, st.sub_iterations,
+             st.kernel) for st in r.iter_stats]
+
+
+def strategies_cpu_phase(dev, *, scale: int) -> None:
+    """EP (chunked and unchunked pushes) and NS at rmat-``scale`` on the
+    card and on the CPU: ``(dist, iterations, edges_relaxed)`` and every
+    iteration's accounting equal, and dist equal to the Dijkstra
+    oracle."""
+    import numpy as np
+    from repro_torch.algos import bfs, sssp
+    from repro_torch.data import rmat_graph
+
+    g = rmat_graph(scale=scale, edge_factor=8, weighted=True, seed=1,
+                   device=dev)
+    source = int(g.degrees.argmax())
+    oracles = {"sssp": dijkstra_oracle(g, source, weighted=True),
+               "bfs": dijkstra_oracle(g, source, weighted=False)}
+    for algo, strategy, kw in (("sssp", "EP", {}),
+                               ("sssp", "EP", {"chunked": False}),
+                               ("sssp", "NS", {}), ("bfs", "EP", {}),
+                               ("bfs", "NS", {})):
+        fn = sssp if algo == "sssp" else bfs
+        t0 = time.perf_counter()
+        card, cpu = (fn(g, source, strategy=strategy, device=d, **kw)
+                     for d in (dev, "cpu"))
+        name = f"rmat{scale} {algo}-{strategy}{kw or ''}"
+        if not same_run(card, cpu) or (iteration_trace(card)
+                                       != iteration_trace(cpu)):
+            raise AssertionError(f"{name}: cuda != cpu")
+        if not np.array_equal(card.dist, oracles[algo]):
+            raise AssertionError(f"{name} != Dijkstra")
+        emit("strategies_cpu", graph=f"rmat{scale}", algo=algo,
+             strategy=strategy, chunked=kw.get("chunked", strategy == "EP"),
+             iterations=card.iterations, edges_relaxed=card.edges_relaxed,
+             state_bytes=card.state_bytes, equal=True, equals_oracle=True,
+             seconds=time.perf_counter() - t0)
+
+
+def memory_wall_phase(g, dev, results) -> None:
+    """EP's memory bill on ``g`` beside WD's and NS's (the path runs'
+    ``state_bytes``), NS's split of ``g``, and EP with a budget of the
+    CSR's bytes: ``MemoryError`` before anything is allocated on the
+    card."""
+    import torch
+    from repro_torch.algos import sssp
+    from repro_torch.core.graph import coo_bytes
+    from repro_torch.core.strategies import make_strategy
+
+    t0 = time.perf_counter()
+    csr = g.device_bytes()
+    ep, wd, ns = (results[("sssp", s)].state_bytes for s in ("EP", "WD",
+                                                             "NS"))
+    if ep != coo_bytes(g) or wd != csr:
+        raise AssertionError(f"state bytes EP {ep}, WD {wd}; want "
+                             f"{coo_bytes(g)}, {csr}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    try:
+        sssp(g, int(g.degrees.argmax()), strategy="EP",
+             memory_budget_bytes=csr, device=dev)
+    except MemoryError as e:
+        message = str(e)
+    else:
+        raise AssertionError("EP ran with a budget of the CSR's bytes")
+    allocated = torch.cuda.memory_allocated(dev) - before
+    if allocated:
+        raise AssertionError(f"EP allocated {allocated} bytes before its "
+                             f"memory wall")
+    split = make_strategy("NS").setup(g)
+    emit("memory_wall", graph=f"rmat{g.num_nodes.bit_length() - 1}",
+         csr_bytes=csr, ep_state_bytes=ep, ep_over_csr=ep / csr,
+         wd_state_bytes=wd, ns_state_bytes=ns, budget=csr,
+         memory_error=message, allocated_before_error=allocated,
+         ns_mdt=split.mdt, ns_nodes_split=int((g.degrees > split.mdt).sum()),
+         ns_children=split.num_children, ns_nodes=split.graph.num_nodes,
+         ns_max_degree=split.graph.max_degree,
+         seconds=time.perf_counter() - t0)
+
+
+def symmetrized(g, dev):
+    """The undirected copy of ``g``: every edge both ways, deduplicated,
+    unweighted (as the reference's CC tests build it)."""
+    import numpy as np
+    from repro_torch.core.graph import CSRGraph
+    src = np.repeat(np.arange(g.num_nodes), g.degrees.cpu().numpy())
+    dst = g.col.cpu().numpy()
+    return CSRGraph.from_edges(np.concatenate([src, dst]),
+                               np.concatenate([dst, src]), None, g.num_nodes,
+                               dedup=True, device=dev)
+
+
+def component_minima(g):
+    """scipy's connected components of the symmetric ``g``, each node
+    labelled with its component's minimum id."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+    n = g.num_nodes
+    m = sp.csr_matrix((np.ones(g.num_edges), g.col.cpu().numpy(),
+                       g.row_ptr.cpu().numpy()), shape=(n, n))
+    _, comp = connected_components(m, directed=False)
+    mins = np.full(comp.max() + 1, n)
+    np.minimum.at(mins, comp, np.arange(n))
+    return mins[comp].astype(np.int32)
+
+
+def algos_phase(g, dev, *, small_scale: int) -> None:
+    """Connected components and widest path.  CC on the symmetrized
+    ``g`` with WD, HP and NS, each equal to scipy's components; with BS
+    and AD at rmat-``small_scale``, on the card and the CPU, both equal to
+    scipy's.  Widest path on ``g`` with all six strategies, all equal;
+    at rmat-``small_scale`` each equal to ``reference_widest``."""
+    import numpy as np
+    from repro_torch.algos import (connected_components, reference_widest,
+                                   widest_path)
+    from repro_torch.data import rmat_graph
+
+    name = f"rmat{g.num_nodes.bit_length() - 1}"
+    small = rmat_graph(scale=small_scale, edge_factor=8, weighted=True,
+                       seed=1, device=dev)
+    small_name = f"rmat{small_scale}"
+    for graph, gname, strategies, devices in (
+            (g, name, ("WD", "HP", "NS"), (dev,)),
+            (small, small_name, ("BS", "AD"), (dev, "cpu"))):
+        t0 = time.perf_counter()
+        sym = symmetrized(graph, dev)
+        want = component_minima(sym)
+        emit("algos_cc_graph", graph=f"{gname}-sym", nodes=sym.num_nodes,
+             edges=sym.num_edges, max_degree=sym.max_degree,
+             components=int(np.unique(want).size),
+             seconds=time.perf_counter() - t0)
+        for strategy in strategies:
+            for d in devices:
+                t0 = time.perf_counter()
+                labels = connected_components(sym, strategy=strategy,
+                                              device=d)
+                if labels.shape != want.shape or not np.array_equal(labels,
+                                                                    want):
+                    raise AssertionError(f"CC-{strategy} on {gname}-sym "
+                                         f"({d}) != scipy")
+                emit("algos_cc", graph=f"{gname}-sym", strategy=strategy,
+                     device=str(d), equals_scipy=True,
+                     seconds=time.perf_counter() - t0)
+    strategies = ("BS", "EP", "WD", "NS", "HP", "AD")
+    for graph, gname in ((g, name), (small, small_name)):
+        source = int(graph.degrees.argmax())
+        oracle = (reference_widest(graph, source) if graph is small
+                  else None)
+        first = None
+        for strategy in strategies:
+            r = widest_path(graph, source, strategy=strategy, device=dev)
+            if r.dist.shape != (graph.num_nodes,):
+                raise AssertionError(f"widest-{strategy} on {gname}: shape "
+                                     f"{r.dist.shape}")
+            first = r.dist if first is None else first
+            if not np.array_equal(r.dist, first):
+                raise AssertionError(f"widest-{strategy} on {gname} != "
+                                     f"widest-{strategies[0]}")
+            if oracle is not None and not np.array_equal(r.dist, oracle):
+                raise AssertionError(f"widest-{strategy} on {gname} != "
+                                     f"reference_widest")
+            emit("algos_widest", graph=gname, strategy=strategy,
+                 source=source, iterations=r.iterations,
+                 edges_relaxed=r.edges_relaxed,
+                 traversal_seconds=r.traversal_seconds, mteps=r.mteps,
+                 equals_first=True, equals_reference_widest=(
+                     True if oracle is not None else None))
 
 
 # ---------------------------------------------------------------------------
@@ -1277,34 +1472,52 @@ def main() -> int:
     emit("graph", name="rmat20", nodes=g.num_nodes, edges=g.num_edges,
          max_degree=g.max_degree, seconds=time.perf_counter() - t0)
 
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t0
+        emit("phase_seconds", name=name, seconds=seconds[name])
+        return out
+
     # lane counts of B2 that are not multiples of its 512-lane block tile
     # or of the 2 lanes a thread takes: 1001, 2^20 + 3
-    rows = kernel_phase(g, dev, frontiers=(1 << 10, 1 << 14, 1 << 17, 1 << 20),
-                        lanes_list=(1001, 1 << 10, 1 << 16, (1 << 20) + 3,
-                                    1 << 23))
-    launches, results, per_run = path_phase(g, dev)
+    rows = timed("kernels", kernel_phase, g, dev,
+                 frontiers=(1 << 10, 1 << 14, 1 << 17, 1 << 20),
+                 lanes_list=(1001, 1 << 10, 1 << 16, (1 << 20) + 3, 1 << 23))
+    launches, results, per_run = timed("path", path_phase, g, dev)
     for row in rows:      # each row's launches: the main path's runs only
         row["launches"] = launches[row["name"]]
-    path_lanes_phase(g, dev, rows, per_run)
-    find_offsets_entry_phase(g, dev)
-    cpu_compare_phase(g, dev, results, cpu_scale=16)
-    del g, results
+    timed("path_lanes", path_lanes_phase, g, dev, rows, per_run)
+    timed("find_offsets_entry", find_offsets_entry_phase, g, dev)
+    timed("cpu_compare", cpu_compare_phase, g, dev, results, cpu_scale=16)
+    timed("strategies_cpu", strategies_cpu_phase, dev, scale=16)
+    timed("memory_wall", memory_wall_phase, g, dev, results)
+    del results
+    timed("algos", algos_phase, g, dev, small_scale=16)
+    del g
 
-    lm_rows = lm_kernel_phase(dev)
+    lm_rows = timed("lm_kernels", lm_kernel_phase, dev)
     # float32 on both devices (TF32 off), which differ in summation order
     # and libm ulps.  Mamba-2's SSD decay exp(cum_i - cum_j) subtracts
     # float32 cumsums of |cum| ~ 250 within a chunk, where one ulp is
     # 1.5e-5: a last-bit difference in dt moves a decay 100x more than it
     # moves a matmul, and 48 random-init layers amplify it
-    lm_cpu_phase(dev, "qwen3_0_6b", 512, rel_tol=1e-3)
-    lm_cpu_phase(dev, "mamba2_780m", 600, rel_tol=5e-3)
-    served = {"flash_attention": lm_serve_phase(dev, "qwen3_0_6b",
-                                                "flash_attention"),
-              "ssd_chunk_dual": lm_serve_phase(dev, "mamba2_780m",
-                                               "ssd_chunk_dual")}
+    timed("lm_cpu qwen3_0_6b", lm_cpu_phase, dev, "qwen3_0_6b", 512,
+          rel_tol=1e-3)
+    timed("lm_cpu mamba2_780m", lm_cpu_phase, dev, "mamba2_780m", 600,
+          rel_tol=5e-3)
+    served = {"flash_attention": timed(
+                  "lm_serve qwen3_0_6b", lm_serve_phase, dev, "qwen3_0_6b",
+                  "flash_attention"),
+              "ssd_chunk_dual": timed(
+                  "lm_serve mamba2_780m", lm_serve_phase, dev, "mamba2_780m",
+                  "ssd_chunk_dual")}
     for row in lm_rows:   # each row's launches: its own serving run
         row["launches"] = served[row["name"]][row["name"]]
     rows += lm_rows
+    emit("seconds", phases=seconds, total=sum(seconds.values()))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

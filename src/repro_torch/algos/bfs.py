@@ -10,8 +10,8 @@ from repro_torch.core.graph import CSRGraph
 def bfs(graph: CSRGraph, source: int = 0, strategy: str = "WD",
         record_degrees: bool = False, mode: str = "stepped",
         device="cuda", **strategy_kwargs) -> RunResult:
-    """BFS levels from ``source`` under ``strategy`` (BS, WD, HP or AD),
-    on the card unless ``device="cpu"``."""
+    """BFS levels from ``source`` under ``strategy`` (BS, EP, WD, NS, HP
+    or AD; EP takes ``chunked=``), on the card unless ``device="cpu"``."""
     strat = make_strategy(strategy, **strategy_kwargs)
     return run(graph.unweighted(), source, strat,
                record_degrees=record_degrees, mode=mode, device=device)

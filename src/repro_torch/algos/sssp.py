@@ -10,8 +10,9 @@ from repro_torch.core.graph import CSRGraph
 def sssp(graph: CSRGraph, source: int = 0, strategy: str = "WD",
          record_degrees: bool = False, mode: str = "stepped",
          device="cuda", **strategy_kwargs) -> RunResult:
-    """Shortest-path distances from ``source`` under ``strategy`` (BS, WD,
-    HP or AD), on the card unless ``device="cpu"``."""
+    """Shortest-path distances from ``source`` under ``strategy`` (BS, EP,
+    WD, NS, HP or AD; EP takes ``chunked=``), on the card unless
+    ``device="cpu"``."""
     if graph.wt is None:
         raise ValueError("SSSP needs a weighted graph")
     strat = make_strategy(strategy, **strategy_kwargs)

@@ -1,11 +1,14 @@
 # The paper's load-balancing strategies and their stepped engine, ported
 # to PyTorch (see the package docstring).
-from repro_torch.core.graph import CSRGraph, INF, graph_stats  # noqa: F401
-from repro_torch.core.engine import (run, make_strategy, RunResult,  # noqa: F401
-                                     ready, reference_distances)
+from repro_torch.core.graph import (CSRGraph, COOGraph, INF,  # noqa: F401
+                                    graph_stats)
+from repro_torch.core.engine import (run, run_batch, fixed_point,  # noqa: F401
+                                     make_strategy, RunResult, ready,
+                                     reference_distances)
 from repro_torch.core.operators import (EdgeOp, OPERATORS,  # noqa: F401
                                         register_operator, shortest_path,
                                         min_label, widest_path, reach_count)
 from repro_torch.core.strategies import (STRATEGIES, FRONTIER_INIT,  # noqa: F401
                                          register, strategy_capabilities)
-from repro_torch.core.node_split import find_mdt  # noqa: F401
+from repro_torch.core.node_split import find_mdt, split_graph  # noqa: F401
+from repro_torch.core import balance  # noqa: F401

@@ -4,7 +4,9 @@ loop), stepped mode.
 :func:`run` relaxes from one source to a fixed point under a registered
 strategy, one frontier iteration per step: the strategy launches its
 relax kernels, the host counts the next frontier, and the loop goes on
-while it is non-empty.  *What* is propagated is an
+while it is non-empty (EP: while its edge worklist is).
+:func:`fixed_point` does the same from a caller's ``(values, mask)``
+seeding (connected components).  *What* is propagated is an
 :class:`repro_torch.core.operators.EdgeOp` (``op=``, default
 ``shortest_path``).
 
@@ -26,7 +28,8 @@ from repro_torch.core import operators
 from repro_torch.core.graph import CSRGraph, INF, resolve_device
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.strategies import (  # noqa: F401  (re-exported)
-    IterStats, StrategyBase, make_strategy)
+    FRONTIER_INIT, EdgeBased, IterStats, NodeSplitting, StrategyBase,
+    make_strategy)
 
 
 @dataclasses.dataclass
@@ -89,18 +92,10 @@ def _not_ported(what: str, item: str):
         f"runs mode='stepped', single device, schedule='bsp'")
 
 
-def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
-        max_iterations: int = 100000, record_degrees: bool = False,
-        mode: str = "stepped", op="shortest_path",
-        shards: Optional[int] = None, schedule: str = "bsp",
-        delta: Optional[int] = None, device="cuda") -> RunResult:
-    """Fixed-point driver.  With the default ``shortest_path`` operator,
-    ``graph.wt is None`` ⇒ BFS levels, else SSSP distances.
-
-    ``device="cuda"`` (the default) moves the graph to the card and runs
-    the hand-written kernels; ``device="cpu"`` runs their plain PyTorch
-    versions.  ``mode="fused"``, ``shards=`` and ``schedule="delta"``
-    raise ``NotImplementedError``."""
+def _check_slice(mode: str, shards=None, schedule: str = "bsp",
+                 delta=None) -> None:
+    """Raise for what this slice does not run: ``NotImplementedError``
+    naming the ROADMAP item, ``ValueError`` for what no slice runs."""
     if mode == "fused":
         raise _not_ported("mode='fused'", "ROADMAP.md A7")
     if mode != "stepped":
@@ -112,6 +107,41 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
     if schedule != "bsp":
         raise ValueError(f"schedule must be 'bsp' or 'delta', got "
                          f"{schedule!r}")
+
+
+def _n_alloc(graph: CSRGraph, strategy: StrategyBase) -> int:
+    """Nodes of the value array: NS's split graph has its children too."""
+    if isinstance(strategy, NodeSplitting):
+        return strategy.split_info.graph.num_nodes
+    return graph.num_nodes
+
+
+def _original(dist: torch.Tensor, strategy: StrategyBase) -> np.ndarray:
+    """The values of the original nodes, on the host."""
+    if isinstance(strategy, NodeSplitting):
+        dist = strategy.split_info.extract_original(dist)
+    return dist.cpu().numpy()
+
+
+def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
+        max_iterations: int = 100000, record_degrees: bool = False,
+        mode: str = "stepped", op="shortest_path",
+        shards: Optional[int] = None, schedule: str = "bsp",
+        delta: Optional[int] = None, device="cuda") -> RunResult:
+    """Relax from ``source`` to a fixed point.  With the default
+    ``shortest_path`` operator, ``graph.wt is None`` ⇒ BFS levels, else
+    SSSP distances.
+
+    ``device="cuda"`` (the default) moves the graph to the card and runs
+    the hand-written kernels; ``device="cpu"`` runs their plain PyTorch
+    versions.  ``mode="fused"``, ``shards=`` and ``schedule="delta"``
+    raise ``NotImplementedError``.
+
+    EP runs by its edge worklist: each round relaxes the worklist and
+    books its length as that round's frontier and edges, and the loop
+    ends when the worklist is empty (one round before a node strategy's
+    would: nothing is left to relax from the last improved nodes)."""
+    _check_slice(mode, shards, schedule, delta)
     op = operators.resolve(op)
     dev = resolve_device(device)
     if not 0 <= int(source) < graph.num_nodes:
@@ -131,30 +161,46 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
     ready(graph.row_ptr)
     setup_s = time.perf_counter() - t0
 
-    n = graph.num_nodes
+    n = _n_alloc(graph, strategy)
     dist = torch.full((n,), op.identity, dtype=op.dtype, device=dev)
     dist[source] = op.seed(source)
-    mask = torch.zeros(n, dtype=torch.bool, device=dev)
-    mask[source] = True
 
     iter_stats: list[IterStats] = []
     kernel_s = 0.0
     edges = 0
-    count, it = 1, 0
+    it = 0
     t_start = time.perf_counter()
-    while count > 0 and it < max_iterations:
-        tk = time.perf_counter()
-        dist, mask, stats = strategy.iterate(
-            state, dist, mask, count, op=op, record_degrees=record_degrees)
-        ready(dist)
-        kernel_s += time.perf_counter() - tk
-        iter_stats.append(stats)
-        edges += stats.edges_processed
-        count = int(mask.sum())
-        it += 1
+    if isinstance(strategy, EdgeBased):
+        wl, count = strategy.initial_worklist(state, source)
+        while count > 0 and it < max_iterations:
+            tk = time.perf_counter()
+            relaxed = count          # worklist entries relaxed this round
+            dist, _, wl, count = strategy.relax_and_push(
+                state, dist, wl, count, op=op)
+            ready(dist)
+            kernel_s += time.perf_counter() - tk
+            edges += relaxed
+            iter_stats.append(IterStats(frontier_size=int(relaxed),
+                                        edges_processed=int(relaxed)))
+            it += 1
+    else:
+        mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        mask[source] = True
+        count = 1
+        while count > 0 and it < max_iterations:
+            tk = time.perf_counter()
+            dist, mask, stats = strategy.iterate(
+                state, dist, mask, count, op=op,
+                record_degrees=record_degrees)
+            ready(dist)
+            kernel_s += time.perf_counter() - tk
+            iter_stats.append(stats)
+            edges += stats.edges_processed
+            count = int(mask.sum())
+            it += 1
     total_s = time.perf_counter() - t_start
     return RunResult(
-        dist=dist.cpu().numpy(), iterations=len(iter_stats),
+        dist=_original(dist, strategy), iterations=len(iter_stats),
         total_seconds=total_s + setup_s, setup_seconds=setup_s,
         kernel_seconds=kernel_s,
         overhead_seconds=max(total_s - kernel_s, 0.0) + setup_s,
@@ -162,6 +208,49 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
         strategy=strategy.name, state_bytes=strategy.state_bytes(state),
         device=dev.type,
         work_schedule=getattr(strategy, "resolved_schedule", None))
+
+
+def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
+                op="shortest_path", mode: str = "stepped",
+                max_iterations: int = 100000, device="cuda"):
+    """Run a strategy to its fixed point from a caller-supplied seeding:
+    ``init(n_alloc)`` returns the initial ``(values, frontier_mask)`` on
+    the strategy's allocation (``n_alloc`` counts NS's children too; the
+    first ``ns_activate`` mirror overwrites whatever they were seeded
+    with).  Both are moved to the run's device, the values as
+    ``op.dtype``.  ``connected_components`` seeds every node with its own
+    label this way.
+
+    Needs a strategy declaring :data:`FRONTIER_INIT` (EP's edge worklist
+    cannot hold an arbitrary dense frontier).  Returns ``(values,
+    iterations, edges_relaxed)``, ``values`` a host array on the original
+    nodes.  ``mode="fused"`` raises ``NotImplementedError``, as in
+    :func:`run`."""
+    _check_slice(mode)
+    if FRONTIER_INIT not in strategy.capabilities:
+        raise ValueError(
+            f"strategy {strategy.name!r} does not declare the "
+            f"{FRONTIER_INIT!r} capability; seeding an arbitrary frontier "
+            f"needs a node strategy")
+    op = operators.resolve(op)
+    dev = resolve_device(device)
+    graph = graph.to(dev)
+    state = strategy.setup(graph)
+    values, mask = init(_n_alloc(graph, strategy))
+    dist = torch.as_tensor(values).to(dev, op.dtype)
+    mask = torch.as_tensor(mask).to(dev, torch.bool)
+    count, it, edges = int(mask.sum()), 0, 0
+    while count > 0 and it < max_iterations:
+        dist, mask, stats = strategy.iterate(state, dist, mask, count, op=op)
+        edges += stats.edges_processed
+        count = int(mask.sum())
+        it += 1
+    return _original(dist, strategy), it, edges
+
+
+def run_batch(graph: CSRGraph, sources, **kwargs):
+    """K sources against one graph at once: a later slice."""
+    raise _not_ported("run_batch", "ROADMAP.md A8")
 
 
 def reference_distances(graph: CSRGraph, source: int) -> np.ndarray:

@@ -1,10 +1,16 @@
-"""CSR graph container of the PyTorch port.
+"""Graph containers of the PyTorch port.
 
-The same format as :mod:`repro.core.graph`: ``row_ptr [N+1]``, ``col [E]``
-and optional ``wt [E]``, all int32 tensors on one device, plus the static
-``num_nodes``/``num_edges``/``max_degree``.  Graphs are built host-side in
-numpy (same dedup, same stable sort as the reference) and then moved to
-their device once.
+The same formats as :mod:`repro.core.graph`:
+
+* :class:`CSRGraph` — ``row_ptr [N+1]``, ``col [E]`` and optional
+  ``wt [E]``, all int32 tensors on one device, plus the static
+  ``num_nodes``/``num_edges``/``max_degree``.  Graphs are built host-side
+  in numpy (same dedup, same stable sort as the reference) and then moved
+  to their device once.
+* :class:`COOGraph` — the per-edge ``src``/``dst``/``wt`` lists that EP
+  needs (paper §II-B), plus ``row_ptr`` for its chunked pushes: ``2E``
+  (``3E`` weighted) + ``N + 1`` int32, the memory bill the paper holds
+  against EP on large graphs (:meth:`COOGraph.device_bytes`).
 """
 
 from __future__ import annotations
@@ -66,6 +72,14 @@ class CSRGraph:
         return dataclasses.replace(
             self, row_ptr=self.row_ptr.to(dev), col=self.col.to(dev),
             wt=None if self.wt is None else self.wt.to(dev))
+
+    def to_coo(self) -> "COOGraph":
+        """Expand CSR to COO, the conversion EP requires: every edge
+        carries its source id (the 2E memory cost)."""
+        return COOGraph(src=expand_row_ptr(self.row_ptr, self.num_edges),
+                        dst=self.col, wt=self.wt, num_nodes=self.num_nodes,
+                        num_edges=self.num_edges, max_degree=self.max_degree,
+                        row_ptr=self.row_ptr)
 
     def unweighted(self) -> "CSRGraph":
         """The same graph without weights (every edge counts 1)."""
@@ -130,6 +144,63 @@ class CSRGraph:
         row_ptr = np.zeros(num_nodes + 1, np.int32)
         np.cumsum(counts, out=row_ptr[1:])
         return cls.from_arrays(row_ptr, dst, wt, device=device)
+
+
+@dataclasses.dataclass
+class COOGraph:
+    """COO graph for edge-based parallelism.  Keeps ``row_ptr`` for the
+    work-chunked worklist pushes (one output range per node)."""
+
+    src: torch.Tensor           # [E] int32
+    dst: torch.Tensor           # [E] int32
+    wt: Optional[torch.Tensor]  # [E] int32
+    num_nodes: int
+    num_edges: int
+    max_degree: int
+    row_ptr: Optional[torch.Tensor] = None  # [N+1], for chunked pushes
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+    def device_bytes(self) -> int:
+        return _field_bytes(self.src, self.dst, self.wt, self.row_ptr)
+
+    def weight_or_one(self) -> torch.Tensor:
+        if self.wt is not None:
+            return self.wt
+        return torch.ones(self.num_edges, dtype=torch.int32,
+                          device=self.device)
+
+    def to(self, device) -> "COOGraph":
+        """This graph on ``device`` (itself when it already lies there)."""
+        dev = resolve_device(device)
+        if self.device == dev:
+            return self
+
+        def move(t):
+            return None if t is None else t.to(dev)
+        return dataclasses.replace(
+            self, src=move(self.src), dst=move(self.dst), wt=move(self.wt),
+            row_ptr=move(self.row_ptr))
+
+
+def coo_bytes(g: CSRGraph) -> int:
+    """What :meth:`CSRGraph.to_coo` would hold on the device, computed
+    from the shapes alone (nothing is allocated)."""
+    per_edge = 2 if g.wt is None else 3
+    return 4 * (per_edge * g.num_edges + g.num_nodes + 1)
+
+
+def expand_row_ptr(row_ptr: torch.Tensor, num_edges: int) -> torch.Tensor:
+    """CSR ``row_ptr`` -> the source id of every edge: node ``n`` repeated
+    ``degree(n)`` times, zero-degree nodes contributing nothing (the
+    reference builds the same array by a scatter-max and a running
+    max)."""
+    n = row_ptr.numel() - 1
+    ids = torch.arange(n, dtype=torch.int32, device=row_ptr.device)
+    return torch.repeat_interleave(ids, row_ptr[1:] - row_ptr[:-1],
+                                   output_size=num_edges)
 
 
 def graph_stats(g: CSRGraph) -> dict:

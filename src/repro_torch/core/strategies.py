@@ -4,26 +4,31 @@ Strategy        unit of work                     kernel
 --------        ------------                     ------
 BS  (baseline)  node; one lane per frontier      B2 per edge column
                 slot, looping over its edges
+EP  (edge)      edge; one lane per COO edge      B2 per iteration
+                worklist entry (2E–3E memory)
 WD  (workload   edge; merge-path search over     B1
      decomp.)   the frontier's degree prefix
+NS  (node       node, after splitting deg>MDT    B2 per edge column of
+     split)     nodes into ⌈deg/MDT⌉ children    the split graph
 HP  (hier.)     ≤MDT edges/node/sub-iteration;   B2 per [cap, MDT] tile,
                 WD for the small remainder       B1 for the tail
 AD  (adaptive)  per-iteration choice of BS/WD/HP from frontier statistics
                 (arXiv:1911.09135)
 
-EP and NS come in later slices (ROADMAP.md A6).  Strategies live in the
-:data:`STRATEGIES` registry (:func:`register`, :func:`make_strategy`).
+Strategies live in the :data:`STRATEGIES` registry (:func:`register`,
+:func:`make_strategy`).
 
 Every relax goes through :mod:`repro_torch.kernels.relax`, which runs the
 CUDA kernels for CUDA tensors and their plain PyTorch versions for CPU
-tensors.  The chunk schedule is the reference's (one B2 launch per BS
-column, per HP tile; one B1 launch per WD iteration and per HP tail), and
-each launch reads one snapshot of ``dist`` and folds its candidates into
-a copy of it (``apply_relax``, ``wd_apply_relax``), so ``(dist,
-iterations, edges_relaxed)`` equal the reference's stepped engine bit for
-bit.  The running ``updated`` mask of an iteration is set in place by
-each launch.  The drivers sync to the host between
-launches (frontier counts, column counts); that is what stepped mode is.
+tensors.  The chunk schedule is the reference's (one B2 launch per BS or
+NS column, per HP tile, per EP worklist; one B1 launch per WD iteration
+and per HP tail), and each launch reads one snapshot of ``dist`` and
+folds its candidates into a copy of it (``apply_relax``,
+``wd_apply_relax``), so ``(dist, iterations, edges_relaxed)`` equal the
+reference's stepped engine bit for bit.  The running ``updated`` mask of
+an iteration is set in place by each launch.  The strategies sync to
+the host between launches (frontier counts, column counts, worklist sizes);
+that is what stepped mode is.
 """
 
 from __future__ import annotations
@@ -36,15 +41,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import operators
-from repro_torch.core.graph import CSRGraph
+from repro_torch.core import node_split
+from repro_torch.core.graph import COOGraph, CSRGraph, coo_bytes
 from repro_torch.core.operators import EdgeOp
 from repro_torch.core.schedule import (
     Schedule, default_schedule, resolve_overrides)
-from repro_torch.core.worklist import bucket, compact_mask
+from repro_torch.core.worklist import bucket, compact_mask, run_fill
 from repro_torch.kernels import relax
 
 
-def _edge_weight(g: CSRGraph, eidx: torch.Tensor) -> torch.Tensor:
+def _edge_weight(g, eidx: torch.Tensor) -> torch.Tensor:
     if g.wt is not None:
         return g.wt[eidx]
     return torch.ones_like(eidx)
@@ -79,6 +85,42 @@ def bs_relax(g: CSRGraph, dist, frontier, *,
 
 
 # ---------------------------------------------------------------------------
+# EP — edge-based parallelism over a COO edge worklist
+# ---------------------------------------------------------------------------
+
+def ep_relax(coo: COOGraph, dist, edge_wl, *,
+             op: EdgeOp = operators.shortest_path):
+    """One lane per worklist edge, one B2 launch (paper §II-B).  Returns
+    ``(dist, updated, improve, dst)``: the lanes' destinations and which
+    of them improved feed the unchunked push."""
+    mask = edge_wl >= 0
+    e = torch.where(mask, edge_wl, 0)
+    dst = coo.dst[e]
+    dist, updated, improve = relax.apply_relax(
+        dist, _new_mask(dist), coo.src[e], dst, _edge_weight(coo, e), mask,
+        op=op)
+    return dist, updated, improve, dst
+
+
+def ep_push_chunked(row_ptr, updated_mask, total: int, *, cap_out: int):
+    """Work-chunked push (§IV-D): ONE output range per updated node, in
+    ascending node order, holding its adjacency run."""
+    nodes = torch.nonzero(updated_mask).flatten()
+    wl, _ = run_fill(row_ptr[nodes], row_ptr[nodes + 1] - row_ptr[nodes],
+                     total, cap_out)
+    return wl
+
+
+def ep_push_unchunked(row_ptr, improve, dst, total: int, *, cap_out: int):
+    """Per-edge push (the default the paper compares against in Fig. 11):
+    every improving *edge* pushes its destination's whole adjacency run,
+    so a node improved by k edges is pushed k times."""
+    deg = torch.where(improve, row_ptr[dst + 1] - row_ptr[dst], 0)
+    wl, _ = run_fill(row_ptr[dst], deg, total, cap_out)
+    return wl
+
+
+# ---------------------------------------------------------------------------
 # WD — workload decomposition (merge path over the frontier's edges)
 # ---------------------------------------------------------------------------
 
@@ -100,6 +142,18 @@ def wd_relax(g: CSRGraph, dist, frontier, cursor, *, cap_work: int,
         dist, _new_mask(dist) if updated is None else updated, prefix,
         exclusive, start, f, g.col, g.wt, cap_work=cap_work, op=op)
     return dist, updated
+
+
+# ---------------------------------------------------------------------------
+# NS — node splitting (the split graph is built in node_split.py)
+# ---------------------------------------------------------------------------
+
+def ns_activate(dist2, mask2, child_parent):
+    """Mirror every parent's value onto its children and activate the
+    children of an active parent (paper §III-B).  Children receive no
+    in-edges (destinations are always parent ids), so a child's value is
+    only ever its parent's: a gather, right for every operator."""
+    return dist2[child_parent], mask2 | mask2[child_parent]
 
 
 # ---------------------------------------------------------------------------
@@ -167,9 +221,6 @@ PRIORITY_SCHEDULE = "priority_schedule"
 #: with their slices.
 DEFAULT_CAPABILITIES = frozenset({FRONTIER_INIT})
 
-#: built-ins the port has not reached yet -> the ROADMAP item
-NOT_PORTED = {"EP": "ROADMAP.md A6 (EP)", "NS": "ROADMAP.md A6 (NS)"}
-
 
 class StrategyBase:
     """A strategy = host preprocessing + one frontier-relax iteration.
@@ -225,10 +276,6 @@ def register(cls=None, *, name: Optional[str] = None,
 def _lookup(name: str) -> type:
     if name in STRATEGIES:
         return STRATEGIES[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported to repro_torch yet "
-            f"({NOT_PORTED[name]})")
     raise KeyError(f"unknown strategy {name!r}; registered: "
                    f"{sorted(STRATEGIES)}")
 
@@ -271,6 +318,70 @@ class NodeBased(StrategyBase):
 
 
 @register
+class EdgeBased(StrategyBase):
+    """EP.  State = the COO graph (+ its 2E/3E memory bill); the engine
+    drives it by an edge worklist (:meth:`initial_worklist`,
+    :meth:`relax_and_push`), not by :meth:`iterate`.
+
+    No :data:`FRONTIER_INIT`: the worklist is seeded from one source's
+    adjacency run, so an algorithm needing an arbitrary initial frontier
+    (CC's every-node-active seeding) must pick a node strategy."""
+    name = "EP"
+    capabilities = frozenset()
+
+    def __init__(self, chunked: bool = True,
+                 memory_budget_bytes: Optional[int] = None,
+                 schedule: Optional[Schedule] = None):
+        super().__init__(schedule=resolve_overrides(self.name, schedule))
+        self.chunked = chunked
+        self.memory_budget_bytes = memory_budget_bytes
+
+    def setup(self, graph: CSRGraph):
+        need = coo_bytes(graph)
+        if (self.memory_budget_bytes is not None
+                and need > self.memory_budget_bytes):
+            # "EP fails to execute for large graphs due to insufficient
+            # memory" (paper §IV); raised before the COO is allocated
+            raise MemoryError(
+                f"EP COO storage needs {need} bytes > budget "
+                f"{self.memory_budget_bytes} (paper §II-B memory wall)")
+        self._degrees = graph.degrees
+        return graph.to_coo()
+
+    def initial_worklist(self, coo: COOGraph, source: int):
+        """The source's adjacency run as a worklist ``[bucket(deg)]``
+        padded with -1, and its length."""
+        start, end = coo.row_ptr[source:source + 2].tolist()
+        deg = end - start
+        wl = torch.full((bucket(deg, self.schedule.min_bucket),), -1,
+                        dtype=torch.int32, device=coo.device)
+        wl[:deg] = torch.arange(start, end, dtype=torch.int32,
+                                device=coo.device)
+        return wl, deg
+
+    def relax_and_push(self, coo, dist, edge_wl, count, *,
+                       op: EdgeOp = operators.shortest_path):
+        """Relax the worklist (one B2 launch) and push the next one.
+        Returns ``(dist, updated, next worklist, its length)``."""
+        min_bucket = self.schedule.min_bucket
+        dist, new_mask, improve, dst = ep_relax(coo, dist, edge_wl, op=op)
+        if not self.chunked:
+            total = int(torch.where(improve, self._degrees[dst], 0).sum())
+            if total <= 2 * coo.num_edges:
+                wl = ep_push_unchunked(coo.row_ptr, improve, dst, total,
+                                       cap_out=bucket(total, min_bucket))
+                return dist, new_mask, wl, total
+            # worklist explosion (paper §II-B): duplicates spawn duplicates
+            # geometrically, so condense — every improved node once, in
+            # ascending order (the reference's sort + unique), which is
+            # the chunked push of the updated mask
+        total = int(torch.where(new_mask, self._degrees, 0).sum())
+        wl = ep_push_chunked(coo.row_ptr, new_mask, total,
+                             cap_out=bucket(total, min_bucket))
+        return dist, new_mask, wl, total
+
+
+@register
 class WorkloadDecomposition(StrategyBase):
     name = "WD"
 
@@ -285,6 +396,43 @@ class WorkloadDecomposition(StrategyBase):
             g, dist, frontier, cursor,
             cap_work=bucket(stats.edges_processed, sched.min_bucket), op=op)
         return dist, new_mask, stats
+
+
+@register
+class NodeSplitting(StrategyBase):
+    """NS: BS over the split graph (max degree ≤ MDT), after mirroring
+    every parent's value and activity onto its children."""
+    name = "NS"
+
+    def __init__(self, histogram_bins: Optional[int] = None,
+                 mdt: Optional[int] = None,
+                 schedule: Optional[Schedule] = None):
+        super().__init__(schedule=resolve_overrides(
+            self.name, schedule, histogram_bins=histogram_bins, mdt=mdt))
+        self.histogram_bins = self.schedule.histogram_bins
+        self.mdt = self.schedule.mdt
+        self.split_info: Optional[node_split.SplitGraph] = None
+
+    def setup(self, graph: CSRGraph):
+        self.resolved_schedule = self.schedule.resolved(
+            graph.degrees.cpu().numpy())
+        self.split_info = node_split.split_graph(
+            graph, self.resolved_schedule.mdt)
+        return self.split_info
+
+    def iterate(self, sg, dist, updated_mask, count, *,
+                op: EdgeOp = operators.shortest_path, record_degrees=False):
+        g2 = sg.graph
+        dist, mask2 = ns_activate(dist, updated_mask, sg.child_parent)
+        count2 = int(mask2.sum())
+        frontier = compact_mask(mask2, bucket(count2,
+                                              self.schedule.min_bucket))
+        stats = _frontier_stats(g2, frontier, count2, record_degrees)
+        dist, new_mask = bs_relax(g2, dist, frontier, op=op)
+        return dist, new_mask, stats
+
+    def state_bytes(self, sg):
+        return sg.graph.device_bytes() + sg.child_parent.numel() * 4
 
 
 @register

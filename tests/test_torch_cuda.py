@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (the relax kernels exactly, B4/B5 within tests/test_kernels.py's
-tolerances), the wrappers' argument checks, the stepped engine and the
-serving loop on the card against the CPU.  Every test here needs a CUDA
+tolerances), the wrappers' argument checks, the stepped engine (all six
+strategies, connected components, widest path) and the serving loop on
+the card against the CPU.  Every test here needs a CUDA
 device and skips
 without one.  The file imports neither JAX nor ``repro``, so it runs on a
 machine without JAX:
@@ -13,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.algos import bfs, sssp
+from repro_torch.algos import (bfs, connected_components, reference_widest,
+                               sssp, widest_path)
 from repro_torch.core import operators
+from repro_torch.core.graph import CSRGraph
 from repro_torch.data import rmat_graph
 from repro_torch.kernels import find_offsets as fo
 from repro_torch.kernels import relax
@@ -244,17 +247,61 @@ def test_custom_operator_on_cuda_raises(dev):
         relax.relax_lanes(*args, op=op)
 
 
-@pytest.mark.parametrize("strategy", ["WD", "BS", "HP", "AD"])
-def test_engine_on_the_card_matches_cpu(dev, strategy):
+#: (strategy, its kwargs) of the engine runs held card against CPU
+ENGINE_RUNS = {"WD": ("WD", {}), "BS": ("BS", {}), "HP": ("HP", {}),
+               "AD": ("AD", {}), "EP": ("EP", {}),
+               "EP-unchunked": ("EP", {"chunked": False}), "NS": ("NS", {})}
+
+
+def _trace(r):
+    return [(s.frontier_size, s.edges_processed, s.sub_iterations, s.kernel)
+            for s in r.iter_stats]
+
+
+@pytest.mark.parametrize("run", list(ENGINE_RUNS))
+def test_engine_on_the_card_matches_cpu(dev, run):
+    strategy, kwargs = ENGINE_RUNS[run]
     g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
     src = int(g.degrees.argmax())
     for fn in (sssp, bfs):
-        a = fn(g, src, strategy=strategy, device=dev)
-        b = fn(g, src, strategy=strategy, device="cpu")
+        a = fn(g, src, strategy=strategy, device=dev, **kwargs)
+        b = fn(g, src, strategy=strategy, device="cpu", **kwargs)
         assert a.device == "cuda" and b.device == "cpu"
         np.testing.assert_array_equal(a.dist, b.dist)
         assert (a.iterations, a.edges_relaxed) == (b.iterations,
                                                    b.edges_relaxed)
+        assert _trace(a) == _trace(b)
+        assert a.state_bytes == b.state_bytes
+
+
+def _symmetrized(g):
+    src = np.repeat(np.arange(g.num_nodes), g.degrees.numpy())
+    dst = g.col.numpy()
+    return CSRGraph.from_edges(np.concatenate([src, dst]),
+                               np.concatenate([dst, src]), None, g.num_nodes,
+                               dedup=True, device="cpu")
+
+
+@pytest.mark.parametrize("strategy", ["BS", "WD", "NS", "HP", "AD"])
+def test_connected_components_on_the_card_matches_cpu(dev, strategy):
+    g = _symmetrized(rmat_graph(scale=12, weighted=False, seed=3,
+                                device="cpu"))
+    a = connected_components(g, strategy=strategy, device=dev)
+    b = connected_components(g, strategy=strategy, device="cpu")
+    np.testing.assert_array_equal(a, b)
+    assert (a <= np.arange(g.num_nodes)).all() and (a[a] == a).all()
+
+
+@pytest.mark.parametrize("strategy", ["BS", "EP", "WD", "NS", "HP", "AD"])
+def test_widest_path_on_the_card_matches_cpu(dev, strategy):
+    g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
+    src = int(g.degrees.argmax())
+    a = widest_path(g, src, strategy=strategy, device=dev)
+    b = widest_path(g, src, strategy=strategy, device="cpu")
+    np.testing.assert_array_equal(a.dist, b.dist)
+    assert (a.iterations, a.edges_relaxed) == (b.iterations,
+                                               b.edges_relaxed)
+    np.testing.assert_array_equal(a.dist, reference_widest(g, src))
 
 
 # ---------------------------------------------------------------------------

@@ -199,9 +199,18 @@ def test_later_slices_raise_not_implemented(kwargs):
 
 
 def test_unported_strategies_and_options_raise():
+    """EP and NS build, with the reference's capability flags less those
+    whose slices are not ported (PALLAS_BACKEND has no meaning in the
+    port; SHARDABLE and PRIORITY_SCHEDULE arrive with A11 and A10)."""
+    from repro.core import strategies as jstrategies
+    later = {jstrategies.PALLAS_BACKEND, jstrategies.SHARDABLE,
+             jstrategies.PRIORITY_SCHEDULE}
     for name in ("EP", "NS"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_strategy(name)
+        assert make_strategy(name).name == name
+        assert strategy_capabilities(name) == (
+            jstrategies.strategy_capabilities(name) - later)
+    assert strategy_capabilities("EP") == frozenset()
+    assert strategy_capabilities("NS") == frozenset({"frontier_init"})
     with pytest.raises(NotImplementedError, match="A9"):
         make_strategy("AD", cost_model=object())
     with pytest.raises(KeyError):

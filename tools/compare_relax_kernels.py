@@ -9,9 +9,10 @@ trees' kernels are built (``compare_lm_kernels.build_libraries``: one
 subprocess per tree, both at once) and loaded with ``ctypes`` into this
 process.  The inputs are the main path's own: on rmat20
 (``rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1)``,
-highest-degree source) this checkout runs ``sssp`` WD, BS, HP and AD once
-to count their launches, then keeps one B1 (WD) or B2 (BS, HP, AD) launch
-of each stratum of a run's launches, with dist as it stood, as
+highest-degree source) this checkout runs each ``sssp`` run of
+``chip_smoke.PATH_LANES`` once to count its launches, then keeps one B1
+(WD) or B2 (BS, HP, AD, EP, NS) launch of each stratum of a run's
+launches, with dist as it stood, as
 ``chip_smoke.py``'s path_lanes phase keeps them
 (``chip_smoke.path_calls``: strata by the power of 2 of the lanes and of
 the valid lanes, each kept launch weighted by its stratum's size).  On
@@ -60,14 +61,14 @@ TREES = ("baseline", "this")
 TIMERS = ("ms_cold", "ms_warm")
 
 
-def path_launches(g, dev) -> dict:
+def path_launches(g, dev, strategies) -> dict:
     """strategy -> launches of B1/B2 in this checkout's ``sssp`` run on
-    ``g``, and HP's MDT."""
+    ``g``, and its MDT."""
     from repro_torch.algos import sssp
     from repro_torch.kernels.relax import LANES, LAUNCHES
     source = int(g.degrees.argmax())
     out = {}
-    for strategy in ("WD", "BS", "HP", "AD"):
+    for strategy in strategies:
         for counts in (LAUNCHES, LANES):
             for key in counts:
                 counts[key] = 0
@@ -152,7 +153,8 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
     g = rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1,
                    device=dev)
-    shapes = path_launches(g, dev)
+    strategies = [run[1] for _, run in cs.PATH_LANES]
+    shapes = path_launches(g, dev, strategies)
     print(json.dumps({"path_shapes": shapes}), flush=True)
     op = operators.shortest_path
     msg, comb = op.kernel_codes()
@@ -285,7 +287,7 @@ def main() -> int:
                 "baseline_over_this": {
                     t: mean["baseline"][t] / mean["this"][t]
                     for t in TIMERS}}), flush=True)
-    for strategy in ("WD", "BS", "HP", "AD"):
+    for strategy in strategies:
         device = {name: [] for name in TREES}
         for _ in range(args.rounds):
             for name in ("baseline", "this", "this", "baseline"):

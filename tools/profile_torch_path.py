@@ -3,7 +3,7 @@
 
     python3 tools/profile_torch_path.py
 
-Runs ``sssp`` (WD, BS, HP, AD) and ``bfs`` (WD) of ``repro_torch`` on
+Runs ``sssp`` (WD, BS, HP, AD, EP, NS) and ``bfs`` (WD) of ``repro_torch`` on
 ``rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1)`` from its
 highest-degree source, each once untraced (wall time, MTEPS) and once under
 ``torch.profiler``.  For each run it prints one JSON line: traversal
@@ -46,7 +46,8 @@ def main() -> int:
     source = int(g.degrees.argmax())
     sssp(g, source, strategy="WD")                      # warm-up
     for algo, strategy in (("sssp", "WD"), ("sssp", "BS"), ("sssp", "HP"),
-                           ("sssp", "AD"), ("bfs", "WD")):
+                           ("sssp", "AD"), ("bfs", "WD"), ("sssp", "EP"),
+                           ("sssp", "NS")):
         fn = sssp if algo == "sssp" else bfs
         r = fn(g, source, strategy=strategy)
         with profile(activities=[ProfilerActivity.CPU,

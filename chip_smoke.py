@@ -52,6 +52,16 @@ Phases, each printing one JSON line:
    components labelled by their minimum id; ``widest_path`` with all six
    strategies on rmat20, all equal, and at rmat16, each equal to
    ``reference_widest``.  None of these runs is in the counted window.
+   fused: ``mode="fused"``, one launch of the persistent kernel
+   ``csrc/fused.cu`` a traversal.  The seven rmat20 runs fused, each equal
+   to the oracle and to its stepped card run above in ``(dist,
+   iterations, edges_relaxed)`` and AD's choices; the launch counts are
+   set to 0 just before them and read just after (seven fused launches,
+   no B1/B2 launch: the kernel line's fused row).  The kernel against its
+   plain loop on the same card tensors for all six strategies at rmat16
+   and sssp-WD at rmat20, timed there; fused and stepped runs
+   interleaved on rmat20 (median ms, MTEPS, spread, ratio); one traced
+   fused traversal per run (one fused kernel, no B1/B2; the idle share).
 5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
    heads, hd 128: S = 512 and 2048 bf16 causal, 512 f32, 512 bf16
    non-causal, ragged 1000) and B5 ``ssd_chunk_dual`` (8 chunks of 256, 48
@@ -1067,6 +1077,197 @@ def algos_phase(g, dev, *, small_scale: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the fused fixed point, one launch a traversal
+# ---------------------------------------------------------------------------
+
+CSRC_FUSED = "src/repro_torch/kernels/csrc/fused.cu"
+#: the reference loop the fused kernel stands for (not a pallas_call)
+FUSED_REPLACES = "src/repro/core/fused.py:389"
+#: interleaved fused/stepped rounds on rmat20 (BS's stepped run is ~2 s)
+FUSED_ROUNDS = 3
+
+
+def engine_run(g, algo: str, strategy: str, source: int, dev, mode: str):
+    """One ``sssp`` or ``bfs`` traversal through ``engine.run``; returns
+    the result and the strategy (AD's ``kernel_counts``)."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    strat = make_strategy(strategy)
+    graph = g if algo == "sssp" else g.unweighted()
+    return engine.run(graph, source, strat, mode=mode, device=dev), strat
+
+
+def fused_args(g, strategy: str, source: int, op, dev):
+    """The fused kernel's arguments for ``strategy`` on ``g`` from
+    ``source``: ``(kernel, graph, aux, dist, mask)`` and the keywords."""
+    import torch
+    from repro_torch.core import fused
+    from repro_torch.core.strategies import make_strategy
+    strat = make_strategy(strategy)
+    plan = fused._plan(strat, strat.setup(g), g)
+    n = plan.graph.num_nodes
+    dist = torch.full((n,), op.identity, dtype=torch.int32, device=dev)
+    dist[source] = op.seed(source)
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[source] = True
+    return ((plan.kernel, plan.graph, plan.aux, dist, mask),
+            dict(op=op, sched=plan.sched, max_iterations=100000))
+
+
+def fused_phase(g, dev, stepped, *, small_scale: int,
+                rounds: int = FUSED_ROUNDS) -> dict:
+    """``mode="fused"`` on the card.  On ``g`` (rmat20) from the path
+    phase's source, the seven ``PATH_RUNS`` fused, each equal to the
+    Dijkstra oracle and to the stepped card run of the path phase in
+    ``(dist, iterations, edges_relaxed)`` and AD's kernel choices; the
+    launch counts are set to 0 just before them and read just after (one
+    fused launch each, no B1/B2 launch).  The kernel against its plain
+    version on the same card tensors for all six strategies at
+    rmat-``small_scale``, and for sssp-WD on ``g``, where both are timed
+    for the kernel line.  Then fused and stepped runs interleaved
+    (``rounds`` each, after the warm runs above): median traversal ms,
+    MTEPS, spread and fused/stepped ratio per run; then one traced fused
+    traversal per run: its device activities (exactly one fused kernel,
+    no B1/B2) and the device's idle share.  Returns the kernel line's
+    row."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import fused, operators
+    from repro_torch.data import rmat_graph
+    from repro_torch.kernels import fused as fused_kernel
+    from repro_torch.kernels.relax import LAUNCHES
+
+    name = f"rmat{g.num_nodes.bit_length() - 1}"
+    source = int(g.degrees.argmax())
+    oracle = {"sssp": dijkstra_oracle(g, source, weighted=True),
+              "bfs": dijkstra_oracle(g, source, weighted=False)}
+    engine_run(g, "sssp", "WD", source, dev, "fused")      # warm-up
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    for algo, strategy in PATH_RUNS:
+        r, strat = engine_run(g, algo, strategy, source, dev, "fused")
+        s = stepped[(algo, strategy)]
+        if not np.array_equal(r.dist, oracle[algo]):
+            raise AssertionError(f"fused {algo}-{strategy} != Dijkstra")
+        if not same_run(r, s):
+            raise AssertionError(f"fused {algo}-{strategy} != stepped")
+        if strategy == "AD" and strat.kernel_counts != kernel_counts(s):
+            raise AssertionError(f"fused AD chose {strat.kernel_counts}, "
+                                 f"stepped {kernel_counts(s)}")
+        emit("fused_run", graph=name, algo=algo, strategy=strategy,
+             source=source, iterations=r.iterations,
+             edges_relaxed=r.edges_relaxed,
+             traversal_seconds=r.traversal_seconds, mteps=r.mteps,
+             kernel_counts=getattr(strat, "kernel_counts", None),
+             equals_oracle=True, equals_stepped=True)
+    launches = dict(LAUNCHES)
+    emit("fused_launches", graph=name, launches=launches)
+    if (launches["fused_fixed_point"] != len(PATH_RUNS)
+            or launches["relax_lanes"] or launches["wd_relax_lanes"]):
+        raise AssertionError(f"fused runs launched {launches}")
+
+    # the kernel against its plain version on the same card tensors
+    op = operators.shortest_path
+    small = rmat_graph(scale=small_scale, edge_factor=8, weighted=True,
+                       seed=1, device=dev)
+    err = 0
+    cases = [(small, s, int(small.degrees.argmax()))
+             for s in ("BS", "WD", "HP", "EP", "NS", "AD")]
+    for graph, strategy, src in cases + [(g, "WD", source)]:
+        args, kw = fused_args(graph, strategy, src, op, dev)
+        t0 = time.perf_counter()
+        got = fused_kernel.fixed_point(*args, **kw)
+        t1 = time.perf_counter()
+        want = fused._fixed_point_plain(*args, **kw)
+        t2 = time.perf_counter()
+        gname = f"rmat{graph.num_nodes.bit_length() - 1}"
+        if got[1:] != want[1:] or not torch.equal(got[0], want[0]):
+            raise AssertionError(f"fused kernel != plain: {gname} "
+                                 f"{strategy}: {got[1:]} vs {want[1:]}")
+        err = max(err, max_abs_err([got[0]], [want[0]]))
+        emit("fused_vs_plain", graph=gname, strategy=strategy,
+             iterations=got[1], edges_relaxed=got[2], ad_chosen=got[3],
+             equal=True, kernel_seconds=t1 - t0, plain_seconds=t2 - t1)
+    ms = time_ms(lambda: fused_kernel.fixed_point(*args, **kw))
+    plain_ms = time_ms(lambda: fused._fixed_point_plain(*args, **kw),
+                       reps=3)
+    # the least bytes of sssp-WD's traversal: col, wt and dist[dst] of
+    # each relaxed edge, row_ptr (2) and dist of each frontier node, the
+    # mask each iteration
+    wd = stepped[("sssp", "WD")]
+    frontier_nodes = sum(st.frontier_size for st in wd.iter_stats)
+    nbytes = (12 * wd.edges_relaxed + 12 * frontier_nodes
+              + g.num_nodes * wd.iterations)
+    bound_ms, bound_by = bound(nbytes, 0)
+    row = dict(name="fused_fixed_point", route="cuda", source=CSRC_FUSED,
+               replaces=FUSED_REPLACES,
+               launches=launches["fused_fixed_point"], max_abs_err=err,
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None,
+               shape=dict(graph=name, run="sssp-WD",
+                          iterations=wd.iterations,
+                          edges_relaxed=wd.edges_relaxed,
+                          frontier_nodes=frontier_nodes))
+    emit("fused_kernel_time", **row)
+
+    # fused and stepped interleaved, each run warm
+    times = {key: {"fused": [], "stepped": []} for key in PATH_RUNS}
+    edges = {}
+    for i in range(rounds):
+        for key in PATH_RUNS:
+            order = ("fused", "stepped") if i % 2 == 0 else ("stepped",
+                                                             "fused")
+            for mode in order:
+                r, _ = engine_run(g, *key, source, dev, mode)
+                times[key][mode].append(r.traversal_seconds)
+                edges[key] = r.edges_relaxed
+    for key in PATH_RUNS:
+        med = {m: statistics.median(t) for m, t in times[key].items()}
+        emit("fused_vs_stepped", graph=name, algo=key[0], strategy=key[1],
+             rounds=rounds,
+             fused_ms=[t * 1e3 for t in times[key]["fused"]],
+             stepped_ms=[t * 1e3 for t in times[key]["stepped"]],
+             fused_median_ms=med["fused"] * 1e3,
+             stepped_median_ms=med["stepped"] * 1e3,
+             fused_mteps=edges[key] / med["fused"] / 1e6,
+             stepped_mteps=edges[key] / med["stepped"] / 1e6,
+             fused_spread=(max(times[key]["fused"])
+                           - min(times[key]["fused"])) / med["fused"],
+             stepped_spread=(max(times[key]["stepped"])
+                             - min(times[key]["stepped"])) / med["stepped"],
+             fused_over_stepped=med["fused"] / med["stepped"])
+
+    # one traced fused traversal per run
+    for key in PATH_RUNS:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            r, _ = engine_run(g, *key, source, dev, "fused")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        acts = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [e for e in acts if "fused_fixed_point_kernel" in e.name]
+        relax_acts = [e for e in acts if "relax_lanes_kernel" in e.name]
+        busy = sum(e.device_time for e in acts) / 1e6
+        kernel_s = sum(e.device_time for e in ours) / 1e6
+        emit("fused_trace", graph=name, algo=key[0], strategy=key[1],
+             activities=len(acts), fused_launches=len(ours),
+             relax_launches=len(relax_acts),
+             names=sorted({e.name[:50] for e in acts}),
+             traced_wall_seconds=wall, device_seconds=busy,
+             kernel_seconds=kernel_s, device_idle_share=1.0 - busy / wall,
+             traversal_seconds=r.traversal_seconds,
+             kernel_share_of_traversal=kernel_s / r.traversal_seconds)
+        if len(ours) != 1 or relax_acts:
+            raise AssertionError(f"traced fused {key}: {len(ours)} fused "
+                                 f"launches, {len(relax_acts)} B1/B2")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phases 5-7: the LM serving slice (B4, B5)
 # ---------------------------------------------------------------------------
 
@@ -1494,6 +1695,8 @@ def main() -> int:
     timed("cpu_compare", cpu_compare_phase, g, dev, results, cpu_scale=16)
     timed("strategies_cpu", strategies_cpu_phase, dev, scale=16)
     timed("memory_wall", memory_wall_phase, g, dev, results)
+    rows.append(timed("fused", fused_phase, g, dev, results,
+                      small_scale=16))
     del results
     timed("algos", algos_phase, g, dev, small_scale=16)
     del g

@@ -1,5 +1,5 @@
-# The paper's load-balancing strategies and their stepped engine, ported
-# to PyTorch (see the package docstring).
+# The paper's load-balancing strategies and their stepped and fused
+# engines, ported to PyTorch (see the package docstring).
 from repro_torch.core.graph import (CSRGraph, COOGraph, INF,  # noqa: F401
                                     graph_stats)
 from repro_torch.core.engine import (run, run_batch, fixed_point,  # noqa: F401
@@ -11,4 +11,4 @@ from repro_torch.core.operators import (EdgeOp, OPERATORS,  # noqa: F401
 from repro_torch.core.strategies import (STRATEGIES, FRONTIER_INIT,  # noqa: F401
                                          register, strategy_capabilities)
 from repro_torch.core.node_split import find_mdt, split_graph  # noqa: F401
-from repro_torch.core import balance  # noqa: F401
+from repro_torch.core import balance, fused  # noqa: F401

@@ -1,18 +1,19 @@
 """Data-driven execution engine of the port (paper Fig. 2 / Fig. 4 outer
-loop), stepped mode.
+loop), stepped and fused.
 
 :func:`run` relaxes from one source to a fixed point under a registered
-strategy, one frontier iteration per step: the strategy launches its
-relax kernels, the host counts the next frontier, and the loop goes on
-while it is non-empty (EP: while its edge worklist is).
-:func:`fixed_point` does the same from a caller's ``(values, mask)``
-seeding (connected components).  *What* is propagated is an
-:class:`repro_torch.core.operators.EdgeOp` (``op=``, default
+strategy.  ``mode="stepped"`` runs one frontier iteration per step: the
+strategy launches its relax kernels, the host counts the next frontier,
+and the loop goes on while it is non-empty (EP: while its edge worklist
+is).  ``mode="fused"`` runs the whole traversal as one launch
+(:mod:`repro_torch.core.fused`), with the same values, iteration count
+and edge total.  :func:`fixed_point` does the same from a caller's
+``(values, mask)`` seeding (connected components).  *What* is propagated
+is an :class:`repro_torch.core.operators.EdgeOp` (``op=``, default
 ``shortest_path``).
 
-The fused single-launch engine, sharding, delta-stepping and batching are
-later slices (ROADMAP.md A7, A11, A10, A8); asking for them raises
-``NotImplementedError``.
+Sharding, delta-stepping and batching are later slices (ROADMAP.md A11,
+A10, A8); asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import operators
+from repro_torch.core import fused, operators
 from repro_torch.core.graph import CSRGraph, INF, resolve_device
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.strategies import (  # noqa: F401  (re-exported)
@@ -89,16 +90,14 @@ def ready(x: torch.Tensor) -> torch.Tensor:
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet ({item}); this slice "
-        f"runs mode='stepped', single device, schedule='bsp'")
+        f"runs a single device and schedule='bsp'")
 
 
 def _check_slice(mode: str, shards=None, schedule: str = "bsp",
                  delta=None) -> None:
     """Raise for what this slice does not run: ``NotImplementedError``
     naming the ROADMAP item, ``ValueError`` for what no slice runs."""
-    if mode == "fused":
-        raise _not_ported("mode='fused'", "ROADMAP.md A7")
-    if mode != "stepped":
+    if mode not in ("stepped", "fused"):
         raise ValueError(f"mode must be 'stepped' or 'fused', got {mode!r}")
     if shards is not None:
         raise _not_ported("shards=", "ROADMAP.md A11")
@@ -134,14 +133,21 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
 
     ``device="cuda"`` (the default) moves the graph to the card and runs
     the hand-written kernels; ``device="cpu"`` runs their plain PyTorch
-    versions.  ``mode="fused"``, ``shards=`` and ``schedule="delta"``
-    raise ``NotImplementedError``.
+    versions.  ``mode="fused"`` runs the traversal as one launch: the
+    whole of it is booked as kernel time, ``iter_stats`` stays empty, and
+    ``record_degrees`` (host-side per-iteration stats) raises
+    ``ValueError``.  ``shards=`` and ``schedule="delta"`` raise
+    ``NotImplementedError``.
 
     EP runs by its edge worklist: each round relaxes the worklist and
     books its length as that round's frontier and edges, and the loop
     ends when the worklist is empty (one round before a node strategy's
     would: nothing is left to relax from the last improved nodes)."""
     _check_slice(mode, shards, schedule, delta)
+    if mode == "fused" and record_degrees:
+        raise ValueError(
+            "record_degrees collects per-iteration host-side stats; "
+            "use mode='stepped'")
     op = operators.resolve(op)
     dev = resolve_device(device)
     if not 0 <= int(source) < graph.num_nodes:
@@ -153,7 +159,7 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
                          setup_seconds=0.0, kernel_seconds=0.0,
                          overhead_seconds=0.0, edges_relaxed=0,
                          iter_stats=[], strategy=strategy.name,
-                         state_bytes=0, device=dev.type)
+                         state_bytes=0, mode=mode, device=dev.type)
 
     t0 = time.perf_counter()
     graph = graph.to(dev)
@@ -164,6 +170,25 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
     n = _n_alloc(graph, strategy)
     dist = torch.full((n,), op.identity, dtype=op.dtype, device=dev)
     dist[source] = op.seed(source)
+
+    if mode == "fused":
+        mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        mask[source] = True
+        t_start = time.perf_counter()
+        dist, iterations, edges = fused.run_fixed_point(
+            graph, state, strategy, dist, mask, op=op,
+            max_iterations=max_iterations)
+        total_s = time.perf_counter() - t_start
+        # one launch: the whole traversal is kernel time, setup the only
+        # host-side overhead
+        return RunResult(
+            dist=_original(dist, strategy), iterations=iterations,
+            total_seconds=total_s + setup_s, setup_seconds=setup_s,
+            kernel_seconds=total_s, overhead_seconds=setup_s,
+            edges_relaxed=edges, iter_stats=[], strategy=strategy.name,
+            state_bytes=strategy.state_bytes(state), mode="fused",
+            device=dev.type,
+            work_schedule=getattr(strategy, "resolved_schedule", None))
 
     iter_stats: list[IterStats] = []
     kernel_s = 0.0
@@ -222,10 +247,10 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
     label this way.
 
     Needs a strategy declaring :data:`FRONTIER_INIT` (EP's edge worklist
-    cannot hold an arbitrary dense frontier).  Returns ``(values,
-    iterations, edges_relaxed)``, ``values`` a host array on the original
-    nodes.  ``mode="fused"`` raises ``NotImplementedError``, as in
-    :func:`run`."""
+    cannot hold an arbitrary dense frontier), checked right after the mode
+    string, as the reference does.  Returns ``(values, iterations,
+    edges_relaxed)``, ``values`` a host array on the original nodes.
+    ``mode="fused"`` runs it as one launch, as in :func:`run`."""
     _check_slice(mode)
     if FRONTIER_INIT not in strategy.capabilities:
         raise ValueError(
@@ -239,6 +264,11 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
     values, mask = init(_n_alloc(graph, strategy))
     dist = torch.as_tensor(values).to(dev, op.dtype)
     mask = torch.as_tensor(mask).to(dev, torch.bool)
+    if mode == "fused":
+        dist, it, edges = fused.run_fixed_point(
+            graph, state, strategy, dist, mask, op=op,
+            max_iterations=max_iterations)
+        return _original(dist, strategy), it, edges
     count, it, edges = int(mask.sum()), 0, 0
     while count > 0 and it < max_iterations:
         dist, mask, stats = strategy.iterate(state, dist, mask, count, op=op)

@@ -1,0 +1,310 @@
+"""Fused fixed point of the port: one launch per traversal (ROADMAP A7).
+
+The stepped engine (:mod:`repro_torch.core.engine`) goes back to the host
+between launches: frontier counts, column counts and worklist sizes are
+synced every iteration, and a BS column is about ten PyTorch calls.  This
+module runs a whole traversal, any built-in :class:`EdgeOp`, as one
+device-resident loop, the counterpart of the reference's
+``repro.core.fused``:
+
+* on a CUDA tensor, ONE launch of the persistent cooperative kernel
+  ``csrc/fused.cu`` (:func:`repro_torch.kernels.fused.fixed_point`), which
+  runs the loop, the frontier statistics and every chunk on the card and
+  reads back iterations, the edge total and AD's choices with one sync;
+* on a CPU tensor, :func:`_fixed_point_plain`, a plain PyTorch loop over
+  the reference's dense step bodies (:func:`_bs_step`, :func:`_wd_step`,
+  :func:`_hp_step`, :func:`_ep_step`, :func:`_ns_step`,
+  :func:`_ad_step`), which keep its shapes (``[N]`` node lanes, ``[E]``
+  edge lanes, ``[N, MDT]`` HP tiles) and so its chunk schedule.
+
+Both give the reference's ``mode="fused"`` bits: ``(dist, iterations,
+edges_relaxed)`` and AD's ``kernel_counts``, which equal its stepped
+engine's.  The edge total is a Python int (the reference carries two
+int32 limbs because JAX runs without x64; nothing here needs them).
+
+:data:`DISPATCH_COUNTS` moves by one per traversal, keyed by kernel name.
+The reference's ``TRACE_COUNTS`` has no counterpart: nothing here
+compiles per shape.  Measured AD waits for ROADMAP A9 (``AdaptiveStrategy``
+refuses ``cost_model=``) and the batched fixed point for A8
+(:func:`run_batch_fixed_point`); both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import Counter
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import operators
+from repro_torch.core.graph import CSRGraph
+from repro_torch.core.operators import EdgeOp
+from repro_torch.core.schedule import DEFAULT_SCHEDULE, Schedule
+from repro_torch.core.strategies import (
+    AdaptiveStrategy, EdgeBased, HierarchicalProcessing, NodeBased,
+    NodeSplitting, WorkloadDecomposition, _edge_weight)
+from repro_torch.kernels import fused as fused_kernel
+from repro_torch.kernels.relax import apply_relax_plain
+
+#: traversals started, per kernel: one per :func:`run_fixed_point` call
+DISPATCH_COUNTS: Counter = Counter()
+
+#: AD's branches, in the order of its kernel tally
+_AD_KERNEL_ORDER = ("BS", "WD", "HP")
+
+
+# ---------------------------------------------------------------------------
+# the plain version: dense-mask steps, (dist [N], mask [N]) -> (dist,
+# next frontier mask, edges relaxed), the reference's shapes
+# ---------------------------------------------------------------------------
+
+def _masked_degrees(g: CSRGraph, mask: torch.Tensor) -> torch.Tensor:
+    """Out-degree where the node is in the frontier, 0 elsewhere."""
+    return torch.where(mask, g.row_ptr[1:] - g.row_ptr[:-1], 0)
+
+
+def _merge_path_relax(g: CSRGraph, dist, updated, work, cursor: int = 0, *,
+                      op: EdgeOp):
+    """One synchronous merge-path relax over ``E`` edge lanes: node ``n``
+    contributes ``work[n]`` edges from ``row_ptr[n] + cursor`` on, and
+    each lane finds its node by a search of the inclusive prefix.  Sets
+    ``updated`` in place; returns ``(dist, updated)``."""
+    prefix = torch.cumsum(work, 0, dtype=torch.int32)
+    exclusive = prefix - work
+    k = torch.arange(g.num_edges, dtype=torch.int32, device=dist.device)
+    node = torch.searchsorted(prefix, k, right=True, out_int32=True)
+    node = node.clamp_(0, g.num_nodes - 1)
+    eidx = (g.row_ptr[node] + cursor + (k - exclusive[node])).clamp_(
+        0, g.num_edges - 1)
+    dist, updated, _ = apply_relax_plain(
+        dist, updated, node, g.col[eidx], _edge_weight(g, eidx),
+        k < prefix[-1], op=op)
+    return dist, updated
+
+
+def _bs_step(g: CSRGraph, dist, mask, *, op: EdgeOp):
+    """Dense BS: column ``d`` relaxes the ``d``-th edge of every frontier
+    node, for the frontier's max degree columns, each folded before the
+    next reads ``dist``."""
+    deg = _masked_degrees(g, mask)
+    base = g.row_ptr[:-1]
+    nodes = torch.arange(g.num_nodes, dtype=torch.int32, device=dist.device)
+    updated = torch.zeros_like(mask)
+    for d in range(int(deg.max())):
+        eidx = (base + d).clamp_(0, g.num_edges - 1)
+        dist, updated, _ = apply_relax_plain(
+            dist, updated, nodes, g.col[eidx], _edge_weight(g, eidx),
+            mask & (d < deg), op=op)
+    return dist, updated, int(deg.sum())
+
+
+def _wd_step(g: CSRGraph, dist, mask, *, op: EdgeOp):
+    """Dense WD: one synchronous merge path over the frontier's edges."""
+    deg = _masked_degrees(g, mask)
+    dist, updated = _merge_path_relax(g, dist, torch.zeros_like(mask), deg,
+                                      op=op)
+    return dist, updated, int(deg.sum())
+
+
+def _hp_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp):
+    """Dense HP: a frontier of at most ``switch_threshold`` nodes takes
+    WD; a larger one runs ``[N, MDT]`` tiles (at least one) while more
+    than ``switch_threshold`` nodes have edges left past the cursor, then
+    a cursor-aware WD tail over the rest."""
+    mdt = sched.mdt or 1
+    deg = _masked_degrees(g, mask)
+    if int(mask.sum()) <= sched.switch_threshold:
+        dist, updated, _ = _wd_step(g, dist, mask, op=op)
+        return dist, updated, int(deg.sum())
+    n, e = g.num_nodes, g.num_edges
+    nodes = torch.arange(n, dtype=torch.int32, device=dist.device)
+    src = nodes[:, None].expand(n, mdt).reshape(-1)
+    j = torch.arange(mdt, dtype=torch.int32, device=dist.device)[None, :]
+    updated = torch.zeros_like(mask)
+    cursor = 0
+    while True:
+        pos = cursor + j                                        # [1, mdt]
+        valid = (mask[:, None] & (pos < deg[:, None])).reshape(-1)
+        eidx = (g.row_ptr[:-1, None] + pos).clamp_(0, e - 1).reshape(-1)
+        dist, updated, _ = apply_relax_plain(
+            dist, updated, src, g.col[eidx], _edge_weight(g, eidx), valid,
+            op=op)
+        cursor += mdt
+        if int((deg > cursor).sum()) <= sched.switch_threshold:
+            break
+    rem = (deg - cursor).clamp_(min=0)
+    dist, updated = _merge_path_relax(g, dist, updated, rem, cursor, op=op)
+    return dist, updated, int(deg.sum())
+
+
+def _ep_step(g: CSRGraph, edge_src, dist, mask, *, op: EdgeOp):
+    """Dense EP: all ``E`` edge lanes, valid where the source is live."""
+    valid = mask[edge_src]
+    eidx = torch.arange(g.num_edges, dtype=torch.int32, device=dist.device)
+    dist, updated, _ = apply_relax_plain(
+        dist, torch.zeros_like(mask), edge_src, g.col,
+        _edge_weight(g, eidx), valid, op=op)
+    return dist, updated, int(valid.sum())
+
+
+def _ns_step(g2: CSRGraph, child_parent, dist, mask, *, op: EdgeOp):
+    """Dense NS: mirror every parent onto its children (``ns_activate``),
+    then dense BS on the split graph."""
+    dist = dist[child_parent]
+    mask = mask | mask[child_parent]
+    return _bs_step(g2, dist, mask, op=op)
+
+
+def _ad_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp):
+    """AD's fixed decision tree on the frontier's statistics, in the
+    reference's float32 order, then that kernel's step.  Returns the
+    step's result and the branch (0 BS, 1 WD, 2 HP)."""
+    mdt = sched.mdt or 1
+    deg = _masked_degrees(g, mask)
+    count = int(mask.sum())
+    degree_sum, max_degree = int(deg.sum()), int(deg.max())
+    mean = np.float32(degree_sum) / np.float32(max(count, 1))
+    imbalance = (np.float32(max_degree) / mean if mean > 0
+                 else np.float32(1.0))
+    if (degree_sum == 0 or count == 0
+            or (count <= sched.small_frontier
+                and imbalance <= np.float32(sched.imbalance_threshold))):
+        idx = 0
+    elif max_degree > mdt and degree_sum >= sched.hp_edges_threshold:
+        idx = 2
+    else:
+        idx = 1
+    if idx == 0:
+        out = _bs_step(g, dist, mask, op=op)
+    elif idx == 1:
+        out = _wd_step(g, dist, mask, op=op)
+    else:
+        out = _hp_step(g, dist, mask, sched=sched, op=op)
+    return (*out, idx)
+
+
+def _fixed_point_plain(kernel: str, g: CSRGraph, aux, dist, mask, *,
+                       op: EdgeOp, sched: Schedule, max_iterations: int):
+    """The fused loop in plain PyTorch, on the tensors' device: while the
+    frontier is live (EP: while it has outgoing edges) and ``it <
+    max_iterations``, one dense step.  Returns ``(dist, iterations,
+    edges_relaxed, [BS, WD, HP] counts of AD's choices)``."""
+    chosen = [0, 0, 0]
+    it, edges = 0, 0
+    while it < max_iterations:
+        if kernel == "EP":
+            live = int(_masked_degrees(g, mask).sum()) > 0
+        else:
+            live = bool(mask.any())
+        if not live:
+            break
+        if kernel == "BS":
+            dist, mask, e = _bs_step(g, dist, mask, op=op)
+        elif kernel == "WD":
+            dist, mask, e = _wd_step(g, dist, mask, op=op)
+        elif kernel == "HP":
+            dist, mask, e = _hp_step(g, dist, mask, sched=sched, op=op)
+        elif kernel == "EP":
+            dist, mask, e = _ep_step(g, aux, dist, mask, op=op)
+        elif kernel == "NS":
+            dist, mask, e = _ns_step(g, aux, dist, mask, op=op)
+        elif kernel == "AD":
+            dist, mask, e, idx = _ad_step(g, dist, mask, sched=sched, op=op)
+            chosen[idx] += 1
+        else:
+            raise ValueError(f"unknown fused kernel {kernel!r}")
+        edges += e
+        it += 1
+    return dist, it, edges, chosen
+
+
+# ---------------------------------------------------------------------------
+# strategy instance -> fused lowering
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FusedPlan:
+    """How to run one strategy as a single fused launch."""
+    kernel: str
+    graph: CSRGraph               # graph the loop runs on (NS: split graph)
+    aux: Optional[torch.Tensor]   # EP edge sources / NS child_parent
+    sched: Schedule               # the resolved work-assignment schedule
+
+
+def fused_kernel_name(cls) -> Optional[str]:
+    """The fused kernel a strategy *class* lowers to, or ``None``; the
+    class-level companion of :func:`_plan` (same precedence order)."""
+    for klass, kernel in ((AdaptiveStrategy, "AD"),
+                          (HierarchicalProcessing, "HP"),
+                          (NodeSplitting, "NS"),
+                          (EdgeBased, "EP"),
+                          (WorkloadDecomposition, "WD"),
+                          (NodeBased, "BS")):
+        if isinstance(cls, type) and issubclass(cls, klass):
+            return kernel
+    return None
+
+
+def _sched_of(strategy) -> Schedule:
+    """The instance's resolved schedule (concrete MDT), else its declared
+    one, else the default (third-party strategies that skip
+    ``StrategyBase.__init__``)."""
+    sched = getattr(strategy, "resolved_schedule", None)
+    if sched is None:
+        sched = getattr(strategy, "schedule", None)
+    return sched if isinstance(sched, Schedule) else DEFAULT_SCHEDULE
+
+
+def _plan(strategy, state, graph: CSRGraph) -> FusedPlan:
+    """Map a set-up strategy instance to its fused lowering; raises
+    ``ValueError`` for strategies without one."""
+    kernel = fused_kernel_name(type(strategy))
+    if kernel is None:
+        raise ValueError(
+            f"strategy {strategy.name!r} has no fused lowering; "
+            f"use mode='stepped'")
+    sched = _sched_of(strategy)
+    if kernel == "NS":
+        sg = strategy.split_info
+        return FusedPlan("NS", sg.graph, sg.child_parent, sched)
+    if kernel == "EP":
+        if not strategy.chunked:
+            # the unchunked per-edge push (duplicate worklist entries,
+            # paper Fig. 11) has no dense equivalent: a dense mask is
+            # deduplicated by construction
+            raise ValueError(
+                "EP with chunked=False has no fused lowering "
+                "(dense frontiers are deduplicated by construction); "
+                "use mode='stepped'")
+        return FusedPlan("EP", graph, state.src, sched)
+    return FusedPlan(kernel, graph, None, sched)
+
+
+def run_fixed_point(graph: CSRGraph, state: Any, strategy, dist0, mask0, *,
+                    op="shortest_path", max_iterations: int = 100000):
+    """Run one strategy's whole traversal as a single fused launch (the
+    plain loop for CPU tensors).  ``dist0``/``mask0`` are the initial
+    values and frontier on the strategy's allocation (the split graph's
+    for NS), on ``graph``'s device; callers own seeding and extraction.
+    Returns ``(dist, iterations, edges_relaxed)``, ``dist`` on the
+    device; for AD the tally of its choices is stored on the strategy as
+    ``kernel_counts``, as the stepped driver does."""
+    plan = _plan(strategy, state, graph)
+    DISPATCH_COUNTS[plan.kernel] += 1
+    dist, it, edges, chosen = fused_kernel.fixed_point(
+        plan.kernel, plan.graph, plan.aux, dist0, mask0,
+        op=operators.resolve(op), sched=plan.sched,
+        max_iterations=max_iterations)
+    if plan.kernel == "AD":
+        strategy.kernel_counts = {
+            name: c for name, c in zip(_AD_KERNEL_ORDER, chosen) if c}
+    return dist, it, edges
+
+
+def run_batch_fixed_point(*args, **kwargs):
+    """K queries to their fixed points in one launch: a later slice."""
+    raise NotImplementedError(
+        "the batched fused fixed point is not ported to repro_torch yet "
+        "(ROADMAP.md A8)")

@@ -8,5 +8,7 @@
 #   find_offsets    - B3, the paper's WD offset search
 #   flash_attention - B4, GQA flash attention forward (LM prefill)
 #   ssd_chunk       - B5, Mamba-2 SSD intra-chunk dual form (LM prefill)
+#   fused           - the fused fixed point: a whole traversal in one
+#                     persistent cooperative launch (B1/B2's lane bodies)
 from repro_torch.kernels import (  # noqa: F401
-    find_offsets, flash_attention, ops, ref, relax, ssd_chunk)
+    find_offsets, flash_attention, fused, ops, ref, relax, ssd_chunk)

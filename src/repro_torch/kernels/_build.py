@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> launches so far; each wrapper adds one where it
 #: launches its kernel and nowhere else
 LAUNCHES = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0,
-            "flash_attention": 0, "ssd_chunk_dual": 0}
+            "flash_attention": 0, "ssd_chunk_dual": 0,
+            "fused_fixed_point": 0}
 
 #: kernel name -> lanes launched so far, for the two kernels whose work is
 #: a lane count (B1's ``cap_work``, B2's ``L``); summed where the launch
@@ -61,6 +62,15 @@ _SIGNATURES = {
     # xbar, cum, Bm, Cm, y, state, BN, c, H, P, N, dtype, stream
     "repro_ssd_chunk_dual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _P],
+    # n, out bytes
+    "repro_fused_workspace_bytes": [_I, ctypes.POINTER(ctypes.c_longlong)],
+    # row_ptr, col, wt, n, e, aux, dist0, mask0, kernel, msg, comb,
+    # max_iterations, mdt, switch_threshold, small_frontier,
+    # imbalance_threshold, hp_edges_threshold, dist, workspace,
+    # workspace_bytes, result, stream
+    "repro_fused_fixed_point": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, ctypes.c_float, _I, _P, _P,
+                                ctypes.c_longlong, _P, _P],
 }
 
 _lib = None

@@ -74,131 +74,25 @@
 // them valid.  Four lanes a thread were about 17% slower there than two,
 // and a 16-byte vector branch for aligned groups 4-7% faster in BS and
 // 7% in HP, for a second code path.  PERF.md has the tables.
+// The lane bodies (message, activation test, fold, B2's gather-and-fold
+// and B1's rank-and-relax tile) live in relax_lanes.cuh, which the fused
+// fixed point (fused.cu) shares.
 // Each entry point launches on the given stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() of its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "relax_lanes.cuh"
+
 namespace {
 
-// message codes (repro_torch.core.operators.KERNEL_MESSAGES)
-constexpr int MSG_SUM = 0;         // v + w (wrapping)
-constexpr int MSG_COPY = 1;        // v
-constexpr int MSG_BOTTLENECK = 2;  // min(v, w)
-// combine codes (repro_torch.core.operators.KERNEL_COMBINES)
-constexpr int COMB_MIN = 0;
-constexpr int COMB_MAX = 1;
-constexpr int COMB_ADD = 2;
+using namespace relax_lanes;
 
-constexpr int THREADS = 256;
 // B2: lanes a thread takes, and the lanes a block tile covers.  Two beat
 // one and four on the main path's own launches (PERF.md).
 constexpr int B2_LANES = 2;
 constexpr int B2_TILE = THREADS * B2_LANES;
-// B1: lanes a thread takes, and the lanes a block tile covers
-constexpr int B1_LANES = 4;
-constexpr int B1_TILE = THREADS * B1_LANES;
-// B1: slots a tile stages in shared memory (4 int32 tables: 32 KB)
-constexpr int B1_SLOTS = 2 * B1_TILE;
-
-template <int MSG>
-__device__ __forceinline__ int32_t message(int32_t v, int32_t w) {
-  if (MSG == MSG_SUM) return (int32_t)((uint32_t)v + (uint32_t)w);
-  if (MSG == MSG_COPY) return v;
-  return v < w ? v : w;
-}
-
-// the activation test of the built-in operators; for add the identity is
-// 0, so "a real contribution" is cand != 0
-template <int COMB>
-__device__ __forceinline__ bool improves(int32_t cand, int32_t cur) {
-  if (COMB == COMB_MIN) return cand < cur;
-  if (COMB == COMB_MAX) return cand > cur;
-  return cand != 0;
-}
-
-template <int COMB>
-__device__ __forceinline__ void fold(int32_t* p, int32_t cand) {
-  if (COMB == COMB_MIN) atomicMin(p, cand);
-  else if (COMB == COMB_MAX) atomicMax(p, cand);
-  else atomicAdd(p, cand);
-}
-
-__device__ __forceinline__ int32_t clamp_index(int64_t i, int32_t n) {
-  return (int32_t)(i < 0 ? 0 : (i >= n ? n - 1 : i));
-}
-
-// #{i < f : prefix[i] <= k} for a non-decreasing prefix — searchsorted
-// side="right".  One thread alone; B1's fallback and B3.
-__device__ __forceinline__ int32_t upper_bound(const int32_t* __restrict__ prefix,
-                                               int32_t f, int32_t k) {
-  int32_t lo = 0, hi = f;
-  while (lo < hi) {
-    int32_t mid = (int32_t)(((uint32_t)lo + (uint32_t)hi) >> 1);
-    if (__ldg(prefix + mid) <= k) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-// The same count by the 32 lanes of a warp together, all of which must
-// call it with the same arguments.  Each round probes 32 evenly spaced
-// points of [lo, hi); the answer lies between the last point <= k and the
-// next one, so the range shrinks 32-fold a round.
-__device__ __forceinline__ int32_t warp_upper_bound(
-    const int32_t* __restrict__ prefix, int32_t f, int32_t k) {
-  const int lane = threadIdx.x & 31;
-  int32_t lo = 0, hi = f;             // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const int64_t step = ((int64_t)hi - lo + 31) / 32;
-    const int64_t p = lo + lane * step;
-    const bool le = p < hi && __ldg(prefix + p) <= k;
-    const int c = __popc(__ballot_sync(0xffffffffu, le));
-    if (c == 0) break;                // prefix[lo] > k: the answer is lo
-    const int64_t last = lo + (int64_t)(c - 1) * step;   // prefix <= k
-    lo = (int32_t)(last + 1);
-    if (last + step < hi) hi = (int32_t)(last + step);   // prefix > k
-  }
-  return lo;
-}
-
-// the same count over a slice in shared memory
-__device__ __forceinline__ int32_t smem_upper_bound(const int32_t* p,
-                                                    int32_t m, int32_t k) {
-  int32_t lo = 0, hi = m;
-  while (lo < hi) {
-    int32_t mid = (lo + hi) >> 1;
-    if (p[mid] <= k) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ void cp_async4(int32_t* smem, const int32_t* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// the fold of one lane whose gathers are done; returns "improves"
-template <int MSG, int COMB>
-__device__ __forceinline__ bool fold_lane(int32_t dsrc, int32_t ddst,
-                                          int32_t w, int32_t d,
-                                          int32_t* __restrict__ target,
-                                          uint8_t* __restrict__ upd) {
-  const int32_t cand = message<MSG>(dsrc, w);
-  if (!improves<COMB>(cand, ddst)) return false;
-  fold<COMB>(target + d, cand);
-  upd[d] = 1;
-  return true;
-}
 
 // ---------------------------------------------------------------- B2 ---
 // A block tile covers B2_TILE lanes; thread t takes lanes t and
@@ -232,22 +126,13 @@ relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
         wv[j] = __ldg(w + k);
       }
     }
-    int32_t ds[L] = {}, dd[L] = {};
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      if (v[j]) {
-        s[j] = clamp_index(s[j], n);
-        d[j] = clamp_index(d[j], n);
-        ds[j] = __ldg(dist + s[j]);
-        dd[j] = __ldg(dist + d[j]);
-      }
-    }
+    bool improved[L];
+    relax_group<L, MSG, COMB, ReadOnly>(dist, n, v, s, d, wv, target, upd,
+                                        improved, NoHook());
 #pragma unroll
     for (int j = 0; j < L; ++j) {
       const int64_t k = k0 + j * THREADS;
-      if (k < lanes)
-        imp[k] = v[j] && fold_lane<MSG, COMB>(ds[j], dd[j], wv[j], d[j],
-                                              target, upd);
+      if (k < lanes) imp[k] = improved[j];
     }
   }
 }
@@ -264,86 +149,13 @@ wd_relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
                       const int32_t* __restrict__ wt, int32_t e,
                       int32_t cap_work, int32_t* __restrict__ target,
                       uint8_t* __restrict__ upd, uint8_t* __restrict__ imp) {
-  constexpr int L = B1_LANES;
-  __shared__ int32_t s_prefix[B1_SLOTS], s_excl[B1_SLOTS], s_start[B1_SLOTS],
-      s_src[B1_SLOTS];
-  __shared__ int32_t s_bounds[2];
+  __shared__ WdSmem sm;
   const int64_t total = __ldg(prefix + f - 1);    // valid lanes: k < total
   const int64_t tiles = ((int64_t)cap_work + B1_TILE - 1) / B1_TILE;
-  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int64_t k0 = t * B1_TILE;
-    const int64_t k_end = k0 + B1_TILE < cap_work ? k0 + B1_TILE : cap_work;
-    const int64_t v_end = k_end < total ? k_end : total;
-    if (k0 >= v_end) {                  // no valid lane in the tile
-      for (int64_t k = k0 + threadIdx.x; k < k_end; k += THREADS) imp[k] = 0;
-      continue;
-    }
-    // the slots of the tile's first and last valid lane; every valid lane
-    // ranks below f, since k < total = prefix[f - 1]
-    const int warp = threadIdx.x >> 5;
-    if (warp < 2) {
-      const int32_t r = warp_upper_bound(
-          prefix, f, (int32_t)(warp == 0 ? k0 : v_end - 1));
-      if ((threadIdx.x & 31) == 0) s_bounds[warp] = r;
-    }
-    __syncthreads();
-    const int32_t lo = s_bounds[0], hi = s_bounds[1];
-    const int32_t cnt = hi - lo + 1;    // slots [lo, hi]
-    const bool staged = cnt <= B1_SLOTS;
-    if (staged) {
-      for (int32_t i = threadIdx.x; i < cnt; i += THREADS) {
-        cp_async4(s_prefix + i, prefix + lo + i);
-        cp_async4(s_excl + i, excl + lo + i);
-        cp_async4(s_start + i, start + lo + i);
-        cp_async4(s_src + i, src_ids + lo + i);
-      }
-      cp_async_wait_all();
-    }
-    __syncthreads();
-
-    // rank(k) = lo + #{i in [lo, hi) : prefix[i] <= k} for k in the tile
-    bool v[L];
-    int32_t s[L] = {}, c[L] = {}, wv[L] = {};
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      const int64_t k = k0 + j * THREADS + threadIdx.x;
-      v[j] = k < v_end;
-      if (!v[j]) continue;
-      int32_t ex, st;
-      if (staged) {
-        const int32_t li = smem_upper_bound(s_prefix, cnt - 1, (int32_t)k);
-        ex = s_excl[li];
-        st = s_start[li];
-        s[j] = s_src[li];
-      } else {
-        const int32_t i = lo + upper_bound(prefix + lo, cnt - 1, (int32_t)k);
-        ex = __ldg(excl + i);
-        st = __ldg(start + i);
-        s[j] = __ldg(src_ids + i);
-      }
-      const int32_t ec = clamp_index((int64_t)st + (k - ex), e);
-      c[j] = __ldg(col + ec);
-      wv[j] = wt ? __ldg(wt + ec) : 1;
-    }
-    int32_t ds[L] = {}, dd[L] = {};
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      if (v[j]) {
-        s[j] = clamp_index(s[j], n);
-        c[j] = clamp_index(c[j], n);
-        ds[j] = __ldg(dist + s[j]);
-        dd[j] = __ldg(dist + c[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      const int64_t k = k0 + j * THREADS + threadIdx.x;
-      if (k < k_end)
-        imp[k] = v[j] && fold_lane<MSG, COMB>(ds[j], dd[j], wv[j], c[j],
-                                              target, upd);
-    }
-    __syncthreads();                    // the slice is free for the next tile
-  }
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x)
+    wd_tile<MSG, COMB, ReadOnly>(t, dist, n, prefix, excl, start, src_ids, f,
+                                 col, wt, e, cap_work, total, target, upd,
+                                 imp, sm, NoHook());
 }
 
 // ---------------------------------------------------------------- B3 ---
@@ -352,7 +164,7 @@ find_offsets_kernel(const int32_t* __restrict__ prefix, int32_t f,
                     int32_t cap_work, int32_t* __restrict__ out) {
   int64_t k = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (k >= cap_work) return;
-  out[k] = upper_bound(prefix, f, (int32_t)k);
+  out[k] = upper_bound<ReadOnly>(prefix, f, (int32_t)k);
 }
 
 inline unsigned blocks_for(int64_t items) {
@@ -438,11 +250,6 @@ void launch_wd(int comb, cudaStream_t st, const int32_t* dist, int32_t n,
   else
     launch_wd_t<MSG, COMB_ADD>(st, dist, n, prefix, excl, start, src_ids, f,
                                col, wt, e, cap_work, target, upd, imp);
-}
-
-bool codes_ok(int msg, int comb) {
-  return msg >= MSG_SUM && msg <= MSG_BOTTLENECK && comb >= COMB_MIN &&
-         comb <= COMB_ADD;
 }
 
 }  // namespace

@@ -1,0 +1,287 @@
+// Lane bodies of the relax kernels, shared by relax.cu (B1, B2) and by the
+// fused fixed point (fused.cu): the message, the activation test and the
+// fold of one candidate, B2's gather-and-fold of a group of loaded lanes,
+// and B1's rank-and-relax over one tile of merge-path lanes.
+//
+// Two things differ between the callers, and both are template arguments:
+//   * how a lane reads the arrays it gathers from (`Ld`).  B1 and B2 never
+//     write `dist` or their slot tables during a launch, so they read them
+//     through the read-only path (`ReadOnly`: __ldg, cp.async.ca).  The
+//     fused kernel writes its snapshot and its slot tables between grid
+//     barriers of the same launch, and the read-only path is not kept
+//     coherent with writes of the launch, so it reads them from L2
+//     (`Coherent`: ld.global.cg) and stages with plain L2 loads;
+//   * what an improving lane does besides the fold (`Hook`): nothing in
+//     B1/B2, a note of the destination in the fused kernel, which copies
+//     the improved entries back into its snapshot after the chunk.
+// `col` and `wt` are never written by any launch and always take __ldg.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace relax_lanes {
+
+// message codes (repro_torch.core.operators.KERNEL_MESSAGES)
+constexpr int MSG_SUM = 0;         // v + w (wrapping)
+constexpr int MSG_COPY = 1;        // v
+constexpr int MSG_BOTTLENECK = 2;  // min(v, w)
+// combine codes (repro_torch.core.operators.KERNEL_COMBINES)
+constexpr int COMB_MIN = 0;
+constexpr int COMB_MAX = 1;
+constexpr int COMB_ADD = 2;
+
+constexpr int THREADS = 256;
+// B1: lanes a thread takes, and the lanes a block tile covers
+constexpr int B1_LANES = 4;
+constexpr int B1_TILE = THREADS * B1_LANES;
+// B1: slots a tile stages in shared memory (4 int32 tables: 32 KB)
+constexpr int B1_SLOTS = 2 * B1_TILE;
+
+inline bool codes_ok(int msg, int comb) {
+  return msg >= MSG_SUM && msg <= MSG_BOTTLENECK && comb >= COMB_MIN &&
+         comb <= COMB_ADD;
+}
+
+struct ReadOnly {
+  static __device__ __forceinline__ int32_t ld(const int32_t* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ void stage(int32_t* smem,
+                                               const int32_t* gmem) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  }
+  static __device__ __forceinline__ void stage_wait() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+};
+
+struct Coherent {
+  static __device__ __forceinline__ int32_t ld(const int32_t* p) {
+    return __ldcg(p);
+  }
+  // cp.async.cg copies 16 bytes only; a slot slice starts anywhere
+  static __device__ __forceinline__ void stage(int32_t* smem,
+                                               const int32_t* gmem) {
+    *smem = __ldcg(gmem);
+  }
+  static __device__ __forceinline__ void stage_wait() {}
+};
+
+struct NoHook {
+  __device__ __forceinline__ void operator()(int32_t) const {}
+};
+
+template <int MSG>
+__device__ __forceinline__ int32_t message(int32_t v, int32_t w) {
+  if (MSG == MSG_SUM) return (int32_t)((uint32_t)v + (uint32_t)w);
+  if (MSG == MSG_COPY) return v;
+  return v < w ? v : w;
+}
+
+// the activation test of the built-in operators; for add the identity is
+// 0, so "a real contribution" is cand != 0
+template <int COMB>
+__device__ __forceinline__ bool improves(int32_t cand, int32_t cur) {
+  if (COMB == COMB_MIN) return cand < cur;
+  if (COMB == COMB_MAX) return cand > cur;
+  return cand != 0;
+}
+
+template <int COMB>
+__device__ __forceinline__ void fold(int32_t* p, int32_t cand) {
+  if (COMB == COMB_MIN) atomicMin(p, cand);
+  else if (COMB == COMB_MAX) atomicMax(p, cand);
+  else atomicAdd(p, cand);
+}
+
+__device__ __forceinline__ int32_t clamp_index(int64_t i, int32_t n) {
+  return (int32_t)(i < 0 ? 0 : (i >= n ? n - 1 : i));
+}
+
+// the fold of one lane whose gathers are done; returns "improves"
+template <int MSG, int COMB, class Hook>
+__device__ __forceinline__ bool fold_lane(int32_t dsrc, int32_t ddst,
+                                          int32_t w, int32_t d,
+                                          int32_t* target, uint8_t* upd,
+                                          const Hook& hook) {
+  const int32_t cand = message<MSG>(dsrc, w);
+  if (!improves<COMB>(cand, ddst)) return false;
+  fold<COMB>(target + d, cand);
+  upd[d] = 1;
+  hook(d);
+  return true;
+}
+
+// B2's lane body: L lanes whose (src, dst, w) are loaded and whose
+// validity is v[j] clamp their ends into [0, n), gather both from `dist`
+// (all loads first, then the folds) and fold the improving candidates
+// into `target`; imp[j] says which improved.
+template <int L, int MSG, int COMB, class Ld, class Hook>
+__device__ __forceinline__ void relax_group(
+    const int32_t* dist, int32_t n, const bool (&v)[L], int32_t (&s)[L],
+    int32_t (&d)[L], const int32_t (&w)[L], int32_t* target, uint8_t* upd,
+    bool (&imp)[L], const Hook& hook) {
+  int32_t ds[L] = {}, dd[L] = {};
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    if (v[j]) {
+      s[j] = clamp_index(s[j], n);
+      d[j] = clamp_index(d[j], n);
+      ds[j] = Ld::ld(dist + s[j]);
+      dd[j] = Ld::ld(dist + d[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    imp[j] = v[j] && fold_lane<MSG, COMB>(ds[j], dd[j], w[j], d[j], target,
+                                          upd, hook);
+}
+
+// #{i < f : prefix[i] <= k} for a non-decreasing prefix — searchsorted
+// side="right".  One thread alone; B1's fallback and B3.
+template <class Ld>
+__device__ __forceinline__ int32_t upper_bound(const int32_t* prefix,
+                                               int32_t f, int32_t k) {
+  int32_t lo = 0, hi = f;
+  while (lo < hi) {
+    int32_t mid = (int32_t)(((uint32_t)lo + (uint32_t)hi) >> 1);
+    if (Ld::ld(prefix + mid) <= k) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The same count by the 32 lanes of a warp together, all of which must
+// call it with the same arguments.  Each round probes 32 evenly spaced
+// points of [lo, hi); the answer lies between the last point <= k and the
+// next one, so the range shrinks 32-fold a round.
+template <class Ld>
+__device__ __forceinline__ int32_t warp_upper_bound(const int32_t* prefix,
+                                                    int32_t f, int32_t k) {
+  const int lane = threadIdx.x & 31;
+  int32_t lo = 0, hi = f;             // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int64_t step = ((int64_t)hi - lo + 31) / 32;
+    const int64_t p = lo + lane * step;
+    const bool le = p < hi && Ld::ld(prefix + p) <= k;
+    const int c = __popc(__ballot_sync(0xffffffffu, le));
+    if (c == 0) break;                // prefix[lo] > k: the answer is lo
+    const int64_t last = lo + (int64_t)(c - 1) * step;   // prefix <= k
+    lo = (int32_t)(last + 1);
+    if (last + step < hi) hi = (int32_t)(last + step);   // prefix > k
+  }
+  return lo;
+}
+
+// the same count over a slice in shared memory
+__device__ __forceinline__ int32_t smem_upper_bound(const int32_t* p,
+                                                    int32_t m, int32_t k) {
+  int32_t lo = 0, hi = m;
+  while (lo < hi) {
+    int32_t mid = (lo + hi) >> 1;
+    if (p[mid] <= k) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// a B1 tile's slot slice, staged in shared memory
+struct WdSmem {
+  int32_t prefix[B1_SLOTS], excl[B1_SLOTS], start[B1_SLOTS], src[B1_SLOTS];
+  int32_t bounds[2];
+};
+
+// B1's rank-and-relax body for block tile t of a merge path over
+// `cap_work` lanes (Merrill and Garland's partition): the tile finds the
+// slots of its first and last valid lane (k < total) with one 32-ary warp
+// search each, stages that slot slice of prefix/exclusive/start/src_ids
+// in shared memory, and every lane ranks itself there, takes edge
+// start + k - exclusive and relaxes it.  A slice wider than B1_SLOTS (long
+// runs of zero-degree slots, HP's tail cursors past the end) keeps the
+// per-lane global search, narrowed to the slice.  Every thread of the
+// block calls it with the same t; imp (may be null) gets each lane's
+// improve flag.
+template <int MSG, int COMB, class Ld, class Hook>
+__device__ __forceinline__ void wd_tile(
+    int64_t t, const int32_t* dist, int32_t n, const int32_t* prefix,
+    const int32_t* excl, const int32_t* start, const int32_t* src_ids,
+    int32_t f, const int32_t* col, const int32_t* wt, int32_t e,
+    int32_t cap_work, int64_t total, int32_t* target, uint8_t* upd,
+    uint8_t* imp, WdSmem& sm, const Hook& hook) {
+  constexpr int L = B1_LANES;
+  const int64_t k0 = t * B1_TILE;
+  const int64_t k_end = k0 + B1_TILE < cap_work ? k0 + B1_TILE : cap_work;
+  const int64_t v_end = k_end < total ? k_end : total;
+  if (k0 >= v_end) {                    // no valid lane in the tile
+    if (imp)
+      for (int64_t k = k0 + threadIdx.x; k < k_end; k += THREADS) imp[k] = 0;
+    return;
+  }
+  // the slots of the tile's first and last valid lane; every valid lane
+  // ranks below f, since k < total = prefix[f - 1]
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int32_t r = warp_upper_bound<Ld>(
+        prefix, f, (int32_t)(warp == 0 ? k0 : v_end - 1));
+    if ((threadIdx.x & 31) == 0) sm.bounds[warp] = r;
+  }
+  __syncthreads();
+  const int32_t lo = sm.bounds[0], hi = sm.bounds[1];
+  const int32_t cnt = hi - lo + 1;      // slots [lo, hi]
+  const bool staged = cnt <= B1_SLOTS;
+  if (staged) {
+    for (int32_t i = threadIdx.x; i < cnt; i += THREADS) {
+      Ld::stage(sm.prefix + i, prefix + lo + i);
+      Ld::stage(sm.excl + i, excl + lo + i);
+      Ld::stage(sm.start + i, start + lo + i);
+      Ld::stage(sm.src + i, src_ids + lo + i);
+    }
+    Ld::stage_wait();
+  }
+  __syncthreads();
+
+  // rank(k) = lo + #{i in [lo, hi) : prefix[i] <= k} for k in the tile
+  bool v[L];
+  int32_t s[L] = {}, c[L] = {}, wv[L] = {};
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int64_t k = k0 + j * THREADS + threadIdx.x;
+    v[j] = k < v_end;
+    if (!v[j]) continue;
+    int32_t ex, st;
+    if (staged) {
+      const int32_t li = smem_upper_bound(sm.prefix, cnt - 1, (int32_t)k);
+      ex = sm.excl[li];
+      st = sm.start[li];
+      s[j] = sm.src[li];
+    } else {
+      const int32_t i =
+          lo + upper_bound<Ld>(prefix + lo, cnt - 1, (int32_t)k);
+      ex = Ld::ld(excl + i);
+      st = Ld::ld(start + i);
+      s[j] = Ld::ld(src_ids + i);
+    }
+    const int32_t ec = clamp_index((int64_t)st + (k - ex), e);
+    c[j] = __ldg(col + ec);
+    wv[j] = wt ? __ldg(wt + ec) : 1;
+  }
+  bool improved[L];
+  relax_group<L, MSG, COMB, Ld>(dist, n, v, s, c, wv, target, upd, improved,
+                                hook);
+  if (imp) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int64_t k = k0 + j * THREADS + threadIdx.x;
+      if (k < k_end) imp[k] = improved[j];
+    }
+  }
+  __syncthreads();                      // the slice is free for the next tile
+}
+
+}  // namespace relax_lanes

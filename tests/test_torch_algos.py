@@ -125,9 +125,16 @@ def test_fixed_point_and_later_slices_raise():
         return np.zeros(n_alloc, np.int32), np.ones(n_alloc, bool)
     with pytest.raises(ValueError, match="frontier_init"):
         engine.fixed_point(g, make_strategy("EP"), init, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        engine.fixed_point(g, make_strategy("WD"), init, mode="fused",
+    # the capability is checked before the mode: EP fused raises the same
+    with pytest.raises(ValueError, match="frontier_init"):
+        engine.fixed_point(g, make_strategy("EP"), init, mode="fused",
                            device="cpu")
+    # mode="fused" (A7) has landed: it runs, equal to the stepped run
+    got = engine.fixed_point(g, make_strategy("WD"), init, mode="fused",
+                             device="cpu")
+    want = engine.fixed_point(g, make_strategy("WD"), init, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
     with pytest.raises(NotImplementedError, match="A8"):
         engine.run_batch(g, [0, 1])
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (the relax kernels exactly, B4/B5 within tests/test_kernels.py's
 tolerances), the wrappers' argument checks, the stepped engine (all six
-strategies, connected components, widest path) and the serving loop on
-the card against the CPU.  Every test here needs a CUDA
+strategies, connected components, widest path), the fused fixed point
+(against its plain loop on the card and the CPU, one launch a traversal)
+and the serving loop on the card against the CPU.  Every test here needs a CUDA
 device and skips
 without one.  The file imports neither JAX nor ``repro``, so it runs on a
 machine without JAX:
@@ -302,6 +303,96 @@ def test_widest_path_on_the_card_matches_cpu(dev, strategy):
     assert (a.iterations, a.edges_relaxed) == (b.iterations,
                                                b.edges_relaxed)
     np.testing.assert_array_equal(a.dist, reference_widest(g, src))
+
+
+# ---------------------------------------------------------------------------
+# the fused fixed point: one launch a traversal, equal to its plain version
+# ---------------------------------------------------------------------------
+
+#: (strategy, its kwargs) of the fused runs: the defaults, and HP and AD
+#: with thresholds that force HP's tiles and tail (and AD's HP branch) at
+#: rmat12
+FUSED_RUNS = {"BS": ("BS", {}), "WD": ("WD", {}), "HP": ("HP", {}),
+              "HP-tiles": ("HP", {"switch_threshold": 16, "mdt": 4}),
+              "EP": ("EP", {}), "NS": ("NS", {}), "AD": ("AD", {}),
+              "AD-all": ("AD", {"small_frontier": 8,
+                                "hp_edges_threshold": 256, "mdt": 4})}
+
+
+def _fused_pair(g, strategy, kwargs, op, source, max_iterations):
+    """The fused kernel and its plain version on the same card tensors;
+    returns both results and the kernel launches of the kernel's run."""
+    from repro_torch.core import fused as core_fused
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.kernels import fused as kernel_fused
+    strat = make_strategy(strategy, **kwargs)
+    plan = core_fused._plan(strat, strat.setup(g), g)
+    n = plan.graph.num_nodes
+    dist = torch.full((n,), op.identity, dtype=torch.int32, device=g.device)
+    dist[source] = op.seed(source)
+    mask = torch.zeros(n, dtype=torch.bool, device=g.device)
+    mask[source] = True
+    args = (plan.kernel, plan.graph, plan.aux, dist, mask)
+    kw = dict(op=op, sched=plan.sched, max_iterations=max_iterations)
+    before = dict(relax.LAUNCHES)
+    got = kernel_fused.fixed_point(*args, **kw)
+    launched = {k: relax.LAUNCHES[k] - before[k] for k in before}
+    want = core_fused._fixed_point_plain(*args, **kw)
+    assert torch.equal(dist, args[3]) and mask.sum() == 1   # inputs kept
+    return got, want, launched
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+@pytest.mark.parametrize("run", list(FUSED_RUNS))
+def test_fused_kernel_matches_plain(dev, run, opname):
+    """Every strategy and built-in operator: the kernel's (dist,
+    iterations, edges, AD's choices) equal the plain loop's on the same
+    card tensors, in one fused launch and no B1/B2 launch.  reach_count
+    (add) grows without bound on rmat's cycles, so it runs 6 iterations."""
+    strategy, kwargs = FUSED_RUNS[run]
+    op = operators.OPERATORS[opname]
+    g = rmat_graph(scale=12, weighted=True, seed=1, device=dev)
+    source = int(g.degrees.argmax())
+    got, want, launched = _fused_pair(
+        g, strategy, kwargs, op, source,
+        6 if opname == "reach_count" else 100000)
+    assert torch.equal(got[0], want[0])
+    assert got[1:] == want[1:] and got[1] > 1
+    assert launched["fused_fixed_point"] == 1
+    assert launched["relax_lanes"] == launched["wd_relax_lanes"] == 0
+    if run == "AD-all":
+        assert sum(c > 0 for c in got[3]) >= 2, got[3]
+
+
+@pytest.mark.parametrize("run", list(FUSED_RUNS))
+def test_fused_engine_on_the_card_matches_cpu_and_stepped(dev, run):
+    """``mode="fused"`` through ``sssp``/``bfs`` on the card equals the
+    CPU's fused run and the card's stepped run, AD's choices included,
+    with one fused launch a traversal."""
+    strategy, kwargs = FUSED_RUNS[run]
+    g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
+    src = int(g.degrees.argmax())
+    for fn in (sssp, bfs):
+        before = relax.LAUNCHES["fused_fixed_point"]
+        a = fn(g, src, strategy=strategy, device=dev, mode="fused", **kwargs)
+        assert relax.LAUNCHES["fused_fixed_point"] == before + 1
+        b = fn(g, src, strategy=strategy, device="cpu", mode="fused",
+               **kwargs)
+        c = fn(g, src, strategy=strategy, device=dev, **kwargs)
+        assert a.mode == "fused" and a.iter_stats == []
+        for other in (b, c):
+            np.testing.assert_array_equal(a.dist, other.dist)
+            assert (a.iterations, a.edges_relaxed) == (other.iterations,
+                                                       other.edges_relaxed)
+
+
+@pytest.mark.parametrize("strategy", ["BS", "WD", "NS", "HP", "AD"])
+def test_fused_connected_components_on_the_card_matches_cpu(dev, strategy):
+    g = _symmetrized(rmat_graph(scale=12, weighted=False, seed=3,
+                                device="cpu"))
+    a = connected_components(g, strategy=strategy, device=dev, mode="fused")
+    b = connected_components(g, strategy=strategy, device="cpu")
+    np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------

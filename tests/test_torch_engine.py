@@ -193,6 +193,19 @@ def test_default_device_without_a_card_raises():
 @pytest.mark.parametrize("kwargs", [dict(mode="fused"), dict(shards=2),
                                     dict(schedule="delta")])
 def test_later_slices_raise_not_implemented(kwargs):
+    """``shards=`` and ``schedule="delta"`` raise naming their ROADMAP
+    items; ``mode="fused"`` (A7) has landed and runs, equal to the
+    stepped run."""
+    if kwargs.get("mode") == "fused":
+        got = engine.run(GRAPHS["road"], 0, make_strategy("WD"),
+                         device="cpu", **kwargs)
+        want = engine.run(GRAPHS["road"], 0, make_strategy("WD"),
+                          device="cpu")
+        assert got.mode == "fused" and got.iter_stats == []
+        np.testing.assert_array_equal(got.dist, want.dist)
+        assert (got.iterations, got.edges_relaxed) == (want.iterations,
+                                                       want.edges_relaxed)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.run(GRAPHS["road"], 0, make_strategy("WD"), device="cpu",
                    **kwargs)

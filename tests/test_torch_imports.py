@@ -52,7 +52,8 @@ def test_every_module_imports_with_jax_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "for want in ('kernels.relax', 'kernels.flash_attention',\n"
-        "             'kernels.ssd_chunk', 'models.model', 'configs.qwen3_0_6b',\n"
+        "             'kernels.ssd_chunk', 'kernels.fused', 'core.fused',\n"
+        "             'models.model', 'configs.qwen3_0_6b',\n"
         "             'runtime.serve', 'launch.serve'):\n"
         "    assert 'repro_torch.' + want in names, names\n"
         "print(len(names))\n")

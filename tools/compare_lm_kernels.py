@@ -54,6 +54,8 @@ def build_libraries(trees: dict) -> dict:
             raise RuntimeError(f"build of {name} failed:\n{out}\n{err}")
         handle = ctypes.CDLL(out.strip().splitlines()[-1])
         for fn, argtypes in _SIGNATURES.items():
+            if not hasattr(handle, fn):    # an older tree's entry points
+                continue                   # lack the later kernels'
             getattr(handle, fn).argtypes = argtypes
             getattr(handle, fn).restype = ctypes.c_int
         libs[name] = handle

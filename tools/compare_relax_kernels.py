@@ -158,27 +158,27 @@ def main() -> int:
     print(json.dumps({"path_shapes": shapes}), flush=True)
     op = operators.shortest_path
     msg, comb = op.kernel_codes()
-    n = g.num_nodes
 
     def check(status: int) -> None:
         if status != 0:
             raise RuntimeError(f"CUDA launch failed ({status})")
 
-    def new_mask():
-        return torch.zeros(n, dtype=torch.bool, device=dev)
+    def new_mask(dist):
+        return torch.zeros(dist.numel(), dtype=torch.bool, device=dev)
 
     def b2_launch(lib, dist, b, target, upd):
         imp = torch.empty(b["src"].numel(), dtype=torch.bool, device=dev)
         check(lib.repro_relax_lanes(
-            dist.data_ptr(), n, b["src"].data_ptr(), b["dst"].data_ptr(),
-            b["w"].data_ptr(), b["valid"].data_ptr(), b["src"].numel(), msg,
+            dist.data_ptr(), dist.numel(), b["src"].data_ptr(),
+            b["dst"].data_ptr(), b["w"].data_ptr(), b["valid"].data_ptr(),
+            b["src"].numel(), msg,
             comb, target.data_ptr(), upd.data_ptr(), imp.data_ptr(), stream))
         return imp
 
     def b1_launch(lib, dist, a, target, upd):
         imp = torch.empty(a["cap_work"], dtype=torch.bool, device=dev)
         check(lib.repro_wd_relax_lanes(
-            dist.data_ptr(), n, a["prefix"].data_ptr(),
+            dist.data_ptr(), dist.numel(), a["prefix"].data_ptr(),
             a["exclusive"].data_ptr(), a["start"].data_ptr(),
             a["src_ids"].data_ptr(), a["prefix"].numel(), g.col.data_ptr(),
             g.wt.data_ptr(), g.num_edges, a["cap_work"], msg, comb,
@@ -188,15 +188,15 @@ def main() -> int:
     def b2_cases(dist, b):
         """(contract, sequence, plain outputs) of one kept B2 call."""
         lane_args = (b["src"], b["dst"], b["w"], b["valid"])
-        mask = new_mask()                   # the running mask of BS and HP
+        mask = new_mask(dist)                   # the running mask of BS and HP
 
         def proposal(name, lib):
-            prop, upd = torch.full_like(dist, op.identity), new_mask()
+            prop, upd = torch.full_like(dist, op.identity), new_mask(dist)
             return prop, upd, b2_launch(lib, dist, b, prop, upd)
 
         def apply(name, lib):
             if name == "baseline":
-                prop, upd = torch.full_like(dist, op.identity), new_mask()
+                prop, upd = torch.full_like(dist, op.identity), new_mask(dist)
                 imp = b2_launch(lib, dist, b, prop, upd)
                 return torch.minimum(dist, prop), mask | upd, imp
             target = dist.clone()
@@ -204,7 +204,7 @@ def main() -> int:
         return [("relax_lanes", proposal,
                  relax.relax_lanes_plain(dist, *lane_args, op=op)),
                 ("apply_relax", apply,
-                 relax.apply_relax_plain(dist, new_mask(), *lane_args,
+                 relax.apply_relax_plain(dist, new_mask(dist), *lane_args,
                                          op=op))]
 
     def b1_cases(dist, a):
@@ -214,21 +214,21 @@ def main() -> int:
         cap = a["cap_work"]
 
         def proposal(name, lib):
-            prop, upd = torch.full_like(dist, op.identity), new_mask()
+            prop, upd = torch.full_like(dist, op.identity), new_mask(dist)
             return prop, upd, b1_launch(lib, dist, a, prop, upd)
 
         def wd_relax(name, lib):
             if name == "baseline":
-                prop, upd = torch.full_like(dist, op.identity), new_mask()
+                prop, upd = torch.full_like(dist, op.identity), new_mask(dist)
                 imp = b1_launch(lib, dist, a, prop, upd)
                 return torch.minimum(dist, prop), upd, imp
-            upd, target = new_mask(), dist.clone()
+            upd, target = new_mask(dist), dist.clone()
             return target, upd, b1_launch(lib, dist, a, target, upd)
         return [("wd_relax_lanes", proposal,
                  relax.wd_relax_lanes_plain(dist, *wd_args, cap_work=cap,
                                             op=op)),
                 ("wd_relax", wd_relax,
-                 relax.wd_apply_relax_plain(dist, new_mask(), *wd_args,
+                 relax.wd_apply_relax_plain(dist, new_mask(dist), *wd_args,
                                             cap_work=cap, op=op))]
 
     def time_case(fn, want, info):

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one CUDA card.
 
-    python3 tools/profile_torch_path.py
+    python3 tools/profile_torch_path.py [--mode stepped|fused]
 
 Runs ``sssp`` (WD, BS, HP, AD, EP, NS) and ``bfs`` (WD) of ``repro_torch`` on
 ``rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1)`` from its
-highest-degree source, each once untraced (wall time, MTEPS) and once under
-``torch.profiler``.  For each run it prints one JSON line: traversal
+highest-degree source, in the given engine mode (``fused``: one launch of
+the fused fixed point a traversal), each once untraced (wall time, MTEPS)
+and once under ``torch.profiler``.  For each run it prints one JSON line: traversal
 seconds, the device time of all CUDA kernels in the trace, the device's
 idle share of the traced traversal (1 - kernel time / wall time), the
 launch count, and the kernels that took the most device time.  Needs a
@@ -15,6 +16,7 @@ CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -27,6 +29,10 @@ SCALE = 20
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--mode", choices=("stepped", "fused"),
+                        default="stepped")
+    mode = parser.parse_args().mode
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_path.py: no CUDA device", file=sys.stderr)
@@ -44,17 +50,17 @@ def main() -> int:
                       "nvidia_smi": smi}), flush=True)
     g = rmat_graph(scale=SCALE, edge_factor=8, weighted=True, seed=1)
     source = int(g.degrees.argmax())
-    sssp(g, source, strategy="WD")                      # warm-up
+    sssp(g, source, strategy="WD", mode=mode)           # warm-up
     for algo, strategy in (("sssp", "WD"), ("sssp", "BS"), ("sssp", "HP"),
                            ("sssp", "AD"), ("bfs", "WD"), ("sssp", "EP"),
                            ("sssp", "NS")):
         fn = sssp if algo == "sssp" else bfs
-        r = fn(g, source, strategy=strategy)
+        r = fn(g, source, strategy=strategy, mode=mode)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fn(g, source, strategy=strategy)
+            fn(g, source, strategy=strategy, mode=mode)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = [e for e in prof.events()
@@ -66,6 +72,7 @@ def main() -> int:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         print(json.dumps({
             "graph": f"rmat{SCALE}", "algo": algo, "strategy": strategy,
+            "mode": mode,
             "iterations": r.iterations, "edges_relaxed": r.edges_relaxed,
             "traversal_seconds": r.traversal_seconds, "mteps": r.mteps,
             "traced_wall_seconds": wall,

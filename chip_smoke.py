@@ -62,6 +62,31 @@ Phases, each printing one JSON line:
    and sssp-WD at rmat20, timed there; fused and stepped runs
    interleaved on rmat20 (median ms, MTEPS, spread, ratio); one traced
    fused traversal per run (one fused kernel, no B1/B2; the idle share).
+   batch: ``run_batch`` (ROADMAP A8) on rmat20 with K = 8 sources by
+   fig12's rule (the highest out-degrees).  The launch counts are set to 0
+   just before the sssp and bfs batches, stepped and fused, and read just
+   after: one launch of B1's batch contract (``wd_relax_lanes_batch``) a
+   stepped iteration and no single-row B1, one ``fused_fixed_point``
+   launch a fused batch (the kernel line's B1-batch row and the fused
+   row's ``batch_launches``).  Every row equals Dijkstra, stepped equals
+   fused, the batch's iterations and edges are the maximum and the sum of
+   the eight single-source fused WD runs, ``pad_to=16`` keeps the rows; a
+   K = 32 fused batch (the next 32 nodes) equals its stepped batch and, in
+   four rows, Dijkstra.  B1's batch contract against its plain version on
+   the K = 8 stepped run's own launches (an empty row, a ``cap_work`` off
+   the tile, all four operators) and timed there; the fused batch against
+   its plain loop (rmat16, four operators; rmat20, sssp), timed; the
+   batches against eight sequential single runs, fused and stepped, and
+   the K = 32 batch, interleaved (3 rounds, medians, spread, MTEPS,
+   queries/s); one traced fused batch (one fused kernel, idle share).
+   graph_serve: ``GraphServer(mode="fused", max_batch=8)`` with rmat20
+   resident, through ``repro_torch.launch.serve_graph.serve`` with the
+   example's traffic (64 sssp queries from the 10% highest-degree nodes,
+   bursts of 4, 30 s deadlines, 2 landmarks; the server steps after each
+   burst, so no batch is wider than 4): one fused launch a batch, every
+   ``ok`` row equal to its source's fused run, four to Dijkstra;
+   ``stats()`` (p50/p99, batches, occupancy, cache hits) and queries/s
+   over the submit-to-drain window (the landmarks' warm-up excluded).
 5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
    heads, hd 128: S = 512 and 2048 bf16 causal, 512 f32, 512 bf16
    non-causal, ragged 1000) and B5 ``ssd_chunk_dual`` (8 chunks of 256, 48
@@ -375,13 +400,30 @@ def fold_bytes(n: int, contract: str, improving: int) -> int:
     return 8 * n + improving
 
 
+def b1_work(prefix, total) -> tuple[int, int]:
+    """The slot-table bytes and the operations of B1 over the rows of
+    ``prefix`` ([f] or [K, f]) with ``total`` ([] or [K]) valid lanes a
+    row.  A tile stages only the slots of its valid lanes: over a row,
+    the slots with 0 < prefix < total and the last lane's, 16 B each
+    (prefix, exclusive, start, src_ids); padded slots and the tiles past
+    a row's total are never read.  Each valid lane searches the row's
+    slots and then does 6 operations."""
+    import numpy as np
+    prefix, total = prefix.reshape(-1, prefix.shape[-1]), total.reshape(-1, 1)
+    slots = (((prefix > 0) & (prefix < total)).sum(1)
+             + (total[:, 0] > 0)).tolist()
+    lanes = total[:, 0].tolist()
+    steps = [int(np.ceil(np.log2(s + 1))) for s in slots]
+    return (16 * sum(slots),
+            sum(t * (st + 6) for t, st in zip(lanes, steps)))
+
+
 def time_b1(g, a, dist, op, reps, flush, contract="wd_relax_lanes") -> dict:
     """B1 timed on one WD step's arguments ``a`` (``wd_inputs``,
     ``path_calls``) beside its plain version, with its bound.
     ``contract`` "wd_relax_lanes" returns the proposal; "wd_apply_relax"
     times what ``wd_relax`` runs per WD iteration: a fresh mask, the copy
     of dist, the launch."""
-    import numpy as np
     import torch
     from repro_torch.kernels import relax
     n = g.num_nodes
@@ -406,10 +448,10 @@ def time_b1(g, a, dist, op, reps, flush, contract="wd_relax_lanes") -> dict:
                 dist, torch.zeros(n, dtype=torch.bool, device=dist.device),
                 *args, cap_work=cap, op=op)
     improving = int(plain()[2].sum())
-    nbytes = fold_bytes(n, contract, improving) + 16 * f_slots + 8 * total \
-        + cap
-    t_b, by = bound(nbytes, cap * int(np.ceil(np.log2(f_slots + 1)))
-                    + 6 * total)
+    slot_bytes, ops = b1_work(a["prefix"], a["prefix"][-1].clamp(max=cap))
+    # + cap: the improve flag of every lane, which this contract writes
+    t_b, by = bound(fold_bytes(n, contract, improving) + slot_bytes
+                    + 8 * total + cap, ops)
     return dict(contract=contract, **time_pair(fn, plain, reps, flush),
                 bound_ms=t_b, bound_by=by,
                 shape=dict(n=n, f=f_slots, cap_work=cap, edges=total,
@@ -1268,6 +1310,477 @@ def fused_phase(g, dev, stepped, *, small_scale: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: batched queries (A8) and the graph-query server (A12)
+# ---------------------------------------------------------------------------
+
+#: the batches of the batch phase: fig12's K, and a wider one
+BATCH_K = 8
+BATCH_K_WIDE = 32
+#: interleaved rounds of the batch timings
+BATCH_ROUNDS = 3
+B1_BATCH_REPLACES = "src/repro/kernels/relax.py:349"
+#: the reference's batched relax: a jax.vmap of B1 (a grid axis of its
+#: pallas_call)
+B1_BATCH_VMAP = "src/repro/core/multi_source.py:111"
+
+
+def batch_sources(g, k: int, skip: int = 0):
+    """fig12's rule (benchmarks/fig12_adaptive.py ``_batch_sources``): the
+    ``k`` nodes of highest out-degree, here after the first ``skip``."""
+    import numpy as np
+    order = np.argsort(g.degrees.cpu().numpy())[::-1]
+    return np.asarray(order[skip:skip + k], np.int32)
+
+
+def dijkstra_rows(g, sources, weighted: bool):
+    """``dijkstra_oracle`` for each source: ``[K, N]``."""
+    import numpy as np
+    return np.stack([dijkstra_oracle(g, int(s), weighted) for s in sources])
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels.relax import LANES, LAUNCHES
+    for counts in (LAUNCHES, LANES):
+        for key in counts:
+            counts[key] = 0
+
+
+def batch_calls(g, dev, sources) -> list:
+    """The B1 batch launches of a stepped sssp batch on ``g``: each
+    launch's ``dist`` and slot tables as the batch gave them (cloned)."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import relax
+    real = relax.wd_apply_relax_batch
+    kept = []
+
+    def recording(dist, updated, *args, **kw):
+        kept.append(dict(dist=dist.clone(), cap_work=kw["cap_work"],
+                         **{k: a.clone() for k, a in zip(
+                             ("prefix", "exclusive", "start", "src_ids"),
+                             args[:4])}))
+        return real(dist, updated, *args, **kw)
+
+    relax.wd_apply_relax_batch = recording
+    try:
+        engine.run_batch(g, sources, mode="stepped", device=dev)
+    finally:
+        relax.wd_apply_relax_batch = real
+    torch.cuda.synchronize()
+    return kept
+
+
+def b1_batch_check(g, dev, kept) -> tuple:
+    """B1's batch contract against its plain version on the card: every
+    kept launch with its own dist (sssp); the widest with a row whose
+    frontier is empty, with ``cap_work`` one past its largest row total
+    (not a multiple of the 1,024-lane tile), and with each of the four
+    ``OP_NAMES`` operators on random values.  Returns ``(cases,
+    max_abs_err)``; raises on a difference."""
+    import numpy as np
+    import torch
+    from repro_torch.core import operators
+    from repro_torch.kernels import relax
+    rng = np.random.default_rng(11)
+    k, n = kept[0]["dist"].shape
+    cases, err, bad = 0, 0, []
+
+    def check(case, c, dist, op, cap_work):
+        nonlocal cases, err
+        args = (c["prefix"], c["exclusive"], c["start"], c["src_ids"],
+                g.col, g.wt)
+        upd = torch.zeros((k, n), dtype=torch.bool, device=dev)
+        got = relax.wd_apply_relax_batch(dist, upd, *args,
+                                         cap_work=cap_work, op=op)
+        want = relax.wd_apply_relax_batch_plain(
+            dist, torch.zeros_like(upd), *args, cap_work=cap_work, op=op)
+        e = max_abs_err(got, want)
+        cases += 1
+        err = max(err, e)
+        if e:
+            bad.append((case, op.name, cap_work, e))
+
+    sssp = operators.shortest_path
+    for i, c in enumerate(kept):
+        check(f"launch {i}", c, c["dist"], sssp, c["cap_work"])
+    widest = max(kept, key=lambda c: c["cap_work"])
+    empty = dict(widest)
+    empty_rows = int((widest["prefix"][:, -1] == 0).sum())
+    if not empty_rows:                  # make row 0's frontier empty
+        empty = {key: v.clone() if torch.is_tensor(v) else v
+                 for key, v in widest.items()}
+        for key in ("prefix", "exclusive", "src_ids"):
+            empty[key][0] = 0
+        empty["start"][0] = g.row_ptr[0]
+    check("empty row", empty, empty["dist"], sssp, empty["cap_work"])
+    odd = int(widest["prefix"][:, -1].max()) + 1
+    odd += odd % 1024 == 0
+    check("cap_work not a tile multiple", widest, widest["dist"], sssp, odd)
+    for name in OP_NAMES:
+        op = operators.OPERATORS[name]
+        dist = random_dist(rng, op, k * n, dev).reshape(k, n)
+        check(f"random {name}", widest, dist, op, widest["cap_work"])
+    emit("b1_batch_check", graph=f"rmat{n.bit_length() - 1}", rows=k,
+         cases=cases, launches_kept=len(kept),
+         empty_rows_in_widest=empty_rows, mismatches=bad)
+    if bad:
+        raise AssertionError(f"B1 batch != plain: {bad}")
+    return cases, err
+
+
+def b1_batch_time(g, c, reps: int = 10) -> dict:
+    """B1's batch contract as a stepped iteration runs it (a fresh mask,
+    the copy of dist, the launch), timed L2-cold and warm on the kept
+    launch ``c`` beside its plain version, with its bound: B1's
+    (``time_b1``) summed over the rows, less the improve flags, which
+    this contract does not write."""
+    import torch
+    from repro_torch.core import operators
+    from repro_torch.kernels import relax
+    op = operators.shortest_path
+    dist = c["dist"]
+    k, n = dist.shape
+    cap = c["cap_work"]
+    f_slots = c["prefix"].shape[1]
+    args = (c["prefix"], c["exclusive"], c["start"], c["src_ids"], g.col,
+            g.wt)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dist.device)
+
+    def fn():
+        return relax.wd_apply_relax_batch(
+            dist, torch.zeros((k, n), dtype=torch.bool, device=dist.device),
+            *args, cap_work=cap, op=op)
+
+    def plain():
+        return relax.wd_apply_relax_batch_plain(
+            dist, torch.zeros((k, n), dtype=torch.bool, device=dist.device),
+            *args, cap_work=cap, op=op)
+    totals = c["prefix"][:, -1].clamp(max=cap)
+    improving = (plain()[0] != dist).sum(1).tolist()
+    slot_bytes, ops = b1_work(c["prefix"], totals)
+    totals = totals.tolist()
+    # no improve flags: the batch contract writes none
+    t_b, by = bound(sum(fold_bytes(n, "wd_apply_relax", imp)
+                        for imp in improving)
+                    + slot_bytes + 8 * sum(totals), ops)
+    return dict(contract="wd_apply_relax_batch",
+                **time_pair(fn, plain, reps, flush), bound_ms=t_b,
+                bound_by=by,
+                shape=dict(n=n, rows=k, f=f_slots, cap_work=cap,
+                           edges=sum(totals), improved_nodes=sum(improving),
+                           weighted=True, op=op.name))
+
+
+def single_runs(g, sources, dev, mode: str) -> list:
+    """One WD traversal a source through ``engine.run``."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    return [engine.run(g, int(s), make_strategy("WD"), mode=mode, device=dev)
+            for s in sources]
+
+
+def batch_phase(g, dev, fused_row, *, small_scale: int,
+                rounds: int = BATCH_ROUNDS) -> dict:
+    """``run_batch`` on the card: K = 8 sources by fig12's rule on ``g``
+    (rmat20).  The launch counts are set to 0 just before the four K = 8
+    batches (sssp and bfs, stepped and fused) and read just after: one B1
+    batch launch a stepped iteration and no single-row B1, one fused
+    launch a fused batch.  Every row equals Dijkstra; stepped equals
+    fused; the batch's iterations and edges are the maximum and the sum
+    of the eight single-source fused WD runs; ``pad_to=16`` keeps the
+    first eight rows.  A K = 32 fused sssp batch (the next 32 nodes)
+    equals its stepped batch, and four of its rows Dijkstra.  B1's batch
+    contract against its plain version on launches kept from the K = 8
+    stepped run (``b1_batch_check``) and timed there; the fused batch
+    against ``_batch_fixed_point_plain`` at rmat-``small_scale`` (four
+    operators) and on ``g`` (sssp).  Then, interleaved over ``rounds``:
+    the K = 8 fused and stepped batches against eight sequential single
+    runs, and the K = 32 fused batch; one traced fused batch.  Returns the
+    kernel line's B1-batch row and adds ``at_batch`` to ``fused_row``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import engine, fused, multi_source, operators
+    from repro_torch.core.schedule import DEFAULT_SCHEDULE
+    from repro_torch.data import rmat_graph
+    from repro_torch.kernels import fused as fused_kernel
+    from repro_torch.kernels.relax import LAUNCHES
+
+    name = f"rmat{g.num_nodes.bit_length() - 1}"
+    src8 = batch_sources(g, BATCH_K)
+    graphs = {"sssp": g, "bfs": g.unweighted()}
+    oracle = {algo: dijkstra_rows(g, src8, algo == "sssp")
+              for algo in graphs}
+    for mode in ("stepped", "fused"):                     # warm-up
+        engine.run_batch(g, src8, mode=mode, device=dev)
+
+    zero_counts()
+    runs = {}
+    for algo, gg in graphs.items():
+        for mode in ("stepped", "fused"):
+            before = dict(LAUNCHES)
+            r = engine.run_batch(gg, src8, mode=mode, device=dev)
+            launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            runs[(algo, mode)] = r
+            if not np.array_equal(r.dist, oracle[algo]):
+                raise AssertionError(f"{mode} {algo} batch != Dijkstra")
+            want = ({"wd_relax_lanes_batch": r.iterations}
+                    if mode == "stepped" else {"fused_fixed_point": 1})
+            if {k: v for k, v in launched.items() if v} != want:
+                raise AssertionError(f"{mode} {algo} batch launched "
+                                     f"{launched}, not {want}")
+            emit("batch_run", graph=name, algo=algo, mode=mode,
+                 sources=src8.tolist(), iterations=r.iterations,
+                 edges_relaxed=r.edges_relaxed,
+                 total_seconds=r.total_seconds, mteps=r.mteps,
+                 queries_per_second=r.queries_per_second,
+                 launches=launched, equals_oracle=True)
+    launches = dict(LAUNCHES)
+    emit("batch_launches", graph=name, launches=launches)
+
+    for algo, gg in graphs.items():
+        s, f = runs[(algo, "stepped")], runs[(algo, "fused")]
+        if not same_run(s, f):
+            raise AssertionError(f"{algo} batch: stepped != fused")
+        single = single_runs(gg, src8, dev, "fused")
+        its = max(r.iterations for r in single)
+        edges = sum(r.edges_relaxed for r in single)
+        if (f.iterations, f.edges_relaxed) != (its, edges):
+            raise AssertionError(f"{algo} batch ({f.iterations}, "
+                                 f"{f.edges_relaxed}) != single runs "
+                                 f"(max {its}, sum {edges})")
+        emit("batch_vs_single", graph=name, algo=algo, iterations=its,
+             edges_relaxed=edges,
+             single_iterations=[r.iterations for r in single],
+             equal=True)
+    padded = engine.run_batch(g, src8, mode="fused", pad_to=16, device=dev)
+    if (padded.pad_lanes != 8 or not np.array_equal(
+            padded.dist[:8], runs[("sssp", "fused")].dist)):
+        raise AssertionError("pad_to=16 changed the batch's rows")
+
+    src32 = batch_sources(g, BATCH_K_WIDE, skip=BATCH_K)
+    before = LAUNCHES["fused_fixed_point"]
+    wide = engine.run_batch(g, src32, mode="fused", device=dev)
+    if LAUNCHES["fused_fixed_point"] != before + 1:
+        raise AssertionError("the K = 32 batch was not one fused launch")
+    wide_stepped = engine.run_batch(g, src32, mode="stepped", device=dev)
+    if not same_run(wide, wide_stepped):
+        raise AssertionError("K = 32 batch: fused != stepped")
+    picks = [0, 7, 19, 31]
+    if not np.array_equal(wide.dist[picks],
+                          dijkstra_rows(g, src32[picks], True)):
+        raise AssertionError("K = 32 batch != Dijkstra")
+    emit("batch_wide", graph=name, rows=BATCH_K_WIDE,
+         iterations=wide.iterations, edges_relaxed=wide.edges_relaxed,
+         equals_stepped=True, rows_equal_to_dijkstra=picks)
+
+    # B1's batch contract against its plain version, and timed
+    kept = batch_calls(g, dev, src8)
+    if len(kept) != runs[("sssp", "stepped")].iterations:
+        raise AssertionError(f"kept {len(kept)} B1 batch launches")
+    cases, err = b1_batch_check(g, dev, kept)
+    widest = max(kept, key=lambda c: c["cap_work"])
+    row = dict(name="wd_relax_lanes_batch", route="cuda", source=CSRC,
+               replaces=B1_BATCH_REPLACES, vmap_of=B1_BATCH_VMAP,
+               launches=launches["wd_relax_lanes_batch"], max_abs_err=err,
+               library_ms=None, cases=cases, **b1_batch_time(g, widest))
+    emit("b1_batch_time", **row)
+    del kept, widest
+
+    # the fused batch against its plain loop on the same card tensors
+    small = rmat_graph(scale=small_scale, edge_factor=8, weighted=True,
+                       seed=1, device=dev)
+    cases = [(small, name_, batch_sources(small, BATCH_K))
+             for name_ in OP_NAMES] + [(g, "shortest_path", src8)]
+    ferr = 0
+    for graph, opname, sources in cases:
+        op = operators.OPERATORS[opname]
+        dist, mask = multi_source.init_batch(
+            graph.num_nodes, torch.from_numpy(sources).to(dev), op=op)
+        kw = dict(op=op, max_iterations=6 if opname == "reach_count"
+                  else 100000)
+        t0 = time.perf_counter()
+        got = fused_kernel.batch_fixed_point(graph, dist, mask,
+                                             sched=DEFAULT_SCHEDULE, **kw)
+        t1 = time.perf_counter()
+        want = fused._batch_fixed_point_plain(graph, dist, mask, **kw)
+        t2 = time.perf_counter()
+        gname = f"rmat{graph.num_nodes.bit_length() - 1}"
+        if got[1:] != want[1:] or not torch.equal(got[0], want[0]):
+            raise AssertionError(f"fused batch != plain: {gname} {opname}: "
+                                 f"{got[1:]} vs {want[1:]}")
+        ferr = max(ferr, max_abs_err([got[0]], [want[0]]))
+        emit("fused_batch_vs_plain", graph=gname, op=opname,
+             rows=len(sources), iterations=got[1], edges_relaxed=got[2],
+             equal=True, kernel_seconds=t1 - t0, plain_seconds=t2 - t1)
+    f8 = runs[("sssp", "fused")]
+    # the least bytes of the batch: each row's sssp-WD traversal
+    # (``fused_phase``'s count), from the stepped batch's per-iteration
+    # frontier widths (an upper bound of the rows' summed frontiers is not
+    # taken: each row's own run is)
+    single = single_runs(g, src8, dev, "stepped")
+    nbytes = sum(12 * r.edges_relaxed
+                 + 12 * sum(st.frontier_size for st in r.iter_stats)
+                 + g.num_nodes * r.iterations for r in single)
+    bound_ms, bound_by = bound(nbytes, 0)
+    fused_row["at_batch"] = dict(
+        graph=name, rows=BATCH_K, run="sssp-WD batch",
+        launches=launches["fused_fixed_point"], max_abs_err=ferr,
+        ms=time_ms(lambda: fused_kernel.batch_fixed_point(
+            g, dist, mask, sched=DEFAULT_SCHEDULE, **kw)),
+        plain_ms=time_ms(lambda: fused._batch_fixed_point_plain(
+            g, dist, mask, **kw), reps=3),
+        bound_ms=bound_ms, bound_by=bound_by, iterations=f8.iterations,
+        edges_relaxed=f8.edges_relaxed)
+    fused_row["batch_launches"] = launches["fused_fixed_point"]
+    emit("fused_batch_time", **fused_row["at_batch"])
+    # the kernel's device ms as the batch widens (K = 1 takes the
+    # single-row path): how its cost grows with the rows
+    scaling = {}
+    d32, m32 = multi_source.init_batch(
+        g.num_nodes, torch.from_numpy(batch_sources(
+            g, BATCH_K_WIDE, skip=BATCH_K)).to(dev), op=op)
+    for k, dk, mk in [(k, dist[:k].contiguous(), mask[:k].contiguous())
+                      for k in (1, 2, 4, 8)] + [(BATCH_K_WIDE, d32, m32)]:
+        scaling[k] = time_ms(lambda: fused_kernel.batch_fixed_point(
+            g, dk, mk, sched=DEFAULT_SCHEDULE, **kw), reps=5)
+    del d32, m32
+    emit("fused_batch_scaling", graph=name, device_ms=scaling,
+         ms_per_row={k: v / k for k, v in scaling.items()})
+
+    # interleaved timings: wall seconds of each whole call, host included
+    def batch(mode, sources):
+        return lambda: engine.run_batch(g, sources, mode=mode, device=dev)
+
+    def singles(mode):
+        return lambda: single_runs(g, src8, dev, mode)
+    timed = {"fused_batch8": (batch("fused", src8), BATCH_K,
+                              f8.edges_relaxed),
+             "fused_single8": (singles("fused"), BATCH_K, f8.edges_relaxed),
+             "stepped_batch8": (batch("stepped", src8), BATCH_K,
+                                f8.edges_relaxed),
+             "stepped_single8": (singles("stepped"), BATCH_K,
+                                 f8.edges_relaxed),
+             "fused_batch32": (batch("fused", src32), BATCH_K_WIDE,
+                               wide.edges_relaxed)}
+    times = {key: [] for key in timed}
+    for key, (fn, _, _) in timed.items():                 # warm-up
+        fn()
+    for i in range(rounds):
+        keys = list(timed) if i % 2 == 0 else list(timed)[::-1]
+        for key in keys:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed[key][0]()
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+    med = {key: statistics.median(t) for key, t in times.items()}
+    for key, (_, k, edges) in timed.items():
+        emit("batch_timing", graph=name, run=key, rounds=rounds,
+             ms=[t * 1e3 for t in times[key]], median_ms=med[key] * 1e3,
+             spread=(max(times[key]) - min(times[key])) / med[key],
+             queries=k, edges_relaxed=edges,
+             mteps=edges / med[key] / 1e6,
+             queries_per_second=k / med[key])
+    emit("batch_speedup", graph=name,
+         fused_batch8_over_single8=med["fused_batch8"] / med["fused_single8"],
+         stepped_batch8_over_single8=(med["stepped_batch8"]
+                                      / med["stepped_single8"]))
+
+    # one traced fused batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run_batch(g, src8, mode="fused", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    acts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [e for e in acts if "fused_fixed_point_kernel" in e.name]
+    busy = sum(e.device_time for e in acts) / 1e6
+    by_name: dict = {}
+    for e in acts:
+        by_name[e.name[:50]] = by_name.get(e.name[:50], 0) + e.device_time
+    emit("fused_batch_trace", graph=name, rows=BATCH_K,
+         activities=len(acts), fused_launches=len(ours),
+         device_ms_by_name={k: v / 1e3 for k, v in by_name.items()},
+         traced_wall_seconds=wall, device_seconds=busy,
+         kernel_seconds=sum(e.device_time for e in ours) / 1e6,
+         device_idle_share=1.0 - busy / wall)
+    if len(ours) != 1:
+        raise AssertionError(f"traced fused batch: {len(ours)} fused "
+                             f"kernels")
+    return row
+
+
+#: the example's traffic (examples/serve_graph_queries.py) at fig12's K
+SERVE_QUERIES = 64
+SERVE_MAX_BATCH = 8
+
+
+def graph_serve_phase(g, dev) -> None:
+    """``GraphServer(mode="fused", max_batch=8)`` with ``g`` (rmat20)
+    resident, driven through ``repro_torch.launch.serve_graph.serve``
+    with the example's traffic: 64 sssp queries drawn with seed 0 from
+    the 10% highest-degree nodes, bursts of 4, a 30 s deadline, 2 warmed
+    landmarks, the system clock.  The server steps after every burst, so
+    the served batches are at most 4 wide.  The launch counts are set to
+    0 just before and read just after: one fused launch a dispatched
+    batch and no B1/B2.  Every ``ok`` row equals its source's
+    single-source fused run, and four equal Dijkstra.  Prints ``stats()``
+    and the queries a second over the submit-to-drain window."""
+    import numpy as np
+    from repro_torch.kernels.relax import LAUNCHES
+    from repro_torch.launch import serve_graph
+
+    zero_counts()
+    t0 = time.perf_counter()
+    srv, done = serve_graph.serve(
+        g, "rmat20", queries=SERVE_QUERIES, max_batch=SERVE_MAX_BATCH,
+        burst=4, deadline=30.0, landmarks=2, seed=0, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    stats = srv.stats()
+    if ({k: v for k, v in launches.items() if v}
+            != {"fused_fixed_point": stats["batches"]}):
+        raise AssertionError(f"served {stats['batches']} batches with "
+                             f"launches {launches}")
+    ok = [r for r in done if r.ok]
+    # the submit-to-drain window on the server's clock: the landmarks'
+    # warm-up batch before the first submission is set-up
+    window = (max(r.finish_time for r in done)
+              - min(r.request.submit_time for r in done))
+    if len(done) != SERVE_QUERIES or not ok:
+        raise AssertionError(f"{len(done)} responses, {len(ok)} ok")
+    by_source = {}
+    for r in ok:
+        by_source.setdefault(r.request.source, []).append(r.dist)
+    single = dict(zip(by_source, single_runs(g, list(by_source), dev,
+                                             "fused")))
+    for s, rows in by_source.items():
+        if not all(np.array_equal(d, single[s].dist) for d in rows):
+            raise AssertionError(f"served row of {s} != its fused run")
+    picks = list(by_source)[:4]
+    if not np.array_equal(np.stack([by_source[s][0] for s in picks]),
+                          dijkstra_rows(g, picks, True)):
+        raise AssertionError("served rows != Dijkstra")
+    emit("graph_serve", graph="rmat20", queries=SERVE_QUERIES,
+         max_batch=SERVE_MAX_BATCH, ok=len(ok),
+         rejected=len(done) - len(ok), distinct_sources=len(by_source),
+         launches=launches, wall_seconds=wall, window_seconds=window,
+         queries_per_second=len(ok) / window,
+         latency_p50_ms=stats["latency_p50"] * 1e3,
+         latency_p99_ms=stats["latency_p99"] * 1e3,
+         batches=stats["batches"], batch_occupancy=stats["batch_occupancy"],
+         result_cache_hits=stats.get("result_cache_hits", 0),
+         exec_cache_hits=stats.get("exec_cache_hits", 0),
+         deadline_misses=stats.get("deadline_misses", 0),
+         rows_equal_single_runs=True, rows_equal_to_dijkstra=len(picks),
+         stats=stats)
+
+
+# ---------------------------------------------------------------------------
 # phases 5-7: the LM serving slice (B4, B5)
 # ---------------------------------------------------------------------------
 
@@ -1695,8 +2208,11 @@ def main() -> int:
     timed("cpu_compare", cpu_compare_phase, g, dev, results, cpu_scale=16)
     timed("strategies_cpu", strategies_cpu_phase, dev, scale=16)
     timed("memory_wall", memory_wall_phase, g, dev, results)
-    rows.append(timed("fused", fused_phase, g, dev, results,
+    fused_row = timed("fused", fused_phase, g, dev, results, small_scale=16)
+    rows.append(fused_row)
+    rows.append(timed("batch", batch_phase, g, dev, fused_row,
                       small_scale=16))
+    timed("graph_serve", graph_serve_phase, g, dev)
     del results
     timed("algos", algos_phase, g, dev, small_scale=16)
     del g

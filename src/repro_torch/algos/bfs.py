@@ -3,8 +3,9 @@
 
 from __future__ import annotations
 
-from repro_torch.core.engine import RunResult, make_strategy, run
+from repro_torch.core.engine import RunResult, make_strategy, run, run_batch
 from repro_torch.core.graph import CSRGraph
+from repro_torch.core.multi_source import BatchRunResult
 
 
 def bfs(graph: CSRGraph, source: int = 0, strategy: str = "WD",
@@ -15,3 +16,12 @@ def bfs(graph: CSRGraph, source: int = 0, strategy: str = "WD",
     strat = make_strategy(strategy, **strategy_kwargs)
     return run(graph.unweighted(), source, strat,
                record_degrees=record_degrees, mode=mode, device=device)
+
+
+def bfs_batch(graph: CSRGraph, sources, mode: str = "stepped",
+              device="cuda", **batch_kwargs) -> BatchRunResult:
+    """BFS levels from K sources at once (dist is ``[K, N]``) on the
+    unweighted view, on the card unless ``device="cpu"``; ``batch_kwargs``
+    go to ``run_batch``."""
+    return run_batch(graph.unweighted(), sources, mode=mode, device=device,
+                     **batch_kwargs)

@@ -3,8 +3,9 @@ paper Fig. 2): the ``shortest_path`` operator on a weighted graph."""
 
 from __future__ import annotations
 
-from repro_torch.core.engine import RunResult, make_strategy, run
+from repro_torch.core.engine import RunResult, make_strategy, run, run_batch
 from repro_torch.core.graph import CSRGraph
+from repro_torch.core.multi_source import BatchRunResult
 
 
 def sssp(graph: CSRGraph, source: int = 0, strategy: str = "WD",
@@ -18,3 +19,13 @@ def sssp(graph: CSRGraph, source: int = 0, strategy: str = "WD",
     strat = make_strategy(strategy, **strategy_kwargs)
     return run(graph, source, strat, record_degrees=record_degrees,
                mode=mode, device=device)
+
+
+def sssp_batch(graph: CSRGraph, sources, mode: str = "stepped",
+               device="cuda", **batch_kwargs) -> BatchRunResult:
+    """Shortest paths from K sources at once (dist is ``[K, N]``), on the
+    card unless ``device="cpu"``; ``batch_kwargs`` go to ``run_batch``."""
+    if graph.wt is None:
+        raise ValueError("SSSP needs a weighted graph")
+    return run_batch(graph, sources, mode=mode, device=device,
+                     **batch_kwargs)

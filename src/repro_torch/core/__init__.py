@@ -5,6 +5,7 @@ from repro_torch.core.graph import (CSRGraph, COOGraph, INF,  # noqa: F401
 from repro_torch.core.engine import (run, run_batch, fixed_point,  # noqa: F401
                                      make_strategy, RunResult, ready,
                                      reference_distances)
+from repro_torch.core.multi_source import BatchRunResult  # noqa: F401
 from repro_torch.core.operators import (EdgeOp, OPERATORS,  # noqa: F401
                                         register_operator, shortest_path,
                                         min_label, widest_path, reach_count)

@@ -12,8 +12,10 @@ and edge total.  :func:`fixed_point` does the same from a caller's
 is an :class:`repro_torch.core.operators.EdgeOp` (``op=``, default
 ``shortest_path``).
 
-Sharding, delta-stepping and batching are later slices (ROADMAP.md A11,
-A10, A8); asking for them raises ``NotImplementedError``.
+:func:`run_batch` answers K sources at once
+(:mod:`repro_torch.core.multi_source`).  Sharding and delta-stepping are
+later slices (ROADMAP.md A11, A10); asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -278,9 +280,23 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
     return _original(dist, strategy), it, edges
 
 
-def run_batch(graph: CSRGraph, sources, **kwargs):
-    """K sources against one graph at once: a later slice."""
-    raise _not_ported("run_batch", "ROADMAP.md A8")
+def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
+              mode: str = "stepped", op="shortest_path",
+              shards: Optional[int] = None, schedule: str = "bsp",
+              delta: Optional[int] = None, pad_to: Optional[int] = None,
+              work_schedule: Optional[Schedule] = None, device="cuda"):
+    """Run K sources concurrently against one graph (dist is ``[K, N]``).
+
+    Thin wrapper over :func:`repro_torch.core.multi_source.run_batch`,
+    kept here so single-source and batched entry points live side by
+    side: on the card one B1 batch launch an iteration (stepped) or one
+    fused launch a batch; ``pad_to=P`` K-buckets the batch (the serving
+    tier's)."""
+    from repro_torch.core import multi_source
+    return multi_source.run_batch(
+        graph, sources, max_iterations=max_iterations, mode=mode, op=op,
+        shards=shards, schedule=schedule, delta=delta, pad_to=pad_to,
+        work_schedule=work_schedule, device=device)
 
 
 def reference_distances(graph: CSRGraph, source: int) -> np.ndarray:

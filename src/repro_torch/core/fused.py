@@ -25,8 +25,11 @@ int32 limbs because JAX runs without x64; nothing here needs them).
 :data:`DISPATCH_COUNTS` moves by one per traversal, keyed by kernel name.
 The reference's ``TRACE_COUNTS`` has no counterpart: nothing here
 compiles per shape.  Measured AD waits for ROADMAP A9 (``AdaptiveStrategy``
-refuses ``cost_model=``) and the batched fixed point for A8
-(:func:`run_batch_fixed_point`); both raise ``NotImplementedError``.
+refuses ``cost_model=``, raising ``NotImplementedError``).
+
+:func:`run_batch_fixed_point` runs K WD queries as one batch (ROADMAP A8,
+the reference's ``_batch_fixed_point``): one launch of the same kernel
+with K rows on the card, :func:`_batch_fixed_point_plain` on the CPU.
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ from repro_torch.core.strategies import (
 from repro_torch.kernels import fused as fused_kernel
 from repro_torch.kernels.relax import apply_relax_plain
 
-#: traversals started, per kernel: one per :func:`run_fixed_point` call
+#: traversals started, per kernel: one per :func:`run_fixed_point` call,
+#: and ``"batch"`` one per :func:`run_batch_fixed_point` call
 DISPATCH_COUNTS: Counter = Counter()
 
 #: AD's branches, in the order of its kernel tally
@@ -303,8 +307,37 @@ def run_fixed_point(graph: CSRGraph, state: Any, strategy, dist0, mask0, *,
     return dist, it, edges
 
 
-def run_batch_fixed_point(*args, **kwargs):
-    """K queries to their fixed points in one launch: a later slice."""
-    raise NotImplementedError(
-        "the batched fused fixed point is not ported to repro_torch yet "
-        "(ROADMAP.md A8)")
+# ---------------------------------------------------------------------------
+# batched multi-source fixed point (K queries, one launch)
+# ---------------------------------------------------------------------------
+
+def _batch_fixed_point_plain(g: CSRGraph, dist_b, mask_b, *, op: EdgeOp,
+                             max_iterations: int):
+    """The batch's plain version: while any row's frontier is live and
+    ``it < max_iterations``, :func:`_wd_step` on every row (the
+    reference's ``vmap``); the edge total sums the rows.  Returns
+    ``(dist [K, N], iterations, edges_relaxed)``."""
+    it, edges = 0, 0
+    while it < max_iterations and bool(mask_b.any()):
+        steps = [_wd_step(g, d, m, op=op) for d, m in zip(dist_b, mask_b)]
+        dist_b = torch.stack([d for d, _, _ in steps])
+        mask_b = torch.stack([m for _, m, _ in steps])
+        edges += sum(e for _, _, e in steps)
+        it += 1
+    return dist_b, it, edges
+
+
+def run_batch_fixed_point(graph: CSRGraph, dist_b, mask_b, *,
+                          op="shortest_path", max_iterations: int = 100000,
+                          sched: Schedule = DEFAULT_SCHEDULE):
+    """All K queries of ``dist_b``/``mask_b`` (``[K, N]``, on ``graph``'s
+    device) to the batch's fixed point as one launch (the plain loop for
+    CPU tensors), the counterpart of the reference's
+    ``run_batch_fixed_point``.  Iterations count until every row's
+    frontier is empty; the edge total sums the rows' masked degree sums.
+    Returns ``(dist [K, N], iterations, edges_relaxed)``, ``dist`` on the
+    device."""
+    DISPATCH_COUNTS["batch"] += 1
+    return fused_kernel.batch_fixed_point(
+        graph, dist_b, mask_b, op=operators.resolve(op), sched=sched,
+        max_iterations=max_iterations)

@@ -1,0 +1,254 @@
+"""Batched multi-source fixed point of the port (the serving workload; the
+counterpart of :mod:`repro.core.multi_source`).
+
+:func:`repro_torch.core.engine.run` answers one query a call.  A serving
+deployment answers many BFS/SSSP queries against the same graph, so this
+module runs K sources as one fixed point:
+
+* ``dist`` is ``[K, N]`` and the frontier a ``[K, N]`` bool mask;
+* each stepped iteration is ONE launch of B1's batch contract for all K
+  rows (:func:`batched_wd_relax`, ``relax.wd_apply_relax_batch``), where
+  the reference ``vmap``-s its WD relax over the source axis;
+* the capacities are shared by the batch: every iteration takes the
+  widest live frontier and the largest edge total over the K rows, rounds
+  them up with :func:`repro_torch.core.worklist.bucket`, and rows whose
+  frontier is empty ride along with no valid lane.
+
+A row whose query has converged stops producing frontier bits;
+:func:`refill_slot` swaps a fresh source into it without touching the
+other rows.
+
+``run_batch(..., mode=)``:
+
+* ``"stepped"``: the loop above.  The host syncs only the ``[K]`` frontier
+  counts and degree totals each iteration (the reference copies the whole
+  ``[K, N]`` mask; the numbers are the same);
+* ``"fused"``: the whole batch to its fixed point in one launch,
+  :func:`repro_torch.core.fused.run_batch_fixed_point`, with no
+  per-iteration ``iter_stats``.
+
+Sharded and delta-stepping batches are later slices (ROADMAP.md A11,
+A10) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import fused, operators
+from repro_torch.core.graph import CSRGraph, resolve_device
+from repro_torch.core.operators import EdgeOp
+from repro_torch.core.schedule import DEFAULT_SCHEDULE, Schedule
+from repro_torch.core.strategies import IterStats
+from repro_torch.core.worklist import bucket
+from repro_torch.kernels import relax
+
+
+@dataclasses.dataclass
+class BatchRunResult:
+    dist: np.ndarray                 # [K, N] final distances / levels
+    sources: np.ndarray              # [K] the batched source nodes
+    iterations: int                  # fixed-point iterations for the batch
+    total_seconds: float             # to the device's finish, no host copy
+    edges_relaxed: int               # summed over all K sources
+    iter_stats: list
+    strategy: str = "WD-batch"
+    mode: str = "stepped"            # "stepped" or "fused"
+    shards: int = 1
+    #: where the batch ran: "cuda" (hand-written kernels) or "cpu" (their
+    #: plain PyTorch versions).  Replaces the reference's ``backend``.
+    device: str = "cuda"
+    schedule: str = "bsp"
+    delta: Optional[int] = None
+    relax_rounds: Optional[int] = None
+    #: trailing rows that are padding, not queries (``pad_to=``);
+    #: ``dist[:K - pad_lanes]`` are the requested rows, and
+    #: ``edges_relaxed`` includes the padded rows' work
+    pad_lanes: int = 0
+
+    def __post_init__(self):
+        if self.relax_rounds is None:
+            self.relax_rounds = self.iterations
+
+    @property
+    def mteps(self) -> float:
+        if self.total_seconds <= 0:
+            return 0.0
+        return self.edges_relaxed / self.total_seconds / 1e6
+
+    @property
+    def queries_per_second(self) -> float:
+        if self.total_seconds <= 0:
+            return 0.0
+        return self.sources.shape[0] / self.total_seconds
+
+
+def _elapsed(t0: float, dist_b: torch.Tensor) -> float:
+    """Seconds since ``t0`` once the device has finished ``dist_b``: the
+    clock stops before the ``[K, N]`` copy to the host, as the
+    reference's stops before ``np.asarray(dist_b)``."""
+    if dist_b.is_cuda:
+        torch.cuda.synchronize(dist_b.device)
+    return time.perf_counter() - t0
+
+
+def compact_rows(mask_b: torch.Tensor, cap: int) -> torch.Tensor:
+    """``[K, N]`` bool mask -> ``[K, cap]`` int32 worklists: each row's
+    set indices ascending, padded with -1 and truncated to ``cap`` (the
+    reference's ``compact_mask`` on every row)."""
+    k, n = mask_b.shape
+    pos = torch.cumsum(mask_b, 1, dtype=torch.int32) - 1   # rank in the row
+    slot = torch.where(mask_b & (pos < cap), pos, cap).long()
+    out = torch.full((k, cap + 1), -1, dtype=torch.int32,
+                     device=mask_b.device)
+    ids = torch.arange(n, dtype=torch.int32, device=mask_b.device)
+    out.scatter_(1, slot, ids.expand(k, n))      # column cap: discarded
+    return out[:, :cap].contiguous()
+
+
+def batched_wd_relax(g: CSRGraph, dist_b, mask_b, *, cap: int,
+                     cap_work: int, op: EdgeOp = operators.shortest_path):
+    """One relax iteration for all K rows: each row's frontier compacted
+    into ``cap`` slots and its edges spread over ``cap_work`` lanes, then
+    ONE launch of B1's batch contract (the plain version per row on the
+    CPU).  Returns ``(dist [K, N], next frontier [K, N])``."""
+    frontier = compact_rows(mask_b, cap)
+    live = frontier >= 0
+    f = torch.where(live, frontier, 0)
+    deg = torch.where(live, g.row_ptr[f + 1] - g.row_ptr[f], 0)
+    prefix = torch.cumsum(deg, 1, dtype=torch.int32)
+    return relax.wd_apply_relax_batch(
+        dist_b, torch.zeros_like(mask_b), prefix, prefix - deg,
+        g.row_ptr[f], f, g.col, g.wt, cap_work=cap_work, op=op)
+
+
+def init_batch(num_nodes: int, sources: torch.Tensor,
+               op: EdgeOp = operators.shortest_path):
+    """Initial ``[K, N]`` values and frontier mask for a batch of
+    ``sources`` (on their device)."""
+    k, dev = sources.numel(), sources.device
+    rows = torch.arange(k, device=dev)
+    src = sources.long()
+    dist = torch.full((k, num_nodes), op.identity, dtype=op.dtype,
+                      device=dev)
+    dist[rows, src] = torch.as_tensor(op.seed(sources), dtype=op.dtype,
+                                      device=dev)
+    mask = torch.zeros((k, num_nodes), dtype=torch.bool, device=dev)
+    mask[rows, src] = True
+    return dist, mask
+
+
+def refill_slot(dist_b, mask_b, slot: int, source: int,
+                op: EdgeOp = operators.shortest_path):
+    """Admit a new query into row ``slot``: reset its values and seed its
+    frontier at ``source``; the other rows are untouched (continuous
+    batching).  Returns new ``(dist_b, mask_b)``."""
+    dist_b, mask_b = dist_b.clone(), mask_b.clone()
+    dist_b[slot] = op.identity
+    dist_b[slot, source] = op.seed(source)
+    mask_b[slot] = False
+    mask_b[slot, source] = True
+    return dist_b, mask_b
+
+
+def _pad(sources: np.ndarray, pad_to: Optional[int]) -> tuple:
+    """``pad_to`` K-bucketing (the serving tier's): pad lanes re-run the
+    first source (node 0 on an empty batch)."""
+    if pad_to is None:
+        return sources, 0
+    if pad_to < sources.shape[0]:
+        raise ValueError(
+            f"pad_to={pad_to} is smaller than the batch "
+            f"({sources.shape[0]} sources); pick a bucket >= K")
+    pad_lanes = pad_to - int(sources.shape[0])
+    fill = sources[0] if sources.shape[0] else np.int32(0)
+    return (np.concatenate([sources, np.full(pad_lanes, fill, np.int32)]),
+            pad_lanes)
+
+
+def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
+              mode: str = "stepped", op="shortest_path",
+              shards: Optional[int] = None, schedule: str = "bsp",
+              delta: Optional[int] = None, pad_to: Optional[int] = None,
+              work_schedule: Optional[Schedule] = None,
+              device="cuda") -> BatchRunResult:
+    """Fixed point over K sources at once, equal to K independent
+    ``engine.run`` calls with WD in every row's values; only the batching
+    differs.  With the default ``shortest_path`` operator, ``graph.wt is
+    None`` gives BFS levels, else SSSP distances.
+
+    ``device="cuda"`` (the default) runs B1's batch contract (stepped) or
+    the fused kernel with K rows (``mode="fused"``); ``device="cpu"``
+    runs their plain versions.  ``pad_to=P`` rounds the batch up to P
+    rows by repeating the first source (``BatchRunResult.pad_lanes``).
+    ``work_schedule`` sets the worklist floor.  ``shards=`` and
+    ``schedule="delta"`` raise ``NotImplementedError``; an unknown mode
+    and a source outside ``[0, N)`` raise ``ValueError`` (the reference
+    drops such a source silently)."""
+    from repro_torch.core.engine import _check_slice
+    _check_slice(mode, shards, schedule, delta)
+    op = operators.resolve(op)
+    dev = resolve_device(device)
+    n = graph.num_nodes
+    sources = np.asarray(sources, np.int32).reshape(-1)
+    if np.any((sources < 0) | (sources >= n)):
+        raise ValueError(f"sources {sources.tolist()} leave [0, {n})")
+    sources, pad_lanes = _pad(sources, pad_to)
+    k = int(sources.shape[0])
+    done = dict(sources=sources, iterations=0, total_seconds=0.0,
+                edges_relaxed=0, iter_stats=[], mode=mode, device=dev.type,
+                pad_lanes=pad_lanes)
+    if k == 0:
+        return BatchRunResult(dist=np.zeros((0, n), np.int32), **done)
+    if graph.num_edges == 0:
+        dist = np.full((k, n), op.identity, np.int32)
+        dist[np.arange(k), sources] = op.seed(sources)
+        return BatchRunResult(dist=dist, **done)
+
+    sched = work_schedule if work_schedule is not None else DEFAULT_SCHEDULE
+    graph = graph.to(dev)
+    t0 = time.perf_counter()
+    dist_b, mask_b = init_batch(n, torch.from_numpy(sources).to(dev), op=op)
+
+    if mode == "fused":
+        dist_b, iterations, edges = fused.run_batch_fixed_point(
+            graph, dist_b, mask_b, op=op, max_iterations=max_iterations,
+            sched=sched)
+        total_s = _elapsed(t0, dist_b)
+        return BatchRunResult(dist=dist_b.cpu().numpy(), sources=sources,
+                              iterations=iterations, total_seconds=total_s,
+                              edges_relaxed=edges, iter_stats=[],
+                              mode="fused", device=dev.type,
+                              pad_lanes=pad_lanes)
+
+    degrees = graph.degrees
+    iter_stats: list[IterStats] = []
+    edges = 0
+    it = 0
+    while it < max_iterations:
+        # the [K] counts and degree totals: the one sync an iteration
+        counts, totals = torch.stack([
+            mask_b.sum(1),
+            torch.where(mask_b, degrees, 0).sum(1, dtype=torch.int64),
+        ]).tolist()
+        widest = max(counts)
+        if widest == 0:
+            break
+        dist_b, mask_b = batched_wd_relax(
+            graph, dist_b, mask_b, cap=bucket(widest, sched.min_bucket),
+            cap_work=bucket(max(totals), sched.min_bucket), op=op)
+        edges += sum(totals)
+        iter_stats.append(IterStats(frontier_size=widest,
+                                    edges_processed=sum(totals),
+                                    kernel="WD"))
+        it += 1
+    total_s = _elapsed(t0, dist_b)
+    return BatchRunResult(dist=dist_b.cpu().numpy(), sources=sources,
+                          iterations=it, total_seconds=total_s,
+                          edges_relaxed=edges, iter_stats=iter_stats,
+                          device=dev.type, pad_lanes=pad_lanes)

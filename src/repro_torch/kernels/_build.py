@@ -30,12 +30,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: launches its kernel and nowhere else
 LAUNCHES = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0,
             "flash_attention": 0, "ssd_chunk_dual": 0,
-            "fused_fixed_point": 0}
+            "fused_fixed_point": 0, "wd_relax_lanes_batch": 0}
 
-#: kernel name -> lanes launched so far, for the two kernels whose work is
-#: a lane count (B1's ``cap_work``, B2's ``L``); summed where the launch
-#: is counted, so ``LANES[k] / LAUNCHES[k]`` is a run's mean lanes a launch
-LANES = {"wd_relax_lanes": 0, "relax_lanes": 0}
+#: kernel name -> lanes launched so far, for the kernels whose work is a
+#: lane count (B1's ``cap_work``, its batch's ``K * cap_work``, B2's
+#: ``L``); summed where the launch is counted, so
+#: ``LANES[k] / LAUNCHES[k]`` is a run's mean lanes a launch
+LANES = {"wd_relax_lanes": 0, "relax_lanes": 0, "wd_relax_lanes_batch": 0}
 
 #: ``dtype`` argument of the float kernels
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,6 +55,10 @@ _SIGNATURES = {
     # msg, comb, target, upd, imp, stream
     "repro_wd_relax_lanes": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                              _I, _I, _P, _P, _P, _P],
+    # dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work, rows,
+    # msg, comb, target, upd, stream
+    "repro_wd_relax_lanes_batch": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I,
+                                   _I, _I, _I, _I, _P, _P, _P],
     # prefix, f, cap_work, out, stream
     "repro_find_offsets": [_P, _I, _I, _P, _P],
     # q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, causal, dtype, scale, stream
@@ -64,13 +69,13 @@ _SIGNATURES = {
                              _I, _P],
     # n, out bytes
     "repro_fused_workspace_bytes": [_I, ctypes.POINTER(ctypes.c_longlong)],
-    # row_ptr, col, wt, n, e, aux, dist0, mask0, kernel, msg, comb,
+    # row_ptr, col, wt, n, rows, e, aux, dist0, mask0, kernel, msg, comb,
     # max_iterations, mdt, switch_threshold, small_frontier,
     # imbalance_threshold, hp_edges_threshold, dist, workspace,
     # workspace_bytes, result, stream
-    "repro_fused_fixed_point": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, ctypes.c_float, _I, _P, _P,
-                                ctypes.c_longlong, _P, _P],
+    "repro_fused_fixed_point": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, ctypes.c_float, _I, _P,
+                                _P, ctypes.c_longlong, _P, _P],
 }
 
 _lib = None

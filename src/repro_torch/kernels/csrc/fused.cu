@@ -56,6 +56,17 @@
 // each lane.  The design keeps the host out of the loop entirely; its
 // times beside its bound are in PERF.md.
 //
+// A batch of K queries (WD only, the reference's _batch_fixed_point: the
+// dense WD step vmapped over the sources).  The K rows of n values are one
+// flat array of K * n, and so are the masks: the frontier of an iteration
+// is compacted over all K * n entries, a slot's degree comes from row_ptr
+// at its node (flat id mod n), and a merge-path lane's destination is its
+// source's row plus col[e] (FlatRows).  One chunk covers every row's edges
+// in an iteration; the rows never interact and the int32 atomics do not
+// depend on order, so this gives the bits of one synchronous merge path per
+// row per iteration.  The loop runs while any row is live, and the edge
+// total sums the rows.  The caller keeps K * n and K * e below 2^31.
+//
 // AD's selector computes mean = f32(degree_sum) / f32(max(count, 1)) and
 // imbalance = f32(max_degree) / mean with IEEE division (__fdiv_rn; the
 // library is never built with fast math), the float32 order of the
@@ -94,6 +105,8 @@ struct Params {
   const int32_t* dist0;
   const uint8_t* mask0;
   int32_t n, e;
+  int32_t rows;              // queries in the batch (1: one traversal)
+  int32_t nk;                // values: rows * n
   int kernel, max_iterations, mdt, switch_threshold, small_frontier,
       hp_edges_threshold;
   float imbalance_threshold;
@@ -249,17 +262,22 @@ __device__ __forceinline__ int32_t degree(const Params& p, int32_t i) {
   return __ldg(p.row_ptr + i + 1) - __ldg(p.row_ptr + i);
 }
 
+// the graph node of flat value i ([rows, n], row-major)
+__device__ __forceinline__ int32_t node_of(const Params& p, int32_t i) {
+  return p.rows == 1 ? i : i % p.n;
+}
+
 // The frontier's count, degree sum and max degree (ends in a barrier);
 // zeroes the next iteration's mask on the way.
 __device__ Frontier frontier_count(const Params& p, const uint8_t* M,
                                    uint8_t* next) {
   int32_t lo, hi;
-  segment(p.n, lo, hi);
+  segment(p.nk, lo, hi);
   int32_t cnt = 0, sum = 0, mx = 0;
   for (int32_t i = lo + threadIdx.x; i < hi; i += THREADS) {
     next[i] = 0;
     if (__ldcg(M + i)) {
-      const int32_t d = degree(p, i);
+      const int32_t d = degree(p, node_of(p, i));
       ++cnt;
       sum += d;
       mx = max(mx, d);
@@ -283,14 +301,14 @@ __device__ Frontier frontier_count(const Params& p, const uint8_t* M,
 __device__ void frontier_compact(const Params& p, const uint8_t* M,
                                  const Frontier& f) {
   int32_t lo, hi;
-  segment(p.n, lo, hi);
+  segment(p.nk, lo, hi);
   int32_t pc = f.before_count, pd = f.before_deg;
   for (int32_t base = lo; base < hi; base += THREADS) {
     const int32_t i = base + threadIdx.x;
     int32_t on = 0, d = 0;
     if (i < hi && __ldcg(M + i)) {
       on = 1;
-      d = degree(p, i);
+      d = degree(p, node_of(p, i));
     }
     int32_t a = on, b = d, ta, tb;
     block_scan2(a, b, ta, tb);
@@ -298,7 +316,7 @@ __device__ void frontier_compact(const Params& p, const uint8_t* M,
       const int32_t pos = pc + a - 1;
       p.list[pos] = i;
       p.deg[pos] = d;
-      p.start[pos] = __ldg(p.row_ptr + i);
+      p.start[pos] = __ldg(p.row_ptr + node_of(p, i));
       p.pfx[pos] = pd + b;
       p.exc[pos] = pd + b - d;
     }
@@ -466,15 +484,24 @@ __device__ void ep_edges(const Params& p, const uint8_t* M, uint8_t* upd,
   }
 }
 
-// WD, and HP's tail: B1's merge-path tiles over `total` lanes
+// WD, and HP's tail: B1's merge-path tiles over `total` lanes (over every
+// row's frontier at once in a batch)
 template <int MSG, int COMB>
 __device__ void merge_path(const Params& p, int32_t count, int64_t total,
                            uint8_t* upd, const NoteHook& h, WdSmem& sm) {
   const int64_t tiles = (total + B1_TILE - 1) / B1_TILE;
-  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x)
-    wd_tile<MSG, COMB, Coherent>(t, p.A, p.n, p.pfx, p.exc, p.start, p.list,
-                                 count, p.col, p.wt, p.e, (int32_t)total,
-                                 total, p.B, upd, nullptr, sm, h);
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    if (p.rows == 1)
+      wd_tile<MSG, COMB, Coherent>(t, p.A, p.n, p.pfx, p.exc, p.start,
+                                   p.list, count, p.col, p.wt, p.e,
+                                   (int32_t)total, total, p.B, upd, nullptr,
+                                   sm, h);
+    else
+      wd_tile<MSG, COMB, Coherent>(t, p.A, p.nk, p.pfx, p.exc, p.start,
+                                   p.list, count, p.col, p.wt, p.e,
+                                   (int32_t)total, total, p.B, upd, nullptr,
+                                   sm, h, FlatRows{p.n});
+  }
 }
 
 template <int MSG, int COMB>
@@ -531,7 +558,7 @@ template <int MSG, int COMB>
 __global__ void __launch_bounds__(THREADS)
 fused_fixed_point_kernel(Params p) {
   __shared__ WdSmem sm;
-  for (int64_t i = gtid(); i < p.n; i += gthreads()) {
+  for (int64_t i = gtid(); i < p.nk; i += gthreads()) {
     const int32_t v = __ldg(p.dist0 + i);
     p.A[i] = v;
     p.B[i] = v;
@@ -681,7 +708,8 @@ cudaError_t launch_msg(int comb, const Params& p, cudaStream_t st) {
 
 extern "C" {
 
-// Bytes of workspace a traversal of n nodes needs on the current card.
+// Bytes of workspace a traversal of n values (rows * nodes) needs on the
+// current card.
 int repro_fused_workspace_bytes(int32_t n, long long* bytes) {
   int64_t grid = 0;
   const cudaError_t err = max_grid(&grid);
@@ -691,29 +719,33 @@ int repro_fused_workspace_bytes(int32_t n, long long* bytes) {
   return 0;
 }
 
-// One traversal: n >= 1, e >= 0; wt == nullptr means weight 1; aux holds
-// EP's edge sources [e] or NS's child -> parent map [n] (else unused);
-// dist0 [n] and mask0 [n] are read, dist [n] receives the result;
-// result [5] (int64) gets iterations, edges relaxed and AD's BS/WD/HP
-// counts.  workspace holds repro_fused_workspace_bytes(n) bytes.
+// One traversal, or a batch of `rows` WD traversals: n >= 1, e >= 0;
+// wt == nullptr means weight 1; aux holds EP's edge sources [e] or NS's
+// child -> parent map [n] (else unused); dist0 [rows, n] and mask0
+// [rows, n] are read, dist [rows, n] receives the result; result [5]
+// (int64) gets iterations, edges relaxed and AD's BS/WD/HP counts.
+// rows > 1 takes only kernel WD, and rows * n must stay below 2^31.
+// workspace holds repro_fused_workspace_bytes(rows * n) bytes.
 // Returns the status of the launch (cudaErrorCooperativeLaunchTooLarge
 // if the grid cannot be resident).
 int repro_fused_fixed_point(
     const int32_t* row_ptr, const int32_t* col, const int32_t* wt,
-    int32_t n, int32_t e, const int32_t* aux, const int32_t* dist0,
+    int32_t n, int32_t rows, int32_t e, const int32_t* aux,
+    const int32_t* dist0,
     const uint8_t* mask0, int kernel, int msg, int comb, int max_iterations,
     int mdt, int switch_threshold, int small_frontier,
     float imbalance_threshold, int hp_edges_threshold, int32_t* dist,
     void* workspace, long long workspace_bytes, long long* result,
     void* stream) {
   if (!codes_ok(msg, comb) || kernel < K_BS || kernel > K_AD || n < 1 ||
-      e < 0 || mdt < 1 || dist == dist0 ||
+      e < 0 || mdt < 1 || dist == dist0 || rows < 1 ||
+      (rows > 1 && kernel != K_WD) || (int64_t)rows * n >= (1LL << 31) ||
       ((kernel == K_EP || kernel == K_NS) && aux == nullptr))
     return (int)cudaErrorInvalidValue;
   int64_t grid = 0;
   cudaError_t err = max_grid(&grid);
   if (err != cudaSuccess) return (int)err;
-  const Layout l = layout(n, grid);
+  const Layout l = layout((int64_t)rows * n, grid);
   if (workspace_bytes < (long long)l.total) return (int)cudaErrorInvalidValue;
   char* ws = static_cast<char*>(workspace);
   Params p{};
@@ -725,6 +757,8 @@ int repro_fused_fixed_point(
   p.mask0 = mask0;
   p.n = n;
   p.e = e;
+  p.rows = rows;
+  p.nk = rows * n;
   p.kernel = kernel;
   p.max_iterations = max_iterations;
   p.mdt = mdt;

@@ -6,6 +6,10 @@
 //   B1 repro_wd_relax_lanes  replaces repro/kernels/relax.py wd_relax_lanes
 //                            (Pallas body _wd_kernel): the WD merge-path
 //                            search fused with the relax.
+//      repro_wd_relax_lanes_batch  B1 over K rows at once, the reference's
+//                            jax.vmap of it in multi_source.batched_wd_relax
+//                            (a grid axis of the pallas_call): dist, target
+//                            and upd are [K, n], the slot tables [K, f].
 //   B2 repro_relax_lanes     replaces repro/kernels/relax.py relax_lanes
 //                            (Pallas body _lanes_kernel): the relax over
 //                            direct-mapped (src, dst, w, valid) lanes.
@@ -158,6 +162,39 @@ wd_relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
                                  imp, sm, NoHook());
 }
 
+// B1 over K rows: the row is folded into the tile index, so no tile spans
+// two rows, and the tile body runs on the row's slices (its pointers moved
+// by the row before the call, so the body is the single-row one).  A tile
+// whose first lane lies at or past its row's total returns after that one
+// read: an empty or short row costs a load a tile.  Writes no improve (the
+// reference's batched relax drops it).
+template <int MSG, int COMB>
+__global__ void __launch_bounds__(THREADS)
+wd_relax_lanes_batch_kernel(const int32_t* __restrict__ dist, int32_t n,
+                            const int32_t* __restrict__ prefix,
+                            const int32_t* __restrict__ excl,
+                            const int32_t* __restrict__ start,
+                            const int32_t* __restrict__ src_ids, int32_t f,
+                            const int32_t* __restrict__ col,
+                            const int32_t* __restrict__ wt, int32_t e,
+                            int32_t cap_work, int32_t rows,
+                            int32_t* __restrict__ target,
+                            uint8_t* __restrict__ upd) {
+  __shared__ WdSmem sm;
+  const int64_t per_row = ((int64_t)cap_work + B1_TILE - 1) / B1_TILE;
+  const int64_t tiles = per_row * rows;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t row = t / per_row, tr = t - row * per_row;
+    const int64_t so = row * f, no = row * n;
+    const int64_t total = __ldg(prefix + so + f - 1);
+    if (tr * B1_TILE >= total) continue;     // the same for the whole block
+    wd_tile<MSG, COMB, ReadOnly>(tr, dist + no, n, prefix + so, excl + so,
+                                 start + so, src_ids + so, f, col, wt, e,
+                                 cap_work, total, target + no, upd + no,
+                                 nullptr, sm, NoHook());
+  }
+}
+
 // ---------------------------------------------------------------- B3 ---
 __global__ void __launch_bounds__(THREADS)
 find_offsets_kernel(const int32_t* __restrict__ prefix, int32_t f,
@@ -252,6 +289,44 @@ void launch_wd(int comb, cudaStream_t st, const int32_t* dist, int32_t n,
                                col, wt, e, cap_work, target, upd, imp);
 }
 
+template <int MSG, int COMB>
+void launch_wd_batch_t(cudaStream_t st, const int32_t* dist, int32_t n,
+                       const int32_t* prefix, const int32_t* excl,
+                       const int32_t* start, const int32_t* src_ids,
+                       int32_t f, const int32_t* col, const int32_t* wt,
+                       int32_t e, int32_t cap_work, int32_t rows,
+                       int32_t* target, uint8_t* upd) {
+  static int per_sm = 0;
+  const int64_t tiles =
+      ((int64_t)cap_work + B1_TILE - 1) / B1_TILE * rows;
+  const unsigned grid = grid_for(
+      tiles, wave_blocks(wd_relax_lanes_batch_kernel<MSG, COMB>, &per_sm));
+  wd_relax_lanes_batch_kernel<MSG, COMB><<<grid, THREADS, 0, st>>>(
+      dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work, rows,
+      target, upd);
+}
+
+template <int MSG>
+void launch_wd_batch(int comb, cudaStream_t st, const int32_t* dist,
+                     int32_t n, const int32_t* prefix, const int32_t* excl,
+                     const int32_t* start, const int32_t* src_ids, int32_t f,
+                     const int32_t* col, const int32_t* wt, int32_t e,
+                     int32_t cap_work, int32_t rows, int32_t* target,
+                     uint8_t* upd) {
+  if (comb == COMB_MIN)
+    launch_wd_batch_t<MSG, COMB_MIN>(st, dist, n, prefix, excl, start,
+                                     src_ids, f, col, wt, e, cap_work, rows,
+                                     target, upd);
+  else if (comb == COMB_MAX)
+    launch_wd_batch_t<MSG, COMB_MAX>(st, dist, n, prefix, excl, start,
+                                     src_ids, f, col, wt, e, cap_work, rows,
+                                     target, upd);
+  else
+    launch_wd_batch_t<MSG, COMB_ADD>(st, dist, n, prefix, excl, start,
+                                     src_ids, f, col, wt, e, cap_work, rows,
+                                     target, upd);
+}
+
 }  // namespace
 
 extern "C" {
@@ -300,6 +375,33 @@ int repro_wd_relax_lanes(const int32_t* dist, int32_t n,
   else
     launch_wd<MSG_BOTTLENECK>(comb, st, dist, n, prefix, excl, start, src_ids,
                               f, col, wt, e, cap_work, target, upd, imp);
+  return (int)cudaGetLastError();
+}
+
+// B1 over rows >= 1 rows: dist, target and upd are [rows, n], prefix, excl,
+// start and src_ids [rows, f]; f, e, n, cap_work >= 1, as for one row.
+int repro_wd_relax_lanes_batch(const int32_t* dist, int32_t n,
+                               const int32_t* prefix, const int32_t* excl,
+                               const int32_t* start, const int32_t* src_ids,
+                               int32_t f, const int32_t* col,
+                               const int32_t* wt, int32_t e, int32_t cap_work,
+                               int32_t rows, int msg, int comb,
+                               int32_t* target, uint8_t* upd, void* stream) {
+  if (!codes_ok(msg, comb) || f < 1 || e < 1 || n < 1 || cap_work < 1 ||
+      rows < 1 || target == dist)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (msg == MSG_SUM)
+    launch_wd_batch<MSG_SUM>(comb, st, dist, n, prefix, excl, start, src_ids,
+                             f, col, wt, e, cap_work, rows, target, upd);
+  else if (msg == MSG_COPY)
+    launch_wd_batch<MSG_COPY>(comb, st, dist, n, prefix, excl, start,
+                              src_ids, f, col, wt, e, cap_work, rows, target,
+                              upd);
+  else
+    launch_wd_batch<MSG_BOTTLENECK>(comb, st, dist, n, prefix, excl, start,
+                                    src_ids, f, col, wt, e, cap_work, rows,
+                                    target, upd);
   return (int)cudaGetLastError();
 }
 

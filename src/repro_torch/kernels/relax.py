@@ -9,6 +9,10 @@ fold of their candidates into ``dist``.
   reads its edge through the per-slot ``start``/``exclusive``/``src_ids``
   tables, and relaxes it.  It replaces the reference's Pallas
   ``repro.kernels.relax.wd_relax_lanes`` (WD, HP's tail, AD).
+* :func:`wd_apply_relax_batch` is B1's batch contract: ``K`` rows at
+  once, ``dist [K, N]`` and the slot tables ``[K, cap]``, one launch for
+  all rows, folding into a copy of ``dist``.  It replaces the reference's
+  ``jax.vmap`` of B1 in ``repro.core.multi_source.batched_wd_relax``.
 
 Each kernel serves two contracts, and every lane of a launch reads the
 same unmodified ``dist``, so the port's ``(dist, iterations,
@@ -41,7 +45,7 @@ from repro_torch.core import operators
 from repro_torch.core.operators import EdgeOp
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import (  # noqa: F401  (re-exported)
-    LANES, LAUNCHES, check_tensor, stream_of)
+    LANES, LAUNCHES, check_dense, check_tensor, stream_of)
 from repro_torch.kernels.find_offsets import find_offsets_plain
 
 
@@ -265,3 +269,77 @@ def wd_apply_relax(dist, updated, prefix, exclusive, start, src_ids, col,
     imp = _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col,
                                wt, cap_work, target, updated, op)
     return target, updated, imp
+
+
+# ---------------------------------------------------------------------------
+# B1's batch contract: K rows, one launch
+# ---------------------------------------------------------------------------
+
+def _wd_relax_lanes_batch_cuda(dist, prefix, exclusive, start, src_ids, col,
+                               wt, cap_work: int, target, updated,
+                               op: EdgeOp) -> None:
+    """Launch B1's batch contract folding into ``target`` (never ``dist``)
+    and ``updated``, both ``[K, N]``."""
+    msg, comb = op.kernel_codes()
+    dev = dist.device
+    if dist.dim() != 2:
+        raise ValueError(f"dist has shape {tuple(dist.shape)}, expected "
+                         f"[K, N]")
+    k, n = dist.shape
+    f = prefix.shape[-1] if prefix.dim() == 2 else -1
+    check_dense("dist", dist, dev, torch.int32, (k, n))
+    for name, t in (("prefix", prefix), ("exclusive", exclusive),
+                    ("start", start), ("src_ids", src_ids)):
+        check_dense(name, t, dev, torch.int32, (k, f))
+    check_tensor("col", col, dev, torch.int32)
+    e = col.numel()
+    if wt is not None:
+        check_tensor("wt", wt, dev, torch.int32, e)
+    check_dense("updated", updated, dev, torch.bool, (k, n))
+    if k == 0 or f == 0 or cap_work == 0:
+        return
+    if n == 0 or e == 0:
+        raise ValueError("wd_relax_lanes_batch needs a non-empty dist and "
+                         "col")
+    _launch("wd_relax_lanes_batch", dev, dist.data_ptr(), n,
+            prefix.data_ptr(), exclusive.data_ptr(), start.data_ptr(),
+            src_ids.data_ptr(), f, col.data_ptr(),
+            None if wt is None else wt.data_ptr(), e, cap_work, k, msg, comb,
+            target.data_ptr(), updated.data_ptr())
+    LAUNCHES["wd_relax_lanes_batch"] += 1
+    LANES["wd_relax_lanes_batch"] += k * cap_work
+
+
+def wd_apply_relax_batch_plain(dist, updated, prefix, exclusive, start,
+                               src_ids, col, wt: Optional[torch.Tensor], *,
+                               cap_work: int,
+                               op: EdgeOp = operators.shortest_path):
+    """:func:`wd_apply_relax_batch`'s plain version: B1's plain fold on
+    each row (``updated[r]`` set in place), stacked."""
+    rows = [wd_apply_relax_plain(dist[r], updated[r], prefix[r],
+                                 exclusive[r], start[r], src_ids[r], col, wt,
+                                 cap_work=cap_work, op=op)[0]
+            for r in range(dist.shape[0])]
+    return (torch.stack(rows) if rows else dist.clone()), updated
+
+
+def wd_apply_relax_batch(dist, updated, prefix, exclusive, start, src_ids,
+                         col, wt: Optional[torch.Tensor], *, cap_work: int,
+                         op: EdgeOp = operators.shortest_path):
+    """:func:`wd_apply_relax` on each of ``K`` rows in one launch: ``dist
+    [K, N]``, ``prefix``/``exclusive``/``start``/``src_ids`` ``[K, F]``,
+    ``cap_work`` lanes a row over the shared ``col``/``wt``.  Returns
+    ``(next dist [K, N], updated)``, with ``updated`` (the caller's
+    ``[K, N]`` bool mask) set in place where a lane improved its
+    destination; no ``improve``, which the reference's batched relax
+    drops.  On the card: one copy of ``dist`` and one launch for all
+    ``K`` rows."""
+    _check_cap_work(cap_work)
+    if not _dispatch(dist, "wd_apply_relax_batch"):
+        return wd_apply_relax_batch_plain(dist, updated, prefix, exclusive,
+                                          start, src_ids, col, wt,
+                                          cap_work=cap_work, op=op)
+    target = dist.clone()
+    _wd_relax_lanes_batch_cuda(dist, prefix, exclusive, start, src_ids, col,
+                               wt, cap_work, target, updated, op)
+    return target, updated

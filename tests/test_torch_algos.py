@@ -135,8 +135,12 @@ def test_fixed_point_and_later_slices_raise():
     want = engine.fixed_point(g, make_strategy("WD"), init, device="cpu")
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1:] == want[1:]
-    with pytest.raises(NotImplementedError, match="A8"):
-        engine.run_batch(g, [0, 1])
+    # run_batch (A8) has landed: it runs, equal to the reference's batch
+    got = engine.run_batch(g, [0, 1], device="cpu")
+    want = jengine.run_batch(WIDEST_GRAPHS["road"], [0, 1])
+    np.testing.assert_array_equal(got.dist, np.asarray(want.dist))
+    assert (got.iterations, got.edges_relaxed) == (want.iterations,
+                                                   want.edges_relaxed)
 
 
 @pytest.fixture(scope="module")

@@ -2,8 +2,10 @@
 version (the relax kernels exactly, B4/B5 within tests/test_kernels.py's
 tolerances), the wrappers' argument checks, the stepped engine (all six
 strategies, connected components, widest path), the fused fixed point
-(against its plain loop on the card and the CPU, one launch a traversal)
-and the serving loop on the card against the CPU.  Every test here needs a CUDA
+(against its plain loop on the card and the CPU, one launch a traversal),
+the batched queries (B1's batch contract and the fused kernel with K rows
+against their plain versions, ``run_batch`` and ``GraphServer`` against
+the CPU) and the serving loop on the card against the CPU.  Every test here needs a CUDA
 device and skips
 without one.  The file imports neither JAX nor ``repro``, so it runs on a
 machine without JAX:
@@ -393,6 +395,149 @@ def test_fused_connected_components_on_the_card_matches_cpu(dev, strategy):
     a = connected_components(g, strategy=strategy, device=dev, mode="fused")
     b = connected_components(g, strategy=strategy, device="cpu")
     np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# batched queries (A8): B1's batch contract and the fused kernel with K rows
+# ---------------------------------------------------------------------------
+
+def _batch_tables(g, rng, rows, cap):
+    """``[K, cap]`` WD slot tables: row r's frontier is ``rows[r]`` random
+    nodes, sorted (0: an empty row)."""
+    f = torch.full((len(rows), cap), -1, dtype=torch.int32)
+    for r, count in enumerate(rows):
+        nodes = np.sort(rng.choice(g.num_nodes, count, replace=False))
+        f[r, :count] = torch.from_numpy(nodes.astype(np.int32))
+    f = f.to(g.device)
+    live = f >= 0
+    fi = torch.where(live, f, 0)
+    deg = torch.where(live, g.row_ptr[fi + 1] - g.row_ptr[fi], 0)
+    prefix = torch.cumsum(deg, 1, dtype=torch.int32)
+    return prefix, prefix - deg, g.row_ptr[fi], fi
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+@pytest.mark.parametrize("weighted", [True, False])
+def test_wd_relax_lanes_batch_kernel_matches_plain(dev, opname, weighted):
+    """B1's batch contract against its plain version on the same card
+    tensors: rows of different widths, an empty row, and a ``cap_work``
+    that is not a tile multiple and one that cuts the widest row short;
+    one launch each."""
+    op = operators.OPERATORS[opname]
+    g = rmat_graph(scale=14, weighted=weighted, seed=1, device=dev)
+    rng = np.random.default_rng(5)
+    prefix, excl, start, src = _batch_tables(g, rng, [3000, 0, 17, 900],
+                                             4096)
+    args = (prefix, excl, start, src, g.col, g.wt)
+    totals = prefix[:, -1].tolist()
+    dist = torch.from_numpy(rng.integers(0, 60, (4, g.num_nodes)).astype(
+        np.int32)).to(dev)
+    for cap_work in (max(totals) + 333, max(totals) // 2):
+        before = relax.LAUNCHES["wd_relax_lanes_batch"]
+        upd = torch.zeros_like(dist, dtype=torch.bool)
+        got = relax.wd_apply_relax_batch(dist, upd, *args,
+                                         cap_work=cap_work, op=op)
+        want = relax.wd_apply_relax_batch_plain(
+            dist, torch.zeros_like(upd), *args, cap_work=cap_work, op=op)
+        _same(got, want)
+        assert relax.LAUNCHES["wd_relax_lanes_batch"] == before + 1
+        assert not got[1][1].any() and got[1].any()
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+def test_fused_batch_kernel_matches_plain(dev, opname):
+    """The fused kernel with K rows against its plain loop on the same
+    card tensors, duplicate and edgeless sources included, in one launch
+    and no B1/B2 launch."""
+    from repro_torch.core import fused as core_fused
+    from repro_torch.core import multi_source
+    from repro_torch.kernels import fused as kernel_fused
+    from repro_torch.core.schedule import DEFAULT_SCHEDULE
+    op = operators.OPERATORS[opname]
+    g = rmat_graph(scale=12, weighted=True, seed=1, device=dev)
+    deg = g.degrees.cpu().numpy()
+    sources = np.array([int(deg.argmax()), 5, int(np.flatnonzero(deg == 0)[0]),
+                        int(deg.argmax()), 77], np.int32)
+    dist, mask = multi_source.init_batch(
+        g.num_nodes, torch.from_numpy(sources).to(dev), op=op)
+    kw = dict(op=op, sched=DEFAULT_SCHEDULE,
+              max_iterations=6 if opname == "reach_count" else 100000)
+    before = dict(relax.LAUNCHES)
+    got = kernel_fused.batch_fixed_point(g, dist, mask, **kw)
+    launched = {k: relax.LAUNCHES[k] - before[k] for k in before}
+    want = core_fused._batch_fixed_point_plain(
+        g, dist, mask, op=op, max_iterations=kw["max_iterations"])
+    assert torch.equal(got[0], want[0])
+    assert got[1:] == want[1:] and got[1] > 1
+    assert launched["fused_fixed_point"] == 1
+    assert launched["relax_lanes"] == launched["wd_relax_lanes"] == 0
+    assert launched["wd_relax_lanes_batch"] == 0
+
+
+def test_fused_batch_splits_past_int32(dev, monkeypatch):
+    """A batch past the int32 limits of one launch runs as row groups,
+    one launch each, with the same bits."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import fused as kernel_fused
+    g = rmat_graph(scale=12, weighted=True, seed=1, device=dev)
+    sources = [int(g.degrees.argmax()), 1, 2, 3, 4]
+    whole = engine.run_batch(g, sources, mode="fused", device=dev)
+    monkeypatch.setattr(kernel_fused, "rows_per_launch", lambda n, e: 2)
+    before = relax.LAUNCHES["fused_fixed_point"]
+    split = engine.run_batch(g, sources, mode="fused", device=dev)
+    assert relax.LAUNCHES["fused_fixed_point"] == before + 3
+    np.testing.assert_array_equal(split.dist, whole.dist)
+    assert (split.iterations, split.edges_relaxed) == (whole.iterations,
+                                                       whole.edges_relaxed)
+
+
+@pytest.mark.parametrize("mode", ["stepped", "fused"])
+@pytest.mark.parametrize("algo", ["sssp", "bfs"])
+def test_run_batch_on_the_card_matches_cpu(dev, mode, algo):
+    """``run_batch`` on the card equals the CPU in dist, iterations, edges
+    and per-iteration stats, with one B1 batch launch an iteration
+    (stepped) or one fused launch (fused); ``pad_to`` included."""
+    from repro_torch.algos import bfs_batch, sssp_batch
+    fn = sssp_batch if algo == "sssp" else bfs_batch
+    g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
+    sources = [int(g.degrees.argmax()), 0, 3, 17, 42, 3]
+    before = dict(relax.LAUNCHES)
+    a = fn(g, sources, mode=mode, device=dev, pad_to=8)
+    launched = {k: relax.LAUNCHES[k] - before[k] for k in before}
+    b = fn(g, sources, mode=mode, device="cpu", pad_to=8)
+    np.testing.assert_array_equal(a.dist, b.dist)
+    assert (a.iterations, a.edges_relaxed, a.pad_lanes) == (
+        b.iterations, b.edges_relaxed, b.pad_lanes)
+    assert [(s.frontier_size, s.edges_processed) for s in a.iter_stats] == [
+        (s.frontier_size, s.edges_processed) for s in b.iter_stats]
+    assert launched["wd_relax_lanes"] == launched["relax_lanes"] == 0
+    if mode == "stepped":
+        assert launched["wd_relax_lanes_batch"] == a.iterations
+    else:
+        assert launched["fused_fixed_point"] == 1
+
+
+def test_graph_server_on_the_card_matches_cpu(dev):
+    """The same stream through ``GraphServer`` on the card and the CPU:
+    equal rows and stats, one fused launch a dispatched batch."""
+    from repro_torch.serve import GraphServer, Request, SimulatedClock
+    g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
+    outs = []
+    for device in (dev, "cpu"):
+        srv = GraphServer(clock=SimulatedClock(), max_batch=4, device=device)
+        srv.load_graph("g", g)
+        srv.warm("g", [1, 2])
+        before = relax.LAUNCHES["fused_fixed_point"]
+        for s in [5, 9, 1, 13, 2, 7, 11]:
+            srv.submit(Request(source=s, graph="g"))
+        done = srv.drain()
+        stats = srv.stats()
+        if device is dev:
+            assert (relax.LAUNCHES["fused_fixed_point"] - before
+                    == stats["batches"] - 1)      # warm's batch came first
+        outs.append(([(r.request.source, r.cached, r.batch_lanes,
+                       r.dist.tobytes()) for r in done], stats))
+    assert outs[0] == outs[1]
 
 
 # ---------------------------------------------------------------------------

@@ -8,17 +8,21 @@ run, the reference's validation errors, the degenerate graphs, and one
 ``backend="xla"``, which ``tests/test_backends.py`` holds bit-identical
 to its Pallas backend."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.algos import bfs as jax_bfs
 from repro.algos import connected_components as jax_cc
 from repro.algos import widest_path as jax_widest
 from repro.core import engine as jengine
+from repro.core import fused as jfused
+from repro.core import multi_source as jms
 from repro.core.graph import CSRGraph as JaxCSRGraph
 from repro.data import graphs as jgraphs
 from repro_torch.algos import bfs, connected_components, widest_path
-from repro_torch.core import engine, fused
+from repro_torch.core import engine, fused, multi_source
 from repro_torch.core.graph import INF, CSRGraph
 from repro_torch.core.strategies import StrategyBase, make_strategy
 
@@ -178,8 +182,15 @@ def test_fused_mode_validation():
     with pytest.raises(ValueError, match="chunked"):
         engine.run(GRAPHS["rmat"], 0, make_strategy("EP", chunked=False),
                    mode="fused", device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        fused.run_batch_fixed_point(g, None, None)
+    # the batched fixed point (A8) has landed: it runs, equal to the
+    # reference's
+    sources = np.array([0, 5, 9], np.int32)
+    jd, jm = jms.init_batch(g.num_nodes, jnp.asarray(sources))
+    d, m = multi_source.init_batch(g.num_nodes, torch.from_numpy(sources))
+    got = fused.run_batch_fixed_point(g, d, m)
+    want = jfused.run_batch_fixed_point(JAX_GRAPHS["road"], jd, jm)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert got[1:] == want[1:]
 
 
 def test_fixed_point_checks_the_capability_before_the_mode():

@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""The fused traversals of this checkout against those of another tree, in
+one call on one card.
+
+    python3 tools/compare_fused_runs.py --baseline DIR [--rounds 2] [--reps 5]
+
+``DIR`` is the root of another tree of this repository, for example an
+earlier commit unpacked by ``git archive <commit> | tar -x -C DIR``.  Each
+measurement is a subprocess that imports one tree's ``repro_torch`` (and
+builds its kernels there at first use), builds rmat20
+(``rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1)``), and
+from its highest-degree source runs each of ``chip_smoke.PATH_RUNS`` with
+``mode="fused"`` through ``engine.run``: a warm-up, then ``--reps`` timed
+runs, each timed by the host clock (``traversal_seconds``, ending in a
+sync) and by CUDA events around the fused kernel's wrapper alone (device
+time after a ~1 ms spin, as ``chip_smoke.time_ms``).  The trees take
+turns, baseline, this, this, baseline, ``--rounds`` times; both trees'
+``(dist, iterations, edges_relaxed)`` must agree (the script raises
+otherwise).  It prints one JSON line per run with each tree's medians and
+their ratio, then the card's ``nvidia-smi`` name and power limit.  Needs a
+CUDA card and ``nvcc``; exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+TREES = ("baseline", "this")
+
+#: run in a subprocess with one tree's ``src`` and ``reps`` as arguments
+MEASURE = r"""
+import hashlib, json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.core import engine
+from repro_torch.core.strategies import make_strategy
+from repro_torch.data import rmat_graph
+from repro_torch.kernels import fused as fused_kernel
+reps = int(sys.argv[2])
+runs = json.loads(sys.argv[3])
+dev = torch.device("cuda")
+g = rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1, device=dev)
+source = int(g.degrees.argmax())
+out = {}
+real = fused_kernel.fixed_point
+for algo, strategy in runs:
+    graph = g if algo == "sssp" else g.unweighted()
+    events = []
+    def timed(*args, **kw):
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = real(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return res
+    fused_kernel.fixed_point = timed
+    try:
+        engine.run(graph, source, make_strategy(strategy), mode="fused",
+                   device=dev)
+        events.clear()
+        host = []
+        for _ in range(reps):
+            r = engine.run(graph, source, make_strategy(strategy),
+                           mode="fused", device=dev)
+            host.append(r.traversal_seconds * 1e3)
+    finally:
+        fused_kernel.fixed_point = real
+    torch.cuda.synchronize()
+    out[f"{algo}-{strategy}"] = dict(
+        host_ms=host, device_ms=[s.elapsed_time(e) for s, e in events],
+        iterations=r.iterations, edges_relaxed=r.edges_relaxed,
+        dist_sha1=hashlib.sha1(r.dist.tobytes()).hexdigest())
+print(json.dumps(out))
+"""
+
+
+def measure(tree: Path, reps: int, runs) -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-c", MEASURE, str(tree / "src"), str(reps),
+         json.dumps(runs)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"measuring {tree} failed:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--baseline", required=True, type=Path,
+                        help="root of the other tree")
+    parser.add_argument("--rounds", type=int, default=2,
+                        help="rounds of baseline, this, this, baseline")
+    parser.add_argument("--reps", type=int, default=5,
+                        help="timed traversals a run in each turn")
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_fused_runs.py: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    trees = {"baseline": args.baseline.resolve(), "this": ROOT}
+    runs = [list(run) for run in cs.PATH_RUNS]
+    rec = {name: [] for name in TREES}
+    for _ in range(args.rounds):
+        for name in ("baseline", "this", "this", "baseline"):
+            rec[name].append(measure(trees[name], args.reps, runs))
+    for algo, strategy in runs:
+        key = f"{algo}-{strategy}"
+        facts = {(m[key]["iterations"], m[key]["edges_relaxed"],
+                  m[key]["dist_sha1"]) for ms in rec.values() for m in ms}
+        if len(facts) != 1:
+            raise AssertionError(f"{key}: the trees disagree: {facts}")
+        med = {name: {t: statistics.median(x for m in ms
+                                           for x in m[key][t])
+                      for t in ("host_ms", "device_ms")}
+               for name, ms in rec.items()}
+        spread = {name: {t: (max(x for m in ms for x in m[key][t])
+                             - min(x for m in ms for x in m[key][t]))
+                         / med[name][t] for t in ("host_ms", "device_ms")}
+                  for name, ms in rec.items()}
+        print(json.dumps({
+            "run": key, "iterations": facts.pop()[0],
+            "turns": len(rec["this"]), "reps": args.reps, "median": med,
+            "spread": spread, "baseline_over_this": {
+                t: med["baseline"][t] / med["this"][t]
+                for t in ("host_ms", "device_ms")}}), flush=True)
+    print(cs.nvidia_smi(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

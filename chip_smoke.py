@@ -87,6 +87,26 @@ Phases, each printing one JSON line:
    ``ok`` row equal to its source's fused run, four to Dijkstra;
    ``stats()`` (p50/p99, batches, occupancy, cache hits) and queries/s
    over the submit-to-drain window (the landmarks' warm-up excluded).
+   costmodel (ROADMAP A9): AD's cost model calibrated on rmat20 (one fused
+   launch a timed step, CUDA events; a second call is a cache hit), its
+   coefficients, rows and step times, the block feasibility of B1's,
+   B2's and the fused kernel's shapes; measured AD sssp stepped
+   (``online=False``) and fused, counted from 0: both equal Dijkstra and
+   each other, with ``kernel_counts`` equal to ``choose`` replayed from
+   the stepped ``IterStats`` (the fused row's ``measured_ad_launches``);
+   fused measured AD, fixed-tree AD and WD interleaved (3 rounds).
+   delta (ROADMAP A10): road1024 (``road_grid_graph(side=1024,
+   weighted=True, seed=4)``) at the auto Δ and at Δ = 25, sssp with BS,
+   WD, NS, HP and AD, bfs and widest path, and rmat20 sssp WD, each
+   stepped (one launch of the fused kernel's delta mode an epoch) and
+   fused (one a traversal), counted from 0 (the fused row's
+   ``delta_launches``): each equal to Dijkstra, scipy or
+   ``reference_widest``, stepped equal to fused, the buckets strictly
+   increasing; a K = 8 delta batch (one single-row launch a row) equal to
+   its single runs; the delta kernel against its plain loop on the CPU
+   at road256 and on the card at road1024 (timed: the fused row's
+   ``at_delta``); delta requests through ``GraphServer``; delta against
+   BSP interleaved (epochs, rounds, ms).
 5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
    heads, hd 128: S = 512 and 2048 bf16 causal, 512 f32, 512 bf16
    non-causal, ragged 1000) and B5 ``ssd_chunk_dual`` (8 chunks of 256, 48
@@ -1781,6 +1801,352 @@ def graph_serve_phase(g, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: AD's measured cost model (A9) and delta-stepping (A10)
+# ---------------------------------------------------------------------------
+
+#: interleaved rounds of the cost-model and delta timings
+A9_A10_ROUNDS = 3
+#: the road network of the delta phase: road_grid_graph(side=1024,
+#: weighted=True, seed=4), rmat20's node count, weights 1..100
+ROAD_SIDE = 1024
+#: the explicit bucket width that makes about three quarters of the road's
+#: edges heavy
+ROAD_DELTA = 25
+DELTA_STRATEGIES = ("BS", "WD", "NS", "HP", "AD")
+
+
+def interleaved(runs: dict, rounds: int) -> dict:
+    """Each of ``runs`` (name -> a call returning a ``RunResult``) once a
+    round, in turns (the order reversed every other round); returns name
+    -> (traversal seconds of each round, the last result)."""
+    out = {name: ([], None) for name in runs}
+    names = list(runs)
+    for i in range(rounds):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            r = runs[name]()
+            out[name][0].append(r.traversal_seconds)
+            out[name] = (out[name][0], r)
+    return out
+
+
+def emit_timings(phase: str, graph: str, timed: dict, **extra) -> None:
+    for name, (secs, r) in timed.items():
+        med = statistics.median(secs)
+        emit(phase, graph=graph, run=name, rounds=len(secs),
+             ms=[t * 1e3 for t in secs], median_ms=med * 1e3,
+             spread=(max(secs) - min(secs)) / med,
+             iterations=r.iterations, relax_rounds=r.relax_rounds,
+             edges_relaxed=r.edges_relaxed, mteps=r.edges_relaxed / med / 1e6,
+             **extra)
+
+
+def costmodel_phase(g, dev, fused_row, rounds: int = A9_A10_ROUNDS) -> None:
+    """AD's measured cost model on ``g`` (rmat20).  Calibrates on the card
+    (one fused launch a timed step, CUDA events): a first call is a cache
+    miss and a second a hit with the same coefficients; prints them, the
+    calibration's rows and times, and the block feasibility of the port's
+    block shapes (each must be feasible).  The launch counts are set to 0
+    just before measured AD sssp runs stepped (``online=False``) and
+    fused and read just after; both equal Dijkstra and each other, with
+    equal ``kernel_counts``, equal to ``choose`` replayed from the stepped
+    run's ``IterStats``.  Then fused measured AD, fixed-tree AD and WD
+    interleaved (median of ``rounds``)."""
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+    from repro_torch.core import costmodel, engine
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.relax import LAUNCHES
+
+    source = int(g.degrees.argmax())
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as cache:
+        t0 = time.perf_counter()
+        model, hit = costmodel.calibrate(g, device=dev, cache_dir=cache)
+        t1 = time.perf_counter()
+        again, hit2 = costmodel.calibrate(g, device=dev, cache_dir=cache)
+        t2 = time.perf_counter()
+    if hit or not hit2 or not np.array_equal(model.coeffs, again.coeffs):
+        raise AssertionError(f"calibration cache: {hit}, {hit2}")
+    rows, times = costmodel.measure(g, device=dev)
+    emit("costmodel_calibration", graph="rmat20",
+         kernels=list(costmodel.KERNELS), coeffs=model.coeffs.tolist(),
+         calibrate_seconds=t1 - t0, cache_hit_seconds=t2 - t1,
+         rows=rows.tolist(), step_ms=(times * 1e3).tolist(),
+         signature=model.calibrated_on)
+    feas = costmodel.block_feasibility(dev)
+    emit("block_feasibility", shapes=feas)
+    if not all(row["feasible"] for row in feas.values()):
+        raise AssertionError(f"infeasible block shape: {feas}")
+
+    oracle = dijkstra_oracle(g, source, weighted=True)
+    zero_counts()
+    stepped_ad = make_strategy("AD", cost_model=model, online=False)
+    rs = engine.run(g, source, stepped_ad, device=dev)
+    stepped_launches = dict(LAUNCHES)
+    zero_counts()
+    fused_ad = make_strategy("AD", cost_model=model)
+    rf = engine.run(g, source, fused_ad, mode="fused", device=dev)
+    fused_launches = dict(LAUNCHES)
+    replay = dict(Counter(model.choose(st.frontier_size, st.edges_processed)
+                          for st in rs.iter_stats))
+    if not (np.array_equal(rs.dist, oracle) and same_run(rs, rf)):
+        raise AssertionError("measured AD != Dijkstra or stepped != fused")
+    if not (stepped_ad.kernel_counts == fused_ad.kernel_counts == replay):
+        raise AssertionError(f"measured AD chose {stepped_ad.kernel_counts} "
+                             f"stepped, {fused_ad.kernel_counts} fused, "
+                             f"replay {replay}")
+    if ({k: v for k, v in fused_launches.items() if v}
+            != {"fused_fixed_point": 1} or stepped_launches[
+                "fused_fixed_point"]):
+        raise AssertionError(f"measured AD launched {stepped_launches} "
+                             f"stepped, {fused_launches} fused")
+    fused_row["measured_ad_launches"] = fused_launches["fused_fixed_point"]
+    emit("measured_ad", graph="rmat20", source=source,
+         iterations=rs.iterations, edges_relaxed=rs.edges_relaxed,
+         kernel_counts=stepped_ad.kernel_counts,
+         stepped_launches=stepped_launches, fused_launches=fused_launches,
+         equals_oracle=True, stepped_equals_fused=True,
+         equals_choose_replay=True)
+
+    def fused_run(strategy, **kw):
+        return lambda: engine.run(g, source, make_strategy(strategy, **kw),
+                                  mode="fused", device=dev)
+    timed = interleaved({"AD-measured": fused_run("AD", cost_model=model),
+                         "AD-tree": fused_run("AD"), "WD": fused_run("WD")},
+                        rounds)
+    emit_timings("measured_ad_time", "rmat20", timed)
+
+
+def delta_phase(g, dev, fused_row, *, cpu_side: int = 256,
+                rounds: int = A9_A10_ROUNDS) -> None:
+    """Delta-stepping on the card.  road1024 (``ROAD_SIDE``) from its node
+    of highest degree, at the auto Δ (every edge light) and at Δ =
+    ``ROAD_DELTA``: sssp with each of BS, WD, NS, HP and AD, stepped (one
+    launch of the fused kernel's delta mode an epoch) and fused (one a
+    traversal), plus bfs and widest path with WD; each equal to scipy's
+    Dijkstra or ``reference_widest``, stepped equal to fused (values,
+    epochs, rounds, edges), the stepped buckets strictly increasing; and
+    rmat20 (``g``) sssp WD alike.  The launch counts are set to 0 just
+    before these runs and read just after: only fused launches, one an
+    epoch stepped and one a traversal fused (the kernel line's fused row
+    gets them as ``delta_launches``).  Then a K = 8 fused delta batch on
+    road1024 (fig12's rule) equal to its eight single runs; the delta
+    kernel against its plain loop on the CPU at road side ``cpu_side``;
+    a few delta requests through ``GraphServer``; the delta kernel timed
+    on road1024 beside its plain loop on the card and its bound; and
+    delta against BSP interleaved (epochs, rounds, ms)."""
+    import numpy as np
+    import torch
+    from repro_torch.algos import reference_widest
+    from repro_torch.core import engine, priority
+    from repro_torch.core.graph import INF
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import road_grid_graph
+    from repro_torch.kernels import fused as fused_kernel
+    from repro_torch.kernels.relax import LAUNCHES
+    from repro_torch.serve import GraphServer, Request
+
+    road = road_grid_graph(side=ROAD_SIDE, weighted=True, seed=4, device=dev)
+    src = int(road.degrees.argmax())
+    heavy = int((road.wt > ROAD_DELTA).sum())
+    emit("graph", name=f"road{ROAD_SIDE}", nodes=road.num_nodes,
+         edges=road.num_edges, max_degree=road.max_degree, source=src,
+         auto_delta=priority.auto_delta(road),
+         heavy_edges_at_delta=heavy, delta=ROAD_DELTA)
+    oracle = {"sssp": dijkstra_oracle(road, src, weighted=True),
+              "bfs": dijkstra_oracle(road, src, weighted=False),
+              "widest": reference_widest(road, src)}
+    rmat_src = int(g.degrees.argmax())
+    rmat_oracle = dijkstra_oracle(g, rmat_src, weighted=True)
+    runs = [(road, src, "sssp", s, d) for d in (None, ROAD_DELTA)
+            for s in DELTA_STRATEGIES]
+    runs += [(road, src, "bfs", "WD", None), (road, src, "widest", "WD",
+                                              None),
+             (g, rmat_src, "sssp", "WD", None)]
+
+    def run(graph, source, algo, strategy, delta, mode):
+        op = "widest_path" if algo == "widest" else "shortest_path"
+        gr = graph.unweighted() if algo == "bfs" else graph
+        return engine.run(gr, source, make_strategy(strategy), op=op,
+                          mode=mode, schedule="delta", delta=delta,
+                          device=dev)
+
+    zero_counts()
+    expected, results = 0, {}
+    for graph, source, algo, strategy, delta in runs:
+        st = run(graph, source, algo, strategy, delta, "stepped")
+        fu = run(graph, source, algo, strategy, delta, "fused")
+        expected += st.iterations + 1
+        want = rmat_oracle if graph is g else oracle[algo]
+        buckets = [s.bucket for s in st.iter_stats]
+        gname = "rmat20" if graph is g else f"road{ROAD_SIDE}"
+        if not np.array_equal(st.dist, want):
+            raise AssertionError(f"delta {gname} {algo}-{strategy} "
+                                 f"delta={delta} != oracle")
+        if not (same_run(st, fu) and st.relax_rounds == fu.relax_rounds
+                and st.delta == fu.delta):
+            raise AssertionError(f"delta {gname} {algo}-{strategy}: "
+                                 f"stepped != fused")
+        if any(b <= a for a, b in zip(buckets, buckets[1:])):
+            raise AssertionError(f"delta {gname} {algo}-{strategy}: "
+                                 f"buckets {buckets[:20]}...")
+        results[(gname, algo, strategy, delta)] = fu
+        emit("delta_run", graph=gname, algo=algo, strategy=strategy,
+             delta=st.delta, epochs=st.iterations,
+             relax_rounds=st.relax_rounds, edges_relaxed=st.edges_relaxed,
+             stepped_seconds=st.traversal_seconds,
+             fused_seconds=fu.traversal_seconds, first_buckets=buckets[:4],
+             last_bucket=buckets[-1], equals_oracle=True,
+             stepped_equals_fused=True)
+    launches = dict(LAUNCHES)
+    emit("delta_launches", launches=launches, expected=expected)
+    if {k: v for k, v in launches.items() if v} != {
+            "fused_fixed_point": expected}:
+        raise AssertionError(f"delta runs launched {launches}, expected "
+                             f"{expected} fused launches")
+    fused_row["delta_launches"] = launches["fused_fixed_point"]
+
+    # K = 8 delta batch: one single-row launch a row, equal to single runs
+    sources = batch_sources(road, BATCH_K)
+    zero_counts()
+    batch = engine.run_batch(road, sources, mode="fused", schedule="delta",
+                             device=dev)
+    batch_launches = LAUNCHES["fused_fixed_point"]
+    singles = [engine.run(road, int(s), make_strategy("WD"), mode="fused",
+                          schedule="delta", device=dev) for s in sources]
+    if not (all(np.array_equal(row, r.dist)
+                for row, r in zip(batch.dist, singles))
+            and batch.iterations == max(r.iterations for r in singles)
+            and batch.relax_rounds == max(r.relax_rounds for r in singles)
+            and batch.edges_relaxed == sum(r.edges_relaxed
+                                           for r in singles)
+            and batch_launches == BATCH_K):
+        raise AssertionError("delta batch != its single runs")
+    emit("delta_batch", graph=f"road{ROAD_SIDE}", k=BATCH_K,
+         sources=[int(s) for s in sources], epochs=batch.iterations,
+         relax_rounds=batch.relax_rounds, edges_relaxed=batch.edges_relaxed,
+         launches=batch_launches, seconds=batch.total_seconds,
+         equals_single_runs=True)
+
+    # the delta kernel against its plain loop on the CPU
+    small = road_grid_graph(side=cpu_side, weighted=True, seed=4,
+                            device="cpu")
+    s0 = int(small.degrees.argmax())
+    for strategy, delta in (("WD", None), ("WD", ROAD_DELTA),
+                            ("NS", ROAD_DELTA)):
+        strat = make_strategy(strategy)
+        plan = priority.plan_delta(strat, strat.setup(small), small,
+                                   delta=delta)
+        n = plan.light.num_nodes
+        dist = torch.full((n,), INF, dtype=torch.int32)
+        dist[s0] = 0
+        mask = torch.zeros(n, dtype=torch.bool)
+        mask[s0] = True
+        args = (plan.kernel, plan.light, plan.heavy_graph, plan.aux, dist,
+                mask)
+        kw = dict(op=_op("shortest_path"), sched=plan.sched,
+                  delta=plan.delta, max_iterations=100000)
+        t0 = time.perf_counter()
+        got = fused_kernel.delta_fixed_point(
+            *(a if a is None or isinstance(a, str) else a.to(dev)
+              for a in args), **kw)
+        t1 = time.perf_counter()
+        want = priority._delta_fixed_point_plain(*args, **kw)
+        t2 = time.perf_counter()
+        if not (torch.equal(got[0].cpu(), want[0])
+                and torch.equal(got[1].cpu(), want[1])
+                and got[2:] == want[2:]):
+            raise AssertionError(f"delta kernel != CPU plain loop: road"
+                                 f"{cpu_side} {strategy} delta={delta}: "
+                                 f"{got[2:]} vs {want[2:]}")
+        emit("delta_vs_cpu", graph=f"road{cpu_side}", strategy=strategy,
+             delta=plan.delta, epochs=got[2], relax_rounds=got[3],
+             edges_relaxed=got[4], equal=True, kernel_seconds=t1 - t0,
+             cpu_plain_seconds=t2 - t1)
+
+    # delta requests through the graph server
+    srv = GraphServer(mode="fused", max_batch=4, device=dev)
+    srv.load_graph(f"road{ROAD_SIDE}", road)
+    reqs = [(int(s), None) for s in sources[:5]] + [
+        (int(s), ROAD_DELTA) for s in sources[5:]]
+    zero_counts()
+    for s, d in reqs:
+        srv.submit(Request(source=s, graph=f"road{ROAD_SIDE}",
+                           schedule="delta", delta=d))
+    done = srv.drain()
+    served_launches = LAUNCHES["fused_fixed_point"]
+    stats = srv.stats()
+    for r in done:            # the distances do not depend on the width
+        want = singles[list(sources).index(r.request.source)].dist
+        if not (r.ok and np.array_equal(r.dist, want)):
+            raise AssertionError(f"served delta row of {r.request.source}")
+    # one single-row launch a dispatched lane (padding lanes included)
+    if len(done) != len(reqs) or served_launches != stats[
+            "lanes_dispatched"]:
+        raise AssertionError(f"served {len(done)} rows with "
+                             f"{served_launches} launches: {stats}")
+    emit("delta_serve", graph=f"road{ROAD_SIDE}", requests=len(reqs),
+         ok=sum(r.ok for r in done), batches=stats["batches"],
+         launches=served_launches, rows_equal_single_runs=True,
+         latency_p50_ms=stats["latency_p50"] * 1e3)
+
+    # the delta kernel on road1024 beside its plain loop on the card
+    strat = make_strategy("WD")
+    plan = priority.plan_delta(strat, strat.setup(road), road)
+    dist = torch.full((road.num_nodes,), INF, dtype=torch.int32,
+                      device=dev)
+    dist[src] = 0
+    mask = torch.zeros(road.num_nodes, dtype=torch.bool, device=dev)
+    mask[src] = True
+    args = (plan.kernel, plan.light, plan.heavy_graph, plan.aux, dist, mask)
+    kw = dict(op=_op("shortest_path"), sched=plan.sched, delta=plan.delta,
+              max_iterations=100000)
+    got = fused_kernel.delta_fixed_point(*args, **kw)
+    ms = time_ms(lambda: fused_kernel.delta_fixed_point(*args, **kw),
+                 reps=3)
+    t0 = time.perf_counter()
+    want = priority._delta_fixed_point_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(got[0], want[0]) and got[2:] == want[2:]):
+        raise AssertionError("delta kernel != plain loop on road1024")
+    # the least bytes: col, wt and dist[dst] of each relaxed edge, and the
+    # frontier mask each round
+    edges, n_rounds = got[4], got[3]
+    bound_ms, bound_by = bound(12 * edges + road.num_nodes * n_rounds, 0)
+    fused_row["at_delta"] = dict(
+        graph=f"road{ROAD_SIDE}", run="sssp-WD delta", delta=plan.delta,
+        epochs=got[2], relax_rounds=n_rounds, edges_relaxed=edges, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        max_abs_err=max_abs_err([got[0]], [want[0]]))
+    emit("delta_kernel_time", **fused_row["at_delta"])
+
+    # delta against BSP on road1024, interleaved
+    def bsp(mode):
+        return lambda: engine.run(road, src, make_strategy("WD"), mode=mode,
+                                  device=dev)
+
+    def delta_run(mode, delta):
+        return lambda: engine.run(road, src, make_strategy("WD"), mode=mode,
+                                  schedule="delta", delta=delta, device=dev)
+    timed = interleaved({"bsp-fused": bsp("fused"),
+                         "delta-fused": delta_run("fused", None),
+                         f"delta{ROAD_DELTA}-fused": delta_run("fused",
+                                                                ROAD_DELTA),
+                         "bsp-stepped": bsp("stepped"),
+                         "delta-stepped": delta_run("stepped", None)},
+                        rounds)
+    emit_timings("delta_vs_bsp", f"road{ROAD_SIDE}", timed, strategy="WD")
+
+
+def _op(name: str):
+    from repro_torch.core import operators
+    return operators.OPERATORS[name]
+
+
+# ---------------------------------------------------------------------------
 # phases 5-7: the LM serving slice (B4, B5)
 # ---------------------------------------------------------------------------
 
@@ -2213,6 +2579,8 @@ def main() -> int:
     rows.append(timed("batch", batch_phase, g, dev, fused_row,
                       small_scale=16))
     timed("graph_serve", graph_serve_phase, g, dev)
+    timed("costmodel", costmodel_phase, g, dev, fused_row)
+    timed("delta", delta_phase, g, dev, fused_row)
     del results
     timed("algos", algos_phase, g, dev, small_scale=16)
     del g

@@ -10,18 +10,24 @@ from repro_torch.core.multi_source import BatchRunResult
 
 def bfs(graph: CSRGraph, source: int = 0, strategy: str = "WD",
         record_degrees: bool = False, mode: str = "stepped",
-        device="cuda", **strategy_kwargs) -> RunResult:
+        schedule: str = "bsp", delta=None, device="cuda",
+        **strategy_kwargs) -> RunResult:
     """BFS levels from ``source`` under ``strategy`` (BS, EP, WD, NS, HP
-    or AD; EP takes ``chunked=``), on the card unless ``device="cpu"``."""
+    or AD; EP takes ``chunked=``), on the card unless ``device="cpu"``.
+    ``schedule="delta"`` settles level buckets in order (every unit
+    weight is light, so a bucket is Δ levels wide)."""
     strat = make_strategy(strategy, **strategy_kwargs)
     return run(graph.unweighted(), source, strat,
-               record_degrees=record_degrees, mode=mode, device=device)
+               record_degrees=record_degrees, mode=mode, schedule=schedule,
+               delta=delta, device=device)
 
 
 def bfs_batch(graph: CSRGraph, sources, mode: str = "stepped",
-              device="cuda", **batch_kwargs) -> BatchRunResult:
+              schedule: str = "bsp", delta=None, device="cuda",
+              **batch_kwargs) -> BatchRunResult:
     """BFS levels from K sources at once (dist is ``[K, N]``) on the
     unweighted view, on the card unless ``device="cpu"``; ``batch_kwargs``
     go to ``run_batch``."""
-    return run_batch(graph.unweighted(), sources, mode=mode, device=device,
+    return run_batch(graph.unweighted(), sources, mode=mode,
+                     schedule=schedule, delta=delta, device=device,
                      **batch_kwargs)

@@ -28,12 +28,15 @@ def _every_node_its_own_label(n_alloc: int):
 
 def connected_components(graph, strategy: str = "WD",
                          max_iterations: int = 10000,
-                         mode: str = "stepped", device="cuda",
+                         mode: str = "stepped", schedule: str = "bsp",
+                         delta=None, device="cuda",
                          **strategy_kwargs) -> np.ndarray:
     """The min-node-id label of each node's (in-)component, on the card
-    unless ``device="cpu"``."""
+    unless ``device="cpu"``.  ``schedule="delta"`` buckets by tentative
+    label (min_label is not weight-additive: every edge is light)."""
     labels, _, _ = fixed_point(
         graph, make_strategy(strategy, **strategy_kwargs),
         _every_node_its_own_label, op=operators.min_label, mode=mode,
-        max_iterations=max_iterations, device=device)
+        max_iterations=max_iterations, schedule=schedule, delta=delta,
+        device=device)
     return labels

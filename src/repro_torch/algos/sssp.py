@@ -10,22 +10,28 @@ from repro_torch.core.multi_source import BatchRunResult
 
 def sssp(graph: CSRGraph, source: int = 0, strategy: str = "WD",
          record_degrees: bool = False, mode: str = "stepped",
-         device="cuda", **strategy_kwargs) -> RunResult:
+         schedule: str = "bsp", delta=None, device="cuda",
+         **strategy_kwargs) -> RunResult:
     """Shortest-path distances from ``source`` under ``strategy`` (BS, EP,
     WD, NS, HP or AD; EP takes ``chunked=``), on the card unless
-    ``device="cpu"``."""
+    ``device="cpu"``.  ``schedule="delta"`` settles distance buckets in
+    priority order (delta-stepping; ``delta=`` overrides the auto
+    width)."""
     if graph.wt is None:
         raise ValueError("SSSP needs a weighted graph")
     strat = make_strategy(strategy, **strategy_kwargs)
     return run(graph, source, strat, record_degrees=record_degrees,
-               mode=mode, device=device)
+               mode=mode, schedule=schedule, delta=delta, device=device)
 
 
 def sssp_batch(graph: CSRGraph, sources, mode: str = "stepped",
-               device="cuda", **batch_kwargs) -> BatchRunResult:
+               schedule: str = "bsp", delta=None, device="cuda",
+               **batch_kwargs) -> BatchRunResult:
     """Shortest paths from K sources at once (dist is ``[K, N]``), on the
-    card unless ``device="cpu"``; ``batch_kwargs`` go to ``run_batch``."""
+    card unless ``device="cpu"``; ``schedule="delta"`` (fused) runs each
+    row as a delta-stepping traversal; ``batch_kwargs`` go to
+    ``run_batch``."""
     if graph.wt is None:
         raise ValueError("SSSP needs a weighted graph")
-    return run_batch(graph, sources, mode=mode, device=device,
-                     **batch_kwargs)
+    return run_batch(graph, sources, mode=mode, schedule=schedule,
+                     delta=delta, device=device, **batch_kwargs)

@@ -13,9 +13,11 @@ is an :class:`repro_torch.core.operators.EdgeOp` (``op=``, default
 ``shortest_path``).
 
 :func:`run_batch` answers K sources at once
-(:mod:`repro_torch.core.multi_source`).  Sharding and delta-stepping are
-later slices (ROADMAP.md A11, A10); asking for them raises
-``NotImplementedError``.
+(:mod:`repro_torch.core.multi_source`).  ``schedule="delta"`` settles
+value buckets in priority order (delta-stepping,
+:mod:`repro_torch.core.priority`): ``iterations`` then counts bucket
+epochs and ``relax_rounds`` the relax passes.  Sharding is a later slice
+(ROADMAP.md A11); ``shards=`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,12 +29,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import fused, operators
+from repro_torch.core import fused, operators, priority
 from repro_torch.core.graph import CSRGraph, INF, resolve_device
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.strategies import (  # noqa: F401  (re-exported)
-    FRONTIER_INIT, EdgeBased, IterStats, NodeSplitting, StrategyBase,
-    make_strategy)
+    FRONTIER_INIT, PRIORITY_SCHEDULE, EdgeBased, IterStats, NodeSplitting,
+    StrategyBase, make_strategy)
+
+#: work orderings: "bsp" relaxes the whole frontier every iteration;
+#: "delta" settles value buckets in priority order
+SCHEDULES = ("bsp", "delta")
 
 
 @dataclasses.dataclass
@@ -89,25 +95,45 @@ def ready(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({item}); this slice "
-        f"runs a single device and schedule='bsp'")
-
-
-def _check_slice(mode: str, shards=None, schedule: str = "bsp",
-                 delta=None) -> None:
-    """Raise for what this slice does not run: ``NotImplementedError``
-    naming the ROADMAP item, ``ValueError`` for what no slice runs."""
+def _check_slice(mode: str, shards=None) -> None:
+    """Raise for an unknown mode (``ValueError``) and for ``shards=``,
+    which this port does not run yet (``NotImplementedError`` naming its
+    ROADMAP item)."""
     if mode not in ("stepped", "fused"):
         raise ValueError(f"mode must be 'stepped' or 'fused', got {mode!r}")
     if shards is not None:
-        raise _not_ported("shards=", "ROADMAP.md A11")
-    if schedule == "delta" or delta is not None:
-        raise _not_ported("schedule='delta'", "ROADMAP.md A10")
-    if schedule != "bsp":
-        raise ValueError(f"schedule must be 'bsp' or 'delta', got "
-                         f"{schedule!r}")
+        raise NotImplementedError(
+            "shards= is not ported to repro_torch yet (ROADMAP.md A11); "
+            "the port runs a single device")
+
+
+def _check_schedule(strategy: Optional[StrategyBase], schedule: str,
+                    delta: Optional[int], op) -> None:
+    """The reference's rules for the work ordering, in its order (``op``
+    resolved): a known schedule; ``delta=`` only with ``"delta"``; delta
+    needs a strategy declaring :data:`PRIORITY_SCHEDULE` (``strategy``
+    None: the WD batch) and an idempotent operator."""
+    if schedule not in SCHEDULES:
+        raise ValueError(
+            f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+    if delta is not None and schedule != "delta":
+        raise ValueError(
+            f"delta= sets the bucket width of schedule='delta'; it has no "
+            f"meaning under schedule={schedule!r}")
+    if schedule == "delta":
+        if strategy is not None and (
+                PRIORITY_SCHEDULE not in strategy.capabilities):
+            raise ValueError(
+                f"strategy {strategy.name!r} does not declare the "
+                f"{PRIORITY_SCHEDULE!r} capability; delta-stepping is "
+                f"gated on the node-centric strategies (EP's edge "
+                f"worklist has no per-node value to bucket by)")
+        if not op.idempotent:
+            raise ValueError(
+                f"schedule='delta' reorders relaxations; operator "
+                f"{op.name!r} (combine={op.combine!r}) is not idempotent, "
+                f"so its fixed point depends on relax order; use "
+                f"schedule='bsp'")
 
 
 def _n_alloc(graph: CSRGraph, strategy: StrategyBase) -> int:
@@ -138,19 +164,33 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
     versions.  ``mode="fused"`` runs the traversal as one launch: the
     whole of it is booked as kernel time, ``iter_stats`` stays empty, and
     ``record_degrees`` (host-side per-iteration stats) raises
-    ``ValueError``.  ``shards=`` and ``schedule="delta"`` raise
-    ``NotImplementedError``.
+    ``ValueError``.  ``shards=`` raises ``NotImplementedError``.
+
+    ``schedule="delta"`` (strategies declaring :data:`PRIORITY_SCHEDULE`,
+    idempotent operators) runs delta-stepping
+    (:mod:`repro_torch.core.priority`): ``delta=`` overrides the auto
+    bucket width (``RunResult.delta`` reports the one used),
+    ``iterations`` counts bucket epochs (what ``max_iterations`` caps),
+    ``relax_rounds`` the relax passes, and each stepped epoch's
+    ``IterStats`` carries the bucket it settled.  Stepped, one launch an
+    epoch on the card; fused, one launch a traversal.
 
     EP runs by its edge worklist: each round relaxes the worklist and
     books its length as that round's frontier and edges, and the loop
     ends when the worklist is empty (one round before a node strategy's
     would: nothing is left to relax from the last improved nodes)."""
-    _check_slice(mode, shards, schedule, delta)
+    _check_slice(mode)
     if mode == "fused" and record_degrees:
         raise ValueError(
             "record_degrees collects per-iteration host-side stats; "
             "use mode='stepped'")
+    if record_degrees and schedule != "bsp":
+        raise ValueError(
+            "record_degrees reports per-BSP-iteration frontier degrees; "
+            "it has no bucket-epoch equivalent; use schedule='bsp'")
     op = operators.resolve(op)
+    _check_slice(mode, shards)
+    _check_schedule(strategy, schedule, delta, op)
     dev = resolve_device(device)
     if not 0 <= int(source) < graph.num_nodes:
         raise ValueError(f"source {source} outside [0, {graph.num_nodes})")
@@ -161,25 +201,43 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
                          setup_seconds=0.0, kernel_seconds=0.0,
                          overhead_seconds=0.0, edges_relaxed=0,
                          iter_stats=[], strategy=strategy.name,
-                         state_bytes=0, mode=mode, device=dev.type)
+                         state_bytes=0, mode=mode, device=dev.type,
+                         schedule=schedule, delta=delta)
 
     t0 = time.perf_counter()
     graph = graph.to(dev)
     state = strategy.setup(graph)
+    dplan = None
+    if schedule == "delta":
+        # the light/heavy split is host preprocessing, booked as setup
+        dplan = priority.plan_delta(strategy, state, graph, op=op,
+                                    delta=delta)
+        delta = dplan.delta
     ready(graph.row_ptr)
     setup_s = time.perf_counter() - t0
+    state_bytes = strategy.state_bytes(state)
+    if dplan is not None:
+        state_bytes += dplan.device_bytes()
 
     n = _n_alloc(graph, strategy)
     dist = torch.full((n,), op.identity, dtype=op.dtype, device=dev)
     dist[source] = op.seed(source)
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[source] = True
+    done = dict(strategy=strategy.name, state_bytes=state_bytes,
+                device=dev.type, schedule=schedule, delta=delta,
+                work_schedule=getattr(strategy, "resolved_schedule", None))
 
     if mode == "fused":
-        mask = torch.zeros(n, dtype=torch.bool, device=dev)
-        mask[source] = True
+        rounds = None
         t_start = time.perf_counter()
-        dist, iterations, edges = fused.run_fixed_point(
-            graph, state, strategy, dist, mask, op=op,
-            max_iterations=max_iterations)
+        if dplan is not None:
+            dist, iterations, rounds, edges = priority.run_fixed_point(
+                dplan, dist, mask, op=op, max_iterations=max_iterations)
+        else:
+            dist, iterations, edges = fused.run_fixed_point(
+                graph, state, strategy, dist, mask, op=op,
+                max_iterations=max_iterations)
         total_s = time.perf_counter() - t_start
         # one launch: the whole traversal is kernel time, setup the only
         # host-side overhead
@@ -187,17 +245,33 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
             dist=_original(dist, strategy), iterations=iterations,
             total_seconds=total_s + setup_s, setup_seconds=setup_s,
             kernel_seconds=total_s, overhead_seconds=setup_s,
-            edges_relaxed=edges, iter_stats=[], strategy=strategy.name,
-            state_bytes=strategy.state_bytes(state), mode="fused",
-            device=dev.type,
-            work_schedule=getattr(strategy, "resolved_schedule", None))
+            edges_relaxed=edges, iter_stats=[], mode="fused",
+            relax_rounds=rounds, **done)
 
     iter_stats: list[IterStats] = []
     kernel_s = 0.0
     edges = 0
     it = 0
+    rounds = None
     t_start = time.perf_counter()
-    if isinstance(strategy, EdgeBased):
+    if dplan is not None:
+        # one launch a bucket epoch; the host reads the frontier's count
+        # between epochs and records the bucket each epoch settled
+        count, rounds = 1, 0
+        while count > 0 and it < max_iterations:
+            tk = time.perf_counter()
+            dist, mask, b, r, e, next_count = priority.step_epoch(
+                dplan, dist, mask, op=op)
+            kernel_s += time.perf_counter() - tk
+            edges += e
+            rounds += r
+            iter_stats.append(IterStats(
+                frontier_size=int(count), edges_processed=int(e),
+                sub_iterations=int(r), bucket=int(b),
+                kernel=f"delta:{dplan.kernel}"))
+            count = next_count
+            it += 1
+    elif isinstance(strategy, EdgeBased):
         wl, count = strategy.initial_worklist(state, source)
         while count > 0 and it < max_iterations:
             tk = time.perf_counter()
@@ -211,8 +285,6 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
                                         edges_processed=int(relaxed)))
             it += 1
     else:
-        mask = torch.zeros(n, dtype=torch.bool, device=dev)
-        mask[source] = True
         count = 1
         while count > 0 and it < max_iterations:
             tk = time.perf_counter()
@@ -232,14 +304,13 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
         kernel_seconds=kernel_s,
         overhead_seconds=max(total_s - kernel_s, 0.0) + setup_s,
         edges_relaxed=int(edges), iter_stats=iter_stats,
-        strategy=strategy.name, state_bytes=strategy.state_bytes(state),
-        device=dev.type,
-        work_schedule=getattr(strategy, "resolved_schedule", None))
+        relax_rounds=rounds, **done)
 
 
 def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
                 op="shortest_path", mode: str = "stepped",
-                max_iterations: int = 100000, device="cuda"):
+                max_iterations: int = 100000, schedule: str = "bsp",
+                delta: Optional[int] = None, device="cuda"):
     """Run a strategy to its fixed point from a caller-supplied seeding:
     ``init(n_alloc)`` returns the initial ``(values, frontier_mask)`` on
     the strategy's allocation (``n_alloc`` counts NS's children too; the
@@ -252,7 +323,9 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
     cannot hold an arbitrary dense frontier), checked right after the mode
     string, as the reference does.  Returns ``(values, iterations,
     edges_relaxed)``, ``values`` a host array on the original nodes.
-    ``mode="fused"`` runs it as one launch, as in :func:`run`."""
+    ``mode="fused"`` runs it as one launch, as in :func:`run`;
+    ``schedule="delta"`` runs delta-stepping, ``iterations`` counting
+    epochs."""
     _check_slice(mode)
     if FRONTIER_INIT not in strategy.capabilities:
         raise ValueError(
@@ -260,12 +333,27 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
             f"{FRONTIER_INIT!r} capability; seeding an arbitrary frontier "
             f"needs a node strategy")
     op = operators.resolve(op)
+    _check_schedule(strategy, schedule, delta, op)
     dev = resolve_device(device)
     graph = graph.to(dev)
     state = strategy.setup(graph)
     values, mask = init(_n_alloc(graph, strategy))
     dist = torch.as_tensor(values).to(dev, op.dtype)
     mask = torch.as_tensor(mask).to(dev, torch.bool)
+    if schedule == "delta":
+        dplan = priority.plan_delta(strategy, state, graph, op=op,
+                                    delta=delta)
+        if mode == "fused":
+            dist, it, _, edges = priority.run_fixed_point(
+                dplan, dist, mask, op=op, max_iterations=max_iterations)
+            return _original(dist, strategy), it, edges
+        count, it, edges = int(mask.sum()), 0, 0
+        while count > 0 and it < max_iterations:
+            dist, mask, _, _, e, count = priority.step_epoch(
+                dplan, dist, mask, op=op)
+            edges += e
+            it += 1
+        return _original(dist, strategy), it, edges
     if mode == "fused":
         dist, it, edges = fused.run_fixed_point(
             graph, state, strategy, dist, mask, op=op,
@@ -290,8 +378,9 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
     Thin wrapper over :func:`repro_torch.core.multi_source.run_batch`,
     kept here so single-source and batched entry points live side by
     side: on the card one B1 batch launch an iteration (stepped) or one
-    fused launch a batch; ``pad_to=P`` K-buckets the batch (the serving
-    tier's)."""
+    fused launch a batch; ``schedule="delta"`` (fused only) runs every
+    row as its own delta-stepping traversal; ``pad_to=P`` K-buckets the
+    batch (the serving tier's)."""
     from repro_torch.core import multi_source
     return multi_source.run_batch(
         graph, sources, max_iterations=max_iterations, mode=mode, op=op,

@@ -24,8 +24,11 @@ int32 limbs because JAX runs without x64; nothing here needs them).
 
 :data:`DISPATCH_COUNTS` moves by one per traversal, keyed by kernel name.
 The reference's ``TRACE_COUNTS`` has no counterpart: nothing here
-compiles per shape.  Measured AD waits for ROADMAP A9 (``AdaptiveStrategy``
-refuses ``cost_model=``, raising ``NotImplementedError``).
+compiles per shape.  AD with a measured cost model
+(``make_strategy("AD", cost_model=...)``, ROADMAP A9) carries the model's
+``[3, 3]`` float32 coefficients in its plan (:attr:`FusedPlan.coeffs`):
+:func:`_ad_step` and the kernel's selector then take the argmin of
+``a + b·degree_sum + c·count`` instead of the fixed tree.
 
 :func:`run_batch_fixed_point` runs K WD queries as one batch (ROADMAP A8,
 the reference's ``_batch_fixed_point``): one launch of the same kernel
@@ -161,10 +164,27 @@ def _ns_step(g2: CSRGraph, child_parent, dist, mask, *, op: EdgeOp):
     return _bs_step(g2, dist, mask, op=op)
 
 
-def _ad_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp):
-    """AD's fixed decision tree on the frontier's statistics, in the
-    reference's float32 order, then that kernel's step.  Returns the
-    step's result and the branch (0 BS, 1 WD, 2 HP)."""
+def _measured_choice(coeffs, count: int, degree_sum: int) -> int:
+    """Measured AD's branch: the first argmin of ``a + b·es + c·cn`` in
+    float32, each operation rounded; 0 (BS) for an edgeless or empty
+    frontier."""
+    if degree_sum == 0 or count == 0:
+        return 0
+    c = np.asarray(coeffs, np.float32)
+    es, cn = np.float32(degree_sum), np.float32(count)
+    return int(np.argmin(c[:, 0] + c[:, 1] * es + c[:, 2] * cn))
+
+
+def _ad_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp,
+             coeffs: Optional[np.ndarray] = None):
+    """AD's choice on the frontier's statistics, then that kernel's step.
+    Returns the step's result and the branch (0 BS, 1 WD, 2 HP).
+
+    With ``coeffs`` None, the fixed decision tree in the reference's
+    float32 order.  With ``coeffs`` a ``[3, 3]`` float32 cost model, the
+    first argmin of ``a + b·es + c·cn`` per kernel, each operation
+    rounded, as :meth:`repro_torch.core.costmodel.CostModel.choose`.  An
+    edgeless or empty frontier takes BS either way."""
     mdt = sched.mdt or 1
     deg = _masked_degrees(g, mask)
     count = int(mask.sum())
@@ -172,9 +192,12 @@ def _ad_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp):
     mean = np.float32(degree_sum) / np.float32(max(count, 1))
     imbalance = (np.float32(max_degree) / mean if mean > 0
                  else np.float32(1.0))
-    if (degree_sum == 0 or count == 0
-            or (count <= sched.small_frontier
-                and imbalance <= np.float32(sched.imbalance_threshold))):
+    if degree_sum == 0 or count == 0:
+        idx = 0
+    elif coeffs is not None:
+        idx = _measured_choice(coeffs, count, degree_sum)
+    elif (count <= sched.small_frontier
+          and imbalance <= np.float32(sched.imbalance_threshold)):
         idx = 0
     elif max_degree > mdt and degree_sum >= sched.hp_edges_threshold:
         idx = 2
@@ -190,11 +213,13 @@ def _ad_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp):
 
 
 def _fixed_point_plain(kernel: str, g: CSRGraph, aux, dist, mask, *,
-                       op: EdgeOp, sched: Schedule, max_iterations: int):
+                       op: EdgeOp, sched: Schedule, max_iterations: int,
+                       coeffs: Optional[np.ndarray] = None):
     """The fused loop in plain PyTorch, on the tensors' device: while the
     frontier is live (EP: while it has outgoing edges) and ``it <
-    max_iterations``, one dense step.  Returns ``(dist, iterations,
-    edges_relaxed, [BS, WD, HP] counts of AD's choices)``."""
+    max_iterations``, one dense step (``coeffs``: measured AD's model).
+    Returns ``(dist, iterations, edges_relaxed, [BS, WD, HP] counts of
+    AD's choices)``."""
     chosen = [0, 0, 0]
     it, edges = 0, 0
     while it < max_iterations:
@@ -215,7 +240,8 @@ def _fixed_point_plain(kernel: str, g: CSRGraph, aux, dist, mask, *,
         elif kernel == "NS":
             dist, mask, e = _ns_step(g, aux, dist, mask, op=op)
         elif kernel == "AD":
-            dist, mask, e, idx = _ad_step(g, dist, mask, sched=sched, op=op)
+            dist, mask, e, idx = _ad_step(g, dist, mask, sched=sched, op=op,
+                                          coeffs=coeffs)
             chosen[idx] += 1
         else:
             raise ValueError(f"unknown fused kernel {kernel!r}")
@@ -235,6 +261,8 @@ class FusedPlan:
     graph: CSRGraph               # graph the loop runs on (NS: split graph)
     aux: Optional[torch.Tensor]   # EP edge sources / NS child_parent
     sched: Schedule               # the resolved work-assignment schedule
+    #: measured AD's [3, 3] float32 cost-model coefficients, else None
+    coeffs: Optional[np.ndarray] = None
 
 
 def fused_kernel_name(cls) -> Optional[str]:
@@ -283,6 +311,9 @@ def _plan(strategy, state, graph: CSRGraph) -> FusedPlan:
                 "(dense frontiers are deduplicated by construction); "
                 "use mode='stepped'")
         return FusedPlan("EP", graph, state.src, sched)
+    model = getattr(strategy, "cost_model", None)
+    if kernel == "AD" and model is not None:
+        return FusedPlan("AD", graph, None, sched, model.coeff_array())
     return FusedPlan(kernel, graph, None, sched)
 
 
@@ -300,7 +331,7 @@ def run_fixed_point(graph: CSRGraph, state: Any, strategy, dist0, mask0, *,
     dist, it, edges, chosen = fused_kernel.fixed_point(
         plan.kernel, plan.graph, plan.aux, dist0, mask0,
         op=operators.resolve(op), sched=plan.sched,
-        max_iterations=max_iterations)
+        max_iterations=max_iterations, coeffs=plan.coeffs)
     if plan.kernel == "AD":
         strategy.kernel_counts = {
             name: c for name, c in zip(_AD_KERNEL_ORDER, chosen) if c}

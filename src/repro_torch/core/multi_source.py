@@ -27,8 +27,12 @@ other rows.
   :func:`repro_torch.core.fused.run_batch_fixed_point`, with no
   per-iteration ``iter_stats``.
 
-Sharded and delta-stepping batches are later slices (ROADMAP.md A11,
-A10) and raise ``NotImplementedError``.
+``schedule="delta"`` (fused only, as in the reference) runs every row as
+its own delta-stepping traversal with WD phases
+(:func:`repro_torch.core.priority.run_batch_fixed_point`: one single-row
+launch a row on the card); ``iterations`` and ``relax_rounds`` are the
+slowest row's.  Sharded batches are a later slice (ROADMAP.md A11) and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import fused, operators
+from repro_torch.core import fused, operators, priority
 from repro_torch.core.graph import CSRGraph, resolve_device
 from repro_torch.core.operators import EdgeOp
 from repro_torch.core.schedule import DEFAULT_SCHEDULE, Schedule
@@ -186,13 +190,20 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
     the fused kernel with K rows (``mode="fused"``); ``device="cpu"``
     runs their plain versions.  ``pad_to=P`` rounds the batch up to P
     rows by repeating the first source (``BatchRunResult.pad_lanes``).
-    ``work_schedule`` sets the worklist floor.  ``shards=`` and
-    ``schedule="delta"`` raise ``NotImplementedError``; an unknown mode
-    and a source outside ``[0, N)`` raise ``ValueError`` (the reference
-    drops such a source silently)."""
-    from repro_torch.core.engine import _check_slice
-    _check_slice(mode, shards, schedule, delta)
+    ``work_schedule`` sets the worklist floor.  ``schedule="delta"``
+    (``mode="fused"``, idempotent operators; ``delta=`` the bucket width)
+    runs every row as its own delta-stepping traversal.  ``shards=``
+    raises ``NotImplementedError``; an unknown mode, a stepped delta
+    batch and a source outside ``[0, N)`` raise ``ValueError`` (the
+    reference drops such a source silently)."""
+    from repro_torch.core.engine import _check_schedule, _check_slice
+    _check_slice(mode, shards)
     op = operators.resolve(op)
+    _check_schedule(None, schedule, delta, op)
+    if schedule == "delta" and mode != "fused":
+        raise ValueError(
+            "batched delta-stepping runs whole per-row traversals, a "
+            "fused-only construction; pass mode='fused'")
     dev = resolve_device(device)
     n = graph.num_nodes
     sources = np.asarray(sources, np.int32).reshape(-1)
@@ -202,7 +213,7 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
     k = int(sources.shape[0])
     done = dict(sources=sources, iterations=0, total_seconds=0.0,
                 edges_relaxed=0, iter_stats=[], mode=mode, device=dev.type,
-                pad_lanes=pad_lanes)
+                schedule=schedule, delta=delta, pad_lanes=pad_lanes)
     if k == 0:
         return BatchRunResult(dist=np.zeros((0, n), np.int32), **done)
     if graph.num_edges == 0:
@@ -214,6 +225,21 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
     graph = graph.to(dev)
     t0 = time.perf_counter()
     dist_b, mask_b = init_batch(n, torch.from_numpy(sources).to(dev), op=op)
+
+    if schedule == "delta":
+        from repro_torch.core.strategies import make_strategy
+        wd = make_strategy("WD", schedule=sched)
+        dplan = priority.plan_delta(wd, wd.setup(graph), graph, op=op,
+                                    delta=delta)
+        dist_b, iterations, rounds, edges = priority.run_batch_fixed_point(
+            dplan, dist_b, mask_b, op=op, max_iterations=max_iterations)
+        total_s = _elapsed(t0, dist_b)
+        return BatchRunResult(dist=dist_b.cpu().numpy(), sources=sources,
+                              iterations=iterations, total_seconds=total_s,
+                              edges_relaxed=edges, iter_stats=[],
+                              mode="fused", device=dev.type,
+                              schedule="delta", delta=dplan.delta,
+                              relax_rounds=rounds, pad_lanes=pad_lanes)
 
     if mode == "fused":
         dist_b, iterations, edges = fused.run_batch_fixed_point(

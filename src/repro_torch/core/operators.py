@@ -65,7 +65,9 @@ class EdgeOp:
     update: Optional[Callable[[torch.Tensor, torch.Tensor],
                               torch.Tensor]] = None
     dtype: torch.dtype = torch.int32
-    #: delta-stepping hint, as in the reference (read once that lands)
+    #: delta-stepping hint, as in the reference: a candidate over an edge
+    #: of weight w lands at least w past its source, so heavy edges can be
+    #: deferred (``priority.plan_delta`` splits only such operators)
     weight_additive: bool = False
     #: lower bound of the value domain, as in the reference
     value_min: Optional[int] = None

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -203,8 +204,8 @@ class IterStats:
     sub_iterations: int = 1
     frontier_degrees: Optional[np.ndarray] = None  # for balance analysis
     kernel: Optional[str] = None     # relax kernel used (AD records choices)
-    #: delta-stepping bucket (None for BSP iterations, the only schedule
-    #: of this slice)
+    #: bucket settled by a delta-stepping epoch (None for BSP iterations);
+    #: strictly increasing over a run for the monotone operators
     bucket: Optional[int] = None
 
 
@@ -213,13 +214,17 @@ class IterStats:
 FRONTIER_INIT = "frontier_init"
 #: capability: the strategy has a multi-device lowering (ROADMAP.md A11)
 SHARDABLE = "shardable"
-#: capability: the strategy has delta-stepping lowerings (ROADMAP.md A10)
+#: capability: the strategy's kernels have delta-stepping phases
+#: (:mod:`repro_torch.core.priority`), so ``schedule="delta"`` may order
+#: its relaxations by value bucket.  BS, WD, NS, HP and AD declare it; EP
+#: does not (an edge worklist has no per-node value to bucket by)
 PRIORITY_SCHEDULE = "priority_schedule"
 
 #: what a plain StrategyBase subclass declares.  The built-ins declare
-#: only what the port implements: SHARDABLE and PRIORITY_SCHEDULE arrive
-#: with their slices.
+#: only what the port implements: SHARDABLE arrives with its slice.
 DEFAULT_CAPABILITIES = frozenset({FRONTIER_INIT})
+#: what the node strategies BS, WD, NS, HP and AD declare
+NODE_CAPABILITIES = frozenset({FRONTIER_INIT, PRIORITY_SCHEDULE})
 
 
 class StrategyBase:
@@ -307,6 +312,7 @@ def _frontier_stats(g: CSRGraph, frontier, count: int,
 @register
 class NodeBased(StrategyBase):
     name = "BS"
+    capabilities = NODE_CAPABILITIES
 
     def iterate(self, g, dist, updated_mask, count, *,
                 op: EdgeOp = operators.shortest_path, record_degrees=False):
@@ -384,6 +390,7 @@ class EdgeBased(StrategyBase):
 @register
 class WorkloadDecomposition(StrategyBase):
     name = "WD"
+    capabilities = NODE_CAPABILITIES
 
     def iterate(self, g, dist, updated_mask, count, *,
                 op: EdgeOp = operators.shortest_path, record_degrees=False):
@@ -403,6 +410,7 @@ class NodeSplitting(StrategyBase):
     """NS: BS over the split graph (max degree ≤ MDT), after mirroring
     every parent's value and activity onto its children."""
     name = "NS"
+    capabilities = NODE_CAPABILITIES
 
     def __init__(self, histogram_bins: Optional[int] = None,
                  mdt: Optional[int] = None,
@@ -438,6 +446,7 @@ class NodeSplitting(StrategyBase):
 @register
 class HierarchicalProcessing(StrategyBase):
     name = "HP"
+    capabilities = NODE_CAPABILITIES
 
     def __init__(self, histogram_bins: Optional[int] = None,
                  mdt: Optional[int] = None,
@@ -536,8 +545,15 @@ def choose_kernel(count: int, degree_sum: int, max_degree: int,
 class AdaptiveStrategy(StrategyBase):
     """AD: per-iteration switching among BS, WD and HP on frontier
     statistics.  All three share the ``dist`` layout, so switching mid-run
-    costs nothing.  ``kernel_counts`` records the choices."""
+    costs nothing.  ``kernel_counts`` records the choices.
+
+    With ``cost_model`` (a :class:`repro_torch.core.costmodel.CostModel`)
+    each iteration takes ``cost_model.choose(count, degree_sum)`` in place
+    of the fixed tree; with ``online=True`` too, the stepped driver times
+    the chosen iteration (a device sync on the card) and feeds it back
+    through ``cost_model.observe``."""
     name = "AD"
+    capabilities = NODE_CAPABILITIES
 
     def __init__(self, small_frontier: Optional[int] = None,
                  imbalance_threshold: Optional[float] = None,
@@ -545,11 +561,7 @@ class AdaptiveStrategy(StrategyBase):
                  histogram_bins: Optional[int] = None,
                  mdt: Optional[int] = None,
                  schedule: Optional[Schedule] = None,
-                 cost_model=None):
-        if cost_model is not None:
-            raise NotImplementedError(
-                "AD's measured cost model is not ported to repro_torch yet "
-                "(ROADMAP.md A9); AD uses the fixed decision tree")
+                 cost_model=None, online: bool = False):
         super().__init__(schedule=resolve_overrides(
             self.name, schedule, small_frontier=small_frontier,
             imbalance_threshold=imbalance_threshold,
@@ -562,6 +574,8 @@ class AdaptiveStrategy(StrategyBase):
         self.hp_edges_threshold = sched.hp_edges_threshold
         self.histogram_bins = sched.histogram_bins
         self.mdt = sched.mdt
+        self.cost_model = cost_model
+        self.online = bool(online)
         self.kernel_counts: dict[str, int] = {}
 
     def setup(self, graph: CSRGraph):
@@ -590,14 +604,24 @@ class AdaptiveStrategy(StrategyBase):
         mean = np.float32(degree_sum) / np.float32(max(int(count), 1))
         imbalance = (float(np.float32(max_degree) / mean)
                      if mean > 0 else 1.0)
-        choice = choose_kernel(
-            int(count), degree_sum, max_degree, imbalance,
-            mdt=self.mdt_value, small_frontier=self.small_frontier,
-            imbalance_threshold=self.imbalance_threshold,
-            hp_edges_threshold=self.hp_edges_threshold)
+        if self.cost_model is not None:
+            choice = self.cost_model.choose(int(count), degree_sum)
+        else:
+            choice = choose_kernel(
+                int(count), degree_sum, max_degree, imbalance,
+                mdt=self.mdt_value, small_frontier=self.small_frontier,
+                imbalance_threshold=self.imbalance_threshold,
+                hp_edges_threshold=self.hp_edges_threshold)
         self.kernel_counts[choice] = self.kernel_counts.get(choice, 0) + 1
+        timed = self.online and self.cost_model is not None
+        t0 = time.perf_counter() if timed else None
         dist, new_mask, stats = self._kernels[choice].iterate(
             g, dist, updated_mask, count, op=op,
             record_degrees=record_degrees)
+        if timed:
+            if dist.is_cuda:
+                torch.cuda.synchronize(dist.device)
+            self.cost_model.observe(choice, degree_sum, int(count),
+                                    time.perf_counter() - t0)
         stats.kernel = choice
         return dist, new_mask, stats

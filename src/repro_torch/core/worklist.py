@@ -3,15 +3,25 @@
 A worklist is a fixed-capacity int32 index tensor padded with -1 plus a
 valid count; a push is flag → scan → compact.  Drivers round the live size
 up to a power of two (:func:`bucket`), which keeps the reference's launch
-shapes and so its iteration-by-iteration accounting.  The priority-bucket
-helpers come with delta-stepping (ROADMAP.md A10).
+shapes and so its iteration-by-iteration accounting.
+
+Priority (value) buckets: delta-stepping (:mod:`repro_torch.core.priority`)
+partitions the frontier by ``rank // Δ`` of its tentative values.  The
+rank, bucket-index and minimum-live-bucket helpers live here because a
+priority bucket is a worklist whose membership reads the value array.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.graph import INF
+
 MIN_BUCKET = 256
+
+#: bucket index of an empty slot: above every real bucket (real indices
+#: are at most INF), so ``min`` folds ignore it
+NO_BUCKET = torch.iinfo(torch.int32).max
 
 
 def bucket(n: int, minimum: int = MIN_BUCKET) -> int:
@@ -49,3 +59,30 @@ def run_fill(starts: torch.Tensor, lengths: torch.Tensor, total_hint: int,
     vals = starts[run_c] + (k - exclusive[run_c])
     valid = k < min(int(total_hint), int(prefix[-1]))
     return torch.where(valid, vals, -1).to(torch.int32), valid
+
+
+# ---------------------------------------------------------------------------
+# priority (value) buckets: delta-stepping (repro_torch.core.priority)
+# ---------------------------------------------------------------------------
+
+def bucket_rank(vals: torch.Tensor, *, descending: bool = False
+                ) -> torch.Tensor:
+    """Tentative values to a non-negative rank, smaller settling earlier:
+    values clipped to ``[0, INF]``; a ``max`` monoid (``descending``)
+    settles large values first, so its rank is ``INF - v``."""
+    v = vals.clamp(0, INF)
+    return (INF - v) if descending else v
+
+
+def bucket_index(vals: torch.Tensor, delta: int, *,
+                 descending: bool = False) -> torch.Tensor:
+    """Delta-stepping bucket of each value: ``rank // delta``, int32."""
+    return torch.div(bucket_rank(vals, descending=descending), delta,
+                     rounding_mode="floor").to(torch.int32)
+
+
+def min_live_bucket(mask: torch.Tensor, bkt: torch.Tensor) -> int:
+    """Smallest bucket index with a live frontier node (:data:`NO_BUCKET`
+    if the frontier is empty)."""
+    return int(torch.where(mask, bkt, NO_BUCKET).min()) if mask.numel() \
+        else NO_BUCKET

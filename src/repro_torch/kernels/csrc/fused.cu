@@ -70,7 +70,27 @@
 // AD's selector computes mean = f32(degree_sum) / f32(max(count, 1)) and
 // imbalance = f32(max_degree) / mean with IEEE division (__fdiv_rn; the
 // library is never built with fast math), the float32 order of the
-// reference, so both selectors agree at every threshold.
+// reference, so both selectors agree at every threshold.  With a measured
+// cost model (costmodel.py, the reference's _ad_step with coeffs) it takes
+// the first argmin of a + b*es + c*cn per kernel, each product and sum
+// rounded on its own (__fmul_rn, __fadd_rn: nvcc would otherwise contract
+// them into an FMA, which rounds once and can flip a near tie).
+//
+// Delta-stepping (repro/core/priority.py _delta_fixed_point: the same
+// dense steps inside bucket epochs).  fused_delta_kernel takes two Params:
+// p over the light graph (w <= delta) and ph, equal but for the heavy
+// graph's row_ptr, col, wt and e (e = 0: no heavy graph).  Each epoch
+// finds the minimum live bucket with one grid-wide pass (the frontier M
+// merged with the last phase's improvements U), then closes it over the
+// light graph: a pass takes C = M & bucket(A) == b out of M into the
+// settled set S (each node's bucket recomputed from the current values,
+// b fixed for the epoch), and the strategy's step relaxes C into U, until
+// no node of M lies in b.  Then the settled nodes relax their heavy edges
+// once.  Rounds count the light passes and a heavy pass with edges; the
+// loop caps epochs at max_iterations.  A pass's block totals alternate
+// between two halves of btot, so consecutive passes need no extra barrier.
+// One launch capped at one epoch is the stepped driver's epoch; it returns
+// M, the bucket settled and the frontier's count beside the values.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,6 +130,9 @@ struct Params {
   int kernel, max_iterations, mdt, switch_threshold, small_frontier,
       hp_edges_threshold;
   float imbalance_threshold;
+  int measured;              // AD: 1 takes the cost model's argmin
+  float coeffs[9];           // AD's [3, 3] cost model: (a, b, c) per kernel
+  int32_t delta;             // delta mode: the bucket width
   int32_t* A;                // the snapshot; the final dist
   int32_t* B;                // fold target, equal to A between chunks
   int32_t* stamp;            // [n] the chunk that last noted a destination
@@ -120,7 +143,10 @@ struct Params {
   int32_t* exc;              // [n] exclusive prefix
   int32_t* start;            // [n] first edge of a slot's (remaining) run
   uint8_t* mask[2];          // frontier masks of alternate iterations
-  int32_t* btot;             // [grid * 4] block totals of the last scan
+                             // (delta mode: C and U)
+  uint8_t* live;             // delta mode: the frontier M, the output mask
+  uint8_t* settled;          // delta mode: S, the nodes settled this epoch
+  int32_t* btot;             // [2][grid * 4] block totals of the last scan
   unsigned* ctrl;            // CTRL_WORDS
   long long* result;         // iterations, edges, AD's BS/WD/HP counts
 };
@@ -538,10 +564,44 @@ __device__ void hp_step(const Params& p, const Frontier& f, uint8_t* upd,
   }
 }
 
-// AD's fixed decision tree (strategies.choose_kernel), in the reference's
-// float32 order: 0 BS, 1 WD, 2 HP
+// NS's ns_activate: children take their parent's value and activity
+// (parents map to themselves and are not written)
+__device__ __forceinline__ void ns_gather(const Params& p, uint8_t* M) {
+  for (int64_t i = gtid(); i < p.n; i += gthreads()) {
+    const int32_t par = __ldg(p.aux + i);
+    if (par != i) {
+      const int32_t v = __ldcg(p.A + par);
+      p.A[i] = v;
+      p.B[i] = v;
+      if (__ldcg(M + par)) M[i] = 1;
+    }
+  }
+}
+
+// AD's choice: 0 BS, 1 WD, 2 HP.  Measured: the first argmin of the cost
+// model's float32 predictions, each operation rounded (a NaN counts as the
+// minimum, as numpy's argmin has it).  Else the fixed decision tree
+// (strategies.choose_kernel) in the reference's float32 order.
 __device__ __forceinline__ int ad_choice(const Params& p, const Frontier& f) {
   const bool degenerate = f.degsum == 0 || f.count == 0;
+  if (p.measured) {
+    if (degenerate) return 0;
+    const float es = __int2float_rn(f.degsum), cn = __int2float_rn(f.count);
+    int best = 0;
+    float lo = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float cost =
+          __fadd_rn(__fadd_rn(p.coeffs[3 * k], __fmul_rn(p.coeffs[3 * k + 1],
+                                                          es)),
+                    __fmul_rn(p.coeffs[3 * k + 2], cn));
+      if (k == 0 || (!isnan(lo) && (isnan(cost) || cost < lo))) {
+        best = k;
+        lo = cost;
+      }
+    }
+    return best;
+  }
   const float mean = __fdiv_rn(__int2float_rn(f.degsum),
                                __int2float_rn(max(f.count, 1)));
   const float imbalance =
@@ -578,18 +638,9 @@ fused_fixed_point_kernel(Params p) {
     const bool live = p.kernel == K_EP ? f.degsum > 0 : f.count > 0;
     if (!live || it >= p.max_iterations) break;
     if (p.kernel == K_NS) {
-      // ns_activate, inside the iteration as in the reference's loop body:
-      // children take their parent's value and activity (parents map to
-      // themselves and are not written); then the split frontier's counts
-      for (int64_t i = gtid(); i < p.n; i += gthreads()) {
-        const int32_t par = __ldg(p.aux + i);
-        if (par != i) {
-          const int32_t v = __ldcg(p.A + par);
-          p.A[i] = v;
-          p.B[i] = v;
-          if (__ldcg(M + par)) M[i] = 1;
-        }
-      }
+      // ns_activate, inside the iteration as in the reference's loop body,
+      // then the split frontier's counts
+      ns_gather(p, M);
       grid_sync(p.ctrl + CTRL_BAR);
       f = frontier_count(p, M, next);
     }
@@ -633,10 +684,192 @@ fused_fixed_point_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// delta mode: bucket epochs around the same dense steps
+// ---------------------------------------------------------------------------
+
+constexpr int32_t VALUE_INF = 1073741823;     // core/graph.py INF
+constexpr int32_t NO_BUCKET = 2147483647;     // core/worklist.py NO_BUCKET
+
+// worklist.bucket_index: the rank clipped to [0, INF], reflected for a max
+// monoid, over delta
+template <int COMB>
+__device__ __forceinline__ int32_t bucket_of(int32_t v, int32_t delta) {
+  const int32_t r = min(max(v, 0), VALUE_INF);
+  return (COMB == COMB_MAX ? VALUE_INF - r : r) / delta;
+}
+
+// One pass over this block's segment of the values: fn(i, a, b, c) adds to
+// the block's two sums and its max.  The block totals go through half
+// `pass % 2` of btot; ends in a barrier.  Returns the grid totals and the
+// sums of the blocks before this one (a frontier's counts, in the segments
+// frontier_compact walks).
+template <class Fn>
+__device__ __forceinline__ Frontier delta_pass(const Params& p, int& pass,
+                                               Fn fn) {
+  int32_t lo, hi;
+  segment(p.nk, lo, hi);
+  int32_t a = 0, b = 0, c = 0;
+  for (int32_t i = lo + threadIdx.x; i < hi; i += THREADS) fn(i, a, b, c);
+  block_reduce3(a, b, c);
+  int32_t* bt = p.btot + 4 * gridDim.x * (pass++ & 1);
+  if (threadIdx.x == 0) {
+    bt[4 * blockIdx.x] = a;
+    bt[4 * blockIdx.x + 1] = b;
+    bt[4 * blockIdx.x + 2] = c;
+  }
+  grid_sync(p.ctrl + CTRL_BAR);
+  Frontier f;
+  scan_totals(bt, f.count, f.degsum, f.maxdeg, f.before_count,
+              f.before_deg);
+  return f;
+}
+
+// One phase of an epoch (priority._phase): the strategy's dense step from
+// the frontier P over q's graph (q: the light or the heavy Params), its
+// improvements noted in U.  f holds P's counts on q from the pass that
+// built P; NS gathers its children first and counts again.  Returns the
+// phase's edges.  Not inlined: one copy serves the light and the heavy
+// Params (kernel parameters, __grid_constant__, so passing their address
+// copies nothing), and the kernel keeps two resident blocks a SM without
+// spilling.
+template <int MSG, int COMB>
+__device__ __noinline__ int32_t delta_phase(const Params& q, uint8_t* P,
+                                            Frontier f, uint8_t* U, int& seq,
+                                            WdSmem& sm) {
+  if (q.kernel == K_NS) {
+    ns_gather(q, P);
+    grid_sync(q.ctrl + CTRL_BAR);
+    f = frontier_count(q, P, U);       // U is clear: clearing it is harmless
+  }
+  frontier_compact(q, P, f);
+  grid_sync(q.ctrl + CTRL_BAR);
+  int which = q.kernel;
+  if (which == K_AD) {
+    const int idx = ad_choice(q, f);
+    which = idx == 0 ? K_BS : (idx == 1 ? K_WD : K_HP);
+  }
+  if (which == K_BS || which == K_NS) {
+    for (int32_t d = 0; d < f.maxdeg; ++d) {
+      const NoteHook h = begin_chunk(q, seq);
+      bs_column<MSG, COMB>(q, f.count, d, U, h);
+      end_chunk(q, seq);
+    }
+  } else if (which == K_WD) {
+    wd_step<MSG, COMB>(q, f, U, seq, sm);
+  } else {
+    hp_step<MSG, COMB>(q, f, U, seq, sm);
+  }
+  return f.degsum;
+}
+
+template <int MSG, int COMB>
+__global__ void __launch_bounds__(THREADS)
+fused_delta_kernel(const __grid_constant__ Params p,
+                   const __grid_constant__ Params ph) {
+  __shared__ WdSmem sm;
+  uint8_t* const M = p.live;
+  uint8_t* const C = p.mask[0];
+  uint8_t* const U = p.mask[1];
+  uint8_t* const S = p.settled;
+  for (int64_t i = gtid(); i < p.nk; i += gthreads()) {
+    const int32_t v = __ldg(p.dist0 + i);
+    p.A[i] = v;
+    p.B[i] = v;
+    p.stamp[i] = -1;
+    M[i] = __ldg(p.mask0 + i) != 0;
+    U[i] = 0;
+  }
+  grid_sync(p.ctrl + CTRL_BAR);
+
+  int it = 0, seq = 0, pass = 0;
+  int32_t b = NO_BUCKET, count = 0;
+  long long rounds = 0;
+  unsigned long long edges = 0;
+  for (;;) {
+    // M |= U; the live count and the minimum bucket (as NO_BUCKET - b,
+    // maximised); U and S cleared for the epoch
+    const Frontier live = delta_pass(
+        p, pass, [&](int32_t i, int32_t& a, int32_t&, int32_t& c) {
+          const uint8_t m = __ldcg(M + i) | __ldcg(U + i);
+          M[i] = m;
+          U[i] = 0;
+          S[i] = 0;
+          if (m) {
+            ++a;
+            c = max(c, NO_BUCKET - bucket_of<COMB>(__ldcg(p.A + i), p.delta));
+          }
+        });
+    count = live.count;
+    if (count == 0 || it >= p.max_iterations) break;
+    const int32_t bk = NO_BUCKET - live.maxdeg;
+    b = bk;
+    for (;;) {
+      // the light closure: C = (M | U) & bucket == b moves from M into S
+      const Frontier f = delta_pass(
+          p, pass, [&](int32_t i, int32_t& a, int32_t& sum, int32_t& c) {
+            const uint8_t m = __ldcg(M + i) | __ldcg(U + i);
+            U[i] = 0;
+            const bool cur =
+                m && bucket_of<COMB>(__ldcg(p.A + i), p.delta) == bk;
+            C[i] = cur;
+            M[i] = cur ? 0 : m;
+            if (cur) {
+              S[i] = 1;
+              const int32_t d = degree(p, i);
+              ++a;
+              sum += d;
+              c = max(c, d);
+            }
+          });
+      if (f.count == 0) break;
+      ++rounds;
+      if (p.e > 0)              // an edgeless light graph relaxes nothing
+        edges += (unsigned)delta_phase<MSG, COMB>(p, C, f, U, seq, sm);
+    }
+    if (ph.e > 0) {
+      // the heavy pass: every settled node's heavy edges, once
+      const Frontier f = delta_pass(
+          ph, pass, [&](int32_t i, int32_t& a, int32_t& sum, int32_t& c) {
+            if (__ldcg(S + i)) {
+              const int32_t d = degree(ph, i);
+              ++a;
+              sum += d;
+              c = max(c, d);
+            }
+          });
+      const int32_t e = delta_phase<MSG, COMB>(ph, S, f, U, seq, sm);
+      edges += (unsigned)e;
+      rounds += e > 0;
+    }
+    ++it;
+  }
+  if (gtid() == 0) {
+    p.result[0] = it;
+    p.result[1] = (long long)edges;
+    p.result[2] = rounds;
+    p.result[3] = b;
+    p.result[4] = count;
+  }
+}
+
+// AD's selector alone, for the card tests: out[i] = ad_choice of the
+// measured model on (count[i], degsum[i])
+__global__ void ad_choice_probe_kernel(Params p, const int32_t* count,
+                                       const int32_t* degsum, int m,
+                                       int32_t* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  Frontier f{};
+  f.count = count[i];
+  f.degsum = degsum[i];
+  out[i] = ad_choice(p, f);
+}
+
 // The workspace, carved from one buffer: each piece on a 256-byte boundary.
 struct Layout {
   size_t ctrl, B, stamp, dirty, list, deg, pfx, exc, start, mask0, mask1,
-      btot, total;
+      settled, btot, total;
 };
 
 Layout layout(int64_t n, int64_t max_grid) {
@@ -658,7 +891,8 @@ Layout layout(int64_t n, int64_t max_grid) {
   l.start = take(n * 4);
   l.mask0 = take(n);
   l.mask1 = take(n);
-  l.btot = take(max_grid * 4 * 4);
+  l.settled = take(n);
+  l.btot = take(max_grid * 2 * 4 * 4);
   l.total = off;
   return l;
 }
@@ -677,8 +911,9 @@ cudaError_t max_grid(int64_t* out) {
   return err;
 }
 
-template <int MSG, int COMB>
-cudaError_t launch_t(Params p, cudaStream_t st) {
+// A cooperative launch of `kernel` with `args`: the grid is as many blocks
+// as the card keeps resident.
+cudaError_t launch_coop(const void* kernel, void** args, cudaStream_t st) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -686,15 +921,20 @@ cudaError_t launch_t(Params p, cudaStream_t st) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_fixed_point_kernel<MSG, COMB>, THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, 0);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  return cudaLaunchCooperativeKernel(kernel, dim3((unsigned)(sms * per_sm)),
+                                     dim3(THREADS), args, 0, st);
+}
+
+template <int MSG, int COMB>
+cudaError_t launch_t(Params p, cudaStream_t st) {
   void* args[] = {&p};
-  return cudaLaunchCooperativeKernel(
-      (const void*)fused_fixed_point_kernel<MSG, COMB>,
-      dim3((unsigned)(sms * per_sm)), dim3(THREADS), args, 0, st);
+  return launch_coop((const void*)fused_fixed_point_kernel<MSG, COMB>, args,
+                     st);
 }
 
 template <int MSG>
@@ -704,51 +944,38 @@ cudaError_t launch_msg(int comb, const Params& p, cudaStream_t st) {
   return launch_t<MSG, COMB_ADD>(p, st);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Bytes of workspace a traversal of n values (rows * nodes) needs on the
-// current card.
-int repro_fused_workspace_bytes(int32_t n, long long* bytes) {
-  int64_t grid = 0;
-  const cudaError_t err = max_grid(&grid);
-  if (err != cudaSuccess) return (int)err;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  *bytes = (long long)layout(n, grid).total;
-  return 0;
+// delta mode: idempotent operators only (no COMB_ADD instances)
+template <int MSG, int COMB>
+cudaError_t launch_delta_t(Params p, Params ph, cudaStream_t st) {
+  void* args[] = {&p, &ph};
+  return launch_coop((const void*)fused_delta_kernel<MSG, COMB>, args, st);
 }
 
-// One traversal, or a batch of `rows` WD traversals: n >= 1, e >= 0;
-// wt == nullptr means weight 1; aux holds EP's edge sources [e] or NS's
-// child -> parent map [n] (else unused); dist0 [rows, n] and mask0
-// [rows, n] are read, dist [rows, n] receives the result; result [5]
-// (int64) gets iterations, edges relaxed and AD's BS/WD/HP counts.
-// rows > 1 takes only kernel WD, and rows * n must stay below 2^31.
-// workspace holds repro_fused_workspace_bytes(rows * n) bytes.
-// Returns the status of the launch (cudaErrorCooperativeLaunchTooLarge
-// if the grid cannot be resident).
-int repro_fused_fixed_point(
-    const int32_t* row_ptr, const int32_t* col, const int32_t* wt,
-    int32_t n, int32_t rows, int32_t e, const int32_t* aux,
-    const int32_t* dist0,
-    const uint8_t* mask0, int kernel, int msg, int comb, int max_iterations,
-    int mdt, int switch_threshold, int small_frontier,
-    float imbalance_threshold, int hp_edges_threshold, int32_t* dist,
-    void* workspace, long long workspace_bytes, long long* result,
-    void* stream) {
-  if (!codes_ok(msg, comb) || kernel < K_BS || kernel > K_AD || n < 1 ||
-      e < 0 || mdt < 1 || dist == dist0 || rows < 1 ||
-      (rows > 1 && kernel != K_WD) || (int64_t)rows * n >= (1LL << 31) ||
-      ((kernel == K_EP || kernel == K_NS) && aux == nullptr))
-    return (int)cudaErrorInvalidValue;
+template <int MSG>
+cudaError_t launch_delta_msg(int comb, const Params& p, const Params& ph,
+                             cudaStream_t st) {
+  if (comb == COMB_MIN) return launch_delta_t<MSG, COMB_MIN>(p, ph, st);
+  return launch_delta_t<MSG, COMB_MAX>(p, ph, st);
+}
+
+// The Params of one launch over n values (rows * nodes), the workspace
+// carved by its layout; zeroes the control words.
+cudaError_t make_params(Params& p, const int32_t* row_ptr, const int32_t* col,
+                        const int32_t* wt, int32_t n, int32_t rows,
+                        int32_t e, const int32_t* aux, const int32_t* dist0,
+                        const uint8_t* mask0, int kernel, int max_iterations,
+                        int mdt, int switch_threshold, int small_frontier,
+                        float imbalance_threshold, int hp_edges_threshold,
+                        int32_t* dist, void* workspace,
+                        long long workspace_bytes, long long* result,
+                        cudaStream_t st) {
   int64_t grid = 0;
   cudaError_t err = max_grid(&grid);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const Layout l = layout((int64_t)rows * n, grid);
-  if (workspace_bytes < (long long)l.total) return (int)cudaErrorInvalidValue;
+  if (workspace_bytes < (long long)l.total) return cudaErrorInvalidValue;
   char* ws = static_cast<char*>(workspace);
-  Params p{};
+  p = Params{};
   p.row_ptr = row_ptr;
   p.col = col;
   p.wt = wt;
@@ -777,17 +1004,163 @@ int repro_fused_fixed_point(
   p.start = reinterpret_cast<int32_t*>(ws + l.start);
   p.mask[0] = reinterpret_cast<uint8_t*>(ws + l.mask0);
   p.mask[1] = reinterpret_cast<uint8_t*>(ws + l.mask1);
+  p.settled = reinterpret_cast<uint8_t*>(ws + l.settled);
   p.btot = reinterpret_cast<int32_t*>(ws + l.btot);
   p.ctrl = reinterpret_cast<unsigned*>(ws + l.ctrl);
   p.result = result;
-  cudaStream_t st = (cudaStream_t)stream;
-  err = cudaMemsetAsync(p.ctrl, 0, CTRL_WORDS * sizeof(unsigned), st);
+  return cudaMemsetAsync(p.ctrl, 0, CTRL_WORDS * sizeof(unsigned), st);
+}
+
+// Kernel attributes for the block-feasibility report: threads a block,
+// static shared bytes, registers a thread, local bytes a thread, blocks
+// resident per SM, SMs.
+cudaError_t block_attrs(const void* kernel, int* out) {
+  cudaFuncAttributes a;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, 0);
+  if (err != cudaSuccess) return err;
+  out[0] = THREADS;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = per_sm;
+  out[5] = sms;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of workspace a traversal of n values (rows * nodes) needs on the
+// current card.
+int repro_fused_workspace_bytes(int32_t n, long long* bytes) {
+  int64_t grid = 0;
+  const cudaError_t err = max_grid(&grid);
   if (err != cudaSuccess) return (int)err;
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  *bytes = (long long)layout(n, grid).total;
+  return 0;
+}
+
+// One traversal, or a batch of `rows` WD traversals: n >= 1, e >= 0;
+// wt == nullptr means weight 1; aux holds EP's edge sources [e] or NS's
+// child -> parent map [n] (else unused); dist0 [rows, n] and mask0
+// [rows, n] are read, dist [rows, n] receives the result; result [5]
+// (int64) gets iterations, edges relaxed and AD's BS/WD/HP counts.
+// coeffs (host memory, 9 floats, row-major (a, b, c) for BS, WD, HP) makes
+// AD take the measured model; nullptr keeps the fixed tree.
+// rows > 1 takes only kernel WD, and rows * n must stay below 2^31.
+// workspace holds repro_fused_workspace_bytes(rows * n) bytes.
+// Returns the status of the launch (cudaErrorCooperativeLaunchTooLarge
+// if the grid cannot be resident).
+int repro_fused_fixed_point(
+    const int32_t* row_ptr, const int32_t* col, const int32_t* wt,
+    int32_t n, int32_t rows, int32_t e, const int32_t* aux,
+    const int32_t* dist0,
+    const uint8_t* mask0, int kernel, int msg, int comb, int max_iterations,
+    int mdt, int switch_threshold, int small_frontier,
+    float imbalance_threshold, int hp_edges_threshold, const float* coeffs,
+    int32_t* dist, void* workspace, long long workspace_bytes,
+    long long* result, void* stream) {
+  if (!codes_ok(msg, comb) || kernel < K_BS || kernel > K_AD || n < 1 ||
+      e < 0 || mdt < 1 || dist == dist0 || rows < 1 ||
+      (rows > 1 && kernel != K_WD) || (int64_t)rows * n >= (1LL << 31) ||
+      ((kernel == K_EP || kernel == K_NS) && aux == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Params p;
+  cudaError_t err = make_params(
+      p, row_ptr, col, wt, n, rows, e, aux, dist0, mask0, kernel,
+      max_iterations, mdt, switch_threshold, small_frontier,
+      imbalance_threshold, hp_edges_threshold, dist, workspace,
+      workspace_bytes, result, st);
+  if (err != cudaSuccess) return (int)err;
+  if (coeffs != nullptr) {
+    p.measured = 1;
+    for (int k = 0; k < 9; ++k) p.coeffs[k] = coeffs[k];
+  }
   if (msg == MSG_SUM) err = launch_msg<MSG_SUM>(comb, p, st);
   else if (msg == MSG_COPY) err = launch_msg<MSG_COPY>(comb, p, st);
   else err = launch_msg<MSG_BOTTLENECK>(comb, p, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// A delta-stepping traversal of one query: the light graph (row_ptr, col,
+// wt, e >= 0) and the heavy graph (hrow_ptr, hcol, hwt, he >= 1; he == 0:
+// none) over the same n >= 1 nodes; kernel BS, WD, HP, NS (aux: the child
+// -> parent map [n]) or AD (the fixed tree); an idempotent operator (comb
+// MIN or MAX); delta >= 1; at most max_epochs epochs.  dist0 [n] and
+// mask0 [n] are read; dist [n] and mask [n] receive the values and the
+// frontier; result [5] (int64) gets epochs, edges relaxed, relax rounds,
+// the last bucket settled and the frontier's count.  workspace holds
+// repro_fused_workspace_bytes(n) bytes.
+int repro_fused_delta(
+    const int32_t* row_ptr, const int32_t* col, const int32_t* wt, int32_t e,
+    const int32_t* hrow_ptr, const int32_t* hcol, const int32_t* hwt,
+    int32_t he, int32_t n, const int32_t* aux, const int32_t* dist0,
+    const uint8_t* mask0, int kernel, int msg, int comb, int delta,
+    int max_epochs, int mdt, int switch_threshold, int small_frontier,
+    float imbalance_threshold, int hp_edges_threshold, int32_t* dist,
+    uint8_t* mask, void* workspace, long long workspace_bytes,
+    long long* result, void* stream) {
+  if (!codes_ok(msg, comb) || comb == COMB_ADD || kernel < K_BS ||
+      kernel > K_AD || kernel == K_EP || n < 1 || e < 0 || he < 0 ||
+      (he > 0 && hrow_ptr == nullptr) || delta < 1 || mdt < 1 ||
+      dist == dist0 || (kernel == K_NS && aux == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Params p;
+  cudaError_t err = make_params(
+      p, row_ptr, col, wt, n, 1, e, aux, dist0, mask0, kernel, max_epochs,
+      mdt, switch_threshold, small_frontier, imbalance_threshold,
+      hp_edges_threshold, dist, workspace, workspace_bytes, result, st);
+  if (err != cudaSuccess) return (int)err;
+  p.delta = delta;
+  p.live = mask;
+  Params ph = p;
+  if (he > 0) {
+    ph.row_ptr = hrow_ptr;
+    ph.col = hcol;
+    ph.wt = hwt;
+  }
+  ph.e = he;
+  if (msg == MSG_SUM) err = launch_delta_msg<MSG_SUM>(comb, p, ph, st);
+  else if (msg == MSG_COPY) err = launch_delta_msg<MSG_COPY>(comb, p, ph, st);
+  else err = launch_delta_msg<MSG_BOTTLENECK>(comb, p, ph, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// AD's measured selector on m (count, degree sum) pairs (device arrays),
+// with the cost model coeffs (host memory, 9 floats): out[i] in {0, 1, 2}.
+int repro_fused_ad_choice_probe(const float* coeffs, const int32_t* count,
+                                const int32_t* degsum, int m, int32_t* out,
+                                void* stream) {
+  if (m < 1 || coeffs == nullptr) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.measured = 1;
+  for (int k = 0; k < 9; ++k) p.coeffs[k] = coeffs[k];
+  ad_choice_probe_kernel<<<(m + THREADS - 1) / THREADS, THREADS, 0,
+                           (cudaStream_t)stream>>>(p, count, degsum, m, out);
+  return (int)cudaGetLastError();
+}
+
+// which 0: the fused kernel (shortest_path's instance), 1: its delta mode;
+// out [6] as block_attrs.
+int repro_fused_block_attrs(int which, int* out) {
+  if (which < 0 || which > 1) return (int)cudaErrorInvalidValue;
+  const void* kernel =
+      which == 0 ? (const void*)fused_fixed_point_kernel<MSG_SUM, COMB_MIN>
+                 : (const void*)fused_delta_kernel<MSG_SUM, COMB_MIN>;
+  return (int)block_attrs(kernel, out);
 }
 
 }  // extern "C"

@@ -9,7 +9,11 @@ total and AD's three counts with one host sync; nothing of B1 or B2 is
 launched (the kernel carries their lane bodies).  For CPU tensors it runs
 the plain version, :func:`repro_torch.core.fused._fixed_point_plain`.
 :func:`batch_fixed_point` runs K WD traversals the same way, in one launch
-of the same kernel with K rows (ROADMAP A8).
+of the same kernel with K rows (ROADMAP A8).  :func:`delta_fixed_point`
+runs a delta-stepping traversal (ROADMAP A10) as one launch of the same
+file's kernel in its delta mode (light and heavy graphs, bucket epochs),
+also counted in ``LAUNCHES["fused_fixed_point"]``; its CPU version is
+:func:`repro_torch.core.priority._delta_fixed_point_plain`.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.graph import CSRGraph
@@ -31,20 +36,22 @@ KERNEL_CODES = {"BS": 0, "WD": 1, "HP": 2, "EP": 3, "NS": 4, "AD": 5}
 
 def fixed_point(kernel: str, graph: CSRGraph, aux: Optional[torch.Tensor],
                 dist: torch.Tensor, mask: torch.Tensor, *, op: EdgeOp,
-                sched, max_iterations: int):
+                sched, max_iterations: int, coeffs=None):
     """Run ``kernel`` (a :data:`KERNEL_CODES` name) on ``graph`` from the
     values ``dist`` and frontier ``mask`` to the fixed point, or for at
     most ``max_iterations`` iterations.  ``aux`` is EP's per-edge source
     ids or NS's child -> parent map (else ``None``); ``sched`` the
-    resolved :class:`~repro_torch.core.schedule.Schedule`.  Returns
-    ``(dist, iterations, edges_relaxed, [BS, WD, HP] counts of AD's
-    choices)``; the inputs are not modified."""
+    resolved :class:`~repro_torch.core.schedule.Schedule`; ``coeffs``
+    measured AD's ``[3, 3]`` float32 cost model (else ``None``: the fixed
+    tree).  Returns ``(dist, iterations, edges_relaxed, [BS, WD, HP]
+    counts of AD's choices)``; the inputs are not modified."""
     if kernel not in KERNEL_CODES:
         raise ValueError(f"unknown fused kernel {kernel!r}")
     if dist.device.type == "cpu":
         from repro_torch.core.fused import _fixed_point_plain
         return _fixed_point_plain(kernel, graph, aux, dist, mask, op=op,
-                                  sched=sched, max_iterations=max_iterations)
+                                  sched=sched, max_iterations=max_iterations,
+                                  coeffs=coeffs)
     if dist.device.type != "cuda":
         raise ValueError(f"no fused_fixed_point for device {dist.device}")
     dev = dist.device
@@ -56,7 +63,8 @@ def fixed_point(kernel: str, graph: CSRGraph, aux: Optional[torch.Tensor],
     out = torch.empty_like(dist)
     it, edges, *chosen = _launch(kernel, graph, aux, dist, mask, 1, out,
                                  op=op, sched=sched,
-                                 max_iterations=max_iterations)
+                                 max_iterations=max_iterations,
+                                 coeffs=coeffs)
     return out, it, edges, chosen
 
 
@@ -106,13 +114,7 @@ def batch_fixed_point(graph: CSRGraph, dist: torch.Tensor,
     return out, it, edges
 
 
-def _launch(kernel: str, graph: CSRGraph, aux, dist, mask, rows: int, out,
-            *, op: EdgeOp, sched, max_iterations: int) -> list:
-    """One cooperative launch over ``rows`` rows of ``graph``'s nodes
-    (contiguous ``dist``/``mask``/``out``); returns iterations, the edge
-    total and AD's three counts, read with one host sync."""
-    msg, comb = op.kernel_codes()
-    dev = dist.device
+def _check_graph(graph: CSRGraph, dev: torch.device) -> None:
     n, e = graph.num_nodes, graph.num_edges
     check_tensor("row_ptr", graph.row_ptr, dev, torch.int32, n + 1)
     check_tensor("col", graph.col, dev, torch.int32, e)
@@ -120,13 +122,42 @@ def _launch(kernel: str, graph: CSRGraph, aux, dist, mask, rows: int, out,
         check_tensor("wt", graph.wt, dev, torch.int32, e)
     if n == 0:
         raise ValueError("fused_fixed_point needs a graph with nodes")
-    lib = _build.lib()
+
+
+def _workspace(values: int, dev: torch.device):
+    """The launch's workspace and its ``[5]`` int64 result cells."""
     nbytes = ctypes.c_longlong()
     with torch.cuda.device(dev):
-        _build.check("fused_workspace_bytes", lib.repro_fused_workspace_bytes(
-            rows * n, ctypes.byref(nbytes)))
-    workspace = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
-    result = torch.empty(5, dtype=torch.int64, device=dev)
+        _build.check("fused_workspace_bytes",
+                     _build.lib().repro_fused_workspace_bytes(
+                         values, ctypes.byref(nbytes)))
+    return (torch.empty(nbytes.value, dtype=torch.uint8, device=dev),
+            torch.empty(5, dtype=torch.int64, device=dev))
+
+
+def _coeff_array(coeffs):
+    """Measured AD's coefficients as the kernel reads them (9 float32,
+    row-major), or ``None`` for the fixed tree."""
+    if coeffs is None:
+        return None
+    c = np.ascontiguousarray(coeffs, np.float32).reshape(-1)
+    if c.size != 9:
+        raise ValueError(f"coeffs must be [3, 3], got {np.shape(coeffs)}")
+    return (ctypes.c_float * 9)(*c.tolist())
+
+
+def _launch(kernel: str, graph: CSRGraph, aux, dist, mask, rows: int, out,
+            *, op: EdgeOp, sched, max_iterations: int,
+            coeffs=None) -> list:
+    """One cooperative launch over ``rows`` rows of ``graph``'s nodes
+    (contiguous ``dist``/``mask``/``out``); returns iterations, the edge
+    total and AD's three counts, read with one host sync."""
+    msg, comb = op.kernel_codes()
+    dev = dist.device
+    n, e = graph.num_nodes, graph.num_edges
+    _check_graph(graph, dev)
+    lib = _build.lib()
+    workspace, result = _workspace(rows * n, dev)
     with torch.cuda.device(dev):
         _build.check("fused_fixed_point", lib.repro_fused_fixed_point(
             graph.row_ptr.data_ptr(), graph.col.data_ptr(),
@@ -136,7 +167,98 @@ def _launch(kernel: str, graph: CSRGraph, aux, dist, mask, rows: int, out,
             min(int(max_iterations), 2 ** 31 - 1), sched.mdt or 1,
             sched.switch_threshold, sched.small_frontier,
             sched.imbalance_threshold, sched.hp_edges_threshold,
-            out.data_ptr(), workspace.data_ptr(), nbytes.value,
-            result.data_ptr(), stream_of(dev)))
+            _coeff_array(coeffs), out.data_ptr(), workspace.data_ptr(),
+            workspace.numel(), result.data_ptr(), stream_of(dev)))
     LAUNCHES["fused_fixed_point"] += 1
     return result.tolist()                          # the one host sync
+
+
+def delta_fixed_point(kernel: str, light: CSRGraph,
+                      heavy: Optional[CSRGraph], aux: Optional[torch.Tensor],
+                      dist: torch.Tensor, mask: torch.Tensor, *, op: EdgeOp,
+                      sched, delta: int, max_iterations: int):
+    """A delta-stepping traversal (:mod:`repro_torch.core.priority`) of
+    ``kernel`` (BS, WD, HP, NS or AD) from ``dist``/``mask`` over the
+    ``light`` graph and, where it is not ``None``, the ``heavy`` one (the
+    same nodes), for at most ``max_iterations`` epochs.  ``aux`` is NS's
+    child -> parent map.  For CUDA tensors ONE cooperative launch of the
+    fused kernel in its delta mode; for CPU tensors the plain loop.
+    Returns ``(dist, mask, epochs, relax_rounds, edges_relaxed, last
+    bucket settled, frontier count)``; the inputs are not modified."""
+    if kernel not in ("BS", "WD", "HP", "NS", "AD"):
+        raise ValueError(f"kernel {kernel!r} has no delta-stepping phase")
+    if dist.device.type == "cpu":
+        from repro_torch.core.priority import _delta_fixed_point_plain
+        return _delta_fixed_point_plain(
+            kernel, light, heavy, aux, dist, mask, delta=delta, op=op,
+            sched=sched, max_iterations=max_iterations)
+    if dist.device.type != "cuda":
+        raise ValueError(f"no fused_fixed_point for device {dist.device}")
+    if not op.idempotent:
+        raise ValueError(f"delta-stepping needs an idempotent operator, "
+                         f"got {op.name!r}")
+    dev = dist.device
+    n = light.num_nodes
+    check_tensor("dist", dist, dev, torch.int32, n)
+    check_tensor("mask", mask, dev, torch.bool, n)
+    _check_graph(light, dev)
+    if heavy is not None:
+        _check_graph(heavy, dev)
+        if heavy.num_nodes != n or heavy.num_edges == 0:
+            raise ValueError("the heavy graph must have the light graph's "
+                             "nodes and at least one edge")
+    if kernel == "NS":
+        check_tensor("aux", aux, dev, torch.int32, n)
+    msg, comb = op.kernel_codes()
+    lib = _build.lib()
+    workspace, result = _workspace(n, dev)
+    out = torch.empty_like(dist)
+    out_mask = torch.empty_like(mask)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    h_row_ptr, h_col, h_wt, h_e = ((None, None, None, 0) if heavy is None
+                                   else (heavy.row_ptr, heavy.col, heavy.wt,
+                                         heavy.num_edges))
+    with torch.cuda.device(dev):
+        _build.check("fused_delta", lib.repro_fused_delta(
+            light.row_ptr.data_ptr(), light.col.data_ptr(), ptr(light.wt),
+            light.num_edges, ptr(h_row_ptr), ptr(h_col), ptr(h_wt), h_e, n,
+            ptr(aux), dist.data_ptr(), mask.data_ptr(), KERNEL_CODES[kernel],
+            msg, comb, int(delta), min(int(max_iterations), 2 ** 31 - 1),
+            sched.mdt or 1, sched.switch_threshold, sched.small_frontier,
+            sched.imbalance_threshold, sched.hp_edges_threshold,
+            out.data_ptr(), out_mask.data_ptr(), workspace.data_ptr(),
+            workspace.numel(), result.data_ptr(), stream_of(dev)))
+    LAUNCHES["fused_fixed_point"] += 1
+    epochs, edges, rounds, b, count = result.tolist()   # the one host sync
+    return out, out_mask, epochs, rounds, edges, b, count
+
+
+def ad_choice_probe(coeffs, count: torch.Tensor,
+                    degree_sum: torch.Tensor) -> torch.Tensor:
+    """The fused kernel's measured AD selector alone: for each pair of
+    ``count [m]`` and ``degree_sum [m]`` (int32), the branch (0 BS, 1 WD,
+    2 HP) the ``[3, 3]`` cost model ``coeffs`` picks.  For CUDA tensors
+    one launch of a probe kernel around ``csrc/fused.cu``'s
+    ``ad_choice``; for CPU tensors
+    :func:`repro_torch.core.fused._measured_choice`."""
+    if count.device.type == "cpu":
+        from repro_torch.core.fused import _measured_choice
+        return torch.tensor(
+            [_measured_choice(coeffs, c, d) for c, d in
+             zip(count.tolist(), degree_sum.tolist())], dtype=torch.int32)
+    dev = count.device
+    m = count.numel()
+    check_tensor("count", count, dev, torch.int32)
+    check_tensor("degree_sum", degree_sum, dev, torch.int32, m)
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check("ad_choice_probe",
+                     _build.lib().repro_fused_ad_choice_probe(
+                         _coeff_array(coeffs), count.data_ptr(),
+                         degree_sum.data_ptr(), m, out.data_ptr(),
+                         stream_of(dev)))
+    LAUNCHES["ad_choice_probe"] += 1
+    return out

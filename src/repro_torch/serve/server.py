@@ -14,9 +14,11 @@ The pipeline is the reference's:
    ``(graph, epoch, op, schedule, delta)`` is gathered, up to
    ``max_batch``, and the batch is rounded up to a power-of-two
    **K-bucket** (``run_batch(..., pad_to=)``).  On the card a fused
-   server dispatches each batch as ONE launch of the fused kernel with
-   K-bucket rows; :class:`repro_torch.serve.cache.ExecutableCache` records
-   the buckets dispatched.
+   server dispatches each BSP batch as ONE launch of the fused kernel
+   with K-bucket rows, and each ``schedule="delta"`` batch as one
+   single-row delta launch a row;
+   :class:`repro_torch.serve.cache.ExecutableCache` records the buckets
+   dispatched.
 3. **Completion**: every real lane's distance row is returned, recorded
    in the :class:`repro_torch.serve.cache.DistanceCache` under the
    graph's current epoch, and observed into the latency reservoir.  A
@@ -181,8 +183,7 @@ class GraphServer:
             raise ValueError(
                 "schedule='delta' requests need a mode='fused' server "
                 "(batched delta-stepping is fused-only)")
-        engine._check_slice(self.mode, None, request.schedule,
-                            request.delta)
+        engine._check_schedule(None, request.schedule, request.delta, op)
         if request.graph not in self._graphs:
             return self._reject(request, REJECT_UNKNOWN_GRAPH, now)
         if request.deadline is not None and request.deadline <= now:

@@ -5,7 +5,10 @@ strategies, connected components, widest path), the fused fixed point
 (against its plain loop on the card and the CPU, one launch a traversal),
 the batched queries (B1's batch contract and the fused kernel with K rows
 against their plain versions, ``run_batch`` and ``GraphServer`` against
-the CPU) and the serving loop on the card against the CPU.  Every test here needs a CUDA
+the CPU), delta-stepping (the fused kernel's delta mode against its plain
+epoch loop, the engines, batch and server against the CPU), measured AD
+(``ad_choice`` against ``CostModel.choose``, calibration, block
+feasibility) and the serving loop on the card against the CPU.  Every test here needs a CUDA
 device and skips
 without one.  The file imports neither JAX nor ``repro``, so it runs on a
 machine without JAX:
@@ -720,3 +723,206 @@ def test_serve_loop_on_the_card_matches_cpu(dev, arch, kernel):
     assert [r.uid for r in got] == [r.uid for r in want]
     for a, b in zip(got, want):
         assert a.generated == b.generated
+
+
+# ---------------------------------------------------------------------------
+# delta-stepping (the fused kernel's delta mode) and measured AD
+# ---------------------------------------------------------------------------
+
+DELTA_STRATEGIES = ["BS", "WD", "NS", "HP", "AD"]
+
+
+def _delta_pair(g, strategy, op, source, delta, max_iterations):
+    """The fused kernel's delta mode and its plain loop on the same card
+    tensors; returns both results and the launches of the kernel's run."""
+    from repro_torch.core import priority
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.kernels import fused as kernel_fused
+    strat = make_strategy(strategy)
+    plan = priority.plan_delta(strat, strat.setup(g), g, op=op, delta=delta)
+    n = plan.light.num_nodes
+    dist = torch.full((n,), op.identity, dtype=torch.int32, device=g.device)
+    dist[source] = op.seed(source)
+    mask = torch.zeros(n, dtype=torch.bool, device=g.device)
+    mask[source] = True
+    args = (plan.kernel, plan.light, plan.heavy_graph, plan.aux, dist, mask)
+    kw = dict(op=op, sched=plan.sched, delta=plan.delta,
+              max_iterations=max_iterations)
+    before = dict(relax.LAUNCHES)
+    got = kernel_fused.delta_fixed_point(*args, **kw)
+    launched = {k: relax.LAUNCHES[k] - before[k] for k in before}
+    want = priority._delta_fixed_point_plain(*args, **kw)
+    assert mask.sum() == 1                           # inputs kept
+    return plan, got, want, launched
+
+
+@pytest.mark.parametrize("delta", [None, 25])
+@pytest.mark.parametrize("opname", ["shortest_path", "min_label",
+                                    "widest_path"])
+@pytest.mark.parametrize("strategy", DELTA_STRATEGIES)
+def test_fused_delta_kernel_matches_plain(dev, strategy, opname, delta):
+    """Road side 128: the delta mode's (dist, mask, epochs, rounds, edges,
+    last bucket, frontier count) equal the plain epoch loop's on the same
+    card tensors, whole and capped at one epoch (the stepped epoch), in
+    one fused launch and no B1/B2 launch.  Δ = 25 makes three quarters of
+    the edges heavy for shortest_path."""
+    from repro_torch.data import road_grid_graph
+    op = operators.OPERATORS[opname]
+    g = road_grid_graph(side=128, weighted=True, seed=4, device=dev)
+    source = 128 * 64 + 17
+    for cap in (100000, 1):
+        plan, got, want, launched = _delta_pair(g, strategy, op, source,
+                                                delta, cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[2:] == want[2:]
+        assert launched["fused_fixed_point"] == 1
+        assert launched["relax_lanes"] == launched["wd_relax_lanes"] == 0
+    if delta == 25 and opname == "shortest_path":
+        assert plan.heavy and got[3] > 1
+
+
+@pytest.mark.parametrize("mode", ["stepped", "fused"])
+def test_delta_engine_on_the_card_matches_cpu(dev, mode):
+    """sssp (auto Δ and Δ = 25), bfs and widest path with
+    ``schedule="delta"`` on the card equal the CPU: values, epochs,
+    rounds, edges and the stepped bucket trail, one launch an epoch
+    (stepped) or a traversal (fused)."""
+    from repro_torch.data import road_grid_graph
+    g = road_grid_graph(side=64, weighted=True, seed=4, device="cpu")
+    src = 64 * 32 + 5
+    runs = [(sssp, dict(strategy="WD")), (sssp, dict(strategy="HP",
+                                                     delta=25)),
+            (bfs, dict(strategy="BS")), (widest_path, dict(strategy="NS"))]
+    for fn, kw in runs:
+        before = relax.LAUNCHES["fused_fixed_point"]
+        a = fn(g, src, mode=mode, schedule="delta", device=dev, **kw)
+        launches = relax.LAUNCHES["fused_fixed_point"] - before
+        b = fn(g, src, mode=mode, schedule="delta", device="cpu", **kw)
+        np.testing.assert_array_equal(a.dist, b.dist)
+        assert (a.iterations, a.relax_rounds, a.edges_relaxed, a.delta) == (
+            b.iterations, b.relax_rounds, b.edges_relaxed, b.delta)
+        assert [(s.bucket, s.sub_iterations) for s in a.iter_stats] == [
+            (s.bucket, s.sub_iterations) for s in b.iter_stats]
+        assert launches == (1 if mode == "fused" else a.iterations)
+
+
+def test_delta_batch_and_server_on_the_card_match_cpu(dev):
+    """The delta batch launches one single-row delta traversal a row and
+    equals the CPU; a fused GraphServer serves delta requests alike."""
+    from repro_torch.algos import sssp_batch
+    from repro_torch.data import road_grid_graph
+    from repro_torch.serve import GraphServer, Request, SimulatedClock
+    g = road_grid_graph(side=64, weighted=True, seed=4, device="cpu")
+    sources = [0, 99, 2048, 4000, 99]
+    before = relax.LAUNCHES["fused_fixed_point"]
+    a = sssp_batch(g, sources, mode="fused", schedule="delta", delta=25,
+                   device=dev)
+    assert relax.LAUNCHES["fused_fixed_point"] - before == len(sources)
+    b = sssp_batch(g, sources, mode="fused", schedule="delta", delta=25,
+                   device="cpu")
+    np.testing.assert_array_equal(a.dist, b.dist)
+    assert (a.iterations, a.relax_rounds, a.edges_relaxed) == (
+        b.iterations, b.relax_rounds, b.edges_relaxed)
+    outs = []
+    for device in (dev, "cpu"):
+        srv = GraphServer(clock=SimulatedClock(), max_batch=4, device=device)
+        srv.load_graph("g", g)
+        for s in [5, 9, 1, 13]:
+            srv.submit(Request(source=s, graph="g", schedule="delta"))
+        srv.submit(Request(source=3, graph="g", schedule="delta", delta=9))
+        done = srv.drain()
+        outs.append(([(r.request.source, r.batch_lanes, r.dist.tobytes())
+                      for r in done], srv.stats()))
+    assert outs[0] == outs[1]
+
+
+def _fma_flips(coeffs, n: int = 4000, seed: int = 0) -> list:
+    """``(count, degree_sum)`` pairs whose argmin changes when each cost is
+    contracted into FMAs instead of rounded after every operation."""
+    rng = np.random.default_rng(seed)
+    c = np.asarray(coeffs, np.float32)
+    es = rng.integers(1, 2 ** 31 - 1, n).astype(np.float32)
+    cn = rng.integers(1, 2 ** 20, n).astype(np.float32)
+    sep = c[None, :, 0] + c[None, :, 1] * es[:, None] + (
+        c[None, :, 2] * cn[:, None])
+    f64 = np.float64
+    inner = (f64(c[None, :, 1]) * f64(es[:, None])
+             + f64(c[None, :, 0])).astype(np.float32)
+    fma = (f64(c[None, :, 2]) * f64(cn[:, None]) + f64(inner)).astype(
+        np.float32)
+    flip = np.argmin(sep, 1) != np.argmin(fma, 1)
+    return [(int(a), int(b)) for a, b in zip(cn[flip], es[flip])]
+
+
+def test_ad_choice_probe_matches_choose(dev):
+    """The fused kernel's measured selector (``ad_choice`` through its
+    probe) equals ``CostModel.choose`` on a sweep with exact ties,
+    degenerate frontiers, random pairs and pairs where an FMA would flip
+    the argmin."""
+    from repro_torch.core import costmodel
+    from repro_torch.kernels import fused as kernel_fused
+    rng = np.random.default_rng(5)
+    near_tie = np.array([[0.0, 1.0 / 3.0, 0.0], [-1.0, 1.0 / 3.0, 0.0],
+                         [1e12, 0.0, 0.0]])
+    models = [near_tie, np.array([[1.0, 2.0, 3.0]] * 3),
+              rng.normal(0, 1e-6, (3, 3)),
+              np.array([[1e-5, 4e-8, 1e-9], [4e-5, 1e-8, 2e-8],
+                        [9e-5, 2e-9, 5e-8]])]
+    flips = _fma_flips(near_tie)
+    assert len(flips) >= 10
+    for coeffs in models:
+        model = costmodel.CostModel(coeffs=coeffs)
+        pairs = ([(0, 0), (0, 9), (9, 0), (1, 1), (5, 50)] + flips
+                 + [(int(c), int(e)) for c, e in zip(
+                     rng.integers(1, 2 ** 20, 500),
+                     rng.integers(1, 2 ** 31 - 1, 500))])
+        counts = torch.tensor([c for c, _ in pairs], dtype=torch.int32,
+                              device=dev)
+        sums = torch.tensor([e for _, e in pairs], dtype=torch.int32,
+                            device=dev)
+        got = kernel_fused.ad_choice_probe(model.coeff_array(), counts, sums)
+        want = [costmodel.KERNELS.index(model.choose(c, e))
+                for c, e in pairs]
+        assert got.tolist() == want
+
+
+@pytest.mark.parametrize("mode", ["stepped", "fused"])
+def test_measured_ad_on_the_card_matches_cpu(dev, mode):
+    """AD with a cost model choosing among the kernels: the card equals
+    the CPU in values, iterations, edges and ``kernel_counts``."""
+    from repro_torch.core import costmodel, engine
+    from repro_torch.core.strategies import make_strategy
+    model = costmodel.CostModel(coeffs=np.array(
+        [[1e-5, 4e-8, 1e-9], [4e-5, 1e-8, 2e-8], [9e-5, 2e-9, 5e-8]]))
+    g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
+    src = int(g.degrees.argmax())
+    out = []
+    for device in (dev, "cpu"):
+        strat = make_strategy("AD", cost_model=model)
+        out.append((engine.run(g, src, strat, mode=mode, device=device),
+                    strat.kernel_counts))
+    (a, a_counts), (b, b_counts) = out
+    np.testing.assert_array_equal(a.dist, b.dist)
+    assert (a.iterations, a.edges_relaxed) == (b.iterations, b.edges_relaxed)
+    assert a_counts == b_counts and len(a_counts) >= 2
+
+
+def test_calibration_and_block_feasibility_on_the_card(dev, tmp_path):
+    """Calibration on the card: one fused launch a timed step, a cache
+    miss then a hit, finite coefficients; every block shape feasible."""
+    from repro_torch.core import costmodel
+    g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
+    m1, hit1 = costmodel.calibrate(g, device=dev, cache_dir=str(tmp_path),
+                                   repeats=2)
+    m2, hit2 = costmodel.calibrate(g, device=dev, cache_dir=str(tmp_path),
+                                   repeats=2)
+    assert (hit1, hit2) == (False, True)
+    assert np.isfinite(m1.coeffs).all()
+    np.testing.assert_array_equal(m1.coeffs, m2.coeffs)
+    assert m1.calibrated_on["device"] == torch.cuda.get_device_name(dev)
+    rows = costmodel.block_feasibility(dev)
+    assert set(rows) == {"wd_relax_lanes", "relax_lanes",
+                         "fused_fixed_point", "fused_delta"}
+    for row in rows.values():
+        assert row["feasible"] and row["blocks_per_sm"] >= 1
+        assert row["threads"] == 256

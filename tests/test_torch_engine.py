@@ -193,9 +193,21 @@ def test_default_device_without_a_card_raises():
 @pytest.mark.parametrize("kwargs", [dict(mode="fused"), dict(shards=2),
                                     dict(schedule="delta")])
 def test_later_slices_raise_not_implemented(kwargs):
-    """``shards=`` and ``schedule="delta"`` raise naming their ROADMAP
-    items; ``mode="fused"`` (A7) has landed and runs, equal to the
-    stepped run."""
+    """``shards=`` raises naming its ROADMAP item; ``mode="fused"`` (A7)
+    has landed and runs, equal to the stepped run; ``schedule="delta"``
+    (A10) has landed and runs, equal to the reference's delta run."""
+    if kwargs.get("schedule") == "delta":
+        got = engine.run(GRAPHS["road"], 0, make_strategy("WD"),
+                         device="cpu", **kwargs)
+        want = jengine.run(JAX_GRAPHS["road"], 0,
+                           jengine.make_strategy("WD"), **kwargs)
+        np.testing.assert_array_equal(got.dist, np.asarray(want.dist))
+        assert (got.iterations, got.relax_rounds, got.edges_relaxed,
+                got.delta) == (want.iterations, want.relax_rounds,
+                               want.edges_relaxed, want.delta)
+        assert [s.bucket for s in got.iter_stats] == [
+            s.bucket for s in want.iter_stats]
+        return
     if kwargs.get("mode") == "fused":
         got = engine.run(GRAPHS["road"], 0, make_strategy("WD"),
                          device="cpu", **kwargs)
@@ -212,22 +224,35 @@ def test_later_slices_raise_not_implemented(kwargs):
 
 
 def test_unported_strategies_and_options_raise():
-    """EP and NS build, with the reference's capability flags less those
-    whose slices are not ported (PALLAS_BACKEND has no meaning in the
-    port; SHARDABLE and PRIORITY_SCHEDULE arrive with A11 and A10)."""
+    """Every strategy builds, with the reference's capability flags less
+    those whose slices are not ported (PALLAS_BACKEND has no meaning in
+    the port; SHARDABLE arrives with A11).  PRIORITY_SCHEDULE (A10) and
+    AD's measured cost model (A9) have landed."""
+    from repro.core import costmodel as jcostmodel
     from repro.core import strategies as jstrategies
-    later = {jstrategies.PALLAS_BACKEND, jstrategies.SHARDABLE,
-             jstrategies.PRIORITY_SCHEDULE}
-    for name in ("EP", "NS"):
+    from repro_torch.core import costmodel
+    later = {jstrategies.PALLAS_BACKEND, jstrategies.SHARDABLE}
+    for name in ("BS", "EP", "WD", "NS", "HP", "AD"):
         assert make_strategy(name).name == name
         assert strategy_capabilities(name) == (
             jstrategies.strategy_capabilities(name) - later)
     assert strategy_capabilities("EP") == frozenset()
-    assert strategy_capabilities("NS") == frozenset({"frontier_init"})
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_strategy("AD", cost_model=object())
+    assert strategy_capabilities("NS") == frozenset(
+        {"frontier_init", "priority_schedule"})
+    coeffs = np.array([[1.0, 1.0, 1.0], [0.0, 1e-3, 1e-3], [2.0, 0.0, 0.0]])
+    model = costmodel.CostModel(coeffs=coeffs)
+    strat = make_strategy("AD", cost_model=model)
+    assert strat.cost_model is model and not strat.online
+    jstrat = jengine.make_strategy(
+        "AD", cost_model=jcostmodel.CostModel(coeffs=coeffs))
+    got = engine.run(GRAPHS["road"], 0, strat, device="cpu")
+    want = jengine.run(JAX_GRAPHS["road"], 0, jstrat)
+    np.testing.assert_array_equal(got.dist, np.asarray(want.dist))
+    assert strat.kernel_counts == jstrat.kernel_counts == {
+        "WD": got.iterations}
     with pytest.raises(KeyError):
         make_strategy("XX")
     with pytest.raises(ValueError, match="weighted"):
         sssp(GRAPHS["road"].unweighted(), 0, device="cpu")
-    assert strategy_capabilities("WD") == frozenset({"frontier_init"})
+    assert strategy_capabilities("WD") == frozenset(
+        {"frontier_init", "priority_schedule"})

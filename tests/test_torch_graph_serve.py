@@ -213,11 +213,14 @@ def test_requests_validate_their_knobs():
         srv.submit(tserve.Request(source=0, graph="g", op="no_such_op"))
     with pytest.raises(ValueError, match="fused"):
         srv.submit(tserve.Request(source=0, graph="g", schedule="delta"))
-    fused_srv = tserve.GraphServer(device="cpu")
-    fused_srv.load_graph("g", GRAPHS["er"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        fused_srv.submit(tserve.Request(source=0, graph="g",
-                                        schedule="delta"))
+    # delta requests (A10) have landed: a fused server batches them by
+    # (graph, epoch, op, schedule, delta), as the reference's does
+    script = ([("load", "g", "er")]
+              + [_submit(s, schedule="delta") for s in (0, 3)]
+              + [_submit(5, schedule="delta", delta=20), _submit(7)]
+              + [("advance", 0.5), ("drain",)])
+    events, stats = _same_on_both(script, max_batch=4)
+    assert stats["completed"] == 4 and stats["batches"] == 3
     assert not hasattr(tserve.Request(source=0), "backend")
     with pytest.raises(ValueError):
         tserve.GraphServer(mode="warp", device="cpu")

@@ -53,6 +53,7 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(n)\n"
         "for want in ('kernels.relax', 'kernels.flash_attention',\n"
         "             'kernels.ssd_chunk', 'kernels.fused', 'core.fused',\n"
+        "             'core.costmodel', 'core.priority',\n"
         "             'models.model', 'configs.qwen3_0_6b',\n"
         "             'runtime.serve', 'launch.serve'):\n"
         "    assert 'repro_torch.' + want in names, names\n"

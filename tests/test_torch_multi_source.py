@@ -188,9 +188,18 @@ def test_run_batch_errors():
             engine.run_batch(g, bad, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         engine.run_batch(g, [0], mode="fused", shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        engine.run_batch(g, [0], mode="fused", schedule="delta",
-                         device="cpu")
+    # delta batches (A10) have landed: fused runs, equal to the
+    # reference's; stepped raises the reference's ValueError
+    got = engine.run_batch(g, [0, 9], mode="fused", schedule="delta",
+                           device="cpu")
+    want = jengine.run_batch(JAX_GRAPHS["road"], [0, 9], mode="fused",
+                             schedule="delta")
+    np.testing.assert_array_equal(got.dist, np.asarray(want.dist))
+    assert (got.iterations, got.relax_rounds, got.edges_relaxed,
+            got.delta) == (want.iterations, want.relax_rounds,
+                           want.edges_relaxed, want.delta)
+    with pytest.raises(ValueError, match="fused"):
+        engine.run_batch(g, [0], schedule="delta", device="cpu")
     # the mode is checked first, as in the reference
     with pytest.raises(ValueError, match="mode"):
         engine.run_batch(g, [n], mode="warp", shards=2, device="cpu")

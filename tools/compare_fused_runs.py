@@ -3,6 +3,7 @@
 one call on one card.
 
     python3 tools/compare_fused_runs.py --baseline DIR [--rounds 2] [--reps 5]
+                                        [--schedule bsp|delta]
 
 ``DIR`` is the root of another tree of this repository, for example an
 earlier commit unpacked by ``git archive <commit> | tar -x -C DIR``.  Each
@@ -17,8 +18,12 @@ time after a ~1 ms spin, as ``chip_smoke.time_ms``).  The trees take
 turns, baseline, this, this, baseline, ``--rounds`` times; both trees'
 ``(dist, iterations, edges_relaxed)`` must agree (the script raises
 otherwise).  It prints one JSON line per run with each tree's medians and
-their ratio, then the card's ``nvidia-smi`` name and power limit.  Needs a
-CUDA card and ``nvcc``; exits non-zero without a card.
+their ratio, then the card's ``nvidia-smi`` name and power limit.  With
+``--schedule delta`` the runs are delta-stepping traversals of
+``road_grid_graph(side=1024, weighted=True, seed=4)`` (``DELTA_RUNS``:
+``(algo, strategy, delta)``, ``None`` the auto width), each timed around
+the wrapper of the fused kernel's delta mode; the baseline tree must have
+that mode.  Needs a CUDA card and ``nvcc``; exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -32,6 +37,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 TREES = ("baseline", "this")
+#: the delta-stepping runs on road1024: auto Δ (every edge light) and
+#: Δ = 25 (three quarters of the edges heavy)
+DELTA_RUNS = (("sssp", "WD", None), ("sssp", "WD", 25), ("sssp", "NS", 25),
+              ("bfs", "WD", None))
 
 #: run in a subprocess with one tree's ``src`` and ``reps`` as arguments
 MEASURE = r"""
@@ -40,16 +49,24 @@ sys.path.insert(0, sys.argv[1])
 import torch
 from repro_torch.core import engine
 from repro_torch.core.strategies import make_strategy
-from repro_torch.data import rmat_graph
+from repro_torch.data import rmat_graph, road_grid_graph
 from repro_torch.kernels import fused as fused_kernel
 reps = int(sys.argv[2])
 runs = json.loads(sys.argv[3])
+delta_mode = sys.argv[4] == "delta"
 dev = torch.device("cuda")
-g = rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1, device=dev)
+if delta_mode:
+    g = road_grid_graph(side=1024, weighted=True, seed=4, device=dev)
+    wrapper = "delta_fixed_point"
+else:
+    g = rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1,
+                   device=dev)
+    wrapper = "fixed_point"
 source = int(g.degrees.argmax())
 out = {}
-real = fused_kernel.fixed_point
-for algo, strategy in runs:
+real = getattr(fused_kernel, wrapper)
+for algo, strategy, *rest in runs:
+    kw = dict(schedule="delta", delta=rest[0]) if delta_mode else {}
     graph = g if algo == "sssp" else g.unweighted()
     events = []
     def timed(*args, **kw):
@@ -61,20 +78,20 @@ for algo, strategy in runs:
         end.record()
         events.append((start, end))
         return res
-    fused_kernel.fixed_point = timed
+    setattr(fused_kernel, wrapper, timed)
     try:
         engine.run(graph, source, make_strategy(strategy), mode="fused",
-                   device=dev)
+                   device=dev, **kw)
         events.clear()
         host = []
         for _ in range(reps):
             r = engine.run(graph, source, make_strategy(strategy),
-                           mode="fused", device=dev)
+                           mode="fused", device=dev, **kw)
             host.append(r.traversal_seconds * 1e3)
     finally:
-        fused_kernel.fixed_point = real
+        setattr(fused_kernel, wrapper, real)
     torch.cuda.synchronize()
-    out[f"{algo}-{strategy}"] = dict(
+    out["-".join(str(x) for x in (algo, strategy, *rest))] = dict(
         host_ms=host, device_ms=[s.elapsed_time(e) for s, e in events],
         iterations=r.iterations, edges_relaxed=r.edges_relaxed,
         dist_sha1=hashlib.sha1(r.dist.tobytes()).hexdigest())
@@ -82,10 +99,10 @@ print(json.dumps(out))
 """
 
 
-def measure(tree: Path, reps: int, runs) -> dict:
+def measure(tree: Path, reps: int, runs, schedule: str) -> dict:
     proc = subprocess.run(
         [sys.executable, "-c", MEASURE, str(tree / "src"), str(reps),
-         json.dumps(runs)], capture_output=True, text=True)
+         json.dumps(runs), schedule], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"measuring {tree} failed:\n{proc.stdout}\n"
                            f"{proc.stderr}")
@@ -100,6 +117,8 @@ def main() -> int:
                         help="rounds of baseline, this, this, baseline")
     parser.add_argument("--reps", type=int, default=5,
                         help="timed traversals a run in each turn")
+    parser.add_argument("--schedule", choices=("bsp", "delta"),
+                        default="bsp")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -108,13 +127,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     trees = {"baseline": args.baseline.resolve(), "this": ROOT}
-    runs = [list(run) for run in cs.PATH_RUNS]
+    runs = [list(run) for run in (
+        DELTA_RUNS if args.schedule == "delta" else cs.PATH_RUNS)]
     rec = {name: [] for name in TREES}
     for _ in range(args.rounds):
         for name in ("baseline", "this", "this", "baseline"):
-            rec[name].append(measure(trees[name], args.reps, runs))
-    for algo, strategy in runs:
-        key = f"{algo}-{strategy}"
+            rec[name].append(measure(trees[name], args.reps, runs,
+                                     args.schedule))
+    for run in runs:
+        key = "-".join(str(x) for x in run)
         facts = {(m[key]["iterations"], m[key]["edges_relaxed"],
                   m[key]["dist_sha1"]) for ms in rec.values() for m in ms}
         if len(facts) != 1:

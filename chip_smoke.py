@@ -59,16 +59,21 @@ Phases, each printing one JSON line:
    set to 0 just before them and read just after (seven fused launches,
    no B1/B2 launch: the kernel line's fused row).  The kernel against its
    plain loop on the same card tensors for all six strategies at rmat16
-   and sssp-WD at rmat20, timed there; fused and stepped runs
-   interleaved on rmat20 (median ms, MTEPS, spread, ratio); one traced
-   fused traversal per run (one fused kernel, no B1/B2; the idle share).
+   (grid-wide and one-block chunks included) and sssp-WD at rmat20, timed
+   there; the grid barrier's µs alone (``barrier_probe``: a cooperative
+   grid of the fused kernel's size that only meets at barriers); each of
+   the seven runs' grid-wide and one-block chunks, grid barriers and
+   device ms beside its bytes bound (``fused_chunks``); fused and stepped
+   runs interleaved on rmat20 (median ms, MTEPS, spread, ratio); one
+   traced fused traversal per run (one fused kernel, no B1/B2; the idle
+   share).
    batch: ``run_batch`` (ROADMAP A8) on rmat20 with K = 8 sources by
    fig12's rule (the highest out-degrees).  The launch counts are set to 0
    just before the sssp and bfs batches, stepped and fused, and read just
    after: one launch of B1's batch contract (``wd_relax_lanes_batch``) a
    stepped iteration and no single-row B1, one ``fused_fixed_point``
-   launch a fused batch (the kernel line's B1-batch row and the fused
-   row's ``batch_launches``).  Every row equals Dijkstra, stepped equals
+   launch a row of a fused batch (the kernel line's B1-batch row and the
+   fused row's ``batch_launches``).  Every row equals Dijkstra, stepped equals
    fused, the batch's iterations and edges are the maximum and the sum of
    the eight single-source fused WD runs, ``pad_to=16`` keeps the rows; a
    K = 32 fused batch (the next 32 nodes) equals its stepped batch and, in
@@ -83,7 +88,8 @@ Phases, each printing one JSON line:
    resident, through ``repro_torch.launch.serve_graph.serve`` with the
    example's traffic (64 sssp queries from the 10% highest-degree nodes,
    bursts of 4, 30 s deadlines, 2 landmarks; the server steps after each
-   burst, so no batch is wider than 4): one fused launch a batch, every
+   burst, so no batch is wider than 4): one fused launch a dispatched
+   lane (a row of a batch, padding included), every
    ``ok`` row equal to its source's fused run, four to Dijkstra;
    ``stats()`` (p50/p99, batches, occupancy, cache hits) and queries/s
    over the submit-to-drain window (the landmarks' warm-up excluded).
@@ -1176,6 +1182,61 @@ def fused_args(g, strategy: str, source: int, op, dev):
             dict(op=op, sched=plan.sched, max_iterations=100000))
 
 
+#: grid barriers of the barrier probe's long launch
+BARRIER_PROBE_K = 20000
+
+
+def barrier_us(dev) -> float:
+    """Microseconds of one grid barrier of the fused kernel's grid:
+    ``kernels.fused.barrier_probe`` at k = 0 and ``BARRIER_PROBE_K``
+    barriers, each timed by CUDA events (median of 5)."""
+    from repro_torch.kernels import fused as fused_kernel
+    t = {k: time_ms(lambda k=k: fused_kernel.barrier_probe(k, dev), reps=5)
+         for k in (0, BARRIER_PROBE_K)}
+    return (t[BARRIER_PROBE_K] - t[0]) * 1e3 / BARRIER_PROBE_K
+
+
+def run_bytes(graph, r) -> int:
+    """The least bytes of a traversal of ``graph`` whose stepped run is
+    ``r``: col, the weight (a weighted graph only) and the destination's
+    value of each relaxed edge, row_ptr (2) and the value of each frontier
+    node, the mask each iteration."""
+    frontier_nodes = sum(st.frontier_size for st in r.iter_stats)
+    per_edge = 8 if graph.wt is None else 12
+    return (per_edge * r.edges_relaxed + 12 * frontier_nodes
+            + graph.num_nodes * r.iterations)
+
+
+def fused_run_chunks(g, dev, stepped, source, reps: int = 3) -> dict:
+    """Each of ``PATH_RUNS`` as one launch of the fused kernel's wrapper:
+    its grid-wide and one-block chunks and grid barriers, its device ms
+    (``time_ms``) and its bytes bound (``run_bytes`` of its stepped run).
+    The launches are outside the counted window."""
+    from repro_torch.core import operators
+    from repro_torch.kernels import fused as fused_kernel
+    out = {}
+    for algo, strategy in PATH_RUNS:
+        graph = g if algo == "sssp" else g.unweighted()
+        args, kw = fused_args(graph, strategy, source,
+                              operators.shortest_path, dev)
+        got = fused_kernel.fixed_point(*args, **kw)
+        s = stepped[(algo, strategy)]
+        if got[1:3] != (s.iterations, s.edges_relaxed):
+            raise AssertionError(f"fused {algo}-{strategy}: {got[1:3]}")
+        ms = time_ms(lambda: fused_kernel.fixed_point(*args, **kw),
+                     reps=reps)
+        bound_ms, bound_by = bound(run_bytes(graph, s), 0)
+        chunks = got[4]
+        out[f"{algo}-{strategy}"] = dict(
+            ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+            grid_chunks=chunks.grid, block_chunks=chunks.block,
+            barriers=chunks.barriers, tail_width=fused_kernel.TAIL_WIDTH)
+        emit("fused_chunks", graph=f"rmat{g.num_nodes.bit_length() - 1}",
+             run=f"{algo}-{strategy}", iterations=got[1],
+             **out[f"{algo}-{strategy}"])
+    return out
+
+
 def fused_phase(g, dev, stepped, *, small_scale: int,
                 rounds: int = FUSED_ROUNDS) -> dict:
     """``mode="fused"`` on the card.  On ``g`` (rmat20) from the path
@@ -1250,18 +1311,16 @@ def fused_phase(g, dev, stepped, *, small_scale: int,
         err = max(err, max_abs_err([got[0]], [want[0]]))
         emit("fused_vs_plain", graph=gname, strategy=strategy,
              iterations=got[1], edges_relaxed=got[2], ad_chosen=got[3],
-             equal=True, kernel_seconds=t1 - t0, plain_seconds=t2 - t1)
+             grid_chunks=got[4].grid, block_chunks=got[4].block,
+             barriers=got[4].barriers, equal=True,
+             kernel_seconds=t1 - t0, plain_seconds=t2 - t1)
     ms = time_ms(lambda: fused_kernel.fixed_point(*args, **kw))
     plain_ms = time_ms(lambda: fused._fixed_point_plain(*args, **kw),
                        reps=3)
-    # the least bytes of sssp-WD's traversal: col, wt and dist[dst] of
-    # each relaxed edge, row_ptr (2) and dist of each frontier node, the
-    # mask each iteration
+    # the least bytes of sssp-WD's traversal
     wd = stepped[("sssp", "WD")]
     frontier_nodes = sum(st.frontier_size for st in wd.iter_stats)
-    nbytes = (12 * wd.edges_relaxed + 12 * frontier_nodes
-              + g.num_nodes * wd.iterations)
-    bound_ms, bound_by = bound(nbytes, 0)
+    bound_ms, bound_by = bound(run_bytes(g, wd), 0)
     row = dict(name="fused_fixed_point", route="cuda", source=CSRC_FUSED,
                replaces=FUSED_REPLACES,
                launches=launches["fused_fixed_point"], max_abs_err=err,
@@ -1272,6 +1331,13 @@ def fused_phase(g, dev, stepped, *, small_scale: int,
                           edges_relaxed=wd.edges_relaxed,
                           frontier_nodes=frontier_nodes))
     emit("fused_kernel_time", **row)
+
+    # the grid barrier alone, and each run's chunks and device time beside
+    # its bytes bound
+    row["barrier_us"] = barrier_us(dev)
+    row["runs"] = fused_run_chunks(g, dev, stepped, source)
+    emit("barrier_probe", us_a_barrier=row["barrier_us"],
+         barriers=BARRIER_PROBE_K)
 
     # fused and stepped interleaved, each run warm
     times = {key: {"fused": [], "stepped": []} for key in PATH_RUNS}
@@ -1300,18 +1366,25 @@ def fused_phase(g, dev, stepped, *, small_scale: int,
                              - min(times[key]["stepped"])) / med["stepped"],
              fused_over_stepped=med["fused"] / med["stepped"])
 
-    # one traced fused traversal per run
+    # one traced fused traversal per run; a trace that recorded no device
+    # activity at all is taken again, once, and any other trace is checked
     for key in PATH_RUNS:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            r, _ = engine_run(g, *key, source, dev, "fused")
+        first_activities = None
+        for attempt in (1, 2):
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        acts = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        ours = [e for e in acts if "fused_fixed_point_kernel" in e.name]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                r, _ = engine_run(g, *key, source, dev, "fused")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            acts = [e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            ours = [e for e in acts if "fused_fixed_point_kernel" in e.name]
+            if first_activities is None:
+                first_activities = len(acts)
+            if acts:
+                break
         relax_acts = [e for e in acts if "relax_lanes_kernel" in e.name]
         busy = sum(e.device_time for e in acts) / 1e6
         kernel_s = sum(e.device_time for e in ours) / 1e6
@@ -1322,7 +1395,9 @@ def fused_phase(g, dev, stepped, *, small_scale: int,
              traced_wall_seconds=wall, device_seconds=busy,
              kernel_seconds=kernel_s, device_idle_share=1.0 - busy / wall,
              traversal_seconds=r.traversal_seconds,
-             kernel_share_of_traversal=kernel_s / r.traversal_seconds)
+             kernel_share_of_traversal=kernel_s / r.traversal_seconds,
+             trace_attempts=attempt,
+             first_attempt_activities=first_activities)
         if len(ours) != 1 or relax_acts:
             raise AssertionError(f"traced fused {key}: {len(ours)} fused "
                                  f"launches, {len(relax_acts)} B1/B2")
@@ -1505,7 +1580,7 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
     (rmat20).  The launch counts are set to 0 just before the four K = 8
     batches (sssp and bfs, stepped and fused) and read just after: one B1
     batch launch a stepped iteration and no single-row B1, one fused
-    launch a fused batch.  Every row equals Dijkstra; stepped equals
+    launch a row of a fused batch.  Every row equals Dijkstra; stepped equals
     fused; the batch's iterations and edges are the maximum and the sum
     of the eight single-source fused WD runs; ``pad_to=16`` keeps the
     first eight rows.  A K = 32 fused sssp batch (the next 32 nodes)
@@ -1515,7 +1590,8 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
     against ``_batch_fixed_point_plain`` at rmat-``small_scale`` (four
     operators) and on ``g`` (sssp).  Then, interleaved over ``rounds``:
     the K = 8 fused and stepped batches against eight sequential single
-    runs, and the K = 32 fused batch; one traced fused batch.  Returns the
+    runs, and the K = 32 fused batch; one traced fused batch (a fused
+    kernel a row).  Returns the
     kernel line's B1-batch row and adds ``at_batch`` to ``fused_row``."""
     import numpy as np
     import torch
@@ -1545,7 +1621,8 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
             if not np.array_equal(r.dist, oracle[algo]):
                 raise AssertionError(f"{mode} {algo} batch != Dijkstra")
             want = ({"wd_relax_lanes_batch": r.iterations}
-                    if mode == "stepped" else {"fused_fixed_point": 1})
+                    if mode == "stepped"
+                    else {"fused_fixed_point": len(src8)})
             if {k: v for k, v in launched.items() if v} != want:
                 raise AssertionError(f"{mode} {algo} batch launched "
                                      f"{launched}, not {want}")
@@ -1581,8 +1658,9 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
     src32 = batch_sources(g, BATCH_K_WIDE, skip=BATCH_K)
     before = LAUNCHES["fused_fixed_point"]
     wide = engine.run_batch(g, src32, mode="fused", device=dev)
-    if LAUNCHES["fused_fixed_point"] != before + 1:
-        raise AssertionError("the K = 32 batch was not one fused launch")
+    if LAUNCHES["fused_fixed_point"] != before + BATCH_K_WIDE:
+        raise AssertionError("the K = 32 batch was not a fused launch a "
+                             "row")
     wide_stepped = engine.run_batch(g, src32, mode="stepped", device=dev)
     if not same_run(wide, wide_stepped):
         raise AssertionError("K = 32 batch: fused != stepped")
@@ -1639,10 +1717,7 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
     # frontier widths (an upper bound of the rows' summed frontiers is not
     # taken: each row's own run is)
     single = single_runs(g, src8, dev, "stepped")
-    nbytes = sum(12 * r.edges_relaxed
-                 + 12 * sum(st.frontier_size for st in r.iter_stats)
-                 + g.num_nodes * r.iterations for r in single)
-    bound_ms, bound_by = bound(nbytes, 0)
+    bound_ms, bound_by = bound(sum(run_bytes(g, r) for r in single), 0)
     fused_row["at_batch"] = dict(
         graph=name, rows=BATCH_K, run="sssp-WD batch",
         launches=launches["fused_fixed_point"], max_abs_err=ferr,
@@ -1654,19 +1729,6 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
         edges_relaxed=f8.edges_relaxed)
     fused_row["batch_launches"] = launches["fused_fixed_point"]
     emit("fused_batch_time", **fused_row["at_batch"])
-    # the kernel's device ms as the batch widens (K = 1 takes the
-    # single-row path): how its cost grows with the rows
-    scaling = {}
-    d32, m32 = multi_source.init_batch(
-        g.num_nodes, torch.from_numpy(batch_sources(
-            g, BATCH_K_WIDE, skip=BATCH_K)).to(dev), op=op)
-    for k, dk, mk in [(k, dist[:k].contiguous(), mask[:k].contiguous())
-                      for k in (1, 2, 4, 8)] + [(BATCH_K_WIDE, d32, m32)]:
-        scaling[k] = time_ms(lambda: fused_kernel.batch_fixed_point(
-            g, dk, mk, sched=DEFAULT_SCHEDULE, **kw), reps=5)
-    del d32, m32
-    emit("fused_batch_scaling", graph=name, device_ms=scaling,
-         ms_per_row={k: v / k for k, v in scaling.items()})
 
     # interleaved timings: wall seconds of each whole call, host included
     def batch(mode, sources):
@@ -1728,9 +1790,9 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
          traced_wall_seconds=wall, device_seconds=busy,
          kernel_seconds=sum(e.device_time for e in ours) / 1e6,
          device_idle_share=1.0 - busy / wall)
-    if len(ours) != 1:
+    if len(ours) != BATCH_K:
         raise AssertionError(f"traced fused batch: {len(ours)} fused "
-                             f"kernels")
+                             f"kernels, not {BATCH_K}")
     return row
 
 
@@ -1746,8 +1808,9 @@ def graph_serve_phase(g, dev) -> None:
     the 10% highest-degree nodes, bursts of 4, a 30 s deadline, 2 warmed
     landmarks, the system clock.  The server steps after every burst, so
     the served batches are at most 4 wide.  The launch counts are set to
-    0 just before and read just after: one fused launch a dispatched
-    batch and no B1/B2.  Every ``ok`` row equals its source's
+    0 just before and read just after: one fused launch a dispatched lane
+    (``stats()["lanes_dispatched"]``: the rows of the batches, padding
+    included) and no B1/B2.  Every ``ok`` row equals its source's
     single-source fused run, and four equal Dijkstra.  Prints ``stats()``
     and the queries a second over the submit-to-drain window."""
     import numpy as np
@@ -1763,9 +1826,9 @@ def graph_serve_phase(g, dev) -> None:
     launches = dict(LAUNCHES)
     stats = srv.stats()
     if ({k: v for k, v in launches.items() if v}
-            != {"fused_fixed_point": stats["batches"]}):
-        raise AssertionError(f"served {stats['batches']} batches with "
-                             f"launches {launches}")
+            != {"fused_fixed_point": stats["lanes_dispatched"]}):
+        raise AssertionError(f"served {stats['lanes_dispatched']} lanes "
+                             f"with launches {launches}")
     ok = [r for r in done if r.ok]
     # the submit-to-drain window on the server's clock: the landmarks'
     # warm-up batch before the first submission is set-up

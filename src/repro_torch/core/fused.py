@@ -31,8 +31,8 @@ compiles per shape.  AD with a measured cost model
 ``a + b·degree_sum + c·count`` instead of the fixed tree.
 
 :func:`run_batch_fixed_point` runs K WD queries as one batch (ROADMAP A8,
-the reference's ``_batch_fixed_point``): one launch of the same kernel
-with K rows on the card, :func:`_batch_fixed_point_plain` on the CPU.
+the reference's ``_batch_fixed_point``): a launch of the same kernel a
+row on the card, :func:`_batch_fixed_point_plain` on the CPU.
 """
 
 from __future__ import annotations
@@ -91,14 +91,58 @@ def _merge_path_relax(g: CSRGraph, dist, updated, work, cursor: int = 0, *,
     return dist, updated
 
 
-def _bs_step(g: CSRGraph, dist, mask, *, op: EdgeOp):
+def tail_start(deg: torch.Tensor, width: int) -> int:
+    """The first BS/NS column the fused kernel runs inside one block, for a
+    frontier whose degrees are ``deg`` (0 off the frontier): 0 when at most
+    ``width`` nodes have edges, else the least power of two ``D`` with at
+    most ``width`` nodes of degree ``>= D``, so that every column from
+    ``D`` on has at most ``width`` live slots (``csrc/fused.cu``
+    ``tail_start``, from a histogram of degree bit lengths).  ``width`` 0:
+    none (a column past every degree)."""
+    if width <= 0:
+        return 1 << 31
+    if int((deg >= 1).sum()) <= width:
+        return 0
+    d = 2
+    while int((deg >= d).sum()) > width:
+        d *= 2
+    return d
+
+
+def bs_split(deg: torch.Tensor,
+             width: Optional[int] = None) -> tuple[int, int]:
+    """A BS/NS step's columns as the fused kernel runs them: ``(grid-wide,
+    one-block)``, the tail from :func:`tail_start` at ``width`` (default
+    ``kernels.fused.TAIL_WIDTH``), taken when it has at least
+    ``TAIL_MIN_COLUMNS`` columns."""
+    if width is None:
+        width = fused_kernel.TAIL_WIDTH
+    max_degree = int(deg.max())
+    grid = min(max_degree, tail_start(deg, width))
+    if max_degree - grid < fused_kernel.TAIL_MIN_COLUMNS:
+        grid = max_degree
+    return grid, max_degree - grid
+
+
+def _tally(tally: Optional[list], grid: int, block: int = 0) -> None:
+    """Count a step's chunks into ``[grid, block]``, where one is kept."""
+    if tally is not None:
+        tally[0] += grid
+        tally[1] += block
+
+
+def _bs_step(g: CSRGraph, dist, mask, *, op: EdgeOp,
+             tally: Optional[list] = None):
     """Dense BS: column ``d`` relaxes the ``d``-th edge of every frontier
     node, for the frontier's max degree columns, each folded before the
-    next reads ``dist``."""
+    next reads ``dist``.  ``tally`` counts the columns that run grid-wide
+    and inside one block (:func:`bs_split`)."""
     deg = _masked_degrees(g, mask)
     base = g.row_ptr[:-1]
     nodes = torch.arange(g.num_nodes, dtype=torch.int32, device=dist.device)
     updated = torch.zeros_like(mask)
+    if tally is not None:
+        _tally(tally, *bs_split(deg))
     for d in range(int(deg.max())):
         eidx = (base + d).clamp_(0, g.num_edges - 1)
         dist, updated, _ = apply_relax_plain(
@@ -107,23 +151,28 @@ def _bs_step(g: CSRGraph, dist, mask, *, op: EdgeOp):
     return dist, updated, int(deg.sum())
 
 
-def _wd_step(g: CSRGraph, dist, mask, *, op: EdgeOp):
-    """Dense WD: one synchronous merge path over the frontier's edges."""
+def _wd_step(g: CSRGraph, dist, mask, *, op: EdgeOp,
+             tally: Optional[list] = None):
+    """Dense WD: one synchronous merge path over the frontier's edges (one
+    chunk)."""
+    _tally(tally, 1)
     deg = _masked_degrees(g, mask)
     dist, updated = _merge_path_relax(g, dist, torch.zeros_like(mask), deg,
                                       op=op)
     return dist, updated, int(deg.sum())
 
 
-def _hp_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp):
+def _hp_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp,
+             tally: Optional[list] = None):
     """Dense HP: a frontier of at most ``switch_threshold`` nodes takes
     WD; a larger one runs ``[N, MDT]`` tiles (at least one) while more
     than ``switch_threshold`` nodes have edges left past the cursor, then
-    a cursor-aware WD tail over the rest."""
+    a cursor-aware WD tail over the rest (a chunk a tile, and one for a
+    tail with edges)."""
     mdt = sched.mdt or 1
     deg = _masked_degrees(g, mask)
     if int(mask.sum()) <= sched.switch_threshold:
-        dist, updated, _ = _wd_step(g, dist, mask, op=op)
+        dist, updated, _ = _wd_step(g, dist, mask, op=op, tally=tally)
         return dist, updated, int(deg.sum())
     n, e = g.num_nodes, g.num_edges
     nodes = torch.arange(n, dtype=torch.int32, device=dist.device)
@@ -139,15 +188,20 @@ def _hp_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp):
             dist, updated, src, g.col[eidx], _edge_weight(g, eidx), valid,
             op=op)
         cursor += mdt
+        _tally(tally, 1)
         if int((deg > cursor).sum()) <= sched.switch_threshold:
             break
     rem = (deg - cursor).clamp_(min=0)
+    _tally(tally, int(rem.sum() > 0))
     dist, updated = _merge_path_relax(g, dist, updated, rem, cursor, op=op)
     return dist, updated, int(deg.sum())
 
 
-def _ep_step(g: CSRGraph, edge_src, dist, mask, *, op: EdgeOp):
-    """Dense EP: all ``E`` edge lanes, valid where the source is live."""
+def _ep_step(g: CSRGraph, edge_src, dist, mask, *, op: EdgeOp,
+             tally: Optional[list] = None):
+    """Dense EP: all ``E`` edge lanes, valid where the source is live (one
+    chunk)."""
+    _tally(tally, 1)
     valid = mask[edge_src]
     eidx = torch.arange(g.num_edges, dtype=torch.int32, device=dist.device)
     dist, updated, _ = apply_relax_plain(
@@ -156,12 +210,13 @@ def _ep_step(g: CSRGraph, edge_src, dist, mask, *, op: EdgeOp):
     return dist, updated, int(valid.sum())
 
 
-def _ns_step(g2: CSRGraph, child_parent, dist, mask, *, op: EdgeOp):
+def _ns_step(g2: CSRGraph, child_parent, dist, mask, *, op: EdgeOp,
+             tally: Optional[list] = None):
     """Dense NS: mirror every parent onto its children (``ns_activate``),
     then dense BS on the split graph."""
     dist = dist[child_parent]
     mask = mask | mask[child_parent]
-    return _bs_step(g2, dist, mask, op=op)
+    return _bs_step(g2, dist, mask, op=op, tally=tally)
 
 
 def _measured_choice(coeffs, count: int, degree_sum: int) -> int:
@@ -176,7 +231,8 @@ def _measured_choice(coeffs, count: int, degree_sum: int) -> int:
 
 
 def _ad_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp,
-             coeffs: Optional[np.ndarray] = None):
+             coeffs: Optional[np.ndarray] = None,
+             tally: Optional[list] = None):
     """AD's choice on the frontier's statistics, then that kernel's step.
     Returns the step's result and the branch (0 BS, 1 WD, 2 HP).
 
@@ -204,11 +260,11 @@ def _ad_step(g: CSRGraph, dist, mask, *, sched: Schedule, op: EdgeOp,
     else:
         idx = 1
     if idx == 0:
-        out = _bs_step(g, dist, mask, op=op)
+        out = _bs_step(g, dist, mask, op=op, tally=tally)
     elif idx == 1:
-        out = _wd_step(g, dist, mask, op=op)
+        out = _wd_step(g, dist, mask, op=op, tally=tally)
     else:
-        out = _hp_step(g, dist, mask, sched=sched, op=op)
+        out = _hp_step(g, dist, mask, sched=sched, op=op, tally=tally)
     return (*out, idx)
 
 
@@ -219,9 +275,10 @@ def _fixed_point_plain(kernel: str, g: CSRGraph, aux, dist, mask, *,
     frontier is live (EP: while it has outgoing edges) and ``it <
     max_iterations``, one dense step (``coeffs``: measured AD's model).
     Returns ``(dist, iterations, edges_relaxed, [BS, WD, HP] counts of
-    AD's choices)``."""
+    AD's choices, Chunks)``: the kernel's counts, but for its barriers."""
     chosen = [0, 0, 0]
     it, edges = 0, 0
+    tally = [0, 0]
     while it < max_iterations:
         if kernel == "EP":
             live = int(_masked_degrees(g, mask).sum()) > 0
@@ -230,24 +287,25 @@ def _fixed_point_plain(kernel: str, g: CSRGraph, aux, dist, mask, *,
         if not live:
             break
         if kernel == "BS":
-            dist, mask, e = _bs_step(g, dist, mask, op=op)
+            dist, mask, e = _bs_step(g, dist, mask, op=op, tally=tally)
         elif kernel == "WD":
-            dist, mask, e = _wd_step(g, dist, mask, op=op)
+            dist, mask, e = _wd_step(g, dist, mask, op=op, tally=tally)
         elif kernel == "HP":
-            dist, mask, e = _hp_step(g, dist, mask, sched=sched, op=op)
+            dist, mask, e = _hp_step(g, dist, mask, sched=sched, op=op,
+                                     tally=tally)
         elif kernel == "EP":
-            dist, mask, e = _ep_step(g, aux, dist, mask, op=op)
+            dist, mask, e = _ep_step(g, aux, dist, mask, op=op, tally=tally)
         elif kernel == "NS":
-            dist, mask, e = _ns_step(g, aux, dist, mask, op=op)
+            dist, mask, e = _ns_step(g, aux, dist, mask, op=op, tally=tally)
         elif kernel == "AD":
             dist, mask, e, idx = _ad_step(g, dist, mask, sched=sched, op=op,
-                                          coeffs=coeffs)
+                                          coeffs=coeffs, tally=tally)
             chosen[idx] += 1
         else:
             raise ValueError(f"unknown fused kernel {kernel!r}")
         edges += e
         it += 1
-    return dist, it, edges, chosen
+    return dist, it, edges, chosen, fused_kernel.Chunks(*tally)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +386,7 @@ def run_fixed_point(graph: CSRGraph, state: Any, strategy, dist0, mask0, *,
     ``kernel_counts``, as the stepped driver does."""
     plan = _plan(strategy, state, graph)
     DISPATCH_COUNTS[plan.kernel] += 1
-    dist, it, edges, chosen = fused_kernel.fixed_point(
+    dist, it, edges, chosen, _ = fused_kernel.fixed_point(
         plan.kernel, plan.graph, plan.aux, dist0, mask0,
         op=operators.resolve(op), sched=plan.sched,
         max_iterations=max_iterations, coeffs=plan.coeffs)
@@ -362,7 +420,7 @@ def run_batch_fixed_point(graph: CSRGraph, dist_b, mask_b, *,
                           op="shortest_path", max_iterations: int = 100000,
                           sched: Schedule = DEFAULT_SCHEDULE):
     """All K queries of ``dist_b``/``mask_b`` (``[K, N]``, on ``graph``'s
-    device) to the batch's fixed point as one launch (the plain loop for
+    device) to the batch's fixed point, a launch a row (the plain loop for
     CPU tensors), the counterpart of the reference's
     ``run_batch_fixed_point``.  Iterations count until every row's
     frontier is empty; the edge total sums the rows' masked degree sums.

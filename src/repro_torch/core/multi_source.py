@@ -187,7 +187,7 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
     None`` gives BFS levels, else SSSP distances.
 
     ``device="cuda"`` (the default) runs B1's batch contract (stepped) or
-    the fused kernel with K rows (``mode="fused"``); ``device="cpu"``
+    the fused kernel a row (``mode="fused"``); ``device="cpu"``
     runs their plain versions.  ``pad_to=P`` rounds the batch up to P
     rows by repeating the first source (``BatchRunResult.pad_lanes``).
     ``work_schedule`` sets the worklist floor.  ``schedule="delta"``

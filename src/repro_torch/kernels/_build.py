@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0,
             "flash_attention": 0, "ssd_chunk_dual": 0,
             "fused_fixed_point": 0, "wd_relax_lanes_batch": 0,
-            "ad_choice_probe": 0}
+            "ad_choice_probe": 0, "barrier_probe": 0}
 
 #: kernel name -> lanes launched so far, for the kernels whose work is a
 #: lane count (B1's ``cap_work``, its batch's ``K * cap_work``, B2's
@@ -71,26 +71,28 @@ _SIGNATURES = {
                              _I, _P],
     # n, out bytes
     "repro_fused_workspace_bytes": [_I, ctypes.POINTER(ctypes.c_longlong)],
-    # row_ptr, col, wt, n, rows, e, aux, dist0, mask0, kernel, msg, comb,
+    # row_ptr, col, wt, n, e, aux, dist0, mask0, kernel, msg, comb,
     # max_iterations, mdt, switch_threshold, small_frontier,
-    # imbalance_threshold, hp_edges_threshold, coeffs, dist, workspace,
-    # workspace_bytes, result, stream
-    "repro_fused_fixed_point": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, ctypes.c_float, _I,
+    # imbalance_threshold, hp_edges_threshold, tail_width, coeffs, dist,
+    # workspace, workspace_bytes, result, stream
+    "repro_fused_fixed_point": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
                                 _F, _P, _P, ctypes.c_longlong, _P, _P],
     # light row_ptr, col, wt, e; heavy row_ptr, col, wt, e; n, aux, dist0,
     # mask0, kernel, msg, comb, delta, max_epochs, mdt, switch_threshold,
-    # small_frontier, imbalance_threshold, hp_edges_threshold, dist, mask,
-    # workspace, workspace_bytes, result, stream
+    # small_frontier, imbalance_threshold, hp_edges_threshold, tail_width,
+    # dist, mask, workspace, workspace_bytes, result, stream
     "repro_fused_delta": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                          _I, _P, _P, _P, ctypes.c_longlong, _P, _P],
+                          _I, _I, _P, _P, _P, ctypes.c_longlong, _P, _P],
     # which, out [6]: threads, static shared bytes, registers, local
     # bytes, blocks per SM, SMs
     "repro_relax_block_attrs": [_I, ctypes.POINTER(ctypes.c_int)],
     # coeffs (host, 9), count, degree_sum, m, out, stream
     "repro_fused_ad_choice_probe": [_F, _P, _P, _I, _P, _P],
     "repro_fused_block_attrs": [_I, ctypes.POINTER(ctypes.c_int)],
+    # k, bar (two zeroed words: the barrier and its count), stream
+    "repro_fused_barrier_probe": [_I, _P, _P],
 }
 
 _lib = None

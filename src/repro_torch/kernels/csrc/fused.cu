@@ -17,19 +17,52 @@
 // generation counter, below) wherever one needs another's writes.  Every
 // branch and trip count the blocks must agree on (the frontier's count,
 // degree sum and max degree, HP's live count, a tail's total, AD's
-// choice) is computed from global cells read after a barrier, so every
-// block takes the same path; a disagreement would deadlock the launch.
+// choice, where a BS column's one-block tail starts) is computed from
+// global cells read after a barrier, so every block takes the same path; a
+// disagreement would deadlock the launch.
 //
 // The chunks are the reference's, so (dist, iterations, edges_relaxed)
 // and AD's choices equal it bit for bit: one chunk per BS or NS column,
 // per HP tile and for HP's cursor-aware WD tail, one per WD or EP
-// iteration; AD takes BS, WD or HP.  A chunk's lanes read the snapshot A
-// and fold improving candidates with int32 atomics into B, which equals A
-// at every chunk boundary; an improving lane notes its destination once
-// (a per-node stamp of the chunk number), and after a barrier the noted
-// entries are copied from B into A, then another barrier.  Two barriers a
-// chunk and no full-array copy.  The running `updated` mask is the next
-// iteration's frontier: the two masks alternate between iterations.
+// iteration; AD takes BS, WD or HP.  A chunk's lanes read a snapshot that
+// no lane of the chunk writes and fold improving candidates with int32
+// atomics into the other of two value buffers; an improving lane notes its
+// destination once (a per-node stamp of the chunk number, into one of two
+// lists by the chunk's parity).  What a chunk costs:
+//   * min and max (shortest_path, min_label, widest_path): ONE grid
+//     barrier.  The buffers swap roles at every chunk: chunk s + 1 reads
+//     the target of chunk s as its snapshot and folds into chunk s's
+//     snapshot, into which it also folds chunk s's noted entries (their
+//     values in its snapshot, with the same atomic).  The fold is
+//     idempotent, so the target ends as fold(snapshot, candidates), as two
+//     equal buffers would give.  The latest values lie in val[cur]; before
+//     anything reads the other buffer (a one-block tail, the end of the
+//     launch) the noted entries are copied across ("settle").
+//   * add (reach_count) is not idempotent: the lanes read val[0] and fold
+//     into val[1]; after a barrier the noted entries are copied back into
+//     val[0], then a second barrier.
+// The three chunk slots of control words (noted count, HP's live count)
+// are reused every third chunk: slot s is written in chunk s, read after
+// its barrier and in chunk s + 1, and cleared in chunk s + 2, a barrier
+// after its last read.
+//
+// Narrow BS/NS columns inside one block.  In one iteration the live count
+// of column d (the slots of degree > d) cannot grow with d.  The
+// compaction counts the frontier's slots by the bit length of their degree
+// (a 32-bin histogram, read by every block after the compaction's
+// barrier); the tail starts at column 0 when at most tail_width slots have
+// edges, else at the least power of two D with at most tail_width slots of
+// degree >= D, and is taken when it has at least TAIL_MIN_COLUMNS columns.
+// Columns below D run grid-wide; the slots of degree > D are
+// gathered into a list meanwhile, and after one barrier (which also
+// settles the buffers) block 0 runs every column from D on alone, each
+// still its own chunk: its lanes read the snapshot and fold into the other
+// buffer, a __syncthreads (which orders the block's global writes for its
+// own threads) ends the column, and each thread folds the destinations its
+// own lanes improved into the next target (or copies them back, for add).
+// The other blocks go straight to the iteration's closing barrier.  Where
+// the tail starts changes no bits: any start at which the live count is
+// at most the block's width would do.
 //
 // The lanes are formed inside the kernel from compact tables: each
 // iteration compacts the frontier into ascending node ids with their
@@ -42,30 +75,26 @@
 // degrees.  EP: every edge a lane, valid where its source is in the
 // frontier.  NS: the child <- parent gather at the start of an iteration.
 //
-// Reads.  A, the masks and the tables are written by this launch, so they
-// are read from L2 (ld.global.cg), never through the read-only path (no
-// __ldg, no const __restrict__ on them): that path is not kept coherent
-// with the launch's own writes.  row_ptr, col, wt and aux are never
-// written and take __ldg.
+// Reads.  The value buffers, the masks and the tables are written by this
+// launch, so they are read from L2 (ld.global.cg), never through the
+// read-only path (no __ldg, no const __restrict__ on them): that path is
+// not kept coherent with the launch's own writes.  row_ptr, col, wt and
+// aux are never written and take __ldg.
 //
 // What bounds it on the H100: on the paper's rmat20 the traversal moves a
-// few hundred MB (each relaxed edge's col, wt and two dist gathers, the
+// few hundred MB (each relaxed edge's col, wt and two value gathers, the
 // frontier's row_ptr and masks), a fraction of a millisecond at 3.35
-// TB/s; what it pays instead is the barriers (two a chunk: BS runs one
-// chunk per column, thousands a traversal) and the dependent gathers of
-// each lane.  The design keeps the host out of the loop entirely; its
-// times beside its bound are in PERF.md.
+// TB/s; what it pays instead is the grid barriers (a few microseconds
+// each, counted in the result: thousands a BS traversal before the
+// one-block tail) and the dependent gathers of each lane.  The design
+// keeps the host out of the loop entirely; its times beside its bound are
+// in PERF.md.
 //
-// A batch of K queries (WD only, the reference's _batch_fixed_point: the
-// dense WD step vmapped over the sources).  The K rows of n values are one
-// flat array of K * n, and so are the masks: the frontier of an iteration
-// is compacted over all K * n entries, a slot's degree comes from row_ptr
-// at its node (flat id mod n), and a merge-path lane's destination is its
-// source's row plus col[e] (FlatRows).  One chunk covers every row's edges
-// in an iteration; the rows never interact and the int32 atomics do not
-// depend on order, so this gives the bits of one synchronous merge path per
-// row per iteration.  The loop runs while any row is live, and the edge
-// total sums the rows.  The caller keeps K * n and K * e below 2^31.
+// A batch of K queries (the reference's _batch_fixed_point) is K launches,
+// one a row (kernels/fused.py): rows never interact, and one launch over
+// K flat rows measured slower than K single-row launches on the H100
+// (likely because K rows of values and their second buffer outgrow the
+// L2).
 //
 // AD's selector computes mean = f32(degree_sum) / f32(max(count, 1)) and
 // imbalance = f32(max_degree) / mean with IEEE division (__fdiv_rn; the
@@ -77,12 +106,14 @@
 // them into an FMA, which rounds once and can flip a near tie).
 //
 // Delta-stepping (repro/core/priority.py _delta_fixed_point: the same
-// dense steps inside bucket epochs).  fused_delta_kernel takes two Params:
-// p over the light graph (w <= delta) and ph, equal but for the heavy
-// graph's row_ptr, col, wt and e (e = 0: no heavy graph).  Each epoch
+// dense steps inside bucket epochs).  fused_delta_kernel takes Params p
+// over the light graph (w <= delta) and the heavy graph's row_ptr, col,
+// wt and e beside it (e = 0: no heavy graph); every step reads its graph
+// through a Graph, so the light and the heavy phases share one inlined
+// copy of the steps, and the launch keeps three blocks a SM.  Each epoch
 // finds the minimum live bucket with one grid-wide pass (the frontier M
 // merged with the last phase's improvements U), then closes it over the
-// light graph: a pass takes C = M & bucket(A) == b out of M into the
+// light graph: a pass takes C = M & bucket(values) == b out of M into the
 // settled set S (each node's bucket recomputed from the current values,
 // b fixed for the epoch), and the strategy's step relaxes C into U, until
 // no node of M lies in b.  Then the settled nodes relax their heavy edges
@@ -91,6 +122,9 @@
 // between two halves of btot, so consecutive passes need no extra barrier.
 // One launch capped at one epoch is the stepped driver's epoch; it returns
 // M, the bucket settled and the frontier's count beside the values.
+//
+// Every launch's result ends with its grid-wide chunks, its block-local
+// chunks and its grid barriers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,11 +145,39 @@ constexpr int K_AD = 5;
 
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
-// control words, zeroed before the launch: the barrier, then three chunk
-// slots of (noted destinations, HP's live slots)
+// control words, zeroed before the launch: the barrier, the counts of
+// barriers passed and of block-local chunks (block 0 keeps both); three
+// chunk slots of (noted destinations, HP's live slots); by the parity of
+// the frontier compaction, two counts of a BS tail's slots and two
+// histograms of the frontier's degree bit lengths, each HIST_COPIES copies
+// of 32 bins (block b adds into copy b % HIST_COPIES, so that fewer
+// blocks queue on one word's atomics)
+constexpr int HIST_COPIES = 8;
+constexpr int HIST_WORDS = 32 * HIST_COPIES;
 constexpr int CTRL_BAR = 0;
+constexpr int CTRL_NBAR = 1;
+constexpr int CTRL_NBLOCK = 2;
 constexpr int CTRL_SLOTS = 4;
-constexpr int CTRL_WORDS = 16;
+constexpr int CTRL_TAIL = 10;
+constexpr int CTRL_HIST = 16;
+constexpr int CTRL_WORDS = CTRL_HIST + 2 * HIST_WORDS;
+static_assert(HIST_WORDS <= THREADS, "a block zeroes a histogram at once");
+// the most slots a one-block BS/NS tail takes, 4 a thread; B1's staged
+// slot slice holds their tables in shared memory
+constexpr int TAIL_MAX = B1_TILE;
+constexpr int TAIL_LANES = TAIL_MAX / THREADS;
+// lanes a thread of the tail loads before it folds
+constexpr int TAIL_GROUP = 2;
+// the fewest columns a one-block tail takes (kernels/fused.py
+// TAIL_MIN_COLUMNS): it costs two grid barriers of its own (one before,
+// one after) and saves about one a column
+constexpr int TAIL_MIN_COLUMNS = 4;
+// int64 cells of a launch's result
+constexpr int RESULT_CELLS = 8;
+// resident blocks a SM the fused kernels are built for (at most 80
+// registers a thread, which both fit with no spill): more blocks hide more
+// of each lane's dependent gathers
+constexpr int MIN_BLOCKS = 3;
 
 struct Params {
   const int32_t* row_ptr;
@@ -125,36 +187,76 @@ struct Params {
   const int32_t* dist0;
   const uint8_t* mask0;
   int32_t n, e;
-  int32_t rows;              // queries in the batch (1: one traversal)
-  int32_t nk;                // values: rows * n
   int kernel, max_iterations, mdt, switch_threshold, small_frontier,
       hp_edges_threshold;
   float imbalance_threshold;
   int measured;              // AD: 1 takes the cost model's argmin
   float coeffs[9];           // AD's [3, 3] cost model: (a, b, c) per kernel
   int32_t delta;             // delta mode: the bucket width
-  int32_t* A;                // the snapshot; the final dist
-  int32_t* B;                // fold target, equal to A between chunks
+  int32_t tail_width;        // most live slots of a one-block BS column
+  int32_t* val[2];           // the two value buffers; val[0] is the result
   int32_t* stamp;            // [n] the chunk that last noted a destination
-  int32_t* dirty;            // [n] destinations noted in this chunk
+  int32_t* dirty[2];         // [n] destinations noted, by chunk parity
   int32_t* list;             // [n] the frontier's nodes, ascending
   int32_t* deg;              // [n] their degrees
   int32_t* pfx;              // [n] inclusive prefix of the merge-path work
   int32_t* exc;              // [n] exclusive prefix
   int32_t* start;            // [n] first edge of a slot's (remaining) run
+  int32_t* tail;             // [TAIL_MAX] slots of a one-block BS tail
   uint8_t* mask[2];          // frontier masks of alternate iterations
                              // (delta mode: C and U)
   uint8_t* live;             // delta mode: the frontier M, the output mask
   uint8_t* settled;          // delta mode: S, the nodes settled this epoch
   int32_t* btot;             // [2][grid * 4] block totals of the last scan
   unsigned* ctrl;            // CTRL_WORDS
-  long long* result;         // iterations, edges, AD's BS/WD/HP counts
+  long long* result;         // RESULT_CELLS: see the kernels' ends
 };
+
+// The graph a step relaxes: Params' own, or the delta mode's heavy graph
+// over the same nodes (e = 0: none).
+struct Graph {
+  const int32_t* row_ptr;
+  const int32_t* col;
+  const int32_t* wt;         // null: weight 1
+  int32_t e;
+};
+
+__host__ __device__ __forceinline__ Graph graph_of(const Params& p) {
+  return Graph{p.row_ptr, p.col, p.wt, p.e};
+}
 
 // The frontier of one iteration: grid totals, and the counts of the
 // blocks before this one (where its slots start in the tables).
 struct Frontier {
   int32_t count, degsum, maxdeg, before_count, before_deg;
+};
+
+// Where a launch stands in its chunk sequence; every block holds the same.
+// Four bits of state share one word (each thread of the grid holds it):
+// which buffer holds the latest values, whether the last chunk's noted
+// entries are still to be folded into the other one (min, max), the
+// parity of the frontier compactions (which picks a compaction's
+// histogram and tail count) and, in delta mode, of the grid-wide passes
+// (which picks a pass's half of btot).
+struct Chunking {
+  int seq = 0;               // grid-wide chunks begun (the next's stamp)
+  unsigned bits = 0;
+  __device__ int cur() const { return bits & 1; }
+  __device__ bool pending() const { return bits & 2; }
+  __device__ void swap() { bits = (bits ^ 1) | 2; }   // and pending
+  __device__ void settled() { bits &= ~2u; }
+  // the parity of the next compaction, which it then counts
+  __device__ int compaction() {
+    const int par = (bits >> 2) & 1;
+    bits ^= 4;
+    return par;
+  }
+  __device__ int last_compaction() const { return ((bits >> 2) & 1) ^ 1; }
+  __device__ int pass() {
+    const int par = (bits >> 3) & 1;
+    bits ^= 8;
+    return par;
+  }
 };
 
 __device__ __forceinline__ int64_t gtid() {
@@ -171,7 +273,8 @@ __device__ __forceinline__ int64_t gthreads() {
 // the flip; the cooperative launch makes every block resident.  A block
 // that waits longer than BARRIER_TIMEOUT cycles (blocks that disagree on
 // a branch never arrive) traps, so a fault ends the launch with an error
-// instead of hanging the card.
+// instead of hanging the card.  Block 0 counts the barriers in the word
+// after the barrier's.
 constexpr long long BARRIER_TIMEOUT = 20000000000LL;   // ~10 s at 2 GHz
 
 __device__ __forceinline__ void grid_sync(unsigned* bar) {
@@ -187,6 +290,7 @@ __device__ __forceinline__ void grid_sync(unsigned* bar) {
       if (clock64() - t0 > BARRIER_TIMEOUT) __trap();
     }
     __threadfence();
+    if (blockIdx.x == 0) ++bar[CTRL_NBAR - CTRL_BAR];
   }
   __syncthreads();
 }
@@ -284,26 +388,22 @@ __device__ __forceinline__ void scan_totals(const int32_t* btot, int32_t& t0,
   block_reduce3(p0, p1, unused);
 }
 
-__device__ __forceinline__ int32_t degree(const Params& p, int32_t i) {
-  return __ldg(p.row_ptr + i + 1) - __ldg(p.row_ptr + i);
-}
-
-// the graph node of flat value i ([rows, n], row-major)
-__device__ __forceinline__ int32_t node_of(const Params& p, int32_t i) {
-  return p.rows == 1 ? i : i % p.n;
+__device__ __forceinline__ int32_t degree(const Graph& gr, int32_t i) {
+  return __ldg(gr.row_ptr + i + 1) - __ldg(gr.row_ptr + i);
 }
 
 // The frontier's count, degree sum and max degree (ends in a barrier);
 // zeroes the next iteration's mask on the way.
-__device__ Frontier frontier_count(const Params& p, const uint8_t* M,
-                                   uint8_t* next) {
+__device__ Frontier frontier_count(const Params& p, const Graph& graph,
+                                   const uint8_t* M, uint8_t* next) {
+  const Graph gr = graph;   // held by the loop, not reloaded after stores
   int32_t lo, hi;
-  segment(p.nk, lo, hi);
+  segment(p.n, lo, hi);
   int32_t cnt = 0, sum = 0, mx = 0;
   for (int32_t i = lo + threadIdx.x; i < hi; i += THREADS) {
     next[i] = 0;
     if (__ldcg(M + i)) {
-      const int32_t d = degree(p, node_of(p, i));
+      const int32_t d = degree(gr, i);
       ++cnt;
       sum += d;
       mx = max(mx, d);
@@ -322,19 +422,35 @@ __device__ Frontier frontier_count(const Params& p, const uint8_t* M,
   return f;
 }
 
-// Write the frontier's slot tables in ascending node order; the caller
-// waits at a barrier before any block reads them.
-__device__ void frontier_compact(const Params& p, const uint8_t* M,
-                                 const Frontier& f) {
+// Write the frontier's slot tables in ascending node order and, where a
+// BS or NS step may take a one-block tail (`bins`: more than tail_width
+// slots; with fewer it starts at column 0), add the bit lengths of the
+// slots' nonzero degrees into this compaction's histogram (the other parity's histogram and tail
+// count are zeroed for the next one: their last reads were a barrier ago);
+// the caller waits at a barrier before any block reads them.
+__device__ void frontier_compact(const Params& p, const Graph& graph,
+                                 const uint8_t* M, const Frontier& f,
+                                 Chunking& ch, bool bins) {
+  const Graph gr = graph;
+  __shared__ int32_t hist[32];
+  const int par = ch.compaction();
+  if (threadIdx.x < 32) hist[threadIdx.x] = 0;
+  if (blockIdx.x == 0) {
+    if (threadIdx.x < HIST_WORDS)
+      p.ctrl[CTRL_HIST + HIST_WORDS * (par ^ 1) + threadIdx.x] = 0;
+    if (threadIdx.x == 0) p.ctrl[CTRL_TAIL + (par ^ 1)] = 0;
+  }
+  __syncthreads();
   int32_t lo, hi;
-  segment(p.nk, lo, hi);
+  segment(p.n, lo, hi);
   int32_t pc = f.before_count, pd = f.before_deg;
   for (int32_t base = lo; base < hi; base += THREADS) {
     const int32_t i = base + threadIdx.x;
     int32_t on = 0, d = 0;
     if (i < hi && __ldcg(M + i)) {
       on = 1;
-      d = degree(p, node_of(p, i));
+      d = degree(gr, i);
+      if (bins && d) atomicAdd(hist + (32 - __clz(d)), 1);
     }
     int32_t a = on, b = d, ta, tb;
     block_scan2(a, b, ta, tb);
@@ -342,13 +458,18 @@ __device__ void frontier_compact(const Params& p, const uint8_t* M,
       const int32_t pos = pc + a - 1;
       p.list[pos] = i;
       p.deg[pos] = d;
-      p.start[pos] = __ldg(p.row_ptr + node_of(p, i));
+      p.start[pos] = __ldg(gr.row_ptr + i);
       p.pfx[pos] = pd + b;
       p.exc[pos] = pd + b - d;
     }
     pc += ta;
     pd += tb;
   }
+  __syncthreads();
+  if (bins && threadIdx.x < 32 && hist[threadIdx.x])
+    atomicAdd(p.ctrl + CTRL_HIST + HIST_WORDS * par +
+                  32 * (blockIdx.x % HIST_COPIES) + threadIdx.x,
+              (unsigned)hist[threadIdx.x]);
 }
 
 // HP's tail at cursor c: remaining work max(deg - c, 0) of every slot,
@@ -389,6 +510,10 @@ __device__ int64_t tail_tables(const Params& p, int32_t count, int32_t c) {
 // warp that note together take their slots with one atomic (opportunistic
 // warp aggregation): one counter for the whole grid would otherwise take
 // an atomic from every improving lane.
+__device__ __forceinline__ unsigned* chunk_slot(const Params& p, int seq) {
+  return p.ctrl + CTRL_SLOTS + 2 * (seq % 3);
+}
+
 struct NoteHook {
   int32_t* stamp;
   int32_t* dirty;
@@ -406,56 +531,101 @@ struct NoteHook {
   }
 };
 
-__device__ __forceinline__ unsigned* chunk_slot(const Params& p, int seq) {
-  return p.ctrl + CTRL_SLOTS + 2 * (seq % 3);
-}
+// A grid-wide chunk: the snapshot its lanes read, the buffer they fold
+// into, and the note of an improving lane.
+struct Chunk {
+  const int32_t* snap;
+  int32_t* tgt;
+  NoteHook note;
+};
 
-// Chunk seq notes into slot seq % 3 and clears the slot of chunk seq + 1:
-// that slot was last read by chunk seq - 2, two barriers ago.
-__device__ __forceinline__ NoteHook begin_chunk(const Params& p, int seq) {
+// Chunk seq notes into slot seq % 3 and list seq % 2, and clears the slot
+// of chunk seq + 1 (last read in chunk seq - 1, a barrier ago).  After a
+// chunk of a min or max, its noted entries are folded into this chunk's
+// target, with the lanes' own folds.
+template <int COMB>
+__device__ Chunk begin_chunk(const Params& p, const Chunking& ch) {
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    unsigned* next = chunk_slot(p, seq + 1);
+    unsigned* next = chunk_slot(p, ch.seq + 1);
     next[0] = 0;
     next[1] = 0;
   }
-  return NoteHook{p.stamp, p.dirty, chunk_slot(p, seq), seq};
+  const int32_t* snap = p.val[ch.cur()];
+  int32_t* tgt = p.val[ch.cur() ^ 1];
+  if (ch.pending()) {
+    const unsigned noted = __ldcg(chunk_slot(p, ch.seq - 1));
+    const int32_t* dirty = p.dirty[(ch.seq - 1) & 1];
+    for (int64_t k = gtid(); k < noted; k += gthreads()) {
+      const int32_t d = __ldcg(dirty + k);
+      fold<COMB>(tgt + d, __ldcg(snap + d));
+    }
+  }
+  return Chunk{snap, tgt,
+               NoteHook{p.stamp, p.dirty[ch.seq & 1], chunk_slot(p, ch.seq),
+                        ch.seq}};
 }
 
-// Wait for every fold of the chunk, copy the noted entries of B into A,
-// wait again.  Returns the chunk's HP live count.
-__device__ unsigned end_chunk(const Params& p, int& seq) {
-  const unsigned* slot = chunk_slot(p, seq);
+// Wait for every fold of the chunk.  min, max: the target holds the
+// latest values and the buffers swap roles.  add: copy the noted entries
+// of val[1] into val[0] and wait again.  Returns the chunk's HP live
+// count.
+template <int COMB>
+__device__ unsigned end_chunk(const Params& p, Chunking& ch) {
+  const unsigned* slot = chunk_slot(p, ch.seq);
   grid_sync(p.ctrl + CTRL_BAR);
-  const unsigned noted = __ldcg(slot), live = __ldcg(slot + 1);
-  for (int64_t k = gtid(); k < noted; k += gthreads()) {
-    const int32_t d = __ldcg(p.dirty + k);
-    p.A[d] = __ldcg(p.B + d);
+  const unsigned live = __ldcg(slot + 1);
+  if (COMB == COMB_ADD) {
+    const unsigned noted = __ldcg(slot);
+    const int32_t* dirty = p.dirty[ch.seq & 1];
+    for (int64_t k = gtid(); k < noted; k += gthreads()) {
+      const int32_t d = __ldcg(dirty + k);
+      p.val[0][d] = __ldcg(p.val[1] + d);
+    }
+    grid_sync(p.ctrl + CTRL_BAR);
+  } else {
+    ch.swap();
   }
-  grid_sync(p.ctrl + CTRL_BAR);
-  ++seq;
+  ++ch.seq;
   return live;
 }
 
+// Copy the last chunk's noted entries into the other buffer (plain
+// stores: nothing else writes it now), so that both hold the latest
+// values once the caller's barrier, or the launch's end, has passed.
+__device__ void settle(const Params& p, Chunking& ch) {
+  if (!ch.pending()) return;
+  const unsigned noted = __ldcg(chunk_slot(p, ch.seq - 1));
+  const int32_t* dirty = p.dirty[(ch.seq - 1) & 1];
+  const int32_t* from = p.val[ch.cur()];
+  int32_t* to = p.val[ch.cur() ^ 1];
+  for (int64_t k = gtid(); k < noted; k += gthreads()) {
+    const int32_t d = __ldcg(dirty + k);
+    to[d] = __ldcg(from + d);
+  }
+  ch.settled();
+}
+
 template <int MSG, int COMB>
-__device__ __forceinline__ void relax_one(const Params& p, bool valid,
+__device__ __forceinline__ void relax_one(const Params& p, const Graph& gr,
+                                          const Chunk& c, bool valid,
                                           int32_t src, int32_t eidx,
-                                          uint8_t* upd, const NoteHook& h) {
+                                          uint8_t* upd) {
   bool v[1] = {valid};
   int32_t s[1] = {src}, d[1] = {0}, w[1] = {1};
   if (valid) {
-    const int32_t ec = clamp_index(eidx, p.e);
-    d[0] = __ldg(p.col + ec);
-    if (p.wt) w[0] = __ldg(p.wt + ec);
+    const int32_t ec = clamp_index(eidx, gr.e);
+    d[0] = __ldg(gr.col + ec);
+    if (gr.wt) w[0] = __ldg(gr.wt + ec);
   }
   bool imp[1];
-  relax_group<1, MSG, COMB, Coherent>(p.A, p.n, v, s, d, w, p.B, upd, imp,
-                                      h);
+  relax_group<1, MSG, COMB, Coherent>(c.snap, p.n, v, s, d, w, c.tgt, upd,
+                                      imp, c.note);
 }
 
-// BS/NS column d: the d-th edge of every frontier slot
+// BS/NS column d, grid-wide: the d-th edge of every frontier slot
 template <int MSG, int COMB>
-__device__ void bs_column(const Params& p, int32_t count, int32_t d,
-                          uint8_t* upd, const NoteHook& h) {
+__device__ void bs_column(const Params& p, const Graph& gr, const Chunk& c,
+                          int32_t count, int32_t d, uint8_t* upd) {
   for (int64_t i = gtid(); i < count; i += gthreads()) {
     const bool valid = d < __ldcg(p.deg + i);
     int32_t src = 0, eidx = 0;
@@ -463,7 +633,7 @@ __device__ void bs_column(const Params& p, int32_t count, int32_t d,
       src = __ldcg(p.list + i);
       eidx = __ldcg(p.start + i) + d;
     }
-    relax_one<MSG, COMB>(p, valid, src, eidx, upd, h);
+    relax_one<MSG, COMB>(p, gr, c, valid, src, eidx, upd);
   }
 }
 
@@ -471,8 +641,8 @@ __device__ void bs_column(const Params& p, int32_t count, int32_t d,
 // a slot that has any (found 32 slots at a time by ballot); counts the
 // slots with edges left past c + mdt into the chunk's live count.
 template <int MSG, int COMB>
-__device__ void hp_tile(const Params& p, int32_t count, int32_t c,
-                        uint8_t* upd, const NoteHook& h) {
+__device__ void hp_tile(const Params& p, const Graph& gr, const Chunk& ck,
+                        int32_t count, int32_t c, uint8_t* upd) {
   const int lane = threadIdx.x & 31;
   const int64_t warp = gtid() >> 5, nwarps = gthreads() >> 5;
   const int64_t cend = (int64_t)c + p.mdt;
@@ -491,88 +661,237 @@ __device__ void hp_tile(const Params& p, int32_t count, int32_t c,
       const int32_t st = __ldcg(p.start + base + l);
       for (int32_t j0 = c; j0 < hi; j0 += 32) {
         const int32_t j = j0 + lane;
-        relax_one<MSG, COMB>(p, j < hi, src, st + j, upd, h);
+        relax_one<MSG, COMB>(p, gr, ck, j < hi, src, st + j, upd);
       }
     }
   }
   int32_t unused0 = 0, unused1 = 0;
   block_reduce3(live, unused0, unused1);
-  if (threadIdx.x == 0 && live) atomicAdd(h.noted + 1, (unsigned)live);
+  if (threadIdx.x == 0 && live)
+    atomicAdd(ck.note.noted + 1, (unsigned)live);
 }
 
 // EP: every edge a lane, valid where its source is in the frontier
 template <int MSG, int COMB>
-__device__ void ep_edges(const Params& p, const uint8_t* M, uint8_t* upd,
-                         const NoteHook& h) {
+__device__ void ep_edges(const Params& p, const Chunk& c, const uint8_t* M,
+                         uint8_t* upd) {
   for (int64_t k = gtid(); k < p.e; k += gthreads()) {
     const int32_t src = clamp_index(__ldg(p.aux + k), p.n);
-    relax_one<MSG, COMB>(p, __ldcg(M + src) != 0, src, (int32_t)k, upd, h);
+    relax_one<MSG, COMB>(p, graph_of(p), c, __ldcg(M + src) != 0, src,
+                         (int32_t)k, upd);
   }
 }
 
-// WD, and HP's tail: B1's merge-path tiles over `total` lanes (over every
-// row's frontier at once in a batch)
+// WD, and HP's tail: B1's merge-path tiles over `total` lanes
 template <int MSG, int COMB>
-__device__ void merge_path(const Params& p, int32_t count, int64_t total,
-                           uint8_t* upd, const NoteHook& h, WdSmem& sm) {
+__device__ void merge_path(const Params& p, const Graph& gr, const Chunk& c,
+                           int32_t count, int64_t total, uint8_t* upd,
+                           WdSmem& sm) {
   const int64_t tiles = (total + B1_TILE - 1) / B1_TILE;
-  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
-    if (p.rows == 1)
-      wd_tile<MSG, COMB, Coherent>(t, p.A, p.n, p.pfx, p.exc, p.start,
-                                   p.list, count, p.col, p.wt, p.e,
-                                   (int32_t)total, total, p.B, upd, nullptr,
-                                   sm, h);
-    else
-      wd_tile<MSG, COMB, Coherent>(t, p.A, p.nk, p.pfx, p.exc, p.start,
-                                   p.list, count, p.col, p.wt, p.e,
-                                   (int32_t)total, total, p.B, upd, nullptr,
-                                   sm, h, FlatRows{p.n});
-  }
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x)
+    wd_tile<MSG, COMB, Coherent>(t, c.snap, p.n, p.pfx, p.exc, p.start,
+                                 p.list, count, gr.col, gr.wt, gr.e,
+                                 (int32_t)total, total, c.tgt, upd, nullptr,
+                                 sm, c.note);
 }
 
 template <int MSG, int COMB>
-__device__ void wd_step(const Params& p, const Frontier& f, uint8_t* upd,
-                        int& seq, WdSmem& sm) {
-  const NoteHook h = begin_chunk(p, seq);
-  merge_path<MSG, COMB>(p, f.count, f.degsum, upd, h, sm);
-  end_chunk(p, seq);
+__device__ void wd_step(const Params& p, const Graph& gr, const Frontier& f,
+                        uint8_t* upd, Chunking& ch, WdSmem& sm) {
+  const Chunk c = begin_chunk<COMB>(p, ch);
+  merge_path<MSG, COMB>(p, gr, c, f.count, f.degsum, upd, sm);
+  end_chunk<COMB>(p, ch);
 }
 
 // HP: WD for a small frontier; else MDT-wide tiles while more than
 // switch_threshold slots have edges left (at least one tile), then the
 // cursor-aware WD tail
 template <int MSG, int COMB>
-__device__ void hp_step(const Params& p, const Frontier& f, uint8_t* upd,
-                        int& seq, WdSmem& sm) {
+__device__ void hp_step(const Params& p, const Graph& gr, const Frontier& f,
+                        uint8_t* upd, Chunking& ch, WdSmem& sm) {
   if (f.count <= p.switch_threshold) {
-    wd_step<MSG, COMB>(p, f, upd, seq, sm);
+    wd_step<MSG, COMB>(p, gr, f, upd, ch, sm);
     return;
   }
   int32_t c = 0;
   unsigned live;
   do {
-    const NoteHook h = begin_chunk(p, seq);
-    hp_tile<MSG, COMB>(p, f.count, c, upd, h);
-    live = end_chunk(p, seq);
+    const Chunk ck = begin_chunk<COMB>(p, ch);
+    hp_tile<MSG, COMB>(p, gr, ck, f.count, c, upd);
+    live = end_chunk<COMB>(p, ch);
     c += p.mdt;
   } while ((int64_t)live > p.switch_threshold);
   const int64_t total = tail_tables(p, f.count, c);
   if (total > 0) {                      // an empty tail relaxes nothing
-    const NoteHook h = begin_chunk(p, seq);
-    merge_path<MSG, COMB>(p, f.count, total, upd, h, sm);
-    end_chunk(p, seq);
+    const Chunk ck = begin_chunk<COMB>(p, ch);
+    merge_path<MSG, COMB>(p, gr, ck, f.count, total, upd, sm);
+    end_chunk<COMB>(p, ch);
   }
 }
 
+// The first BS/NS column of the one-block tail, from the histogram of
+// compaction `par` (read after its barrier) of a frontier of `count`
+// slots: 0 when at most tail_width slots have edges, else the least power
+// of two D with at most tail_width slots of degree >= D (#(deg >= 2^j)
+// sums the bins of bit length > j); INT32_MAX for none (tail_width 0).
+// core/fused.py tail_start is the same rule.
+__device__ int32_t tail_start(const Params& p, int par, int32_t count) {
+  const int32_t w = p.tail_width;
+  if (w <= 0) return INT32_MAX;
+  if (count <= w) return 0;             // no histogram was built
+  // every warp alone: lane b sums bin b over the copies, then the suffix
+  // sums S(b) = #(bit length >= b) = #(deg >= 2^(b - 1)); the start is
+  // 2^b for the highest b >= 1 with S(b) > w
+  const int lane = threadIdx.x & 31;
+  const unsigned* h = p.ctrl + CTRL_HIST + HIST_WORDS * par + lane;
+  int32_t s = 0;
+#pragma unroll
+  for (int c = 0; c < HIST_COPIES; ++c) s += (int32_t)__ldcg(h + 32 * c);
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t x = __shfl_down_sync(FULL, s, o);
+    if (lane + o < 32) s += x;
+  }
+  const unsigned over = __ballot_sync(FULL, lane >= 1 && s > w);
+  if (!over) return 0;
+  const int b = 31 - __clz(over);
+  return b >= 31 ? INT32_MAX : 1 << b;
+}
+
+// The tail's slots (degree > d0), appended in any order: the column's
+// lanes fold with atomics, so the order changes no bits.  At most
+// tail_width of them, by tail_start's rule.
+__device__ void gather_tail(const Params& p, int32_t count, int32_t d0,
+                            int par) {
+  int32_t lo, hi;
+  segment(count, lo, hi);
+  unsigned* n_tail = p.ctrl + CTRL_TAIL + par;
+  for (int32_t i0 = lo; i0 < hi; i0 += THREADS) {
+    const int32_t i = i0 + threadIdx.x;
+    const bool take = i < hi && __ldcg(p.deg + i) > d0;
+    const unsigned mask = __ballot_sync(FULL, take);
+    if (!mask) continue;
+    const int lane = threadIdx.x & 31;
+    const int leader = __ffs(mask) - 1;
+    unsigned base = 0;
+    if (lane == leader) base = atomicAdd(n_tail, (unsigned)__popc(mask));
+    base = __shfl_sync(FULL, base, leader);
+    if (take) p.tail[base + __popc(mask & ((1u << lane) - 1u))] = i;
+  }
+}
+
+// BS/NS columns [d0, d1) inside one block, over the m tail slots; val[cur]
+// holds the latest values and equals the other buffer.  Each column is its
+// own chunk: the lanes read one buffer and fold into the other, and a
+// __syncthreads ends it.  Then, for min and max, each thread folds the
+// destinations its own lanes improved into the next column's target (the
+// column's snapshot), with the next column's lanes; for add it copies them
+// back from val[1] into val[0] and waits again.  Leaves both buffers
+// equal.  Slot i's source, first edge and degree, and the destination its
+// lane improved in the last column (-1: none), are staged in B1's shared
+// slot tables; thread t takes slots t, t + THREADS, ...
+template <int MSG, int COMB>
+__device__ void tail_columns(const Params& p, const Graph& gr, int32_t d0,
+                             int32_t d1, int32_t m, int cur, uint8_t* upd,
+                             WdSmem& sm) {
+  int32_t* const improved = sm.excl;
+  for (int32_t i = threadIdx.x; i < TAIL_MAX; i += THREADS) {
+    improved[i] = -1;
+    if (i < m) {
+      const int32_t slot = __ldcg(p.tail + i);
+      sm.src[i] = __ldcg(p.list + slot);
+      sm.start[i] = __ldcg(p.start + slot);
+      sm.prefix[i] = __ldcg(p.deg + slot);
+    }
+  }
+  __syncthreads();
+  for (int32_t d = d0; d < d1; ++d) {
+    const int32_t* snap = p.val[cur];
+    int32_t* tgt = p.val[cur ^ 1];
+#pragma unroll
+    for (int j0 = 0; j0 < TAIL_LANES; j0 += TAIL_GROUP) {
+      bool v[TAIL_GROUP], imp[TAIL_GROUP];
+      int32_t s[TAIL_GROUP] = {}, c[TAIL_GROUP] = {}, w[TAIL_GROUP] = {};
+#pragma unroll
+      for (int g = 0; g < TAIL_GROUP; ++g) {
+        const int32_t i = threadIdx.x + (j0 + g) * THREADS;
+        const int32_t last = improved[i];
+        if (COMB != COMB_ADD && last >= 0)
+          fold<COMB>(tgt + last, __ldcg(snap + last));
+        v[g] = i < m && d < sm.prefix[i];
+        if (v[g]) {
+          s[g] = sm.src[i];
+          const int32_t ec = clamp_index((int64_t)sm.start[i] + d, gr.e);
+          c[g] = __ldg(gr.col + ec);
+          w[g] = gr.wt ? __ldg(gr.wt + ec) : 1;
+        }
+      }
+      relax_group<TAIL_GROUP, MSG, COMB, Coherent>(snap, p.n, v, s, c, w,
+                                                   tgt, upd, imp, NoHook{});
+#pragma unroll
+      for (int g = 0; g < TAIL_GROUP; ++g)
+        improved[threadIdx.x + (j0 + g) * THREADS] = imp[g] ? c[g] : -1;
+    }
+    __syncthreads();
+    if (COMB == COMB_ADD) {
+#pragma unroll
+      for (int j = 0; j < TAIL_LANES; ++j) {
+        const int32_t last = improved[threadIdx.x + j * THREADS];
+        if (last >= 0) p.val[0][last] = __ldcg(p.val[1] + last);
+      }
+      __syncthreads();
+    } else {
+      cur ^= 1;
+    }
+  }
+  if (COMB != COMB_ADD) {
+#pragma unroll
+    for (int j = 0; j < TAIL_LANES; ++j) {
+      const int32_t last = improved[threadIdx.x + j * THREADS];
+      if (last >= 0) p.val[cur ^ 1][last] = __ldcg(p.val[cur] + last);
+    }
+  }
+}
+
+// BS/NS: the frontier's max degree columns, after frontier_compact and its
+// barrier.  Columns below the tail's start run grid-wide, a chunk each;
+// the rest in block 0 (tail_columns), after a barrier that settles the
+// buffers and publishes the tail's slots, and before the closing one.
+template <int MSG, int COMB>
+__device__ void bs_step(const Params& p, const Graph& gr, const Frontier& f,
+                        uint8_t* upd, Chunking& ch, WdSmem& sm) {
+  const int par = ch.last_compaction();
+  int32_t d0 = min(tail_start(p, par, f.count), f.maxdeg);
+  if (f.maxdeg - d0 < TAIL_MIN_COLUMNS) d0 = f.maxdeg;
+  if (d0 < f.maxdeg) gather_tail(p, f.count, d0, par);
+  for (int32_t d = 0; d < d0; ++d) {
+    const Chunk c = begin_chunk<COMB>(p, ch);
+    bs_column<MSG, COMB>(p, gr, c, f.count, d, upd);
+    end_chunk<COMB>(p, ch);
+  }
+  if (d0 == f.maxdeg) return;
+  settle(p, ch);
+  grid_sync(p.ctrl + CTRL_BAR);
+  if (blockIdx.x == 0)
+    tail_columns<MSG, COMB>(p, gr, d0, f.maxdeg,
+                            (int32_t)__ldcg(p.ctrl + CTRL_TAIL + par),
+                            ch.cur(), upd, sm);
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    p.ctrl[CTRL_NBLOCK] += f.maxdeg - d0;
+  grid_sync(p.ctrl + CTRL_BAR);
+}
+
 // NS's ns_activate: children take their parent's value and activity
-// (parents map to themselves and are not written)
-__device__ __forceinline__ void ns_gather(const Params& p, uint8_t* M) {
+// (parents map to themselves and are not written); both buffers, so a
+// pending fold finds the child equal in both
+__device__ __forceinline__ void ns_gather(const Params& p,
+                                          const Chunking& ch, uint8_t* M) {
   for (int64_t i = gtid(); i < p.n; i += gthreads()) {
     const int32_t par = __ldg(p.aux + i);
     if (par != i) {
-      const int32_t v = __ldcg(p.A + par);
-      p.A[i] = v;
-      p.B[i] = v;
+      const int32_t v = __ldcg(p.val[ch.cur()] + par);
+      p.val[0][i] = v;
+      p.val[1][i] = v;
       if (__ldcg(M + par)) M[i] = 1;
     }
   }
@@ -614,39 +933,47 @@ __device__ __forceinline__ int ad_choice(const Params& p, const Frontier& f) {
   return take_bs ? 0 : (take_hp ? 2 : 1);
 }
 
+// The launch's last words: the result's chunk and barrier counts, after
+// cells 0-4 (the caller's)
+static_assert(RESULT_CELLS == 8, "the result ends with cells 5, 6 and 7");
+__device__ __forceinline__ void write_counts(const Params& p,
+                                             const Chunking& ch) {
+  p.result[5] = ch.seq;
+  p.result[6] = __ldcg(p.ctrl + CTRL_NBLOCK);
+  p.result[7] = __ldcg(p.ctrl + CTRL_NBAR);
+}
+
 template <int MSG, int COMB>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_fixed_point_kernel(Params p) {
   __shared__ WdSmem sm;
-  for (int64_t i = gtid(); i < p.nk; i += gthreads()) {
+  for (int64_t i = gtid(); i < p.n; i += gthreads()) {
     const int32_t v = __ldg(p.dist0 + i);
-    p.A[i] = v;
-    p.B[i] = v;
+    p.val[0][i] = v;
+    p.val[1][i] = v;
     p.stamp[i] = -1;
     p.mask[0][i] = __ldg(p.mask0 + i) != 0;
   }
   grid_sync(p.ctrl + CTRL_BAR);
 
-  int cur = 0, it = 0, seq = 0;
+  const Graph gr = graph_of(p);
+  Chunking ch;
+  int cur = 0, it = 0;
   unsigned long long edges = 0;
-  long long chosen[3] = {0, 0, 0};
+  int chosen[3] = {0, 0, 0};
   for (;;) {
     uint8_t* M = p.mask[cur];
     uint8_t* next = p.mask[cur ^ 1];
-    Frontier f = frontier_count(p, M, next);
+    Frontier f = frontier_count(p, gr, M, next);
     // EP stops when the frontier has no outgoing edges
     const bool live = p.kernel == K_EP ? f.degsum > 0 : f.count > 0;
     if (!live || it >= p.max_iterations) break;
     if (p.kernel == K_NS) {
       // ns_activate, inside the iteration as in the reference's loop body,
       // then the split frontier's counts
-      ns_gather(p, M);
+      ns_gather(p, ch, M);
       grid_sync(p.ctrl + CTRL_BAR);
-      f = frontier_count(p, M, next);
-    }
-    if (p.kernel != K_EP) {
-      frontier_compact(p, M, f);
-      grid_sync(p.ctrl + CTRL_BAR);
+      f = frontier_count(p, gr, M, next);
     }
     int which = p.kernel;
     if (which == K_AD) {
@@ -654,20 +981,22 @@ fused_fixed_point_kernel(Params p) {
       ++chosen[idx];
       which = idx == 0 ? K_BS : (idx == 1 ? K_WD : K_HP);
     }
+    if (which != K_EP) {
+      frontier_compact(p, gr, M, f, ch,
+                       (which == K_BS || which == K_NS) &&
+                           p.tail_width > 0 && f.count > p.tail_width);
+      grid_sync(p.ctrl + CTRL_BAR);
+    }
     if (which == K_BS || which == K_NS) {
-      for (int32_t d = 0; d < f.maxdeg; ++d) {
-        const NoteHook h = begin_chunk(p, seq);
-        bs_column<MSG, COMB>(p, f.count, d, next, h);
-        end_chunk(p, seq);
-      }
+      bs_step<MSG, COMB>(p, gr, f, next, ch, sm);
     } else if (which == K_WD) {
-      wd_step<MSG, COMB>(p, f, next, seq, sm);
+      wd_step<MSG, COMB>(p, gr, f, next, ch, sm);
     } else if (which == K_HP) {
-      hp_step<MSG, COMB>(p, f, next, seq, sm);
+      hp_step<MSG, COMB>(p, gr, f, next, ch, sm);
     } else {
-      const NoteHook h = begin_chunk(p, seq);
-      ep_edges<MSG, COMB>(p, M, next, h);
-      end_chunk(p, seq);
+      const Chunk c = begin_chunk<COMB>(p, ch);
+      ep_edges<MSG, COMB>(p, c, M, next);
+      end_chunk<COMB>(p, ch);
     }
     // BS, WD, HP, NS: the frontier's degree sum; EP: its valid edge lanes,
     // the same number
@@ -675,12 +1004,14 @@ fused_fixed_point_kernel(Params p) {
     ++it;
     cur ^= 1;
   }
+  settle(p, ch);                        // the result lies in val[0]
   if (gtid() == 0) {
     p.result[0] = it;
     p.result[1] = (long long)edges;
     p.result[2] = chosen[0];
     p.result[3] = chosen[1];
     p.result[4] = chosen[2];
+    write_counts(p, ch);
   }
 }
 
@@ -700,19 +1031,19 @@ __device__ __forceinline__ int32_t bucket_of(int32_t v, int32_t delta) {
 }
 
 // One pass over this block's segment of the values: fn(i, a, b, c) adds to
-// the block's two sums and its max.  The block totals go through half
-// `pass % 2` of btot; ends in a barrier.  Returns the grid totals and the
+// the block's two sums and its max.  The block totals go through the half
+// of btot the parity of the passes picks; ends in a barrier.  Returns the grid totals and the
 // sums of the blocks before this one (a frontier's counts, in the segments
 // frontier_compact walks).
 template <class Fn>
-__device__ __forceinline__ Frontier delta_pass(const Params& p, int& pass,
+__device__ __forceinline__ Frontier delta_pass(const Params& p, Chunking& ch,
                                                Fn fn) {
   int32_t lo, hi;
-  segment(p.nk, lo, hi);
+  segment(p.n, lo, hi);
   int32_t a = 0, b = 0, c = 0;
   for (int32_t i = lo + threadIdx.x; i < hi; i += THREADS) fn(i, a, b, c);
   block_reduce3(a, b, c);
-  int32_t* bt = p.btot + 4 * gridDim.x * (pass++ & 1);
+  int32_t* bt = p.btot + 4 * gridDim.x * ch.pass();
   if (threadIdx.x == 0) {
     bt[4 * blockIdx.x] = a;
     bt[4 * blockIdx.x + 1] = b;
@@ -726,130 +1057,149 @@ __device__ __forceinline__ Frontier delta_pass(const Params& p, int& pass,
 }
 
 // One phase of an epoch (priority._phase): the strategy's dense step from
-// the frontier P over q's graph (q: the light or the heavy Params), its
-// improvements noted in U.  f holds P's counts on q from the pass that
+// the frontier P over graph gr (the light graph or the heavy one), its
+// improvements noted in U.  f holds P's counts on gr from the pass that
 // built P; NS gathers its children first and counts again.  Returns the
-// phase's edges.  Not inlined: one copy serves the light and the heavy
-// Params (kernel parameters, __grid_constant__, so passing their address
-// copies nothing), and the kernel keeps two resident blocks a SM without
-// spilling.
+// phase's edges.  The kernel has one call site, so it is inlined once.
 template <int MSG, int COMB>
-__device__ __noinline__ int32_t delta_phase(const Params& q, uint8_t* P,
-                                            Frontier f, uint8_t* U, int& seq,
-                                            WdSmem& sm) {
-  if (q.kernel == K_NS) {
-    ns_gather(q, P);
-    grid_sync(q.ctrl + CTRL_BAR);
-    f = frontier_count(q, P, U);       // U is clear: clearing it is harmless
+__device__ __forceinline__ int32_t delta_phase(const Params& p,
+                                               const Graph& gr, uint8_t* P,
+                                               Frontier f, uint8_t* U,
+                                               Chunking& ch, WdSmem& sm) {
+  if (p.kernel == K_NS) {
+    ns_gather(p, ch, P);
+    grid_sync(p.ctrl + CTRL_BAR);
+    f = frontier_count(p, gr, P, U);   // U is clear: clearing it is harmless
   }
-  frontier_compact(q, P, f);
-  grid_sync(q.ctrl + CTRL_BAR);
-  int which = q.kernel;
+  int which = p.kernel;
   if (which == K_AD) {
-    const int idx = ad_choice(q, f);
+    const int idx = ad_choice(p, f);
     which = idx == 0 ? K_BS : (idx == 1 ? K_WD : K_HP);
   }
+  frontier_compact(p, gr, P, f, ch,
+                   (which == K_BS || which == K_NS) && p.tail_width > 0 &&
+                       f.count > p.tail_width);
+  grid_sync(p.ctrl + CTRL_BAR);
   if (which == K_BS || which == K_NS) {
-    for (int32_t d = 0; d < f.maxdeg; ++d) {
-      const NoteHook h = begin_chunk(q, seq);
-      bs_column<MSG, COMB>(q, f.count, d, U, h);
-      end_chunk(q, seq);
-    }
+    bs_step<MSG, COMB>(p, gr, f, U, ch, sm);
   } else if (which == K_WD) {
-    wd_step<MSG, COMB>(q, f, U, seq, sm);
+    wd_step<MSG, COMB>(p, gr, f, U, ch, sm);
   } else {
-    hp_step<MSG, COMB>(q, f, U, seq, sm);
+    hp_step<MSG, COMB>(p, gr, f, U, ch, sm);
   }
   return f.degsum;
 }
 
+// p carries the light graph (w <= delta) and heavy the heavy one (e = 0:
+// none).  Each epoch's light passes and its heavy pass take turns at the
+// one phase call site.
 template <int MSG, int COMB>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_delta_kernel(const __grid_constant__ Params p,
-                   const __grid_constant__ Params ph) {
+                   const __grid_constant__ Graph heavy,
+                   const __grid_constant__ Graph light) {
   __shared__ WdSmem sm;
   uint8_t* const M = p.live;
   uint8_t* const C = p.mask[0];
   uint8_t* const U = p.mask[1];
   uint8_t* const S = p.settled;
-  for (int64_t i = gtid(); i < p.nk; i += gthreads()) {
+  for (int64_t i = gtid(); i < p.n; i += gthreads()) {
     const int32_t v = __ldg(p.dist0 + i);
-    p.A[i] = v;
-    p.B[i] = v;
+    p.val[0][i] = v;
+    p.val[1][i] = v;
     p.stamp[i] = -1;
     M[i] = __ldg(p.mask0 + i) != 0;
     U[i] = 0;
   }
   grid_sync(p.ctrl + CTRL_BAR);
 
-  int it = 0, seq = 0, pass = 0;
-  int32_t b = NO_BUCKET, count = 0;
-  long long rounds = 0;
-  unsigned long long edges = 0;
+  Chunking ch;
+  int it = 0;
+  // rounds, edges, the last bucket and the frontier's count go straight
+  // into the result cells, kept by thread 0 (no register of every thread
+  // holds them)
+  const bool keeper = gtid() == 0;
+  if (keeper) {
+    p.result[1] = 0;
+    p.result[2] = 0;
+    p.result[3] = NO_BUCKET;
+  }
   for (;;) {
     // M |= U; the live count and the minimum bucket (as NO_BUCKET - b,
     // maximised); U and S cleared for the epoch
+    const int32_t* vals = p.val[ch.cur()];
     const Frontier live = delta_pass(
-        p, pass, [&](int32_t i, int32_t& a, int32_t&, int32_t& c) {
+        p, ch, [&](int32_t i, int32_t& a, int32_t&, int32_t& c) {
           const uint8_t m = __ldcg(M + i) | __ldcg(U + i);
           M[i] = m;
           U[i] = 0;
           S[i] = 0;
           if (m) {
             ++a;
-            c = max(c, NO_BUCKET - bucket_of<COMB>(__ldcg(p.A + i), p.delta));
+            c = max(c, NO_BUCKET - bucket_of<COMB>(__ldcg(vals + i),
+                                                   p.delta));
           }
         });
-    count = live.count;
-    if (count == 0 || it >= p.max_iterations) break;
-    const int32_t bk = NO_BUCKET - live.maxdeg;
-    b = bk;
-    for (;;) {
+    if (keeper) p.result[4] = live.count;
+    if (live.count == 0 || it >= p.max_iterations) break;
+    int32_t bk = NO_BUCKET - live.maxdeg;
+    if (keeper) p.result[3] = bk;
+    // after a pass, bk is read back from the cell thread 0 wrote before
+    // it (a barrier ago), so no register holds it through the phase
+    for (bool heavy_turn = false; !heavy_turn;
+         bk = (int32_t)__ldcg(p.result + 3)) {
       // the light closure: C = (M | U) & bucket == b moves from M into S
-      const Frontier f = delta_pass(
-          p, pass, [&](int32_t i, int32_t& a, int32_t& sum, int32_t& c) {
+      const int32_t* now = p.val[ch.cur()];
+      Frontier f = delta_pass(
+          p, ch, [&](int32_t i, int32_t& a, int32_t& sum, int32_t& c) {
             const uint8_t m = __ldcg(M + i) | __ldcg(U + i);
             U[i] = 0;
             const bool cur =
-                m && bucket_of<COMB>(__ldcg(p.A + i), p.delta) == bk;
+                m && bucket_of<COMB>(__ldcg(now + i), p.delta) == bk;
             C[i] = cur;
             M[i] = cur ? 0 : m;
             if (cur) {
               S[i] = 1;
-              const int32_t d = degree(p, i);
+              const int32_t d = degree(light, i);
               ++a;
               sum += d;
               c = max(c, d);
             }
           });
-      if (f.count == 0) break;
-      ++rounds;
-      if (p.e > 0)              // an edgeless light graph relaxes nothing
-        edges += (unsigned)delta_phase<MSG, COMB>(p, C, f, U, seq, sm);
-    }
-    if (ph.e > 0) {
-      // the heavy pass: every settled node's heavy edges, once
-      const Frontier f = delta_pass(
-          ph, pass, [&](int32_t i, int32_t& a, int32_t& sum, int32_t& c) {
-            if (__ldcg(S + i)) {
-              const int32_t d = degree(ph, i);
-              ++a;
-              sum += d;
-              c = max(c, d);
-            }
-          });
-      const int32_t e = delta_phase<MSG, COMB>(ph, S, f, U, seq, sm);
-      edges += (unsigned)e;
-      rounds += e > 0;
+      if (f.count == 0) {
+        if (heavy.e == 0) break;
+        // the heavy pass: every settled node's heavy edges, once
+        heavy_turn = true;
+        f = delta_pass(
+            p, ch, [&](int32_t i, int32_t& a, int32_t& sum, int32_t& c) {
+              if (__ldcg(S + i)) {
+                const int32_t d = degree(heavy, i);
+                ++a;
+                sum += d;
+                c = max(c, d);
+              }
+            });
+      } else {
+        if (keeper) ++p.result[2];
+        if (p.e == 0) continue;  // an edgeless light graph relaxes nothing
+      }
+      // the phase's graph by the address of a kernel parameter, so that
+      // no register holds its arrays through the phase (the passes over
+      // every node copy the one array they read)
+      const Graph* gp = heavy_turn ? &heavy : &light;
+      const int32_t e = delta_phase<MSG, COMB>(
+          p, *gp, heavy_turn ? S : C, f, U, ch, sm);
+      if (keeper) {
+        p.result[1] += (unsigned)e;
+        if (heavy_turn && e > 0) ++p.result[2];
+      }
     }
     ++it;
   }
-  if (gtid() == 0) {
+  settle(p, ch);                        // the result lies in val[0]
+  if (keeper) {
     p.result[0] = it;
-    p.result[1] = (long long)edges;
-    p.result[2] = rounds;
-    p.result[3] = b;
-    p.result[4] = count;
+    write_counts(p, ch);
   }
 }
 
@@ -866,10 +1216,16 @@ __global__ void ad_choice_probe_kernel(Params p, const int32_t* count,
   out[i] = ad_choice(p, f);
 }
 
+// k grid barriers and nothing else, for the barrier's cost alone
+__global__ void __launch_bounds__(THREADS)
+barrier_probe_kernel(unsigned* bar, int k) {
+  for (int i = 0; i < k; ++i) grid_sync(bar);
+}
+
 // The workspace, carved from one buffer: each piece on a 256-byte boundary.
 struct Layout {
-  size_t ctrl, B, stamp, dirty, list, deg, pfx, exc, start, mask0, mask1,
-      settled, btot, total;
+  size_t ctrl, B, stamp, dirty0, dirty1, list, deg, pfx, exc, start, tail,
+      mask0, mask1, settled, btot, total;
 };
 
 Layout layout(int64_t n, int64_t max_grid) {
@@ -883,12 +1239,14 @@ Layout layout(int64_t n, int64_t max_grid) {
   l.ctrl = take(CTRL_WORDS * sizeof(unsigned));
   l.B = take(n * 4);
   l.stamp = take(n * 4);
-  l.dirty = take(n * 4);
+  l.dirty0 = take(n * 4);
+  l.dirty1 = take(n * 4);
   l.list = take(n * 4);
   l.deg = take(n * 4);
   l.pfx = take(n * 4);
   l.exc = take(n * 4);
   l.start = take(n * 4);
+  l.tail = take(TAIL_MAX * 4);
   l.mask0 = take(n);
   l.mask1 = take(n);
   l.settled = take(n);
@@ -912,8 +1270,10 @@ cudaError_t max_grid(int64_t* out) {
 }
 
 // A cooperative launch of `kernel` with `args`: the grid is as many blocks
-// as the card keeps resident.
-cudaError_t launch_coop(const void* kernel, void** args, cudaStream_t st) {
+// of `sized_as` as the card keeps resident (sized_as: kernel itself when
+// null).
+cudaError_t launch_coop(const void* kernel, void** args, cudaStream_t st,
+                        const void* sized_as = nullptr) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -921,8 +1281,8 @@ cudaError_t launch_coop(const void* kernel, void** args, cudaStream_t st) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sized_as ? sized_as : kernel, THREADS, 0);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
@@ -946,33 +1306,34 @@ cudaError_t launch_msg(int comb, const Params& p, cudaStream_t st) {
 
 // delta mode: idempotent operators only (no COMB_ADD instances)
 template <int MSG, int COMB>
-cudaError_t launch_delta_t(Params p, Params ph, cudaStream_t st) {
-  void* args[] = {&p, &ph};
+cudaError_t launch_delta_t(Params p, Graph heavy, cudaStream_t st) {
+  Graph light = graph_of(p);
+  void* args[] = {&p, &heavy, &light};
   return launch_coop((const void*)fused_delta_kernel<MSG, COMB>, args, st);
 }
 
 template <int MSG>
-cudaError_t launch_delta_msg(int comb, const Params& p, const Params& ph,
+cudaError_t launch_delta_msg(int comb, const Params& p, const Graph& heavy,
                              cudaStream_t st) {
-  if (comb == COMB_MIN) return launch_delta_t<MSG, COMB_MIN>(p, ph, st);
-  return launch_delta_t<MSG, COMB_MAX>(p, ph, st);
+  if (comb == COMB_MIN) return launch_delta_t<MSG, COMB_MIN>(p, heavy, st);
+  return launch_delta_t<MSG, COMB_MAX>(p, heavy, st);
 }
 
-// The Params of one launch over n values (rows * nodes), the workspace
+// The Params of one launch over n nodes, the workspace
 // carved by its layout; zeroes the control words.
 cudaError_t make_params(Params& p, const int32_t* row_ptr, const int32_t* col,
-                        const int32_t* wt, int32_t n, int32_t rows,
-                        int32_t e, const int32_t* aux, const int32_t* dist0,
+                        const int32_t* wt, int32_t n, int32_t e,
+                        const int32_t* aux, const int32_t* dist0,
                         const uint8_t* mask0, int kernel, int max_iterations,
                         int mdt, int switch_threshold, int small_frontier,
                         float imbalance_threshold, int hp_edges_threshold,
-                        int32_t* dist, void* workspace,
+                        int tail_width, int32_t* dist, void* workspace,
                         long long workspace_bytes, long long* result,
                         cudaStream_t st) {
   int64_t grid = 0;
   cudaError_t err = max_grid(&grid);
   if (err != cudaSuccess) return err;
-  const Layout l = layout((int64_t)rows * n, grid);
+  const Layout l = layout(n, grid);
   if (workspace_bytes < (long long)l.total) return cudaErrorInvalidValue;
   char* ws = static_cast<char*>(workspace);
   p = Params{};
@@ -984,8 +1345,6 @@ cudaError_t make_params(Params& p, const int32_t* row_ptr, const int32_t* col,
   p.mask0 = mask0;
   p.n = n;
   p.e = e;
-  p.rows = rows;
-  p.nk = rows * n;
   p.kernel = kernel;
   p.max_iterations = max_iterations;
   p.mdt = mdt;
@@ -993,10 +1352,13 @@ cudaError_t make_params(Params& p, const int32_t* row_ptr, const int32_t* col,
   p.small_frontier = small_frontier;
   p.hp_edges_threshold = hp_edges_threshold;
   p.imbalance_threshold = imbalance_threshold;
-  p.A = dist;
-  p.B = reinterpret_cast<int32_t*>(ws + l.B);
+  p.tail_width = tail_width;
+  p.val[0] = dist;
+  p.val[1] = reinterpret_cast<int32_t*>(ws + l.B);
   p.stamp = reinterpret_cast<int32_t*>(ws + l.stamp);
-  p.dirty = reinterpret_cast<int32_t*>(ws + l.dirty);
+  p.dirty[0] = reinterpret_cast<int32_t*>(ws + l.dirty0);
+  p.dirty[1] = reinterpret_cast<int32_t*>(ws + l.dirty1);
+  p.tail = reinterpret_cast<int32_t*>(ws + l.tail);
   p.list = reinterpret_cast<int32_t*>(ws + l.list);
   p.deg = reinterpret_cast<int32_t*>(ws + l.deg);
   p.pfx = reinterpret_cast<int32_t*>(ws + l.pfx);
@@ -1038,8 +1400,7 @@ cudaError_t block_attrs(const void* kernel, int* out) {
 
 extern "C" {
 
-// Bytes of workspace a traversal of n values (rows * nodes) needs on the
-// current card.
+// Bytes of workspace a traversal of n nodes needs on the current card.
 int repro_fused_workspace_bytes(int32_t n, long long* bytes) {
   int64_t grid = 0;
   const cudaError_t err = max_grid(&grid);
@@ -1049,37 +1410,36 @@ int repro_fused_workspace_bytes(int32_t n, long long* bytes) {
   return 0;
 }
 
-// One traversal, or a batch of `rows` WD traversals: n >= 1, e >= 0;
-// wt == nullptr means weight 1; aux holds EP's edge sources [e] or NS's
-// child -> parent map [n] (else unused); dist0 [rows, n] and mask0
-// [rows, n] are read, dist [rows, n] receives the result; result [5]
-// (int64) gets iterations, edges relaxed and AD's BS/WD/HP counts.
+// One traversal: n >= 1, e >= 0; wt == nullptr means weight 1; aux holds
+// EP's edge sources [e] or NS's child -> parent map [n] (else unused);
+// dist0 [n] and mask0 [n] are read, dist [n] receives the result; result
+// [RESULT_CELLS] (int64) gets iterations, edges relaxed and AD's BS/WD/HP
+// counts, then the grid-wide chunks, the block-local chunks and the grid
+// barriers.
 // coeffs (host memory, 9 floats, row-major (a, b, c) for BS, WD, HP) makes
-// AD take the measured model; nullptr keeps the fixed tree.
-// rows > 1 takes only kernel WD, and rows * n must stay below 2^31.
-// workspace holds repro_fused_workspace_bytes(rows * n) bytes.
+// AD take the measured model; nullptr keeps the fixed tree.  tail_width
+// (0..TAIL_MAX) is the most live slots of a BS/NS column run inside one
+// block (0: none).  workspace holds repro_fused_workspace_bytes(n) bytes.
 // Returns the status of the launch (cudaErrorCooperativeLaunchTooLarge
 // if the grid cannot be resident).
 int repro_fused_fixed_point(
     const int32_t* row_ptr, const int32_t* col, const int32_t* wt,
-    int32_t n, int32_t rows, int32_t e, const int32_t* aux,
-    const int32_t* dist0,
+    int32_t n, int32_t e, const int32_t* aux, const int32_t* dist0,
     const uint8_t* mask0, int kernel, int msg, int comb, int max_iterations,
     int mdt, int switch_threshold, int small_frontier,
-    float imbalance_threshold, int hp_edges_threshold, const float* coeffs,
-    int32_t* dist, void* workspace, long long workspace_bytes,
-    long long* result, void* stream) {
+    float imbalance_threshold, int hp_edges_threshold, int tail_width,
+    const float* coeffs, int32_t* dist, void* workspace,
+    long long workspace_bytes, long long* result, void* stream) {
   if (!codes_ok(msg, comb) || kernel < K_BS || kernel > K_AD || n < 1 ||
-      e < 0 || mdt < 1 || dist == dist0 || rows < 1 ||
-      (rows > 1 && kernel != K_WD) || (int64_t)rows * n >= (1LL << 31) ||
+      e < 0 || mdt < 1 || dist == dist0 || tail_width < 0 ||
+      tail_width > TAIL_MAX ||
       ((kernel == K_EP || kernel == K_NS) && aux == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Params p;
   cudaError_t err = make_params(
-      p, row_ptr, col, wt, n, rows, e, aux, dist0, mask0, kernel,
-      max_iterations, mdt, switch_threshold, small_frontier,
-      imbalance_threshold, hp_edges_threshold, dist, workspace,
+      p, row_ptr, col, wt, n, e, aux, dist0, mask0, kernel, max_iterations, mdt, switch_threshold, small_frontier,
+      imbalance_threshold, hp_edges_threshold, tail_width, dist, workspace,
       workspace_bytes, result, st);
   if (err != cudaSuccess) return (int)err;
   if (coeffs != nullptr) {
@@ -1099,42 +1459,41 @@ int repro_fused_fixed_point(
 // -> parent map [n]) or AD (the fixed tree); an idempotent operator (comb
 // MIN or MAX); delta >= 1; at most max_epochs epochs.  dist0 [n] and
 // mask0 [n] are read; dist [n] and mask [n] receive the values and the
-// frontier; result [5] (int64) gets epochs, edges relaxed, relax rounds,
-// the last bucket settled and the frontier's count.  workspace holds
-// repro_fused_workspace_bytes(n) bytes.
+// frontier; result [RESULT_CELLS] (int64) gets epochs, edges relaxed,
+// relax rounds, the last bucket settled and the frontier's count, then the
+// chunk and barrier counts as repro_fused_fixed_point's.  tail_width as
+// there.  workspace holds repro_fused_workspace_bytes(n) bytes.
 int repro_fused_delta(
     const int32_t* row_ptr, const int32_t* col, const int32_t* wt, int32_t e,
     const int32_t* hrow_ptr, const int32_t* hcol, const int32_t* hwt,
     int32_t he, int32_t n, const int32_t* aux, const int32_t* dist0,
     const uint8_t* mask0, int kernel, int msg, int comb, int delta,
     int max_epochs, int mdt, int switch_threshold, int small_frontier,
-    float imbalance_threshold, int hp_edges_threshold, int32_t* dist,
-    uint8_t* mask, void* workspace, long long workspace_bytes,
+    float imbalance_threshold, int hp_edges_threshold, int tail_width,
+    int32_t* dist, uint8_t* mask, void* workspace, long long workspace_bytes,
     long long* result, void* stream) {
   if (!codes_ok(msg, comb) || comb == COMB_ADD || kernel < K_BS ||
       kernel > K_AD || kernel == K_EP || n < 1 || e < 0 || he < 0 ||
+      tail_width < 0 || tail_width > TAIL_MAX ||
       (he > 0 && hrow_ptr == nullptr) || delta < 1 || mdt < 1 ||
       dist == dist0 || (kernel == K_NS && aux == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Params p;
   cudaError_t err = make_params(
-      p, row_ptr, col, wt, n, 1, e, aux, dist0, mask0, kernel, max_epochs,
+      p, row_ptr, col, wt, n, e, aux, dist0, mask0, kernel, max_epochs,
       mdt, switch_threshold, small_frontier, imbalance_threshold,
-      hp_edges_threshold, dist, workspace, workspace_bytes, result, st);
+      hp_edges_threshold, tail_width, dist, workspace, workspace_bytes,
+      result, st);
   if (err != cudaSuccess) return (int)err;
   p.delta = delta;
   p.live = mask;
-  Params ph = p;
-  if (he > 0) {
-    ph.row_ptr = hrow_ptr;
-    ph.col = hcol;
-    ph.wt = hwt;
-  }
-  ph.e = he;
-  if (msg == MSG_SUM) err = launch_delta_msg<MSG_SUM>(comb, p, ph, st);
-  else if (msg == MSG_COPY) err = launch_delta_msg<MSG_COPY>(comb, p, ph, st);
-  else err = launch_delta_msg<MSG_BOTTLENECK>(comb, p, ph, st);
+  const Graph heavy = he > 0 ? Graph{hrow_ptr, hcol, hwt, he}
+                             : Graph{nullptr, nullptr, nullptr, 0};
+  if (msg == MSG_SUM) err = launch_delta_msg<MSG_SUM>(comb, p, heavy, st);
+  else if (msg == MSG_COPY)
+    err = launch_delta_msg<MSG_COPY>(comb, p, heavy, st);
+  else err = launch_delta_msg<MSG_BOTTLENECK>(comb, p, heavy, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1150,6 +1509,19 @@ int repro_fused_ad_choice_probe(const float* coeffs, const int32_t* count,
   for (int k = 0; k < 9; ++k) p.coeffs[k] = coeffs[k];
   ad_choice_probe_kernel<<<(m + THREADS - 1) / THREADS, THREADS, 0,
                            (cudaStream_t)stream>>>(p, count, degsum, m, out);
+  return (int)cudaGetLastError();
+}
+
+// k grid barriers by a cooperative grid the size of the fused kernel's
+// (shortest_path's instance); bar: two zeroed words (the barrier and its
+// count).
+int repro_fused_barrier_probe(int k, unsigned* bar, void* stream) {
+  if (k < 0 || bar == nullptr) return (int)cudaErrorInvalidValue;
+  void* args[] = {&bar, &k};
+  const cudaError_t err = launch_coop(
+      (const void*)barrier_probe_kernel, args, (cudaStream_t)stream,
+      (const void*)fused_fixed_point_kernel<MSG_SUM, COMB_MIN>);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

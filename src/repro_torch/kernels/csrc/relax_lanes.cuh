@@ -12,14 +12,8 @@
 //     coherent with writes of the launch, so it reads them from L2
 //     (`Coherent`: ld.global.cg) and stages with plain L2 loads;
 //   * what an improving lane does besides the fold (`Hook`): nothing in
-//     B1/B2, a note of the destination in the fused kernel, which copies
-//     the improved entries back into its snapshot after the chunk.
-// B1's tile takes a third (`Row`): where a lane's destination lies in the
-// value array.  One traversal's array is the graph's nodes (`OneRow`: the
-// column index itself); the fused kernel's batch of K queries is one flat
-// array of K rows of n (`FlatRows`: the source's row, then the column).
-// B1's own batch contract (relax.cu) offsets its pointers by the row
-// before it calls the tile, so it takes `OneRow` too.
+//     B1/B2, a note of the destination in the fused kernel, which carries
+//     the improved entries into its other value buffer after the chunk.
 // `col` and `wt` are never written by any launch and always take __ldg.
 
 #pragma once
@@ -81,21 +75,6 @@ struct Coherent {
 
 struct NoHook {
   __device__ __forceinline__ void operator()(int32_t) const {}
-};
-
-struct OneRow {
-  __device__ __forceinline__ int32_t operator()(int32_t, int32_t c) const {
-    return c;
-  }
-};
-
-// K rows of n nodes, flat: a lane from flat node s reaches column c of
-// the same row
-struct FlatRows {
-  int32_t n;
-  __device__ __forceinline__ int32_t operator()(int32_t s, int32_t c) const {
-    return s - s % n + c;
-  }
 };
 
 template <int MSG>
@@ -227,14 +206,14 @@ struct WdSmem {
 // runs of zero-degree slots, HP's tail cursors past the end) keeps the
 // per-lane global search, narrowed to the slice.  Every thread of the
 // block calls it with the same t; imp (may be null) gets each lane's
-// improve flag; `row` maps a lane's source and column to its destination.
-template <int MSG, int COMB, class Ld, class Hook, class Row = OneRow>
+// improve flag.
+template <int MSG, int COMB, class Ld, class Hook>
 __device__ __forceinline__ void wd_tile(
     int64_t t, const int32_t* dist, int32_t n, const int32_t* prefix,
     const int32_t* excl, const int32_t* start, const int32_t* src_ids,
     int32_t f, const int32_t* col, const int32_t* wt, int32_t e,
     int32_t cap_work, int64_t total, int32_t* target, uint8_t* upd,
-    uint8_t* imp, WdSmem& sm, const Hook& hook, const Row& row = Row()) {
+    uint8_t* imp, WdSmem& sm, const Hook& hook) {
   constexpr int L = B1_LANES;
   const int64_t k0 = t * B1_TILE;
   const int64_t k_end = k0 + B1_TILE < cap_work ? k0 + B1_TILE : cap_work;
@@ -289,7 +268,7 @@ __device__ __forceinline__ void wd_tile(
       s[j] = Ld::ld(src_ids + i);
     }
     const int32_t ec = clamp_index((int64_t)st + (k - ex), e);
-    c[j] = row(s[j], __ldg(col + ec));
+    c[j] = __ldg(col + ec);
     wv[j] = wt ? __ldg(wt + ec) : 1;
   }
   bool improved[L];

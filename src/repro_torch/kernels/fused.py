@@ -5,11 +5,12 @@ reference's ``repro.core.fused._fixed_point``) from ``(dist, mask)`` to
 its fixed point.  For CUDA tensors it makes ONE cooperative launch of
 ``csrc/fused.cu``'s persistent kernel, counts it in
 ``LAUNCHES["fused_fixed_point"]`` and reads back iterations, the edge
-total and AD's three counts with one host sync; nothing of B1 or B2 is
-launched (the kernel carries their lane bodies).  For CPU tensors it runs
-the plain version, :func:`repro_torch.core.fused._fixed_point_plain`.
-:func:`batch_fixed_point` runs K WD traversals the same way, in one launch
-of the same kernel with K rows (ROADMAP A8).  :func:`delta_fixed_point`
+total, AD's three counts and the traversal's :class:`Chunks` with one host
+sync; nothing of B1 or B2 is launched (the kernel carries their lane
+bodies).  For CPU tensors it runs the plain version,
+:func:`repro_torch.core.fused._fixed_point_plain`.
+:func:`batch_fixed_point` runs K WD traversals (ROADMAP A8) as K launches
+of the same kernel, one a row.  :func:`delta_fixed_point`
 runs a delta-stepping traversal (ROADMAP A10) as one launch of the same
 file's kernel in its delta mode (light and heavy graphs, bucket epochs),
 also counted in ``LAUNCHES["fused_fixed_point"]``; its CPU version is
@@ -19,6 +20,7 @@ also counted in ``LAUNCHES["fused_fixed_point"]``; its CPU version is
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -33,6 +35,32 @@ from repro_torch.kernels._build import (LAUNCHES, check_dense, check_tensor,
 #: the kernel argument naming each fused lowering (``csrc/fused.cu``)
 KERNEL_CODES = {"BS": 0, "WD": 1, "HP": 2, "EP": 3, "NS": 4, "AD": 5}
 
+#: int64 cells of a launch's result (``csrc/fused.cu`` RESULT_CELLS)
+RESULT_CELLS = 8
+#: the most live slots a BS/NS column may have to run inside one block of
+#: the fused kernel (at most 1,024; 0: every column is a grid-wide chunk).
+#: The path reads it as a constant.  It is a module value, passed to each
+#: launch, only so that the card tests can force the tail's cases on small
+#: graphs and ``tools/fused_column_profile.py --widths`` can weigh it; the
+#: width sweep's outcome is in PERF.md (1,024 within 1% of the best).
+TAIL_WIDTH = 1024
+#: the fewest columns a one-block tail takes: a copy of ``csrc/fused.cu``
+#: TAIL_MIN_COLUMNS for the plain loop's count (``core.fused.bs_split``),
+#: held to the kernel's by the card tests' chunk comparison
+TAIL_MIN_COLUMNS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Chunks:
+    """A traversal's chunks by kind: ``grid`` chunks end at a grid barrier,
+    ``block`` chunks (narrow BS/NS columns) run inside one block.  Both
+    follow from the frontiers, so the plain loop counts them too;
+    ``barriers`` is the kernel's count of grid barriers (``None`` from the
+    plain loop) and takes no part in a comparison."""
+    grid: int
+    block: int
+    barriers: Optional[int] = dataclasses.field(default=None, compare=False)
+
 
 def fixed_point(kernel: str, graph: CSRGraph, aux: Optional[torch.Tensor],
                 dist: torch.Tensor, mask: torch.Tensor, *, op: EdgeOp,
@@ -44,7 +72,7 @@ def fixed_point(kernel: str, graph: CSRGraph, aux: Optional[torch.Tensor],
     resolved :class:`~repro_torch.core.schedule.Schedule`; ``coeffs``
     measured AD's ``[3, 3]`` float32 cost model (else ``None``: the fixed
     tree).  Returns ``(dist, iterations, edges_relaxed, [BS, WD, HP]
-    counts of AD's choices)``; the inputs are not modified."""
+    counts of AD's choices, Chunks)``; the inputs are not modified."""
     if kernel not in KERNEL_CODES:
         raise ValueError(f"unknown fused kernel {kernel!r}")
     if dist.device.type == "cpu":
@@ -60,20 +88,13 @@ def fixed_point(kernel: str, graph: CSRGraph, aux: Optional[torch.Tensor],
     check_tensor("mask", mask, dev, torch.bool, n)
     if kernel in ("EP", "NS"):
         check_tensor("aux", aux, dev, torch.int32, e if kernel == "EP" else n)
+    _check_graph(graph, dev)
     out = torch.empty_like(dist)
-    it, edges, *chosen = _launch(kernel, graph, aux, dist, mask, 1, out,
-                                 op=op, sched=sched,
-                                 max_iterations=max_iterations,
-                                 coeffs=coeffs)
-    return out, it, edges, chosen
-
-
-def rows_per_launch(num_nodes: int, num_edges: int) -> int:
-    """The most rows a batch launch takes: its flat ``[rows, N]`` values
-    and an iteration's summed degree (at most ``rows * E``) index with
-    int32."""
-    return max(1, min((2 ** 31 - 1) // max(num_nodes, 1),
-                      (2 ** 31 - 1) // max(num_edges, 1)))
+    workspace, result = _workspace(n, dev)
+    _launch(kernel, graph, aux, dist, mask, out, workspace, result[0], op=op,
+            sched=sched, max_iterations=max_iterations, coeffs=coeffs)
+    it, edges, *chosen, grid, block, barriers = result[0].tolist()  # sync
+    return out, it, edges, chosen, Chunks(grid, block, barriers)
 
 
 def batch_fixed_point(graph: CSRGraph, dist: torch.Tensor,
@@ -81,12 +102,14 @@ def batch_fixed_point(graph: CSRGraph, dist: torch.Tensor,
                       max_iterations: int):
     """K WD traversals from the rows of ``dist [K, N]`` and ``mask
     [K, N]`` to the batch's fixed point (while any row's frontier is
-    live).  For CUDA tensors ONE launch of the persistent kernel with K
-    rows (the kernel's WD chunk over every row's frontier at once); a
-    batch past :func:`rows_per_launch` runs as groups of rows, one launch
-    each, which is exact because rows never interact: the iterations are
-    the groups' maximum and the edges their sum.  For CPU tensors the
-    plain loop :func:`repro_torch.core.fused._batch_fixed_point_plain`.
+    live).  For CUDA tensors one launch of the persistent kernel a row,
+    each a WD traversal, queued back to back and read with one host sync:
+    rows never interact, and a row whose frontier empties early only
+    idles in the batch's loop, so the iterations are the rows' maximum and
+    the edges their sum.  (One launch over all K
+    rows, a flat ``[K, N]`` frontier, measured 1.39x slower at K = 8 on
+    the H100: PERF.md.)  For CPU tensors the plain loop
+    :func:`repro_torch.core.fused._batch_fixed_point_plain`.
     Returns ``(dist [K, N], iterations, edges_relaxed)``; the inputs are
     not modified."""
     if dist.device.type == "cpu":
@@ -102,16 +125,15 @@ def batch_fixed_point(graph: CSRGraph, dist: torch.Tensor,
     k, n = dist.shape
     check_dense("dist", dist, dev, torch.int32, (k, graph.num_nodes))
     check_dense("mask", mask, dev, torch.bool, (k, n))
+    _check_graph(graph, dev)
     out = torch.empty_like(dist)
-    it, edges = 0, 0
-    step = rows_per_launch(n, graph.num_edges)
-    for r0 in range(0, k, step):
-        r1 = min(r0 + step, k)
-        res = _launch("WD", graph, None, dist[r0:r1], mask[r0:r1], r1 - r0,
-                      out[r0:r1], op=op, sched=sched,
-                      max_iterations=max_iterations)
-        it, edges = max(it, res[0]), edges + res[1]
-    return out, it, edges
+    workspace, result = _workspace(n, dev, k)
+    for r in range(k):
+        _launch("WD", graph, None, dist[r], mask[r], out[r], workspace,
+                result[r], op=op, sched=sched, max_iterations=max_iterations)
+    cells = result.tolist()                         # the one host sync
+    return (out, max((c[0] for c in cells), default=0),
+            sum(c[1] for c in cells))
 
 
 def _check_graph(graph: CSRGraph, dev: torch.device) -> None:
@@ -124,15 +146,17 @@ def _check_graph(graph: CSRGraph, dev: torch.device) -> None:
         raise ValueError("fused_fixed_point needs a graph with nodes")
 
 
-def _workspace(values: int, dev: torch.device):
-    """The launch's workspace and its ``[5]`` int64 result cells."""
+def _workspace(values: int, dev: torch.device, launches: int = 1):
+    """A launch's workspace, which launches in turn on one stream share,
+    and ``[launches, RESULT_CELLS]`` int64 result cells."""
     nbytes = ctypes.c_longlong()
     with torch.cuda.device(dev):
         _build.check("fused_workspace_bytes",
                      _build.lib().repro_fused_workspace_bytes(
                          values, ctypes.byref(nbytes)))
     return (torch.empty(nbytes.value, dtype=torch.uint8, device=dev),
-            torch.empty(5, dtype=torch.int64, device=dev))
+            torch.empty((launches, RESULT_CELLS), dtype=torch.int64,
+                        device=dev))
 
 
 def _coeff_array(coeffs):
@@ -146,31 +170,30 @@ def _coeff_array(coeffs):
     return (ctypes.c_float * 9)(*c.tolist())
 
 
-def _launch(kernel: str, graph: CSRGraph, aux, dist, mask, rows: int, out,
-            *, op: EdgeOp, sched, max_iterations: int,
-            coeffs=None) -> list:
-    """One cooperative launch over ``rows`` rows of ``graph``'s nodes
-    (contiguous ``dist``/``mask``/``out``); returns iterations, the edge
-    total and AD's three counts, read with one host sync."""
+def _launch(kernel: str, graph: CSRGraph, aux, dist, mask, out, workspace,
+            result, *, op: EdgeOp, sched, max_iterations: int,
+            coeffs=None) -> None:
+    """Enqueue one cooperative launch over ``graph``'s nodes (contiguous
+    ``dist``/``mask``/``out``, a :func:`_workspace`); ``result`` (int64
+    ``[RESULT_CELLS]``) receives iterations, the edge total, AD's three
+    counts, the grid-wide and block-local chunks and the grid barriers.
+    Does not sync."""
     msg, comb = op.kernel_codes()
     dev = dist.device
     n, e = graph.num_nodes, graph.num_edges
-    _check_graph(graph, dev)
     lib = _build.lib()
-    workspace, result = _workspace(rows * n, dev)
     with torch.cuda.device(dev):
         _build.check("fused_fixed_point", lib.repro_fused_fixed_point(
             graph.row_ptr.data_ptr(), graph.col.data_ptr(),
-            None if graph.wt is None else graph.wt.data_ptr(), n, rows, e,
+            None if graph.wt is None else graph.wt.data_ptr(), n, e,
             None if aux is None else aux.data_ptr(), dist.data_ptr(),
             mask.data_ptr(), KERNEL_CODES[kernel], msg, comb,
             min(int(max_iterations), 2 ** 31 - 1), sched.mdt or 1,
             sched.switch_threshold, sched.small_frontier,
-            sched.imbalance_threshold, sched.hp_edges_threshold,
+            sched.imbalance_threshold, sched.hp_edges_threshold, TAIL_WIDTH,
             _coeff_array(coeffs), out.data_ptr(), workspace.data_ptr(),
             workspace.numel(), result.data_ptr(), stream_of(dev)))
     LAUNCHES["fused_fixed_point"] += 1
-    return result.tolist()                          # the one host sync
 
 
 def delta_fixed_point(kernel: str, light: CSRGraph,
@@ -228,11 +251,11 @@ def delta_fixed_point(kernel: str, light: CSRGraph,
             ptr(aux), dist.data_ptr(), mask.data_ptr(), KERNEL_CODES[kernel],
             msg, comb, int(delta), min(int(max_iterations), 2 ** 31 - 1),
             sched.mdt or 1, sched.switch_threshold, sched.small_frontier,
-            sched.imbalance_threshold, sched.hp_edges_threshold,
+            sched.imbalance_threshold, sched.hp_edges_threshold, TAIL_WIDTH,
             out.data_ptr(), out_mask.data_ptr(), workspace.data_ptr(),
             workspace.numel(), result.data_ptr(), stream_of(dev)))
     LAUNCHES["fused_fixed_point"] += 1
-    epochs, edges, rounds, b, count = result.tolist()   # the one host sync
+    epochs, edges, rounds, b, count, *_ = result[0].tolist()  # host sync
     return out, out_mask, epochs, rounds, edges, b, count
 
 
@@ -262,3 +285,17 @@ def ad_choice_probe(coeffs, count: torch.Tensor,
                          stream_of(dev)))
     LAUNCHES["ad_choice_probe"] += 1
     return out
+
+
+def barrier_probe(k: int, device) -> None:
+    """``k`` grid barriers and nothing else, by a cooperative grid the size
+    of the fused kernel's: the barrier's cost alone, timed by the caller
+    (CUDA events).  Card only."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"barrier_probe runs on a CUDA device, not {dev}")
+    bar = torch.zeros(16, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check("barrier_probe", _build.lib().repro_fused_barrier_probe(
+            int(k), bar.data_ptr(), stream_of(dev)))
+    LAUNCHES["barrier_probe"] += 1

@@ -3,8 +3,8 @@ version (the relax kernels exactly, B4/B5 within tests/test_kernels.py's
 tolerances), the wrappers' argument checks, the stepped engine (all six
 strategies, connected components, widest path), the fused fixed point
 (against its plain loop on the card and the CPU, one launch a traversal),
-the batched queries (B1's batch contract and the fused kernel with K rows
-against their plain versions, ``run_batch`` and ``GraphServer`` against
+the batched queries (B1's batch contract and the fused batch, a launch a
+row, against their plain versions, ``run_batch`` and ``GraphServer`` against
 the CPU), delta-stepping (the fused kernel's delta mode against its plain
 epoch loop, the engines, batch and server against the CPU), measured AD
 (``ad_choice`` against ``CostModel.choose``, calibration, block
@@ -391,6 +391,168 @@ def test_fused_engine_on_the_card_matches_cpu_and_stepped(dev, run):
                                                        other.edges_relaxed)
 
 
+#: tail widths of the one-block BS/NS columns: none, a lone slot, a mid
+#: start at rmat12, and the default, which is the widest
+TAIL_WIDTHS = [0, 1, 16, 1024]
+
+
+@pytest.mark.parametrize("width", TAIL_WIDTHS)
+@pytest.mark.parametrize("opname", OP_NAMES)
+@pytest.mark.parametrize("run", ["BS", "NS", "AD-all"])
+def test_fused_tail_matches_plain(dev, monkeypatch, run, opname, width):
+    """BS, NS and AD (taking BS, WD and HP) at every tail width: the
+    kernel's (dist, iterations, edges, choices) and its grid-wide and
+    one-block chunks equal the plain loop's, for all four operators (add's
+    two-barrier chunk and copy-back included).  Width 0 runs no column in
+    one block; 16 starts the tail mid-iteration in wide frontiers and at
+    column 0 in narrow ones."""
+    from repro_torch.kernels import fused as kernel_fused
+    monkeypatch.setattr(kernel_fused, "TAIL_WIDTH", width)
+    strategy, kwargs = FUSED_RUNS[run]
+    op = operators.OPERATORS[opname]
+    g = rmat_graph(scale=12, weighted=True, seed=1, device=dev)
+    got, want, launched = _fused_pair(
+        g, strategy, kwargs, op, int(g.degrees.argmax()),
+        6 if opname == "reach_count" else 100000)
+    assert torch.equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    assert launched["fused_fixed_point"] == 1
+    chunks = got[4]
+    assert chunks.barriers > chunks.grid
+    if width == 0:
+        assert chunks.block == 0
+    elif width >= 16 and run != "AD-all":
+        assert chunks.block > 0
+    if width == 16 and run == "BS":
+        assert chunks.grid > 0
+
+
+def _hub_graph(dev, hubs: int = 8, leaves: int = 40):
+    """Node 0 reaches hubs 1..H (weights 1000 h); hub h has 10 h + 5
+    edges, one of them (at position 9 h + 1) to hub h + 1 with weight 1
+    and the rest to leaves.  In the second iteration every hub is in the
+    frontier, and each hub's improvement of the next hub lands in a column
+    before the one that relaxes the next hub's own chain edge: the values
+    chain across columns, inside the one-block tail."""
+    src, dst, wt = [], [], []
+    for h in range(1, hubs + 1):
+        src.append(0)
+        dst.append(h)
+        wt.append(1000 * h)
+    first_leaf = hubs + 1
+    for h in range(1, hubs + 1):
+        for pos in range(10 * h + 5):
+            src.append(h)
+            if pos == 9 * h + 1 and h < hubs:
+                dst.append(h + 1)
+                wt.append(1)
+            else:
+                dst.append(first_leaf + (h * 7 + pos) % leaves)
+                wt.append(pos % 13 + 1)
+    return CSRGraph.from_edges(np.array(src), np.array(dst), np.array(wt),
+                               first_leaf + leaves, device=dev)
+
+
+@pytest.mark.parametrize("width", [0, 4, 8, 1024])
+@pytest.mark.parametrize("opname", OP_NAMES)
+@pytest.mark.parametrize("strategy", ["BS", "AD"])
+def test_fused_tail_chains_hub_values(dev, monkeypatch, strategy, opname,
+                                      width):
+    """Hubs in one frontier improving each other across columns: the
+    kernel equals the plain loop and, for shortest_path, the stepped run
+    on the card.  Width 4 starts the tail at column 64 (three hubs of
+    degree > 64; hub 7's chain edge is column 64, after hub 6's at 55 in
+    the grid-wide part), 8 at column 0, 0 never."""
+    from repro_torch.kernels import fused as kernel_fused
+    monkeypatch.setattr(kernel_fused, "TAIL_WIDTH", width)
+    op = operators.OPERATORS[opname]
+    g = _hub_graph(dev)
+    got, want, _ = _fused_pair(g, strategy, {}, op, 0,
+                               8 if opname == "reach_count" else 100000)
+    assert torch.equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    if width and strategy == "BS":
+        assert got[4].block > 0
+    if width == 4 and strategy == "BS":
+        assert got[4].grid > 0
+    if opname == "shortest_path":
+        fused = sssp(g, 0, strategy=strategy, device=dev, mode="fused")
+        stepped = sssp(g, 0, strategy=strategy, device=dev)
+        np.testing.assert_array_equal(fused.dist, stepped.dist)
+        np.testing.assert_array_equal(fused.dist, got[0].cpu().numpy())
+        assert (fused.iterations, fused.edges_relaxed) == (
+            stepped.iterations, stepped.edges_relaxed)
+        # the chain: hub h + 1 is reached through hub h at 1000 + h
+        assert fused.dist[1:9].tolist() == [1000 + h for h in range(8)]
+
+
+def _layered_dag(dev, layers: int = 6, width: int = 40, seed: int = 3):
+    """A DAG of ``layers`` layers of ``width`` nodes; every node of layer
+    i has 1-60 edges into layer i + 1 (duplicates kept): reach_count's
+    add converges after ``layers`` iterations."""
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    for layer in range(layers - 1):
+        for u in range(width):
+            k = int(rng.integers(1, 61))
+            src += [layer * width + u] * k
+            dst += (layer * width + width
+                    + rng.integers(0, width, k)).tolist()
+    return CSRGraph.from_edges(np.array(src), np.array(dst), None,
+                               layers * width, device=dev)
+
+
+@pytest.mark.parametrize("width", [0, 8, 1024])
+@pytest.mark.parametrize("strategy", ["BS", "NS"])
+def test_fused_tail_reach_count_on_a_dag(dev, monkeypatch, strategy, width):
+    """reach_count (add: two barriers a grid-wide chunk, a copy-back in
+    the one-block tail) to its fixed point on a layered DAG: the kernel
+    equals the plain loop and the stepped run on the card."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.kernels import fused as kernel_fused
+    monkeypatch.setattr(kernel_fused, "TAIL_WIDTH", width)
+    op = operators.reach_count
+    g = _layered_dag(dev)
+    got, want, _ = _fused_pair(g, strategy, {}, op, 0, 100000)
+    assert torch.equal(got[0], want[0])
+    assert got[1:] == want[1:] and got[1] == 6
+    assert (got[4].block > 0) == (width > 0)
+    stepped = engine.run(g, 0, make_strategy(strategy), op=op, device=dev)
+    # NS: the split graph's first N values are the original nodes'
+    np.testing.assert_array_equal(
+        stepped.dist, got[0][:g.num_nodes].cpu().numpy())
+
+
+@pytest.mark.parametrize("width", [0, 16, 1024])
+@pytest.mark.parametrize("strategy", ["BS", "NS", "AD"])
+def test_fused_delta_tail_matches_plain(dev, monkeypatch, strategy, width):
+    """The delta mode's BS/NS phases (and AD's BS choices) at tail widths
+    0, 16 and 1024 on road side 128: equal to the plain epoch loop."""
+    from repro_torch.data import road_grid_graph
+    from repro_torch.kernels import fused as kernel_fused
+    monkeypatch.setattr(kernel_fused, "TAIL_WIDTH", width)
+    g = road_grid_graph(side=128, weighted=True, seed=4, device=dev)
+    for delta in (None, 25):
+        _, got, want, _ = _delta_pair(g, strategy, operators.shortest_path,
+                                      128 * 64 + 17, delta, 100000)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[2:] == want[2:]
+
+
+def test_barrier_probe_runs(dev):
+    """The barrier probe: k barriers and nothing else, counted apart."""
+    from repro_torch.kernels import fused as kernel_fused
+    from repro_torch.kernels._build import LAUNCHES
+    before = LAUNCHES["barrier_probe"]
+    for k in (0, 1, 1000):
+        kernel_fused.barrier_probe(k, dev)
+    torch.cuda.synchronize()
+    assert LAUNCHES["barrier_probe"] == before + 3
+    with pytest.raises(RuntimeError):
+        kernel_fused.barrier_probe(-1, dev)
+
+
 @pytest.mark.parametrize("strategy", ["BS", "WD", "NS", "HP", "AD"])
 def test_fused_connected_components_on_the_card_matches_cpu(dev, strategy):
     g = _symmetrized(rmat_graph(scale=12, weighted=False, seed=3,
@@ -401,7 +563,7 @@ def test_fused_connected_components_on_the_card_matches_cpu(dev, strategy):
 
 
 # ---------------------------------------------------------------------------
-# batched queries (A8): B1's batch contract and the fused kernel with K rows
+# batched queries (A8): B1's batch contract and the fused batch
 # ---------------------------------------------------------------------------
 
 def _batch_tables(g, rng, rows, cap):
@@ -449,9 +611,9 @@ def test_wd_relax_lanes_batch_kernel_matches_plain(dev, opname, weighted):
 
 @pytest.mark.parametrize("opname", OP_NAMES)
 def test_fused_batch_kernel_matches_plain(dev, opname):
-    """The fused kernel with K rows against its plain loop on the same
-    card tensors, duplicate and edgeless sources included, in one launch
-    and no B1/B2 launch."""
+    """The fused batch (a launch of the fused kernel a row) against its
+    plain loop on the same card tensors, duplicate and edgeless sources
+    included, with no B1/B2 launch."""
     from repro_torch.core import fused as core_fused
     from repro_torch.core import multi_source
     from repro_torch.kernels import fused as kernel_fused
@@ -472,26 +634,28 @@ def test_fused_batch_kernel_matches_plain(dev, opname):
         g, dist, mask, op=op, max_iterations=kw["max_iterations"])
     assert torch.equal(got[0], want[0])
     assert got[1:] == want[1:] and got[1] > 1
-    assert launched["fused_fixed_point"] == 1
+    assert launched["fused_fixed_point"] == len(sources)
     assert launched["relax_lanes"] == launched["wd_relax_lanes"] == 0
     assert launched["wd_relax_lanes_batch"] == 0
 
 
-def test_fused_batch_splits_past_int32(dev, monkeypatch):
-    """A batch past the int32 limits of one launch runs as row groups,
-    one launch each, with the same bits."""
+def test_fused_batch_rows_equal_single_runs(dev):
+    """Each row of a fused batch is the single-source fused WD run of its
+    source: the same values, the rows' maximum iterations and summed
+    edges, one launch a row."""
     from repro_torch.core import engine
-    from repro_torch.kernels import fused as kernel_fused
+    from repro_torch.core.strategies import make_strategy
     g = rmat_graph(scale=12, weighted=True, seed=1, device=dev)
     sources = [int(g.degrees.argmax()), 1, 2, 3, 4]
-    whole = engine.run_batch(g, sources, mode="fused", device=dev)
-    monkeypatch.setattr(kernel_fused, "rows_per_launch", lambda n, e: 2)
     before = relax.LAUNCHES["fused_fixed_point"]
-    split = engine.run_batch(g, sources, mode="fused", device=dev)
-    assert relax.LAUNCHES["fused_fixed_point"] == before + 3
-    np.testing.assert_array_equal(split.dist, whole.dist)
-    assert (split.iterations, split.edges_relaxed) == (whole.iterations,
-                                                       whole.edges_relaxed)
+    batch = engine.run_batch(g, sources, mode="fused", device=dev)
+    assert relax.LAUNCHES["fused_fixed_point"] == before + len(sources)
+    single = [engine.run(g, s, make_strategy("WD"), mode="fused",
+                         device=dev) for s in sources]
+    np.testing.assert_array_equal(batch.dist,
+                                  np.stack([r.dist for r in single]))
+    assert batch.iterations == max(r.iterations for r in single)
+    assert batch.edges_relaxed == sum(r.edges_relaxed for r in single)
 
 
 @pytest.mark.parametrize("mode", ["stepped", "fused"])
@@ -499,7 +663,8 @@ def test_fused_batch_splits_past_int32(dev, monkeypatch):
 def test_run_batch_on_the_card_matches_cpu(dev, mode, algo):
     """``run_batch`` on the card equals the CPU in dist, iterations, edges
     and per-iteration stats, with one B1 batch launch an iteration
-    (stepped) or one fused launch (fused); ``pad_to`` included."""
+    (stepped) or one fused launch a row, the padded rows included (fused);
+    ``pad_to`` included."""
     from repro_torch.algos import bfs_batch, sssp_batch
     fn = sssp_batch if algo == "sssp" else bfs_batch
     g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
@@ -517,12 +682,13 @@ def test_run_batch_on_the_card_matches_cpu(dev, mode, algo):
     if mode == "stepped":
         assert launched["wd_relax_lanes_batch"] == a.iterations
     else:
-        assert launched["fused_fixed_point"] == 1
+        assert launched["fused_fixed_point"] == 8
 
 
 def test_graph_server_on_the_card_matches_cpu(dev):
     """The same stream through ``GraphServer`` on the card and the CPU:
-    equal rows and stats, one fused launch a dispatched batch."""
+    equal rows and stats, one fused launch a dispatched lane (a row of a
+    batch)."""
     from repro_torch.serve import GraphServer, Request, SimulatedClock
     g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
     outs = []
@@ -531,13 +697,14 @@ def test_graph_server_on_the_card_matches_cpu(dev):
         srv.load_graph("g", g)
         srv.warm("g", [1, 2])
         before = relax.LAUNCHES["fused_fixed_point"]
+        warm_lanes = srv.stats()["lanes_dispatched"]
         for s in [5, 9, 1, 13, 2, 7, 11]:
             srv.submit(Request(source=s, graph="g"))
         done = srv.drain()
         stats = srv.stats()
         if device is dev:
             assert (relax.LAUNCHES["fused_fixed_point"] - before
-                    == stats["batches"] - 1)      # warm's batch came first
+                    == stats["lanes_dispatched"] - warm_lanes)
         outs.append(([(r.request.source, r.cached, r.batch_lanes,
                        r.dist.tobytes()) for r in done], stats))
     assert outs[0] == outs[1]

@@ -1,6 +1,6 @@
 """The port's batched multi-source fixed point (``run_batch``) against the
-reference's, on the CPU, where B1's batch contract and the fused kernel
-with K rows run their plain versions: ``(dist, iterations,
+reference's, on the CPU, where B1's batch contract and the fused batch
+run their plain versions: ``(dist, iterations,
 edges_relaxed, iter_stats)`` bit for bit with no tolerance, stepped and
 fused, on rmat (scale 9), road (side 12) and ER (scale 8), for the four
 built-in operators, ``max_iterations`` of 1-3, ``pad_to``, duplicate and

@@ -3,7 +3,7 @@
 one call on one card.
 
     python3 tools/compare_fused_runs.py --baseline DIR [--rounds 2] [--reps 5]
-                                        [--schedule bsp|delta]
+                                        [--schedule bsp|delta|batch]
 
 ``DIR`` is the root of another tree of this repository, for example an
 earlier commit unpacked by ``git archive <commit> | tar -x -C DIR``.  Each
@@ -23,7 +23,12 @@ their ratio, then the card's ``nvidia-smi`` name and power limit.  With
 ``road_grid_graph(side=1024, weighted=True, seed=4)`` (``DELTA_RUNS``:
 ``(algo, strategy, delta)``, ``None`` the auto width), each timed around
 the wrapper of the fused kernel's delta mode; the baseline tree must have
-that mode.  Needs a CUDA card and ``nvcc``; exits non-zero without a card.
+that mode.  With ``--schedule batch`` the runs are fused sssp batches on
+rmat20 through ``engine.run_batch`` (``BATCH_RUNS``: K = 8 and K = 32
+sources by fig12's rule, as ``chip_smoke.py``'s batch phase takes them),
+the host clock around the whole call and CUDA events around the fused
+kernel's batch wrapper (``batch_fixed_point``, however many launches it
+makes).  Needs a CUDA card and ``nvcc``; exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -41,10 +46,12 @@ TREES = ("baseline", "this")
 #: Δ = 25 (three quarters of the edges heavy)
 DELTA_RUNS = (("sssp", "WD", None), ("sssp", "WD", 25), ("sssp", "NS", 25),
               ("bfs", "WD", None))
+#: the batches: (K, sources skipped) of fig12's highest-degree rule
+BATCH_RUNS = (("batch", 8, 0), ("batch", 32, 8))
 
 #: run in a subprocess with one tree's ``src`` and ``reps`` as arguments
 MEASURE = r"""
-import hashlib, json, sys
+import hashlib, json, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
 from repro_torch.core import engine
@@ -54,6 +61,7 @@ from repro_torch.kernels import fused as fused_kernel
 reps = int(sys.argv[2])
 runs = json.loads(sys.argv[3])
 delta_mode = sys.argv[4] == "delta"
+batch_mode = sys.argv[4] == "batch"
 dev = torch.device("cuda")
 if delta_mode:
     g = road_grid_graph(side=1024, weighted=True, seed=4, device=dev)
@@ -61,13 +69,21 @@ if delta_mode:
 else:
     g = rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1,
                    device=dev)
-    wrapper = "fixed_point"
+    wrapper = "batch_fixed_point" if batch_mode else "fixed_point"
 source = int(g.degrees.argmax())
+order = g.degrees.cpu().numpy().argsort()[::-1]
 out = {}
 real = getattr(fused_kernel, wrapper)
 for algo, strategy, *rest in runs:
     kw = dict(schedule="delta", delta=rest[0]) if delta_mode else {}
-    graph = g if algo == "sssp" else g.unweighted()
+    graph = g if algo in ("sssp", "batch") else g.unweighted()
+    if batch_mode:
+        sources = order[rest[0]:rest[0] + strategy].astype("int32")
+        call = lambda: engine.run_batch(graph, sources, mode="fused",
+                                        device=dev)
+    else:
+        call = lambda: engine.run(graph, source, make_strategy(strategy),
+                                  mode="fused", device=dev, **kw)
     events = []
     def timed(*args, **kw):
         torch.cuda._sleep(2_000_000)
@@ -80,14 +96,16 @@ for algo, strategy, *rest in runs:
         return res
     setattr(fused_kernel, wrapper, timed)
     try:
-        engine.run(graph, source, make_strategy(strategy), mode="fused",
-                   device=dev, **kw)
+        call()
         events.clear()
         host = []
         for _ in range(reps):
-            r = engine.run(graph, source, make_strategy(strategy),
-                           mode="fused", device=dev, **kw)
-            host.append(r.traversal_seconds * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = call()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3 if batch_mode
+                        else r.traversal_seconds * 1e3)
     finally:
         setattr(fused_kernel, wrapper, real)
     torch.cuda.synchronize()
@@ -117,7 +135,7 @@ def main() -> int:
                         help="rounds of baseline, this, this, baseline")
     parser.add_argument("--reps", type=int, default=5,
                         help="timed traversals a run in each turn")
-    parser.add_argument("--schedule", choices=("bsp", "delta"),
+    parser.add_argument("--schedule", choices=("bsp", "delta", "batch"),
                         default="bsp")
     args = parser.parse_args()
     import torch
@@ -127,8 +145,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     trees = {"baseline": args.baseline.resolve(), "this": ROOT}
-    runs = [list(run) for run in (
-        DELTA_RUNS if args.schedule == "delta" else cs.PATH_RUNS)]
+    runs = [list(run) for run in {"delta": DELTA_RUNS, "batch": BATCH_RUNS,
+                                  "bsp": cs.PATH_RUNS}[args.schedule]]
     rec = {name: [] for name in TREES}
     for _ in range(args.rounds):
         for name in ("baseline", "this", "this", "baseline"):

@@ -108,10 +108,15 @@ Phases, each printing one JSON line:
    fused (one a traversal), counted from 0 (the fused row's
    ``delta_launches``): each equal to Dijkstra, scipy or
    ``reference_widest``, stepped equal to fused, the buckets strictly
-   increasing; a K = 8 delta batch (one single-row launch a row) equal to
-   its single runs; the delta kernel against its plain loop on the CPU
-   at road256 and on the card at road1024 (timed: the fused row's
-   ``at_delta``); delta requests through ``GraphServer``; delta against
+   increasing, each run's rounds split between the grid and one block the
+   same stepped and fused (``delta_run``: grid and narrow rounds, the
+   fused launch's grid barriers); a K = 8 delta batch (one single-row
+   launch a row) equal to its single runs; the delta kernel against its
+   plain loop on the CPU at road256 and on the card at road1024 (values,
+   counts and the rounds' split; timed: the fused row's ``at_delta``,
+   bound by a worklist's bytes, 12 B an edge and a frontier node, and
+   beside it, as ``dense_bound_ms``, by N bytes a round more); delta
+   requests through ``GraphServer``; delta against
    BSP interleaved (epochs, rounds, ms).
 5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
    heads, hd 128: S = 512 and 2048 bf16 causal, 512 f32, 512 bf16
@@ -1990,15 +1995,16 @@ def delta_phase(g, dev, fused_row, *, cpu_side: int = 256,
     launch of the fused kernel's delta mode an epoch) and fused (one a
     traversal), plus bfs and widest path with WD; each equal to scipy's
     Dijkstra or ``reference_widest``, stepped equal to fused (values,
-    epochs, rounds, edges), the stepped buckets strictly increasing; and
-    rmat20 (``g``) sssp WD alike.  The launch counts are set to 0 just
+    epochs, rounds, edges, and the rounds run on the grid and in one
+    block), the stepped buckets strictly increasing; and rmat20 (``g``)
+    sssp WD alike.  The launch counts are set to 0 just
     before these runs and read just after: only fused launches, one an
     epoch stepped and one a traversal fused (the kernel line's fused row
     gets them as ``delta_launches``).  Then a K = 8 fused delta batch on
     road1024 (fig12's rule) equal to its eight single runs; the delta
     kernel against its plain loop on the CPU at road side ``cpu_side``;
     a few delta requests through ``GraphServer``; the delta kernel timed
-    on road1024 beside its plain loop on the card and its bound; and
+    on road1024 beside its plain loop on the card and its two bounds; and
     delta against BSP interleaved (epochs, rounds, ms)."""
     import numpy as np
     import torch
@@ -2038,9 +2044,11 @@ def delta_phase(g, dev, fused_row, *, cpu_side: int = 256,
 
     zero_counts()
     expected, results = 0, {}
-    for graph, source, algo, strategy, delta in runs:
-        st = run(graph, source, algo, strategy, delta, "stepped")
-        fu = run(graph, source, algo, strategy, delta, "fused")
+    paired = [(graph, source, algo, strategy, delta,
+               run(graph, source, algo, strategy, delta, "stepped"),
+               run(graph, source, algo, strategy, delta, "fused"))
+              for graph, source, algo, strategy, delta in runs]
+    for graph, source, algo, strategy, delta, st, fu in paired:
         expected += st.iterations + 1
         want = rmat_oracle if graph is g else oracle[algo]
         buckets = [s.bucket for s in st.iter_stats]
@@ -2055,10 +2063,20 @@ def delta_phase(g, dev, fused_row, *, cpu_side: int = 256,
         if any(b <= a for a, b in zip(buckets, buckets[1:])):
             raise AssertionError(f"delta {gname} {algo}-{strategy}: "
                                  f"buckets {buckets[:20]}...")
+        # a round runs in one block or on the grid by its own frontier,
+        # whichever launch it falls in
+        split = fu.round_split
+        if (st.round_split != split
+                or split.grid + split.narrow != fu.relax_rounds):
+            raise AssertionError(f"delta {gname} {algo}-{strategy}: rounds "
+                                 f"{split} fused, {st.round_split} "
+                                 f"stepped")
         results[(gname, algo, strategy, delta)] = fu
         emit("delta_run", graph=gname, algo=algo, strategy=strategy,
              delta=st.delta, epochs=st.iterations,
-             relax_rounds=st.relax_rounds, edges_relaxed=st.edges_relaxed,
+             relax_rounds=st.relax_rounds, grid_rounds=split.grid,
+             narrow_rounds=split.narrow, barriers=split.barriers,
+             edges_relaxed=st.edges_relaxed,
              stepped_seconds=st.traversal_seconds,
              fused_seconds=fu.traversal_seconds, first_buckets=buckets[:4],
              last_bucket=buckets[-1], equals_oracle=True,
@@ -2173,16 +2191,25 @@ def delta_phase(g, dev, fused_row, *, cpu_side: int = 256,
     want = priority._delta_fixed_point_plain(*args, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    # (dist, mask, epochs, rounds, edges, bucket, count) and the rounds
+    # by kind
     if not (torch.equal(got[0], want[0]) and got[2:] == want[2:]):
         raise AssertionError("delta kernel != plain loop on road1024")
-    # the least bytes: col, wt and dist[dst] of each relaxed edge, and the
-    # frontier mask each round
-    edges, n_rounds = got[4], got[3]
-    bound_ms, bound_by = bound(12 * edges + road.num_nodes * n_rounds, 0)
+    # the least bytes: col, wt and dist[dst] of each relaxed edge and 12 B
+    # a frontier node a round (its id, degree and first edge), a
+    # worklist's least; and, so that the rows compare with the kernels
+    # that passed over N each round, the edges and the frontier mask each
+    # round (N bytes)
+    edges, n_rounds, split = got[4], got[3], got[7]
+    bound_ms, bound_by = bound(12 * edges + 12 * want[7].nodes, 0)
+    dense_ms, _ = bound(12 * edges + road.num_nodes * n_rounds, 0)
     fused_row["at_delta"] = dict(
         graph=f"road{ROAD_SIDE}", run="sssp-WD delta", delta=plan.delta,
-        epochs=got[2], relax_rounds=n_rounds, edges_relaxed=edges, ms=ms,
+        epochs=got[2], relax_rounds=n_rounds, grid_rounds=split.grid,
+        narrow_rounds=split.narrow, barriers=split.barriers,
+        frontier_nodes=want[7].nodes, edges_relaxed=edges, ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        dense_bound_ms=dense_ms,
         max_abs_err=max_abs_err([got[0]], [want[0]]))
     emit("delta_kernel_time", **fused_row["at_delta"])
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
@@ -35,6 +35,9 @@ from repro_torch.core.schedule import Schedule
 from repro_torch.core.strategies import (  # noqa: F401  (re-exported)
     FRONTIER_INIT, PRIORITY_SCHEDULE, EdgeBased, IterStats, NodeSplitting,
     StrategyBase, make_strategy)
+
+if TYPE_CHECKING:       # kernels.fused imports this package
+    from repro_torch.kernels.fused import Rounds
 
 #: work orderings: "bsp" relaxes the whole frontier every iteration;
 #: "delta" settles value buckets in priority order
@@ -61,6 +64,9 @@ class RunResult:
     schedule: str = "bsp"
     delta: Optional[int] = None
     relax_rounds: Optional[int] = None
+    #: a delta run's relax rounds split between the grid and one block
+    #: (``kernels.fused.Rounds``, summed over a stepped run's epochs)
+    round_split: Optional["Rounds"] = None
     async_shards: bool = False
     #: the resolved work-assignment Schedule the run executed under
     work_schedule: Optional[Schedule] = None
@@ -229,11 +235,12 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
                 work_schedule=getattr(strategy, "resolved_schedule", None))
 
     if mode == "fused":
-        rounds = None
+        rounds = split = None
         t_start = time.perf_counter()
         if dplan is not None:
-            dist, iterations, rounds, edges = priority.run_fixed_point(
-                dplan, dist, mask, op=op, max_iterations=max_iterations)
+            dist, iterations, rounds, edges, split = (
+                priority.run_fixed_point(dplan, dist, mask, op=op,
+                                         max_iterations=max_iterations))
         else:
             dist, iterations, edges = fused.run_fixed_point(
                 graph, state, strategy, dist, mask, op=op,
@@ -246,13 +253,13 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
             total_seconds=total_s + setup_s, setup_seconds=setup_s,
             kernel_seconds=total_s, overhead_seconds=setup_s,
             edges_relaxed=edges, iter_stats=[], mode="fused",
-            relax_rounds=rounds, **done)
+            relax_rounds=rounds, round_split=split, **done)
 
     iter_stats: list[IterStats] = []
     kernel_s = 0.0
     edges = 0
     it = 0
-    rounds = None
+    rounds = split = None
     t_start = time.perf_counter()
     if dplan is not None:
         # one launch a bucket epoch; the host reads the frontier's count
@@ -260,11 +267,12 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
         count, rounds = 1, 0
         while count > 0 and it < max_iterations:
             tk = time.perf_counter()
-            dist, mask, b, r, e, next_count = priority.step_epoch(
+            dist, mask, b, r, e, next_count, s = priority.step_epoch(
                 dplan, dist, mask, op=op)
             kernel_s += time.perf_counter() - tk
             edges += e
             rounds += r
+            split = s if split is None else split + s
             iter_stats.append(IterStats(
                 frontier_size=int(count), edges_processed=int(e),
                 sub_iterations=int(r), bucket=int(b),
@@ -304,7 +312,7 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
         kernel_seconds=kernel_s,
         overhead_seconds=max(total_s - kernel_s, 0.0) + setup_s,
         edges_relaxed=int(edges), iter_stats=iter_stats,
-        relax_rounds=rounds, **done)
+        relax_rounds=rounds, round_split=split, **done)
 
 
 def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
@@ -344,12 +352,12 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
         dplan = priority.plan_delta(strategy, state, graph, op=op,
                                     delta=delta)
         if mode == "fused":
-            dist, it, _, edges = priority.run_fixed_point(
+            dist, it, _, edges, _ = priority.run_fixed_point(
                 dplan, dist, mask, op=op, max_iterations=max_iterations)
             return _original(dist, strategy), it, edges
         count, it, edges = int(mask.sum()), 0, 0
         while count > 0 and it < max_iterations:
-            dist, mask, _, _, e, count = priority.step_epoch(
+            dist, mask, _, _, e, count, _ = priority.step_epoch(
                 dplan, dist, mask, op=op)
             edges += e
             it += 1

@@ -124,6 +124,25 @@ def bs_split(deg: torch.Tensor,
     return grid, max_degree - grid
 
 
+def delta_round_split(kernel: str, rounds,
+                      width: Optional[int] = None) -> tuple[int, int]:
+    """A delta-stepping traversal's relax rounds as the fused kernel's
+    delta mode runs them: ``(grid-wide, narrow)``.  ``rounds`` holds each
+    round's ``(nodes, edges)``: its frontier's size and the edges it
+    relaxed.  A round is narrow (inside one block, with no grid barrier)
+    when ``width`` (default ``kernels.fused.TAIL_WIDTH``) is positive and
+    it has at most ``width`` nodes and ``NARROW_EDGES`` edges, unless the
+    kernel is NS, whose gather over every node stays grid-wide
+    (``csrc/fused.cu`` ``stage_narrow``)."""
+    if width is None:
+        width = fused_kernel.TAIL_WIDTH
+    rounds = list(rounds)
+    narrow = sum(kernel != "NS" and 0 < width and nodes <= width
+                 and edges <= fused_kernel.NARROW_EDGES
+                 for nodes, edges in rounds)
+    return len(rounds) - narrow, narrow
+
+
 def _tally(tally: Optional[list], grid: int, block: int = 0) -> None:
     """Count a step's chunks into ``[grid, block]``, where one is kept."""
     if tally is not None:

@@ -29,7 +29,9 @@ the chunk schedule and the bits are the reference's ``backend="xla"``:
 
 * :func:`run_fixed_point`: the whole traversal as ONE launch of the fused
   kernel (``csrc/fused.cu``) in its delta mode on the card, the plain
-  epoch loop :func:`_delta_fixed_point_plain` on the CPU;
+  epoch loop :func:`_delta_fixed_point_plain` on the CPU, which also
+  counts the kernel's split of rounds between the grid and one block
+  (:func:`repro_torch.core.fused.delta_round_split`);
 * :func:`step_epoch`: one epoch a call, the same launch capped at one
   epoch on the card (it also returns the frontier, the settled bucket,
   the rounds and the frontier's count, read with one sync);
@@ -170,9 +172,12 @@ def _phase(g: CSRGraph, aux, dist, cur, *, kernel: str, op: EdgeOp,
 
 
 def _epoch(gl: CSRGraph, gh: Optional[CSRGraph], aux, dist, mask,
-           delta: int, *, kernel: str, op: EdgeOp, sched: Schedule):
+           delta: int, *, kernel: str, op: EdgeOp, sched: Schedule,
+           trail: list):
     """Settle the minimum live bucket: the light closure, then one heavy
-    pass.  Returns ``(dist, mask, bucket, rounds, edges)``."""
+    pass.  Appends each relax round's ``(nodes, edges)`` to ``trail``,
+    its nodes as a 0-d tensor (read once, after the traversal).
+    Returns ``(dist, mask, bucket, rounds, edges)``."""
     descending = op.combine == "max"
 
     def in_bucket(dist, mask, b):
@@ -194,12 +199,15 @@ def _epoch(gl: CSRGraph, gh: Optional[CSRGraph], aux, dist, mask,
         mask = mask | upd        # light candidates may land back in b
         rounds += 1
         edges += e
+        trail.append((cur.sum(), e))
     if gh is not None:
         dist, upd, e = _phase(gh, aux, dist, settled, kernel=kernel, op=op,
                               sched=sched)
         mask = mask | upd
         rounds += int(e > 0)
         edges += e
+        if e > 0:
+            trail.append((settled.sum(), e))
     return dist, mask, b, rounds, edges
 
 
@@ -209,15 +217,22 @@ def _delta_fixed_point_plain(kernel: str, gl: CSRGraph,
                              max_iterations: int):
     """The fused kernel's delta mode in plain PyTorch: epochs while the
     frontier is live and ``it < max_iterations``.  Returns ``(dist, mask,
-    epochs, rounds, edges, last bucket settled, frontier count)``."""
+    epochs, rounds, edges, last bucket settled, frontier count,
+    Rounds)``: the kernel's counts, but for its barriers."""
     it, rounds, edges, b = 0, 0, 0, worklist.NO_BUCKET
+    trail = []
     while it < max_iterations and bool(mask.any()):
         dist, mask, b, r, e = _epoch(gl, gh, aux, dist, mask, delta,
-                                     kernel=kernel, op=op, sched=sched)
+                                     kernel=kernel, op=op, sched=sched,
+                                     trail=trail)
         it += 1
         rounds += r
         edges += e
-    return dist, mask, it, rounds, edges, b, int(mask.sum())
+    nodes = torch.stack([n for n, _ in trail]).tolist() if trail else []
+    trail = [(n, e) for n, (_, e) in zip(nodes, trail)]
+    return (dist, mask, it, rounds, edges, b, int(mask.sum()),
+            fused_kernel.Rounds(*fused.delta_round_split(kernel, trail),
+                                nodes=sum(nodes)))
 
 
 # ---------------------------------------------------------------------------
@@ -236,11 +251,11 @@ def step_epoch(plan: DeltaPlan, dist, mask, *,
                op=operators.shortest_path):
     """One bucket epoch (stepped mode): on the card one launch of the
     fused kernel capped at one epoch.  Returns ``(dist, mask, bucket,
-    rounds, edges, count)``, the tensors on the device and the counters
-    (``count``: the next frontier's size) on the host."""
-    dist, mask, _, rounds, edges, b, count = _launch(
+    rounds, edges, count, Rounds)``, the tensors on the device and the
+    counters (``count``: the next frontier's size) on the host."""
+    dist, mask, _, rounds, edges, b, count, split = _launch(
         plan, dist, mask, op=operators.resolve(op), max_iterations=1)
-    return dist, mask, b, rounds, edges, count
+    return dist, mask, b, rounds, edges, count, split
 
 
 def run_fixed_point(plan: DeltaPlan, dist0, mask0, *,
@@ -248,12 +263,12 @@ def run_fixed_point(plan: DeltaPlan, dist0, mask0, *,
                     max_iterations: int = 100000):
     """The whole delta-stepping traversal as one launch (the plain loop
     for CPU tensors).  Returns ``(dist, epochs, relax_rounds,
-    edges_relaxed)``, ``dist`` on the device."""
+    edges_relaxed, Rounds)``, ``dist`` on the device."""
     fused.DISPATCH_COUNTS[f"delta:{plan.kernel}"] += 1
-    dist, _, it, rounds, edges, _, _ = _launch(
+    dist, _, it, rounds, edges, _, _, split = _launch(
         plan, dist0, mask0, op=operators.resolve(op),
         max_iterations=max_iterations)
-    return dist, it, rounds, edges
+    return dist, it, rounds, edges, split
 
 
 def run_batch_fixed_point(plan: DeltaPlan, dist_b, mask_b, *,
@@ -271,7 +286,7 @@ def run_batch_fixed_point(plan: DeltaPlan, dist_b, mask_b, *,
     fused.DISPATCH_COUNTS["delta:batch"] += 1
     rows, epochs, rounds, edges = [], 0, 0, 0
     for dist, mask in zip(dist_b, mask_b):
-        d, _, it, r, e, _, _ = _launch(plan, dist.contiguous(),
+        d, _, it, r, e, *_ = _launch(plan, dist.contiguous(),
                                        mask.contiguous(), op=op,
                                        max_iterations=max_iterations)
         rows.append(d)

@@ -69,8 +69,9 @@ _SIGNATURES = {
     # xbar, cum, Bm, Cm, y, state, BN, c, H, P, N, dtype, stream
     "repro_ssd_chunk_dual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _P],
-    # n, out bytes
-    "repro_fused_workspace_bytes": [_I, ctypes.POINTER(ctypes.c_longlong)],
+    # n, delta, narrow_edges, out bytes
+    "repro_fused_workspace_bytes": [_I, _I, _I,
+                                    ctypes.POINTER(ctypes.c_longlong)],
     # row_ptr, col, wt, n, e, aux, dist0, mask0, kernel, msg, comb,
     # max_iterations, mdt, switch_threshold, small_frontier,
     # imbalance_threshold, hp_edges_threshold, tail_width, coeffs, dist,
@@ -81,10 +82,11 @@ _SIGNATURES = {
     # light row_ptr, col, wt, e; heavy row_ptr, col, wt, e; n, aux, dist0,
     # mask0, kernel, msg, comb, delta, max_epochs, mdt, switch_threshold,
     # small_frontier, imbalance_threshold, hp_edges_threshold, tail_width,
-    # dist, mask, workspace, workspace_bytes, result, stream
+    # narrow_edges, dist, mask, workspace, workspace_bytes, result, stream
     "repro_fused_delta": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                          _I, _I, _P, _P, _P, ctypes.c_longlong, _P, _P],
+                          _I, _I, _I, _P, _P, _P, ctypes.c_longlong, _P,
+                          _P],
     # which, out [6]: threads, static shared bytes, registers, local
     # bytes, blocks per SM, SMs
     "repro_relax_block_attrs": [_I, ctypes.POINTER(ctypes.c_int)],

@@ -12,7 +12,8 @@ bodies).  For CPU tensors it runs the plain version,
 :func:`batch_fixed_point` runs K WD traversals (ROADMAP A8) as K launches
 of the same kernel, one a row.  :func:`delta_fixed_point`
 runs a delta-stepping traversal (ROADMAP A10) as one launch of the same
-file's kernel in its delta mode (light and heavy graphs, bucket epochs),
+file's kernel in its delta mode (light and heavy graphs, bucket epochs
+over node lists, a round of few nodes inside one block; :class:`Rounds`),
 also counted in ``LAUNCHES["fused_fixed_point"]``; its CPU version is
 :func:`repro_torch.core.priority._delta_fixed_point_plain`.
 """
@@ -38,16 +39,26 @@ KERNEL_CODES = {"BS": 0, "WD": 1, "HP": 2, "EP": 3, "NS": 4, "AD": 5}
 #: int64 cells of a launch's result (``csrc/fused.cu`` RESULT_CELLS)
 RESULT_CELLS = 8
 #: the most live slots a BS/NS column may have to run inside one block of
-#: the fused kernel (at most 1,024; 0: every column is a grid-wide chunk).
-#: The path reads it as a constant.  It is a module value, passed to each
-#: launch, only so that the card tests can force the tail's cases on small
-#: graphs and ``tools/fused_column_profile.py --widths`` can weigh it; the
-#: width sweep's outcome is in PERF.md (1,024 within 1% of the best).
+#: the fused kernel, and the most nodes (or M list entries) of a delta
+#: stage that runs in one block (at most 1,024; 0: every column is a
+#: grid-wide chunk and every delta stage grid-wide).  The path reads it as
+#: a constant.  It is a module value, passed to each launch, only so that
+#: the card tests can force the tail's and the delta rounds' cases on
+#: small graphs and ``tools/fused_column_profile.py --widths`` can weigh
+#: it; the width sweep's outcome is in PERF.md (1,024 within 1% of the
+#: best).
 TAIL_WIDTH = 1024
 #: the fewest columns a one-block tail takes: a copy of ``csrc/fused.cu``
 #: TAIL_MIN_COLUMNS for the plain loop's count (``core.fused.bs_split``),
 #: held to the kernel's by the card tests' chunk comparison
 TAIL_MIN_COLUMNS = 4
+#: the most edges of a delta phase run inside one block (with at most
+#: ``TAIL_WIDTH`` nodes), passed to each delta launch and read by the
+#: plain loop's count (``core.fused.delta_round_split``): a narrow phase's
+#: tiles of 1,024 lanes run one after another in one block, each a chain
+#: of dependent gathers and atomics; 1,024 and 2,048 tie on road1024 and
+#: 3,072 to 8,192 are slower (PERF.md)
+NARROW_EDGES = 2 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +71,30 @@ class Chunks:
     grid: int
     block: int
     barriers: Optional[int] = dataclasses.field(default=None, compare=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class Rounds:
+    """A delta-stepping traversal's relax rounds by kind: ``grid`` rounds
+    run on the whole grid, ``narrow`` ones (at most ``TAIL_WIDTH`` nodes
+    and ``NARROW_EDGES`` edges, not NS) inside one block with no grid
+    barrier.  Both follow from the rounds' frontiers, so the plain loop
+    counts them too (``core.fused.delta_round_split``); ``barriers`` is
+    the kernel's count of grid barriers and ``nodes`` the plain loop's
+    sum of the rounds' frontier sizes (each ``None`` from the other), and
+    neither takes part in a comparison.  Two add up as the rounds of
+    consecutive launches (stepped epochs)."""
+    grid: int
+    narrow: int
+    barriers: Optional[int] = dataclasses.field(default=None, compare=False)
+    nodes: Optional[int] = dataclasses.field(default=None, compare=False)
+
+    def __add__(self, other: "Rounds") -> "Rounds":
+        def total(a, b):
+            return None if a is None or b is None else a + b
+        return Rounds(self.grid + other.grid, self.narrow + other.narrow,
+                      total(self.barriers, other.barriers),
+                      total(self.nodes, other.nodes))
 
 
 def fixed_point(kernel: str, graph: CSRGraph, aux: Optional[torch.Tensor],
@@ -146,14 +181,17 @@ def _check_graph(graph: CSRGraph, dev: torch.device) -> None:
         raise ValueError("fused_fixed_point needs a graph with nodes")
 
 
-def _workspace(values: int, dev: torch.device, launches: int = 1):
-    """A launch's workspace, which launches in turn on one stream share,
-    and ``[launches, RESULT_CELLS]`` int64 result cells."""
+def _workspace(values: int, dev: torch.device, launches: int = 1,
+               delta: bool = False):
+    """A launch's workspace (``delta``: with the delta mode's lists),
+    which launches in turn on one stream share, and ``[launches,
+    RESULT_CELLS]`` int64 result cells."""
     nbytes = ctypes.c_longlong()
     with torch.cuda.device(dev):
         _build.check("fused_workspace_bytes",
                      _build.lib().repro_fused_workspace_bytes(
-                         values, ctypes.byref(nbytes)))
+                         values, int(delta), NARROW_EDGES if delta else 0,
+                         ctypes.byref(nbytes)))
     return (torch.empty(nbytes.value, dtype=torch.uint8, device=dev),
             torch.empty((launches, RESULT_CELLS), dtype=torch.int64,
                         device=dev))
@@ -207,7 +245,8 @@ def delta_fixed_point(kernel: str, light: CSRGraph,
     child -> parent map.  For CUDA tensors ONE cooperative launch of the
     fused kernel in its delta mode; for CPU tensors the plain loop.
     Returns ``(dist, mask, epochs, relax_rounds, edges_relaxed, last
-    bucket settled, frontier count)``; the inputs are not modified."""
+    bucket settled, frontier count, Rounds)``; the inputs are not
+    modified."""
     if kernel not in ("BS", "WD", "HP", "NS", "AD"):
         raise ValueError(f"kernel {kernel!r} has no delta-stepping phase")
     if dist.device.type == "cpu":
@@ -234,7 +273,7 @@ def delta_fixed_point(kernel: str, light: CSRGraph,
         check_tensor("aux", aux, dev, torch.int32, n)
     msg, comb = op.kernel_codes()
     lib = _build.lib()
-    workspace, result = _workspace(n, dev)
+    workspace, result = _workspace(n, dev, delta=True)
     out = torch.empty_like(dist)
     out_mask = torch.empty_like(mask)
 
@@ -252,11 +291,14 @@ def delta_fixed_point(kernel: str, light: CSRGraph,
             msg, comb, int(delta), min(int(max_iterations), 2 ** 31 - 1),
             sched.mdt or 1, sched.switch_threshold, sched.small_frontier,
             sched.imbalance_threshold, sched.hp_edges_threshold, TAIL_WIDTH,
-            out.data_ptr(), out_mask.data_ptr(), workspace.data_ptr(),
+            NARROW_EDGES, out.data_ptr(), out_mask.data_ptr(),
+            workspace.data_ptr(),
             workspace.numel(), result.data_ptr(), stream_of(dev)))
     LAUNCHES["fused_fixed_point"] += 1
-    epochs, edges, rounds, b, count, *_ = result[0].tolist()  # host sync
-    return out, out_mask, epochs, rounds, edges, b, count
+    epochs, edges, rounds, b, count, grid, narrow, barriers = (
+        result[0].tolist())                                 # host sync
+    return (out, out_mask, epochs, rounds, edges, b, count,
+            Rounds(grid, narrow, barriers))
 
 
 def ad_choice_probe(coeffs, count: torch.Tensor,

@@ -524,20 +524,109 @@ def test_fused_tail_reach_count_on_a_dag(dev, monkeypatch, strategy, width):
         stepped.dist, got[0][:g.num_nodes].cpu().numpy())
 
 
-@pytest.mark.parametrize("width", [0, 16, 1024])
-@pytest.mark.parametrize("strategy", ["BS", "NS", "AD"])
-def test_fused_delta_tail_matches_plain(dev, monkeypatch, strategy, width):
-    """The delta mode's BS/NS phases (and AD's BS choices) at tail widths
-    0, 16 and 1024 on road side 128: equal to the plain epoch loop."""
+#: tail widths of the delta mode: every stage grid-wide, narrow rounds of
+#: at most 8 or 16 nodes (a mix of narrow and grid-wide rounds), and the
+#: default
+DELTA_WIDTHS = [0, 8, 16, 1024]
+
+
+def _delta_graphs(dev):
+    """Road side 128 (a high-diameter grid) and rmat scale 12 (power law),
+    each with a source of high degree."""
     from repro_torch.data import road_grid_graph
+    road = road_grid_graph(side=128, weighted=True, seed=4, device=dev)
+    rmat = rmat_graph(scale=12, weighted=True, seed=1, device=dev)
+    return {"road128": (road, 128 * 64 + 17),
+            "rmat12": (rmat, int(rmat.degrees.argmax()))}
+
+
+@pytest.mark.parametrize("width", DELTA_WIDTHS)
+@pytest.mark.parametrize("strategy", ["BS", "WD", "NS", "HP", "AD"])
+def test_fused_delta_tail_matches_plain(dev, monkeypatch, strategy, width):
+    """The delta mode at every tail width on road side 128 and rmat scale
+    12, three operators, auto Δ and Δ = 25: equal to the plain epoch loop
+    in values, mask, epochs, rounds, edges, bucket, count and the split of
+    rounds between the grid and one block.  Width 0 runs no round in one
+    block and pays at least a grid barrier a round; NS's rounds stay
+    grid-wide at every width."""
     from repro_torch.kernels import fused as kernel_fused
     monkeypatch.setattr(kernel_fused, "TAIL_WIDTH", width)
-    g = road_grid_graph(side=128, weighted=True, seed=4, device=dev)
+    for gname, (g, source) in _delta_graphs(dev).items():
+        for opname in ("shortest_path", "min_label", "widest_path"):
+            for delta in (None, 25):
+                _, got, want, launched = _delta_pair(
+                    g, strategy, operators.OPERATORS[opname], source, delta,
+                    100000)
+                assert torch.equal(got[0], want[0]), (gname, opname, delta)
+                assert torch.equal(got[1], want[1])
+                assert got[2:] == want[2:], (gname, opname, delta)
+                assert launched["fused_fixed_point"] == 1
+                rounds = got[7]
+                assert rounds.grid + rounds.narrow == got[3]
+                assert rounds.barriers >= rounds.grid
+                if width == 0 or strategy == "NS":
+                    assert rounds.narrow == 0
+                elif gname == "road128" and width == 1024:
+                    assert rounds.narrow > 0
+
+
+@pytest.mark.parametrize("strategy", ["BS", "WD", "HP", "AD"])
+def test_fused_delta_narrow_rounds_save_barriers(dev, monkeypatch,
+                                                 strategy):
+    """Road side 128 at the auto Δ and Δ = 25: the default width runs most
+    rounds in one block, the same bits as width 0, and saves at least a
+    grid barrier for each round it runs there."""
+    from repro_torch.kernels import fused as kernel_fused
+    g, source = _delta_graphs(dev)["road128"]
     for delta in (None, 25):
-        _, got, want, _ = _delta_pair(g, strategy, operators.shortest_path,
-                                      128 * 64 + 17, delta, 100000)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        assert got[2:] == want[2:]
+        runs = {}
+        for width in (0, 1024):
+            monkeypatch.setattr(kernel_fused, "TAIL_WIDTH", width)
+            runs[width] = _delta_pair(g, strategy, operators.shortest_path,
+                                      source, delta, 100000)[1]
+        assert torch.equal(runs[0][0], runs[1024][0])
+        assert runs[0][2:7] == runs[1024][2:7]
+        narrow = runs[1024][7]
+        assert narrow.narrow > 0
+        assert narrow.barriers <= runs[0][7].barriers - narrow.narrow
+
+
+@pytest.mark.parametrize("width", [0, 8, 1024])
+def test_delta_stepped_fused_and_batch_agree_on_the_card(dev, monkeypatch,
+                                                         width):
+    """Road side 128 on the card: the stepped delta run (a launch an
+    epoch) equals the fused one (values, epochs, rounds, edges, the split
+    of rounds between the grid and one block) and the
+    K = 8 fused delta batch equals its eight single runs, at every tail
+    width, for the auto Δ and Δ = 25."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.kernels import fused as kernel_fused
+    monkeypatch.setattr(kernel_fused, "TAIL_WIDTH", width)
+    g, source = _delta_graphs(dev)["road128"]
+    sources = g.degrees.cpu().numpy().argsort()[::-1][:8].astype(np.int32)
+    for delta in (None, 25):
+        runs = [engine.run(g, source, make_strategy("WD"), mode=mode,
+                           schedule="delta", delta=delta, device=dev)
+                for mode in ("stepped", "fused")]
+        np.testing.assert_array_equal(runs[0].dist, runs[1].dist)
+        assert (runs[0].iterations, runs[0].relax_rounds,
+                runs[0].edges_relaxed) == (runs[1].iterations,
+                                           runs[1].relax_rounds,
+                                           runs[1].edges_relaxed)
+        assert runs[0].round_split == runs[1].round_split
+        before = relax.LAUNCHES["fused_fixed_point"]
+        batch = engine.run_batch(g, sources, mode="fused", schedule="delta",
+                                 delta=delta, device=dev)
+        assert relax.LAUNCHES["fused_fixed_point"] - before == 8
+        singles = [engine.run(g, int(s), make_strategy("WD"), mode="fused",
+                              schedule="delta", delta=delta, device=dev)
+                   for s in sources]
+        for row, r in zip(batch.dist, singles):
+            np.testing.assert_array_equal(row, r.dist)
+        assert batch.iterations == max(r.iterations for r in singles)
+        assert batch.relax_rounds == max(r.relax_rounds for r in singles)
+        assert batch.edges_relaxed == sum(r.edges_relaxed for r in singles)
 
 
 def test_barrier_probe_runs(dev):
@@ -929,10 +1018,10 @@ def _delta_pair(g, strategy, op, source, delta, max_iterations):
 @pytest.mark.parametrize("strategy", DELTA_STRATEGIES)
 def test_fused_delta_kernel_matches_plain(dev, strategy, opname, delta):
     """Road side 128: the delta mode's (dist, mask, epochs, rounds, edges,
-    last bucket, frontier count) equal the plain epoch loop's on the same
-    card tensors, whole and capped at one epoch (the stepped epoch), in
-    one fused launch and no B1/B2 launch.  Δ = 25 makes three quarters of
-    the edges heavy for shortest_path."""
+    last bucket, frontier count, rounds by kind) equal the plain epoch
+    loop's on the same card tensors, whole and capped at one epoch (the
+    stepped epoch), in one fused launch and no B1/B2 launch.  Δ = 25
+    makes three quarters of the edges heavy for shortest_path."""
     from repro_torch.data import road_grid_graph
     op = operators.OPERATORS[opname]
     g = road_grid_graph(side=128, weighted=True, seed=4, device=dev)
@@ -946,6 +1035,46 @@ def test_fused_delta_kernel_matches_plain(dev, strategy, opname, delta):
         assert launched["relax_lanes"] == launched["wd_relax_lanes"] == 0
     if delta == 25 and opname == "shortest_path":
         assert plan.heavy and got[3] > 1
+
+
+@pytest.mark.parametrize("strategy", ["NS", "AD"])
+def test_delta_components_from_every_node_on_the_card(dev, strategy):
+    """Connected components under delta-stepping start with every node
+    live, NS's split children too (their labels move when the kernel
+    mirrors their parents): stepped and fused on the card equal the CPU on
+    a symmetrized rmat12 and road side 64, and the kernel's delta mode
+    equals its plain loop with every node seeded."""
+    from repro_torch.core import priority
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import road_grid_graph
+    from repro_torch.kernels import fused as kernel_fused
+    graphs = [_symmetrized(rmat_graph(scale=12, weighted=False, seed=3,
+                                      device="cpu")),
+              road_grid_graph(side=64, weighted=True, seed=4, device="cpu")]
+    for g in graphs:
+        want = connected_components(g, strategy=strategy, schedule="delta",
+                                    device="cpu")
+        for mode in ("stepped", "fused"):
+            got = connected_components(g, strategy=strategy, mode=mode,
+                                       schedule="delta", device=dev)
+            np.testing.assert_array_equal(got, want)
+        gd = CSRGraph.from_arrays(g.row_ptr.numpy(), g.col.numpy(),
+                                  None if g.wt is None else g.wt.numpy(),
+                                  device=dev)
+        strat = make_strategy(strategy)
+        plan = priority.plan_delta(strat, strat.setup(gd), gd,
+                                   op=operators.min_label)
+        n = plan.light.num_nodes
+        dist = torch.arange(n, dtype=torch.int32, device=dev)
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        args = (plan.kernel, plan.light, plan.heavy_graph, plan.aux, dist,
+                mask)
+        kw = dict(op=operators.min_label, sched=plan.sched, delta=plan.delta,
+                  max_iterations=100000)
+        got = kernel_fused.delta_fixed_point(*args, **kw)
+        ref = priority._delta_fixed_point_plain(*args, **kw)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert got[2:] == ref[2:]
 
 
 @pytest.mark.parametrize("mode", ["stepped", "fused"])

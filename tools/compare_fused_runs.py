@@ -18,17 +18,21 @@ time after a ~1 ms spin, as ``chip_smoke.time_ms``).  The trees take
 turns, baseline, this, this, baseline, ``--rounds`` times; both trees'
 ``(dist, iterations, edges_relaxed)`` must agree (the script raises
 otherwise).  It prints one JSON line per run with each tree's medians and
-their ratio, then the card's ``nvidia-smi`` name and power limit.  With
+their ratio, then one with each tree's timed kernel as built (registers,
+local bytes a thread, blocks a SM: ``costmodel.block_feasibility``), then
+the card's ``nvidia-smi`` name and power limit.  With
 ``--schedule delta`` the runs are delta-stepping traversals of
 ``road_grid_graph(side=1024, weighted=True, seed=4)`` (``DELTA_RUNS``:
 ``(algo, strategy, delta)``, ``None`` the auto width), each timed around
 the wrapper of the fused kernel's delta mode; the baseline tree must have
-that mode.  With ``--schedule batch`` the runs are fused sssp batches on
-rmat20 through ``engine.run_batch`` (``BATCH_RUNS``: K = 8 and K = 32
-sources by fig12's rule, as ``chip_smoke.py``'s batch phase takes them),
-the host clock around the whole call and CUDA events around the fused
-kernel's batch wrapper (``batch_fixed_point``, however many launches it
-makes).  Needs a CUDA card and ``nvcc``; exits non-zero without a card.
+that mode, and the line also gives each tree's last launch's grid
+barriers where its wrapper returns them (``Rounds``).  With
+``--schedule batch`` the runs are fused sssp batches on rmat20 through
+``engine.run_batch`` (``BATCH_RUNS``: K = 8 and K = 32 sources by
+fig12's rule, as ``chip_smoke.py``'s batch phase takes them), the host
+clock around the whole call and CUDA events around the fused kernel's
+batch wrapper (``batch_fixed_point``, however many launches it makes).  Needs a CUDA
+card and ``nvcc``; exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ MEASURE = r"""
 import hashlib, json, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
-from repro_torch.core import engine
+from repro_torch.core import costmodel, engine
 from repro_torch.core.strategies import make_strategy
 from repro_torch.data import rmat_graph, road_grid_graph
 from repro_torch.kernels import fused as fused_kernel
@@ -84,8 +88,9 @@ for algo, strategy, *rest in runs:
     else:
         call = lambda: engine.run(graph, source, make_strategy(strategy),
                                   mode="fused", device=dev, **kw)
-    events = []
+    events, barriers = [], None
     def timed(*args, **kw):
+        global barriers
         torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -93,6 +98,8 @@ for algo, strategy, *rest in runs:
         res = real(*args, **kw)
         end.record()
         events.append((start, end))
+        if delta_mode and len(res) > 7:     # a wrapper that returns Rounds
+            barriers = res[7].barriers
         return res
     setattr(fused_kernel, wrapper, timed)
     try:
@@ -112,7 +119,11 @@ for algo, strategy, *rest in runs:
     out["-".join(str(x) for x in (algo, strategy, *rest))] = dict(
         host_ms=host, device_ms=[s.elapsed_time(e) for s, e in events],
         iterations=r.iterations, edges_relaxed=r.edges_relaxed,
+        barriers=barriers,
         dist_sha1=hashlib.sha1(r.dist.tobytes()).hexdigest())
+# the timed kernel's registers, local bytes and blocks a SM as built
+out["kernel"] = costmodel.block_feasibility(dev)[
+    "fused_delta" if delta_mode else "fused_fixed_point"]
 print(json.dumps(out))
 """
 
@@ -168,10 +179,14 @@ def main() -> int:
                   for name, ms in rec.items()}
         print(json.dumps({
             "run": key, "iterations": facts.pop()[0],
+            "barriers": {name: ms[-1][key]["barriers"]
+                         for name, ms in rec.items()},
             "turns": len(rec["this"]), "reps": args.reps, "median": med,
             "spread": spread, "baseline_over_this": {
                 t: med["baseline"][t] / med["this"][t]
                 for t in ("host_ms", "device_ms")}}), flush=True)
+    print(json.dumps({"kernel": {name: ms[-1]["kernel"]
+                                 for name, ms in rec.items()}}), flush=True)
     print(cs.nvidia_smi(), flush=True)
     return 0
 

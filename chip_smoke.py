@@ -21,8 +21,10 @@ Phases, each printing one JSON line:
    ``apply_relax``), with the cases that take the kernels' other paths:
    B2 lane counts that are not multiples of its tile, HP-shaped tiles of
    mostly invalid lanes, and a B1 frontier whose zero-degree runs outgrow
-   a tile's shared memory.  Each is timed with CUDA events beside the plain
-   version;
+   a tile's shared memory; B3 also against ``torch.searchsorted``, on
+   that frontier's prefix (slices too wide to stage) and with no slot at
+   all.  Each is timed with CUDA events beside the plain version (B3 also
+   beside ``torch.searchsorted``);
 4. path  — the paper's rmat20 (``rmat_graph(scale=20, edge_factor=8,
    weighted=True, seed=1)``) from its highest-degree source: ``sssp`` with
    WD, BS, HP, AD, EP (chunked pushes) and NS and ``bfs`` with WD on the
@@ -70,20 +72,25 @@ Phases, each printing one JSON line:
    batch: ``run_batch`` (ROADMAP A8) on rmat20 with K = 8 sources by
    fig12's rule (the highest out-degrees).  The launch counts are set to 0
    just before the sssp and bfs batches, stepped and fused, and read just
-   after: one launch of B1's batch contract (``wd_relax_lanes_batch``) a
-   stepped iteration and no single-row B1, one ``fused_fixed_point``
-   launch a row of a fused batch (the kernel line's B1-batch row and the
-   fused row's ``batch_launches``).  Every row equals Dijkstra, stepped equals
-   fused, the batch's iterations and edges are the maximum and the sum of
-   the eight single-source fused WD runs, ``pad_to=16`` keeps the rows; a
-   K = 32 fused batch (the next 32 nodes) equals its stepped batch and, in
-   four rows, Dijkstra.  B1's batch contract against its plain version on
-   the K = 8 stepped run's own launches (an empty row, a ``cap_work`` off
-   the tile, all four operators) and timed there; the fused batch against
-   its plain loop (rmat16, four operators; rmat20, sssp), timed; the
-   batches against eight sequential single runs, fused and stepped, and
-   the K = 32 batch, interleaved (3 rounds, medians, spread, MTEPS,
-   queries/s); one traced fused batch (one fused kernel, idle share).
+   after: one launch of B1's batch contract (``wd_relax_lanes_batch``:
+   ``wd_relax_union_kernel``, one merge path over the union of the rows'
+   frontiers, node-major) a stepped iteration and no single-row B1, one
+   ``fused_fixed_point`` launch a row of a fused batch (the kernel line's
+   B1-batch row and the fused row's ``batch_launches``).  Every row equals
+   Dijkstra, stepped equals fused, the batch's iterations and edges are
+   the maximum and the sum of the eight single-source fused WD runs,
+   ``pad_to=16`` keeps the rows; a K = 32 fused batch (the next 32 nodes)
+   equals its stepped batch (one B1 batch launch an iteration) and, in
+   four rows, Dijkstra.  B1's batch contract against its plain version
+   and the row-by-row oracle on every launch of the K = 8 stepped run
+   and on derived cases (an empty row, a ``cap_work`` off the tile, a
+   ``cap`` and a ``cap_work`` that cut rows, all four operators, K of 1,
+   5 and 8, and the K = 32 run's widest launch), timed there beside both
+   bounds (the union's and a row at a time); the fused batch against its
+   plain loop (rmat16, four operators; rmat20, sssp), timed; the batches
+   against eight sequential single runs, fused and stepped, and the K =
+   32 batches, interleaved (3 rounds, medians, spread, MTEPS, queries/s);
+   one traced fused batch (one fused kernel, idle share).
    graph_serve: ``GraphServer(mode="fused", max_batch=8)`` with rmat20
    resident, through ``repro_torch.launch.serve_graph.serve`` with the
    example's traffic (64 sssp queries from the 10% highest-degree nodes,
@@ -587,6 +594,16 @@ def kernel_phase(g, dev, *, frontiers, lanes_list, reps=10):
             check("relax_lanes", case + ["apply", name],
                   relax.apply_relax(dist, mask, *args[1:], op=op), want)
 
+    def check_b3(prefix, cap, case):
+        got = fo.find_offsets(prefix, cap)
+        check("find_offsets", case, [got],
+              [fo.find_offsets_plain(prefix, cap)])
+        if prefix.numel():
+            check("find_offsets", case + ["searchsorted"], [got],
+                  [torch.searchsorted(prefix, torch.arange(
+                      cap, dtype=torch.int32, device=dev), right=True,
+                      out_int32=True)])
+
     for f_slots in frontiers:
         for weighted in (True, False):
             for cursor_max in (0, 2):
@@ -594,11 +611,16 @@ def kernel_phase(g, dev, *, frontiers, lanes_list, reps=10):
                 check_b1(a, g.wt if weighted else None,
                          [f_slots, weighted, cursor_max])
         a = wd_inputs(g, rng, f_slots, 0, dev)
-        check("find_offsets", [f_slots],
-              [fo.find_offsets(a["prefix"], a["cap_work"])],
-              [fo.find_offsets_plain(a["prefix"], a["cap_work"])])
+        check_b3(a["prefix"], a["cap_work"], [f_slots])
     a = wd_inputs(g, rng, n, 1, dev, nodes=np.arange(n), runs=ZERO_RUNS)
     check_b1(a, g.wt, [n, "zero-degree runs"])
+    # B3: tiles whose prefix slice is too wide to stage, and no slot
+    check_b3(a["prefix"], a["cap_work"], [n, "zero-degree runs"])
+    check_b3(a["prefix"], a["total"] + 1001, [n, "zero-degree runs",
+                                               "off-tile"])
+    for cap in (1000, 1 << 23):
+        check_b3(torch.zeros(0, dtype=torch.int32, device=dev), cap,
+                 [0, cap])
     for lanes in lanes_list:
         check_b2(lane_inputs(rng, n, lanes, dev), [lanes])
     check_b2(hp_tile_inputs(g, rng, 4096, 64, dev), ["hp tile", 4096, 64])
@@ -1445,130 +1467,190 @@ def zero_counts() -> None:
             counts[key] = 0
 
 
-def batch_calls(g, dev, sources) -> list:
+def batch_calls(g, dev, sources, widest_only: bool = False) -> list:
     """The B1 batch launches of a stepped sssp batch on ``g``: each
-    launch's ``dist`` and slot tables as the batch gave them (cloned)."""
+    launch's node-major ``dist_t``/``front_t`` and union slot tables as
+    the batch gave them (cloned); with ``widest_only``, only the launch
+    of the most union lanes."""
     import torch
     from repro_torch.core import engine
     from repro_torch.kernels import relax
-    real = relax.wd_apply_relax_batch
+    real = relax.wd_apply_relax_union
     kept = []
 
-    def recording(dist, updated, *args, **kw):
-        kept.append(dict(dist=dist.clone(), cap_work=kw["cap_work"],
-                         **{k: a.clone() for k, a in zip(
-                             ("prefix", "exclusive", "start", "src_ids"),
-                             args[:4])}))
-        return real(dist, updated, *args, **kw)
+    def recording(dist_t, front_t, *args, **kw):
+        if not widest_only or not kept or (kw["max_lanes"]
+                                           > kept[0]["max_lanes"]):
+            c = dict(dist_t=dist_t.clone(), front_t=front_t.clone(),
+                     tables=[a.clone() for a in args[:4]], rows=len(sources),
+                     cap_work=kw["cap_work"], max_lanes=kw["max_lanes"])
+            kept[:] = [c] if widest_only else kept + [c]
+        return real(dist_t, front_t, *args, **kw)
 
-    relax.wd_apply_relax_batch = recording
+    relax.wd_apply_relax_union = recording
     try:
         engine.run_batch(g, sources, mode="stepped", device=dev)
     finally:
-        relax.wd_apply_relax_batch = real
+        relax.wd_apply_relax_union = real
     torch.cuda.synchronize()
     return kept
 
 
-def b1_batch_check(g, dev, kept) -> tuple:
-    """B1's batch contract against its plain version on the card: every
-    kept launch with its own dist (sssp); the widest with a row whose
-    frontier is empty, with ``cap_work`` one past its largest row total
-    (not a multiple of the 1,024-lane tile), and with each of the four
-    ``OP_NAMES`` operators on random values.  Returns ``(cases,
-    max_abs_err)``; raises on a difference."""
+def relayout(x_t, k: int, fill):
+    """The first ``k`` rows of node-major ``x_t``, node-major again
+    (``Kp`` for ``k``)."""
+    from repro_torch.core import multi_source
+    return multi_source.to_node_major(
+        multi_source.from_node_major(x_t, k), fill)
+
+
+def union_check(g, dist_t, front_t, k: int, op, *, cap: int,
+                cap_work: int, cut: bool, tables=None) -> int:
+    """B1's batch contract on node-major ``dist_t``/``front_t`` (``k``
+    rows), each row's frontier cut at ``cap`` nodes, with a row table
+    when ``cut``: the kernel against its plain version on the same card
+    tensors, and against the row-by-row oracle
+    ``wd_apply_relax_batch_plain`` transposed back to ``[K, N]``.
+    ``tables``: the union's slot tables as a stepped batch gave them
+    (else built here).  Returns the largest difference."""
+    import torch
+    from repro_torch.core import multi_source as ms
+    from repro_torch.kernels import relax
+    mask_b = ms.from_node_major(front_t, k)
+    ft = front_t & (torch.cumsum(front_t, 0, dtype=torch.int32) <= cap)
+    if tables is None:
+        live = ft.any(1)
+        tables = ms.union_tables(g, live, max(int(live.sum()), 1))
+    row_excl = ms.row_exclusive(ft, *tables[:2], tables[3]) if cut else None
+    args = (dist_t, ft, *tables, g.col, g.wt)
+    kw = dict(cap_work=cap_work, row_excl=row_excl, op=op)
+    got = relax.wd_apply_relax_union(*args, max_lanes=int(tables[0][-1]),
+                                     **kw)
+    want = relax.wd_apply_relax_union_plain(*args, **kw)
+    rows = relax.wd_apply_relax_batch_plain(
+        ms.from_node_major(dist_t, k), torch.zeros_like(mask_b),
+        *ms.row_tables(g, mask_b, cap), g.col, g.wt, cap_work=cap_work,
+        op=op)
+    return max(max_abs_err(got, want),
+               max_abs_err([ms.from_node_major(t, k) for t in got], rows))
+
+
+def b1_batch_check(g, dev, kept, wide) -> tuple:
+    """B1's batch contract (``union_check``) on the card: every launch
+    ``kept`` from the K = 8 stepped sssp batch with its own tables, dist
+    and frontier; the widest of them with row 0's frontier emptied, with
+    a row table and a ``cap_work`` one past the largest row total (off the
+    1,024-item tile), with a ``cap`` and a ``cap_work`` that cut rows,
+    with each of the four ``OP_NAMES`` operators on random values, and
+    cut to its first 1 and 5 rows; ``wide``, the widest launch of the
+    K = 32 stepped batch.  Returns ``(cases, max_abs_err)``; raises on a
+    difference."""
     import numpy as np
     import torch
+    from repro_torch.core import multi_source as ms
     from repro_torch.core import operators
-    from repro_torch.kernels import relax
     rng = np.random.default_rng(11)
-    k, n = kept[0]["dist"].shape
     cases, err, bad = 0, 0, []
+    sssp = operators.shortest_path
 
-    def check(case, c, dist, op, cap_work):
+    def check(case, c, op=sssp, dist_t=None, front_t=None, k=None, cap=None,
+              cap_work=None, cut=False, tables=None):
         nonlocal cases, err
-        args = (c["prefix"], c["exclusive"], c["start"], c["src_ids"],
-                g.col, g.wt)
-        upd = torch.zeros((k, n), dtype=torch.bool, device=dev)
-        got = relax.wd_apply_relax_batch(dist, upd, *args,
-                                         cap_work=cap_work, op=op)
-        want = relax.wd_apply_relax_batch_plain(
-            dist, torch.zeros_like(upd), *args, cap_work=cap_work, op=op)
-        e = max_abs_err(got, want)
+        front_t = c["front_t"] if front_t is None else front_t
+        k = c["rows"] if k is None else k
+        widest = int(front_t.sum(0).max())
+        e = union_check(
+            g, c["dist_t"] if dist_t is None else dist_t, front_t, k, op,
+            cap=max(widest, 1) if cap is None else cap,
+            cap_work=c["cap_work"] if cap_work is None else cap_work,
+            cut=cut, tables=tables)
         cases += 1
         err = max(err, e)
         if e:
-            bad.append((case, op.name, cap_work, e))
+            bad.append((case, op.name, k, e))
 
-    sssp = operators.shortest_path
     for i, c in enumerate(kept):
-        check(f"launch {i}", c, c["dist"], sssp, c["cap_work"])
-    widest = max(kept, key=lambda c: c["cap_work"])
-    empty = dict(widest)
-    empty_rows = int((widest["prefix"][:, -1] == 0).sum())
-    if not empty_rows:                  # make row 0's frontier empty
-        empty = {key: v.clone() if torch.is_tensor(v) else v
-                 for key, v in widest.items()}
-        for key in ("prefix", "exclusive", "src_ids"):
-            empty[key][0] = 0
-        empty["start"][0] = g.row_ptr[0]
-    check("empty row", empty, empty["dist"], sssp, empty["cap_work"])
-    odd = int(widest["prefix"][:, -1].max()) + 1
+        check(f"launch {i}", c, tables=c["tables"])
+    c = max(kept, key=lambda c: c["max_lanes"])
+    k, n = c["rows"], c["dist_t"].shape[0]
+    empty = c["front_t"].clone()
+    empty[:, 0] = False
+    check("empty row", c, front_t=empty)
+    totals = torch.where(ms.from_node_major(c["front_t"], k),
+                         g.degrees, 0).sum(1)
+    odd = int(totals.max()) + 1
     odd += odd % 1024 == 0
-    check("cap_work not a tile multiple", widest, widest["dist"], sssp, odd)
+    check("cap_work not a tile multiple", c, cap_work=odd, cut=True)
+    widest = int(c["front_t"].sum(0).max())
+    check("cap and cap_work cut rows", c, cap=widest // 2,
+          cap_work=int(totals.max()) // 2 + 1, cut=True)
     for name in OP_NAMES:
         op = operators.OPERATORS[name]
-        dist = random_dist(rng, op, k * n, dev).reshape(k, n)
-        check(f"random {name}", widest, dist, op, widest["cap_work"])
+        dist_b = random_dist(rng, op, k * n, dev).reshape(k, n)
+        check(f"random {name}", c, op=op,
+              dist_t=ms.to_node_major(dist_b, op.identity))
+    for rows in (1, 5):
+        check(f"K = {rows}", c, k=rows,
+              dist_t=relayout(c["dist_t"], rows, sssp.identity),
+              front_t=relayout(c["front_t"], rows, False))
+    check("K = 32, widest launch", wide, tables=wide["tables"])
     emit("b1_batch_check", graph=f"rmat{n.bit_length() - 1}", rows=k,
-         cases=cases, launches_kept=len(kept),
-         empty_rows_in_widest=empty_rows, mismatches=bad)
+         cases=cases, launches_kept=len(kept), mismatches=bad)
     if bad:
         raise AssertionError(f"B1 batch != plain: {bad}")
     return cases, err
 
 
 def b1_batch_time(g, c, reps: int = 10) -> dict:
-    """B1's batch contract as a stepped iteration runs it (a fresh mask,
-    the copy of dist, the launch), timed L2-cold and warm on the kept
-    launch ``c`` beside its plain version, with its bound: B1's
-    (``time_b1``) summed over the rows, less the improve flags, which
-    this contract does not write."""
+    """B1's batch contract as a stepped iteration runs it (the copy of
+    dist_t, a zeroed frontier, the launch), timed L2-cold and warm on the
+    kept launch ``c`` beside its plain version, with two bounds.
+    ``bound_ms``, the union's: dist_t read once and its next copy written
+    once (8 B a node and row quad's row), each union slot's tables (16 B,
+    ``b1_work``) and frontier bytes (``Kp``), ``col``/``wt`` once a union
+    edge (8 B), and a byte a row where it improves.  ``row_bound_ms``, a
+    row at a time (the row contract's bound): B1's apply bound
+    (``time_b1``) on each row's own tables, summed."""
     import torch
+    from repro_torch.core import multi_source as ms
     from repro_torch.core import operators
     from repro_torch.kernels import relax
     op = operators.shortest_path
-    dist = c["dist"]
-    k, n = dist.shape
-    cap = c["cap_work"]
-    f_slots = c["prefix"].shape[1]
-    args = (c["prefix"], c["exclusive"], c["start"], c["src_ids"], g.col,
-            g.wt)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dist.device)
+    dist_t, front_t, k = c["dist_t"], c["front_t"], c["rows"]
+    n, kp = dist_t.shape
+    cap_work, tables = c["cap_work"], c["tables"]
+    args = (dist_t, front_t, *tables, g.col, g.wt)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dist_t.device)
 
     def fn():
-        return relax.wd_apply_relax_batch(
-            dist, torch.zeros((k, n), dtype=torch.bool, device=dist.device),
-            *args, cap_work=cap, op=op)
+        return relax.wd_apply_relax_union(*args, cap_work=cap_work,
+                                          max_lanes=c["max_lanes"], op=op)
 
     def plain():
-        return relax.wd_apply_relax_batch_plain(
-            dist, torch.zeros((k, n), dtype=torch.bool, device=dist.device),
-            *args, cap_work=cap, op=op)
-    totals = c["prefix"][:, -1].clamp(max=cap)
-    improving = (plain()[0] != dist).sum(1).tolist()
-    slot_bytes, ops = b1_work(c["prefix"], totals)
-    totals = totals.tolist()
-    # no improve flags: the batch contract writes none
-    t_b, by = bound(sum(fold_bytes(n, "wd_apply_relax", imp)
-                        for imp in improving)
-                    + slot_bytes + 8 * sum(totals), ops)
-    return dict(contract="wd_apply_relax_batch",
+        return relax.wd_apply_relax_union_plain(*args, cap_work=cap_work,
+                                                op=op)
+    union_lanes = int(tables[0][-1])
+    improved = int(plain()[1].sum())
+    slot_bytes, ops = b1_work(tables[0], tables[0][-1])
+    slots = slot_bytes // 16
+    t_b, by = bound(8 * n * kp + slot_bytes + kp * slots + 8 * union_lanes
+                    + improved, ops * (kp // 4))
+    mask_b = ms.from_node_major(front_t, k)
+    rows = ms.row_tables(g, mask_b, max(int(mask_b.sum(1).max()), 1))
+    totals = rows[0][:, -1].clamp(max=cap_work)
+    row_improving = (ms.from_node_major(plain()[0], k)
+                     != ms.from_node_major(dist_t, k)).sum(1).tolist()
+    row_slot_bytes, row_ops = b1_work(rows[0], totals)
+    row_b, row_by = bound(sum(fold_bytes(n, "wd_apply_relax", imp)
+                              for imp in row_improving)
+                          + row_slot_bytes + 8 * int(totals.sum()), row_ops)
+    return dict(contract="wd_apply_relax_union",
                 **time_pair(fn, plain, reps, flush), bound_ms=t_b,
-                bound_by=by,
-                shape=dict(n=n, rows=k, f=f_slots, cap_work=cap,
-                           edges=sum(totals), improved_nodes=sum(improving),
-                           weighted=True, op=op.name))
+                bound_by=by, row_bound_ms=row_b, row_bound_by=row_by,
+                shape=dict(n=n, rows=k, kp=kp, slots=tables[0].numel(),
+                           union_lanes=union_lanes,
+                           row_lanes=int(totals.sum()), cap_work=cap_work,
+                           improved=improved, weighted=True, op=op.name))
 
 
 def single_runs(g, sources, dev, mode: str) -> list:
@@ -1589,13 +1671,15 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
     fused; the batch's iterations and edges are the maximum and the sum
     of the eight single-source fused WD runs; ``pad_to=16`` keeps the
     first eight rows.  A K = 32 fused sssp batch (the next 32 nodes)
-    equals its stepped batch, and four of its rows Dijkstra.  B1's batch
-    contract against its plain version on launches kept from the K = 8
-    stepped run (``b1_batch_check``) and timed there; the fused batch
-    against ``_batch_fixed_point_plain`` at rmat-``small_scale`` (four
-    operators) and on ``g`` (sssp).  Then, interleaved over ``rounds``:
-    the K = 8 fused and stepped batches against eight sequential single
-    runs, and the K = 32 fused batch; one traced fused batch (a fused
+    equals its stepped batch (one B1 batch launch an iteration), and four
+    of its rows Dijkstra.  B1's batch contract against its plain version
+    and the row-by-row oracle on launches kept from the K = 8 stepped run
+    and the widest of the K = 32 run (``b1_batch_check``) and timed on
+    the widest K = 8 launch; the fused batch against
+    ``_batch_fixed_point_plain`` at rmat-``small_scale`` (four operators)
+    and on ``g`` (sssp).  Then, interleaved over ``rounds``: the K = 8
+    fused and stepped batches against eight sequential single runs, and
+    the K = 32 fused and stepped batches; one traced fused batch (a fused
     kernel a row).  Returns the
     kernel line's B1-batch row and adds ``at_batch`` to ``fused_row``."""
     import numpy as np
@@ -1666,7 +1750,12 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
     if LAUNCHES["fused_fixed_point"] != before + BATCH_K_WIDE:
         raise AssertionError("the K = 32 batch was not a fused launch a "
                              "row")
+    before = dict(LAUNCHES)
     wide_stepped = engine.run_batch(g, src32, mode="stepped", device=dev)
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    if {k: v for k, v in launched.items() if v} != {
+            "wd_relax_lanes_batch": wide_stepped.iterations}:
+        raise AssertionError(f"K = 32 stepped batch launched {launched}")
     if not same_run(wide, wide_stepped):
         raise AssertionError("K = 32 batch: fused != stepped")
     picks = [0, 7, 19, 31]
@@ -1675,14 +1764,17 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
         raise AssertionError("K = 32 batch != Dijkstra")
     emit("batch_wide", graph=name, rows=BATCH_K_WIDE,
          iterations=wide.iterations, edges_relaxed=wide.edges_relaxed,
+         stepped_launches=launched["wd_relax_lanes_batch"],
          equals_stepped=True, rows_equal_to_dijkstra=picks)
 
-    # B1's batch contract against its plain version, and timed
+    # B1's batch contract against its plain version and the row-by-row
+    # oracle, and timed
     kept = batch_calls(g, dev, src8)
     if len(kept) != runs[("sssp", "stepped")].iterations:
         raise AssertionError(f"kept {len(kept)} B1 batch launches")
-    cases, err = b1_batch_check(g, dev, kept)
-    widest = max(kept, key=lambda c: c["cap_work"])
+    cases, err = b1_batch_check(g, dev, kept,
+                                batch_calls(g, dev, src32, True)[0])
+    widest = max(kept, key=lambda c: c["max_lanes"])
     row = dict(name="wd_relax_lanes_batch", route="cuda", source=CSRC,
                replaces=B1_BATCH_REPLACES, vmap_of=B1_BATCH_VMAP,
                launches=launches["wd_relax_lanes_batch"], max_abs_err=err,
@@ -1749,7 +1841,9 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
              "stepped_single8": (singles("stepped"), BATCH_K,
                                  f8.edges_relaxed),
              "fused_batch32": (batch("fused", src32), BATCH_K_WIDE,
-                               wide.edges_relaxed)}
+                               wide.edges_relaxed),
+             "stepped_batch32": (batch("stepped", src32), BATCH_K_WIDE,
+                                 wide.edges_relaxed)}
     times = {key: [] for key in timed}
     for key, (fn, _, _) in timed.items():                 # warm-up
         fn()

@@ -7,8 +7,12 @@ module runs K sources as one fixed point:
 
 * ``dist`` is ``[K, N]`` and the frontier a ``[K, N]`` bool mask;
 * each stepped iteration is ONE launch of B1's batch contract for all K
-  rows (:func:`batched_wd_relax`, ``relax.wd_apply_relax_batch``), where
-  the reference ``vmap``-s its WD relax over the source axis;
+  rows (``relax.wd_apply_relax_union``), where the reference ``vmap``-s
+  its WD relax over the source axis: the rows' values and frontiers are
+  node-major (``[N, Kp]``, ``Kp`` = K rounded up to 4) for the whole
+  traversal, and one merge path runs over the union of the rows'
+  frontiers, each lane relaxing its edge in every row that holds its
+  source;
 * the capacities are shared by the batch: every iteration takes the
   widest live frontier and the largest edge total over the K rows, rounds
   them up with :func:`repro_torch.core.worklist.bucket`, and rows whose
@@ -21,8 +25,9 @@ other rows.
 ``run_batch(..., mode=)``:
 
 * ``"stepped"``: the loop above.  The host syncs only the ``[K]`` frontier
-  counts and degree totals each iteration (the reference copies the whole
-  ``[K, N]`` mask; the numbers are the same);
+  counts and degree totals and the union's size and edges each iteration
+  (the reference copies the whole ``[K, N]`` mask; the numbers are the
+  same);
 * ``"fused"``: the whole batch to its fixed point in one launch,
   :func:`repro_torch.core.fused.run_batch_fixed_point`, with no
   per-iteration ``iter_stats``.
@@ -115,20 +120,100 @@ def compact_rows(mask_b: torch.Tensor, cap: int) -> torch.Tensor:
     return out[:, :cap].contiguous()
 
 
-def batched_wd_relax(g: CSRGraph, dist_b, mask_b, *, cap: int,
-                     cap_work: int, op: EdgeOp = operators.shortest_path):
-    """One relax iteration for all K rows: each row's frontier compacted
-    into ``cap`` slots and its edges spread over ``cap_work`` lanes, then
-    ONE launch of B1's batch contract (the plain version per row on the
-    CPU).  Returns ``(dist [K, N], next frontier [K, N])``."""
+def row_tables(g: CSRGraph, mask_b: torch.Tensor, cap: int) -> tuple:
+    """Each row's WD slot tables ``(prefix, exclusive, start, src_ids)``,
+    ``[K, cap]``, as the reference's vmapped ``wd_relax`` builds them: the
+    inputs of the row-by-row oracle ``relax.wd_apply_relax_batch_plain``."""
     frontier = compact_rows(mask_b, cap)
     live = frontier >= 0
     f = torch.where(live, frontier, 0)
     deg = torch.where(live, g.row_ptr[f + 1] - g.row_ptr[f], 0)
     prefix = torch.cumsum(deg, 1, dtype=torch.int32)
-    return relax.wd_apply_relax_batch(
-        dist_b, torch.zeros_like(mask_b), prefix, prefix - deg,
-        g.row_ptr[f], f, g.col, g.wt, cap_work=cap_work, op=op)
+    return prefix, prefix - deg, g.row_ptr[f], f
+
+
+def row_quads(k: int) -> int:
+    """``Kp``, the node-major width of ``k`` rows: ``k`` rounded up to 4
+    (the kernel takes a node's rows in 16-byte quads)."""
+    return -(-k // 4) * 4
+
+
+def to_node_major(x_b: torch.Tensor, fill) -> torch.Tensor:
+    """``[K, N]`` -> ``[N, Kp]``, the padded columns set to ``fill``."""
+    k, n = x_b.shape
+    out = torch.full((n, row_quads(k)), fill, dtype=x_b.dtype,
+                     device=x_b.device)
+    out[:, :k] = x_b.t()
+    return out
+
+
+def from_node_major(x_t: torch.Tensor, k: int) -> torch.Tensor:
+    """``[N, Kp]`` -> its first ``k`` rows, ``[K, N]``."""
+    return x_t[:, :k].t().contiguous()
+
+
+def union_tables(g: CSRGraph, live: torch.Tensor, slots: int) -> tuple:
+    """The WD slot tables ``(prefix, exclusive, start, src_ids)``, ``[slots]``,
+    of the union frontier ``live [N]`` (one ``[N]`` compaction, one degree
+    gather, one prefix); ``slots`` must hold every live node, and the
+    slots past them are node 0 with no edge."""
+    n = live.numel()
+    pos = torch.cumsum(live, 0, dtype=torch.int32) - 1
+    at = torch.where(live, pos, slots).long()
+    ids = torch.full((slots + 1,), -1, dtype=torch.int32, device=live.device)
+    ids.scatter_(0, at, torch.arange(n, dtype=torch.int32,
+                                     device=live.device))
+    ids = ids[:slots]
+    used = ids >= 0
+    f = torch.where(used, ids, 0)
+    deg = torch.where(used, g.row_ptr[f + 1] - g.row_ptr[f], 0)
+    prefix = torch.cumsum(deg, 0, dtype=torch.int32)
+    return prefix, prefix - deg, g.row_ptr[f], f
+
+
+def row_exclusive(front_t: torch.Tensor, prefix: torch.Tensor,
+                  exclusive: torch.Tensor, src_ids: torch.Tensor):
+    """``[slots, Kp]`` int32: each row's exclusive degree prefix at each
+    union slot over that row's own frontier, i.e. the row's lane index of
+    the slot's first edge (``relax.wd_apply_relax_union``'s ``row_excl``)."""
+    mine = front_t[src_ids] * (prefix - exclusive)[:, None]
+    return torch.cumsum(mine, 0, dtype=torch.int32) - mine
+
+
+def _relax_node_major(g: CSRGraph, dist_t, front_t, live, *, slots: int,
+                      max_lanes: int, cap_work: int, op: EdgeOp,
+                      cut: bool):
+    """One relax iteration of every row on node-major ``dist_t``/
+    ``front_t`` (``[N, Kp]``): the slot tables of the union frontier
+    ``live`` (``front_t.any(1)``; ``slots`` of them), then ONE launch of
+    B1's batch contract.  ``cut``: some row may pass ``cap_work`` lanes,
+    so each row's exclusive prefix at the slots goes along."""
+    prefix, excl, start, src = union_tables(g, live, slots)
+    row_excl = row_exclusive(front_t, prefix, excl, src) if cut else None
+    return relax.wd_apply_relax_union(
+        dist_t, front_t, prefix, excl, start, src, g.col, g.wt,
+        cap_work=cap_work, max_lanes=max_lanes, row_excl=row_excl, op=op)
+
+
+def batched_wd_relax(g: CSRGraph, dist_b, mask_b, *, cap: int,
+                     cap_work: int, op: EdgeOp = operators.shortest_path):
+    """One relax iteration for all K rows, each as the reference's: its
+    first ``cap`` frontier nodes (ascending ids), its edges in that order,
+    cut at ``cap_work`` lanes.  The rows go node-major, their frontiers
+    are cut at ``cap`` and joined into one union frontier, and ONE launch
+    of B1's batch contract relaxes them (its plain version on the CPU).
+    Returns ``(dist [K, N], next frontier [K, N])``."""
+    k, n = mask_b.shape
+    if k == 0 or cap == 0:
+        return dist_b.clone(), torch.zeros_like(mask_b)
+    dist_t = to_node_major(dist_b, op.identity)
+    front_t = to_node_major(mask_b, False)
+    front_t &= torch.cumsum(front_t, 0, dtype=torch.int32) <= cap
+    dist_t, front_t = _relax_node_major(
+        g, dist_t, front_t, front_t.any(1), slots=min(n, k * cap),
+        max_lanes=min(g.num_edges, k * cap_work), cap_work=cap_work, op=op,
+        cut=True)
+    return from_node_major(dist_t, k), from_node_major(front_t, k)
 
 
 def init_batch(num_nodes: int, sources: torch.Tensor,
@@ -252,27 +337,42 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
                               mode="fused", device=dev.type,
                               pad_lanes=pad_lanes)
 
+    # node-major for the whole traversal: one transpose in, one out
+    dist_t = to_node_major(dist_b, op.identity)
+    front_t = to_node_major(mask_b, False)
     degrees = graph.degrees
     iter_stats: list[IterStats] = []
     edges = 0
     it = 0
     while it < max_iterations:
-        # the [K] counts and degree totals: the one sync an iteration
-        counts, totals = torch.stack([
-            mask_b.sum(1),
-            torch.where(mask_b, degrees, 0).sum(1, dtype=torch.int64),
+        # the [K] counts and degree totals, and the union frontier's size
+        # and edges: the one sync an iteration
+        live = front_t.any(1)
+        stats = torch.cat([
+            front_t.sum(0, dtype=torch.int64)[:k],
+            (front_t * degrees[:, None]).sum(0, dtype=torch.int64)[:k],
+            live.sum(dtype=torch.int64)[None],
+            torch.where(live, degrees, 0).sum(dtype=torch.int64)[None],
         ]).tolist()
+        counts, totals = stats[:k], stats[k:2 * k]
+        union, union_edges = stats[2 * k:]
         widest = max(counts)
         if widest == 0:
             break
-        dist_b, mask_b = batched_wd_relax(
-            graph, dist_b, mask_b, cap=bucket(widest, sched.min_bucket),
-            cap_work=bucket(max(totals), sched.min_bucket), op=op)
+        # cap = bucket(widest) and cap_work = bucket(max(totals)) hold
+        # every row whole, so no row is cut
+        dist_t, front_t = _relax_node_major(
+            graph, dist_t, front_t, live,
+            slots=bucket(union, sched.min_bucket),
+            max_lanes=union_edges,
+            cap_work=bucket(max(totals), sched.min_bucket), op=op,
+            cut=False)
         edges += sum(totals)
         iter_stats.append(IterStats(frontier_size=widest,
                                     edges_processed=sum(totals),
                                     kernel="WD"))
         it += 1
+    dist_b = from_node_major(dist_t, k)
     total_s = _elapsed(t0, dist_b)
     return BatchRunResult(dist=dist_b.cpu().numpy(), sources=sources,
                           iterations=it, total_seconds=total_s,

@@ -34,8 +34,8 @@ LAUNCHES = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0,
             "ad_choice_probe": 0, "barrier_probe": 0}
 
 #: kernel name -> lanes launched so far, for the kernels whose work is a
-#: lane count (B1's ``cap_work``, its batch's ``K * cap_work``, B2's
-#: ``L``); summed where the launch is counted, so
+#: lane count (B1's ``cap_work``, its batch's union lanes times the row
+#: quads ``Kp / 4``, B2's ``L``); summed where the launch is counted, so
 #: ``LANES[k] / LAUNCHES[k]`` is a run's mean lanes a launch
 LANES = {"wd_relax_lanes": 0, "relax_lanes": 0, "wd_relax_lanes_batch": 0}
 
@@ -57,10 +57,11 @@ _SIGNATURES = {
     # msg, comb, target, upd, imp, stream
     "repro_wd_relax_lanes": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                              _I, _I, _P, _P, _P, _P],
-    # dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work, rows,
-    # msg, comb, target, upd, stream
-    "repro_wd_relax_lanes_batch": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I,
-                                   _I, _I, _I, _I, _P, _P, _P],
+    # dist, n, kp, front, prefix, excl, start, src_ids, f, row_excl,
+    # cap_work, col, wt, e, max_lanes, msg, comb, target, upd, stream
+    "repro_wd_relax_union": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I,
+                             _P, _P, _I, ctypes.c_longlong, _I, _I, _P, _P,
+                             _P],
     # prefix, f, cap_work, out, stream
     "repro_find_offsets": [_P, _I, _I, _P, _P],
     # q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, causal, dtype, scale, stream

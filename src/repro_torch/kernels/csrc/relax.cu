@@ -6,10 +6,11 @@
 //   B1 repro_wd_relax_lanes  replaces repro/kernels/relax.py wd_relax_lanes
 //                            (Pallas body _wd_kernel): the WD merge-path
 //                            search fused with the relax.
-//      repro_wd_relax_lanes_batch  B1 over K rows at once, the reference's
-//                            jax.vmap of it in multi_source.batched_wd_relax
-//                            (a grid axis of the pallas_call): dist, target
-//                            and upd are [K, n], the slot tables [K, f].
+//      repro_wd_relax_union  B1's batch contract, the reference's jax.vmap
+//                            of it in multi_source.batched_wd_relax (a grid
+//                            axis of the pallas_call): one merge path over
+//                            the union of the K rows' frontiers, on
+//                            node-major [n, kp] values and frontier bytes.
 //   B2 repro_relax_lanes     replaces repro/kernels/relax.py relax_lanes
 //                            (Pallas body _lanes_kernel): the relax over
 //                            direct-mapped (src, dst, w, valid) lanes.
@@ -57,7 +58,16 @@
 //     wider than B1_SLOTS (long runs of zero-degree slots, HP's tail
 //     cursors past the end) keeps the per-lane global search, narrowed to
 //     the slice.
-//   * both grids are one wave of resident blocks on the card's SMs, each
+//   * B1's batch contract: the K rows of a stepped batch share most of
+//     their frontiers (the K = 8 rmat20 batch's widest launch: 58 M row
+//     lanes over 8.4 M edges), so one merge path runs over the union of
+//     the rows' frontiers and reads each edge, slot and frontier word
+//     once, with a node's values of four rows in one 16-byte load; a pass
+//     a row would read them K times.
+//   * B3: the items are consecutive, so a tile stages its prefix slice
+//     and ranks every item in shared memory, as B1 does, and writes
+//     16-byte runs.
+//   * every grid is one wave of resident blocks on the card's SMs, each
 //     block striding over the tiles.
 // Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
 // tools/compare_relax_kernels.py, against the one-lane-a-thread kernels
@@ -162,50 +172,240 @@ wd_relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
                                  imp, sm, NoHook());
 }
 
-// B1 over K rows: the row is folded into the tile index, so no tile spans
-// two rows, and the tile body runs on the row's slices (its pointers moved
-// by the row before the call, so the body is the single-row one).  A tile
-// whose first lane lies at or past its row's total returns after that one
-// read: an empty or short row costs a load a tile.  Writes no improve (the
-// reference's batched relax drops it).
+// ----------------------------------------------------------- B1 batch ---
+// B1's batch contract over the union frontier, node-major.  The K rows'
+// values and frontier bytes are node-major, dist/target [n, kp] int32 and
+// front/upd [n, kp] bytes with kp = K rounded up to 4, so one node's
+// values of four rows are one 16-byte int4 and their frontier bytes one
+// 4-byte word.  A slot is a node active in any row (the union frontier)
+// and a lane one out-edge of a slot: the merge path runs once over the
+// union's lanes, not once a row.  A lane takes kp / 4 items, one a thread,
+// each owning four rows (a quad): it loads col/wt once, the source's four
+// frontier bytes in one load, and, if any of them is set, the source's
+// and the destination's four values as one int4 each; each row whose
+// byte is set folds its candidate against the snapshot.  Padded rows
+// (past K) have no frontier byte set and are never written.
+//
+// A row cut short (the reference's cap_work, a row's own lane budget)
+// needs each row's lane index of the edge: row_excl [f, kp] holds each
+// row's exclusive degree prefix at the slot, and a row relaxes the edge
+// only if row_excl + (k - excl) < cap_work.  row_excl == nullptr: no row
+// is cut (run_batch's capacities hold every row), and nothing is read.
+// The union's lane count is read on the device (prefix[f - 1]); the
+// grid is a wave of resident blocks striding over the tiles.  Two items
+// a thread (46 registers, 5 blocks a SM) beat four (78, 3 blocks) by 7%
+// over the K = 8 and 9% over the K = 32 rmat20 batch's launches, and
+// eight (140 registers) lost 1.75x: the gathers want warps in flight
+// (tools/compare_batch_runs.py, PERF.md).
+constexpr int UB_ITEMS = 2;                   // items a thread takes
+constexpr int UB_TILE = THREADS * UB_ITEMS;   // items a block tile covers
+
+template <int MSG, int COMB>
+__device__ __forceinline__ void fold_quad(uint32_t fr, int4 ds, int4 dd,
+                                          int32_t w, int64_t at,
+                                          const int32_t* row_excl,
+                                          int64_t rx_at, int32_t off,
+                                          int32_t cap_work, int32_t* target,
+                                          uint8_t* upd) {
+  int4 rx = make_int4(0, 0, 0, 0);
+  if (row_excl) rx = __ldg(reinterpret_cast<const int4*>(row_excl + rx_at));
+  const int32_t dsv[4] = {ds.x, ds.y, ds.z, ds.w};
+  const int32_t ddv[4] = {dd.x, dd.y, dd.z, dd.w};
+  const int32_t rxv[4] = {rx.x, rx.y, rx.z, rx.w};
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    if (!((fr >> (8 * b)) & 0xffu)) continue;
+    if (row_excl && (int64_t)rxv[b] + off >= cap_work) continue;
+    const int32_t cand = message<MSG>(dsv[b], w);
+    if (!improves<COMB>(cand, ddv[b])) continue;
+    fold<COMB>(target + at + b, cand);
+    upd[at + b] = 1;
+  }
+}
+
 template <int MSG, int COMB>
 __global__ void __launch_bounds__(THREADS)
-wd_relax_lanes_batch_kernel(const int32_t* __restrict__ dist, int32_t n,
-                            const int32_t* __restrict__ prefix,
-                            const int32_t* __restrict__ excl,
-                            const int32_t* __restrict__ start,
-                            const int32_t* __restrict__ src_ids, int32_t f,
-                            const int32_t* __restrict__ col,
-                            const int32_t* __restrict__ wt, int32_t e,
-                            int32_t cap_work, int32_t rows,
-                            int32_t* __restrict__ target,
-                            uint8_t* __restrict__ upd) {
+wd_relax_union_kernel(const int32_t* __restrict__ dist, int32_t n,
+                      int32_t kp, const uint8_t* __restrict__ front,
+                      const int32_t* __restrict__ prefix,
+                      const int32_t* __restrict__ excl,
+                      const int32_t* __restrict__ start,
+                      const int32_t* __restrict__ src_ids, int32_t f,
+                      const int32_t* __restrict__ row_excl, int32_t cap_work,
+                      const int32_t* __restrict__ col,
+                      const int32_t* __restrict__ wt, int32_t e,
+                      int32_t* __restrict__ target,
+                      uint8_t* __restrict__ upd) {
+  constexpr int L = UB_ITEMS;
   __shared__ WdSmem sm;
-  const int64_t per_row = ((int64_t)cap_work + B1_TILE - 1) / B1_TILE;
-  const int64_t tiles = per_row * rows;
+  const int32_t quads = kp >> 2;
+  const int64_t items = (int64_t)__ldg(prefix + f - 1) * quads;
+  const int64_t tiles = (items + UB_TILE - 1) / UB_TILE;
   for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int64_t row = t / per_row, tr = t - row * per_row;
-    const int64_t so = row * f, no = row * n;
-    const int64_t total = __ldg(prefix + so + f - 1);
-    if (tr * B1_TILE >= total) continue;     // the same for the whole block
-    wd_tile<MSG, COMB, ReadOnly>(tr, dist + no, n, prefix + so, excl + so,
-                                 start + so, src_ids + so, f, col, wt, e,
-                                 cap_work, total, target + no, upd + no,
-                                 nullptr, sm, NoHook());
+    const int64_t m0 = t * UB_TILE;
+    const int64_t m_end = m0 + UB_TILE < items ? m0 + UB_TILE : items;
+    // the slots of the tile's first and last lane (all lanes are valid:
+    // the tile ends at the union's last item)
+    const int warp = threadIdx.x >> 5;
+    if (warp < 2) {
+      const int64_t k = (warp == 0 ? m0 : m_end - 1) / quads;
+      const int32_t r = warp_upper_bound<ReadOnly>(prefix, f, (int32_t)k);
+      if ((threadIdx.x & 31) == 0) sm.bounds[warp] = r;
+    }
+    __syncthreads();
+    const int32_t lo = sm.bounds[0], hi = sm.bounds[1];
+    const int32_t cnt = hi - lo + 1;          // slots [lo, hi]
+    const bool staged = cnt <= B1_SLOTS;
+    if (staged) {
+      for (int32_t i = threadIdx.x; i < cnt; i += THREADS) {
+        ReadOnly::stage(sm.prefix + i, prefix + lo + i);
+        ReadOnly::stage(sm.excl + i, excl + lo + i);
+        ReadOnly::stage(sm.start + i, start + lo + i);
+        ReadOnly::stage(sm.src + i, src_ids + lo + i);
+      }
+      ReadOnly::stage_wait();
+    }
+    __syncthreads();
+
+    bool v[L];
+    int32_t s[L] = {}, c[L] = {}, wv[L] = {}, off[L] = {}, slot[L] = {};
+    int32_t q[L] = {};
+    uint32_t fr[L] = {};
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int64_t m = m0 + j * THREADS + threadIdx.x;
+      v[j] = m < m_end;
+      if (!v[j]) continue;
+      const int32_t k = (int32_t)(m / quads);
+      q[j] = (int32_t)(m - (int64_t)k * quads);
+      int32_t ex, st, li;
+      if (staged) {
+        li = smem_upper_bound(sm.prefix, cnt - 1, k);
+        ex = sm.excl[li];
+        st = sm.start[li];
+        s[j] = sm.src[li];
+      } else {
+        li = upper_bound<ReadOnly>(prefix + lo, cnt - 1, k);
+        ex = __ldg(excl + lo + li);
+        st = __ldg(start + lo + li);
+        s[j] = __ldg(src_ids + lo + li);
+      }
+      slot[j] = lo + li;
+      off[j] = k - ex;
+      const int32_t ec = clamp_index((int64_t)st + off[j], e);
+      s[j] = clamp_index(s[j], n);
+      c[j] = clamp_index(__ldg(col + ec), n);
+      wv[j] = wt ? __ldg(wt + ec) : 1;
+      fr[j] = __ldg(reinterpret_cast<const unsigned int*>(
+          front + (int64_t)s[j] * kp + 4 * q[j]));
+    }
+    int4 ds[L], dd[L];
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      if (v[j] && fr[j]) {
+        ds[j] = __ldg(reinterpret_cast<const int4*>(
+            dist + (int64_t)s[j] * kp + 4 * q[j]));
+        dd[j] = __ldg(reinterpret_cast<const int4*>(
+            dist + (int64_t)c[j] * kp + 4 * q[j]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      if (v[j] && fr[j])
+        fold_quad<MSG, COMB>(fr[j], ds[j], dd[j], wv[j],
+                             (int64_t)c[j] * kp + 4 * q[j], row_excl,
+                             (int64_t)slot[j] * kp + 4 * q[j], off[j],
+                             cap_work, target, upd);
+    }
+    __syncthreads();                    // the slice is free for the next tile
   }
 }
 
 // ---------------------------------------------------------------- B3 ---
+// rank(k) = #{i < f : prefix[i] <= k} for every k < cap_work.  The items
+// are consecutive integers, so rank is a step function over a tile: a
+// block tile of B3_TILE items finds the ranks of its first and last item
+// with one 32-ary warp search each, stages that prefix slice in shared
+// memory with cp.async, and each thread ranks its B3_ITEMS consecutive
+// items there (its first and last by a search of the slice, the others
+// between those two ranks, mostly one probe) and writes them as int4s.
+// A slice wider than B3_SLOTS (long runs of equal prefix entries: zero-
+// degree slots) keeps the search in global memory, narrowed to the slice.
+constexpr int B3_ITEMS = 8;
+constexpr int B3_TILE = THREADS * B3_ITEMS;
+constexpr int B3_SLOTS = 2 * B3_TILE;
+
+// lo + #{i in [lo, hi) : p[i] <= k} for a non-decreasing p, in shared
+// memory (STAGED) or in global memory
+template <bool STAGED>
+__device__ __forceinline__ int32_t count_le(const int32_t* p, int32_t lo,
+                                            int32_t hi, int32_t k) {
+  return lo + (STAGED ? smem_upper_bound(p + lo, hi - lo, k)
+                      : upper_bound<ReadOnly>(p + lo, hi - lo, k));
+}
+
+// the ranks, relative to the slice p [0, m), of items a .. b (b - a <
+// B3_ITEMS)
+template <bool STAGED>
+__device__ __forceinline__ void rank_run(const int32_t* p, int32_t m,
+                                         int32_t a, int32_t b,
+                                         int32_t (&r)[B3_ITEMS]) {
+  const int32_t ra = count_le<STAGED>(p, 0, m, a);
+  const int32_t rb = count_le<STAGED>(p, ra, m, b);
+  r[0] = ra;
+#pragma unroll
+  for (int j = 1; j < B3_ITEMS; ++j)
+    r[j] = a + j <= b ? count_le<STAGED>(p, ra, rb, a + j) : rb;
+}
+
 __global__ void __launch_bounds__(THREADS)
 find_offsets_kernel(const int32_t* __restrict__ prefix, int32_t f,
                     int32_t cap_work, int32_t* __restrict__ out) {
-  int64_t k = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (k >= cap_work) return;
-  out[k] = upper_bound<ReadOnly>(prefix, f, (int32_t)k);
-}
-
-inline unsigned blocks_for(int64_t items) {
-  return (unsigned)((items + THREADS - 1) / THREADS);
+  __shared__ int32_t sp[B3_SLOTS];
+  __shared__ int32_t bounds[2];
+  const int64_t tiles = ((int64_t)cap_work + B3_TILE - 1) / B3_TILE;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t k0 = t * B3_TILE;
+    const int64_t k_end = k0 + B3_TILE < cap_work ? k0 + B3_TILE : cap_work;
+    const int warp = threadIdx.x >> 5;
+    if (warp < 2) {
+      const int32_t r = warp_upper_bound<ReadOnly>(
+          prefix, f, (int32_t)(warp == 0 ? k0 : k_end - 1));
+      if ((threadIdx.x & 31) == 0) bounds[warp] = r;
+    }
+    __syncthreads();
+    // every item of the tile ranks in [lo, hi]: the slots below lo hold
+    // prefix <= k0, those from hi on prefix > k_end - 1
+    const int32_t lo = bounds[0], m = bounds[1] - lo;
+    const bool staged = m <= B3_SLOTS;
+    if (staged) {
+      for (int32_t i = threadIdx.x; i < m; i += THREADS)
+        ReadOnly::stage(sp + i, prefix + lo + i);
+      ReadOnly::stage_wait();
+    }
+    __syncthreads();
+    const int64_t a = k0 + (int64_t)threadIdx.x * B3_ITEMS;
+    if (a < k_end) {
+      const int64_t b = a + B3_ITEMS <= k_end ? a + B3_ITEMS - 1 : k_end - 1;
+      int32_t r[B3_ITEMS];
+      if (staged)
+        rank_run<true>(sp, m, (int32_t)a, (int32_t)b, r);
+      else
+        rank_run<false>(prefix + lo, m, (int32_t)a, (int32_t)b, r);
+      if (b - a == B3_ITEMS - 1) {      // a whole run: 16-byte stores
+        int4* o = reinterpret_cast<int4*>(out + a);
+#pragma unroll
+        for (int j = 0; j < B3_ITEMS / 4; ++j)
+          o[j] = make_int4(lo + r[4 * j], lo + r[4 * j + 1],
+                           lo + r[4 * j + 2], lo + r[4 * j + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < B3_ITEMS; ++j)
+          if (a + j <= b) out[a + j] = lo + r[j];
+      }
+    }
+    __syncthreads();                    // the slice is free for the next tile
+  }
 }
 
 // The resident blocks of one wave of `kernel` on the current device,
@@ -290,41 +490,43 @@ void launch_wd(int comb, cudaStream_t st, const int32_t* dist, int32_t n,
 }
 
 template <int MSG, int COMB>
-void launch_wd_batch_t(cudaStream_t st, const int32_t* dist, int32_t n,
-                       const int32_t* prefix, const int32_t* excl,
-                       const int32_t* start, const int32_t* src_ids,
-                       int32_t f, const int32_t* col, const int32_t* wt,
-                       int32_t e, int32_t cap_work, int32_t rows,
-                       int32_t* target, uint8_t* upd) {
+void launch_union_t(cudaStream_t st, const int32_t* dist, int32_t n,
+                    int32_t kp, const uint8_t* front, const int32_t* prefix,
+                    const int32_t* excl, const int32_t* start,
+                    const int32_t* src_ids, int32_t f,
+                    const int32_t* row_excl, int32_t cap_work,
+                    const int32_t* col, const int32_t* wt, int32_t e,
+                    int64_t max_lanes, int32_t* target, uint8_t* upd) {
   static int per_sm = 0;
-  const int64_t tiles =
-      ((int64_t)cap_work + B1_TILE - 1) / B1_TILE * rows;
+  const int64_t tiles = (max_lanes * (kp >> 2) + UB_TILE - 1) / UB_TILE;
   const unsigned grid = grid_for(
-      tiles, wave_blocks(wd_relax_lanes_batch_kernel<MSG, COMB>, &per_sm));
-  wd_relax_lanes_batch_kernel<MSG, COMB><<<grid, THREADS, 0, st>>>(
-      dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work, rows,
-      target, upd);
+      tiles > 0 ? tiles : 1,
+      wave_blocks(wd_relax_union_kernel<MSG, COMB>, &per_sm));
+  wd_relax_union_kernel<MSG, COMB><<<grid, THREADS, 0, st>>>(
+      dist, n, kp, front, prefix, excl, start, src_ids, f, row_excl,
+      cap_work, col, wt, e, target, upd);
 }
 
 template <int MSG>
-void launch_wd_batch(int comb, cudaStream_t st, const int32_t* dist,
-                     int32_t n, const int32_t* prefix, const int32_t* excl,
-                     const int32_t* start, const int32_t* src_ids, int32_t f,
-                     const int32_t* col, const int32_t* wt, int32_t e,
-                     int32_t cap_work, int32_t rows, int32_t* target,
-                     uint8_t* upd) {
+void launch_union(int comb, cudaStream_t st, const int32_t* dist, int32_t n,
+                  int32_t kp, const uint8_t* front, const int32_t* prefix,
+                  const int32_t* excl, const int32_t* start,
+                  const int32_t* src_ids, int32_t f, const int32_t* row_excl,
+                  int32_t cap_work, const int32_t* col, const int32_t* wt,
+                  int32_t e, int64_t max_lanes, int32_t* target,
+                  uint8_t* upd) {
   if (comb == COMB_MIN)
-    launch_wd_batch_t<MSG, COMB_MIN>(st, dist, n, prefix, excl, start,
-                                     src_ids, f, col, wt, e, cap_work, rows,
-                                     target, upd);
+    launch_union_t<MSG, COMB_MIN>(st, dist, n, kp, front, prefix, excl,
+                                  start, src_ids, f, row_excl, cap_work, col,
+                                  wt, e, max_lanes, target, upd);
   else if (comb == COMB_MAX)
-    launch_wd_batch_t<MSG, COMB_MAX>(st, dist, n, prefix, excl, start,
-                                     src_ids, f, col, wt, e, cap_work, rows,
-                                     target, upd);
+    launch_union_t<MSG, COMB_MAX>(st, dist, n, kp, front, prefix, excl,
+                                  start, src_ids, f, row_excl, cap_work, col,
+                                  wt, e, max_lanes, target, upd);
   else
-    launch_wd_batch_t<MSG, COMB_ADD>(st, dist, n, prefix, excl, start,
-                                     src_ids, f, col, wt, e, cap_work, rows,
-                                     target, upd);
+    launch_union_t<MSG, COMB_ADD>(st, dist, n, kp, front, prefix, excl,
+                                  start, src_ids, f, row_excl, cap_work, col,
+                                  wt, e, max_lanes, target, upd);
 }
 
 }  // namespace
@@ -378,30 +580,36 @@ int repro_wd_relax_lanes(const int32_t* dist, int32_t n,
   return (int)cudaGetLastError();
 }
 
-// B1 over rows >= 1 rows: dist, target and upd are [rows, n], prefix, excl,
-// start and src_ids [rows, f]; f, e, n, cap_work >= 1, as for one row.
-int repro_wd_relax_lanes_batch(const int32_t* dist, int32_t n,
-                               const int32_t* prefix, const int32_t* excl,
-                               const int32_t* start, const int32_t* src_ids,
-                               int32_t f, const int32_t* col,
-                               const int32_t* wt, int32_t e, int32_t cap_work,
-                               int32_t rows, int msg, int comb,
-                               int32_t* target, uint8_t* upd, void* stream) {
-  if (!codes_ok(msg, comb) || f < 1 || e < 1 || n < 1 || cap_work < 1 ||
-      rows < 1 || target == dist)
+// B1's batch contract over the union frontier: dist, target [n, kp]
+// int32 and front, upd [n, kp] bytes (kp a multiple of 4, each row of 16
+// bytes' alignment), the union's slot tables [f], row_excl [f, kp] or
+// nullptr (no row cut); f, e, n >= 1; max_lanes (>= 0) bounds the union's
+// lanes and sizes the grid only.  target (a copy of dist, not dist) and
+// upd are folded into, not initialised.
+int repro_wd_relax_union(const int32_t* dist, int32_t n, int32_t kp,
+                         const uint8_t* front, const int32_t* prefix,
+                         const int32_t* excl, const int32_t* start,
+                         const int32_t* src_ids, int32_t f,
+                         const int32_t* row_excl, int32_t cap_work,
+                         const int32_t* col, const int32_t* wt, int32_t e,
+                         long long max_lanes, int msg, int comb,
+                         int32_t* target, uint8_t* upd, void* stream) {
+  if (!codes_ok(msg, comb) || f < 1 || e < 1 || n < 1 || kp < 4 ||
+      kp % 4 != 0 || max_lanes < 0 || cap_work < 0 || target == dist)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (msg == MSG_SUM)
-    launch_wd_batch<MSG_SUM>(comb, st, dist, n, prefix, excl, start, src_ids,
-                             f, col, wt, e, cap_work, rows, target, upd);
+    launch_union<MSG_SUM>(comb, st, dist, n, kp, front, prefix, excl, start,
+                          src_ids, f, row_excl, cap_work, col, wt, e,
+                          max_lanes, target, upd);
   else if (msg == MSG_COPY)
-    launch_wd_batch<MSG_COPY>(comb, st, dist, n, prefix, excl, start,
-                              src_ids, f, col, wt, e, cap_work, rows, target,
-                              upd);
+    launch_union<MSG_COPY>(comb, st, dist, n, kp, front, prefix, excl, start,
+                           src_ids, f, row_excl, cap_work, col, wt, e,
+                           max_lanes, target, upd);
   else
-    launch_wd_batch<MSG_BOTTLENECK>(comb, st, dist, n, prefix, excl, start,
-                                    src_ids, f, col, wt, e, cap_work, rows,
-                                    target, upd);
+    launch_union<MSG_BOTTLENECK>(comb, st, dist, n, kp, front, prefix, excl,
+                                 start, src_ids, f, row_excl, cap_work, col,
+                                 wt, e, max_lanes, target, upd);
   return (int)cudaGetLastError();
 }
 
@@ -409,8 +617,11 @@ int repro_wd_relax_lanes_batch(const int32_t* dist, int32_t n,
 int repro_find_offsets(const int32_t* prefix, int32_t f, int32_t cap_work,
                        int32_t* out, void* stream) {
   if (cap_work < 1 || f < 0) return (int)cudaErrorInvalidValue;
-  find_offsets_kernel<<<blocks_for(cap_work), THREADS, 0,
-                        (cudaStream_t)stream>>>(prefix, f, cap_work, out);
+  static int per_sm = 0;
+  const unsigned grid = grid_for(((int64_t)cap_work + B3_TILE - 1) / B3_TILE,
+                                 wave_blocks(find_offsets_kernel, &per_sm));
+  find_offsets_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      prefix, f, cap_work, out);
   return (int)cudaGetLastError();
 }
 

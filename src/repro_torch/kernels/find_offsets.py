@@ -5,8 +5,9 @@ Work item *k* of a workload-decomposition step belongs to frontier slot
 frontier's degrees — ``searchsorted(prefix, k, side="right")``.
 
 :func:`find_offsets` launches the CUDA kernel ``repro_find_offsets``
-(``csrc/relax.cu``: one thread per work item, binary search over the
-prefix in global memory) for a CUDA tensor, and runs
+(``csrc/relax.cu``: a block tile of consecutive items finds the slots of
+its first and last item, stages that prefix slice in shared memory and
+ranks every item there) for a CUDA tensor, and runs
 :func:`find_offsets_plain` for a CPU tensor.  The same search is B1's
 first step (:func:`repro_torch.kernels.relax.wd_relax_lanes`).
 """

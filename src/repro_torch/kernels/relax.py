@@ -9,10 +9,13 @@ fold of their candidates into ``dist``.
   reads its edge through the per-slot ``start``/``exclusive``/``src_ids``
   tables, and relaxes it.  It replaces the reference's Pallas
   ``repro.kernels.relax.wd_relax_lanes`` (WD, HP's tail, AD).
-* :func:`wd_apply_relax_batch` is B1's batch contract: ``K`` rows at
-  once, ``dist [K, N]`` and the slot tables ``[K, cap]``, one launch for
-  all rows, folding into a copy of ``dist``.  It replaces the reference's
-  ``jax.vmap`` of B1 in ``repro.core.multi_source.batched_wd_relax``.
+* :func:`wd_apply_relax_union` is B1's batch contract: ``K`` rows at
+  once, node-major (``dist_t [N, Kp]``), one merge path over the union
+  of the rows' frontiers and one launch for all rows, folding into a copy
+  of ``dist_t``.  It replaces the reference's ``jax.vmap`` of B1 in
+  ``repro.core.multi_source.batched_wd_relax``;
+  :func:`wd_apply_relax_batch_plain` is the same relax row by row, its
+  oracle.
 
 Each kernel serves two contracts, and every lane of a launch reads the
 same unmodified ``dist``, so the port's ``(dist, iterations,
@@ -45,7 +48,7 @@ from repro_torch.core import operators
 from repro_torch.core.operators import EdgeOp
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import (  # noqa: F401  (re-exported)
-    LANES, LAUNCHES, check_dense, check_tensor, stream_of)
+    LANES, LAUNCHES, check_aligned, check_dense, check_tensor, stream_of)
 from repro_torch.kernels.find_offsets import find_offsets_plain
 
 
@@ -272,50 +275,18 @@ def wd_apply_relax(dist, updated, prefix, exclusive, start, src_ids, col,
 
 
 # ---------------------------------------------------------------------------
-# B1's batch contract: K rows, one launch
+# B1's batch contract: K rows, one merge path over their union frontier
 # ---------------------------------------------------------------------------
-
-def _wd_relax_lanes_batch_cuda(dist, prefix, exclusive, start, src_ids, col,
-                               wt, cap_work: int, target, updated,
-                               op: EdgeOp) -> None:
-    """Launch B1's batch contract folding into ``target`` (never ``dist``)
-    and ``updated``, both ``[K, N]``."""
-    msg, comb = op.kernel_codes()
-    dev = dist.device
-    if dist.dim() != 2:
-        raise ValueError(f"dist has shape {tuple(dist.shape)}, expected "
-                         f"[K, N]")
-    k, n = dist.shape
-    f = prefix.shape[-1] if prefix.dim() == 2 else -1
-    check_dense("dist", dist, dev, torch.int32, (k, n))
-    for name, t in (("prefix", prefix), ("exclusive", exclusive),
-                    ("start", start), ("src_ids", src_ids)):
-        check_dense(name, t, dev, torch.int32, (k, f))
-    check_tensor("col", col, dev, torch.int32)
-    e = col.numel()
-    if wt is not None:
-        check_tensor("wt", wt, dev, torch.int32, e)
-    check_dense("updated", updated, dev, torch.bool, (k, n))
-    if k == 0 or f == 0 or cap_work == 0:
-        return
-    if n == 0 or e == 0:
-        raise ValueError("wd_relax_lanes_batch needs a non-empty dist and "
-                         "col")
-    _launch("wd_relax_lanes_batch", dev, dist.data_ptr(), n,
-            prefix.data_ptr(), exclusive.data_ptr(), start.data_ptr(),
-            src_ids.data_ptr(), f, col.data_ptr(),
-            None if wt is None else wt.data_ptr(), e, cap_work, k, msg, comb,
-            target.data_ptr(), updated.data_ptr())
-    LAUNCHES["wd_relax_lanes_batch"] += 1
-    LANES["wd_relax_lanes_batch"] += k * cap_work
-
 
 def wd_apply_relax_batch_plain(dist, updated, prefix, exclusive, start,
                                src_ids, col, wt: Optional[torch.Tensor], *,
                                cap_work: int,
                                op: EdgeOp = operators.shortest_path):
-    """:func:`wd_apply_relax_batch`'s plain version: B1's plain fold on
-    each row (``updated[r]`` set in place), stacked."""
+    """B1's batch contract row by row, the oracle of
+    :func:`wd_apply_relax_union`: ``dist``/``updated`` ``[K, N]``, each
+    row's slot tables ``[K, F]``; B1's plain fold on each row
+    (``updated[r]`` set in place), stacked.  Returns ``(next dist [K, N],
+    updated)``."""
     rows = [wd_apply_relax_plain(dist[r], updated[r], prefix[r],
                                  exclusive[r], start[r], src_ids[r], col, wt,
                                  cap_work=cap_work, op=op)[0]
@@ -323,23 +294,108 @@ def wd_apply_relax_batch_plain(dist, updated, prefix, exclusive, start,
     return (torch.stack(rows) if rows else dist.clone()), updated
 
 
-def wd_apply_relax_batch(dist, updated, prefix, exclusive, start, src_ids,
-                         col, wt: Optional[torch.Tensor], *, cap_work: int,
+def wd_apply_relax_union_plain(dist_t, front_t, prefix, exclusive, start,
+                               src_ids, col, wt: Optional[torch.Tensor], *,
+                               cap_work: int, row_excl=None,
+                               op: EdgeOp = operators.shortest_path):
+    """:func:`wd_apply_relax_union`'s plain version: B1's plain ranks over
+    the union's lanes, then every row's candidates at once, folded by
+    ``scatter_reduce_`` into a copy of ``dist_t``."""
+    n, kp = dist_t.shape
+    f, e = prefix.numel(), col.numel()
+    target = dist_t.clone()
+    upd = torch.zeros_like(front_t)
+    total = int(prefix[-1]) if f else 0
+    if total == 0:
+        return target, upd
+    k = torch.arange(total, dtype=torch.int32, device=dist_t.device)
+    i = find_offsets_plain(prefix, total).clamp_(max=f - 1)
+    off = k - exclusive[i]
+    eidx = (start[i] + off).clamp_(0, e - 1)
+    src = src_ids[i].clamp(0, n - 1).long()
+    dst = col[eidx].clamp(0, n - 1).long()
+    w = torch.ones_like(k) if wt is None else wt[eidx]
+    active = front_t[src]                                   # [L, kp]
+    if row_excl is not None:
+        active &= row_excl[i] + off[:, None] < cap_work
+    cand = op.message(dist_t[src], w[:, None])
+    improve = active & op.improves(cand, dist_t[dst])
+    at = (dst[:, None] * kp + torch.arange(kp, device=dst.device)).view(-1)
+    op.scatter(target.view(-1), at, cand.reshape(-1), improve.view(-1))
+    upd.view(-1)[at[improve.view(-1)]] = True
+    return target, upd
+
+
+def _check_node_major(dist_t, front_t, slots, row_excl, col, wt):
+    """The union contract's arguments on the card; returns ``(n, kp, f,
+    e)``."""
+    dev = dist_t.device
+    if dist_t.dim() != 2:
+        raise ValueError(f"dist_t has shape {tuple(dist_t.shape)}, "
+                         f"expected [N, Kp]")
+    n, kp = dist_t.shape
+    if kp % 4:
+        raise ValueError(f"dist_t has {kp} columns; the kernel takes rows "
+                         f"in fours (pad K to a multiple of 4)")
+    check_dense("dist_t", dist_t, dev, torch.int32, (n, kp))
+    check_dense("front_t", front_t, dev, torch.bool, (n, kp))
+    f = slots[0].numel()
+    for name, t in zip(("prefix", "exclusive", "start", "src_ids"), slots):
+        check_tensor(name, t, dev, torch.int32, f)
+    if row_excl is not None:
+        check_dense("row_excl", row_excl, dev, torch.int32, (f, kp))
+        check_aligned(row_excl=row_excl)
+    check_tensor("col", col, dev, torch.int32)
+    e = col.numel()
+    if wt is not None:
+        check_tensor("wt", wt, dev, torch.int32, e)
+    check_aligned(dist_t=dist_t)
+    if front_t.data_ptr() % 4:
+        raise ValueError("front_t must start on a 4-byte boundary")
+    return n, kp, f, e
+
+
+def wd_apply_relax_union(dist_t, front_t, prefix, exclusive, start,
+                         src_ids, col, wt: Optional[torch.Tensor], *,
+                         cap_work: int, max_lanes: int, row_excl=None,
                          op: EdgeOp = operators.shortest_path):
-    """:func:`wd_apply_relax` on each of ``K`` rows in one launch: ``dist
-    [K, N]``, ``prefix``/``exclusive``/``start``/``src_ids`` ``[K, F]``,
-    ``cap_work`` lanes a row over the shared ``col``/``wt``.  Returns
-    ``(next dist [K, N], updated)``, with ``updated`` (the caller's
-    ``[K, N]`` bool mask) set in place where a lane improved its
-    destination; no ``improve``, which the reference's batched relax
-    drops.  On the card: one copy of ``dist`` and one launch for all
-    ``K`` rows."""
+    """B1's batch contract, node-major: one relax of ``K`` rows over the
+    union of their frontiers.  ``dist_t [N, Kp]`` int32 and ``front_t
+    [N, Kp]`` bool hold row ``r`` in column ``r`` (``Kp`` = ``K`` rounded
+    up to 4; the padded columns' frontier is empty); ``prefix``,
+    ``exclusive``, ``start`` and ``src_ids`` ``[F]`` are the WD slot
+    tables of the union frontier (every node active in some row, padded
+    with zero-degree slots).  Each union lane (an out-edge of a slot) is
+    relaxed in every row whose frontier holds its source.
+    ``row_excl [F, Kp]`` (optional) is each row's exclusive degree prefix
+    at the slot, over that row's own frontier: with it a row relaxes only
+    its first ``cap_work`` lanes, as the reference's row does; without
+    it, no row is cut.  ``max_lanes`` bounds the union's lanes (it sizes
+    the kernel's grid; the kernel reads the count itself).  Returns
+    ``(next dist_t, next frontier [N, Kp] bool)``.  On the card: one copy
+    of ``dist_t``, one zeroed frontier and one launch for all ``K``
+    rows."""
     _check_cap_work(cap_work)
-    if not _dispatch(dist, "wd_apply_relax_batch"):
-        return wd_apply_relax_batch_plain(dist, updated, prefix, exclusive,
-                                          start, src_ids, col, wt,
-                                          cap_work=cap_work, op=op)
-    target = dist.clone()
-    _wd_relax_lanes_batch_cuda(dist, prefix, exclusive, start, src_ids, col,
-                               wt, cap_work, target, updated, op)
-    return target, updated
+    if not _dispatch(dist_t, "wd_apply_relax_union"):
+        return wd_apply_relax_union_plain(
+            dist_t, front_t, prefix, exclusive, start, src_ids, col, wt,
+            cap_work=cap_work, row_excl=row_excl, op=op)
+    msg, comb = op.kernel_codes()
+    slots = (prefix, exclusive, start, src_ids)
+    n, kp, f, e = _check_node_major(dist_t, front_t, slots, row_excl, col,
+                                    wt)
+    target = dist_t.clone()
+    upd = torch.zeros_like(front_t)
+    if kp == 0 or f == 0:
+        return target, upd
+    if n == 0 or e == 0:
+        raise ValueError("wd_apply_relax_union needs a non-empty dist_t "
+                         "and col")
+    _launch("wd_relax_union", dist_t.device, dist_t.data_ptr(), n, kp,
+            front_t.data_ptr(), *(t.data_ptr() for t in slots), f,
+            None if row_excl is None else row_excl.data_ptr(), cap_work,
+            col.data_ptr(), None if wt is None else wt.data_ptr(), e,
+            max_lanes, msg, comb, target.data_ptr(), upd.data_ptr())
+    LAUNCHES["wd_relax_lanes_batch"] += 1
+    LANES["wd_relax_lanes_batch"] += max_lanes * (kp // 4)
+    return target, upd

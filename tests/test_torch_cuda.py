@@ -655,47 +655,101 @@ def test_fused_connected_components_on_the_card_matches_cpu(dev, strategy):
 # batched queries (A8): B1's batch contract and the fused batch
 # ---------------------------------------------------------------------------
 
-def _batch_tables(g, rng, rows, cap):
-    """``[K, cap]`` WD slot tables: row r's frontier is ``rows[r]`` random
-    nodes, sorted (0: an empty row)."""
-    f = torch.full((len(rows), cap), -1, dtype=torch.int32)
-    for r, count in enumerate(rows):
-        nodes = np.sort(rng.choice(g.num_nodes, count, replace=False))
-        f[r, :count] = torch.from_numpy(nodes.astype(np.int32))
-    f = f.to(g.device)
-    live = f >= 0
-    fi = torch.where(live, f, 0)
-    deg = torch.where(live, g.row_ptr[fi + 1] - g.row_ptr[fi], 0)
-    prefix = torch.cumsum(deg, 1, dtype=torch.int32)
-    return prefix, prefix - deg, g.row_ptr[fi], fi
+def _union_case(g, rng, op, widths, dev):
+    """Node-major ``dist_t``/``front_t`` of ``len(widths)`` rows, row r's
+    frontier ``widths[r]`` random nodes (0: an empty row), half of each
+    drawn from a shared pool, and random values."""
+    from repro_torch.core import multi_source
+    k, n = len(widths), g.num_nodes
+    pool = rng.choice(n, max(widths), replace=False)
+    mask = np.zeros((k, n), bool)
+    for r, width in enumerate(widths):
+        mask[r, pool[:width // 2]] = True
+        mask[r, rng.choice(n, width - width // 2, replace=False)] = True
+    dist = rng.integers(0, 60, (k, n)).astype(np.int32)
+    if op.combine == "min":
+        dist[rng.random((k, n)) < 0.4] = op.identity
+    dist_b = torch.from_numpy(dist).to(dev)
+    mask_b = torch.from_numpy(mask).to(dev)
+    return (dist_b, mask_b, multi_source.to_node_major(dist_b, op.identity),
+            multi_source.to_node_major(mask_b, False))
 
 
 @pytest.mark.parametrize("opname", OP_NAMES)
 @pytest.mark.parametrize("weighted", [True, False])
 def test_wd_relax_lanes_batch_kernel_matches_plain(dev, opname, weighted):
-    """B1's batch contract against its plain version on the same card
-    tensors: rows of different widths, an empty row, and a ``cap_work``
-    that is not a tile multiple and one that cuts the widest row short;
-    one launch each."""
+    """B1's batch contract (the union frontier, node-major) against its
+    plain version on the same card tensors and against the row-by-row
+    oracle, K = 5 and 32: rows of different widths and an empty row,
+    whole (no row table) and with one row cut by ``cap_work`` and every
+    row by ``cap``; one launch each."""
+    from repro_torch.core import multi_source
     op = operators.OPERATORS[opname]
     g = rmat_graph(scale=14, weighted=weighted, seed=1, device=dev)
     rng = np.random.default_rng(5)
-    prefix, excl, start, src = _batch_tables(g, rng, [3000, 0, 17, 900],
-                                             4096)
-    args = (prefix, excl, start, src, g.col, g.wt)
-    totals = prefix[:, -1].tolist()
-    dist = torch.from_numpy(rng.integers(0, 60, (4, g.num_nodes)).astype(
-        np.int32)).to(dev)
-    for cap_work in (max(totals) + 333, max(totals) // 2):
-        before = relax.LAUNCHES["wd_relax_lanes_batch"]
-        upd = torch.zeros_like(dist, dtype=torch.bool)
-        got = relax.wd_apply_relax_batch(dist, upd, *args,
-                                         cap_work=cap_work, op=op)
-        want = relax.wd_apply_relax_batch_plain(
-            dist, torch.zeros_like(upd), *args, cap_work=cap_work, op=op)
-        _same(got, want)
-        assert relax.LAUNCHES["wd_relax_lanes_batch"] == before + 1
-        assert not got[1][1].any() and got[1].any()
+    n = g.num_nodes
+    for widths in ([3000, 0, 17, 900, 3000], [40 * r for r in range(32)]):
+        k = len(widths)
+        dist_b, mask_b, dist_t, front_t = _union_case(g, rng, op, widths,
+                                                      dev)
+        totals = torch.where(mask_b, g.degrees, 0).sum(1).tolist()
+        widest = max(widths)
+        for cap, cap_work, cut in ((widest, max(totals), False),
+                                   (widest, max(totals) // 2 + 1, True),
+                                   (widest // 3, max(totals), True)):
+            ft = front_t.clone()
+            if cap < widest:
+                ft &= torch.cumsum(ft, 0, dtype=torch.int32) <= cap
+            tables = multi_source.union_tables(g, ft.any(1),
+                                               min(n, k * cap))
+            row_excl = (multi_source.row_exclusive(ft, *tables[:2],
+                                                   tables[3])
+                        if cut else None)
+            args = (dist_t, ft, *tables, g.col, g.wt)
+            kw = dict(cap_work=cap_work, row_excl=row_excl, op=op)
+            before = relax.LAUNCHES["wd_relax_lanes_batch"]
+            got = relax.wd_apply_relax_union(*args, max_lanes=int(
+                tables[0][-1]), **kw)
+            assert relax.LAUNCHES["wd_relax_lanes_batch"] == before + 1
+            _same(got, relax.wd_apply_relax_union_plain(*args, **kw))
+            rows = relax.wd_apply_relax_batch_plain(
+                dist_b, torch.zeros_like(mask_b),
+                *multi_source.row_tables(g, mask_b, cap), g.col, g.wt,
+                cap_work=cap_work, op=op)
+            _same([multi_source.from_node_major(t, k) for t in got], rows)
+            assert got[1].any() and not got[1][:, k:].any()
+            if widths[1] == 0:
+                assert not got[1][:, 1].any()
+
+
+@pytest.mark.parametrize("case", ["zero-degree runs", "empty frontier",
+                                  "off-tile"])
+def test_find_offsets_kernel_wide_slice_and_empty(dev, case):
+    """B3 where a tile's prefix slice is too wide to stage (runs of
+    thousands of zero-degree slots), with no slot at all (every item
+    ranks 0), and at a ``cap_work`` off the tile and past the total;
+    against its plain version and ``torch.searchsorted``."""
+    rng = np.random.default_rng(9)
+    if case == "empty frontier":
+        prefix, caps = torch.zeros(0, dtype=torch.int32, device=dev), (
+            1, 2047, 2048, 100003)
+    else:
+        deg = rng.integers(0, 9, 200000)
+        if case == "zero-degree runs":
+            for lo, hi in ((100, 9100), (20000, 20001), (50000, 120000)):
+                deg[lo:hi] = 0
+        prefix = torch.from_numpy(np.cumsum(deg).astype(np.int32)).to(dev)
+        total = int(prefix[-1])
+        caps = (total, total + 5, 2049) if case == "off-tile" else (total,)
+    for cap in caps:
+        got = fo.find_offsets(prefix, cap)
+        _same([got], [fo.find_offsets_plain(prefix, cap)])
+        if prefix.numel():
+            _same([got], [torch.searchsorted(
+                prefix, torch.arange(cap, dtype=torch.int32, device=dev),
+                right=True, out_int32=True)])
+        else:
+            assert not got.any()
 
 
 @pytest.mark.parametrize("opname", OP_NAMES)

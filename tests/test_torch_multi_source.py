@@ -6,7 +6,8 @@ fused, on rmat (scale 9), road (side 12) and ER (scale 8), for the four
 built-in operators, ``max_iterations`` of 1-3, ``pad_to``, duplicate and
 disconnected sources, the empty batch and the edgeless graph;
 ``sssp_batch``/``bfs_batch``, ``init_batch``/``refill_slot``, the error
-cases, B1's plain batch against its single-row plain version, and one
+cases, B1's batch contract (its plain version) against its single-row
+plain version, and one
 ``DISPATCH_COUNTS["batch"]`` step a fused batch.  The reference runs
 ``backend="xla"``, which ``tests/test_backends.py`` holds bit-identical
 to its Pallas backend."""
@@ -232,22 +233,24 @@ def _row_tables(g: CSRGraph, rows_of_nodes, cap: int):
 
 @pytest.mark.parametrize("op", OP_NAMES)
 def test_plain_b1_batch_equals_its_rows(op):
-    """B1's plain batch is its single-row plain version on every row,
-    stacked; an empty row relaxes nothing, and a ``cap_work`` short of a
-    row's total leaves that row's tail."""
+    """B1's batch contract (the union frontier, node-major; its plain
+    version here) is B1's single-row plain version on every row; an
+    empty row relaxes nothing, and a ``cap_work`` short of a row's total
+    leaves that row's tail."""
     g = GRAPHS["rmat"]
     top = operators.resolve(op)
     rng = np.random.default_rng(7)
     n = g.num_nodes
     rows = [rng.choice(n, 40, replace=False), [], rng.choice(n, 3,
                                                              replace=False)]
+    mask = torch.zeros((3, n), dtype=torch.bool)
+    for r, nodes in enumerate(rows):
+        mask[r, torch.as_tensor(nodes, dtype=torch.long)] = True
     prefix, excl, start, src = _row_tables(g, rows, 64)
     dist = torch.from_numpy(rng.integers(0, 50, (3, n)).astype(np.int32))
     for cap_work in (1000, 37):
-        updated = torch.zeros((3, n), dtype=torch.bool)
-        nxt, updated = relax.wd_apply_relax_batch(
-            dist, updated, prefix, excl, start, src, g.col, g.wt,
-            cap_work=cap_work, op=top)
+        nxt, updated = multi_source.batched_wd_relax(
+            g, dist, mask, cap=64, cap_work=cap_work, op=top)
         for r in range(3):
             p1, u1, _ = relax.wd_relax_lanes_plain(
                 dist[r], prefix[r], excl[r], start[r], src[r], g.col, g.wt,
@@ -257,7 +260,6 @@ def test_plain_b1_batch_equals_its_rows(op):
                                                             top))
         assert not updated[1].any() and torch.equal(nxt[1], dist[1])
         assert updated[0].any()
-    empty = relax.wd_apply_relax_batch(
-        dist[:0], updated[:0], prefix[:0], excl[:0], start[:0], src[:0],
-        g.col, g.wt, cap_work=8, op=top)
+    empty = multi_source.batched_wd_relax(g, dist[:0], mask[:0], cap=64,
+                                          cap_work=8, op=top)
     assert empty[0].shape == (0, n) and empty[1].shape == (0, n)

@@ -125,6 +125,32 @@ Phases, each printing one JSON line:
    beside it, as ``dense_bound_ms``, by N bytes a round more); delta
    requests through ``GraphServer``; delta against
    BSP interleaved (epochs, rounds, ms).
+   shard (ROADMAP A11): one process holding every shard on the card.
+   ``ShardInfo`` of rmat20 at 2, 4 and 8 shards (cut share, halo bytes,
+   edge imbalance, partition bytes); sssp WD and HP at 2 and 4 shards
+   (degree), WD at 4 (contiguous), BS and NS at 2, each equal to Dijkstra
+   and to the single-device run in ``(dist, iterations, edges_relaxed)``,
+   with B1/B2 launched once a held shard a chunk (S times the run's
+   folds, which a wrapper of ``ShardGroup.fold`` counts and times with
+   CUDA events) and the fused kernel never; async WD and HP at 4 shards
+   (epochs, rounds); a K = 8 batch at 2 shards equal to the single-device
+   batch row by row (one B1 launch a live row and shard an iteration);
+   ``distributed_sssp`` at 4 shards equal to Dijkstra (B3 a shard an
+   iteration).  These are entry calls, each made once; the launch counts
+   are set to 0 just before them and read just after them: the kernel
+   line's B1, B2 and B3 rows add them (``shard_launches``).  Then each
+   run timed beside the single-device fused and stepped runs
+   (interleaved; each run's folds' CUDA-event spans and its traversal
+   from the same run; one card runs every shard in turn, so this is the
+   fold's cost and not a multi-GPU speed-up), and one sharded WD run
+   under ``torch.profiler``: the device time of the kernels inside its
+   folds beside the event spans; at rmat16 CC (symmetrized, against
+   scipy) and widest path, and reach_count on a 16-layer DAG of 2^16
+   nodes, sharded on the card, sharded on the CPU and on one device, all
+   equal; two ranks, one shard each (NCCL on two cards, else gloo over
+   CUDA tensors on one), sssp WD and BS at rmat16 from a graph on the
+   host, equal to the one-process run, each rank holding one shard's
+   slice on the card.
 5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
    heads, hd 128: S = 512 and 2048 bf16 causal, 512 f32, 512 bf16
    non-causal, ragged 1000) and B5 ``ssd_chunk_dual`` (8 chunks of 256, 48
@@ -158,6 +184,7 @@ CUDA device, or outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -798,6 +825,49 @@ def device_activities(fn) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+#: the most traces taken of one call: ``torch.profiler`` has dropped a
+#: kernel's record on the H100 (7 of a batch's 8 fused launches traced)
+TRACE_ATTEMPTS = 3
+
+
+def traced_call(fn, kernel_sym: str, counted: str):
+    """One call of ``fn`` under ``torch.profiler``, timed on the host
+    between two syncs.  The call's launches are read from the wrappers'
+    counts (``LAUNCHES``); the trace is whole when it holds one record of
+    ``kernel_sym`` for each launch of ``counted``, and is taken again (at
+    most ``TRACE_ATTEMPTS`` times, each a new call) while it holds fewer.
+    More records than launches, or no whole trace, fail the run.  Returns
+    ``(fn's result, the trace's device activities, its records of
+    kernel_sym, wall seconds, the call's launches, the records each
+    attempt held)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.relax import LAUNCHES
+    seen = []
+    for _ in range(TRACE_ATTEMPTS):
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                    if LAUNCHES[k] != before[k]}
+        acts = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [e for e in acts if kernel_sym in e.name]
+        seen.append(len(ours))
+        if len(ours) > launched.get(counted, 0):
+            raise AssertionError(f"the trace holds {len(ours)} {kernel_sym} "
+                                 f"records for {launched} launches")
+        if len(ours) == launched.get(counted, 0):
+            return out, acts, ours, wall, launched, seen
+    raise AssertionError(f"no whole trace of {counted}: {kernel_sym} "
+                         f"records {seen} for {launched} launches")
+
+
 #: (kernel, run) pairs of the path_lanes phase
 PATH_LANES = (("wd_relax_lanes", ("sssp", "WD")),
               ("relax_lanes", ("sssp", "BS")),
@@ -1282,7 +1352,6 @@ def fused_phase(g, dev, stepped, *, small_scale: int,
     row."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import fused, operators
     from repro_torch.data import rmat_graph
     from repro_torch.kernels import fused as fused_kernel
@@ -1393,25 +1462,12 @@ def fused_phase(g, dev, stepped, *, small_scale: int,
                              - min(times[key]["stepped"])) / med["stepped"],
              fused_over_stepped=med["fused"] / med["stepped"])
 
-    # one traced fused traversal per run; a trace that recorded no device
-    # activity at all is taken again, once, and any other trace is checked
+    # one whole trace of a fused traversal per run: one fused launch, no
+    # B1/B2
     for key in PATH_RUNS:
-        first_activities = None
-        for attempt in (1, 2):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                r, _ = engine_run(g, *key, source, dev, "fused")
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            acts = [e for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-            ours = [e for e in acts if "fused_fixed_point_kernel" in e.name]
-            if first_activities is None:
-                first_activities = len(acts)
-            if acts:
-                break
+        (r, _), acts, ours, wall, launched, seen = traced_call(
+            lambda: engine_run(g, *key, source, dev, "fused"),
+            "fused_fixed_point_kernel", "fused_fixed_point")
         relax_acts = [e for e in acts if "relax_lanes_kernel" in e.name]
         busy = sum(e.device_time for e in acts) / 1e6
         kernel_s = sum(e.device_time for e in ours) / 1e6
@@ -1423,11 +1479,10 @@ def fused_phase(g, dev, stepped, *, small_scale: int,
              kernel_seconds=kernel_s, device_idle_share=1.0 - busy / wall,
              traversal_seconds=r.traversal_seconds,
              kernel_share_of_traversal=kernel_s / r.traversal_seconds,
-             trace_attempts=attempt,
-             first_attempt_activities=first_activities)
-        if len(ours) != 1 or relax_acts:
-            raise AssertionError(f"traced fused {key}: {len(ours)} fused "
-                                 f"launches, {len(relax_acts)} B1/B2")
+             trace_attempts=len(seen), fused_records_by_attempt=seen)
+        if launched != {"fused_fixed_point": 1} or relax_acts:
+            raise AssertionError(f"traced fused {key}: launched {launched}, "
+                                 f"{len(relax_acts)} B1/B2 records")
     return row
 
 
@@ -1684,7 +1739,6 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
     kernel line's B1-batch row and adds ``at_batch`` to ``fused_row``."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import engine, fused, multi_source, operators
     from repro_torch.core.schedule import DEFAULT_SCHEDULE
     from repro_torch.data import rmat_graph
@@ -1868,17 +1922,15 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
          stepped_batch8_over_single8=(med["stepped_batch8"]
                                       / med["stepped_single8"]))
 
-    # one traced fused batch
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.run_batch(g, src8, mode="fused", device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    acts = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    ours = [e for e in acts if "fused_fixed_point_kernel" in e.name]
+    # one whole trace of a fused batch: a fused launch a row, the same rows
+    traced, acts, ours, wall, launched, seen = traced_call(
+        lambda: engine.run_batch(g, src8, mode="fused", device=dev),
+        "fused_fixed_point_kernel", "fused_fixed_point")
+    if launched != {"fused_fixed_point": BATCH_K}:
+        raise AssertionError(f"traced fused batch launched {launched}, not "
+                             f"{BATCH_K} fused kernels")
+    if not same_run(traced, runs[("sssp", "fused")]):
+        raise AssertionError("traced fused batch != the untraced one")
     busy = sum(e.device_time for e in acts) / 1e6
     by_name: dict = {}
     for e in acts:
@@ -1888,10 +1940,8 @@ def batch_phase(g, dev, fused_row, *, small_scale: int,
          device_ms_by_name={k: v / 1e3 for k, v in by_name.items()},
          traced_wall_seconds=wall, device_seconds=busy,
          kernel_seconds=sum(e.device_time for e in ours) / 1e6,
-         device_idle_share=1.0 - busy / wall)
-    if len(ours) != BATCH_K:
-        raise AssertionError(f"traced fused batch: {len(ours)} fused "
-                             f"kernels, not {BATCH_K}")
+         device_idle_share=1.0 - busy / wall, trace_attempts=len(seen),
+         fused_records_by_attempt=seen)
     return row
 
 
@@ -2323,6 +2373,408 @@ def delta_phase(g, dev, fused_row, *, cpu_side: int = 256,
                          "delta-stepped": delta_run("stepped", None)},
                         rounds)
     emit_timings("delta_vs_bsp", f"road{ROAD_SIDE}", timed, strategy="WD")
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: sharding (A11): the node partition, lockstep and async shards,
+# sharded batches and distributed_sssp, in one process and in two ranks
+# ---------------------------------------------------------------------------
+
+#: the rmat20 sharded runs: (strategy, shards, partition method)
+SHARD_RUNS = (("WD", 2, "degree"), ("WD", 4, "degree"),
+              ("WD", 4, "contiguous"), ("HP", 2, "degree"),
+              ("HP", 4, "degree"), ("BS", 2, "degree"),
+              ("NS", 2, "degree"))
+#: the async runs: (strategy, shards)
+SHARD_ASYNC = (("WD", 4), ("HP", 4))
+#: interleaved rounds of the WD and HP timings (BS and NS run once: their
+#: host-driven column loops take seconds)
+SHARD_ROUNDS = 3
+#: the kernel rows the sharded path launches
+SHARD_KERNELS = ("wd_relax_lanes", "relax_lanes", "find_offsets")
+
+
+@contextlib.contextmanager
+def fold_recorder(trace: bool = False):
+    """Wrap ``ShardGroup.fold`` for the runs inside: yields a list that
+    gets, for each fold, its held proposals and the pair of CUDA events
+    around it; with ``trace``, each fold also lies in a ``shard_fold``
+    profiler range."""
+    import torch
+    from repro_torch.core import shard
+    real = shard.ShardGroup.fold
+    folds = []
+
+    def fold(self, op, proposals):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with (torch.profiler.record_function("shard_fold") if trace
+              else contextlib.nullcontext()):
+            start.record()
+            out = real(self, op, proposals)
+            end.record()
+        folds.append((len(proposals), start, end))
+        return out
+
+    shard.ShardGroup.fold = fold
+    try:
+        yield folds
+    finally:
+        shard.ShardGroup.fold = real
+
+
+def fold_ms(folds) -> float:
+    """The summed CUDA-event spans of ``fold_recorder``'s folds."""
+    import torch
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for _, start, end in folds)
+
+
+def shard_fold_trace(g, source: int, dev, shards: int = 2) -> dict:
+    """One sharded sssp WD run under ``torch.profiler``: the device time
+    of the kernels launched inside its folds (``shard_fold`` ranges),
+    beside the same run's fold event spans, all device activity and the
+    traversal."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.algos import sssp
+    sssp(g, source, strategy="WD", mode="fused", shards=shards, device=dev)
+    torch.cuda.synchronize()
+    with fold_recorder(trace=True) as folds, profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = sssp(g, source, strategy="WD", mode="fused", shards=shards,
+                 device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ranges = [e for e in events
+              if e.name == "shard_fold" and e.device_type == cpu]
+    acts = [e for e in events
+            if e.device_type == cuda and e.name != "shard_fold"]
+    fold_device_ms = sum(e.device_time_total for e in ranges) / 1e3
+    busy_ms = sum(e.device_time for e in acts) / 1e3
+    out = dict(strategy="WD", shards=shards, folds=len(folds),
+               fold_ranges=len(ranges),
+               fold_device_ms=fold_device_ms if fold_device_ms > 0 else None,
+               fold_event_ms=fold_ms(folds), device_busy_ms=busy_ms,
+               traversal_ms=r.traversal_seconds * 1e3,
+               traced_wall_ms=wall * 1e3,
+               fold_device_share_of_busy=(fold_device_ms / busy_ms
+                                          if busy_ms else None),
+               device_idle_share=1.0 - busy_ms / (wall * 1e3))
+    if not fold_device_ms:
+        out["note"] = ("the trace attributed no device time to the folds: "
+                       "not measured")
+    return out
+
+
+def layered_dag(layers: int, width: int, degree: int, dev, seed: int = 5):
+    """A DAG of ``layers`` layers of ``width`` nodes, each node with
+    ``degree`` edges into the next layer: reach_count's convergence
+    domain (it settles after ``layers`` iterations)."""
+    import numpy as np
+    from repro_torch.core.graph import CSRGraph
+    rng = np.random.default_rng(seed)
+    n = layers * width
+    src = np.repeat(np.arange((layers - 1) * width), degree)
+    dst = (src // width + 1) * width + rng.integers(0, width, src.size)
+    return CSRGraph.from_edges(src, dst, None, n, device=dev)
+
+
+def _shard_rank(rank: int, store: str, backend: str, scale: int,
+                out: str) -> None:
+    """One rank of the two-rank run: rmat-``scale`` sssp WD and BS with
+    one shard a rank, from a graph on the host; writes ``(dist,
+    iterations, edges)``, the bytes of the shard it holds on the card,
+    the graph's and its peak allocation to ``out``."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.algos import sssp
+    from repro_torch.core import shard
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import rmat_graph
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    tdist.init_process_group(backend, init_method=f"file://{store}",
+                             rank=rank, world_size=2,
+                             timeout=datetime.timedelta(seconds=60))
+    try:
+        g = rmat_graph(scale=scale, edge_factor=8, weighted=True, seed=1,
+                       device="cpu")
+        src = int(g.degrees.argmax())
+        res = {}
+        for strategy in ("WD", "BS"):
+            r = sssp(g, src, strategy=strategy, mode="fused", shards=2,
+                     device="cuda")
+            res[strategy] = r.dist
+            res[strategy + "_counts"] = np.array([r.iterations,
+                                                  r.edges_relaxed])
+        wd = make_strategy("WD")
+        splan = shard.plan_shards(wd, wd.setup(g), g, 2,
+                                  group=shard.shard_group(2, "cuda"))
+        res["bytes"] = np.array([
+            sum(t.untyped_storage().nbytes() for sh in splan.local
+                for t in (sh.row_ptr, sh.col, sh.wt) if t.is_cuda),
+            sum(t.numel() * t.element_size()
+                for t in (g.row_ptr, g.col, g.wt)),
+            torch.cuda.max_memory_allocated()])
+        np.savez(f"{out}/rank{rank}.npz", **res)
+    finally:
+        tdist.destroy_process_group()
+
+
+def two_ranks(dev, *, scale: int) -> dict:
+    """sssp WD and BS at rmat-``scale`` with two ranks, one shard each
+    (NCCL on two cards, else gloo over CUDA tensors, both ranks on card
+    0), each rank equal to the one-process run of two shards."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.algos import sssp
+    from repro_torch.data import rmat_graph
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    g = rmat_graph(scale=scale, edge_factor=8, weighted=True, seed=1,
+                   device=dev)
+    src = int(g.degrees.argmax())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_shard_rank, args=(f"{tmp}/store", backend, scale, tmp),
+                 nprocs=2, join=True)
+        seconds = time.perf_counter() - t0
+        ranks = [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(2)]
+    for strategy in ("WD", "BS"):
+        one = sssp(g, src, strategy=strategy, mode="fused", shards=2,
+                   device=dev)
+        for r, got in enumerate(ranks):
+            if (not np.array_equal(got[strategy], one.dist)
+                    or got[strategy + "_counts"].tolist() != [
+                        one.iterations, one.edges_relaxed]):
+                raise AssertionError(f"rank {r} {strategy} != one process")
+    held, graph_bytes, peak = zip(*(got["bytes"].tolist() for got in ranks))
+    if not all(0 < h < b for h, b in zip(held, graph_bytes)):
+        raise AssertionError(f"a rank holds more than its shard: held "
+                             f"{held} B of a {graph_bytes} B graph")
+    out = dict(backend=backend, ranks=2, graph=f"rmat{scale}",
+               strategies=["WD", "BS"], seconds=seconds,
+               equals_one_process=True, held_shard_bytes=list(held),
+               graph_bytes=graph_bytes[0], peak_allocated_bytes=list(peak))
+    emit("shard_ranks", **out)
+    return out
+
+
+def shard_cpu_compare(dev, *, scale: int) -> None:
+    """Sharded runs on the card against the same on the CPU and the
+    single-device card run: CC (min_label) on the symmetrized
+    rmat-``scale``, widest path on rmat-``scale``, reach_count on a
+    layered DAG of 2^``scale`` nodes."""
+    import numpy as np
+    from repro_torch.algos import connected_components, widest_path
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import rmat_graph
+    g = rmat_graph(scale=scale, edge_factor=8, weighted=True, seed=1,
+                   device="cpu")
+    src = int(g.degrees.argmax())
+    sym = symmetrized(g, "cpu")
+    cc_oracle = component_minima(sym)
+    dag = layered_dag(16, (1 << scale) // 16, 8, "cpu")
+    for shards, method in ((2, "degree"), (3, "contiguous")):
+        kw = dict(mode="fused", shards=shards, partition=method)
+        cc = [connected_components(sym, strategy="WD", device=d, **kw)
+              for d in (dev, "cpu")]
+        cc.append(connected_components(sym, strategy="WD", mode="fused",
+                                       device=dev))
+        wp = [widest_path(g, src, strategy="WD", device=d, **kw)
+              for d in (dev, "cpu")]
+        wp.append(widest_path(g, src, strategy="WD", mode="fused",
+                              device=dev))
+        rc = [engine.run(dag, 0, make_strategy(s), op="reach_count",
+                         device=d, **kw)
+              for s, d in (("BS", dev), ("BS", "cpu"), ("WD", dev))]
+        rc.append(engine.run(dag, 0, make_strategy("BS"), op="reach_count",
+                             mode="fused", device=dev))
+        if not all(np.array_equal(c, cc_oracle) for c in cc):
+            raise AssertionError(f"sharded CC at {shards} != scipy")
+        for name, runs in (("widest", wp), ("reach_count", rc)):
+            if not all(same_run(r, runs[-1]) for r in runs):
+                raise AssertionError(f"sharded {name} at {shards}: card, "
+                                     f"CPU and one device differ")
+        emit("shard_cpu_compare", graph=f"rmat{scale}", shards=shards,
+             partition=method, cc_equal_scipy=True,
+             widest_iterations=wp[0].iterations,
+             reach_count_dag_nodes=dag.num_nodes,
+             reach_count_iterations=rc[0].iterations,
+             card_equals_cpu_and_one_device=True)
+
+
+def shard_phase(g, dev, stepped, *, small_scale: int) -> dict:
+    """Sharding (ROADMAP A11) on the card, one process holding every
+    shard.  The partition's balance and halo at 2, 4 and 8 shards; the
+    ``SHARD_RUNS`` sssp traversals of ``g`` (rmat20) from the path
+    phase's source, each equal to Dijkstra and to the single-device run
+    (``stepped``, which the fused phase held equal to its fused run),
+    with B1/B2 launched once a held shard a chunk (S x the run's folds,
+    counted by ``fold_recorder``) and no fused launch; async WD and HP; a
+    K = 8 sharded batch equal to the single-device batch row by row (a B1
+    launch a live row and shard an iteration); ``distributed_sssp`` at 4
+    shards equal to Dijkstra (B3 a shard an iteration).  These entry
+    calls run once each, between setting the counts to 0 and reading
+    them: returns the launches of B1, B2 and B3.  Then the timings, the
+    fold trace, rmat-``small_scale`` card against CPU and two ranks.  One
+    card shows exactness and what a fold costs; every shard runs on it in
+    turn, so no timing here is a multi-GPU speed-up."""
+    import numpy as np
+    from repro_torch.algos import sssp
+    from repro_torch.core import dist as shard_dist
+    from repro_torch.core import engine, shard
+    from repro_torch.kernels.relax import LAUNCHES
+
+    name = f"rmat{g.num_nodes.bit_length() - 1}"
+    source = int(g.degrees.argmax())
+    oracle = dijkstra_oracle(g, source, weighted=True)
+    smi = nvidia_smi()
+    for shards in (2, 4, 8):
+        for method in (("degree", "contiguous") if shards == 4
+                       else ("degree",)):
+            sharded, info = shard.partition(g, shards, method=method)
+            emit("shard_info", graph=name, shards=shards, partition=method,
+                 cut_share=info.cut_share, halo_bytes=info.halo_bytes,
+                 halo_total=info.halo_total,
+                 edge_imbalance=info.edge_imbalance,
+                 nodes_per_shard=sharded.nodes_per_shard,
+                 edges_per_shard=sharded.edges_per_shard,
+                 partition_bytes=sharded.device_bytes())
+            del sharded
+    sources = batch_sources(g, BATCH_K)
+    rows = single_runs(g, sources, dev, "fused")
+    one = engine.run_batch(g, sources, mode="fused", device=dev)
+
+    # the sharded path's entry calls, each once: the launch counts
+    zero_counts()
+    with fold_recorder() as folds:
+        for strategy, shards, method in SHARD_RUNS:
+            s = stepped[("sssp", strategy)]
+            before, first = dict(LAUNCHES), len(folds)
+            r = sssp(g, source, strategy=strategy, mode="fused",
+                     shards=shards, partition=method, device=dev)
+            launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            mine = folds[first:]
+            if not np.array_equal(r.dist, oracle) or not same_run(r, s):
+                raise AssertionError(f"sharded {strategy} x{shards} "
+                                     f"{method} != Dijkstra / one device")
+            if r.relax_rounds != r.iterations or r.shards != shards:
+                raise AssertionError(f"sharded {strategy}: rounds {r}")
+            relaxes = launched["wd_relax_lanes"] + launched["relax_lanes"]
+            if (not mine or relaxes != sum(p for p, _, _ in mine)
+                    or {p for p, _, _ in mine} != {shards}
+                    or launched["fused_fixed_point"]):
+                raise AssertionError(f"sharded {strategy} x{shards} "
+                                     f"launched {launched}, {len(mine)} "
+                                     f"folds")
+            traversal_ms = r.traversal_seconds * 1e3
+            event_ms = fold_ms(mine)
+            emit("shard_run", graph=name, strategy=strategy, shards=shards,
+                 partition=method, iterations=r.iterations,
+                 edges_relaxed=r.edges_relaxed, state_bytes=r.state_bytes,
+                 setup_seconds=r.setup_seconds, traversal_ms=traversal_ms,
+                 folds=len(mine),
+                 launches={k: v for k, v in launched.items() if v},
+                 launches_per_fold=relaxes / len(mine),
+                 fold_event_ms=event_ms,
+                 fold_event_share=event_ms / traversal_ms,
+                 equals_oracle=True, equals_one_device=True)
+
+        for strategy, shards in SHARD_ASYNC:
+            first = len(folds)
+            r = sssp(g, source, strategy=strategy, mode="fused",
+                     shards=shards, async_shards=True, device=dev)
+            if (not np.array_equal(r.dist, oracle) or not r.async_shards
+                    or len(folds) - first != r.iterations):
+                raise AssertionError(f"async {strategy} x{shards} != "
+                                     f"Dijkstra")
+            emit("shard_async", graph=name, strategy=strategy,
+                 shards=shards, epochs=r.iterations,
+                 relax_rounds=r.relax_rounds,
+                 edges_relaxed=r.edges_relaxed,
+                 traversal_ms=r.traversal_seconds * 1e3,
+                 fold_event_ms=fold_ms(folds[first:]), equals_oracle=True,
+                 lockstep_iterations=stepped[("sssp", strategy)].iterations,
+                 lockstep_edges=stepped[("sssp", strategy)].edges_relaxed)
+
+        before = LAUNCHES["wd_relax_lanes"]
+        b = engine.run_batch(g, sources, mode="fused", shards=2, device=dev)
+        b1 = LAUNCHES["wd_relax_lanes"] - before
+        if (not np.array_equal(b.dist, one.dist)
+                or (b.iterations, b.edges_relaxed) != (one.iterations,
+                                                       one.edges_relaxed)
+                or b1 != 2 * sum(r.iterations for r in rows)):
+            raise AssertionError(f"sharded batch != one device ({b1} B1)")
+        emit("shard_batch", graph=name, k=BATCH_K, shards=2,
+             iterations=b.iterations, edges_relaxed=b.edges_relaxed,
+             b1_launches=b1, ms=b.total_seconds * 1e3,
+             one_device_fused_ms=one.total_seconds * 1e3,
+             equals_one_device_rows=True)
+
+        before = LAUNCHES["find_offsets"]
+        t0 = time.perf_counter()
+        got = shard_dist.distributed_sssp(g, source,
+                                          shard.shard_group(4, dev))
+        dist_ms = (time.perf_counter() - t0) * 1e3
+        b3 = LAUNCHES["find_offsets"] - before
+        if not np.array_equal(got, oracle) or b3 == 0 or b3 % 4:
+            raise AssertionError(f"distributed_sssp != Dijkstra ({b3} B3)")
+        emit("shard_distributed_sssp", graph=name, shards=4,
+             b3_launches=b3, iterations=b3 // 4, ms=dist_ms,
+             equals_oracle=True)
+    launches = {k: LAUNCHES[k] for k in SHARD_KERNELS}
+    emit("shard_launches", graph=name, launches=dict(LAUNCHES))
+    if not all(launches.values()):
+        raise AssertionError(f"the sharded path missed a kernel: {launches}")
+
+    # timings: each sharded traversal beside the single-device fused and
+    # stepped runs of the same strategy, interleaved; the folds' event
+    # spans and the traversal come from the same run
+    for strategy, shards, method in SHARD_RUNS:
+        rounds = SHARD_ROUNDS if strategy in ("WD", "HP") else 1
+        ms = {"sharded": [], "fused": [], "stepped": [], "fold": []}
+        for _ in range(rounds):
+            with fold_recorder() as folds:
+                ms["sharded"].append(sssp(
+                    g, source, strategy=strategy, mode="fused",
+                    shards=shards, partition=method,
+                    device=dev).traversal_seconds * 1e3)
+            ms["fold"].append(fold_ms(folds))
+            for mode in ("fused", "stepped"):
+                ms[mode].append(sssp(g, source, strategy=strategy,
+                                     mode=mode, device=dev)
+                                .traversal_seconds * 1e3)
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        shares = [f / t for f, t in zip(ms["fold"], ms["sharded"])]
+        emit("shard_time", graph=name, strategy=strategy, shards=shards,
+             partition=method, rounds=rounds, nvidia_smi=smi,
+             sharded_ms=ms["sharded"], fold_event_ms=ms["fold"],
+             one_device_fused_ms=ms["fused"],
+             one_device_stepped_ms=ms["stepped"],
+             sharded_median_ms=med["sharded"],
+             fold_event_median_ms=med["fold"],
+             fold_event_share=statistics.median(shares),
+             sharded_over_fused=med["sharded"] / med["fused"],
+             sharded_over_stepped=med["sharded"] / med["stepped"],
+             note="one card holds every shard: exactness and the fold's "
+                  "cost, not a multi-GPU speed-up; a fold's event span "
+                  "holds the host's launch of its ops")
+    emit("shard_fold_trace", graph=name, nvidia_smi=smi,
+         **shard_fold_trace(g, source, dev))
+
+    shard_cpu_compare(dev, scale=small_scale)
+    two_ranks(dev, scale=small_scale)
+    return launches
 
 
 def _op(name: str):
@@ -2765,6 +3217,10 @@ def main() -> int:
     timed("graph_serve", graph_serve_phase, g, dev)
     timed("costmodel", costmodel_phase, g, dev, fused_row)
     timed("delta", delta_phase, g, dev, fused_row)
+    sharded = timed("shard", shard_phase, g, dev, results, small_scale=16)
+    for row in rows:      # the sharded path's entry calls' launches too
+        row["shard_launches"] = sharded.get(row["name"], 0)
+        row["launches"] += row["shard_launches"]
     del results
     timed("algos", algos_phase, g, dev, small_scale=16)
     del g

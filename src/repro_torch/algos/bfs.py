@@ -10,16 +10,19 @@ from repro_torch.core.multi_source import BatchRunResult
 
 def bfs(graph: CSRGraph, source: int = 0, strategy: str = "WD",
         record_degrees: bool = False, mode: str = "stepped",
-        schedule: str = "bsp", delta=None, device="cuda",
+        shards=None, partition: str = "degree", schedule: str = "bsp",
+        delta=None, async_shards: bool = False, device="cuda",
         **strategy_kwargs) -> RunResult:
     """BFS levels from ``source`` under ``strategy`` (BS, EP, WD, NS, HP
     or AD; EP takes ``chunked=``), on the card unless ``device="cpu"``.
     ``schedule="delta"`` settles level buckets in order (every unit
-    weight is light, so a bucket is Δ levels wide)."""
+    weight is light, so a bucket is Δ levels wide).  ``shards``,
+    ``partition`` and ``async_shards`` as in ``sssp``."""
     strat = make_strategy(strategy, **strategy_kwargs)
     return run(graph.unweighted(), source, strat,
-               record_degrees=record_degrees, mode=mode, schedule=schedule,
-               delta=delta, device=device)
+               record_degrees=record_degrees, mode=mode, shards=shards,
+               partition=partition, schedule=schedule, delta=delta,
+               async_shards=async_shards, device=device)
 
 
 def bfs_batch(graph: CSRGraph, sources, mode: str = "stepped",

@@ -28,15 +28,18 @@ def _every_node_its_own_label(n_alloc: int):
 
 def connected_components(graph, strategy: str = "WD",
                          max_iterations: int = 10000,
-                         mode: str = "stepped", schedule: str = "bsp",
-                         delta=None, device="cuda",
-                         **strategy_kwargs) -> np.ndarray:
+                         mode: str = "stepped", shards=None,
+                         partition: str = "degree", schedule: str = "bsp",
+                         delta=None, async_shards: bool = False,
+                         device="cuda", **strategy_kwargs) -> np.ndarray:
     """The min-node-id label of each node's (in-)component, on the card
     unless ``device="cpu"``.  ``schedule="delta"`` buckets by tentative
-    label (min_label is not weight-additive: every edge is light)."""
+    label (min_label is not weight-additive: every edge is light);
+    ``shards``, ``partition`` and ``async_shards`` as in ``sssp``."""
     labels, _, _ = fixed_point(
         graph, make_strategy(strategy, **strategy_kwargs),
         _every_node_its_own_label, op=operators.min_label, mode=mode,
-        max_iterations=max_iterations, schedule=schedule, delta=delta,
+        max_iterations=max_iterations, shards=shards, partition=partition,
+        schedule=schedule, delta=delta, async_shards=async_shards,
         device=device)
     return labels

@@ -10,18 +10,23 @@ from repro_torch.core.multi_source import BatchRunResult
 
 def sssp(graph: CSRGraph, source: int = 0, strategy: str = "WD",
          record_degrees: bool = False, mode: str = "stepped",
-         schedule: str = "bsp", delta=None, device="cuda",
+         shards=None, partition: str = "degree", schedule: str = "bsp",
+         delta=None, async_shards: bool = False, device="cuda",
          **strategy_kwargs) -> RunResult:
     """Shortest-path distances from ``source`` under ``strategy`` (BS, EP,
     WD, NS, HP or AD; EP takes ``chunked=``), on the card unless
     ``device="cpu"``.  ``schedule="delta"`` settles distance buckets in
     priority order (delta-stepping; ``delta=`` overrides the auto
-    width)."""
+    width).  ``shards=S`` (fused; BS, WD, NS, HP) partitions the graph
+    into S shards (``partition``), ``async_shards=True`` lets them run
+    ahead between folds (``engine.run``)."""
     if graph.wt is None:
         raise ValueError("SSSP needs a weighted graph")
     strat = make_strategy(strategy, **strategy_kwargs)
     return run(graph, source, strat, record_degrees=record_degrees,
-               mode=mode, schedule=schedule, delta=delta, device=device)
+               mode=mode, shards=shards, partition=partition,
+               schedule=schedule, delta=delta, async_shards=async_shards,
+               device=device)
 
 
 def sssp_batch(graph: CSRGraph, sources, mode: str = "stepped",

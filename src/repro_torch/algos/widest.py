@@ -15,17 +15,21 @@ from repro_torch.core.graph import CSRGraph, INF
 
 def widest_path(graph: CSRGraph, source: int = 0, strategy: str = "WD",
                 record_degrees: bool = False, mode: str = "stepped",
-                schedule: str = "bsp", delta=None, device="cuda",
+                shards=None, partition: str = "degree",
+                schedule: str = "bsp", delta=None,
+                async_shards: bool = False, device="cuda",
                 **strategy_kwargs) -> RunResult:
     """Max-min bottleneck width from ``source`` to every node under
     ``strategy`` (any of the six), on the card unless ``device="cpu"``.
     ``result.dist[v]`` is the largest width over all source→v paths (0 =
     unreachable, INF = the source itself).  ``schedule="delta"`` settles
-    the widest buckets first (the max monoid reflects the rank)."""
+    the widest buckets first (the max monoid reflects the rank).
+    ``shards``, ``partition`` and ``async_shards`` as in ``sssp``."""
     strat = make_strategy(strategy, **strategy_kwargs)
     return run(graph, source, strat, op="widest_path",
-               record_degrees=record_degrees, mode=mode, schedule=schedule,
-               delta=delta, device=device)
+               record_degrees=record_degrees, mode=mode, shards=shards,
+               partition=partition, schedule=schedule, delta=delta,
+               async_shards=async_shards, device=device)
 
 
 def reference_widest(graph: CSRGraph, source: int) -> np.ndarray:

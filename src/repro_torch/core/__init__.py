@@ -10,9 +10,14 @@ from repro_torch.core.operators import (EdgeOp, OPERATORS,  # noqa: F401
                                         register_operator, shortest_path,
                                         min_label, widest_path, reach_count)
 from repro_torch.core.strategies import (STRATEGIES, FRONTIER_INIT,  # noqa: F401
-                                         PRIORITY_SCHEDULE, register,
-                                         strategy_capabilities)
+                                         PRIORITY_SCHEDULE, SHARDABLE,
+                                         register, strategy_capabilities)
 from repro_torch.core.priority import (DeltaPlan, auto_delta,  # noqa: F401
                                        plan_delta)
 from repro_torch.core.node_split import find_mdt, split_graph  # noqa: F401
-from repro_torch.core import balance, costmodel, fused  # noqa: F401
+from repro_torch.core.shard import (ShardedCSRGraph, ShardGroup,  # noqa: F401
+                                    ShardInfo, partition, plan_shards,
+                                    shard_group)
+from repro_torch.core.dist import (PartitionedGraph,  # noqa: F401
+                                   distributed_sssp, partition_graph)
+from repro_torch.core import balance, costmodel, dist, fused, shard  # noqa: F401

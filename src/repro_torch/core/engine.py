@@ -16,8 +16,10 @@ is an :class:`repro_torch.core.operators.EdgeOp` (``op=``, default
 (:mod:`repro_torch.core.multi_source`).  ``schedule="delta"`` settles
 value buckets in priority order (delta-stepping,
 :mod:`repro_torch.core.priority`): ``iterations`` then counts bucket
-epochs and ``relax_rounds`` the relax passes.  Sharding is a later slice
-(ROADMAP.md A11); ``shards=`` raises ``NotImplementedError``.
+epochs and ``relax_rounds`` the relax passes.  ``shards=S`` (fused)
+partitions the graph into S shards and runs them in lockstep, or
+asynchronously with ``async_shards=True``
+(:mod:`repro_torch.core.shard`).
 """
 
 from __future__ import annotations
@@ -30,11 +32,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import fused, operators, priority
+from repro_torch.core import shard as _shard
 from repro_torch.core.graph import CSRGraph, INF, resolve_device
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.strategies import (  # noqa: F401  (re-exported)
-    FRONTIER_INIT, PRIORITY_SCHEDULE, EdgeBased, IterStats, NodeSplitting,
-    StrategyBase, make_strategy)
+    FRONTIER_INIT, PRIORITY_SCHEDULE, SHARDABLE, EdgeBased, IterStats,
+    NodeSplitting, StrategyBase, make_strategy)
 
 if TYPE_CHECKING:       # kernels.fused imports this package
     from repro_torch.kernels.fused import Rounds
@@ -101,24 +104,38 @@ def ready(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _check_slice(mode: str, shards=None) -> None:
-    """Raise for an unknown mode (``ValueError``) and for ``shards=``,
-    which this port does not run yet (``NotImplementedError`` naming its
-    ROADMAP item)."""
+def _check_mode(mode: str) -> None:
     if mode not in ("stepped", "fused"):
         raise ValueError(f"mode must be 'stepped' or 'fused', got {mode!r}")
-    if shards is not None:
-        raise NotImplementedError(
-            "shards= is not ported to repro_torch yet (ROADMAP.md A11); "
-            "the port runs a single device")
+
+
+def _check_sharding(strategy: Optional[StrategyBase], mode: str,
+                    shards: Optional[int]) -> None:
+    """The reference's rules for ``shards=``: the fused engine only, and a
+    strategy declaring :data:`SHARDABLE` (``strategy`` None: the WD
+    batch)."""
+    if shards is None:
+        return
+    if mode != "fused":
+        raise ValueError(
+            "sharded execution runs the whole traversal as the fused "
+            "engine does; pass mode='fused'")
+    if strategy is not None and SHARDABLE not in strategy.capabilities:
+        raise ValueError(
+            f"strategy {strategy.name!r} does not declare the "
+            f"{SHARDABLE!r} capability; sharding is gated on BS/WD/HP/NS "
+            f"(EP's COO worklist and AD's global frontier statistics stay "
+            f"on one device)")
 
 
 def _check_schedule(strategy: Optional[StrategyBase], schedule: str,
-                    delta: Optional[int], op) -> None:
+                    delta: Optional[int], op, shards: Optional[int] = None,
+                    async_shards: bool = False) -> None:
     """The reference's rules for the work ordering, in its order (``op``
     resolved): a known schedule; ``delta=`` only with ``"delta"``; delta
     needs a strategy declaring :data:`PRIORITY_SCHEDULE` (``strategy``
-    None: the WD batch) and an idempotent operator."""
+    None: the WD batch), an idempotent operator and one shard;
+    ``async_shards`` needs ``shards=`` and an idempotent operator."""
     if schedule not in SCHEDULES:
         raise ValueError(
             f"schedule must be one of {SCHEDULES}, got {schedule!r}")
@@ -140,6 +157,23 @@ def _check_schedule(strategy: Optional[StrategyBase], schedule: str,
                 f"{op.name!r} (combine={op.combine!r}) is not idempotent, "
                 f"so its fixed point depends on relax order; use "
                 f"schedule='bsp'")
+        if shards is not None:
+            raise ValueError(
+                "schedule='delta' runs on one shard (bucket selection "
+                "reads the global value array); pass shards=None and "
+                "async_shards=False, or use schedule='bsp' for sharded "
+                "runs")
+    if async_shards:
+        if shards is None:
+            raise ValueError(
+                "async_shards=True relaxes the fold cadence of SHARDED "
+                "execution; pass shards= (and mode='fused')")
+        if not op.idempotent:
+            raise ValueError(
+                f"async_shards=True lets shards relax against stale ghost "
+                f"values, which is only safe for idempotent monotone "
+                f"monoids; operator {op.name!r} has combine="
+                f"{op.combine!r}")
 
 
 def _n_alloc(graph: CSRGraph, strategy: StrategyBase) -> int:
@@ -156,11 +190,20 @@ def _original(dist: torch.Tensor, strategy: StrategyBase) -> np.ndarray:
     return dist.cpu().numpy()
 
 
+def _planning_graph(graph: CSRGraph, dev: torch.device,
+                    shards: Optional[int]) -> CSRGraph:
+    """The graph a run plans on: on ``dev``, but a sharded run plans and
+    partitions where the graph lies, and only the held shards go to
+    ``dev`` (a rank of a graph larger than its device holds its shard)."""
+    return graph if shards is not None else graph.to(dev)
+
+
 def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
         max_iterations: int = 100000, record_degrees: bool = False,
         mode: str = "stepped", op="shortest_path",
-        shards: Optional[int] = None, schedule: str = "bsp",
-        delta: Optional[int] = None, device="cuda") -> RunResult:
+        shards: Optional[int] = None, partition: str = "degree",
+        schedule: str = "bsp", delta: Optional[int] = None,
+        async_shards: bool = False, device="cuda") -> RunResult:
     """Relax from ``source`` to a fixed point.  With the default
     ``shortest_path`` operator, ``graph.wt is None`` ⇒ BFS levels, else
     SSSP distances.
@@ -170,7 +213,18 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
     versions.  ``mode="fused"`` runs the traversal as one launch: the
     whole of it is booked as kernel time, ``iter_stats`` stays empty, and
     ``record_degrees`` (host-side per-iteration stats) raises
-    ``ValueError``.  ``shards=`` raises ``NotImplementedError``.
+    ``ValueError``.
+
+    ``shards=S`` (fused, strategies declaring :data:`SHARDABLE`)
+    partitions the graph into S shards (``partition``: ``"degree"``
+    balances edges, ``"contiguous"`` node counts; booked as setup) and
+    runs them in lockstep, folding the shards' proposals at every chunk
+    boundary: the same ``(dist, iterations, edges_relaxed)`` as one
+    device (:mod:`repro_torch.core.shard`).  Without
+    ``torch.distributed`` this process holds all S shards; with it, each
+    rank holds one.  ``async_shards=True`` (idempotent operators) lets
+    each shard run to a local fixed point between folds: ``iterations``
+    counts epochs and ``relax_rounds`` the deepest shard's rounds.
 
     ``schedule="delta"`` (strategies declaring :data:`PRIORITY_SCHEDULE`,
     idempotent operators) runs delta-stepping
@@ -185,7 +239,7 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
     books its length as that round's frontier and edges, and the loop
     ends when the worklist is empty (one round before a node strategy's
     would: nothing is left to relax from the last improved nodes)."""
-    _check_slice(mode)
+    _check_mode(mode)
     if mode == "fused" and record_degrees:
         raise ValueError(
             "record_degrees collects per-iteration host-side stats; "
@@ -195,8 +249,8 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
             "record_degrees reports per-BSP-iteration frontier degrees; "
             "it has no bucket-epoch equivalent; use schedule='bsp'")
     op = operators.resolve(op)
-    _check_slice(mode, shards)
-    _check_schedule(strategy, schedule, delta, op)
+    _check_sharding(strategy, mode, shards)
+    _check_schedule(strategy, schedule, delta, op, shards, async_shards)
     dev = resolve_device(device)
     if not 0 <= int(source) < graph.num_nodes:
         raise ValueError(f"source {source} outside [0, {graph.num_nodes})")
@@ -208,20 +262,28 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
                          overhead_seconds=0.0, edges_relaxed=0,
                          iter_stats=[], strategy=strategy.name,
                          state_bytes=0, mode=mode, device=dev.type,
-                         schedule=schedule, delta=delta)
+                         shards=shards or 1, schedule=schedule, delta=delta,
+                         async_shards=async_shards)
 
     t0 = time.perf_counter()
-    graph = graph.to(dev)
+    graph = _planning_graph(graph, dev, shards)
     state = strategy.setup(graph)
-    dplan = None
+    splan = dplan = None
+    if shards is not None:
+        # the partition is host preprocessing, booked as setup
+        splan = _shard.plan_shards(strategy, state, graph, shards,
+                                   method=partition,
+                                   group=_shard.shard_group(shards, dev))
     if schedule == "delta":
         # the light/heavy split is host preprocessing, booked as setup
         dplan = priority.plan_delta(strategy, state, graph, op=op,
                                     delta=delta)
         delta = dplan.delta
-    ready(graph.row_ptr)
+    ready(graph.row_ptr if splan is None else splan.local[0].row_ptr)
     setup_s = time.perf_counter() - t0
     state_bytes = strategy.state_bytes(state)
+    if splan is not None:
+        state_bytes += splan.sharded.device_bytes()
     if dplan is not None:
         state_bytes += dplan.device_bytes()
 
@@ -231,13 +293,19 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
     mask = torch.zeros(n, dtype=torch.bool, device=dev)
     mask[source] = True
     done = dict(strategy=strategy.name, state_bytes=state_bytes,
-                device=dev.type, schedule=schedule, delta=delta,
+                device=dev.type, shards=shards or 1, schedule=schedule,
+                delta=delta, async_shards=async_shards,
                 work_schedule=getattr(strategy, "resolved_schedule", None))
 
     if mode == "fused":
         rounds = split = None
         t_start = time.perf_counter()
-        if dplan is not None:
+        if splan is not None:
+            dist, iterations, edges, rounds = _shard.run_fixed_point(
+                splan, dist, mask, op=op, max_iterations=max_iterations,
+                async_mode=async_shards)
+            ready(dist)
+        elif dplan is not None:
             dist, iterations, rounds, edges, split = (
                 priority.run_fixed_point(dplan, dist, mask, op=op,
                                          max_iterations=max_iterations))
@@ -317,8 +385,10 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
 
 def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
                 op="shortest_path", mode: str = "stepped",
-                max_iterations: int = 100000, schedule: str = "bsp",
-                delta: Optional[int] = None, device="cuda"):
+                max_iterations: int = 100000,
+                shards: Optional[int] = None, partition: str = "degree",
+                schedule: str = "bsp", delta: Optional[int] = None,
+                async_shards: bool = False, device="cuda"):
     """Run a strategy to its fixed point from a caller-supplied seeding:
     ``init(n_alloc)`` returns the initial ``(values, frontier_mask)`` on
     the strategy's allocation (``n_alloc`` counts NS's children too; the
@@ -332,22 +402,32 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
     string, as the reference does.  Returns ``(values, iterations,
     edges_relaxed)``, ``values`` a host array on the original nodes.
     ``mode="fused"`` runs it as one launch, as in :func:`run`;
+    ``shards=``/``async_shards`` shard it, as in :func:`run`;
     ``schedule="delta"`` runs delta-stepping, ``iterations`` counting
     epochs."""
-    _check_slice(mode)
+    _check_mode(mode)
     if FRONTIER_INIT not in strategy.capabilities:
         raise ValueError(
             f"strategy {strategy.name!r} does not declare the "
             f"{FRONTIER_INIT!r} capability; seeding an arbitrary frontier "
             f"needs a node strategy")
     op = operators.resolve(op)
-    _check_schedule(strategy, schedule, delta, op)
+    _check_sharding(strategy, mode, shards)
+    _check_schedule(strategy, schedule, delta, op, shards, async_shards)
     dev = resolve_device(device)
-    graph = graph.to(dev)
+    graph = _planning_graph(graph, dev, shards)
     state = strategy.setup(graph)
     values, mask = init(_n_alloc(graph, strategy))
     dist = torch.as_tensor(values).to(dev, op.dtype)
     mask = torch.as_tensor(mask).to(dev, torch.bool)
+    if shards is not None:
+        splan = _shard.plan_shards(strategy, state, graph, shards,
+                                   method=partition,
+                                   group=_shard.shard_group(shards, dev))
+        dist, it, edges, _ = _shard.run_fixed_point(
+            splan, dist, mask, op=op, max_iterations=max_iterations,
+            async_mode=async_shards)
+        return _original(dist, strategy), it, edges
     if schedule == "delta":
         dplan = priority.plan_delta(strategy, state, graph, op=op,
                                     delta=delta)
@@ -378,21 +458,24 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
 
 def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
               mode: str = "stepped", op="shortest_path",
-              shards: Optional[int] = None, schedule: str = "bsp",
-              delta: Optional[int] = None, pad_to: Optional[int] = None,
+              shards: Optional[int] = None, partition: str = "degree",
+              schedule: str = "bsp", delta: Optional[int] = None,
+              pad_to: Optional[int] = None,
               work_schedule: Optional[Schedule] = None, device="cuda"):
     """Run K sources concurrently against one graph (dist is ``[K, N]``).
 
     Thin wrapper over :func:`repro_torch.core.multi_source.run_batch`,
     kept here so single-source and batched entry points live side by
     side: on the card one B1 batch launch an iteration (stepped) or one
-    fused launch a batch; ``schedule="delta"`` (fused only) runs every
-    row as its own delta-stepping traversal; ``pad_to=P`` K-buckets the
+    fused launch a batch; ``shards=S`` (fused only) runs the sharded WD
+    step on every row; ``schedule="delta"`` (fused only) runs every row
+    as its own delta-stepping traversal; ``pad_to=P`` K-buckets the
     batch (the serving tier's)."""
     from repro_torch.core import multi_source
     return multi_source.run_batch(
         graph, sources, max_iterations=max_iterations, mode=mode, op=op,
-        shards=shards, schedule=schedule, delta=delta, pad_to=pad_to,
+        shards=shards, partition=partition, schedule=schedule, delta=delta,
+        pad_to=pad_to,
         work_schedule=work_schedule, device=device)
 
 

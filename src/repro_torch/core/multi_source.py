@@ -36,8 +36,10 @@ other rows.
 its own delta-stepping traversal with WD phases
 (:func:`repro_torch.core.priority.run_batch_fixed_point`: one single-row
 launch a row on the card); ``iterations`` and ``relax_rounds`` are the
-slowest row's.  Sharded batches are a later slice (ROADMAP.md A11) and
-raise ``NotImplementedError``.
+slowest row's.  ``shards=S`` (fused only) partitions the graph and runs
+the sharded WD step on every live row
+(:func:`repro_torch.core.shard.run_batch_fixed_point`: one B1 launch a
+row and held shard an iteration on the card).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import fused, operators, priority
+from repro_torch.core import fused, operators, priority, shard
 from repro_torch.core.graph import CSRGraph, resolve_device
 from repro_torch.core.operators import EdgeOp
 from repro_torch.core.schedule import DEFAULT_SCHEDULE, Schedule
@@ -262,8 +264,9 @@ def _pad(sources: np.ndarray, pad_to: Optional[int]) -> tuple:
 
 def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
               mode: str = "stepped", op="shortest_path",
-              shards: Optional[int] = None, schedule: str = "bsp",
-              delta: Optional[int] = None, pad_to: Optional[int] = None,
+              shards: Optional[int] = None, partition: str = "degree",
+              schedule: str = "bsp", delta: Optional[int] = None,
+              pad_to: Optional[int] = None,
               work_schedule: Optional[Schedule] = None,
               device="cuda") -> BatchRunResult:
     """Fixed point over K sources at once, equal to K independent
@@ -277,14 +280,17 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
     rows by repeating the first source (``BatchRunResult.pad_lanes``).
     ``work_schedule`` sets the worklist floor.  ``schedule="delta"``
     (``mode="fused"``, idempotent operators; ``delta=`` the bucket width)
-    runs every row as its own delta-stepping traversal.  ``shards=``
-    raises ``NotImplementedError``; an unknown mode, a stepped delta
-    batch and a source outside ``[0, N)`` raise ``ValueError`` (the
-    reference drops such a source silently)."""
-    from repro_torch.core.engine import _check_schedule, _check_slice
-    _check_slice(mode, shards)
+    runs every row as its own delta-stepping traversal.  ``shards=S``
+    (``mode="fused"``; ``partition`` as in ``engine.run``) runs the
+    sharded WD step on every row.  An unknown mode, a stepped sharded or
+    delta batch, a sharded delta batch and a source outside ``[0, N)``
+    raise ``ValueError`` (the reference drops such a source silently)."""
+    from repro_torch.core.engine import (_check_mode, _check_schedule,
+                                         _check_sharding)
+    _check_mode(mode)
+    _check_sharding(None, mode, shards)
     op = operators.resolve(op)
-    _check_schedule(None, schedule, delta, op)
+    _check_schedule(None, schedule, delta, op, shards)
     if schedule == "delta" and mode != "fused":
         raise ValueError(
             "batched delta-stepping runs whole per-row traversals, a "
@@ -298,7 +304,8 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
     k = int(sources.shape[0])
     done = dict(sources=sources, iterations=0, total_seconds=0.0,
                 edges_relaxed=0, iter_stats=[], mode=mode, device=dev.type,
-                schedule=schedule, delta=delta, pad_lanes=pad_lanes)
+                shards=shards or 1, schedule=schedule, delta=delta,
+                pad_lanes=pad_lanes)
     if k == 0:
         return BatchRunResult(dist=np.zeros((0, n), np.int32), **done)
     if graph.num_edges == 0:
@@ -307,7 +314,8 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
         return BatchRunResult(dist=dist, **done)
 
     sched = work_schedule if work_schedule is not None else DEFAULT_SCHEDULE
-    graph = graph.to(dev)
+    if shards is None:      # a sharded batch holds its shards alone on dev
+        graph = graph.to(dev)
     t0 = time.perf_counter()
     dist_b, mask_b = init_batch(n, torch.from_numpy(sources).to(dev), op=op)
 
@@ -325,6 +333,18 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
                               mode="fused", device=dev.type,
                               schedule="delta", delta=dplan.delta,
                               relax_rounds=rounds, pad_lanes=pad_lanes)
+
+    if shards is not None:
+        sharded, _ = shard.partition(graph, shards, method=partition)
+        dist_b, iterations, edges = shard.run_batch_fixed_point(
+            sharded, dist_b, mask_b, group=shard.shard_group(shards, dev),
+            op=op, max_iterations=max_iterations)
+        total_s = _elapsed(t0, dist_b)
+        return BatchRunResult(dist=dist_b.cpu().numpy(), sources=sources,
+                              iterations=iterations, total_seconds=total_s,
+                              edges_relaxed=edges, iter_stats=[],
+                              mode="fused", shards=shards, device=dev.type,
+                              pad_lanes=pad_lanes)
 
     if mode == "fused":
         dist_b, iterations, edges = fused.run_batch_fixed_point(

@@ -212,7 +212,8 @@ class IterStats:
 #: capability: the strategy can start from an arbitrary dense
 #: (dist, frontier-mask) pair (multi-source seeding, CC)
 FRONTIER_INIT = "frontier_init"
-#: capability: the strategy has a multi-device lowering (ROADMAP.md A11)
+#: capability: the strategy has a sharded lowering
+#: (:mod:`repro_torch.core.shard`), so ``shards=`` may partition its graph
 SHARDABLE = "shardable"
 #: capability: the strategy's kernels have delta-stepping phases
 #: (:mod:`repro_torch.core.priority`), so ``schedule="delta"`` may order
@@ -220,11 +221,14 @@ SHARDABLE = "shardable"
 #: does not (an edge worklist has no per-node value to bucket by)
 PRIORITY_SCHEDULE = "priority_schedule"
 
-#: what a plain StrategyBase subclass declares.  The built-ins declare
-#: only what the port implements: SHARDABLE arrives with its slice.
+#: what a plain StrategyBase subclass declares
 DEFAULT_CAPABILITIES = frozenset({FRONTIER_INIT})
-#: what the node strategies BS, WD, NS, HP and AD declare
+#: what AD declares (its choice reads global frontier statistics, so it
+#: has no sharded lowering)
 NODE_CAPABILITIES = frozenset({FRONTIER_INIT, PRIORITY_SCHEDULE})
+#: what BS, WD, NS and HP declare, as the reference's
+#: ``SHARDED_CAPABILITIES`` less its Pallas backend
+SHARDED_CAPABILITIES = NODE_CAPABILITIES | {SHARDABLE}
 
 
 class StrategyBase:
@@ -312,7 +316,7 @@ def _frontier_stats(g: CSRGraph, frontier, count: int,
 @register
 class NodeBased(StrategyBase):
     name = "BS"
-    capabilities = NODE_CAPABILITIES
+    capabilities = SHARDED_CAPABILITIES
 
     def iterate(self, g, dist, updated_mask, count, *,
                 op: EdgeOp = operators.shortest_path, record_degrees=False):
@@ -390,7 +394,7 @@ class EdgeBased(StrategyBase):
 @register
 class WorkloadDecomposition(StrategyBase):
     name = "WD"
-    capabilities = NODE_CAPABILITIES
+    capabilities = SHARDED_CAPABILITIES
 
     def iterate(self, g, dist, updated_mask, count, *,
                 op: EdgeOp = operators.shortest_path, record_degrees=False):
@@ -410,7 +414,7 @@ class NodeSplitting(StrategyBase):
     """NS: BS over the split graph (max degree ≤ MDT), after mirroring
     every parent's value and activity onto its children."""
     name = "NS"
-    capabilities = NODE_CAPABILITIES
+    capabilities = SHARDED_CAPABILITIES
 
     def __init__(self, histogram_bins: Optional[int] = None,
                  mdt: Optional[int] = None,
@@ -446,7 +450,7 @@ class NodeSplitting(StrategyBase):
 @register
 class HierarchicalProcessing(StrategyBase):
     name = "HP"
-    capabilities = NODE_CAPABILITIES
+    capabilities = SHARDED_CAPABILITIES
 
     def __init__(self, histogram_bins: Optional[int] = None,
                  mdt: Optional[int] = None,

@@ -1276,3 +1276,151 @@ def test_calibration_and_block_feasibility_on_the_card(dev, tmp_path):
     for row in rows.values():
         assert row["feasible"] and row["blocks_per_sm"] >= 1
         assert row["threads"] == 256
+
+
+# ---------------------------------------------------------------------------
+# sharded fixed points (ROADMAP A11): every held shard's chunk is one B1 or
+# B2 launch, folded before one apply_proposal
+# ---------------------------------------------------------------------------
+
+#: the SHARDABLE kernels; HP with thresholds that force its tiles and its
+#: cursor-aware tail at rmat12
+SHARD_RUNS = {"BS": ("BS", {}), "WD": ("WD", {}),
+              "HP": ("HP", dict(switch_threshold=64, mdt=4)),
+              "NS": ("NS", {})}
+
+
+def _no_plain_relax(monkeypatch):
+    """Make the plain B1/B2 raise, so a card run that reached them fails."""
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a card run called a plain relax")
+    for name in ("relax_lanes_plain", "wd_relax_lanes_plain"):
+        monkeypatch.setattr(relax, name, forbidden)
+
+
+def _count_folds(monkeypatch) -> list:
+    """Record the held proposals of every ``ShardGroup.fold``."""
+    from repro_torch.core import shard
+    folds, real = [], shard.ShardGroup.fold
+
+    def fold(self, op, proposals):
+        folds.append(len(proposals))
+        return real(self, op, proposals)
+    monkeypatch.setattr(shard.ShardGroup, "fold", fold)
+    return folds
+
+
+def _shard_graph(opname):
+    """rmat12 from its highest-degree node; reach_count on a layered DAG
+    from node 0."""
+    if opname == "reach_count":
+        return _layered_dag("cpu"), 0
+    g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
+    return g, int(g.degrees.argmax())
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+@pytest.mark.parametrize("run", list(SHARD_RUNS))
+def test_sharded_lockstep_on_the_card_matches_cpu(dev, monkeypatch, run,
+                                                  opname):
+    """Lockstep on the card equals the CPU in (dist, iterations, edges,
+    rounds); each chunk launches B1 or B2 once a held shard (launches =
+    the folds' proposals), no plain relax and no fused kernel."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    strategy, kwargs = SHARD_RUNS[run]
+    g, src = _shard_graph(opname)
+    for shards, method in ((2, "degree"), (3, "contiguous")):
+        cpu = engine.run(g, src, make_strategy(strategy, **kwargs),
+                         mode="fused", op=opname, shards=shards,
+                         partition=method, device="cpu")
+        with monkeypatch.context() as m:
+            _no_plain_relax(m)
+            folds = _count_folds(m)
+            before = dict(relax.LAUNCHES)
+            card = engine.run(g, src, make_strategy(strategy, **kwargs),
+                              mode="fused", op=opname, shards=shards,
+                              partition=method, device=dev)
+            launched = {k: relax.LAUNCHES[k] - before[k] for k in before}
+        np.testing.assert_array_equal(card.dist, cpu.dist)
+        assert (card.iterations, card.edges_relaxed, card.relax_rounds) == (
+            cpu.iterations, cpu.edges_relaxed, cpu.relax_rounds)
+        assert set(folds) == {shards}
+        assert (launched["wd_relax_lanes"] + launched["relax_lanes"]
+                == sum(folds) > 0)
+        assert launched["fused_fixed_point"] == 0
+        if strategy == "WD":
+            assert launched["wd_relax_lanes"] == shards * card.iterations
+        if strategy in ("BS", "NS"):
+            assert launched["wd_relax_lanes"] == 0
+
+
+@pytest.mark.parametrize("opname", ["shortest_path", "min_label",
+                                    "widest_path"])
+@pytest.mark.parametrize("run", list(SHARD_RUNS))
+def test_sharded_async_on_the_card_matches_cpu(dev, monkeypatch, run,
+                                               opname):
+    """Async shards on the card equal the CPU in values, epochs, rounds
+    and edges (the same local loops run), with one fold an epoch and the
+    card's B1/B2 only."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    strategy, kwargs = SHARD_RUNS[run]
+    g, src = _shard_graph(opname)
+    cpu = engine.run(g, src, make_strategy(strategy, **kwargs), mode="fused",
+                     op=opname, shards=3, async_shards=True, device="cpu")
+    with monkeypatch.context() as m:
+        _no_plain_relax(m)
+        folds = _count_folds(m)
+        before = dict(relax.LAUNCHES)
+        card = engine.run(g, src, make_strategy(strategy, **kwargs),
+                          mode="fused", op=opname, shards=3,
+                          async_shards=True, device=dev)
+        launched = {k: relax.LAUNCHES[k] - before[k] for k in before}
+    np.testing.assert_array_equal(card.dist, cpu.dist)
+    assert (card.iterations, card.relax_rounds, card.edges_relaxed) == (
+        cpu.iterations, cpu.relax_rounds, cpu.edges_relaxed)
+    assert folds == [3] * card.iterations
+    assert launched["wd_relax_lanes"] + launched["relax_lanes"] > 0
+
+
+@pytest.mark.parametrize("opname", OP_NAMES)
+def test_sharded_batch_on_the_card_matches_cpu(dev, monkeypatch, opname):
+    """A sharded batch on the card equals the CPU; one B1 launch a live
+    row and held shard an iteration (a row is live for its own single
+    run's iterations)."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    g, src = _shard_graph(opname)
+    sources = [src, 0, 3, 17, 3] if opname != "reach_count" else [0, 1, 40]
+    cpu = engine.run_batch(g, sources, mode="fused", op=opname, shards=2,
+                           device="cpu")
+    rows = [engine.run(g, s, make_strategy("WD"), mode="fused", op=opname,
+                       device="cpu").iterations for s in sources]
+    with monkeypatch.context() as m:
+        _no_plain_relax(m)
+        before = dict(relax.LAUNCHES)
+        card = engine.run_batch(g, sources, mode="fused", op=opname,
+                                shards=2, device=dev)
+        launched = {k: relax.LAUNCHES[k] - before[k] for k in before}
+    np.testing.assert_array_equal(card.dist, cpu.dist)
+    assert (card.iterations, card.edges_relaxed) == (cpu.iterations,
+                                                     cpu.edges_relaxed)
+    assert launched["wd_relax_lanes"] == 2 * sum(rows)
+    assert launched["relax_lanes"] == launched["fused_fixed_point"] == 0
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_distributed_sssp_on_the_card_matches_cpu(dev, shards):
+    """``distributed_sssp`` on the card equals the CPU and Dijkstra; B3
+    ranks each shard's lanes, a launch a shard an iteration."""
+    from repro_torch.core import dist, engine, shard
+    g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
+    src = int(g.degrees.argmax())
+    before = relax.LAUNCHES["find_offsets"]
+    card = dist.distributed_sssp(g, src, shard.shard_group(shards, dev))
+    launched = relax.LAUNCHES["find_offsets"] - before
+    cpu = dist.distributed_sssp(g, src, shard.shard_group(shards, "cpu"))
+    np.testing.assert_array_equal(card, cpu)
+    np.testing.assert_array_equal(card, engine.reference_distances(g, src))
+    assert launched > 0 and launched % shards == 0

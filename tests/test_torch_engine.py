@@ -193,9 +193,11 @@ def test_default_device_without_a_card_raises():
 @pytest.mark.parametrize("kwargs", [dict(mode="fused"), dict(shards=2),
                                     dict(schedule="delta")])
 def test_later_slices_raise_not_implemented(kwargs):
-    """``shards=`` raises naming its ROADMAP item; ``mode="fused"`` (A7)
-    has landed and runs, equal to the stepped run; ``schedule="delta"``
-    (A10) has landed and runs, equal to the reference's delta run."""
+    """The later slices have landed: ``mode="fused"`` (A7) runs, equal to
+    the stepped run; ``schedule="delta"`` (A10) runs, equal to the
+    reference's delta run; ``shards=`` (A11) raises the reference's
+    ``ValueError`` in stepped mode and, fused, runs equal to the
+    reference's single-device fused run."""
     if kwargs.get("schedule") == "delta":
         got = engine.run(GRAPHS["road"], 0, make_strategy("WD"),
                          device="cpu", **kwargs)
@@ -218,27 +220,37 @@ def test_later_slices_raise_not_implemented(kwargs):
         assert (got.iterations, got.edges_relaxed) == (want.iterations,
                                                        want.edges_relaxed)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mode='fused'"):
         engine.run(GRAPHS["road"], 0, make_strategy("WD"), device="cpu",
                    **kwargs)
+    with pytest.raises(ValueError, match="mode='fused'"):
+        jengine.run(JAX_GRAPHS["road"], 0, jengine.make_strategy("WD"),
+                    **kwargs)
+    got = engine.run(GRAPHS["road"], 0, make_strategy("WD"), device="cpu",
+                     mode="fused", **kwargs)
+    want = jengine.run(JAX_GRAPHS["road"], 0, jengine.make_strategy("WD"),
+                       mode="fused")
+    np.testing.assert_array_equal(got.dist, np.asarray(want.dist))
+    assert (got.iterations, got.edges_relaxed, got.shards) == (
+        want.iterations, want.edges_relaxed, 2)
 
 
 def test_unported_strategies_and_options_raise():
     """Every strategy builds, with the reference's capability flags less
-    those whose slices are not ported (PALLAS_BACKEND has no meaning in
-    the port; SHARDABLE arrives with A11).  PRIORITY_SCHEDULE (A10) and
-    AD's measured cost model (A9) have landed."""
+    PALLAS_BACKEND, which has no meaning in the port.  PRIORITY_SCHEDULE
+    (A10), SHARDABLE (A11) and AD's measured cost model (A9) have
+    landed."""
     from repro.core import costmodel as jcostmodel
     from repro.core import strategies as jstrategies
     from repro_torch.core import costmodel
-    later = {jstrategies.PALLAS_BACKEND, jstrategies.SHARDABLE}
+    later = {jstrategies.PALLAS_BACKEND}
     for name in ("BS", "EP", "WD", "NS", "HP", "AD"):
         assert make_strategy(name).name == name
         assert strategy_capabilities(name) == (
             jstrategies.strategy_capabilities(name) - later)
     assert strategy_capabilities("EP") == frozenset()
     assert strategy_capabilities("NS") == frozenset(
-        {"frontier_init", "priority_schedule"})
+        {"frontier_init", "priority_schedule", "shardable"})
     coeffs = np.array([[1.0, 1.0, 1.0], [0.0, 1e-3, 1e-3], [2.0, 0.0, 0.0]])
     model = costmodel.CostModel(coeffs=coeffs)
     strat = make_strategy("AD", cost_model=model)
@@ -255,4 +267,4 @@ def test_unported_strategies_and_options_raise():
     with pytest.raises(ValueError, match="weighted"):
         sssp(GRAPHS["road"].unweighted(), 0, device="cpu")
     assert strategy_capabilities("WD") == frozenset(
-        {"frontier_init", "priority_schedule"})
+        {"frontier_init", "priority_schedule", "shardable"})

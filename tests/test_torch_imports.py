@@ -2,7 +2,10 @@
 recursively: core, kernels, models, configs, runtime, launch, ...),
 ``chip_smoke.py`` and the tools that drive the port on the card
 (``tools/profile_torch_path.py``, ``tools/compare_lm_kernels.py``,
-``tools/compare_relax_kernels.py``) import neither JAX,
+``tools/compare_relax_kernels.py``, ``tools/compare_fused_runs.py``,
+``tools/compare_batch_runs.py``, ``tools/fused_column_profile.py``) and
+the ranks of the sharded CPU tests (``tests/torch_shard_ranks.py``)
+import neither JAX,
 ``ml_dtypes`` nor the reference package ``repro`` (``repro_torch`` is the
 port itself), and every port module imports with JAX unavailable."""
 
@@ -21,7 +24,11 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "tools" / name for name in ("profile_torch_path.py",
                                        "compare_lm_kernels.py",
-                                       "compare_relax_kernels.py")]
+                                       "compare_relax_kernels.py",
+                                       "compare_fused_runs.py",
+                                       "compare_batch_runs.py",
+                                       "fused_column_profile.py")] + [
+    ROOT / "tests" / "torch_shard_ranks.py"]
 
 
 def _imported_modules(path: pathlib.Path):
@@ -53,7 +60,8 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(n)\n"
         "for want in ('kernels.relax', 'kernels.flash_attention',\n"
         "             'kernels.ssd_chunk', 'kernels.fused', 'core.fused',\n"
-        "             'core.costmodel', 'core.priority',\n"
+        "             'core.costmodel', 'core.priority', 'core.shard',\n"
+        "             'core.dist',\n"
         "             'models.model', 'configs.qwen3_0_6b',\n"
         "             'runtime.serve', 'launch.serve'):\n"
         "    assert 'repro_torch.' + want in names, names\n"

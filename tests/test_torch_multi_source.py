@@ -187,8 +187,15 @@ def test_run_batch_errors():
     for bad in ([n], [0, -1], [n + 3]):
         with pytest.raises(ValueError, match="sources"):
             engine.run_batch(g, bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        engine.run_batch(g, [0], mode="fused", shards=2, device="cpu")
+    # sharded batches (A11) have landed: fused runs, equal to the
+    # reference's single-device fused batch; stepped raises its ValueError
+    got = engine.run_batch(g, [0, 9], mode="fused", shards=2, device="cpu")
+    want = jengine.run_batch(JAX_GRAPHS["road"], [0, 9], mode="fused")
+    np.testing.assert_array_equal(got.dist, np.asarray(want.dist))
+    assert (got.iterations, got.edges_relaxed) == (want.iterations,
+                                                   want.edges_relaxed)
+    with pytest.raises(ValueError, match="fused"):
+        engine.run_batch(g, [0], shards=2, device="cpu")
     # delta batches (A10) have landed: fused runs, equal to the
     # reference's; stepped raises the reference's ValueError
     got = engine.run_batch(g, [0, 9], mode="fused", schedule="delta",

@@ -1,0 +1,88 @@
+"""One rank of a two-process sharded run on the CPU (gloo), started by
+``tests/test_torch_shard.py`` and ``tests/test_torch_dist.py``:
+
+    python tests/torch_shard_ranks.py --rank R --world W --store FILE \\
+        --inputs IN.npz --out OUT.npz --what shard|dist
+
+It joins a gloo group through a ``FileStore`` at ``--store`` (no TCP
+port, so parallel test workers cannot collide; a 60 s timeout, so a
+hang fails), runs the port with one shard a rank and writes what it got
+to ``--out``.  ``shard``: lockstep sssp WD and BS, one async WD run,
+the error of a shard count that is not the world size, and what a WD
+plan holds on this rank (its shards, their tensors' storage); ``dist``:
+``distributed_sssp``.  It imports nothing of JAX or ``repro``."""
+
+import argparse
+import datetime
+
+import numpy as np
+import torch
+import torch.distributed as tdist
+
+from repro_torch.algos import sssp
+from repro_torch.core import dist, shard
+from repro_torch.core.graph import CSRGraph
+from repro_torch.core.strategies import make_strategy
+
+
+def held_shards(g, world: int) -> dict:
+    """What a WD plan of ``world`` shards holds on this rank: the held
+    shard ids, each held tensor's storage bytes, the partition stack's
+    bytes, and whether the held tensors equal the stack's rows."""
+    wd = make_strategy("WD")
+    splan = shard.plan_shards(wd, wd.setup(g), g, world)
+    stack = (splan.sharded.row_ptr, splan.sharded.col, splan.sharded.wt)
+    local = splan.local
+    held = [(sh.row_ptr, sh.col, sh.wt) for sh in local]
+    return {
+        "held": np.array(splan.group.held),
+        "held-storage": np.array([[t.untyped_storage().nbytes() for t in h]
+                                  for h in held]),
+        "stack-bytes": np.array([t.numel() * t.element_size()
+                                 for t in stack]),
+        "held-equal": np.array([
+            all(torch.equal(t, st[s]) for t, st in zip(h, stack))
+            for s, h in zip(splan.group.held, held)])}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    for name in ("--rank", "--world"):
+        ap.add_argument(name, type=int, required=True)
+    for name in ("--store", "--inputs", "--out", "--what"):
+        ap.add_argument(name, required=True)
+    args = ap.parse_args()
+    tdist.init_process_group(
+        "gloo", init_method=f"file://{args.store}", rank=args.rank,
+        world_size=args.world, timeout=datetime.timedelta(seconds=60))
+    try:
+        inputs = np.load(args.inputs)
+        g = CSRGraph.from_arrays(inputs["row_ptr"], inputs["col"],
+                                 inputs["wt"], device="cpu")
+        source = int(inputs["source"])
+        out = {}
+        if args.what == "shard":
+            for name, kw in (("WD", {}), ("BS", {}),
+                             ("WD-async", dict(async_shards=True))):
+                r = sssp(g, source, strategy=name.split("-")[0],
+                         mode="fused", shards=args.world, device="cpu", **kw)
+                out[name] = r.dist
+                out[name + "-counts"] = np.array(
+                    [r.iterations, r.edges_relaxed, r.relax_rounds,
+                     r.shards])
+            out.update(held_shards(g, args.world))
+            try:
+                shard.shard_group(args.world + 1, "cpu")
+            except ValueError as e:
+                out["error"] = np.array(str(e))
+        else:
+            out["dist"] = dist.distributed_sssp(
+                g, source, shard.shard_group(args.world, "cpu"))
+        np.savez(args.out, **out)
+    finally:
+        tdist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(1)
+    main()

@@ -151,26 +151,55 @@ Phases, each printing one JSON line:
    CUDA tensors on one), sssp WD and BS at rmat16 from a graph on the
    host, equal to the one-process run, each rank holding one shard's
    slice on the card.
+   (The analysis phase runs right after the build: ``python -m
+   repro_torch.analysis src/repro_torch`` in-process, which must report
+   no finding, and the ``smem`` pass's footprint model of every kernel
+   (threads, static shared bytes, the dynamic shared bytes its launcher
+   requests) held equal to what the card reports
+   (``costmodel.block_feasibility``: B1, B2, B3, B1's batch contract, the
+   fused and delta kernels, B4 at each dtype and head dim, B5 at each
+   dtype), with at least the blocks a SM their launch bounds promise.)
 5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
    heads, hd 128: S = 512 and 2048 bf16 causal, 512 f32, 512 bf16
-   non-causal, ragged 1000) and B5 ``ssd_chunk_dual`` (8 chunks of 256, 48
+   non-causal, ragged 1000; and granite_moe_3b_a800m's shape, 24 query
+   heads over 8, hd 64, S = 2048 bf16 causal, a second B4 row of the
+   kernel line) and B5 ``ssd_chunk_dual`` (8 chunks of 256, 48
    heads, P 64, N 128: bf16, f32, ragged c = 200) against their plain
    versions on the card, each timed beside its plain version and, for B4,
    ``scaled_dot_product_attention`` (timed only; the port never calls it).
    bf16 runs the tensor-core kernels, float32 the CUDA-core ones.
    Tolerances: B4 2e-2 (bf16) and 2e-6 (f32); B5 1e-4 (bf16) and 1e-5
-   (f32), ``ATTN_TOL`` and ``SSD_TOL``;
+   (f32), ``ATTN_TOL`` and ``SSD_TOL``.
+   moe: one granite_moe_3b_a800m MoE layer at full width (d 1536, 40
+   experts, top 8, expert d_ff 512) on 2048 tokens, routed once on the
+   CPU: each of the four dispatch policies in bf16 on the card against
+   float32 on the CPU at a capacity where nothing drops (and the four
+   card results against each other), then at a capacity that drops:
+   each assignment's queue position (so every keep mask) equal to the
+   CPU's bit for bit, and ``dropped_frac`` equal; each policy timed;
 6. lm_cpu — ``qwen3_0_6b`` and ``mamba2_780m`` at full width in float32
    (TF32 off): the same seeded weights on the card and the CPU, a 512-
    (Qwen3) or 600-token (Mamba-2: three chunks, ragged tail) prefill and 4
    greedy decode steps; every prefill and decode logit within 1e-3
    (Qwen3) or 5e-3 (Mamba-2, see ``main``) of the largest logit, equal
-   greedy tokens;
+   greedy tokens; and ``granite_moe_3b_a800m`` at full width with
+   ``num_layers`` cut to 4 (the whole model in float32 is 13.5 GB on the
+   host), a 512-token prefill and 4 decode steps, teacher-forced (every
+   layer on the card takes the CPU's input to it): each layer's output
+   within 1e-4 of its scale, the routing ids of every MoE layer and call
+   compared (a disagreement is reported with its layer, token and the
+   gap between the CPU's router probabilities at the place it differs,
+   and fails above 1e-6), the logits within 1e-3 of the largest and
+   equal tokens.  Then both run free, beside the CPU with its embeddings
+   perturbed by 2^-22 (the model's own float32 conditioning): the card's
+   logit deviation and routing flips fail above 4x the perturbed run's;
 7. lm_serve — each config at full width in bf16: a ``ServeLoop`` of 4
    slots over 8 requests (prompts of 256..2048 tokens, 32 new tokens
    each).  The launch counts are set to 0 just before each run and read
    just after it: every prefill layer launches its kernel once, so B4
-   reads 28 x 8 in the Qwen3 run and B5 48 x 8 in the Mamba-2 run.
+   reads 28 x 8 in the Qwen3 run, B5 48 x 8 in the Mamba-2 run and B4
+   32 x 8 in the granite_moe_3b_a800m run (its MoE layers are plain
+   PyTorch, as the reference's are XLA: no kernel).
    After each run, one 2048-token prefill of the same model is traced with
    ``torch.profiler``: its kernel's share of device time, the number of
    device activities, and the device's idle share (the traced device time
@@ -188,6 +217,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2787,6 +2817,8 @@ def _op(name: str):
 # ---------------------------------------------------------------------------
 
 ATTN_HEADS = (16, 8, 128)       # qwen3_0_6b: query heads, KV heads, hd
+#: granite_moe_3b_a800m's B4 shape: a group of 3 query heads a KV head
+GRANITE_HEADS = (24, 8, 64)
 SSD_SHAPE = (8, 256, 48, 64, 128)   # mamba2_780m at S = 2048: BN c H P N
 #: B4's cases: S, dtype name, causal
 ATTN_TIMED = ((512, "bfloat16", True), (2048, "bfloat16", True),
@@ -2802,10 +2834,10 @@ ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-6}
 SSD_TOL = {"bfloat16": 1e-4, "float32": 1e-5}
 
 
-def attention_inputs(S: int, dtype, g, dev):
+def attention_inputs(S: int, dtype, g, dev, heads=ATTN_HEADS):
     """Seeded q, k, v of one B4 case at the path's heads."""
     import torch
-    hq, hkv, hd = ATTN_HEADS
+    hq, hkv, hd = heads
     return tuple(torch.randn(1, h, S, hd, generator=g).to(dev, dtype)
                  for h in (hq, hkv, hkv))
 
@@ -2837,11 +2869,11 @@ def _allclose_err(got, want, tol: float) -> float:
     return err
 
 
-def attention_cost(S: int, dtype, causal: bool) -> tuple:
+def attention_cost(S: int, dtype, causal: bool, heads=ATTN_HEADS) -> tuple:
     """(bytes, operations) of one B4 call at the path's heads: q, k, v
     read once and out written once; 2 FLOP per multiply-add of QK^T and
     PV over the (query, key) pairs the mask keeps."""
-    hq, hkv, hd = ATTN_HEADS
+    hq, hkv, hd = heads
     size = 2 if str(dtype).endswith("bfloat16") else 4
     nbytes = size * S * hd * (2 * hq + 2 * hkv)
     pairs = S * (S + 1) // 2 if causal else S * S
@@ -2872,21 +2904,22 @@ def lm_kernel_phase(dev, reps: int = 10) -> list:
 
     g = torch.Generator().manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
-    hq, hkv, hd = ATTN_HEADS
     rows = []
-    b4_err, b4_row = 0.0, None
-    for S, dtype_name, causal in ATTN_TIMED:
+    b4_err, b4_row, granite_row = 0.0, None, None
+    cases = [(ATTN_HEADS, *case) for case in ATTN_TIMED] + [
+        (GRANITE_HEADS, 2048, "bfloat16", True)]
+    for heads, S, dtype_name, causal in cases:
         dtype = getattr(torch, dtype_name)
-        q, k, v = attention_inputs(S, dtype, g, dev)
+        q, k, v = attention_inputs(S, dtype, g, dev, heads)
         tol = ATTN_TOL[dtype_name]
         err = _allclose_err(fa.flash_attention(q, k, v, causal=causal),
                             fa.flash_attention_plain(q, k, v, causal=causal),
                             tol)
-        b4_err = max(b4_err, err)
-        nbytes, ops = attention_cost(S, dtype, causal)
+        nbytes, ops = attention_cost(S, dtype, causal, heads)
         t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
                         if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
         case = dict(
+            Hq=heads[0], Hkv=heads[1], hd=heads[2],
             S=S, dtype=str(dtype).split(".")[-1], causal=causal,
             max_abs_err=err, tolerance=tol,
             ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
@@ -2898,16 +2931,24 @@ def lm_kernel_phase(dev, reps: int = 10) -> list:
                 flush=flush),
             bound_ms=t_b, bound_by=by, bytes=nbytes, flop=ops)
         emit("lm_kernel_case", kernel="flash_attention", **case)
+        if heads == GRANITE_HEADS:
+            granite_row = case
+            continue
+        b4_err = max(b4_err, err)
         if (S, dtype, causal) == (2048, torch.bfloat16, True):
             b4_row = case
-    rows.append(dict(
-        name="flash_attention", route="cuda", source=CSRC_FLASH,
-        replaces="src/repro/kernels/flash_attention.py:69", launches=0,
-        max_abs_err=b4_err, ms=b4_row["ms"], plain_ms=b4_row["plain_ms"],
-        bound_ms=b4_row["bound_ms"], bound_by=b4_row["bound_by"],
-        library_ms=b4_row["library_ms"],
-        shape=dict(B=1, Hq=hq, Hkv=hkv, S=2048, hd=hd, dtype="bfloat16",
-                   causal=True)))
+    for config, row, err, (hq, hkv, hd) in (
+            ("qwen3_0_6b", b4_row, b4_err, ATTN_HEADS),
+            ("granite_moe_3b_a800m", granite_row, granite_row["max_abs_err"],
+             GRANITE_HEADS)):
+        rows.append(dict(
+            name="flash_attention", route="cuda", source=CSRC_FLASH,
+            replaces="src/repro/kernels/flash_attention.py:69", launches=0,
+            max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], config=config,
+            shape=dict(B=1, Hq=hq, Hkv=hkv, S=2048, hd=hd,
+                       dtype="bfloat16", causal=True)))
 
     b5_err, b5_row = 0.0, None
     BN, c, H, P, N = SSD_SHAPE
@@ -2941,9 +2982,46 @@ def lm_kernel_phase(dev, reps: int = 10) -> list:
         replaces="src/repro/kernels/ssd_chunk.py:53", launches=0,
         max_abs_err=b5_err, ms=b5_row["ms"], plain_ms=b5_row["plain_ms"],
         bound_ms=b5_row["bound_ms"], bound_by=b5_row["bound_by"],
-        library_ms=None,
+        library_ms=None, config="mamba2_780m",
         shape=dict(BN=BN, c=c, H=H, P=P, N=N, dtype="bfloat16")))
     return rows
+
+
+#: a routing disagreement between the card and the CPU fails when the
+#: CPU's k-th and (k+1)-th router probabilities differ by more: float32
+#: noise at probabilities near 1/40
+ROUTE_GAP_TOL = 1e-6
+
+
+def routing_compare(card: list, cpu: list, k: int) -> dict:
+    """The routing ids of every MoE layer and call of two runs (each a
+    list of ``(layer, router_logits, ids)``, from the ``aux`` that
+    ``LanguageModel._block`` returns for an MoE layer), compared in order (the order of a
+    token's k experts sets its assignments' queue positions, so what
+    drops).  Each disagreement is listed with its layer, call, token, the
+    first of the k places where the ids differ, and the gap between the
+    CPU's router probabilities at that place and the next (the k-th and
+    (k+1)-th for a different expert); it is a failure when that gap
+    exceeds :data:`ROUTE_GAP_TOL`."""
+    import torch
+    if [e[0] for e in card] != [e[0] for e in cpu]:
+        raise AssertionError("the runs recorded different MoE layers")
+    flips = []
+    calls: dict = {}
+    for (layer, _, ids_g), (_, logits_c, ids_c) in zip(card, cpu):
+        call = calls[layer] = calls.get(layer, -1) + 1
+        differ = ids_g.cpu() != ids_c                      # [B,S,k]
+        if not bool(differ.any()):
+            continue
+        probs = torch.softmax(logits_c.float(), -1).sort(
+            -1, descending=True).values
+        for b, t in differ.any(-1).nonzero().tolist():
+            j = int(differ[b, t].to(torch.uint8).argmax())
+            flips.append(dict(layer=layer, call=call, token=t, row=b,
+                              place=j, gap=float(probs[b, t, j]
+                                                 - probs[b, t, j + 1])))
+    bad = [f for f in flips if f["gap"] > ROUTE_GAP_TOL]
+    return dict(entries=len(card), flips=flips, failed=len(bad))
 
 
 def lm_cpu_phase(dev, arch: str, prompt_len: int, rel_tol: float,
@@ -2996,6 +3074,163 @@ def lm_cpu_phase(dev, arch: str, prompt_len: int, rel_tol: float,
          cpu_seconds=sec_c)
     if not ok:
         raise AssertionError(f"{arch}: card != cpu")
+
+
+#: teacher-forced, a layer's output on the card against the CPU's, as a
+#: share of its largest magnitude: granite's attention logits reach
+#: |q| ~ 40 (the reference's init scales wq by 1/sqrt(heads)) and its
+#: attention output ~320, where float32 summation order moves a layer's
+#: output by ~2e-5 of its scale (measured on an H100 80GB HBM3, 700 W)
+FORCED_LAYER_TOL = 1e-4
+#: the embeddings' relative perturbation of the CPU's own conditioning run
+#: (a few float32 ulps)
+SELF_PERTURBATION = 2.0 ** -22
+#: free-running, the card's logit deviation from the CPU and its routing
+#: flips may reach this multiple of the CPU's own perturbed run's, from
+#: the same call (measured on an H100 80GB HBM3, 700 W: 1.6x the
+#: deviation, 1.5x the flips)
+FREE_RUN_FACTOR = 4
+
+
+def moe_route(routes: list, i: int, aux) -> None:
+    """Append layer ``i``'s routing to ``routes`` when ``aux`` (what
+    ``LanguageModel._block`` returned) is an MoE layer's."""
+    if aux is not None:
+        routes.append((i, aux["router_logits"], aux["ids"]))
+
+
+def lm_cpu_forced_phase(dev, arch: str, prompt_len: int, num_layers: int,
+                        steps: int = 4, rel_tol: float = 1e-3) -> None:
+    """An MoE config at full width in float32 (TF32 off), ``num_layers``
+    of its layers, the same seeded weights on the card and on the CPU: a
+    prefill of ``prompt_len`` tokens and ``steps`` greedy decode steps,
+    teacher-forced: every layer on the card takes the CPU's input to that
+    layer (and fills its own cache).  Each layer's output agrees within
+    :data:`FORCED_LAYER_TOL` of its largest magnitude, its routing ids
+    are compared (:func:`routing_compare`; a disagreement fails above
+    :data:`ROUTE_GAP_TOL`), the logits within ``rel_tol`` of the largest,
+    the greedy tokens are equal.
+
+    Then both models run free, prefill only, beside the CPU run with its
+    embeddings perturbed by :data:`SELF_PERTURBATION` (``lm_cpu_free``).
+    A random-init model without qk-norm amplifies float32 noise through
+    layers (routing flips, then attention), so free-running card-vs-CPU
+    logits measure the model's conditioning, which the CPU's own
+    perturbed run shows beside them: the card's logit deviation and its
+    routing flips fail above :data:`FREE_RUN_FACTOR` times the perturbed
+    run's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.model import LanguageModel
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype="float32", num_layers=num_layers)
+    t0 = time.perf_counter()
+    cpu_model = LanguageModel(cfg, seed=0, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to_device(dev)
+    init_s = time.perf_counter() - t0
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        2, cfg.vocab_size, prompt_len)[None])
+    length = prompt_len + steps + 1
+    caches = (cpu_model.new_cache(1, length), card_model.new_cache(1, length))
+    layer_err = [0.0] * num_layers
+    card_routes, cpu_routes = [], []
+    logits_err, tokens_cpu, tokens_card, scale = [], [], [], 0.0
+
+    def forced(tokens, mode, position):
+        nonlocal scale
+        positions = (torch.arange(tokens.shape[1], dtype=torch.int32)[None]
+                     if mode == "prefill" else None)
+        h = cpu_model.embed_tokens(tokens)
+        for i in range(num_layers):
+            want, aux_c = cpu_model._block(i, h, positions, caches[0], mode,
+                                           position)
+            got, aux_g = card_model._block(
+                i, h.to(dev), None if positions is None else
+                positions.to(dev), caches[1], mode, position)
+            layer_err[i] = max(layer_err[i], float(
+                (got.cpu() - want).abs().max() / want.abs().max()))
+            moe_route(card_routes, i, aux_g)
+            moe_route(cpu_routes, i, aux_c)
+            h = want
+        lc = cpu_model.unembed(rmsnorm(cpu_model.final_norm, h))[0, -1]
+        lg = card_model.unembed(rmsnorm(card_model.final_norm,
+                                        h.to(dev)))[0, -1].cpu()
+        scale = max(scale, float(lc.abs().max()))
+        logits_err.append(float((lg - lc).abs().max()))
+        tokens_cpu.append(int(torch.argmax(lc)))
+        tokens_card.append(int(torch.argmax(lg)))
+        return torch.tensor([[tokens_cpu[-1]]])
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        nxt = forced(prompt, "prefill", None)
+        for t in range(steps):
+            nxt = forced(nxt, "decode", prompt_len + t)
+    forced_s = time.perf_counter() - t0
+    routing = routing_compare(card_routes, cpu_routes, cfg.experts_per_token)
+    ok = (max(layer_err) <= FORCED_LAYER_TOL and not routing["failed"]
+          and max(logits_err) <= rel_tol * scale
+          and tokens_card == tokens_cpu)
+    reduced = {"num_layers": [full.num_layers, num_layers]}
+    emit("lm_cpu_routing", arch=arch, num_layers=num_layers,
+         gap_tolerance=ROUTE_GAP_TOL, teacher_forced=True, **routing)
+    emit("lm_cpu_compare", arch=arch, dtype="float32", prompt=prompt_len,
+         steps=steps, teacher_forced=True, reduced=reduced,
+         layer_rel_err=layer_err, layer_tolerance=FORCED_LAYER_TOL,
+         logit_scale=scale, logits_max_abs_err=logits_err,
+         tolerance=rel_tol * scale, tokens_cuda=tokens_card,
+         tokens_cpu=tokens_cpu, equal=ok, init_seconds=init_s,
+         forced_seconds=forced_s)
+
+    # free-running, beside the CPU's own conditioning
+    def free(model, emb_scale=None):
+        """A cacheless prefill of the prompt, the layers run as
+        ``forward`` runs them, and each MoE layer's routing."""
+        routes = []
+        with torch.no_grad():
+            if emb_scale is not None:
+                model.embed.mul_(emb_scale)
+            h = model.embed_tokens(prompt.to(model.device))
+            positions = torch.arange(prompt_len, dtype=torch.int32,
+                                     device=model.device)[None]
+            for i in range(num_layers):
+                h, aux = model._block(i, h, positions, None, "prefill",
+                                      None)
+                moe_route(routes, i, aux)
+            logits = model.unembed(rmsnorm(model.final_norm, h))
+        return logits.float().cpu(), routes
+    base, base_routes = free(cpu_model)
+    card_l, card_r = free(card_model)
+    noise = 1 + (torch.rand(cfg.vocab_size, 1, generator=torch.Generator()
+                            .manual_seed(3)) - 0.5) * 2 * SELF_PERTURBATION
+    pert_l, pert_r = free(copy.deepcopy(cpu_model), noise)
+
+    def flips(a, b):
+        return [int((x[2].cpu() != y[2]).any(-1).sum()) for x, y in zip(a, b)]
+    free_scale = float(base.abs().max())
+    card_free = dict(rel_err=float((card_l - base).abs().max()) / free_scale,
+                     flips=flips(card_r, base_routes))
+    pert_free = dict(perturbation=SELF_PERTURBATION,
+                     rel_err=float((pert_l - base).abs().max()) / free_scale,
+                     flips=flips(pert_r, base_routes))
+    limits = dict(rel_err=FREE_RUN_FACTOR * pert_free["rel_err"],
+                  flips=FREE_RUN_FACTOR * sum(pert_free["flips"]))
+    finite = bool(torch.isfinite(card_l).all())
+    free_ok = (finite and card_free["rel_err"] <= limits["rel_err"]
+               and sum(card_free["flips"]) <= limits["flips"])
+    emit("lm_cpu_free", arch=arch, num_layers=num_layers, prompt=prompt_len,
+         logit_scale=free_scale, card_vs_cpu=card_free,
+         cpu_perturbed_vs_cpu=pert_free, factor=FREE_RUN_FACTOR,
+         limits=limits, finite=finite, equal=free_ok)
+    if not ok:
+        raise AssertionError(f"{arch}: card != cpu (teacher-forced)")
+    if not free_ok:
+        raise AssertionError(f"{arch}: card != cpu (free-running, past "
+                             f"{FREE_RUN_FACTOR}x the CPU's own "
+                             f"perturbed run)")
 
 
 def prefill_kernel_ms(dev, cfg, kernel: str, lens) -> float:
@@ -3121,7 +3356,8 @@ def lm_serve_phase(dev, arch: str, kernel: str, *, requests: int = 8,
     emit("lm_prefill_trace", arch=arch, kernel=kernel, **traced_prefill(
         dev, model, {"flash_attention": "flash_bf16_kernel",
                      "ssd_chunk_dual": "ssd_bf16_kernel"}[kernel]))
-    emit("lm_serve", arch=arch, dtype=cfg.dtype, requests=requests,
+    emit("lm_serve", arch=arch, card=nvidia_smi(), dtype=cfg.dtype,
+         requests=requests,
          slots=slots, prompt_lens=[int(n) for n in lens], max_new=max_new,
          tokens=tokens, seconds=seconds, tok_per_s=tokens / seconds,
          prefill_ms_median=statistics.median(loop.prefill_seconds) * 1e3,
@@ -3138,6 +3374,155 @@ def lm_serve_phase(dev, arch: str, kernel: str, *, requests: int = 8,
     if not ok:
         raise AssertionError(f"{arch} serving run failed the checks")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the analysis passes and the kernels' footprint model (ROADMAP A13)
+# ---------------------------------------------------------------------------
+
+def analysis_phase(dev) -> None:
+    """``python -m repro_torch.analysis src/repro_torch`` in-process: no
+    finding.  Then every kernel's block as the ``smem`` pass models it,
+    held equal to the card's report: threads, static shared bytes, the
+    dynamic shared bytes its launcher requests; and at least the blocks a
+    SM its launch bounds promise."""
+    import io
+    from repro_torch.analysis import smem
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.core import costmodel
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = analysis_main([str(SRC / "repro_torch"), "--format=json"])
+    report = json.loads(out.getvalue())
+    emit("analysis", rc=rc, passes=report["passes"], total=report["total"],
+         suppressed=report["suppressed"], counts=report["counts"])
+    if rc != 0 or report["total"] or report["suppressed"]:
+        raise AssertionError(f"analysis findings: {report['findings']}")
+
+    card = costmodel.block_feasibility(dev)
+    mismatched = []
+    for name, row in card.items():
+        kernel = row["kernel"]
+        if kernel == "flash_attention":
+            fp = smem.footprint(kernel, dtype=row["dtype"], hd=row["hd"])
+        elif kernel == "ssd_chunk_dual":
+            fp = smem.footprint(kernel, dtype=row["dtype"], shape=tuple(
+                row[key] for key in ("BN", "c", "H", "P", "N")))
+        else:
+            fp = smem.footprint(kernel)
+        model = dict(threads=fp.threads, static_smem_bytes=fp.static_smem,
+                     dynamic_smem_bytes=fp.dynamic_smem)
+        seen = {key: row[key] for key in model}
+        equal = (seen == model and row["blocks_per_sm"] >= fp.min_blocks
+                 and row["feasible"])
+        emit("smem_model", row=name, model=model, card=seen,
+             min_blocks=fp.min_blocks, blocks_per_sm=row["blocks_per_sm"],
+             registers=row["registers"], local_bytes=row["local_bytes"],
+             equal=equal)
+        if not equal:
+            mismatched.append(name)
+    if mismatched:
+        raise AssertionError(f"smem model != card: {mismatched}")
+
+
+# ---------------------------------------------------------------------------
+# one full-width MoE layer: the four dispatch policies, card against CPU
+# ---------------------------------------------------------------------------
+
+#: granite_moe_3b_a800m's MoE layer on a 2048-token prefill
+MOE_TOKENS = 2048
+#: bf16 dispatch on the card against float32 on the CPU, as a share of
+#: the largest |y|: the inputs and weights round to bf16 (2^-9), the
+#: products sum over d 1536 and f 512 in float32
+MOE_TOL = 3e-2
+#: the four bf16 policies on the card against each other: the same bf16
+#: products, batched differently (another tiling of the sums)
+MOE_POLICY_TOL = 1e-2
+#: a capacity that drops: below the mean load of 409.6 a row
+MOE_DROP_CAPACITY = 400
+
+
+def moe_phase(dev, reps: int = 5) -> None:
+    """One granite_moe_3b_a800m MoE layer at full width, its weights
+    seeded (``init_params``), routed once on the CPU in float32; the four
+    dispatch policies in bf16 on the card against float32 on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_capacity, moe_specs
+    from repro_torch.models.params import init_params
+    from repro_torch.moe import balancing as mb
+
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"),
+                              dtype="float32")
+    params = init_params(moe_specs(cfg), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(1, MOE_TOKENS, cfg.d_model, generator=g)
+    weights, ids, _ = mb.topk_route(x @ params["router"],
+                                    cfg.experts_per_token)
+    experts = params["experts"]
+    card_experts = {k: v.to(dev, torch.bfloat16) for k, v in experts.items()}
+    xc, idc, wc = x.to(dev, torch.bfloat16), ids.to(dev), weights.to(dev)
+    loads = torch.bincount(ids.reshape(-1), minlength=cfg.num_experts)
+    # the largest load, rounded up to a multiple of multi_round's rounds
+    # and of replicate's slot groups: no policy drops an assignment
+    step = math.lcm(mb.NUM_ROUNDS, mb.SPLIT_FACTOR)
+    no_drop = -(-int(loads.max()) // step) * step
+
+    def run(method, capacity, on_card):
+        if on_card:
+            return mb.moe_dispatch(xc, idc, wc, card_experts,
+                                   num_experts=cfg.num_experts,
+                                   capacity=capacity, method=method)
+        return mb.moe_dispatch(x, ids, weights, experts,
+                               num_experts=cfg.num_experts,
+                               capacity=capacity, method=method)
+
+    cases = {}
+    card_y = {}
+    for method in mb.DISPATCH_METHODS:
+        for capacity in (no_drop, MOE_DROP_CAPACITY):
+            want, want_stats = run(method, capacity, False)
+            got, got_stats = run(method, capacity, True)
+            scale = float(want.abs().max())
+            err = float((got.float().cpu() - want).abs().max())
+            rms = float((got.float().cpu() - want).pow(2).mean().sqrt()
+                        / want.pow(2).mean().sqrt())
+            stats = {k: (float(got_stats[k]), float(want_stats[k]))
+                     for k in want_stats}
+            case = dict(method=method, capacity=capacity,
+                        max_abs_err=err, rel_err=err / scale, rms_rel=rms,
+                        stats_card_cpu=stats,
+                        ms=time_ms(lambda: run(method, capacity, True),
+                                   reps=reps))
+            ok = (err <= MOE_TOL * scale and all(
+                a == b for a, b in stats.values()))
+            if capacity == no_drop:
+                card_y[method] = got.float()
+                ok = ok and stats["dropped_frac"] == (0.0, 0.0)
+            elif method != "sorted_block":
+                ok = ok and stats["dropped_frac"][1] > 0
+            case["ok"] = ok
+            emit("moe_dispatch", **case)
+            cases[(method, capacity)] = case
+    ref = card_y["padded"]
+    policy_err = {m: float((y - ref).abs().max()) for m, y in card_y.items()}
+    # every assignment's queue position: the keep masks of any capacity
+    ida = ids.reshape(1, -1)
+    pos_cpu, _ = mb._positions(ida, cfg.num_experts)
+    pos_card, _ = mb._positions(ida.to(dev), cfg.num_experts)
+    same_pos = bool(torch.equal(pos_card.cpu(), pos_cpu))
+    emit("moe", d_model=cfg.d_model, experts=cfg.num_experts,
+         top_k=cfg.experts_per_token, d_ff=cfg.moe_d_ff, tokens=MOE_TOKENS,
+         serving_capacity=moe_capacity(cfg, MOE_TOKENS),
+         no_drop_capacity=no_drop, drop_capacity=MOE_DROP_CAPACITY, loads_min=int(loads.min()),
+         loads_max=int(loads.max()), tolerance=MOE_TOL,
+         policy_tolerance=MOE_POLICY_TOL, policy_max_abs_err=policy_err,
+         positions_equal=same_pos)
+    scale = float(ref.abs().max())
+    if not (all(c["ok"] for c in cases.values()) and same_pos
+            and max(policy_err.values()) <= MOE_POLICY_TOL * scale):
+        raise AssertionError("moe dispatch: card != cpu")
 
 
 def main() -> int:
@@ -3197,6 +3582,8 @@ def main() -> int:
         emit("phase_seconds", name=name, seconds=seconds[name])
         return out
 
+    timed("analysis", analysis_phase, dev)
+
     # lane counts of B2 that are not multiples of its 512-lane block tile
     # or of the 2 lanes a thread takes: 1001, 2^20 + 3
     rows = timed("kernels", kernel_phase, g, dev,
@@ -3226,6 +3613,7 @@ def main() -> int:
     del g
 
     lm_rows = timed("lm_kernels", lm_kernel_phase, dev)
+    timed("moe", moe_phase, dev)
     # float32 on both devices (TF32 off), which differ in summation order
     # and libm ulps.  Mamba-2's SSD decay exp(cum_i - cum_j) subtracts
     # float32 cumsums of |cum| ~ 250 within a chunk, where one ulp is
@@ -3235,14 +3623,17 @@ def main() -> int:
           rel_tol=1e-3)
     timed("lm_cpu mamba2_780m", lm_cpu_phase, dev, "mamba2_780m", 600,
           rel_tol=5e-3)
-    served = {"flash_attention": timed(
-                  "lm_serve qwen3_0_6b", lm_serve_phase, dev, "qwen3_0_6b",
-                  "flash_attention"),
-              "ssd_chunk_dual": timed(
-                  "lm_serve mamba2_780m", lm_serve_phase, dev, "mamba2_780m",
-                  "ssd_chunk_dual")}
-    for row in lm_rows:   # each row's launches: its own serving run
-        row["launches"] = served[row["name"]][row["name"]]
+    # the whole model in float32 is 13.5 GB on the host: 4 of 32 layers
+    timed("lm_cpu granite_moe_3b_a800m", lm_cpu_forced_phase, dev,
+          "granite_moe_3b_a800m", 512, num_layers=4)
+    served = {config: timed(f"lm_serve {config}", lm_serve_phase, dev,
+                            config, kernel)
+              for config, kernel in (
+                  ("qwen3_0_6b", "flash_attention"),
+                  ("mamba2_780m", "ssd_chunk_dual"),
+                  ("granite_moe_3b_a800m", "flash_attention"))}
+    for row in lm_rows:   # each row's launches: its own config's serving run
+        row["launches"] = served[row["config"]][row["name"]]
     rows += lm_rows
     emit("seconds", phases=seconds, total=sum(seconds.values()))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -334,24 +334,60 @@ SMEM_PER_SM = 228 * 1024
 SMEM_PER_BLOCK = 227 * 1024
 REGISTERS_PER_SM = 65536
 #: the port's block shapes, by kernel (``relax_lanes.cuh``, ``relax.cu``,
-#: ``fused.cu``): B1's tile of lanes and slice of slots, B2's tile
+#: ``fused.cu``, ``flash_attention.cu``, ``ssd_chunk.cu``): B1's tile of
+#: lanes and slice of slots, B2's tile, B1's batch contract's tile of
+#: (lane, quad) items, B3's tile of items and staged prefix slice, B4's
+#: rows and keys a tile, B5's 64-row strips
 BLOCK_SHAPES = {
-    "wd_relax_lanes": dict(lanes=1024, slots=2048),
     "relax_lanes": dict(lanes=512),
+    "wd_relax_lanes": dict(lanes=1024, slots=2048),
+    "wd_relax_union": dict(items=512, slots=2048),
+    "find_offsets": dict(items=2048, slots=4096),
     "fused_fixed_point": dict(grid="cooperative"),
     "fused_delta": dict(grid="cooperative"),
+    "flash_attention": dict(rows=64, keys=64),
+    "ssd_chunk_dual": dict(strip=64),
 }
-#: ``which`` argument of the C entry points
+#: the C entry point reporting each graph kernel and its ``which``
 _ATTR_KERNELS = {"relax_lanes": ("repro_relax_block_attrs", 0),
                  "wd_relax_lanes": ("repro_relax_block_attrs", 1),
+                 "wd_relax_union": ("repro_relax_block_attrs", 2),
+                 "find_offsets": ("repro_relax_block_attrs", 3),
                  "fused_fixed_point": ("repro_fused_block_attrs", 0),
                  "fused_delta": ("repro_fused_block_attrs", 1)}
+#: B5's shape in the report: mamba2_780m's prefill of 2048 tokens
+#: (BN, c, H, P, N)
+SSD_REPORT_SHAPE = (8, 256, 48, 64, 128)
+
+
+def attr_calls() -> dict:
+    """Report row name -> (kernel, C entry point, its leading arguments,
+    the row's shape): the six graph kernels, B4's kernel for each dtype
+    and head dim it takes, and B5's for each dtype at
+    :data:`SSD_REPORT_SHAPE`."""
+    from repro_torch.kernels._build import DTYPE_CODES
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    calls = {name: (name, fn, (which,), {})
+             for name, (fn, which) in _ATTR_KERNELS.items()}
+    for dtype, code in sorted(DTYPE_CODES.items(), key=lambda kv: kv[1]):
+        dname = str(dtype).rsplit(".", 1)[-1]
+        for hd in HEAD_DIMS:
+            calls[f"flash_attention {dname} hd{hd}"] = (
+                "flash_attention", "repro_flash_block_attrs", (code, hd),
+                dict(dtype=dname, hd=hd))
+        calls[f"ssd_chunk_dual {dname}"] = (
+            "ssd_chunk_dual", "repro_ssd_block_attrs",
+            (code, *SSD_REPORT_SHAPE),
+            dict(dtype=dname, **dict(zip("BN c H P N".split(),
+                                         SSD_REPORT_SHAPE))))
+    return calls
 
 
 def block_feasibility(device="cuda") -> dict:
-    """Each of the port's block shapes as the card reports it: threads a
-    block, static shared memory, registers a thread, local (spill) bytes
-    a thread, blocks resident per SM, and whether it is feasible by
+    """Each of the port's kernels (:func:`attr_calls`) as the card reports
+    it: threads a block, static shared memory, the dynamic shared memory
+    its launcher requests, registers a thread, local (spill) bytes a
+    thread, blocks resident per SM, and whether it is feasible by
     arithmetic against the H100's limits (shared memory per block and per
     SM, registers per SM).  Needs a card."""
     from repro_torch.kernels import _build
@@ -361,18 +397,20 @@ def block_feasibility(device="cuda") -> dict:
                          "attributes; pass a CUDA device")
     out = {}
     lib = _build.lib()
-    for name, (fn, which) in _ATTR_KERNELS.items():
-        vals = (ctypes.c_int * 6)()
+    for name, (kernel, fn, args, shape) in attr_calls().items():
+        vals = (ctypes.c_int * _build.ATTR_CELLS)()
         with torch.cuda.device(dev):
-            _build.check(fn, getattr(lib, fn)(which, vals))
-        threads, smem, regs, local, per_sm, sms = list(vals)
+            _build.check(fn, getattr(lib, fn)(*args, vals))
+        threads, static, regs, local, per_sm, sms, dynamic = list(vals)
+        smem = static + dynamic
         by_regs = REGISTERS_PER_SM // max(regs * threads, 1)
         by_smem = SMEM_PER_SM // smem if smem else by_regs
         feasible = (smem <= SMEM_PER_BLOCK and regs * threads
                     <= REGISTERS_PER_SM and min(by_regs, by_smem) >= 1
                     and per_sm >= 1)
-        out[name] = dict(BLOCK_SHAPES[name], threads=threads,
-                         static_smem_bytes=smem, registers=regs,
+        out[name] = dict(BLOCK_SHAPES[kernel], **shape, kernel=kernel,
+                         threads=threads, static_smem_bytes=static,
+                         dynamic_smem_bytes=dynamic, registers=regs,
                          local_bytes=local, blocks_per_sm=per_sm,
                          blocks_by_registers=by_regs,
                          blocks_by_smem=by_smem, sms=sms,

@@ -168,17 +168,26 @@ OPERATORS: dict[str, EdgeOp] = {
 def register_operator(op: EdgeOp) -> EdgeOp:
     """Add a user-defined operator to :data:`OPERATORS` (name must be new).
 
-    With ``REPRO_CHECK_CONTRACTS`` set (non-empty, not ``0``) this raises:
-    the monoid-law checker the reference runs at registration has not
-    been ported yet (ROADMAP.md A13)."""
+    With ``REPRO_CHECK_CONTRACTS`` set (non-empty, not ``0``) the operator
+    is first held to the monoid laws its declarations promise (the
+    :mod:`repro_torch.analysis.contracts` pass, as the reference runs it
+    at registration) and refused with the findings when it breaks them.
+    Off by default: the int8-domain sweep costs a fraction of a second an
+    operator."""
     if not isinstance(op, EdgeOp):
         raise TypeError(f"{op!r} is not an EdgeOp")
-    if os.environ.get("REPRO_CHECK_CONTRACTS", "0") not in ("", "0"):
-        raise NotImplementedError(
-            "REPRO_CHECK_CONTRACTS is set, but the EdgeOp contract checker "
-            "is not ported to repro_torch yet (ROADMAP.md A13)")
     if op.name in OPERATORS:
         raise ValueError(f"operator {op.name!r} already registered")
+    if os.environ.get("REPRO_CHECK_CONTRACTS", "0") not in ("", "0"):
+        from repro_torch.analysis import contracts
+
+        errors = [f for f in contracts.check_operator(op)
+                  if f.severity == "error"]
+        if errors:
+            detail = "; ".join(f"[{f.rule}] {f.message}" for f in errors)
+            raise ValueError(
+                f"operator {op.name!r} fails its declared contracts "
+                f"(REPRO_CHECK_CONTRACTS is set): {detail}")
     OPERATORS[op.name] = op
     return op
 

@@ -149,26 +149,39 @@ def plan_delta(strategy, state, graph: CSRGraph, *,
 # the plain version: phases and epochs over the dense steps
 # ---------------------------------------------------------------------------
 
+def _ad_phase(g, aux, dist, cur, *, op, sched):
+    dist, updated, edges, _idx = fused._ad_step(g, dist, cur, sched=sched,
+                                                op=op)
+    return dist, updated, edges
+
+
+#: fused kernel -> its dense step under :func:`_phase`, each as
+#: ``(g, aux, dist, cur, *, op, sched) -> (dist, updated, edges)`` (EP's
+#: edge worklist has no per-node value to bucket by); the capability
+#: pass holds ``PRIORITY_SCHEDULE`` declarations to its keys
+DELTA_STEPS = {
+    "BS": lambda g, aux, dist, cur, *, op, sched:
+        fused._bs_step(g, dist, cur, op=op),
+    "WD": lambda g, aux, dist, cur, *, op, sched:
+        fused._wd_step(g, dist, cur, op=op),
+    "HP": lambda g, aux, dist, cur, *, op, sched:
+        fused._hp_step(g, dist, cur, sched=sched, op=op),
+    "NS": lambda g, aux, dist, cur, *, op, sched:
+        fused._ns_step(g, aux, dist, cur, op=op),
+    "AD": _ad_phase,
+}
+
+
 def _phase(g: CSRGraph, aux, dist, cur, *, kernel: str, op: EdgeOp,
            sched: Schedule):
     """One dense relax of the frontier ``cur`` over ``g``'s edges with the
     strategy's step.  Returns ``(dist, updated, edges)``; an edgeless
     ``g`` relaxes nothing (not even NS's gather)."""
+    if kernel not in DELTA_STEPS:
+        raise ValueError(f"kernel {kernel!r} has no delta-stepping phase")
     if g.num_edges == 0:
         return dist, torch.zeros_like(cur), 0
-    if kernel == "BS":
-        return fused._bs_step(g, dist, cur, op=op)
-    if kernel == "WD":
-        return fused._wd_step(g, dist, cur, op=op)
-    if kernel == "HP":
-        return fused._hp_step(g, dist, cur, sched=sched, op=op)
-    if kernel == "NS":
-        return fused._ns_step(g, aux, dist, cur, op=op)
-    if kernel == "AD":
-        dist, updated, e, _idx = fused._ad_step(g, dist, cur, sched=sched,
-                                                op=op)
-        return dist, updated, e
-    raise ValueError(f"kernel {kernel!r} has no delta-stepping phase")
+    return DELTA_STEPS[kernel](g, aux, dist, cur, op=op, sched=sched)
 
 
 def _epoch(gl: CSRGraph, gh: Optional[CSRGraph], aux, dist, mask,

@@ -164,9 +164,14 @@ class Schedule:
 DEFAULT_SCHEDULE = Schedule()
 
 #: every field name, in declaration order — the schedule-consistency
-#: analysis pass (repro.analysis.schedules) checks each is actually read
+#: analysis pass (repro_torch.analysis.schedules) checks each is actually read
 #: by some lowering
 SCHEDULE_FIELDS = tuple(f.name for f in dataclasses.fields(Schedule))
+
+#: the reference's Pallas block shapes: carried so that a schedule
+#: round-trips between the two packages, read by no lowering of this one
+#: (the schedules pass does not count them as dead)
+CARRIED_FIELDS = ("tile_r", "tile_c", "chunk")
 
 
 def default_schedule(strategy_name: str) -> Schedule:

@@ -48,6 +48,9 @@ BUILD_LOG: list[str] = []
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_OUT = ctypes.POINTER(ctypes.c_int)
+#: cells of a block-attributes report (``ATTR_CELLS`` in csrc/attrs.cuh)
+ATTR_CELLS = 7
 _F = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     # dist, n, src, dst, w, valid, lanes, msg, comb, target, upd, imp,
@@ -88,12 +91,16 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                           _I, _I, _I, _P, _P, _P, ctypes.c_longlong, _P,
                           _P],
-    # which, out [6]: threads, static shared bytes, registers, local
-    # bytes, blocks per SM, SMs
-    "repro_relax_block_attrs": [_I, ctypes.POINTER(ctypes.c_int)],
+    # which, out [ATTR_CELLS]: threads, static shared bytes, registers,
+    # local bytes, blocks per SM, SMs, dynamic shared bytes requested
+    "repro_relax_block_attrs": [_I, _OUT],
+    # dtype, hd, out
+    "repro_flash_block_attrs": [_I, _I, _OUT],
+    # dtype, BN, c, H, P, N, out
+    "repro_ssd_block_attrs": [_I, _I, _I, _I, _I, _I, _OUT],
     # coeffs (host, 9), count, degree_sum, m, out, stream
     "repro_fused_ad_choice_probe": [_F, _P, _P, _I, _P, _P],
-    "repro_fused_block_attrs": [_I, ctypes.POINTER(ctypes.c_int)],
+    "repro_fused_block_attrs": [_I, _OUT],
     # k, bar (two zeroed words: the barrier and its count), stream
     "repro_fused_barrier_probe": [_I, _P, _P],
 }

@@ -74,6 +74,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attrs.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -523,6 +524,17 @@ int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
 
 #undef REPRO_FLASH_ARGS
 
+template <int HD>
+int attrs(int dtype, int* out) {
+  if (dtype == DTYPE_F32)
+    return (int)repro_block_attrs((const void*)flash_f32_kernel<HD>, THREADS,
+                                  (int)smem_bytes<HD>(), out);
+  if (dtype == DTYPE_BF16)
+    return (int)repro_block_attrs((const void*)flash_bf16_kernel<HD>,
+                                  TC_THREADS, (int)tc_smem_bytes<HD>(), out);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -540,6 +552,18 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   return dispatch(dtype, hd, q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, scale,
                   (cudaStream_t)stream);
+}
+
+// The block of the kernel a call of `dtype` and head dim `hd` launches,
+// with the dynamic shared bytes its launcher requests: out [ATTR_CELLS] as
+// repro_block_attrs (attrs.cuh).
+int repro_flash_block_attrs(int dtype, int hd, int* out) {
+  switch (hd) {
+    case 32: return attrs<32>(dtype, out);
+    case 64: return attrs<64>(dtype, out);
+    case 128: return attrs<128>(dtype, out);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

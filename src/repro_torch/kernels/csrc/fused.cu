@@ -143,6 +143,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attrs.cuh"
 #include "relax_lanes.cuh"
 
 namespace {
@@ -2152,29 +2153,6 @@ cudaError_t make_params(Params& p, const int32_t* row_ptr, const int32_t* col,
   return cudaMemsetAsync(p.ctrl, 0, CTRL_WORDS * sizeof(unsigned), st);
 }
 
-// Kernel attributes for the block-feasibility report: threads a block,
-// static shared bytes, registers a thread, local bytes a thread, blocks
-// resident per SM, SMs.
-cudaError_t block_attrs(const void* kernel, int* out) {
-  cudaFuncAttributes a;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, 0);
-  if (err != cudaSuccess) return err;
-  out[0] = THREADS;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = a.numRegs;
-  out[3] = (int)a.localSizeBytes;
-  out[4] = per_sm;
-  out[5] = sms;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -2312,13 +2290,14 @@ int repro_fused_barrier_probe(int k, unsigned* bar, void* stream) {
 }
 
 // which 0: the fused kernel (shortest_path's instance), 1: its delta mode;
-// out [6] as block_attrs.
+// The fused fixed point (which 0) or the delta kernel (1), shortest_path's
+// instance: out [ATTR_CELLS] as repro_block_attrs (attrs.cuh).
 int repro_fused_block_attrs(int which, int* out) {
   if (which < 0 || which > 1) return (int)cudaErrorInvalidValue;
   const void* kernel =
       which == 0 ? (const void*)fused_fixed_point_kernel<MSG_SUM, COMB_MIN>
                  : (const void*)fused_delta_kernel<MSG_SUM, COMB_MIN>;
-  return (int)block_attrs(kernel, out);
+  return (int)repro_block_attrs(kernel, THREADS, 0, out);
 }
 
 }  // extern "C"

@@ -97,6 +97,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attrs.cuh"
 #include "relax_lanes.cuh"
 
 namespace {
@@ -625,32 +626,18 @@ int repro_find_offsets(const int32_t* prefix, int32_t f, int32_t cap_work,
   return (int)cudaGetLastError();
 }
 
-// The block shape of B2 (which 0) or B1 (which 1), shortest_path's
-// instance, for the block-feasibility report: out [6] gets threads a
-// block, static shared bytes, registers a thread, local bytes a thread,
-// blocks resident per SM and the SMs.
+// The block shape of B2 (which 0), B1 (1), B1's batch contract (2) or B3
+// (3), shortest_path's instance where templated, for the block-feasibility
+// report: out [ATTR_CELLS] as repro_block_attrs (attrs.cuh); none of them
+// takes dynamic shared memory.
 int repro_relax_block_attrs(int which, int* out) {
-  if (which < 0 || which > 1) return (int)cudaErrorInvalidValue;
-  const void* kernel =
-      which == 0 ? (const void*)relax_lanes_kernel<MSG_SUM, COMB_MIN>
-                 : (const void*)wd_relax_lanes_kernel<MSG_SUM, COMB_MIN>;
-  cudaFuncAttributes a;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = THREADS;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = a.numRegs;
-  out[3] = (int)a.localSizeBytes;
-  out[4] = per_sm;
-  out[5] = sms;
-  return 0;
+  const void* kernels[] = {
+      (const void*)relax_lanes_kernel<MSG_SUM, COMB_MIN>,
+      (const void*)wd_relax_lanes_kernel<MSG_SUM, COMB_MIN>,
+      (const void*)wd_relax_union_kernel<MSG_SUM, COMB_MIN>,
+      (const void*)find_offsets_kernel};
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+  return (int)repro_block_attrs(kernels[which], THREADS, 0, out);
 }
 
 const char* repro_error_string(int status) {

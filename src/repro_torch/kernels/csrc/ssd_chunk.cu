@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attrs.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -529,16 +530,21 @@ int launch_f32(const void* xbar, const float* cum, const void* Bm,
   return (int)cudaGetLastError();
 }
 
-int launch_bf16(const void* xbar, const float* cum, const void* Bm,
-                const void* Cm, float* y, float* state, int BN, int c, int H,
-                int P, int N, cudaStream_t st) {
-  // heads per block: as many as keep two waves of blocks, at most 8
+// Heads a bf16 block takes: as many as keep two waves of blocks, at most 8.
+int heads_per_block(int BN, int c, int H, int N) {
   const int per_group = BN * ((c + TILE - 1) / TILE + (N + TILE - 1) / TILE);
   int HG = 1;
   while (HG < MAX_HG && HG < H &&
          (long long)per_group * ((H + 2 * HG - 1) / (2 * HG)) >=
              TARGET_BLOCKS)
     HG *= 2;
+  return HG;
+}
+
+int launch_bf16(const void* xbar, const float* cum, const void* Bm,
+                const void* Cm, float* y, float* state, int BN, int c, int H,
+                int P, int N, cudaStream_t st) {
+  const int HG = heads_per_block(BN, c, H, N);
   const size_t bytes = TcLayout(c, N, P).bytes(HG);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -573,6 +579,25 @@ int repro_ssd_chunk_dual(const void* xbar, const float* cum, const void* Bm,
     return launch_f32(xbar, cum, Bm, Cm, y, state, BN, c, H, P, N, st);
   if (dtype == DTYPE_BF16)
     return launch_bf16(xbar, cum, Bm, Cm, y, state, BN, c, H, P, N, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The block of the kernel a call of `dtype` at shape (BN, c, H, P, N)
+// launches, with the dynamic shared bytes its launcher requests:
+// out [ATTR_CELLS] as repro_block_attrs (attrs.cuh).
+int repro_ssd_block_attrs(int dtype, int BN, int c, int H, int P, int N,
+                          int* out) {
+  if (BN < 1 || c < 1 || H < 1 || P < 1 || N < 1 || P > MAX_NP ||
+      N > MAX_NP)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == DTYPE_F32)
+    return (int)repro_block_attrs((const void*)ssd_chunk_kernel, THREADS,
+                                  (int)(smem_floats(N, P) * sizeof(float)),
+                                  out);
+  if (dtype == DTYPE_BF16)
+    return (int)repro_block_attrs(
+        (const void*)ssd_bf16_kernel, TC_THREADS,
+        (int)TcLayout(c, N, P).bytes(heads_per_block(BN, c, H, N)), out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,14 +1,16 @@
-"""LanguageModel: the dense-attention and SSM (and MoE-free hybrid) stacks
-of :mod:`repro.models.model` as an ``nn.Module`` holding its weights.
+"""LanguageModel: the dense-attention, SSM, MoE and hybrid stacks of
+:mod:`repro.models.model` as an ``nn.Module`` holding its weights.
 
 Every layer is ``ln1 → mixer → ln2 → ffn`` with residuals; the mixer is
-GQA attention or Mamba-2 by ``cfg.layer_kind``.  The layers run as a Python
-loop over per-layer weights (the reference stacks its periodic body and
-scans it; :meth:`LanguageModel.structure` gives that period, which
-:func:`repro_torch.models.params.from_reference` needs to read the
-reference's stacked tree).  MoE, MLA, cross-attention, the audio and
-vision frontends, multi-token prediction and training are not ported yet
-(ROADMAP A15) and raise ``NotImplementedError``.
+GQA attention or Mamba-2 by ``cfg.layer_kind``, and the FFN is the MoE
+layer (:func:`repro_torch.models.moe.moe_ffn`, the dispatch policy
+``cfg.moe_balance``) where ``cfg.layer_is_moe``, else the dense FFN.  The
+layers run as a Python loop over per-layer weights (the reference stacks
+its periodic body and scans it; :meth:`LanguageModel.structure` gives that
+period, which :func:`repro_torch.models.params.from_reference` needs to
+read the reference's stacked tree).  MLA, cross-attention, the audio and
+vision frontends, multi-token prediction, ``pad_heads`` and training are
+not ported yet (ROADMAP A15) and raise ``NotImplementedError``.
 
 A zero-width FFN (``d_ff = 0``, as mamba2_780m has) is kept: it adds
 exact zeros after ``ln2``, as in the reference.
@@ -26,6 +28,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ffn, ffn_specs, rmsnorm, rmsnorm_specs
+from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.models.params import ParamSpec, init_params, map_tree
 
 
@@ -38,8 +41,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not build yet."""
     if cfg.attention == "mla":
         _not_ported("MLA (multi-head latent attention)")
-    if cfg.moe:
-        _not_ported("MoE (moe/balancing.py dispatch)")
     if cfg.cross_attn_every:
         _not_ported("cross-attention (the vision layers)")
     if cfg.frontend is not None:
@@ -50,15 +51,20 @@ def check_supported(cfg: ModelConfig) -> None:
         _not_ported("pad_heads (the padded GQA head layout)")
 
 
-def block_specs(cfg: ModelConfig, kind: str) -> dict:
-    return {
+def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
+    block = {
         "ln1": rmsnorm_specs(cfg.d_model),
         "mixer": (attn.gqa_specs(cfg) if kind == "attn"
                   else mb.mamba_specs(cfg)),
         "ln2": rmsnorm_specs(cfg.d_model),
-        "ffn": ffn_specs(cfg.d_model, cfg.d_ff,
-                         activation=cfg.ffn_activation, dtype=cfg.dtype),
     }
+    if is_moe:
+        block["moe"] = moe_specs(cfg)
+    else:
+        block["ffn"] = ffn_specs(cfg.d_model, cfg.d_ff,
+                                 activation=cfg.ffn_activation,
+                                 dtype=cfg.dtype)
+    return block
 
 
 def model_param_specs(cfg: ModelConfig) -> dict:
@@ -69,7 +75,7 @@ def model_param_specs(cfg: ModelConfig) -> dict:
     specs = {
         "embed": ParamSpec((v, d), cfg.dtype, "scaled", scale=d ** 0.5),
         "final_norm": rmsnorm_specs(d),
-        "layers": [block_specs(cfg, cfg.layer_kind(i))
+        "layers": [block_specs(cfg, cfg.layer_kind(i), cfg.layer_is_moe(i))
                    for i in range(cfg.num_layers)],
     }
     if not cfg.tie_embeddings:
@@ -113,6 +119,7 @@ class LanguageModel(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+        self.is_moe = [cfg.layer_is_moe(i) for i in range(cfg.num_layers)]
         params = init_params(model_param_specs(cfg),
                              torch.Generator().manual_seed(seed))
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
@@ -142,12 +149,14 @@ class LanguageModel(nn.Module):
 
     def structure(self) -> tuple[int, int]:
         """``(prefix_len, period)`` of the reference's layer program: the
-        smallest prefix + period after which the layer kinds repeat."""
+        smallest prefix + period after which the layers' signatures (mixer
+        kind, MoE or not) repeat."""
         L = self.cfg.num_layers
+        sigs = list(zip(self.kinds, self.is_moe))
         best, best_cost = (L, 1), L + 1
         for period in range(1, L + 1):
             for prefix in range(L):
-                body = self.kinds[prefix:]
+                body = sigs[prefix:]
                 if len(body) % period:
                     continue
                 if prefix + period >= best_cost:
@@ -181,6 +190,8 @@ class LanguageModel(nn.Module):
         return h @ self.lm_head
 
     def _block(self, i: int, h, positions, cache, mode: str, position):
+        """Layer ``i`` -> ``(h, aux)``: ``aux`` is :func:`moe_ffn`'s for an
+        MoE layer (its routing included), else None."""
         cfg, p = self.cfg, self.layers[i]
         hn = rmsnorm(p["ln1"], h)
         c = cache["layers"][i] if cache is not None else None
@@ -196,7 +207,10 @@ class LanguageModel(nn.Module):
                 out, _ = mb.mamba_forward(p["mixer"], cfg, hn, c)
         h = h + out
         hn = rmsnorm(p["ln2"], h)
-        return h + ffn(p["ffn"], hn, activation=cfg.ffn_activation)
+        if not self.is_moe[i]:
+            return h + ffn(p["ffn"], hn, activation=cfg.ffn_activation), None
+        out, aux = moe_ffn(p["moe"], cfg, hn)
+        return h + out, aux
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, mode: str = "prefill",
@@ -211,7 +225,7 @@ class LanguageModel(nn.Module):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
         for i in range(self.cfg.num_layers):
-            h = self._block(i, h, positions, cache, "prefill", None)
+            h, _ = self._block(i, h, positions, cache, "prefill", None)
         h = rmsnorm(self.final_norm, h)
         return self.unembed(h), cache
 
@@ -222,7 +236,7 @@ class LanguageModel(nn.Module):
         place)."""
         h = self.embed_tokens(tokens)
         for i in range(self.cfg.num_layers):
-            h = self._block(i, h, None, cache, "decode", position)
+            h, _ = self._block(i, h, None, cache, "decode", position)
         h = rmsnorm(self.final_norm, h)
         return self.unembed(h), cache
 

@@ -887,6 +887,9 @@ ATTN_CASES = [
     (2, 8, 2, 2100, 2100, 64),
     (4, 6, 3, 1100, 1100, 32),
     (1, 32, 8, 1100, 700, 64),
+    # granite_moe_3b_a800m's prefill: G = 3, hd 64, S = 2048 and ragged
+    (1, 24, 8, 2048, 2048, 64),
+    (1, 24, 8, 1781, 1781, 64),
 ]
 
 
@@ -1271,11 +1274,63 @@ def test_calibration_and_block_feasibility_on_the_card(dev, tmp_path):
     np.testing.assert_array_equal(m1.coeffs, m2.coeffs)
     assert m1.calibrated_on["device"] == torch.cuda.get_device_name(dev)
     rows = costmodel.block_feasibility(dev)
-    assert set(rows) == {"wd_relax_lanes", "relax_lanes",
-                         "fused_fixed_point", "fused_delta"}
+    assert set(rows) == set(costmodel.attr_calls())
+    assert {row["kernel"] for row in rows.values()} == {
+        "wd_relax_lanes", "relax_lanes", "wd_relax_union", "find_offsets",
+        "fused_fixed_point", "fused_delta", "flash_attention",
+        "ssd_chunk_dual"}
     for row in rows.values():
         assert row["feasible"] and row["blocks_per_sm"] >= 1
-        assert row["threads"] == 256
+        # the bf16 B4/B5 kernels run four mma.sync warps; every other 256
+        assert row["threads"] == (
+            128 if row.get("dtype") == "bfloat16" else 256), row
+
+
+@pytest.mark.parametrize("method", ["padded", "sorted_block", "replicate",
+                                    "multi_round"])
+def test_moe_dispatch_on_the_card_matches_the_cpu(dev, method):
+    """Each dispatch policy on card tensors (float32) against the same
+    call on the CPU, at a capacity that drops: the same drop statistics
+    and outputs within float32 noise."""
+    from repro_torch.moe import balancing as mb
+    g = torch.Generator().manual_seed(5)
+    E, K, D, F = 8, 2, 64, 96
+    x = torch.randn(2, 48, D, generator=g)
+    w, ids, _ = mb.topk_route(torch.randn(2, 48, E, generator=g)
+                              - torch.arange(E) * 0.5, K)
+    ex = {"w_up": torch.randn(E, D, F, generator=g) / 8,
+          "w_gate": torch.randn(E, D, F, generator=g) / 8,
+          "w_down": torch.randn(E, F, D, generator=g) / 10}
+    want, ws = mb.moe_dispatch(x, ids, w, ex, num_experts=E, capacity=8,
+                               method=method)
+    got, gs = mb.moe_dispatch(x.to(dev), ids.to(dev), w.to(dev),
+                              {k: v.to(dev) for k, v in ex.items()},
+                              num_experts=E, capacity=8, method=method)
+    _close(got.cpu(), want, 1e-4)
+    for key in ws:
+        assert float(gs[key]) == float(ws[key]), key
+
+
+def test_smem_model_equals_the_card(dev):
+    """The analysis pass's footprint model of every kernel's block
+    (repro_torch.analysis.smem) equals the card's report: threads, static
+    shared bytes and the dynamic bytes the launcher requests, with at
+    least the blocks a SM the launch bounds promise."""
+    from repro_torch.analysis import smem
+    from repro_torch.core import costmodel
+    for name, row in costmodel.block_feasibility(dev).items():
+        kernel = row["kernel"]
+        if kernel == "flash_attention":
+            fp = smem.footprint(kernel, dtype=row["dtype"], hd=row["hd"])
+        elif kernel == "ssd_chunk_dual":
+            fp = smem.footprint(kernel, dtype=row["dtype"], shape=tuple(
+                row[k] for k in ("BN", "c", "H", "P", "N")))
+        else:
+            fp = smem.footprint(kernel)
+        assert (row["threads"], row["static_smem_bytes"],
+                row["dynamic_smem_bytes"]) == (
+            fp.threads, fp.static_smem, fp.dynamic_smem), name
+        assert row["blocks_per_sm"] >= fp.min_blocks, name
 
 
 # ---------------------------------------------------------------------------

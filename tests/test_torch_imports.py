@@ -1,9 +1,11 @@
 """Import hygiene of the port: ``repro_torch`` (every subpackage, walked
-recursively: core, kernels, models, configs, runtime, launch, ...),
+recursively: core, kernels, models, moe, analysis, configs, runtime,
+launch, ...),
 ``chip_smoke.py`` and the tools that drive the port on the card
 (``tools/profile_torch_path.py``, ``tools/compare_lm_kernels.py``,
 ``tools/compare_relax_kernels.py``, ``tools/compare_fused_runs.py``,
-``tools/compare_batch_runs.py``, ``tools/fused_column_profile.py``) and
+``tools/compare_batch_runs.py``, ``tools/fused_column_profile.py``,
+``tools/profile_moe_path.py``) and
 the ranks of the sharded CPU tests (``tests/torch_shard_ranks.py``)
 import neither JAX,
 ``ml_dtypes`` nor the reference package ``repro`` (``repro_torch`` is the
@@ -27,7 +29,8 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
                                        "compare_relax_kernels.py",
                                        "compare_fused_runs.py",
                                        "compare_batch_runs.py",
-                                       "fused_column_profile.py")] + [
+                                       "fused_column_profile.py",
+                                       "profile_moe_path.py")] + [
     ROOT / "tests" / "torch_shard_ranks.py"]
 
 
@@ -61,8 +64,11 @@ def test_every_module_imports_with_jax_blocked():
         "for want in ('kernels.relax', 'kernels.flash_attention',\n"
         "             'kernels.ssd_chunk', 'kernels.fused', 'core.fused',\n"
         "             'core.costmodel', 'core.priority', 'core.shard',\n"
-        "             'core.dist',\n"
-        "             'models.model', 'configs.qwen3_0_6b',\n"
+        "             'core.dist', 'analysis', 'analysis.__main__',\n"
+        "             'analysis.contracts', 'analysis.capabilities',\n"
+        "             'analysis.smem', 'analysis.schedules',\n"
+        "             'analysis.retrace', 'moe', 'moe.balancing',\n"
+        "             'models.moe', 'models.model', 'configs.qwen3_0_6b',\n"
         "             'runtime.serve', 'launch.serve'):\n"
         "    assert 'repro_torch.' + want in names, names\n"
         "print(len(names))\n")

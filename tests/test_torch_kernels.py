@@ -7,6 +7,7 @@ Inputs are made with numpy from a seed and handed to both packages; the
 tolerance is exact equality (int32 / bool)."""
 
 import dataclasses
+import re
 import zlib
 
 import jax.numpy as jnp
@@ -251,11 +252,26 @@ def test_builtin_with_custom_message_has_no_kernel_codes():
 
 
 def test_register_operator_with_contract_checks_raises(monkeypatch):
+    """With REPRO_CHECK_CONTRACTS set, registration runs the contract
+    checker (repro_torch.analysis.contracts): the slack operator's
+    activation test breaks the monoid laws and is refused with the
+    reference's rules; a lawful operator is accepted."""
     monkeypatch.setenv("REPRO_CHECK_CONTRACTS", "1")
-    _, top = _slack_ops()
-    with pytest.raises(NotImplementedError, match="A13"):
+    jop, top = _slack_ops()
+    with pytest.raises(ValueError, match="CT003") as err:
         tops.register_operator(top)
     assert "slack_test" not in tops.OPERATORS
+    with pytest.raises(ValueError) as jerr:
+        jops.register_operator(jop)
+    assert "slack_test" not in jops.OPERATORS
+    rules = sorted(set(re.findall(r"\[(CT\d+)\]", str(err.value))))
+    assert rules == sorted(set(re.findall(r"\[(CT\d+)\]",
+                                          str(jerr.value))))
+    good = dataclasses.replace(tops.shortest_path, name="sp_checked")
+    try:
+        assert tops.register_operator(good) is good
+    finally:
+        tops.OPERATORS.pop("sp_checked", None)
 
 
 def test_cpu_tensors_launch_no_kernel():

@@ -222,12 +222,30 @@ def test_full_width_mamba_has_zero_width_ffn():
 @pytest.mark.parametrize("arch,what", [
     ("deepseek_v3_671b", "MLA"),
     ("llama_3_2_vision_11b", "cross-attention"),
-    ("granite_moe_3b_a800m", "MoE"),
     ("musicgen_large", "audio")])
 def test_unported_features_raise(arch, what):
     with pytest.raises(NotImplementedError, match="ROADMAP A15") as e:
         LanguageModel(get_config(arch).smoke(), device="cpu")
     assert what in str(e.value)
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m",
+                                  "jamba_1_5_large_398b"])
+def test_moe_configs_build(arch):
+    """The MoE configs build (MoE is ported); their MoE layers hold a
+    router and experts in place of the dense FFN, as the reference's
+    parameter specs do."""
+    cfg = get_config(arch).smoke()
+    tm = LanguageModel(cfg, device="cpu")
+    jm = JModel(j_get_config(arch).smoke())
+    specs = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, jnp.dtype(s.dtype)), jm.param_specs(),
+        is_leaf=lambda x: hasattr(x, "pspec"))
+    from_reference(tm, specs)          # raises on any mismatch
+    tree = tm.param_tree()["layers"]
+    for i in range(cfg.num_layers):
+        assert ("moe" in tree[i]) == cfg.layer_is_moe(i)
+        assert ("ffn" in tree[i]) != cfg.layer_is_moe(i)
 
 
 def test_pad_heads_and_training_raise():

@@ -161,9 +161,13 @@ Phases, each printing one JSON line:
    dtype), with at least the blocks a SM their launch bounds promise.)
 5. lm_kernels — B4 ``flash_attention`` (1 batch, 16 query heads over 8 KV
    heads, hd 128: S = 512 and 2048 bf16 causal, 512 f32, 512 bf16
-   non-causal, ragged 1000; and granite_moe_3b_a800m's shape, 24 query
-   heads over 8, hd 64, S = 2048 bf16 causal, a second B4 row of the
-   kernel line) and B5 ``ssd_chunk_dual`` (8 chunks of 256, 48
+   non-causal, ragged 1000; and a B4 row of the kernel line for each of
+   granite_moe_3b_a800m's shape, 24 query heads over 8, hd 64, S = 2048
+   bf16 causal, deepseek_v3_671b's MLA prefill, 128 heads each its own
+   KV head, q/k head dim 192 and v head dim 128, S = 2048 bf16 causal,
+   and llama_3_2_vision_11b's cross-attention, 32 heads over 8, hd 128,
+   2048 text over 1601 image tokens, bf16 non-causal) and B5
+   ``ssd_chunk_dual`` (8 chunks of 256, 48
    heads, P 64, N 128: bf16, f32, ragged c = 200) against their plain
    versions on the card, each timed beside its plain version and, for B4,
    ``scaled_dot_product_attention`` (timed only; the port never calls it).
@@ -204,6 +208,33 @@ Phases, each printing one JSON line:
    ``torch.profiler``: its kernel's share of device time, the number of
    device activities, and the device's idle share (the traced device time
    over the median wall time of five untraced prefills of that prompt).
+8. A15's serving side.  deepseek_v3_671b at full width in bf16, its
+   depth cut to its 3 dense layers and 1 MoE layer and its MTP block
+   dropped (``DEEPSEEK_CUT``; 15.1 B parameters, 30 GB), built once:
+   moe_sharded — its MoE layer (256 experts, top 8, expert d_ff 2048) on
+   2048 seeded tokens at a capacity where nothing drops,
+   ``sharded_moe_dispatch`` and ``ep_global_dispatch`` over 8 shards
+   held on the card against the single-device ``padded`` dispatch
+   (``MOE_SHARD_TOL``), and granite's 40 experts padded to 48 over 16
+   shards, each timed; lm_serve deepseek_v3_671b — as phase 7, its MoE
+   layer under ``use_group`` of 8 held shards (the config's
+   ``moe_impl="shard_map"``), B4 4 x 8 launches.  lm_cpu
+   deepseek_v3_671b (1 dense MLA layer), llama_3_2_vision_11b (one
+   period of 5 layers with its cross layer, 1601 seeded image
+   embeddings, every cross gate at 0.5 on both sides) and musicgen_large
+   (4 layers, tokens [1, S, 4], logits [1, S, 4, 2048]), each as phase 6
+   at full width in float32 (1e-3 of the largest logit, equal tokens);
+   for deepseek also the absorbed decode against the expanded prefill
+   over the same tokens on the card, float32 within 1e-3 and bf16 held
+   to bf16's own deviation from float32 (``mla_decode_check``).
+   lm_lockstep — vision (10 layers) and audio (48 layers) in bf16, the
+   families ``ServeLoop`` refuses, driven by ``forward``/``decode_step``
+   as the reference's prefill and serve steps drive them: a 4 x 1024
+   prefill and 16 lockstep decode steps, prefill ms, decode ms a step
+   and B4 launches (a layer and a cross layer each, the prefill only).
+   pad_heads — granite at full width (4 of 32 layers, float32) with
+   ``pad_heads=True`` (B4 at 32 query slots over 16 KV heads) against
+   the unpadded model on the same weights, within 5e-4.
 
 Every phase prints its seconds (``phase_seconds``).  Then one
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
@@ -2819,6 +2850,13 @@ def _op(name: str):
 ATTN_HEADS = (16, 8, 128)       # qwen3_0_6b: query heads, KV heads, hd
 #: granite_moe_3b_a800m's B4 shape: a group of 3 query heads a KV head
 GRANITE_HEADS = (24, 8, 64)
+#: deepseek_v3_671b's MLA prefill: 128 query heads, each its own K/V head,
+#: q/k head dim nope 128 + rope 64, v head dim 128
+MLA_HEADS = (128, 128, 192, 128)
+#: llama_3_2_vision_11b's cross-attention: 32 query heads over 8, hd 128,
+#: over its 1601 image tokens (non-causal)
+CROSS_HEADS = (32, 8, 128)
+IMAGE_TOKENS = 1601
 SSD_SHAPE = (8, 256, 48, 64, 128)   # mamba2_780m at S = 2048: BN c H P N
 #: B4's cases: S, dtype name, causal
 ATTN_TIMED = ((512, "bfloat16", True), (2048, "bfloat16", True),
@@ -2834,12 +2872,14 @@ ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-6}
 SSD_TOL = {"bfloat16": 1e-4, "float32": 1e-5}
 
 
-def attention_inputs(S: int, dtype, g, dev, heads=ATTN_HEADS):
-    """Seeded q, k, v of one B4 case at the path's heads."""
+def attention_inputs(S: int, dtype, g, dev, heads=ATTN_HEADS, Sk=None):
+    """Seeded q, k, v of one B4 case at the path's heads (``heads`` is
+    (Hq, Hkv, hd) or (Hq, Hkv, hd, hd_v)); ``Sk`` keys (default S)."""
     import torch
-    hq, hkv, hd = heads
-    return tuple(torch.randn(1, h, S, hd, generator=g).to(dev, dtype)
-                 for h in (hq, hkv, hkv))
+    hq, hkv, hd, *rest = heads
+    hd_v, Sk = (rest[0] if rest else hd), Sk or S
+    return tuple(torch.randn(1, h, n, d, generator=g).to(dev, dtype)
+                 for h, n, d in ((hq, S, hd), (hkv, Sk, hd), (hkv, Sk, hd_v)))
 
 
 def ssd_inputs(c: int, dtype, g, dev):
@@ -2869,15 +2909,18 @@ def _allclose_err(got, want, tol: float) -> float:
     return err
 
 
-def attention_cost(S: int, dtype, causal: bool, heads=ATTN_HEADS) -> tuple:
+def attention_cost(S: int, dtype, causal: bool, heads=ATTN_HEADS,
+                   Sk=None) -> tuple:
     """(bytes, operations) of one B4 call at the path's heads: q, k, v
-    read once and out written once; 2 FLOP per multiply-add of QK^T and
-    PV over the (query, key) pairs the mask keeps."""
-    hq, hkv, hd = heads
+    read once and out written once; 2 FLOP per multiply-add of QK^T (hd)
+    and PV (hd_v) over the (query, key) pairs the mask keeps (causal:
+    S = Sk, top-left)."""
+    hq, hkv, hd, *rest = heads
+    hd_v, Sk = (rest[0] if rest else hd), Sk or S
     size = 2 if str(dtype).endswith("bfloat16") else 4
-    nbytes = size * S * hd * (2 * hq + 2 * hkv)
-    pairs = S * (S + 1) // 2 if causal else S * S
-    return nbytes, 4 * hd * hq * pairs
+    nbytes = size * (hq * S * (hd + hd_v) + hkv * Sk * (hd + hd_v))
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    return nbytes, 2 * hq * pairs * (hd + hd_v)
 
 
 def ssd_cost(BN, c, H, P, N, dtype) -> tuple:
@@ -2905,22 +2948,31 @@ def lm_kernel_phase(dev, reps: int = 10) -> list:
     g = torch.Generator().manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
     rows = []
-    b4_err, b4_row, granite_row = 0.0, None, None
-    cases = [(ATTN_HEADS, *case) for case in ATTN_TIMED] + [
-        (GRANITE_HEADS, 2048, "bfloat16", True)]
-    for heads, S, dtype_name, causal in cases:
+    b4_err, b4_row = 0.0, None
+    # each config's own row: heads, S, dtype, causal, Sk
+    config_cases = {
+        "granite_moe_3b_a800m": (GRANITE_HEADS, 2048, "bfloat16", True,
+                                 None),
+        "deepseek_v3_671b": (MLA_HEADS, 2048, "bfloat16", True, None),
+        "llama_3_2_vision_11b": (CROSS_HEADS, 2048, "bfloat16", False,
+                                 IMAGE_TOKENS)}
+    config_rows = {}
+    cases = [(ATTN_HEADS, *case, None) for case in ATTN_TIMED] + list(
+        config_cases.values())
+    for heads, S, dtype_name, causal, Sk in cases:
         dtype = getattr(torch, dtype_name)
-        q, k, v = attention_inputs(S, dtype, g, dev, heads)
+        q, k, v = attention_inputs(S, dtype, g, dev, heads, Sk)
         tol = ATTN_TOL[dtype_name]
         err = _allclose_err(fa.flash_attention(q, k, v, causal=causal),
                             fa.flash_attention_plain(q, k, v, causal=causal),
                             tol)
-        nbytes, ops = attention_cost(S, dtype, causal, heads)
+        nbytes, ops = attention_cost(S, dtype, causal, heads, Sk)
         t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
                         if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
         case = dict(
-            Hq=heads[0], Hkv=heads[1], hd=heads[2],
-            S=S, dtype=str(dtype).split(".")[-1], causal=causal,
+            Hq=heads[0], Hkv=heads[1], hd=heads[2], hd_v=v.shape[-1],
+            S=S, Sk=k.shape[2], dtype=str(dtype).split(".")[-1],
+            causal=causal,
             max_abs_err=err, tolerance=tol,
             ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
                        reps=reps, flush=flush),
@@ -2931,24 +2983,24 @@ def lm_kernel_phase(dev, reps: int = 10) -> list:
                 flush=flush),
             bound_ms=t_b, bound_by=by, bytes=nbytes, flop=ops)
         emit("lm_kernel_case", kernel="flash_attention", **case)
-        if heads == GRANITE_HEADS:
-            granite_row = case
+        config = next((c for c, cc in config_cases.items()
+                       if cc == (heads, S, dtype_name, causal, Sk)), None)
+        if config is not None:
+            config_rows[config] = case
             continue
         b4_err = max(b4_err, err)
         if (S, dtype, causal) == (2048, torch.bfloat16, True):
             b4_row = case
-    for config, row, err, (hq, hkv, hd) in (
-            ("qwen3_0_6b", b4_row, b4_err, ATTN_HEADS),
-            ("granite_moe_3b_a800m", granite_row, granite_row["max_abs_err"],
-             GRANITE_HEADS)):
+    for config, row in [("qwen3_0_6b", dict(b4_row, max_abs_err=b4_err))] + [
+            (c, config_rows[c]) for c in config_cases]:
         rows.append(dict(
             name="flash_attention", route="cuda", source=CSRC_FLASH,
             replaces="src/repro/kernels/flash_attention.py:69", launches=0,
-            max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], config=config,
-            shape=dict(B=1, Hq=hq, Hkv=hkv, S=2048, hd=hd,
-                       dtype="bfloat16", causal=True)))
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            config=config, shape={key: row[key] for key in (
+                "Hq", "Hkv", "hd", "hd_v", "S", "Sk", "dtype", "causal")}))
 
     b5_err, b5_row = 0.0, None
     BN, c, H, P, N = SSD_SHAPE
@@ -3024,56 +3076,97 @@ def routing_compare(card: list, cpu: list, k: int) -> dict:
     return dict(entries=len(card), flips=flips, failed=len(bad))
 
 
-def lm_cpu_phase(dev, arch: str, prompt_len: int, rel_tol: float,
-                 steps: int = 4) -> None:
-    """One config at full width in float32: the same seeded weights on the
-    card and on the CPU, a prefill and ``steps`` greedy decode steps on
-    each.  Every logit agrees within ``rel_tol`` of the largest, and the
-    greedy tokens are equal."""
+#: a cross layer's gate in the CPU comparisons: at init it is 0, and
+#: tanh(0) = 0 would hide the whole cross path
+CROSS_GATE = 0.5
+
+
+def open_gates(model, value: float = CROSS_GATE) -> None:
+    """Set every cross layer's ``gate`` of ``model`` to ``value``."""
+    import torch
+    with torch.no_grad():
+        for blk in model.layers:
+            if "cross" in blk.tree():
+                blk["cross"]["gate"].fill_(value)
+
+
+def model_inputs(cfg, batch: int, prompt_len: int, seed: int = 1):
+    """Seeded prompts [batch, S] (audio [batch, S, K]) and, for a vision
+    config, seeded stub image embeddings [batch, T, D] (float32, on the
+    CPU)."""
     import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    shape = (batch, prompt_len) + ((cfg.num_codebooks,)
+                                   if cfg.num_codebooks else ())
+    prompt = torch.as_tensor(rng.integers(2, cfg.vocab_size, shape))
+    vision = (torch.from_numpy(rng.standard_normal(
+        (batch, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+        if cfg.cross_attn_every else None)
+    return prompt, vision
+
+
+def lm_cpu_phase(dev, arch: str, prompt_len: int, rel_tol: float,
+                 steps: int = 4, **overrides) -> None:
+    """One token config at full width in float32 (``overrides`` cut its
+    depth): the same seeded weights on the card and on the CPU, a prefill
+    and ``steps`` greedy decode steps on each.  Every logit agrees within
+    ``rel_tol`` of the largest, and the greedy tokens are equal.  For MLA
+    also :func:`mla_decode_check` on the card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import LanguageModel
 
-    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype="float32", **overrides)
     t0 = time.perf_counter()
     cpu_model = LanguageModel(cfg, seed=0, device="cpu")
     card_model = copy.deepcopy(cpu_model).to_device(dev)
     init_s = time.perf_counter() - t0
-    prompt = np.random.default_rng(1).integers(2, cfg.vocab_size, prompt_len)
+    prompt, _ = model_inputs(cfg, 1, prompt_len)
     runs = {}
     for name, model in (("cuda", card_model), ("cpu", cpu_model)):
         d = model.device
         t0 = time.perf_counter()
         cache = model.new_cache(1, prompt_len + steps + 1)
-        logits, cache = model(torch.as_tensor(prompt[None], device=d),
-                              cache=cache)
-        full, outs, toks = logits.float().cpu(), [], []
+        logits, cache = model(prompt.to(d), cache=cache)
+        full_l, outs, toks = logits.float().cpu(), [], []
         for t in range(steps):
             tok = torch.argmax(logits[:, -1], dim=-1)
-            toks.append(int(tok))
+            toks.append(tok.tolist())
             logits, cache = model.decode_step(cache, tok[:, None],
                                               prompt_len + t)
             outs.append(logits[:, -1].float().cpu())
-        runs[name] = (full, outs, toks, time.perf_counter() - t0)
+        runs[name] = (full_l, outs, toks, time.perf_counter() - t0)
     (full_g, outs_g, toks_g, sec_g), (full_c, outs_c, toks_c, sec_c) = (
         runs["cuda"], runs["cpu"])
     scale = float(full_c.abs().max())
-    diff = (full_g - full_c)[0]                         # [S, V]
+    diff = (full_g - full_c)[0]                         # [S, (K,) V]
     rms_rel = float(diff.pow(2).mean().sqrt() / full_c.pow(2).mean().sqrt())
     dec_errs = [float((a - b).abs().max()) for a, b in zip(outs_g, outs_c)]
     err = max(float(diff.abs().max()), *dec_errs)
     ok = (err <= rel_tol * scale and toks_g == toks_c
           and bool(torch.isfinite(full_g).all()))
+    reduced = {k: [getattr(full, k), v] for k, v in overrides.items()}
     emit("lm_cpu_compare", arch=arch, dtype="float32", prompt=prompt_len,
-         steps=steps, logit_scale=scale,
-         prefill_max_abs_err=float(diff.abs().max()),
+         steps=steps, reduced=reduced, logits_shape=list(full_c.shape),
+         logit_scale=scale, prefill_max_abs_err=float(diff.abs().max()),
          prefill_rms_rel_err=rms_rel, decode_max_abs_err=dec_errs,
          tolerance=rel_tol * scale, tokens_cuda=toks_g, tokens_cpu=toks_c,
          equal=ok, init_seconds=init_s, cuda_seconds=sec_g,
-         cpu_seconds=sec_c)
+         cpu_seconds=sec_c, host_free_gb=host_free_gb())
     if not ok:
         raise AssertionError(f"{arch}: card != cpu")
+    if cfg.attention == "mla":
+        mla_decode_check(card_model, prompt.to(dev)[:, :260])
+
+
+def host_free_gb() -> float:
+    """The host's available memory in GB (``/proc/meminfo``)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 1e6
+    return float("nan")
 
 
 #: teacher-forced, a layer's output on the card against the CPU's, as a
@@ -3101,15 +3194,18 @@ def moe_route(routes: list, i: int, aux) -> None:
 
 def lm_cpu_forced_phase(dev, arch: str, prompt_len: int, num_layers: int,
                         steps: int = 4, rel_tol: float = 1e-3) -> None:
-    """An MoE config at full width in float32 (TF32 off), ``num_layers``
-    of its layers, the same seeded weights on the card and on the CPU: a
-    prefill of ``prompt_len`` tokens and ``steps`` greedy decode steps,
+    """A config without qk-norm (an MoE, vision or audio config) at full
+    width in float32 (TF32 off), ``num_layers`` of its layers, the same
+    seeded weights on the card and on the CPU (cross layers' gates at
+    :data:`CROSS_GATE`, seeded image embeddings): a prefill of
+    ``prompt_len`` tokens and ``steps`` greedy decode steps,
     teacher-forced: every layer on the card takes the CPU's input to that
     layer (and fills its own cache).  Each layer's output agrees within
-    :data:`FORCED_LAYER_TOL` of its largest magnitude, its routing ids
-    are compared (:func:`routing_compare`; a disagreement fails above
-    :data:`ROUTE_GAP_TOL`), the logits within ``rel_tol`` of the largest,
-    the greedy tokens are equal.
+    :data:`FORCED_LAYER_TOL` of its largest magnitude, an MoE layer's
+    routing ids are compared (:func:`routing_compare`; a disagreement
+    fails above :data:`ROUTE_GAP_TOL`), the logits within ``rel_tol`` of
+    the largest, the greedy tokens (one a codebook for audio) are
+    equal.
 
     Then both models run free, prefill only, beside the CPU run with its
     embeddings perturbed by :data:`SELF_PERTURBATION` (``lm_cpu_free``).
@@ -3119,7 +3215,6 @@ def lm_cpu_forced_phase(dev, arch: str, prompt_len: int, num_layers: int,
     perturbed run shows beside them: the card's logit deviation and its
     routing flips fail above :data:`FREE_RUN_FACTOR` times the perturbed
     run's."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.layers import rmsnorm
@@ -3129,10 +3224,10 @@ def lm_cpu_forced_phase(dev, arch: str, prompt_len: int, num_layers: int,
     cfg = dataclasses.replace(full, dtype="float32", num_layers=num_layers)
     t0 = time.perf_counter()
     cpu_model = LanguageModel(cfg, seed=0, device="cpu")
+    open_gates(cpu_model)
     card_model = copy.deepcopy(cpu_model).to_device(dev)
     init_s = time.perf_counter() - t0
-    prompt = torch.as_tensor(np.random.default_rng(1).integers(
-        2, cfg.vocab_size, prompt_len)[None])
+    prompt, vision = model_inputs(cfg, 1, prompt_len)
     length = prompt_len + steps + 1
     caches = (cpu_model.new_cache(1, length), card_model.new_cache(1, length))
     layer_err = [0.0] * num_layers
@@ -3146,10 +3241,11 @@ def lm_cpu_forced_phase(dev, arch: str, prompt_len: int, num_layers: int,
         h = cpu_model.embed_tokens(tokens)
         for i in range(num_layers):
             want, aux_c = cpu_model._block(i, h, positions, caches[0], mode,
-                                           position)
+                                           position, vision)
             got, aux_g = card_model._block(
                 i, h.to(dev), None if positions is None else
-                positions.to(dev), caches[1], mode, position)
+                positions.to(dev), caches[1], mode, position,
+                None if vision is None else vision.to(dev))
             layer_err[i] = max(layer_err[i], float(
                 (got.cpu() - want).abs().max() / want.abs().max()))
             moe_route(card_routes, i, aux_g)
@@ -3160,9 +3256,10 @@ def lm_cpu_forced_phase(dev, arch: str, prompt_len: int, num_layers: int,
                                         h.to(dev)))[0, -1].cpu()
         scale = max(scale, float(lc.abs().max()))
         logits_err.append(float((lg - lc).abs().max()))
-        tokens_cpu.append(int(torch.argmax(lc)))
-        tokens_card.append(int(torch.argmax(lg)))
-        return torch.tensor([[tokens_cpu[-1]]])
+        nxt = torch.argmax(lc, dim=-1)             # [] or, audio, [K]
+        tokens_cpu.append(nxt.tolist())
+        tokens_card.append(torch.argmax(lg, dim=-1).tolist())
+        return nxt.reshape((1, 1) + tuple(nxt.shape))
 
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -3175,8 +3272,9 @@ def lm_cpu_forced_phase(dev, arch: str, prompt_len: int, num_layers: int,
           and max(logits_err) <= rel_tol * scale
           and tokens_card == tokens_cpu)
     reduced = {"num_layers": [full.num_layers, num_layers]}
-    emit("lm_cpu_routing", arch=arch, num_layers=num_layers,
-         gap_tolerance=ROUTE_GAP_TOL, teacher_forced=True, **routing)
+    if cfg.moe:
+        emit("lm_cpu_routing", arch=arch, num_layers=num_layers,
+             gap_tolerance=ROUTE_GAP_TOL, teacher_forced=True, **routing)
     emit("lm_cpu_compare", arch=arch, dtype="float32", prompt=prompt_len,
          steps=steps, teacher_forced=True, reduced=reduced,
          layer_rel_err=layer_err, layer_tolerance=FORCED_LAYER_TOL,
@@ -3196,9 +3294,10 @@ def lm_cpu_forced_phase(dev, arch: str, prompt_len: int, num_layers: int,
             h = model.embed_tokens(prompt.to(model.device))
             positions = torch.arange(prompt_len, dtype=torch.int32,
                                      device=model.device)[None]
+            vis = None if vision is None else vision.to(model.device)
             for i in range(num_layers):
                 h, aux = model._block(i, h, positions, None, "prefill",
-                                      None)
+                                      None, vis)
                 moe_route(routes, i, aux)
             logits = model.unembed(rmsnorm(model.final_norm, h))
         return logits.float().cpu(), routes
@@ -3248,9 +3347,11 @@ def prefill_kernel_ms(dev, cfg, kernel: str, lens) -> float:
     for S in (int(n) for n in lens):
         if kernel == "flash_attention":
             hd = cfg.resolved_head_dim
+            mla = cfg.attention == "mla"
+            hkv = cfg.num_heads if mla else cfg.num_kv_heads
             q = randn(1, cfg.num_heads, S, hd)
-            k, v = randn(1, cfg.num_kv_heads, S, hd), randn(
-                1, cfg.num_kv_heads, S, hd)
+            k, v = randn(1, hkv, S, hd), randn(
+                1, hkv, S, cfg.v_head_dim if mla else hd)
             ms = time_ms(lambda: flash_attention(q, k, v), reps=5)
         else:
             c = min(cfg.ssm_chunk, S)
@@ -3319,17 +3420,21 @@ def traced_prefill(dev, model, kernel_sym: str, S: int = 2048,
 
 def lm_serve_phase(dev, arch: str, kernel: str, *, requests: int = 8,
                    slots: int = 4, max_new: int = 32,
-                   max_len: int = 2112) -> dict:
-    """One config at full width in bf16 through ``ServeLoop``.  The launch
-    counts are set to 0 just before the run and read just after it."""
+                   max_len: int = 2112, model=None, group=None) -> dict:
+    """One config at full width in bf16 through ``ServeLoop`` (``model``
+    when given, else the config's, seeded), its MoE layers under
+    ``use_group(group)`` when a group is given.  The launch counts are set
+    to 0 just before the run and read just after it."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels._build import LAUNCHES
     from repro_torch.models.model import LanguageModel
+    from repro_torch.moe.sharded import use_group
     from repro_torch.runtime.serve import Request, ServeLoop
 
-    cfg = get_config(arch)
-    model = LanguageModel(cfg, seed=0, device=dev)
+    if model is None:
+        model = LanguageModel(get_config(arch), seed=0, device=dev)
+    cfg = model.cfg
     rng = np.random.default_rng(0)
     lens = rng.integers(256, 2049, requests)
     if all(n % 64 == 0 for n in lens):
@@ -3341,7 +3446,8 @@ def lm_serve_phase(dev, arch: str, kernel: str, *, requests: int = 8,
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     t0 = time.perf_counter()
-    done = loop.run(reqs)
+    with use_group(group):
+        done = loop.run(reqs)
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     tokens = sum(len(r.generated) for r in done)
@@ -3353,10 +3459,13 @@ def lm_serve_phase(dev, arch: str, kernel: str, *, requests: int = 8,
                   for r in done)
           and loop.nonfinite_logits == 0 and launches == want)
     kernel_ms = prefill_kernel_ms(dev, cfg, kernel, lens)
-    emit("lm_prefill_trace", arch=arch, kernel=kernel, **traced_prefill(
-        dev, model, {"flash_attention": "flash_bf16_kernel",
-                     "ssd_chunk_dual": "ssd_bf16_kernel"}[kernel]))
+    with use_group(group):
+        emit("lm_prefill_trace", arch=arch, kernel=kernel, **traced_prefill(
+            dev, model, {"flash_attention": "flash_bf16_kernel",
+                         "ssd_chunk_dual": "ssd_bf16_kernel"}[kernel]))
     emit("lm_serve", arch=arch, card=nvidia_smi(), dtype=cfg.dtype,
+         num_layers=cfg.num_layers,
+         shards=None if group is None else group.num_shards,
          requests=requests,
          slots=slots, prompt_lens=[int(n) for n in lens], max_new=max_new,
          tokens=tokens, seconds=seconds, tok_per_s=tokens / seconds,
@@ -3374,6 +3483,314 @@ def lm_serve_phase(dev, arch: str, kernel: str, *, requests: int = 8,
     if not ok:
         raise AssertionError(f"{arch} serving run failed the checks")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# A15's serving side: deepseek's MLA and sharded MoE, vision, audio,
+# pad_heads
+# ---------------------------------------------------------------------------
+
+#: deepseek_v3_671b served at full width: its 3 dense layers and 1 MoE
+#: layer (of 61), no MTP block (serving never reads it; it would be a
+#: second 22.5 GB MoE block), its MoE layers over 8 shards held on the
+#: card (the config's moe_impl="shard_map")
+DEEPSEEK_CUT = dict(num_layers=4, mtp_depth=0)
+DEEPSEEK_SHARDS = 8
+#: one full-width MoE layer's dispatch over held shards against the
+#: single-device padded dispatch, bf16, as a share of the largest |y|:
+#: the same bf16 products; a token's K = 8 expert outputs are summed in
+#: bf16 a shard at a time and the shards' partial sums added in bf16 (as
+#: the reference's psum of bf16 partials), where the single-device
+#: dispatch sums all K at once: up to 8 roundings of 2^-9 of a running
+#: sum, which may exceed |y| where the terms cancel (1.4e-2 measured at
+#: smoke width on the CPU)
+MOE_SHARD_TOL = 4e-2
+#: granite's 40 experts padded for 16 shards
+GRANITE_SHARDS = 16
+#: the absorbed decode (scores over the compressed cache) against the
+#: expanded prefill's last position over the same tokens, float32, as a
+#: share of the largest logit: one function in two orders of sums
+MLA_DECODE_TOL = 1e-3
+#: the same in bf16, held to bf16's own effect on the answer: the RMS of
+#: decode - prefill (both bf16) at most this multiple of the RMS of the
+#: bf16 prefill's deviation from the float32 one.  A random-init MLA
+#: model is so conditioned in bf16 that both forms move 25-55% RMS from
+#: float32 (measured on the CPU at d 1024, 3 layers), so a bound on the
+#: bf16 gap alone would be noise
+MLA_DECODE_BF16_FACTOR = 3
+#: pad_heads against the unpadded model on the same weights, float32, a
+#: layer's output as a share of its largest magnitude
+#: (tests/test_head_padding.py's 5e-4)
+PAD_HEADS_TOL = 5e-4
+
+
+def deepseek_model(dev):
+    """deepseek_v3_671b at full width, bf16, cut by :data:`DEEPSEEK_CUT`,
+    seeded, on the card; with the seconds its weights took and the host's
+    free memory before them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LanguageModel, model_param_specs
+    from repro_torch.models.params import param_count
+    full = get_config("deepseek_v3_671b")
+    cfg = dataclasses.replace(full, **DEEPSEEK_CUT)
+    free = host_free_gb()
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, seed=0, device=dev)
+    emit("deepseek_model", num_layers=cfg.num_layers,
+         reduced={k: [getattr(full, k), v] for k, v in DEEPSEEK_CUT.items()},
+         params=param_count(model_param_specs(cfg)),
+         init_seconds=time.perf_counter() - t0, host_free_gb_before=free,
+         device_gb=torch.cuda.memory_allocated(dev) / 1e9)
+    return model
+
+
+def moe_sharded_phase(dev, model, reps: int = 3) -> None:
+    """One full-width deepseek MoE layer (``model``'s, bf16, 256 experts
+    top 8, expert d_ff 2048) on 2048 seeded tokens at a capacity where
+    nothing drops: ``sharded_moe_dispatch`` and ``ep_global_dispatch``
+    over :data:`DEEPSEEK_SHARDS` held shards against the single-device
+    ``padded`` dispatch; then granite's 40 experts padded to 48 over
+    :data:`GRANITE_SHARDS` shards.  Each timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.shard import shard_group
+    from repro_torch.models.moe import moe_specs
+    from repro_torch.models.params import init_params
+    from repro_torch.moe import balancing as mb
+    from repro_torch.moe import sharded as sh
+
+    def case(name, cfg, x, router, experts, shards, pad=False):
+        """Route once (on the padded logits where ``pad``), then the
+        single-device dispatch over the real experts against the
+        sharded ones over the (padded) experts."""
+        num_experts = cfg.num_experts
+        logits = x.float() @ router
+        wp, ep = experts, num_experts
+        if pad:
+            wp, logits, ep = sh.pad_experts(experts, logits, num_experts,
+                                            shards)
+        w, ids, _ = mb.topk_route(logits, cfg.experts_per_token)
+        loads = torch.bincount(ids.reshape(-1), minlength=num_experts)
+        cap = int(loads.max())
+        want, stats = mb.moe_dispatch(x, ids, w, experts,
+                                      num_experts=num_experts,
+                                      capacity=cap, method="padded")
+        group = shard_group(shards, dev)
+        runs = {"single": lambda: mb.moe_dispatch(
+            x, ids, w, experts, num_experts=num_experts, capacity=cap,
+            method="padded")[0],
+            "sharded": lambda: sh.sharded_moe_dispatch(
+                x, ids, w, wp, group=group, num_experts=ep, capacity=cap)}
+        if not pad:
+            runs["ep_global"] = lambda: sh.ep_global_dispatch(
+                x, ids, w, wp, group=group, num_experts=ep, capacity=cap)
+        scale = float(want.float().abs().max())
+        out = dict(case=name, tokens=x.shape[1], experts=num_experts,
+                   padded_experts=ep, shards=shards, capacity=cap,
+                   dropped_frac=float(stats["dropped_frac"]),
+                   tolerance=MOE_SHARD_TOL, scale=scale)
+        ok = float(stats["dropped_frac"]) == 0.0
+        for key, fn in runs.items():
+            got = fn()
+            err = float((got.float() - want.float()).abs().max())
+            rms = float((got.float() - want.float()).pow(2).mean().sqrt()
+                        / want.float().pow(2).mean().sqrt())
+            out[key] = dict(max_abs_err=err, rel_err=err / scale,
+                            rms_rel=rms, ms=time_ms(fn, reps=reps))
+            ok = ok and err <= MOE_SHARD_TOL * scale
+        out["ok"] = ok
+        emit("moe_sharded", **out)
+        if not ok:
+            raise AssertionError(f"{name}: sharded dispatch != single")
+
+    g = torch.Generator().manual_seed(1)
+    moe = model.layers[3]["moe"]
+    x = torch.randn(1, 2048, model.cfg.d_model, generator=g).to(
+        dev, torch.bfloat16)
+    case("deepseek_v3_671b", model.cfg, x, moe["router"],
+         dict(moe["experts"].items()), DEEPSEEK_SHARDS)
+    gcfg = get_config("granite_moe_3b_a800m")
+    params = init_params(moe_specs(gcfg), torch.Generator().manual_seed(0))
+    x = torch.randn(1, 2048, gcfg.d_model, generator=g).to(
+        dev, torch.bfloat16)
+    case("granite_moe_3b_a800m", gcfg, x, params["router"].to(dev),
+         {k: v.to(dev) for k, v in params["experts"].items()},
+         GRANITE_SHARDS, pad=True)
+
+
+def mla_decode_check(model, prompt, steps: int = 4) -> dict:
+    """``model`` (float32, MLA, no MoE layer) and its bf16 copy: decode
+    step t's logits (absorbed, over the compressed cache) against a
+    prefill's last-position logits over the same t + 1 tokens (the
+    latents expanded, B4), for ``steps`` steps after ``prompt`` [1, S].
+    float32 within :data:`MLA_DECODE_TOL` of the largest logit; bf16
+    within :data:`MLA_DECODE_BF16_FACTOR` times the bf16 prefill's RMS
+    deviation from the float32 prefill."""
+    import torch
+    from repro_torch.models.model import model_param_specs
+    from repro_torch.models.params import leaves
+    m16 = copy.deepcopy(model)
+    m16.cfg = dataclasses.replace(model.cfg, dtype="bfloat16")
+    dtypes = {p: s.torch_dtype
+              for p, s in leaves(model_param_specs(m16.cfg))}
+    with torch.no_grad():
+        for path, param in leaves(m16.param_tree()):
+            param.data = param.data.to(dtypes[path])
+    S = prompt.shape[1] - steps
+    runs = {}
+    for name, m in (("float32", model), ("bfloat16", m16)):
+        cache = m.new_cache(1, prompt.shape[1])
+        m(prompt[:, :S], cache=cache)
+        dec, pre = [], []
+        for t in range(S, S + steps):
+            dec.append(m.decode_step(cache, prompt[:, t:t + 1], t)[0][0, 0]
+                       .float())
+            pre.append(m(prompt[:, :t + 1])[0][0, -1].float())
+        runs[name] = (dec, pre)
+    del m16
+
+    def rms(a, b):
+        return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+    (d32, p32), (d16, p16) = runs["float32"], runs["bfloat16"]
+    err32 = [float((a - b).abs().max() / b.abs().max())
+             for a, b in zip(d32, p32)]
+    gap16 = [rms(a, b) for a, b in zip(d16, p16)]
+    floor16 = [rms(a, b) for a, b in zip(p16, p32)]
+    ok = (max(err32) <= MLA_DECODE_TOL and all(
+        g <= MLA_DECODE_BF16_FACTOR * f for g, f in zip(gap16, floor16)))
+    out = dict(prompt=S, steps=steps, float32_rel_err=err32,
+               float32_tolerance=MLA_DECODE_TOL, bf16_rms_gap=gap16,
+               bf16_rms_vs_float32_prefill=floor16,
+               bf16_factor=MLA_DECODE_BF16_FACTOR, argmax_equal_bf16=[
+                   int(a.argmax()) == int(b.argmax())
+                   for a, b in zip(d16, p16)], ok=ok)
+    emit("mla_decode_vs_prefill", **out)
+    if not ok:
+        raise AssertionError("absorbed decode != expanded prefill")
+    return out
+
+
+def lockstep_phase(dev, arch: str, *, batch: int = 4, prompt_len: int = 1024,
+                   steps: int = 16, **overrides) -> dict:
+    """A config the ``ServeLoop`` refuses (vision, audio), at full width
+    in bf16 (``overrides`` cut its depth), driven as the reference's
+    ``build_prefill_step``/``build_serve_step`` drive it: one batch
+    prefill of ``batch`` seeded prompts (and image embeddings), then
+    ``steps`` lockstep greedy decode steps.  The launch counts are set to
+    0 just before the run and read just after it: B4 once a layer and
+    once a cross layer of the prefill, none in decode."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.models.model import LanguageModel
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **overrides)
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, seed=0, device=dev)
+    open_gates(model)
+    init_s = time.perf_counter() - t0
+    prompt, vision = model_inputs(cfg, batch, prompt_len)
+    prompt = prompt.to(dev)
+    kw = {} if vision is None else {"vision_embeds": vision.to(dev)}
+    cache = model.new_cache(batch, prompt_len + steps)
+    torch.cuda.synchronize()
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    logits, cache = model(prompt, cache=cache, **kw)
+    nxt = logits[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    decode_s, finite = [], bool(torch.isfinite(logits).all())
+    for t in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, nxt, prompt_len + t)
+        nxt = logits[:, -1:].argmax(-1)
+        finite = finite and bool(torch.isfinite(logits).all())
+        decode_s.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    crosses = sum(cfg.layer_is_cross_attn(i) for i in range(cfg.num_layers))
+    want = {k: 0 for k in LAUNCHES}
+    want["flash_attention"] = cfg.num_layers + crosses
+    ok = finite and launches == want and int(nxt.max()) < cfg.vocab_size
+    emit("lm_lockstep", arch=arch, card=nvidia_smi(), dtype=cfg.dtype,
+         reduced={k: [getattr(full, k), v] for k, v in overrides.items()},
+         batch=batch, prompt=prompt_len, image_tokens=(
+             cfg.num_image_tokens if cfg.cross_attn_every else 0),
+         logits_shape=list(logits.shape), prefill_ms=prefill_s * 1e3,
+         decode_ms_median=statistics.median(decode_s) * 1e3,
+         decode_ms_all=[d * 1e3 for d in decode_s],
+         tok_per_s=batch * steps / sum(decode_s), init_seconds=init_s,
+         launches=launches, launches_expected=want, finite=finite, ok=ok)
+    if not ok:
+        raise AssertionError(f"{arch}: lockstep run failed the checks")
+    return launches
+
+
+def pad_heads_phase(dev, prompt_len: int = 512, num_layers: int = 4) -> None:
+    """granite_moe_3b_a800m at full width (``num_layers`` of 32, float32)
+    with ``pad_heads=True`` (B4 at 32 query slots over 16 KV heads, hd
+    64) against the unpadded model on the same weights (the padded
+    model's real query slots moved to the canonical order), on the card,
+    teacher-forced as :func:`lm_cpu_forced_phase` holds granite: each
+    layer of both takes the unpadded model's input to it, its output
+    within :data:`PAD_HEADS_TOL` of its largest magnitude and its
+    routing compared (a flip fails above :data:`ROUTE_GAP_TOL`).  The two
+    differ in the order of the output projection's sums (24 heads, or 32
+    slots with 8 zero pads, permuted); free-running, that float32 noise
+    reaches near-tie routes and attention rows (the free-running logits'
+    difference is printed)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.models.params import leaves
+
+    full = get_config("granite_moe_3b_a800m")
+    cfg0 = dataclasses.replace(full, dtype="float32", num_layers=num_layers)
+    cfg1 = dataclasses.replace(cfg0, pad_heads=True)
+    padded = LanguageModel(cfg1, seed=0, device=dev)
+    plain = LanguageModel(cfg0, seed=0, device=dev)
+    qmap = attn.q_head_map(cfg1)
+    sel = [i for i, h in enumerate(qmap) if h >= 0]
+    idx = torch.tensor(sel, device=dev)[
+        torch.argsort(torch.tensor([qmap[i] for i in sel]))]
+    canonical = dict(leaves(plain.param_tree()))
+    with torch.no_grad():
+        for path, param in leaves(padded.param_tree()):
+            if path.endswith("mixer.wq"):
+                param = param.index_select(1, idx)
+            elif path.endswith("mixer.wo"):
+                param = param.index_select(0, idx)
+            canonical[path].copy_(param)
+    prompt, _ = model_inputs(cfg0, 1, prompt_len, seed=5)
+    prompt = prompt.to(dev)
+    positions = torch.arange(prompt_len, dtype=torch.int32, device=dev)[None]
+    layer_err, routes = [], ([], [])
+    with torch.no_grad():
+        h = plain.embed_tokens(prompt)
+        for i in range(num_layers):
+            want, aux0 = plain._block(i, h, positions, None, "prefill", None)
+            got, aux1 = padded._block(i, h, positions, None, "prefill", None)
+            layer_err.append(float((got - want).abs().max()
+                                   / want.abs().max()))
+            moe_route(routes[0], i, aux1)
+            moe_route(routes[1], i, aux0)
+            h = want
+    routing = routing_compare(routes[0], [(i, lg.cpu(), ids.cpu()) for
+                                          i, lg, ids in routes[1]],
+                              cfg0.experts_per_token)
+    free = float((padded(prompt)[0] - plain(prompt)[0]).abs().max())
+    ok = max(layer_err) <= PAD_HEADS_TOL and not routing["failed"]
+    emit("pad_heads", arch="granite_moe_3b_a800m", layout=list(
+        attn.head_layout(cfg1)), num_layers=num_layers, prompt=prompt_len,
+         teacher_forced=True, layer_rel_err=layer_err,
+         tolerance=PAD_HEADS_TOL, routing_flips=routing["flips"],
+         free_running_max_abs_err=free, ok=ok)
+    if not ok:
+        raise AssertionError("pad_heads != the unpadded model")
 
 
 # ---------------------------------------------------------------------------
@@ -3405,7 +3822,8 @@ def analysis_phase(dev) -> None:
     for name, row in card.items():
         kernel = row["kernel"]
         if kernel == "flash_attention":
-            fp = smem.footprint(kernel, dtype=row["dtype"], hd=row["hd"])
+            fp = smem.footprint(kernel, dtype=row["dtype"], hd=row["hd"],
+                                hd_v=row["hd_v"])
         elif kernel == "ssd_chunk_dual":
             fp = smem.footprint(kernel, dtype=row["dtype"], shape=tuple(
                 row[key] for key in ("BN", "c", "H", "P", "N")))
@@ -3632,6 +4050,31 @@ def main() -> int:
                   ("qwen3_0_6b", "flash_attention"),
                   ("mamba2_780m", "ssd_chunk_dual"),
                   ("granite_moe_3b_a800m", "flash_attention"))}
+    # A15's serving side: one deepseek model for the sharded MoE layer,
+    # the serving run and the absorbed decode's check
+    from repro_torch.core.shard import shard_group
+    deepseek = timed("deepseek_model", deepseek_model, dev)
+    timed("moe_sharded", moe_sharded_phase, dev, deepseek)
+    group = shard_group(DEEPSEEK_SHARDS, dev)
+    served["deepseek_v3_671b"] = timed(
+        "lm_serve deepseek_v3_671b", lm_serve_phase, dev, "deepseek_v3_671b",
+        "flash_attention", model=deepseek, group=group)
+    del deepseek
+    torch.cuda.empty_cache()
+    # float32, card against CPU: one dense MLA layer (deepseek), one
+    # period with its cross layer (vision), 4 layers (audio)
+    timed("lm_cpu deepseek_v3_671b", lm_cpu_phase, dev, "deepseek_v3_671b",
+          512, rel_tol=1e-3, num_layers=1, mtp_depth=0)
+    # no qk-norm: held teacher-forced, and free-running beside the CPU's
+    # own conditioning, as granite is
+    for arch, layers in (("llama_3_2_vision_11b", 5), ("musicgen_large", 4)):
+        timed(f"lm_cpu {arch}", lm_cpu_forced_phase, dev, arch, 512,
+              num_layers=layers)
+    served["llama_3_2_vision_11b"] = timed(
+        "lm_lockstep llama_3_2_vision_11b", lockstep_phase, dev,
+        "llama_3_2_vision_11b", num_layers=10)
+    timed("lm_lockstep musicgen_large", lockstep_phase, dev, "musicgen_large")
+    timed("pad_heads granite_moe_3b_a800m", pad_heads_phase, dev)
     for row in lm_rows:   # each row's launches: its own config's serving run
         row["launches"] = served[row["config"]][row["name"]]
     rows += lm_rows

@@ -363,7 +363,7 @@ SSD_REPORT_SHAPE = (8, 256, 48, 64, 128)
 def attr_calls() -> dict:
     """Report row name -> (kernel, C entry point, its leading arguments,
     the row's shape): the six graph kernels, B4's kernel for each dtype
-    and head dim it takes, and B5's for each dtype at
+    and (q/k, v) head-dim pair it takes, and B5's for each dtype at
     :data:`SSD_REPORT_SHAPE`."""
     from repro_torch.kernels._build import DTYPE_CODES
     from repro_torch.kernels.flash_attention import HEAD_DIMS
@@ -371,10 +371,12 @@ def attr_calls() -> dict:
              for name, (fn, which) in _ATTR_KERNELS.items()}
     for dtype, code in sorted(DTYPE_CODES.items(), key=lambda kv: kv[1]):
         dname = str(dtype).rsplit(".", 1)[-1]
-        for hd in HEAD_DIMS:
-            calls[f"flash_attention {dname} hd{hd}"] = (
-                "flash_attention", "repro_flash_block_attrs", (code, hd),
-                dict(dtype=dname, hd=hd))
+        for hd, hd_v in HEAD_DIMS:
+            name = (f"flash_attention {dname} hd{hd}" if hd == hd_v else
+                    f"flash_attention {dname} hd{hd}/{hd_v}")
+            calls[name] = ("flash_attention", "repro_flash_block_attrs",
+                           (code, hd, hd_v), dict(dtype=dname, hd=hd,
+                                                  hd_v=hd_v))
         calls[f"ssd_chunk_dual {dname}"] = (
             "ssd_chunk_dual", "repro_ssd_block_attrs",
             (code, *SSD_REPORT_SHAPE),

@@ -309,6 +309,16 @@ class ShardGroup:
                              group=self.process_group)
         return t
 
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (one shape on every rank) concatenated along
+        axis 0 in rank order; ``t`` itself without a process group."""
+        if self.process_group is None:
+            return t
+        parts = [torch.empty_like(t) for _ in range(
+            tdist.get_world_size(self.process_group))]
+        tdist.all_gather(parts, t.contiguous(), group=self.process_group)
+        return torch.cat(parts)
+
     def fold(self, op: EdgeOp, proposals: list) -> torch.Tensor:
         """The monoid fold of the held shards' ``[N]`` proposals, then
         across ranks: the reference's ``_combine_proposal``.  Exact for

@@ -67,9 +67,10 @@ _SIGNATURES = {
                              _P],
     # prefix, f, cap_work, out, stream
     "repro_find_offsets": [_P, _I, _I, _P, _P],
-    # q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, causal, dtype, scale, stream
+    # q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, hd_v, causal, dtype, scale,
+    # stream
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, ctypes.c_float, _P],
+                              _I, _I, ctypes.c_float, _P],
     # xbar, cum, Bm, Cm, y, state, BN, c, H, P, N, dtype, stream
     "repro_ssd_chunk_dual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _P],
@@ -94,8 +95,8 @@ _SIGNATURES = {
     # which, out [ATTR_CELLS]: threads, static shared bytes, registers,
     # local bytes, blocks per SM, SMs, dynamic shared bytes requested
     "repro_relax_block_attrs": [_I, _OUT],
-    # dtype, hd, out
-    "repro_flash_block_attrs": [_I, _I, _OUT],
+    # dtype, hd, hd_v, out
+    "repro_flash_block_attrs": [_I, _I, _I, _OUT],
     # dtype, BN, c, H, P, N, out
     "repro_ssd_block_attrs": [_I, _I, _I, _I, _I, _I, _OUT],
     # coeffs (host, 9), count, degree_sum, m, out, stream

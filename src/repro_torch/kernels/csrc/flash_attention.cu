@@ -13,6 +13,12 @@
 //   * out = acc / max(l, 1e-30), rounded to q's dtype;
 //   * query head h reads KV head h / G, G = Hq / Hkv.
 //
+// Q and K have head dim HD, V and out HDV.  The instances are the pairs
+// (HD, HDV) of REPRO_FLASH_PAIRS: (32, 32), (64, 64) and (128, 128) for
+// GQA, (192, 128) for MLA's prefill (repro/models/attention.py:257-279:
+// q and k are [nope 128; rope 64], v is 128 wide), and (48, 32) for MLA
+// at the configs' smoke width.  Any other pair is refused.
+//
 // Two kernels, chosen by dtype (a fixed dispatch: neither falls back to
 // the other):
 //
@@ -32,8 +38,10 @@
 // rounded to bf16 pairs and become PV's A fragments in registers
 // (FlashAttention-2's layout), with V read by ldmatrix.trans.  Rows of
 // every shared tile are padded by 16 bytes, which keeps ldmatrix free of
-// bank conflicts.  Shared memory: 5 tiles of 64 x (hd+8) bf16, 87 KB at
-// hd = 128, so two blocks (8 warps) fit on an SM.  The query tile is 64
+// bank conflicts.  Shared memory: 3 tiles of 64 x (HD+8) bf16 (Q, two
+// stages of K) and 2 of 64 x (HDV+8) (V), 87 KB at 128/128 and 109 KB at
+// 192/128, so two blocks (8 warps) fit on an SM.  At 192/128 a thread
+// holds 48 registers of Q fragments and 64 of output accumulators.  The query tile is 64
 // packed rows: the serving path's prompts of 285-1781 tokens at 16/8 heads
 // give 72-448 blocks, 0.3-1.7 waves of 264 resident blocks on the 132 SMs,
 // and 128-row tiles (two m-tiles a warp, as FlashAttention-2 takes them)
@@ -49,8 +57,9 @@
 // query head, 64-row query tile) and walks 64-key tiles of K and V through
 // shared memory.  Thread (r, c) owns rows 4r..4r+3 of the tile and the
 // columns c, c+16, ...; a row's max and sum are reduced across a half-warp
-// with shuffles.  Shared memory: (2*(hd+4) + 68)*64*4 bytes, 85 KB at
-// hd = 128.
+// with shuffles.  Shared memory: (HD+4 + max(HD,HDV)+4 + 68)*64*4 bytes,
+// 85 KB at 128/128 and 115 KB at 192/128, where only one block fits an
+// SM (min_blocks: the launch bound asks for two where two fit).
 //
 // Causal tiles that lie wholly above the diagonal are skipped by both.
 // Key tile 0 holds position 0, which every row may see, so every row's
@@ -88,6 +97,15 @@ constexpr float NEG_INF = -1e30f;
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 
+// an SM's shared memory (228 KB) and what the runtime reserves a block:
+// a kernel's launch bound asks for two blocks a SM where two fit
+constexpr int SMEM_PER_SM = 233472;
+constexpr int SMEM_RESERVED = 1024;
+
+constexpr int min_blocks(size_t smem) {
+  return 2 * ((int)smem + SMEM_RESERVED) <= SMEM_PER_SM ? 2 : 1;
+}
+
 // max / sum over the 16 threads of a half-warp that share a row group
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
@@ -102,23 +120,27 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return (size_t)(2 * BQ * (HD + 4) + BQ * LDP) * sizeof(float);
+template <int HD, int HDV>
+constexpr size_t smem_bytes() {  // Q, K or V, and P
+  return (size_t)(BQ * (HD + 4) + BK * ((HD > HDV ? HD : HDV) + 4) +
+                  BQ * LDP) *
+         sizeof(float);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+template <int HD, int HDV>
+__global__ void __launch_bounds__(THREADS,
+                                  min_blocks(smem_bytes<HD, HDV>()))
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      int Hq, int Hkv, int Sq, int Sk, int causal,
                      float scale) {
-  constexpr int LD = HD + 4;   // row stride of the Q and K/V tiles (floats)
-  constexpr int NC = HD / 16;  // acc columns per thread
+  constexpr int LD = HD + 4;    // row stride of the Q and K tiles (floats)
+  constexpr int LDV = HDV + 4;  // row stride of the V tile
+  constexpr int NC = HDV / 16;  // acc columns per thread
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][LD], scaled q
-  float* KVs = Qs + BQ * LD;                    // [BK][LD], K then V
-  float* Ps = KVs + BK * LD;                    // [BQ][LDP]
+  float* KVs = Qs + BQ * LD;  // [BK][LD] K, then [BK][LDV] V
+  float* Ps = KVs + BK * (LD > LDV ? LD : LDV);  // [BQ][LDP]
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal walks first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -126,8 +148,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int q0 = qt * BQ;
   const float* qh = q + ((size_t)b * Hq + h) * Sq * HD;
   const float* kh = k + ((size_t)b * Hkv + hk) * Sk * HD;
-  const float* vh = v + ((size_t)b * Hkv + hk) * Sk * HD;
-  float* oh = out + ((size_t)b * Hq + h) * Sq * HD;
+  const float* vh = v + ((size_t)b * Hkv + hk) * Sk * HDV;
+  float* oh = out + ((size_t)b * Hq + h) * Sq * HDV;
 
   const int tid = threadIdx.x;
   const int r = tid >> 4;   // rows 4r .. 4r+3
@@ -217,10 +239,10 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     __syncthreads();  // all logits read KVs as K; all of P written
 
-    for (int idx = tid; idx < BK * HD; idx += THREADS) {
-      const int j = idx / HD, d = idx % HD;
+    for (int idx = tid; idx < BK * HDV; idx += THREADS) {
+      const int j = idx / HDV, d = idx % HDV;
       const int kj = k0 + j;
-      KVs[j * LD + d] = kj < Sk ? vh[(size_t)kj * HD + d] : 0.f;
+      KVs[j * LDV + d] = kj < Sk ? vh[(size_t)kj * HDV + d] : 0.f;
     }
     __syncthreads();
 
@@ -232,10 +254,10 @@ __global__ void __launch_bounds__(THREADS, 2)
         pa[a] = *reinterpret_cast<const float4*>(&Ps[(4 * r + a) * LDP + j]);
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float v0 = KVs[(j + 0) * LD + cg + 16 * c];
-        const float v1 = KVs[(j + 1) * LD + cg + 16 * c];
-        const float v2 = KVs[(j + 2) * LD + cg + 16 * c];
-        const float v3 = KVs[(j + 3) * LD + cg + 16 * c];
+        const float v0 = KVs[(j + 0) * LDV + cg + 16 * c];
+        const float v1 = KVs[(j + 1) * LDV + cg + 16 * c];
+        const float v2 = KVs[(j + 2) * LDV + cg + 16 * c];
+        const float v3 = KVs[(j + 3) * LDV + cg + 16 * c];
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           acc[a][c] = fmaf(pa[a].x, v0, acc[a][c]);
@@ -254,7 +276,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     const float den = fmaxf(l[a], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      oh[(size_t)qi * HD + cg + 16 * c] = acc[a][c] / den;
+      oh[(size_t)qi * HDV + cg + 16 * c] = acc[a][c] / den;
   }
 }
 
@@ -267,13 +289,16 @@ constexpr int TC_THREADS = 32 * TC_WARPS;
 constexpr int TC_ROWS = 16 * TC_WARPS;  // packed rows per block
 constexpr int TC_KEYS = 64;             // keys per K/V tile
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t tc_smem_bytes() {  // Q, and K and V in two stages each
-  return (size_t)(TC_ROWS + 4 * TC_KEYS) * (HD + 8) * sizeof(__nv_bfloat16);
+  return (size_t)((TC_ROWS + 2 * TC_KEYS) * (HD + 8) +
+                  2 * TC_KEYS * (HDV + 8)) *
+         sizeof(__nv_bfloat16);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(TC_THREADS, 2)
+template <int HD, int HDV>
+__global__ void __launch_bounds__(TC_THREADS,
+                                  min_blocks(tc_smem_bytes<HD, HDV>()))
     flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -281,22 +306,24 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
                       int Sq, int Sk, int causal, float scale) {
   using namespace repro_mma;
   using bf16 = __nv_bfloat16;
-  constexpr int LDS = HD + 8;     // row stride of every tile (bf16)
-  constexpr int CHUNKS = HD / 8;  // 16-byte chunks of a row
-  constexpr int KS = HD / 16;     // k-steps of QK^T
-  constexpr int NT = HD / 8;      // 8-column tiles of the output
+  constexpr int LDS = HD + 8;      // row stride of the Q and K tiles
+  constexpr int LDSV = HDV + 8;    // row stride of the V tiles (bf16)
+  constexpr int CHUNKS = HD / 8;   // 16-byte chunks of a Q or K row
+  constexpr int KS = HD / 16;      // k-steps of QK^T
+  constexpr int NT = HDV / 8;      // 8-column tiles of the output
   constexpr int TILE = TC_KEYS * LDS;
+  constexpr int TILE_V = TC_KEYS * LDSV;
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [TC_ROWS][LDS]
   bf16* Ks = Qs + TC_ROWS * LDS;              // [2][TC_KEYS][LDS]
-  bf16* Vs = Ks + 2 * TILE;                   // [2][TC_KEYS][LDS]
+  bf16* Vs = Ks + 2 * TILE;                   // [2][TC_KEYS][LDSV]
 
   const int G = Hq / Hkv;
   const int rows = G * Sq;                                   // packed rows
   const int m0 = (gridDim.x - 1 - blockIdx.x) * TC_ROWS;  // longest first
   const int hk = blockIdx.y, b = blockIdx.z;
   const bf16* kh = k + ((size_t)b * Hkv + hk) * Sk * HD;
-  const bf16* vh = v + ((size_t)b * Hkv + hk) * Sk * HD;
+  const bf16* vh = v + ((size_t)b * Hkv + hk) * Sk * HDV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   for (int idx = tid; idx < TC_ROWS * CHUNKS; idx += TC_THREADS) {
@@ -308,12 +335,16 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
                q + (((size_t)b * Hq + hk * G + g) * Sq + qi) * HD + ch * 8,
                ok);
   }
-  auto load_tile = [&](bf16* dst, const bf16* src, int k0) {
-    for (int idx = tid; idx < TC_KEYS * CHUNKS; idx += TC_THREADS) {
-      const int r = idx / CHUNKS, ch = idx % CHUNKS;
+  // a tile of TC_KEYS rows of `width` (HD for K, HDV for V) into rows of
+  // stride `ld`
+  auto load_tile = [&](bf16* dst, const bf16* src, int k0, int width,
+                       int ld) {
+    const int chunks = width / 8;
+    for (int idx = tid; idx < TC_KEYS * chunks; idx += TC_THREADS) {
+      const int r = idx / chunks, ch = idx % chunks;
       const bool ok = k0 + r < Sk;
-      cp_async16(dst + r * LDS + ch * 8,
-                 src + (size_t)(ok ? k0 + r : 0) * HD + ch * 8, ok);
+      cp_async16(dst + r * ld + ch * 8,
+                 src + (size_t)(ok ? k0 + r : 0) * width + ch * 8, ok);
     }
   };
 
@@ -323,9 +354,9 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   if (causal)  // tiles past the block's last query are all masked
     n_tiles = min(n_tiles, (min(m0 + TC_ROWS, rows) - 1) / G / TC_KEYS + 1);
 
-  load_tile(Ks, kh, 0);
+  load_tile(Ks, kh, 0, HD, LDS);
   cp_async_commit();  // group: Q and K tile 0
-  load_tile(Vs, vh, 0);
+  load_tile(Vs, vh, 0, HDV, LDSV);
   cp_async_commit();  // group: V tile 0
   cp_async_wait<1>();
   __syncthreads();
@@ -355,10 +386,10 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 
   for (int t = 0; t < n_tiles; ++t) {
     const bf16* Kt = Ks + (t & 1) * TILE;
-    const bf16* Vt = Vs + (t & 1) * TILE;
+    const bf16* Vt = Vs + (t & 1) * TILE_V;
     const bool more = t + 1 < n_tiles;
     if (more) {  // K of t+1 into the stage K of t-1 left
-      load_tile(Ks + ((t + 1) & 1) * TILE, kh, (t + 1) * TC_KEYS);
+      load_tile(Ks + ((t + 1) & 1) * TILE, kh, (t + 1) * TC_KEYS, HD, LDS);
       cp_async_commit();
     }
 
@@ -424,7 +455,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
       cp_async_wait<0>();
     __syncthreads();  // V of t visible; every warp is past PV of t-1
     if (more) {  // V of t+1 into the stage V of t-1 left
-      load_tile(Vs + ((t + 1) & 1) * TILE, vh, (t + 1) * TC_KEYS);
+      load_tile(Vs + ((t + 1) & 1) * TILE_V, vh, (t + 1) * TC_KEYS, HDV,
+                LDSV);
       cp_async_commit();
     }
 
@@ -439,7 +471,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
       for (int dp = 0; dp < NT / 2; ++dp) {
         uint32_t vb[4];
         ldsm_x4_t(vb, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                               LDS +
+                               LDSV +
                           dp * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
         mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
@@ -460,7 +492,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
     const int m = r0 + 8 * a;
     if (m >= rows) continue;
     const float den = fmaxf(l, 1e-30f);
-    bf16* dst = out + (((size_t)b * Hq + hk * G + m % G) * Sq + m / G) * HD;
+    bf16* dst = out + (((size_t)b * Hq + hk * G + m % G) * Sq + m / G) * HDV;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
       *reinterpret_cast<uint32_t*>(dst + nt * 8 + tq) =
@@ -468,35 +500,35 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Hq, int Hkv, int Sq, int Sk, int causal, float scale,
                cudaStream_t st) {
-  const size_t bytes = smem_bytes<HD>();
+  const size_t bytes = smem_bytes<HD, HDV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_f32_kernel<HD><<<grid, THREADS, bytes, st>>>(
+  flash_f32_kernel<HD, HDV><<<grid, THREADS, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Sq,
       Sk, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int B, int Hq, int Hkv, int Sq, int Sk, int causal,
                 float scale, cudaStream_t st) {
-  const size_t bytes = tc_smem_bytes<HD>();
+  const size_t bytes = tc_smem_bytes<HD, HDV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bf16_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)(Hq / Hkv) * Sq;
   dim3 grid((unsigned)((rows + TC_ROWS - 1) / TC_ROWS), Hkv, B);
-  flash_bf16_kernel<HD><<<grid, TC_THREADS, bytes, st>>>(
+  flash_bf16_kernel<HD, HDV><<<grid, TC_THREADS, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -504,34 +536,36 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// the (HD, HDV) instances: any other pair is refused
+#define REPRO_FLASH_PAIRS(X) \
+  X(32, 32) X(64, 64) X(128, 128) X(48, 32) X(192, 128)
+
 #define REPRO_FLASH_ARGS q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, scale, st
 
-int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
-             void* out, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
-             float scale, cudaStream_t st) {
-  if (dtype == DTYPE_F32) switch (hd) {
-      case 32: return launch_f32<32>(REPRO_FLASH_ARGS);
-      case 64: return launch_f32<64>(REPRO_FLASH_ARGS);
-      case 128: return launch_f32<128>(REPRO_FLASH_ARGS);
-    }
-  if (dtype == DTYPE_BF16) switch (hd) {
-      case 32: return launch_bf16<32>(REPRO_FLASH_ARGS);
-      case 64: return launch_bf16<64>(REPRO_FLASH_ARGS);
-      case 128: return launch_bf16<128>(REPRO_FLASH_ARGS);
-    }
+int dispatch(int dtype, int hd, int hd_v, const void* q, const void* k,
+             const void* v, void* out, int B, int Hq, int Hkv, int Sq,
+             int Sk, int causal, float scale, cudaStream_t st) {
+#define REPRO_FLASH_CASE(HD, HDV)                                 \
+  if (hd == HD && hd_v == HDV) {                                  \
+    if (dtype == DTYPE_F32) return launch_f32<HD, HDV>(REPRO_FLASH_ARGS);  \
+    if (dtype == DTYPE_BF16) return launch_bf16<HD, HDV>(REPRO_FLASH_ARGS); \
+  }
+  REPRO_FLASH_PAIRS(REPRO_FLASH_CASE)
+#undef REPRO_FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }
 
 #undef REPRO_FLASH_ARGS
 
-template <int HD>
+template <int HD, int HDV>
 int attrs(int dtype, int* out) {
   if (dtype == DTYPE_F32)
-    return (int)repro_block_attrs((const void*)flash_f32_kernel<HD>, THREADS,
-                                  (int)smem_bytes<HD>(), out);
+    return (int)repro_block_attrs((const void*)flash_f32_kernel<HD, HDV>,
+                                  THREADS, (int)smem_bytes<HD, HDV>(), out);
   if (dtype == DTYPE_BF16)
-    return (int)repro_block_attrs((const void*)flash_bf16_kernel<HD>,
-                                  TC_THREADS, (int)tc_smem_bytes<HD>(), out);
+    return (int)repro_block_attrs((const void*)flash_bf16_kernel<HD, HDV>,
+                                  TC_THREADS, (int)tc_smem_bytes<HD, HDV>(),
+                                  out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -539,30 +573,30 @@ int attrs(int dtype, int* out) {
 
 extern "C" {
 
-// q [B,Hq,Sq,hd], k/v [B,Hkv,Sk,hd], out [B,Hq,Sq,hd], contiguous, all of
-// dtype `dtype` (0 f32: CUDA-core kernel, 1 bf16: tensor-core kernel); hd
-// in {32, 64, 128}; Hq % Hkv == 0; B, Hq < 65536; Sq, Sk >= 1.  `scale` is
-// hd^-0.5 rounded to the dtype.
+// q [B,Hq,Sq,hd], k [B,Hkv,Sk,hd], v [B,Hkv,Sk,hd_v], out [B,Hq,Sq,hd_v],
+// contiguous, all of dtype `dtype` (0 f32: CUDA-core kernel, 1 bf16:
+// tensor-core kernel); (hd, hd_v) one of REPRO_FLASH_PAIRS; Hq % Hkv == 0;
+// B, Hq < 65536; Sq, Sk >= 1.  `scale` is the logits' scale rounded to the
+// dtype (hd^-0.5 unless the caller gives its own).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* out, int B, int Hq, int Hkv, int Sq, int Sk,
-                          int hd, int causal, int dtype, float scale,
-                          void* stream) {
+                          int hd, int hd_v, int causal, int dtype,
+                          float scale, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 ||
       B > 65535 || Hq > 65535)
     return (int)cudaErrorInvalidValue;
-  return dispatch(dtype, hd, q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, scale,
-                  (cudaStream_t)stream);
+  return dispatch(dtype, hd, hd_v, q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,
+                  scale, (cudaStream_t)stream);
 }
 
-// The block of the kernel a call of `dtype` and head dim `hd` launches,
-// with the dynamic shared bytes its launcher requests: out [ATTR_CELLS] as
-// repro_block_attrs (attrs.cuh).
-int repro_flash_block_attrs(int dtype, int hd, int* out) {
-  switch (hd) {
-    case 32: return attrs<32>(dtype, out);
-    case 64: return attrs<64>(dtype, out);
-    case 128: return attrs<128>(dtype, out);
-  }
+// The block of the kernel a call of `dtype` and head dims (`hd`, `hd_v`)
+// launches, with the dynamic shared bytes its launcher requests: out
+// [ATTR_CELLS] as repro_block_attrs (attrs.cuh).
+int repro_flash_block_attrs(int dtype, int hd, int hd_v, int* out) {
+#define REPRO_FLASH_CASE(HD, HDV) \
+  if (hd == HD && hd_v == HDV) return attrs<HD, HDV>(dtype, out);
+  REPRO_FLASH_PAIRS(REPRO_FLASH_CASE)
+#undef REPRO_FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }
 

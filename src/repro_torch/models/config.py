@@ -127,8 +127,7 @@ class ModelConfig:
             i % self.cross_attn_every == self.cross_attn_every - 1)
 
     def num_params(self) -> int:
-        """Parameter count from the port's own parameter specs (raises
-        for the families the port does not build yet)."""
+        """Parameter count from the port's own parameter specs."""
         from repro_torch.models.model import model_param_specs
         from repro_torch.models.params import param_count
         return param_count(model_param_specs(self))

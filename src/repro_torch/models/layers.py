@@ -1,5 +1,6 @@
 """Shared layer primitives (the counterpart of :mod:`repro.models.layers`):
-RMSNorm, RoPE, causal attention through the B4 kernel, single-position
+RMSNorm, RoPE, whole-prompt attention through the B4 kernel (causal or
+not, with its own scale and a V narrower than Q and K), single-position
 decode attention, and the FFN.
 
 Layers are plain functions over tensors and parameter dicts; the matching
@@ -46,29 +47,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, scale=None) -> torch.Tensor:
+    """GQA attention of a whole prompt: q [B,Hq,Sq,hd], k [B,Hkv,Sk,hd],
+    v [B,Hkv,Sk,hdv] -> [B,Hq,Sq,hdv]; causal (top-left) or not; q times
+    ``scale`` (default ``hd^-0.5``) in q's dtype.  Stands where the
+    reference calls ``blocked_attention`` (its XLA oracle of the Pallas
+    kernel) and computes the same function through B4: the CUDA kernel on
+    the card, its plain version on the CPU."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, scale=scale)
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
-    """GQA causal attention of a whole prompt: q [B,Hq,S,hd], k/v
-    [B,Hkv,S,hd].  Stands where the reference calls ``blocked_attention``
-    (its XLA oracle of the Pallas kernel) and computes the same function
-    through B4: the CUDA kernel on the card, its plain version on the
-    CPU."""
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=True)
+    """:func:`attention` of a prompt over itself, causal, default scale."""
+    return attention(q, k, v, causal=True)
 
 
-def decode_attention(q, k_cache, v_cache, length) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, length, *,
+                     scale=None) -> torch.Tensor:
     """Single-position attention against a KV cache, as plain tensor code
     (the reference has no kernel for it).
 
-    q [B,Hq,1,hd]; caches [B,Hkv,S,hd]; length = #valid cache slots, an int
-    or a per-sequence [B] tensor (continuous batching serves ragged
-    slots)."""
+    q [B,Hq,1,hd]; caches [B,Hkv,S,hd] and [B,Hkv,S,hdv]; length = #valid
+    cache slots, an int or a per-sequence [B] tensor (continuous batching
+    serves ragged slots); ``scale`` default ``hd^-0.5``."""
     B, Hq, _, hd = q.shape
     _, Hkv, S, hdv = v_cache.shape
     G = Hq // Hkv
-    scale = torch.tensor(hd ** -0.5, dtype=q.dtype)  # the reference's
-    qg = q.reshape(B, Hkv, G, hd) * scale             # rounding of q·scale
+    scale = torch.tensor(hd ** -0.5 if scale is None else scale,
+                         dtype=q.dtype)                # the reference's
+    qg = q.reshape(B, Hkv, G, hd) * scale              # rounding of q·scale
     s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float())
     length_b = torch.as_tensor(length, device=q.device).expand(B)
     mask = (torch.arange(S, device=q.device)[None, None, None, :]

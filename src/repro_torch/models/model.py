@@ -1,16 +1,23 @@
-"""LanguageModel: the dense-attention, SSM, MoE and hybrid stacks of
-:mod:`repro.models.model` as an ``nn.Module`` holding its weights.
+"""LanguageModel: every family of :mod:`repro.models.model` (dense, MoE,
+SSM, hybrid, vision, audio) as an ``nn.Module`` holding its weights, for
+serving.
 
-Every layer is ``ln1 → mixer → ln2 → ffn`` with residuals; the mixer is
-GQA attention or Mamba-2 by ``cfg.layer_kind``, and the FFN is the MoE
-layer (:func:`repro_torch.models.moe.moe_ffn`, the dispatch policy
-``cfg.moe_balance``) where ``cfg.layer_is_moe``, else the dense FFN.  The
-layers run as a Python loop over per-layer weights (the reference stacks
-its periodic body and scans it; :meth:`LanguageModel.structure` gives that
+Every layer is ``ln1 → mixer → [ln_cross → cross] → ln2 → ffn`` with
+residuals.  The mixer is GQA attention (``pad_heads`` included), MLA
+(``cfg.attention == "mla"``) or Mamba-2 by ``cfg.layer_kind``; a layer
+where ``cfg.layer_is_cross_attn`` adds the gated cross-attention over the
+vision embeddings; the FFN is the MoE layer
+(:func:`repro_torch.models.moe.moe_ffn`) where ``cfg.layer_is_moe``, else
+the dense FFN.  The audio family embeds ``[B,S,K]`` codebook tokens as the
+sum of ``K`` embeddings and unembeds to ``[B,S,K,V]`` logits.  The layers
+run as a Python loop over per-layer weights (the reference stacks its
+periodic body and scans it; :meth:`LanguageModel.structure` gives that
 period, which :func:`repro_torch.models.params.from_reference` needs to
-read the reference's stacked tree).  MLA, cross-attention, the audio and
-vision frontends, multi-token prediction, ``pad_heads`` and training are
-not ported yet (ROADMAP A15) and raise ``NotImplementedError``.
+read the reference's stacked tree).  The multi-token-prediction block
+(``cfg.mtp_depth``) is held, so the parameter tree is the reference's
+whole; only the training loss reads it, and training is not ported yet
+(ROADMAP A15): ``mode="train"`` and :meth:`LanguageModel.loss` raise
+``NotImplementedError``.
 
 A zero-width FFN (``d_ff = 0``, as mamba2_780m has) is kept: it adds
 exact zeros after ``ln2``, as in the reference.
@@ -31,55 +38,77 @@ from repro_torch.models.layers import ffn, ffn_specs, rmsnorm, rmsnorm_specs
 from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.models.params import ParamSpec, init_params, map_tree
 
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A15)")
+#: the modes the port runs
+MODES = ("prefill", "decode")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not build yet."""
-    if cfg.attention == "mla":
-        _not_ported("MLA (multi-head latent attention)")
-    if cfg.cross_attn_every:
-        _not_ported("cross-attention (the vision layers)")
-    if cfg.frontend is not None:
-        _not_ported(f"the {cfg.frontend} frontend")
-    if cfg.mtp_depth:
-        _not_ported("multi-token prediction")
-    if cfg.pad_heads:
-        _not_ported("pad_heads (the padded GQA head layout)")
+def check_supported(cfg: ModelConfig, mode: str = "prefill") -> None:
+    """Raise for what the port does not run yet: training (the trainer,
+    the optimizer and the loss with MTP's, ROADMAP A15).  Every config is
+    served."""
+    if mode not in MODES:
+        raise NotImplementedError(
+            f"{cfg.name}: mode={mode!r} (training: trainer, optim, the "
+            f"loss with MTP's) is not ported to repro_torch yet "
+            f"(ROADMAP A15)")
 
 
-def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
-    block = {
-        "ln1": rmsnorm_specs(cfg.d_model),
-        "mixer": (attn.gqa_specs(cfg) if kind == "attn"
-                  else mb.mamba_specs(cfg)),
-        "ln2": rmsnorm_specs(cfg.d_model),
-    }
+def layer_sigs(cfg: ModelConfig) -> list:
+    """Each layer's ``(kind, is_moe, is_cross)``: the reference's
+    ``LayerSig``."""
+    return [(cfg.layer_kind(i), cfg.layer_is_moe(i),
+             cfg.layer_is_cross_attn(i)) for i in range(cfg.num_layers)]
+
+
+def block_specs(cfg: ModelConfig, kind: str, is_moe: bool,
+                is_cross: bool = False) -> dict:
+    if kind != "attn":
+        mixer = mb.mamba_specs(cfg)
+    elif cfg.attention == "mla":
+        mixer = attn.mla_specs(cfg)
+    else:
+        mixer = attn.gqa_specs(cfg)
+    block = {"ln1": rmsnorm_specs(cfg.d_model), "mixer": mixer,
+             "ln2": rmsnorm_specs(cfg.d_model)}
     if is_moe:
         block["moe"] = moe_specs(cfg)
     else:
         block["ffn"] = ffn_specs(cfg.d_model, cfg.d_ff,
                                  activation=cfg.ffn_activation,
                                  dtype=cfg.dtype)
+    if is_cross:
+        block["ln_cross"] = rmsnorm_specs(cfg.d_model)
+        block["cross"] = attn.cross_attn_specs(cfg)
     return block
 
 
 def model_param_specs(cfg: ModelConfig) -> dict:
-    """The spec tree: ``embed``, ``final_norm``, ``layers`` (one block per
-    layer) and ``lm_head`` unless the embeddings are tied."""
-    check_supported(cfg)
+    """The spec tree: ``embed`` ([V,D], audio [K,V,D]), ``final_norm``,
+    ``layers`` (one block per layer), ``lm_head`` ([D,V], audio [K,D,V])
+    unless the embeddings are tied, and ``mtp`` where ``cfg.mtp_depth``."""
     v, d = cfg.vocab_size, cfg.d_model
+    if cfg.family == "audio":
+        embed = ParamSpec((cfg.num_codebooks, v, d), cfg.dtype, "scaled",
+                          scale=d ** 0.5)
+        head = ParamSpec((cfg.num_codebooks, d, v), cfg.dtype, "scaled")
+    else:
+        embed = ParamSpec((v, d), cfg.dtype, "scaled", scale=d ** 0.5)
+        head = ParamSpec((d, v), cfg.dtype, "scaled")
+    sigs = layer_sigs(cfg)
     specs = {
-        "embed": ParamSpec((v, d), cfg.dtype, "scaled", scale=d ** 0.5),
+        "embed": embed,
         "final_norm": rmsnorm_specs(d),
-        "layers": [block_specs(cfg, cfg.layer_kind(i), cfg.layer_is_moe(i))
-                   for i in range(cfg.num_layers)],
+        "layers": [block_specs(cfg, *sig) for sig in sigs],
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((d, v), cfg.dtype, "scaled")
+        specs["lm_head"] = head
+    if cfg.mtp_depth:
+        specs["mtp"] = {
+            "norm_h": rmsnorm_specs(d),
+            "norm_e": rmsnorm_specs(d),
+            "proj": ParamSpec((2 * d, d), cfg.dtype, "scaled"),
+            "block": block_specs(cfg, *sigs[-1]),
+        }
     return specs
 
 
@@ -100,11 +129,19 @@ class ParamTree(nn.Module):
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def items(self):
+        return self.tree().items()
+
     def tree(self) -> dict:
         return {k: (v.tree() if isinstance(v, ParamTree) else v)
                 for k, v in {**dict(self.named_children()),
                              **dict(self.named_parameters(
                                  recurse=False))}.items()}
+
+
+def _zeros(specs: dict, device) -> dict:
+    return map_tree(lambda _, s: torch.zeros(s.shape, dtype=s.torch_dtype,
+                                             device=device), specs)
 
 
 class LanguageModel(nn.Module):
@@ -115,11 +152,12 @@ class LanguageModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
-        self.kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
-        self.is_moe = [cfg.layer_is_moe(i) for i in range(cfg.num_layers)]
+        self.sigs = layer_sigs(cfg)
+        self.kinds = [sig[0] for sig in self.sigs]
+        self.is_moe = [sig[1] for sig in self.sigs]
+        self.is_cross = [sig[2] for sig in self.sigs]
         params = init_params(model_param_specs(cfg),
                              torch.Generator().manual_seed(seed))
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
@@ -128,6 +166,8 @@ class LanguageModel(nn.Module):
         if "lm_head" in params:
             self.lm_head = nn.Parameter(params["lm_head"],
                                         requires_grad=False)
+        if "mtp" in params:
+            self.mtp = ParamTree(params["mtp"])
         self.to(dev)
 
     @property
@@ -145,18 +185,19 @@ class LanguageModel(nn.Module):
                 "layers": [blk.tree() for blk in self.layers]}
         if not self.cfg.tie_embeddings:
             tree["lm_head"] = self.lm_head
+        if self.cfg.mtp_depth:
+            tree["mtp"] = self.mtp.tree()
         return tree
 
     def structure(self) -> tuple[int, int]:
         """``(prefix_len, period)`` of the reference's layer program: the
-        smallest prefix + period after which the layers' signatures (mixer
-        kind, MoE or not) repeat."""
+        smallest prefix + period after which the layers' signatures
+        (mixer kind, MoE or not, cross-attention or not) repeat."""
         L = self.cfg.num_layers
-        sigs = list(zip(self.kinds, self.is_moe))
         best, best_cost = (L, 1), L + 1
         for period in range(1, L + 1):
             for prefix in range(L):
-                body = sigs[prefix:]
+                body = self.sigs[prefix:]
                 if len(body) % period:
                     continue
                 if prefix + period >= best_cost:
@@ -168,44 +209,81 @@ class LanguageModel(nn.Module):
 
     # ------------------------------------------------------------------
     def new_cache(self, batch: int, max_len: int) -> dict:
-        """A zeroed cache on the model's device: one dict per layer (GQA
-        ``k``/``v`` [batch,Hkv,max_len,hd]; Mamba ``ssm`` and conv
-        windows); every leaf has the batch on axis 0."""
+        """A zeroed cache on the model's device: one flat dict per layer
+        (GQA ``k``/``v`` [batch,Hkv,max_len,hd]; MLA ``c_kv``
+        [batch,max_len,kvr] and ``k_rope`` [batch,max_len,dr]; Mamba
+        ``ssm`` and conv windows; a cross layer also ``cross_k``/
+        ``cross_v`` [batch,Hkv,T,hd] of the image tokens); every leaf has
+        the batch on axis 0."""
         cfg = self.cfg
         layers = []
-        for kind in self.kinds:
-            specs = (attn.gqa_cache_specs(cfg, batch, max_len)
-                     if kind == "attn" else mb.mamba_cache_specs(cfg, batch))
-            layers.append(map_tree(
-                lambda _, s: torch.zeros(s.shape, dtype=s.torch_dtype,
-                                         device=self.device), specs))
+        for kind, _, is_cross in self.sigs:
+            if kind != "attn":
+                specs = mb.mamba_cache_specs(cfg, batch)
+            elif cfg.attention == "mla":
+                specs = attn.mla_cache_specs(cfg, batch, max_len)
+            else:
+                specs = attn.gqa_cache_specs(cfg, batch, max_len)
+            if is_cross:
+                specs.update({f"cross_{k}": s for k, s in
+                              attn.cross_cache_specs(cfg, batch).items()})
+            layers.append(_zeros(specs, self.device))
         return {"layers": layers}
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens].to(self.embed.dtype)
+        """tokens [B,S] -> [B,S,D]; audio [B,S,K] -> the sum of the K
+        codebooks' embeddings, in the embeddings' dtype."""
+        if self.cfg.family == "audio":
+            return sum(self.embed[k][tokens[..., k]]
+                       for k in range(self.cfg.num_codebooks))
+        return self.embed[tokens]
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
+        """[B,S,D] -> logits [B,S,V]; audio [B,S,K,V]."""
+        audio = self.cfg.family == "audio"
         if self.cfg.tie_embeddings:
+            if audio:
+                return torch.einsum("bsd,kvd->bskv", h, self.embed)
             return h @ self.embed.T
+        if audio:
+            return torch.einsum("bsd,kdv->bskv", h, self.lm_head)
         return h @ self.lm_head
 
-    def _block(self, i: int, h, positions, cache, mode: str, position):
+    def _mixer(self, i: int, hn, positions, c, mode: str, position):
+        cfg, p, kind = self.cfg, self.layers[i]["mixer"], self.kinds[i]
+        if kind != "attn":
+            if mode == "decode":
+                return mb.mamba_decode(p, cfg, hn, c)[0]
+            return mb.mamba_forward(p, cfg, hn, c)[0]
+        if cfg.attention == "mla":
+            if mode == "decode":
+                return attn.mla_decode(p, cfg, hn, position, c)[0]
+            return attn.mla_forward(p, cfg, hn, positions, c)[0]
+        if mode == "decode":
+            return attn.gqa_decode(p, cfg, hn, position, c)[0]
+        return attn.gqa_forward(p, cfg, hn, positions, c)[0]
+
+    def _cross(self, i: int, h, vision, c, mode: str):
+        """The gated cross-attention of layer ``i``; its cache is the
+        layer's ``cross_k``/``cross_v`` (the same tensors, written in
+        place)."""
+        cfg, p = self.cfg, self.layers[i]
+        hc = rmsnorm(p["ln_cross"], h)
+        cc = None if c is None else {"k": c["cross_k"], "v": c["cross_v"]}
+        if mode == "decode":
+            return attn.cross_attn_decode(p["cross"], cfg, hc, cc)[0]
+        return attn.cross_attn_forward(p["cross"], cfg, hc, vision, cc)[0]
+
+    def _block(self, i: int, h, positions, cache, mode: str, position,
+               vision=None):
         """Layer ``i`` -> ``(h, aux)``: ``aux`` is :func:`moe_ffn`'s for an
         MoE layer (its routing included), else None."""
         cfg, p = self.cfg, self.layers[i]
-        hn = rmsnorm(p["ln1"], h)
         c = cache["layers"][i] if cache is not None else None
-        if self.kinds[i] == "attn":
-            if mode == "decode":
-                out, _ = attn.gqa_decode(p["mixer"], cfg, hn, position, c)
-            else:
-                out, _ = attn.gqa_forward(p["mixer"], cfg, hn, positions, c)
-        else:
-            if mode == "decode":
-                out, _ = mb.mamba_decode(p["mixer"], cfg, hn, c)
-            else:
-                out, _ = mb.mamba_forward(p["mixer"], cfg, hn, c)
-        h = h + out
+        h = h + self._mixer(i, rmsnorm(p["ln1"], h), positions, c, mode,
+                            position)
+        if self.is_cross[i]:
+            h = h + self._cross(i, h, vision, c, mode)
         hn = rmsnorm(p["ln2"], h)
         if not self.is_moe[i]:
             return h + ffn(p["ffn"], hn, activation=cfg.ffn_activation), None
@@ -214,26 +292,39 @@ class LanguageModel(nn.Module):
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, mode: str = "prefill",
-                cache: Optional[dict] = None):
-        """tokens [B,S] -> (logits [B,S,V], cache).  With a cache (from
-        :meth:`new_cache`, capacity >= S) this is the prefill that fills
-        it; the cache is updated in place and returned."""
+                cache: Optional[dict] = None,
+                vision_embeds: Optional[torch.Tensor] = None):
+        """tokens [B,S] (audio [B,S,K]) -> (logits [B,S,V] (audio
+        [B,S,K,V]), cache).  With a cache (from :meth:`new_cache`,
+        capacity >= S) this is the prefill that fills it; the cache is
+        updated in place and returned.  A vision config takes the stub
+        frontend's ``vision_embeds`` [B,T,D], cast to the model's
+        dtype."""
+        check_supported(self.cfg, mode)
         if mode != "prefill":
-            _not_ported(f"mode={mode!r} (training: trainer, optim, loss)")
+            raise ValueError("forward runs a prefill: decode through "
+                             "decode_step")
+        if any(self.is_cross) and vision_embeds is None:
+            raise ValueError(f"{self.cfg.name} has cross-attention layers: "
+                             f"pass vision_embeds [B,T,D]")
+        if vision_embeds is not None:
+            vision_embeds = vision_embeds.to(self.embed.dtype)
         h = self.embed_tokens(tokens)
-        B, S = tokens.shape
+        B, S = tokens.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
         for i in range(self.cfg.num_layers):
-            h, _ = self._block(i, h, positions, cache, "prefill", None)
+            h, _ = self._block(i, h, positions, cache, "prefill", None,
+                               vision_embeds)
         h = rmsnorm(self.final_norm, h)
         return self.unembed(h), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor, position):
-        """tokens [B,1]; ``position`` an int (lockstep) or a [B] tensor
-        (ragged slots).  Returns (logits [B,1,V], cache updated in
-        place)."""
+        """tokens [B,1] (audio [B,1,K]); ``position`` an int (lockstep) or
+        a [B] tensor (ragged slots).  Returns (logits [B,1,V] (audio
+        [B,1,K,V]), cache updated in place).  Cross layers attend to the
+        image K/V their prefill cached."""
         h = self.embed_tokens(tokens)
         for i in range(self.cfg.num_layers):
             h, _ = self._block(i, h, None, cache, "decode", position)
@@ -241,4 +332,4 @@ class LanguageModel(nn.Module):
         return self.unembed(h), cache
 
     def loss(self, *args, **kwargs):
-        _not_ported("the training loss (trainer, optim, loss)")
+        check_supported(self.cfg, "train")

@@ -14,6 +14,8 @@ reference's parameter tree (as numpy arrays) into a port model.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -61,39 +63,66 @@ def param_count(specs) -> int:
     return int(sum(int(np.prod(s.shape)) for _, s in leaves(specs)))
 
 
+#: a leaf of more elements is drawn in pieces along its leading axis,
+#: a piece of at most this many elements each (a float32 piece is 256 MB)
+PIECE = 1 << 26
+
+
+def _pieces(shape: tuple, seed: int) -> list:
+    """``(rows, generator seed)`` of each piece a leaf is drawn in: the
+    whole leaf from ``seed`` up to :data:`PIECE` elements, else whole rows
+    of the leading axis, piece ``j`` from ``seed`` and ``j``."""
+    n = int(np.prod(shape))
+    if n <= PIECE or len(shape) < 2:
+        return [(slice(None), seed)]
+    rows = max(1, PIECE // (n // shape[0]))
+    return [(slice(lo, lo + rows), seed * 65_537 + j + 1)
+            for j, lo in enumerate(range(0, shape[0], rows))]
+
+
 def init_params(specs, generator: torch.Generator, device="cpu"):
     """Materialise the spec tree on ``device``.  Leaf *i* (in
-    :func:`leaves` order) draws from its own CPU generator seeded from
-    ``generator``'s seed and *i*, so a leaf's values do not depend on the
-    device or on the other leaves."""
+    :func:`leaves` order) is drawn on the CPU in float32 by generators
+    seeded from ``generator``'s seed and *i* (a large leaf in pieces of
+    whole rows, :func:`_pieces`), so a leaf's values do not depend on the
+    device or on the other leaves.  The pieces of all leaves are drawn on
+    a thread pool into the leaves, so the host holds a float32 piece a
+    thread beside the weights (deepseek's ``[256, 7168, 2048]`` experts
+    are 15 GB in float32)."""
     seed = generator.initial_seed()
-    index = {path: i for i, (path, _) in enumerate(leaves(specs))}
-
-    def make(path: str, s: ParamSpec) -> torch.Tensor:
-        if s.init == "zeros":
-            return torch.zeros(s.shape, dtype=s.torch_dtype, device=device)
-        if s.init == "ones":
-            return torch.ones(s.shape, dtype=s.torch_dtype, device=device)
+    out = map_tree(lambda _, s: torch.empty(s.shape, dtype=s.torch_dtype),
+                   specs)
+    jobs = []
+    for i, ((_, s), (_, t)) in enumerate(zip(leaves(specs), leaves(out))):
+        if s.init in ("zeros", "ones"):
+            t.fill_(0 if s.init == "zeros" else 1)
+            continue
         std = s.scale
         if s.init == "scaled":
             fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
             std = s.scale / np.sqrt(max(fan_in, 1))
-        g = torch.Generator().manual_seed(seed * 1_000_003 + index[path])
-        a = torch.randn(s.shape, generator=g, dtype=torch.float32) * std
-        return a.to(device=device, dtype=s.torch_dtype)
+        jobs += [(t[rows], piece_seed, std) for rows, piece_seed in
+                 _pieces(tuple(s.shape), seed * 1_000_003 + i)]
 
-    return map_tree(make, specs)
+    def draw(job) -> None:
+        piece, piece_seed, std = job
+        g = torch.Generator().manual_seed(piece_seed)
+        piece.copy_(torch.randn(piece.shape, generator=g,
+                                dtype=torch.float32) * std)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(draw, jobs))
+    return map_tree(lambda _, t: t.to(device), out)
 
 
 def to_tensor(arr) -> torch.Tensor:
     """A numpy array as a CPU tensor.  JAX's bfloat16 arrives as an
     ``ml_dtypes`` array that ``torch.from_numpy`` refuses: it is viewed as
     uint16 and reinterpreted, bit for bit."""
-    arr = np.ascontiguousarray(arr)
+    arr = np.array(arr, order="C")      # a copy; keeps a 0-d leaf 0-d
     if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(arr.copy())
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def from_reference(model, tree) -> None:

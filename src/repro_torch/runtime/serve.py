@@ -19,6 +19,16 @@ import torch
 from repro_torch.core.graph import resolve_device
 
 
+#: the families the loop refuses, and why
+UNSERVED = {
+    "vlm": "its prefill needs vision_embeds, which a Request does not "
+           "carry (drive forward/decode_step directly)",
+    "audio": "its prompts are [S, K] codebook tokens and its greedy pick "
+             "is one token a codebook (drive forward/decode_step "
+             "directly)",
+}
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -32,6 +42,12 @@ class ServeLoop:
     slot batch whose cache lives on ``device`` (default ``"cuda"``; it
     raises without a card).  The model must lie on the same device.
 
+    It serves token models: a vision config (its prefill needs the
+    frontend's embeddings, which a request does not carry) and an audio
+    config (its tokens are [S, K] codebook rows, its greedy pick is one
+    per codebook) are refused with a ``ValueError``.  The reference's
+    loop accepts them and fails inside its prefill or its decode.
+
     Per call it records wall seconds, ending in a device sync:
     ``prefill_seconds`` (one per request) and ``decode_seconds`` (one per
     batched decode step); ``nonfinite_logits`` counts decode steps whose
@@ -39,6 +55,11 @@ class ServeLoop:
 
     def __init__(self, model, *, num_slots: int, max_len: int,
                  eos_id: int = 1, device="cuda"):
+        family = model.cfg.family
+        if family in UNSERVED:
+            raise ValueError(f"ServeLoop serves token models, not "
+                             f"{model.cfg.name} (family {family!r}): "
+                             f"{UNSERVED[family]}")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())

@@ -26,6 +26,7 @@ from repro_torch.analysis import schedules as sched_pass
 from repro_torch.analysis.__main__ import default_root
 from repro_torch.analysis.__main__ import main as cli_main
 from repro_torch.analysis.findings import Finding, parse_suppressions
+from repro_torch.configs import ARCHITECTURES
 from repro_torch.core import operators
 from repro_torch.core.graph import INF
 from repro_torch.core.operators import EdgeOp
@@ -389,12 +390,17 @@ def test_smem_covers_the_moe_and_mixer_configs():
     shapes = {(arch, kernel, dtype): arg
               for arch, kernel, dtype, arg in smem.lm_shapes()}
     assert shapes[("granite_moe_3b_a800m", "flash_attention",
-                   "bfloat16")] == 64
+                   "bfloat16")] == (64, 64)
     assert shapes[("jamba_1_5_large_398b", "ssd_chunk_dual",
                    "bfloat16")] == (8, 256, 256, 64, 16)
     assert shapes[("mamba2_780m", "ssd_chunk_dual",
                    "float32")] == (8, 256, 48, 64, 128)
-    assert not any(arch == "deepseek_v3_671b" for arch, *_ in shapes)
+    # MLA's prefill: q/k head dim nope + rope, v head dim v
+    assert shapes[("deepseek_v3_671b", "flash_attention",
+                   "float32")] == (192, 128)
+    assert shapes[("llama_3_2_vision_11b", "flash_attention",
+                   "bfloat16")] == (128, 128)
+    assert {arch for arch, *_ in shapes} == set(ARCHITECTURES)
 
 
 def test_smem_model_of_each_kernel():
@@ -413,6 +419,17 @@ def test_smem_model_of_each_kernel():
     f4 = smem.footprint("flash_attention", dtype="float32", hd=128)
     assert (f4.threads, f4.dynamic_smem) == (256, (2 * 64 * 132 + 64 * 68)
                                              * 4)
+    # MLA's 192/128: Q and two K stages of 192 + 8, two V stages of 128 +
+    # 8 (bf16, two blocks a SM); f32 Q and K of 192 + 4 and P, 115 KB,
+    # where two blocks do not fit an SM and the launch bound asks one
+    m4 = smem.footprint("flash_attention", dtype="bfloat16", hd=192,
+                        hd_v=128)
+    assert (m4.dynamic_smem, m4.min_blocks) == (
+        ((64 + 2 * 64) * 200 + 2 * 64 * 136) * 2, 2)
+    m4 = smem.footprint("flash_attention", dtype="float32", hd=192,
+                        hd_v=128)
+    assert (m4.dynamic_smem, m4.min_blocks) == (
+        (2 * 64 * 196 + 64 * 68) * 4, 1)
     b5 = smem.footprint("ssd_chunk_dual", dtype="bfloat16",
                         shape=(8, 256, 48, 64, 128))
     hg = smem.ssd_heads_per_block(8, 256, 48, 128)

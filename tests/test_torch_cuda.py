@@ -8,7 +8,9 @@ row, against their plain versions, ``run_batch`` and ``GraphServer`` against
 the CPU), delta-stepping (the fused kernel's delta mode against its plain
 epoch loop, the engines, batch and server against the CPU), measured AD
 (``ad_choice`` against ``CostModel.choose``, calibration, block
-feasibility) and the serving loop on the card against the CPU.  Every test here needs a CUDA
+feasibility), the serving loop, the expert-parallel MoE dispatch, and
+the MLA, vision, audio and padded-head models on the card against the
+CPU.  Every test here needs a CUDA
 device and skips
 without one.  The file imports neither JAX nor ``repro``, so it runs on a
 machine without JAX:
@@ -914,6 +916,53 @@ def test_flash_attention_kernel_matches_plain(dev, shape, dtype, causal):
     _close(got, want, 2e-6 if dtype == torch.float32 else 2e-2)
 
 
+#: B4 at its other head-dim pairs: B, Hq, Hkv, Sq, Sk, hd, hd_v, causal.
+#: MLA's prefill (q/k [nope 128; rope 64], v 128; 128 heads a KV head
+#: each) at deepseek_v3_671b's full width and ragged, MLA at the smoke
+#: width (48/32), and llama_3_2_vision_11b's cross-attention (32 query
+#: heads over 8, 2048 text tokens over 1601 image tokens, non-causal)
+ATTN_PAIR_CASES = [
+    (1, 128, 128, 2048, 2048, 192, 128, True),
+    (1, 16, 16, 1000, 1000, 192, 128, True),
+    (1, 8, 8, 1, 77, 192, 128, False),
+    (1, 4, 4, 65, 129, 192, 128, True),
+    (2, 4, 4, 129, 129, 48, 32, True),
+    (1, 4, 2, 65, 63, 48, 32, False),
+    (1, 32, 8, 2048, 1601, 128, 128, False),
+    (2, 4, 2, 40, 16, 32, 32, False),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_PAIR_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_mla_and_cross_shapes(dev, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    B, Hq, Hkv, Sq, Sk, hd, hd_v, causal = case
+    g = torch.Generator().manual_seed(sum(case))
+    q, k, v = (torch.randn(s, generator=g).to(dev, dtype) for s in
+               [(B, Hq, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd_v)])
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, Hq, Sq, hd_v)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    _close(got, want, 2e-6 if dtype == torch.float32 else 2e-2)
+    scale = 0.07            # a scale of the caller's own
+    _close(fa.flash_attention(q, k, v, causal=causal, scale=scale),
+           fa.flash_attention_plain(q, k, v, causal=causal, scale=scale),
+           2e-6 if dtype == torch.float32 else 2e-2)
+
+
+def test_flash_attention_refuses_other_head_dim_pairs(dev):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn(1, 2, 8, 192, device=dev)
+    before = fa.LAUNCHES["flash_attention"]
+    for hd_v in (192, 64, 32):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(q, q, torch.randn(1, 2, 8, hd_v, device=dev))
+    assert fa.LAUNCHES["flash_attention"] == before
+
+
 SSD_CASES = [
     # BN, c, H, P, N — tests/test_kernels.py's cases, a ragged c, the
     # serving path's heads
@@ -1284,6 +1333,15 @@ def test_calibration_and_block_feasibility_on_the_card(dev, tmp_path):
         # the bf16 B4/B5 kernels run four mma.sync warps; every other 256
         assert row["threads"] == (
             128 if row.get("dtype") == "bfloat16" else 256), row
+    # B4 at MLA's head dims: 128 threads (bf16) and 256 (f32); the bf16
+    # kernel keeps two blocks a SM, the f32 one (115 KB) one
+    mla = {dt: rows[f"flash_attention {dt} hd192/128"]
+           for dt in ("bfloat16", "float32")}
+    assert (mla["bfloat16"]["threads"], mla["float32"]["threads"]) == (
+        128, 256)
+    assert mla["bfloat16"]["blocks_per_sm"] >= 2
+    assert {f"flash_attention {dt} hd48/32"
+            for dt in ("bfloat16", "float32")} <= set(rows)
 
 
 @pytest.mark.parametrize("method", ["padded", "sorted_block", "replicate",
@@ -1311,6 +1369,101 @@ def test_moe_dispatch_on_the_card_matches_the_cpu(dev, method):
         assert float(gs[key]) == float(ws[key]), key
 
 
+@pytest.mark.parametrize("shards,serve_ep", [(2, False), (8, False),
+                                             (8, True), (16, False)])
+def test_sharded_moe_dispatch_on_the_card(dev, shards, serve_ep):
+    """The expert-parallel dispatch over held shards on card tensors
+    against the card's single-device ``padded`` dispatch at a capacity
+    where nothing drops (float32: the same products summed in another
+    order); 40 experts padded to 48 over 16 shards."""
+    from repro_torch.core.shard import shard_group
+    from repro_torch.moe import balancing as mb
+    from repro_torch.moe import sharded as sh
+    g = torch.Generator().manual_seed(shards)
+    E, K, D, F, B, S = 40, 8, 64, 96, 2, 48
+    x = torch.randn(B, S, D, generator=g).to(dev)
+    logits = torch.randn(B, S, E, generator=g).to(dev)
+    ex = {"w_up": torch.randn(E, D, F, generator=g) / 8,
+          "w_gate": torch.randn(E, D, F, generator=g) / 8,
+          "w_down": torch.randn(E, F, D, generator=g) / 10}
+    ex = {k: v.to(dev) for k, v in ex.items()}
+    w, ids, _ = mb.topk_route(logits, K)
+    want, _ = mb.moe_dispatch(x, ids, w, ex, num_experts=E, capacity=S,
+                              method="padded")
+    wp, lg, ep = sh.pad_experts(ex, logits, E, shards)
+    w2, ids2, _ = mb.topk_route(lg, K)
+    assert torch.equal(ids2, ids)
+    group = shard_group(shards, dev)
+    if serve_ep:
+        got = sh.ep_global_dispatch(x, ids2, w2, wp, group=group,
+                                    num_experts=ep, capacity=B * S)
+    else:
+        got = sh.sharded_moe_dispatch(x, ids2, w2, wp, group=group,
+                                      num_experts=ep, capacity=S)
+    assert got.device == x.device
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("arch,overrides,tol", [
+    ("deepseek_v3_671b", {}, 1e-3),
+    ("llama_3_2_vision_11b", {}, 1e-2),
+    ("musicgen_large", {}, 1e-2),
+    ("granite_moe_3b_a800m", {"pad_heads": True}, 1e-3)])
+def test_multimodal_and_mla_models_on_the_card_match_cpu(dev, arch,
+                                                        overrides, tol):
+    """A float32 smoke model on the card against the same weights on the
+    CPU: a prefill (B4 once a layer, twice a cross layer) and three
+    lockstep decode steps, logits within ``tol`` of the largest, and the
+    greedy tokens equal wherever the CPU's two best logits lie further
+    apart than that.  Vision and audio have no qk-norm: the CPU against
+    itself with its embeddings nudged by 2^-22 moves their logits by
+    5.8e-4 and 5.2e-4 of the largest (deepseek 1.3e-5, padded granite
+    1.5e-4), and the card lands 1.8e-3 from the CPU on vision (measured
+    on an H100 80GB HBM3, 700 W), so they are held to 1e-2.  Cross
+    layers' gates at 0.5."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.models.model import LanguageModel
+    cfg = get_config(arch).smoke(dtype="float32", **overrides)
+    cpu = LanguageModel(cfg, seed=0, device="cpu")
+    with torch.no_grad():
+        for blk in cpu.layers:
+            if "cross" in blk.tree():
+                blk["cross"]["gate"].fill_(0.5)
+    card = LanguageModel(cfg, seed=0, device="cpu").to_device(dev)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    shape = (2, 70) + ((cfg.num_codebooks,) if cfg.num_codebooks else ())
+    tok = torch.from_numpy(rng.integers(2, cfg.vocab_size, shape))
+    vis = (torch.from_numpy(rng.standard_normal(
+        (2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+        if cfg.cross_attn_every else None)
+    fed, runs = [], {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        d = model.device
+        kw = {} if vis is None else {"vision_embeds": vis.to(d)}
+        before = LAUNCHES["flash_attention"]
+        cache = model.new_cache(2, 80)
+        logits, cache = model(tok.to(d), cache=cache, **kw)
+        runs[name] = ([logits.float().cpu()],
+                      LAUNCHES["flash_attention"] - before)
+        for t in range(3):                  # the CPU's greedy tokens
+            if name == "cpu":
+                fed.append(logits[:, -1:].argmax(-1))
+            logits, cache = model.decode_step(cache, fed[t].to(d), 70 + t)
+            runs[name][0].append(logits.float().cpu())
+    (got, launched), (want, _) = runs["card"], runs["cpu"]
+    assert launched == cfg.num_layers + sum(
+        cfg.layer_is_cross_attn(i) for i in range(cfg.num_layers))
+    for a, b in zip(got, want):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol * scale)
+        top2 = b[:, -1].topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * tol * scale
+        same = a[:, -1].argmax(-1) == b[:, -1].argmax(-1)
+        assert bool(same[clear].all())
+
+
 def test_smem_model_equals_the_card(dev):
     """The analysis pass's footprint model of every kernel's block
     (repro_torch.analysis.smem) equals the card's report: threads, static
@@ -1321,7 +1474,8 @@ def test_smem_model_equals_the_card(dev):
     for name, row in costmodel.block_feasibility(dev).items():
         kernel = row["kernel"]
         if kernel == "flash_attention":
-            fp = smem.footprint(kernel, dtype=row["dtype"], hd=row["hd"])
+            fp = smem.footprint(kernel, dtype=row["dtype"], hd=row["hd"],
+                                hd_v=row["hd_v"])
         elif kernel == "ssd_chunk_dual":
             fp = smem.footprint(kernel, dtype=row["dtype"], shape=tuple(
                 row[k] for k in ("BN", "c", "H", "P", "N")))

@@ -36,7 +36,7 @@ from repro.models.model import LanguageModel as JModel
 from repro.models.params import init_params as j_init_params
 from repro_torch.configs import ARCHITECTURES, get_config
 from repro_torch.models.model import LanguageModel
-from repro_torch.models.params import from_reference, to_tensor
+from repro_torch.models.params import from_reference, leaves, to_tensor
 
 B, S, STEPS = 2, 40, 3
 DECODE_POS = np.array([S, S - 7])      # ragged: slot 1 rewinds 7 positions
@@ -224,9 +224,32 @@ def test_full_width_mamba_has_zero_width_ffn():
     ("llama_3_2_vision_11b", "cross-attention"),
     ("musicgen_large", "audio")])
 def test_unported_features_raise(arch, what):
+    """The configs whose features were not ported before (MLA,
+    cross-attention, the audio frontend) build, with their features in
+    the parameter tree as the reference's specs have them; what is still
+    not ported, training, raises naming ROADMAP A15."""
+    cfg = get_config(arch).smoke()
+    tm = LanguageModel(cfg, device="cpu")
+    jm = JModel(j_get_config(arch).smoke())
+    specs = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, jnp.dtype(s.dtype)), jm.param_specs(),
+        is_leaf=lambda x: hasattr(x, "pspec"))
+    from_reference(tm, specs)          # raises on any mismatch
+    tree = tm.param_tree()
+    if what == "MLA":
+        assert {"wq_a", "wkv_a", "wk_b", "wv_b"} <= set(tree["layers"][0][
+            "mixer"])
+        assert "mtp" in tree
+    elif what == "cross-attention":
+        assert [i for i, blk in enumerate(tree["layers"])
+                if "cross" in blk] == [4]
+    else:
+        assert tree["embed"].dim() == 3 and tree["lm_head"].dim() == 3
     with pytest.raises(NotImplementedError, match="ROADMAP A15") as e:
-        LanguageModel(get_config(arch).smoke(), device="cpu")
-    assert what in str(e.value)
+        tm(torch.zeros(1, 4, dtype=torch.long), mode="train")
+    assert "training" in str(e.value)
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        tm.loss({})
 
 
 @pytest.mark.parametrize("arch", ["granite_moe_3b_a800m",
@@ -249,14 +272,59 @@ def test_moe_configs_build(arch):
 
 
 def test_pad_heads_and_training_raise():
+    """``pad_heads`` builds the padded layout (qwen3's smoke 4/2 heads:
+    16 query slots over 16 KV heads); training still raises (ROADMAP
+    A15), also the MTP loss's."""
     cfg = get_config("qwen3_0_6b").smoke(pad_heads=True)
-    with pytest.raises(NotImplementedError, match="pad_heads"):
-        LanguageModel(cfg, device="cpu")
-    m = LanguageModel(get_config("qwen3_0_6b").smoke(), device="cpu")
+    m = LanguageModel(cfg, device="cpu")
+    mixer = m.param_tree()["layers"][0]["mixer"]
+    assert tuple(mixer["wq"].shape[1:]) == (16, 32)
+    assert tuple(mixer["wk"].shape[1:]) == (2, 32)
+    assert tuple(m.new_cache(1, 8)["layers"][0]["k"].shape) == (1, 16, 8, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         m(torch.zeros(1, 4, dtype=torch.long), mode="train")
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         m.loss({})
+    mtp = LanguageModel(get_config("deepseek_v3_671b").smoke(), device="cpu")
+    with pytest.raises(NotImplementedError, match="MTP"):
+        mtp.loss({"tokens": None, "labels": None})
+
+
+@pytest.mark.parametrize("arch", ARCHITECTURES)
+def test_every_config_builds_and_serves_a_step(arch):
+    """Every config the repo defines builds at smoke width on the CPU,
+    holds the reference's parameter tree leaf for leaf, and runs a
+    prefill and a decode step to finite logits."""
+    cfg = get_config(arch).smoke(dtype="float32")
+    tm = LanguageModel(cfg, device="cpu")
+    jm = JModel(j_get_config(arch).smoke(dtype="float32"))
+    specs = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, jnp.dtype(s.dtype)), jm.param_specs(),
+        is_leaf=lambda x: hasattr(x, "pspec"))
+    want = {p: a.shape for p, a in leaves(specs_unstacked(jm, specs))}
+    got = {p: tuple(a.shape) for p, a in leaves(tm.param_tree())}
+    assert got == want
+    shape = (1, 6) + ((cfg.num_codebooks,) if cfg.num_codebooks else ())
+    tok = torch.full(shape, 3, dtype=torch.long)
+    kw = ({"vision_embeds": torch.randn(1, cfg.num_image_tokens,
+                                        cfg.d_model)}
+          if cfg.cross_attn_every else {})
+    cache = tm.new_cache(1, 8)
+    logits, cache = tm(tok, cache=cache, **kw)
+    logits, _ = tm.decode_step(cache, tok[:, :1], 6)
+    assert bool(torch.isfinite(logits).all())
+
+
+def specs_unstacked(jm, specs) -> dict:
+    """The reference's spec tree with its stacked body laid out a layer
+    at a time, as the port's ``layers``."""
+    layers = list(specs["prefix"])
+    for r in range(jm.n_repeats):
+        for blk in specs["body"]:
+            layers.append(jax.tree_util.tree_map(lambda a: a[r], blk))
+    flat = {k: v for k, v in specs.items() if k not in ("prefix", "body")}
+    flat["layers"] = layers
+    return flat
 
 
 def test_seed_gives_the_same_weights_and_bf16_carries_bit_for_bit():
@@ -272,3 +340,24 @@ def test_seed_gives_the_same_weights_and_bf16_carries_bit_for_bit():
     assert a.embed.dtype == torch.bfloat16
     np.testing.assert_array_equal(a.embed.view(torch.int16).numpy().view(
         np.uint16), want)
+
+
+def test_init_params_draws_large_leaves_in_seeded_pieces(monkeypatch):
+    """A leaf's values depend on the seed, its index and its shape alone:
+    a small leaf is one draw of its own generator, a large one (here
+    above a lowered ``PIECE``) pieces of whole rows, each from its own;
+    the same on every call (the pieces are drawn on a thread pool)."""
+    from repro_torch.models import params as tp
+    specs = {"big": tp.ParamSpec((10, 4, 3), "bfloat16", "scaled"),
+             "small": tp.ParamSpec((5, 2), "float32", "normal")}
+    monkeypatch.setattr(tp, "PIECE", 30)
+    a = tp.init_params(specs, torch.Generator().manual_seed(7))
+    b = tp.init_params(specs, torch.Generator().manual_seed(7))
+    assert all(torch.equal(a[k], b[k]) for k in specs)
+    g = torch.Generator().manual_seed(7 * 1_000_003 + 1)
+    assert torch.equal(a["small"], torch.randn(5, 2, generator=g))
+    leaf_seed = 7 * 1_000_003
+    pieces = [torch.randn(2, 4, 3, generator=torch.Generator().manual_seed(
+        leaf_seed * 65_537 + j + 1)) for j in range(5)]
+    want = (torch.cat(pieces) * (1 / np.sqrt(4))).to(torch.bfloat16)
+    assert torch.equal(a["big"], want)

@@ -2,7 +2,7 @@
 ``tests/test_torch_shard.py`` and ``tests/test_torch_dist.py``:
 
     python tests/torch_shard_ranks.py --rank R --world W --store FILE \\
-        --inputs IN.npz --out OUT.npz --what shard|dist
+        --inputs IN.npz --out OUT.npz --what shard|dist|moe
 
 It joins a gloo group through a ``FileStore`` at ``--store`` (no TCP
 port, so parallel test workers cannot collide; a 60 s timeout, so a
@@ -10,7 +10,10 @@ hang fails), runs the port with one shard a rank and writes what it got
 to ``--out``.  ``shard``: lockstep sssp WD and BS, one async WD run,
 the error of a shard count that is not the world size, and what a WD
 plan holds on this rank (its shards, their tensors' storage); ``dist``:
-``distributed_sssp``.  It imports nothing of JAX or ``repro``."""
+``distributed_sssp``; ``moe`` (started by
+``tests/test_torch_moe_sharded.py``): ``sharded_moe_dispatch`` over the
+whole batch, and ``ep_global_dispatch`` over this rank's rows of it.  It
+imports nothing of JAX or ``repro``."""
 
 import argparse
 import datetime
@@ -23,6 +26,7 @@ from repro_torch.algos import sssp
 from repro_torch.core import dist, shard
 from repro_torch.core.graph import CSRGraph
 from repro_torch.core.strategies import make_strategy
+from repro_torch.moe import sharded
 
 
 def held_shards(g, world: int) -> dict:
@@ -45,6 +49,25 @@ def held_shards(g, world: int) -> dict:
             for s, h in zip(splan.group.held, held)])}
 
 
+def moe(inputs, rank: int, world: int) -> dict:
+    """Both sharded dispatches with one shard a rank: the expert-parallel
+    one over the whole batch (every rank holds the same tokens), the
+    global one over this rank's block of rows."""
+    t = {k: torch.from_numpy(inputs[k]) for k in inputs.files}
+    experts = {k: t[k] for k in ("w_up", "w_gate", "w_down")}
+    group = shard.shard_group(world, "cpu")
+    E = experts["w_up"].shape[0]
+    out = {"sharded": sharded.sharded_moe_dispatch(
+        t["x"], t["ids"], t["w"], experts, group=group, num_experts=E,
+        capacity=int(inputs["capacity"])).numpy()}
+    rows = t["x"].shape[0] // world
+    mine = slice(rank * rows, (rank + 1) * rows)
+    out["ep"] = sharded.ep_global_dispatch(
+        t["x"][mine], t["ids"][mine], t["w"][mine], experts, group=group,
+        num_experts=E, capacity=int(inputs["ep_capacity"])).numpy()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     for name in ("--rank", "--world"):
@@ -57,6 +80,9 @@ def main() -> None:
         world_size=args.world, timeout=datetime.timedelta(seconds=60))
     try:
         inputs = np.load(args.inputs)
+        if args.what == "moe":
+            np.savez(args.out, **moe(inputs, args.rank, args.world))
+            return
         g = CSRGraph.from_arrays(inputs["row_ptr"], inputs["col"],
                                  inputs["wt"], device="cpu")
         source = int(inputs["source"])

@@ -235,6 +235,26 @@ Phases, each printing one JSON line:
    pad_heads — granite at full width (4 of 32 layers, float32) with
    ``pad_heads=True`` (B4 at 32 query slots over 16 KV heads) against
    the unpadded model on the same weights, within 5e-4.
+9. Training (ROADMAP A15 item 4).  train_kernels — B4's backward
+   kernels (``flash_attention_bwd``: D, dK/dV, dQ) against
+   ``flash_attention_bwd_plain`` at qwen3's training shape (4 x 2048,
+   16/8 heads, hd 128, bf16 and f32), granite's (hd 64, G 3), MLA's
+   (192/128, bf16 and f32) and the cross shape (2048 x 1601,
+   non-causal), each beside SDPA's backward; B5's backward kernel
+   against ``ssd_chunk_dual_bwd_plain`` at mamba2's training shape (BN
+   16, c 256, H 48, P 64, N 128; bf16 and f32) and under a strong decay
+   (a chunk's span > 88), finite; f32 within 1e-4 and bf16 within 2e-2
+   of each output's largest magnitude.  train_cpu qwen3_0_6b — one
+   ``build_train_step`` step at full width, 2 of 28 layers, float32,
+   card against CPU: the loss within 1e-4, every gradient leaf within
+   1e-3 of its largest |g|, the parameters after AdamW within 1e-3.
+   train — qwen3_0_6b (28 layers, 4 x 2048, 8 steps) and mamba2_780m
+   (48 layers, 2 x 2048, 4 steps) at full width in bf16 through the
+   ``Trainer`` (``TokenPipeline``, AdamW under a warm-up cosine of peak
+   1e-3): finite losses and grad norms, step ms, tokens/s, peak memory
+   and the launches of B4/B5 forward and backward (counts set to 0 just
+   before the run); qwen3 checkpoints at step 4 and a fresh ``Trainer``
+   restores it and replays steps 5-8 within 1e-5 of the first run.
 
 Every phase prints its seconds (``phase_seconds``).  Then one
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
@@ -3820,15 +3840,7 @@ def analysis_phase(dev) -> None:
     card = costmodel.block_feasibility(dev)
     mismatched = []
     for name, row in card.items():
-        kernel = row["kernel"]
-        if kernel == "flash_attention":
-            fp = smem.footprint(kernel, dtype=row["dtype"], hd=row["hd"],
-                                hd_v=row["hd_v"])
-        elif kernel == "ssd_chunk_dual":
-            fp = smem.footprint(kernel, dtype=row["dtype"], shape=tuple(
-                row[key] for key in ("BN", "c", "H", "P", "N")))
-        else:
-            fp = smem.footprint(kernel)
+        fp = smem.row_footprint(row)
         model = dict(threads=fp.threads, static_smem_bytes=fp.static_smem,
                      dynamic_smem_bytes=fp.dynamic_smem)
         seen = {key: row[key] for key in model}
@@ -3941,6 +3953,386 @@ def moe_phase(dev, reps: int = 5) -> None:
     if not (all(c["ok"] for c in cases.values()) and same_pos
             and max(policy_err.values()) <= MOE_POLICY_TOL * scale):
         raise AssertionError("moe dispatch: card != cpu")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training (ROADMAP A15 item 4): B4's and B5's backward kernels,
+# one train step card against CPU, qwen3_0_6b and mamba2_780m training
+# ---------------------------------------------------------------------------
+
+#: B4's backward cases: name, (Hq, Hkv, hd, hd_v), B, S, Sk, causal,
+#: dtypes.  qwen3_0_6b's training shape first: its bf16 row is the kernel
+#: line's
+BWD_ATTN_CASES = (
+    ("qwen3_0_6b", (16, 8, 128, 128), 4, 2048, 2048, True,
+     ("bfloat16", "float32")),
+    ("granite_moe_3b_a800m", (24, 8, 64, 64), 1, 2048, 2048, True,
+     ("bfloat16",)),
+    ("deepseek_v3_671b", (128, 128, 192, 128), 1, 2048, 2048, True,
+     ("bfloat16", "float32")),
+    ("llama_3_2_vision_11b", (32, 8, 128, 128), 1, 2048, IMAGE_TOKENS,
+     False, ("bfloat16",)))
+#: B5's backward cases at mamba2_780m's training shape (batch 2 x 2048:
+#: BN 16 chunks of 256, H 48, P 64, N 128): name, decay a step, dtype.
+#: At 1.0 a step a chunk's cumulative log-decay spans > 88, where autograd
+#: of the forward's where(mask, exp(seg), 0) would be NaN
+BWD_SSD_SHAPE = (16, 256, 48, 64, 128)
+BWD_SSD_CASES = (("mamba2_780m", 0.05, "bfloat16"),
+                 ("mamba2_780m", 0.05, "float32"),
+                 ("strong_decay", 1.0, "bfloat16"))
+#: the backward kernels against their plain versions, as a share of each
+#: output's largest magnitude: f32 sums in another order (f32), and P,
+#: dS and the gradients rounded to bf16 (bf16)
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: B4's forward lse output (float32 in both dtypes) against the plain
+#: version's, as a share of its largest magnitude
+LSE_TOL = 1e-5
+
+
+def _scaled_err(got, want, tol: float) -> tuple:
+    """(max |got - want|, that over max |want|); raises when the second
+    exceeds ``tol`` or on a non-finite value."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"output {tuple(got.shape)}/{got.dtype} vs "
+                             f"plain {tuple(want.shape)}/{want.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("a non-finite gradient")
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    rel = err / max(scale, 1e-30)
+    if rel > tol:
+        raise AssertionError(f"kernel != plain version: {rel} of the "
+                             f"largest magnitude, tolerance {tol}")
+    return err, rel
+
+
+def attention_bwd_cost(heads, B: int, S: int, Sk: int, causal: bool,
+                       dtype) -> tuple:
+    """(bytes, operations) of one B4 backward call: q, k, v, out, dout
+    and lse read once, dq, dk, dv written once; per kept (query, key)
+    pair the recomputed logits (hd), dV (hd_v), dP (hd_v), dQ and dK
+    (hd each), 2 FLOP a multiply-add."""
+    hq, hkv, hd, hd_v = heads
+    size = 2 if str(dtype).endswith("bfloat16") else 4
+    nbytes = B * (size * (2 * hq * S * (hd + hd_v) + 2 * hkv * Sk
+                          * (hd + hd_v)) + 4 * hq * S)
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    return nbytes, 2 * B * hq * pairs * (3 * hd + 2 * hd_v)
+
+
+def ssd_bwd_cost(BN, c, H, P, N, dtype) -> tuple:
+    """(bytes, operations) of one B5 backward call: x̄, cum, B, C, dy and
+    dstate read once, dx̄, dcum, dB and dC written once; C·B's causal half
+    once a chunk and dCB's two products with B and C (the heads' dCB
+    summed first), and per head dM and Mᵀdy over the causal half and the
+    state's two products, 2 FLOP a multiply-add."""
+    size = 2 if str(dtype).endswith("bfloat16") else 4
+    nbytes = (2 * size * BN * c * (H * P + 2 * N)
+              + 4 * BN * c * H * (P + 2) + 4 * BN * H * N * P)
+    tri = c * (c + 1) // 2
+    ops = 2 * BN * (3 * tri * N + H * (2 * tri * P + 2 * c * N * P))
+    return nbytes, ops
+
+
+def train_kernel_phase(dev, reps: int = 5) -> list:
+    """B4's and B5's backward kernels against their plain backward
+    versions on the same card tensors, each timed beside the plain
+    version and its bound (B4 also beside SDPA's backward).  Returns the
+    kernel line's two rows (launches filled in by the training phases)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+
+    g = torch.Generator().manual_seed(3)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows, b4_err, b5_err = {}, 0.0, 0.0
+    for name, heads, B, S, Sk, causal, dtypes in BWD_ATTN_CASES:
+        hq, hkv, hd, hd_v = heads
+        for dtype_name in dtypes:
+            dtype = getattr(torch, dtype_name)
+            q, k, v, do = (torch.randn(B, h, n, d, generator=g).to(dev, dtype)
+                           for h, n, d in ((hq, S, hd), (hkv, Sk, hd),
+                                           (hkv, Sk, hd_v), (hq, S, hd_v)))
+            o, lse = fa._flash_attention_cuda(q, k, v, causal, None,
+                                              with_lse=True)
+            # the forward's training launch (o and its lse output) against
+            # the plain version
+            o_want, lse_want = fa.flash_attention_plain(
+                q, k, v, causal=causal, return_lse=True)
+            fwd_err, fwd_rel = _scaled_err(o, o_want, BWD_TOL[dtype_name])
+            lse_err, lse_rel = _scaled_err(lse, lse_want, LSE_TOL)
+            del o_want, lse_want
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal=causal)
+            err, rel = map(max, zip(*(_scaled_err(a, b, BWD_TOL[dtype_name])
+                                      for a, b in zip(got, want))))
+            del got, want
+            nbytes, ops = attention_bwd_cost(heads, B, S, Sk, causal, dtype)
+            t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
+                            if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            try:
+                sdpa = F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=causal, enable_gqa=True)
+                library_ms = time_ms(lambda: torch.autograd.grad(
+                    sdpa, (qs, ks, vs), do, retain_graph=True), reps=reps,
+                    flush=flush)
+            except RuntimeError as exc:       # no SDPA backend takes it
+                library_ms, sdpa = None, str(exc).splitlines()[0]
+            case = dict(
+                config=name, B=B, Hq=hq, Hkv=hkv, hd=hd, hd_v=hd_v, S=S,
+                Sk=Sk, causal=causal, dtype=dtype_name, max_abs_err=err,
+                rel_err=rel, tolerance=BWD_TOL[dtype_name],
+                lse_tolerance=LSE_TOL,
+                fwd_max_abs_err=fwd_err, fwd_rel_err=fwd_rel,
+                lse_max_abs_err=lse_err, lse_rel_err=lse_rel,
+                ms=time_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, o, lse, do, causal=causal), reps=reps,
+                    flush=flush),
+                plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, causal=causal), reps=2,
+                    flush=flush),
+                library_ms=library_ms, bound_ms=t_b, bound_by=by,
+                bytes=nbytes, flop=ops)
+            if library_ms is None:
+                case["library_error"] = sdpa
+            emit("train_kernel_case", kernel="flash_attention_bwd", **case)
+            b4_err = max(b4_err, err, fwd_err, lse_err)
+            if (name, dtype_name) == ("qwen3_0_6b", "bfloat16"):
+                rows["b4"] = case
+            del q, k, v, do, o, lse, qs, ks, vs, sdpa
+            torch.cuda.empty_cache()
+    BN, c, H, P, N = BWD_SSD_SHAPE
+    for name, decay, dtype_name in BWD_SSD_CASES:
+        dtype = getattr(torch, dtype_name)
+        xb = (torch.randn(BN, c, H, P, generator=g) * 0.1).to(dev, dtype)
+        cum = torch.cumsum(-torch.randn(BN, c, H, generator=g).abs()
+                           * decay, 1).to(dev)
+        Bm, Cm = ((torch.randn(BN, c, N, generator=g) * 0.3).to(dev, dtype)
+                  for _ in range(2))
+        dy = torch.randn(BN, c, H, P, generator=g).to(dev)
+        ds = torch.randn(BN, H, N, P, generator=g).to(dev)
+        span = float(-cum[:, -1].min())
+        got = sc.ssd_chunk_dual_bwd(xb, cum, Bm, Cm, dy, ds)
+        want = sc.ssd_chunk_dual_bwd_plain(xb, cum, Bm, Cm, dy, ds)
+        err, rel = map(max, zip(*(_scaled_err(a, b, BWD_TOL[dtype_name])
+                                  for a, b in zip(got, want))))
+        nbytes, ops = ssd_bwd_cost(BN, c, H, P, N, dtype)
+        t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
+                        if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
+        case = dict(
+            config=name, BN=BN, c=c, H=H, P=P, N=N, dtype=dtype_name,
+            decay_span=span, max_abs_err=err, rel_err=rel,
+            tolerance=BWD_TOL[dtype_name],
+            ms=time_ms(lambda: sc.ssd_chunk_dual_bwd(xb, cum, Bm, Cm, dy,
+                                                     ds), reps=reps,
+                       flush=flush),
+            plain_ms=time_ms(lambda: sc.ssd_chunk_dual_bwd_plain(
+                xb, cum, Bm, Cm, dy, ds), reps=2, flush=flush),
+            library_ms=None, bound_ms=t_b, bound_by=by, bytes=nbytes,
+            flop=ops)
+        emit("train_kernel_case", kernel="ssd_chunk_dual_bwd", **case)
+        if (name == "strong_decay") != (span > 88):
+            raise AssertionError(f"decay span {span} of case {name}")
+        b5_err = max(b5_err, err)
+        if (name, dtype_name) == ("mamba2_780m", "bfloat16"):
+            rows["b5"] = case
+    b4, b5 = rows["b4"], rows["b5"]
+    return [dict(
+        name="flash_attention_bwd", route="cuda", source=CSRC_FLASH,
+        replaces="none: jax.grad of blocked_attention, "
+                 "src/repro/models/layers.py:80", launches=0,
+        max_abs_err=b4_err, ms=b4["ms"], plain_ms=b4["plain_ms"],
+        bound_ms=b4["bound_ms"], bound_by=b4["bound_by"],
+        library_ms=b4["library_ms"], config="qwen3_0_6b",
+        shape={key: b4[key] for key in ("B", "Hq", "Hkv", "hd", "hd_v", "S",
+                                        "Sk", "causal", "dtype")}), dict(
+        name="ssd_chunk_dual_bwd", route="cuda", source=CSRC_SSD,
+        replaces="none: jax.grad of ssd_chunked's einsums, "
+                 "src/repro/models/mamba.py:70", launches=0,
+        max_abs_err=b5_err, ms=b5["ms"], plain_ms=b5["plain_ms"],
+        bound_ms=b5["bound_ms"], bound_by=b5["bound_by"], library_ms=None,
+        config="mamba2_780m",
+        shape={key: b5[key] for key in ("BN", "c", "H", "P", "N",
+                                        "dtype")})]
+
+
+#: train_cpu: qwen3_0_6b at full width in float32, cut to 2 of 28 layers
+#: (the CPU's share of the phase), one step on a 2 x 256 batch
+TRAIN_CPU_LAYERS = 2
+TRAIN_CPU_BATCH = (2, 256)
+#: card against CPU, float32 (TF32 off): the loss relative, each gradient
+#: leaf as a share of its largest |g|, the parameters after AdamW relative
+#: to each leaf's largest magnitude
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-4, 1e-3, 1e-3
+#: the training runs: batch, sequence, steps; qwen3 checkpoints at step
+#: TRAIN_CKPT and a fresh Trainer replays the steps after it
+TRAIN_RUNS = {"qwen3_0_6b": (4, 2048, 8), "mamba2_780m": (2, 2048, 4)}
+TRAIN_CKPT = 4
+#: the replayed steps' losses against the uninterrupted run's, relative
+TRAIN_REPLAY_TOL = 1e-5
+
+
+def train_cpu_phase(dev) -> None:
+    """One train step of qwen3_0_6b (full width, ``TRAIN_CPU_LAYERS``
+    layers, float32) through ``build_train_step`` on the card and on the
+    CPU from the same seeded weights and batch: the loss, every gradient
+    leaf and the parameters after the AdamW update."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import build_train_step
+
+    full = get_config("qwen3_0_6b")
+    cfg = dataclasses.replace(full, dtype="float32",
+                              num_layers=TRAIN_CPU_LAYERS)
+    B, S = TRAIN_CPU_BATCH
+    shape = ShapeSpec("train_cpu", S, B, "train")
+    raw = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                        global_batch=B, seed=0).batch_at(0)
+    out = {}
+    for name, device in (("cuda", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        step = build_train_step(cfg, shape, device=device)
+        state = step.init_state()
+        batch = {k: torch.as_tensor(raw[k], device=device).long()
+                 for k in ("tokens", "labels")}
+        grads, metrics = step._grads(state["params"], batch)
+        grads = {k: g.float().cpu() for k, g in grads.items()}
+        opt_metrics = step.opt.update(
+            {k: g.to(device) for k, g in grads.items()}, state["opt"],
+            state["params"])
+        out[name] = (float(metrics["loss"]), grads,
+                     {k: p.detach().float().cpu()
+                      for k, p in state["params"].items()},
+                     float(opt_metrics["grad_norm"]),
+                     time.perf_counter() - t0)
+        del step, state
+    loss_g, grads_g, params_g, norm_g, sec_g = out["cuda"]
+    loss_c, grads_c, params_c, norm_c, sec_c = out["cpu"]
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    grad_err = max((float((grads_g[k] - g).abs().max())
+                    / max(float(g.abs().max()), 1e-30), k)
+                   for k, g in grads_c.items())
+    param_err = max((float((params_g[k] - p).abs().max())
+                     / max(float(p.abs().max()), 1e-30), k)
+                    for k, p in params_c.items())
+    ok = (loss_rel <= TRAIN_LOSS_TOL and grad_err[0] <= TRAIN_GRAD_TOL
+          and param_err[0] <= TRAIN_PARAM_TOL and math.isfinite(norm_g))
+    emit("train_cpu_compare", arch="qwen3_0_6b", dtype="float32",
+         reduced={"num_layers": [full.num_layers, TRAIN_CPU_LAYERS]},
+         batch=[B, S], loss_cuda=loss_g, loss_cpu=loss_c,
+         loss_rel_err=loss_rel, grad_rel_err=grad_err[0],
+         worst_grad=grad_err[1], param_rel_err=param_err[0],
+         grad_norm_cuda=norm_g, grad_norm_cpu=norm_c,
+         tolerances=[TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL],
+         cuda_seconds=sec_g, cpu_seconds=sec_c, equal=ok)
+    if not ok:
+        raise AssertionError("train step: card != cpu")
+
+
+def _train_trainer(step, state, pipeline, total: int, ckpt_dir=None,
+                   every: int = 1000):
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    return Trainer(step, state, pipeline,
+                   TrainConfig(total_steps=total, checkpoint_every=every,
+                               checkpoint_dir=ckpt_dir, log_every=1000,
+                               max_retries=0))
+
+
+def train_phase(dev, arch: str) -> dict:
+    """``arch`` at full width in bf16 through ``build_train_step`` and the
+    ``Trainer``: AdamW under a warm-up cosine schedule (peak 1e-3, 2
+    warm-up steps, so the run's few steps move the bf16 weights), batches
+    of ``TokenPipeline``.  Losses and grad norms must be finite.
+    qwen3_0_6b checkpoints at step ``TRAIN_CKPT``; a fresh Trainer
+    restores it and replays the later steps, whose losses must equal the
+    first run's.  The launch counts are set to 0 just before the run and
+    read just after it."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import AdamW, warmup_cosine
+
+    cfg = get_config(arch)
+    B, S, steps = TRAIN_RUNS[arch]
+    t0 = time.perf_counter()
+    step = build_train_step(
+        cfg, ShapeSpec("smoke", S, B, "train"), device=dev,
+        optimizer=AdamW(learning_rate=warmup_cosine(1e-3, 2, steps),
+                        state_dtype=cfg.opt_state_dtype))
+    state = step.init_state()
+    init_s = time.perf_counter() - t0
+    pipeline = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                             global_batch=B, seed=0)
+
+    def train_step(state, batch):
+        return step(state, {k: batch[k].long()
+                            for k in ("tokens", "labels")})
+
+    replay = arch == "qwen3_0_6b"
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_") if replay else None
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        trainer = _train_trainer(train_step, state, pipeline, steps,
+                                 ckpt_dir, TRAIN_CKPT)
+        hist = trainer.run()
+        replayed = []
+        if replay:
+            shutil.rmtree(f"{ckpt_dir}/step_{steps:09d}")
+            again = _train_trainer(train_step, state, pipeline, steps,
+                                   ckpt_dir)
+            if not again.maybe_restore() or again.step != TRAIN_CKPT:
+                raise AssertionError("no checkpoint to restore")
+            replayed = again.run()
+        launches = {k: LAUNCHES[k] for k in (
+            "flash_attention", "flash_attention_bwd", "ssd_chunk_dual",
+            "ssd_chunk_dual_bwd")}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    finally:
+        if ckpt_dir:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [r.metrics["loss"] for r in hist]
+    norms = [r.metrics["grad_norm"] for r in hist]
+    step_ms = [r.seconds * 1e3 for r in hist]
+    steady = statistics.median(step_ms[1:])
+    replay_err = max((abs(r.metrics["loss"] - hist[r.step].metrics["loss"])
+                      / abs(hist[r.step].metrics["loss"])
+                      for r in replayed), default=0.0)
+    ok = (all(math.isfinite(x) for x in losses + norms)
+          and [r.step for r in hist] == list(range(steps))
+          and replay_err <= TRAIN_REPLAY_TOL
+          and [r.step for r in replayed] == list(range(TRAIN_CKPT, steps))
+          * replay)
+    kernels = (("flash_attention", "flash_attention_bwd")
+               if cfg.family != "ssm" else ("ssd_chunk_dual",
+                                            "ssd_chunk_dual_bwd"))
+    ok = ok and all(launches[k] > 0 for k in kernels)
+    emit("train", arch=arch, dtype=cfg.dtype, layers=cfg.num_layers,
+         batch=[B, S], steps=steps, params=sum(
+             p.numel() for p in state["params"].values()),
+         losses=losses, grad_norms=norms, step_ms=step_ms,
+         steady_step_ms=steady, tokens_per_s=B * S / steady * 1e3,
+         peak_memory_gb=peak_gb, init_seconds=init_s,
+         replayed_steps=[r.step for r in replayed],
+         replayed_losses=[r.metrics["loss"] for r in replayed],
+         replay_rel_err=replay_err, launches=launches,
+         nvidia_smi=nvidia_smi(), ok=ok)
+    if not ok:
+        raise AssertionError(f"{arch}: training run failed its checks")
+    del step, state
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -4078,6 +4470,14 @@ def main() -> int:
     for row in lm_rows:   # each row's launches: its own config's serving run
         row["launches"] = served[row["config"]][row["name"]]
     rows += lm_rows
+    # phase 9: training
+    train_rows = timed("train_kernels", train_kernel_phase, dev)
+    timed("train_cpu qwen3_0_6b", train_cpu_phase, dev)
+    trained = {arch: timed(f"train {arch}", train_phase, dev, arch)
+               for arch in TRAIN_RUNS}
+    for row in train_rows:  # each row's launches: its config's training run
+        row["launches"] = trained[row["config"]][row["name"]]
+    rows += train_rows
     emit("seconds", phases=seconds, total=sum(seconds.values()))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -174,6 +174,31 @@ def _flash(dtype: str, hd: int, hd_v: int) -> tuple:
     return threads, dyn, 2 if fits_two else 1
 
 
+def _flash_bwd(kernel: str, hd: int, hd_v: int) -> tuple:
+    """(threads, dynamic bytes, blocks a SM) of B4's backward kernels, one
+    instance for both dtypes (f32 tiles): ``bwd_dkdv_smem_bytes`` (K, Q,
+    V, dO, P^T and dS^T tiles, lse and D) and ``bwd_dq_smem_bytes`` (Q, K,
+    dO, V, dS, lse and D) in flash_attention.cu; launch bound one block."""
+    c = _c("flash")
+    tiles = 2 if kernel == "flash_attention_bwd_dkdv" else 1
+    dyn = (2 * c["BK"] * (hd + 4) + 2 * c["BK"] * (hd_v + 4)
+           + tiles * c["BQ"] * c["LDP"] + 2 * c["BQ"]) * 4
+    return c["THREADS"], dyn, 1
+
+
+def _ssd_bwd(P: int, N: int) -> int:
+    """Dynamic bytes of B5's backward kernel (``bwd_smem_floats``,
+    ssd_chunk.cu): the B and C tiles (N wide), the x̄ and dy tiles (P
+    wide), dstate [N, P], the M tile, 16 rows of column partials and
+    three 64-entry vectors."""
+    c = _c("ssd")
+    tile = c["TILE"]
+    ldn = ((N + 3) & ~3) + 4
+    ldp = ((P + 3) & ~3) + 4
+    return (2 * tile * ldn + 2 * tile * ldp + N * ldp + tile * c["LDM"]
+            + 16 * tile + 3 * tile) * 4
+
+
 def ssd_heads_per_block(BN: int, c_len: int, H: int, N: int) -> int:
     """``heads_per_block`` (ssd_chunk.cu:534): heads a bf16 block takes."""
     c = _c("ssd")
@@ -226,10 +251,11 @@ GRAPH_KERNELS = tuple(_GRAPH_KERNELS)
 def footprint(kernel: str, *, dtype: Optional[str] = None,
               hd: Optional[int] = None, hd_v: Optional[int] = None,
               shape: Optional[tuple] = None) -> Footprint:
-    """The model of one kernel's block.  B4 (``flash_attention``) takes
+    """The model of one kernel's block.  B4 (``flash_attention`` and its
+    backward kernels ``flash_attention_bwd_dkdv``/``_dq``) takes
     ``dtype``, ``hd`` and ``hd_v`` (default ``hd``); B5
-    (``ssd_chunk_dual``) ``dtype`` and ``shape`` = (BN, c, H, P, N); the
-    graph kernels nothing."""
+    (``ssd_chunk_dual``, ``ssd_chunk_dual_bwd``) ``dtype`` and ``shape`` =
+    (BN, c, H, P, N); the graph kernels nothing."""
     if kernel in _GRAPH_KERNELS:
         unit, static, min_blocks = _GRAPH_KERNELS[kernel]
         env = constants(unit)
@@ -237,18 +263,38 @@ def footprint(kernel: str, *, dtype: Optional[str] = None,
         _, file, line = env["THREADS"]
         return Footprint(kernel, c["THREADS"], static(c), 0, min_blocks(c),
                          file, line)
+    hd_v = hd if hd_v is None else hd_v
     if kernel == "flash_attention":
-        threads, dyn, min_blocks = _flash(dtype, hd,
-                                          hd if hd_v is None else hd_v)
+        threads, dyn, min_blocks = _flash(dtype, hd, hd_v)
+        unit = "flash"
+    elif kernel in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        threads, dyn, min_blocks = _flash_bwd(kernel, hd, hd_v)
         unit = "flash"
     elif kernel == "ssd_chunk_dual":
         threads, dyn = _ssd(dtype, *shape)
         min_blocks = 2
         unit = "ssd"
+    elif kernel == "ssd_chunk_dual_bwd":
+        threads, dyn, min_blocks = _c("ssd")["THREADS"], _ssd_bwd(
+            *shape[3:]), 1
+        unit = "ssd"
     else:
         raise KeyError(f"no footprint model of kernel {kernel!r}")
     _, file, line = constants(unit)["THREADS"]
     return Footprint(kernel, threads, 0, dyn, min_blocks, file, line)
+
+
+def row_footprint(row: dict) -> Footprint:
+    """The model of a row of ``costmodel.block_feasibility``: its kernel
+    at the row's dtype and head dims or shape."""
+    kernel = row["kernel"]
+    if kernel.startswith("flash_attention"):
+        return footprint(kernel, dtype=row["dtype"], hd=row["hd"],
+                         hd_v=row["hd_v"])
+    if kernel.startswith("ssd_chunk_dual"):
+        return footprint(kernel, dtype=row["dtype"], shape=tuple(
+            row[key] for key in ("BN", "c", "H", "P", "N")))
+    return footprint(kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -271,9 +317,16 @@ def graph_shapes() -> dict:
     return shapes
 
 
+#: B4's kernels (the forward and the two of its backward pass) and B5's
+ATTENTION_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv",
+                     "flash_attention_bwd_dq")
+SSD_KERNELS = ("ssd_chunk_dual", "ssd_chunk_dual_bwd")
+
+
 def lm_shapes() -> list:
-    """``(config, kernel, dtype, (hd, hd_v) or shape)`` of B4 and B5 for
-    every configuration, at a 2048-token prefill: B4 at each attention
+    """``(config, kernel, dtype, (hd, hd_v) or shape)`` of B4's and B5's
+    kernels (forward and backward) for every configuration, at a 2048-token
+    prefill: B4 at each attention
     config's q/k and v head dims (MLA's prefill 192/128; a vision config's
     cross-attention shares its self-attention's head dim)."""
     from repro_torch.configs import ARCHITECTURES, get_config
@@ -285,12 +338,14 @@ def lm_shapes() -> list:
             if "attn" in kinds:
                 hd = cfg.resolved_head_dim
                 hd_v = cfg.v_head_dim if cfg.attention == "mla" else hd
-                out.append((arch, "flash_attention", dtype, (hd, hd_v)))
+                for kernel in ATTENTION_KERNELS:
+                    out.append((arch, kernel, dtype, (hd, hd_v)))
             if "mamba" in kinds:
                 c_len = min(cfg.ssm_chunk, PREFILL)
-                out.append((arch, "ssd_chunk_dual", dtype, (
-                    -(-PREFILL // c_len), c_len, cfg.ssm_heads,
-                    cfg.ssm_head_dim, cfg.ssm_state)))
+                for kernel in SSD_KERNELS:
+                    out.append((arch, kernel, dtype, (
+                        -(-PREFILL // c_len), c_len, cfg.ssm_heads,
+                        cfg.ssm_head_dim, cfg.ssm_state)))
     return out
 
 
@@ -367,7 +422,7 @@ def run(paths) -> list:
                                             shape_name=shape_name))
     for arch, kernel, dtype, arg in lm_shapes():
         fp = (footprint(kernel, dtype=dtype, hd=arg[0], hd_v=arg[1])
-              if kernel == "flash_attention"
+              if kernel in ATTENTION_KERNELS
               else footprint(kernel, dtype=dtype, shape=arg))
         findings.extend(check_footprint(fp, shape_name=f"{arch} {dtype}"))
     return findings

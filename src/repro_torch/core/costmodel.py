@@ -346,7 +346,10 @@ BLOCK_SHAPES = {
     "fused_fixed_point": dict(grid="cooperative"),
     "fused_delta": dict(grid="cooperative"),
     "flash_attention": dict(rows=64, keys=64),
+    "flash_attention_bwd_dkdv": dict(rows=64, keys=64),
+    "flash_attention_bwd_dq": dict(rows=64, keys=64),
     "ssd_chunk_dual": dict(strip=64),
+    "ssd_chunk_dual_bwd": dict(strip=64),
 }
 #: the C entry point reporting each graph kernel and its ``which``
 _ATTR_KERNELS = {"relax_lanes": ("repro_relax_block_attrs", 0),
@@ -362,8 +365,9 @@ SSD_REPORT_SHAPE = (8, 256, 48, 64, 128)
 
 def attr_calls() -> dict:
     """Report row name -> (kernel, C entry point, its leading arguments,
-    the row's shape): the six graph kernels, B4's kernel for each dtype
-    and (q/k, v) head-dim pair it takes, and B5's for each dtype at
+    the row's shape): the six graph kernels, B4's kernel and its two
+    backward kernels for each dtype and (q/k, v) head-dim pair they take,
+    and B5's kernel and its backward kernel for each dtype at
     :data:`SSD_REPORT_SHAPE`."""
     from repro_torch.kernels._build import DTYPE_CODES
     from repro_torch.kernels.flash_attention import HEAD_DIMS
@@ -374,14 +378,22 @@ def attr_calls() -> dict:
         for hd, hd_v in HEAD_DIMS:
             name = (f"flash_attention {dname} hd{hd}" if hd == hd_v else
                     f"flash_attention {dname} hd{hd}/{hd_v}")
+            shape = dict(dtype=dname, hd=hd, hd_v=hd_v)
             calls[name] = ("flash_attention", "repro_flash_block_attrs",
-                           (code, hd, hd_v), dict(dtype=dname, hd=hd,
-                                                  hd_v=hd_v))
+                           (code, hd, hd_v), shape)
+            for which, part in enumerate(("dkdv", "dq")):
+                calls[f"{name} bwd {part}"] = (
+                    f"flash_attention_bwd_{part}",
+                    "repro_flash_bwd_block_attrs", (code, hd, hd_v, which),
+                    shape)
+        shape = dict(dtype=dname, **dict(zip("BN c H P N".split(),
+                                             SSD_REPORT_SHAPE)))
         calls[f"ssd_chunk_dual {dname}"] = (
             "ssd_chunk_dual", "repro_ssd_block_attrs",
-            (code, *SSD_REPORT_SHAPE),
-            dict(dtype=dname, **dict(zip("BN c H P N".split(),
-                                         SSD_REPORT_SHAPE))))
+            (code, *SSD_REPORT_SHAPE), shape)
+        calls[f"ssd_chunk_dual_bwd {dname}"] = (
+            "ssd_chunk_dual_bwd", "repro_ssd_bwd_block_attrs",
+            (code, *SSD_REPORT_SHAPE[3:]), shape)
     return calls
 
 

@@ -6,8 +6,10 @@
 #                     relax) and B2 relax_lanes (direct-mapped lanes), plus
 #                     their folds into dist: apply_relax / wd_apply_relax
 #   find_offsets    - B3, the paper's WD offset search
-#   flash_attention - B4, GQA flash attention forward (LM prefill)
-#   ssd_chunk       - B5, Mamba-2 SSD intra-chunk dual form (LM prefill)
+#   flash_attention - B4, GQA flash attention (LM prefill) and its backward
+#                     kernels (training)
+#   ssd_chunk       - B5, Mamba-2 SSD intra-chunk dual form (LM prefill) and
+#                     its backward kernel (training)
 #   fused           - the fused fixed point: a whole traversal in one
 #                     persistent cooperative launch (B1/B2's lane bodies)
 from repro_torch.kernels import (  # noqa: F401

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: launches its kernel and nowhere else
 LAUNCHES = {"wd_relax_lanes": 0, "relax_lanes": 0, "find_offsets": 0,
             "flash_attention": 0, "ssd_chunk_dual": 0,
+            "flash_attention_bwd": 0, "ssd_chunk_dual_bwd": 0,
             "fused_fixed_point": 0, "wd_relax_lanes_batch": 0,
             "ad_choice_probe": 0, "barrier_probe": 0}
 
@@ -67,13 +68,24 @@ _SIGNATURES = {
                              _P],
     # prefix, f, cap_work, out, stream
     "repro_find_offsets": [_P, _I, _I, _P, _P],
-    # q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, hd_v, causal, dtype, scale,
-    # stream
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, ctypes.c_float, _P],
+    # q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, hd_v, causal, dtype,
+    # scale, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, ctypes.c_float, _P],
+    # q, k, v, out, dout, lse, D, dq, dk, dv, B, Hq, Hkv, Sq, Sk, hd, hd_v,
+    # causal, dtype, scale, stream
+    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  ctypes.c_float, _P],
     # xbar, cum, Bm, Cm, y, state, BN, c, H, P, N, dtype, stream
     "repro_ssd_chunk_dual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _P],
+    # xbar, cum, Bm, Cm, dy, dstate, dxbar, dcum, dB, dC, work, BN, c, H,
+    # P, N, dtype, stream
+    "repro_ssd_chunk_dual_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _P],
+    # BN, H -> head groups of a backward call
+    "repro_ssd_bwd_groups": [_I, _I],
     # n, delta, narrow_edges, out bytes
     "repro_fused_workspace_bytes": [_I, _I, _I,
                                     ctypes.POINTER(ctypes.c_longlong)],
@@ -97,8 +109,12 @@ _SIGNATURES = {
     "repro_relax_block_attrs": [_I, _OUT],
     # dtype, hd, hd_v, out
     "repro_flash_block_attrs": [_I, _I, _I, _OUT],
+    # dtype, hd, hd_v, which (0 dK/dV, 1 dQ), out
+    "repro_flash_bwd_block_attrs": [_I, _I, _I, _I, _OUT],
     # dtype, BN, c, H, P, N, out
     "repro_ssd_block_attrs": [_I, _I, _I, _I, _I, _I, _OUT],
+    # dtype, P, N, out
+    "repro_ssd_bwd_block_attrs": [_I, _I, _I, _OUT],
     # coeffs (host, 9), count, degree_sum, m, out, stream
     "repro_fused_ad_choice_probe": [_F, _P, _P, _I, _P, _P],
     "repro_fused_block_attrs": [_I, _OUT],

@@ -76,8 +76,38 @@
 // rate (wgmma alone reaches all of it); the bf16 kernel's measured time
 // and the f32 kernel's are in PERF.md (chip_smoke.py).
 //
-// The entry point launches on the given stream, allocates nothing, does
-// not synchronise, and returns cudaGetLastError() of its launch.
+// The forward kernels take an optional lse [B,Hq,Sq] f32 (m + log l of
+// each row): training's launch asks for it, serving's passes null and the
+// store is skipped, so the output is bit-identical either way.
+//
+// The backward pass, repro_flash_attention_bwd, replaces no TPU kernel:
+// the reference trains through jax.grad of blocked_attention
+// (repro/models/layers.py), the XLA oracle of its forward.  It is
+// FlashAttention-2's, three launches, no float atomics:
+//   * flash_bwd_dot_kernel: D = rowsum(dO o O) in f32, a warp a row;
+//   * flash_bwd_dkdv_kernel: one block of 256 threads per (64-key tile,
+//     KV head, batch) keeps its K and V tiles in shared memory and walks
+//     the G query heads of its group and, for each, the query tiles that
+//     see its keys (causal: from the key tile's own on); per query tile
+//     it recomputes S^T = K (q*scale)^T, P = exp(S - lse) under the
+//     forward's mask, dP^T = V dO^T and dS = P o (dP - D), and sums dV +=
+//     P^T dO (P rounded to V's dtype, as the forward's PV product takes
+//     it) and dK += dS^T (q*scale) in registers; so the block alone writes
+//     its rows of dK and dV;
+//   * flash_bwd_dq_kernel: one block per (64-query tile, query head,
+//     batch) walks the key tiles its queries see and sums dQ = scale * dS K.
+// Both keep every tile as f32 in shared memory and run f32 FMA on the
+// CUDA cores for both dtypes (a bf16 input is widened on load, q*scale
+// rounded to bf16 first as in the forward): dK/dV 170 KB at 128/128 and
+// 203 KB at 192/128, dQ 153 and 186 KB, one block a SM.  What bounds it:
+// operations, 2 FLOP a multiply-add of the recomputed logits (hd), dV,
+// dP (hd_v each), dQ and dK (hd each) over the kept pairs: 172 GFLOP at
+// qwen3's training shape (4 x 2048, 16/8 heads, hd 128, causal), 0.17 ms
+// at the bf16 tensor cores' rate; this first kernel runs on the CUDA
+// cores (PERF.md has its time); mma.sync/wgmma is later work.
+//
+// The entry points launch on the given stream, allocate nothing, do not
+// synchronise, and return cudaGetLastError() of their launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,8 +162,8 @@ __global__ void __launch_bounds__(THREADS,
                                   min_blocks(smem_bytes<HD, HDV>()))
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int Hq, int Hkv, int Sq, int Sk, int causal,
-                     float scale) {
+                     float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+                     int causal, float scale) {
   constexpr int LD = HD + 4;    // row stride of the Q and K tiles (floats)
   constexpr int LDV = HDV + 4;  // row stride of the V tile
   constexpr int NC = HDV / 16;  // acc columns per thread
@@ -277,6 +307,8 @@ __global__ void __launch_bounds__(THREADS,
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       oh[(size_t)qi * HDV + cg + 16 * c] = acc[a][c] / den;
+    if (lse != nullptr && cg == 0)
+      lse[((size_t)b * Hq + h) * Sq + qi] = m[a] + logf(l[a]);
   }
 }
 
@@ -302,8 +334,9 @@ __global__ void __launch_bounds__(TC_THREADS,
     flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
-                      int Sq, int Sk, int causal, float scale) {
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                      int Sk, int causal, float scale) {
   using namespace repro_mma;
   using bf16 = __nv_bfloat16;
   constexpr int LDS = HD + 8;      // row stride of the Q and K tiles
@@ -492,7 +525,9 @@ __global__ void __launch_bounds__(TC_THREADS,
     const int m = r0 + 8 * a;
     if (m >= rows) continue;
     const float den = fmaxf(l, 1e-30f);
-    bf16* dst = out + (((size_t)b * Hq + hk * G + m % G) * Sq + m / G) * HDV;
+    const size_t row = ((size_t)b * Hq + hk * G + m % G) * Sq + m / G;
+    if (lse != nullptr && (lane & 3) == 0) lse[row] = m_run[a] + logf(l);
+    bf16* dst = out + row * HDV;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
       *reinterpret_cast<uint32_t*>(dst + nt * 8 + tq) =
@@ -500,10 +535,349 @@ __global__ void __launch_bounds__(TC_THREADS,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the backward pass: D = rowsum(dO o O), then dK/dV and dQ (f32, CUDA cores)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+// x rounded to T (round to nearest even) and back
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+constexpr int DOT_WARPS = 8;  // rows of D a block of the dot kernel
+
+// D[row] = sum_e dO[row][e] * O[row][e] in f32, a warp a row
+template <typename T, int HDV>
+__global__ void __launch_bounds__(32 * DOT_WARPS)
+    flash_bwd_dot_kernel(const T* __restrict__ out,
+                         const T* __restrict__ dout, float* __restrict__ D,
+                         long long rows) {
+  const long long row =
+      (long long)blockIdx.x * DOT_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // the whole warp
+  float acc = 0.f;
+  for (int e = lane; e < HDV; e += 32)
+    acc = fmaf(to_f(out[row * HDV + e]), to_f(dout[row * HDV + e]), acc);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) D[row] = acc;
+}
+
 template <int HD, int HDV>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Hq, int Hkv, int Sq, int Sk, int causal, float scale,
-               cudaStream_t st) {
+constexpr size_t bwd_dkdv_smem_bytes() {  // K, Q; V, dO; P^T, dS^T; lse, D
+  return (size_t)(2 * BK * (HD + 4) + 2 * BK * (HDV + 4) + 2 * BK * LDP +
+                  2 * BQ) *
+         sizeof(float);
+}
+template <int HD, int HDV>
+constexpr size_t bwd_dq_smem_bytes() {  // Q, K; dO, V; dS; lse, D
+  return (size_t)(2 * BK * (HD + 4) + 2 * BK * (HDV + 4) + BQ * LDP +
+                  2 * BQ) *
+         sizeof(float);
+}
+
+// rows [r0, r0 + 64) of a [n, width] tensor of T into shared f32 rows of
+// stride ld, each times `mul` and rounded back to T (mul = 1: as stored);
+// rows at or past n read as zeros
+template <typename T>
+__device__ __forceinline__ void load_tile_f32(float* dst, int ld,
+                                              const T* src, int r0, int n,
+                                              int width, float mul) {
+  for (int idx = threadIdx.x; idx < 64 * width; idx += THREADS) {
+    const int i = idx / width, d = idx % width;
+    dst[i * ld + d] =
+        r0 + i < n
+            ? round_to<T>(to_f(src[(size_t)(r0 + i) * width + d]) * mul)
+            : 0.f;
+  }
+}
+
+// 4 x 4 dot products of rows 4r+a of A with rows cg+16c of B over `width`
+// (a multiple of 4), both f32 in shared memory
+template <int WIDTH>
+__device__ __forceinline__ void dot_4x4(float (&acc)[4][4], const float* A,
+                                        const float* B, int ld, int r,
+                                        int cg) {
+#pragma unroll 4
+  for (int d = 0; d < WIDTH; d += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      x[a] = *reinterpret_cast<const float4*>(&A[(4 * r + a) * ld + d]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      y[c] = *reinterpret_cast<const float4*>(&B[(cg + 16 * c) * ld + d]);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[a][c] = fmaf(x[a].x, y[c].x, acc[a][c]);
+        acc[a][c] = fmaf(x[a].y, y[c].y, acc[a][c]);
+        acc[a][c] = fmaf(x[a].z, y[c].z, acc[a][c]);
+        acc[a][c] = fmaf(x[a].w, y[c].w, acc[a][c]);
+      }
+  }
+}
+
+// acc[a][c] += sum_i W[4r+a][i] * X[i][cg+16c] over the 64 columns i of
+// the f32 tile W (stride LDP) and rows of X (stride ldx), NCOLS columns
+template <int NCOLS>
+__device__ __forceinline__ void tile_mac(float (&acc)[4][NCOLS],
+                                         const float* W, const float* X,
+                                         int ldx, int r, int cg) {
+#pragma unroll 2
+  for (int i = 0; i < 64; i += 4) {
+    float4 w[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      w[a] = *reinterpret_cast<const float4*>(&W[(4 * r + a) * LDP + i]);
+#pragma unroll
+    for (int c = 0; c < NCOLS; ++c) {
+      const float x0 = X[(i + 0) * ldx + cg + 16 * c];
+      const float x1 = X[(i + 1) * ldx + cg + 16 * c];
+      const float x2 = X[(i + 2) * ldx + cg + 16 * c];
+      const float x3 = X[(i + 3) * ldx + cg + 16 * c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        acc[a][c] = fmaf(w[a].x, x0, acc[a][c]);
+        acc[a][c] = fmaf(w[a].y, x1, acc[a][c]);
+        acc[a][c] = fmaf(w[a].z, x2, acc[a][c]);
+        acc[a][c] = fmaf(w[a].w, x3, acc[a][c]);
+      }
+    }
+  }
+}
+
+// dK and dV of one (64-key tile, KV head, batch): the block walks the G
+// query heads of its group and, for each, the query tiles that see its
+// keys, so it alone writes its rows of dK and dV (no atomics).  Thread
+// (r, cg) owns keys 4r..4r+3 and, per query tile, the (key, query) pairs
+// with queries cg + 16c.
+template <typename T, int HD, int HDV>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ Dsum, T* __restrict__ dk,
+                          T* __restrict__ dv, int Hq, int Hkv, int Sq,
+                          int Sk, int causal, float scale) {
+  constexpr int LD = HD + 4, LDV = HDV + 4;
+  constexpr int NC = HD / 16, NCV = HDV / 16;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);  // [BK][LD]
+  float* Qs = Ks + BK * LD;                     // [BQ][LD], scaled
+  float* Vs = Qs + BQ * LD;                     // [BK][LDV]
+  float* dOs = Vs + BK * LDV;                   // [BQ][LDV]
+  float* Ps = dOs + BQ * LDV;                   // [BK][LDP]: P^T
+  float* dSs = Ps + BK * LDP;                   // [BK][LDP]: dS^T
+  float* lse_s = dSs + BK * LDP;                // [BQ]
+  float* D_s = lse_s + BQ;                      // [BQ]
+
+  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int tid = threadIdx.x, r = tid >> 4, cg = tid & 15;
+  const size_t kv_head = (size_t)b * Hkv + hk;
+  load_tile_f32(Ks, LD, k + kv_head * Sk * HD, k0, Sk, HD, 1.f);
+  load_tile_f32(Vs, LDV, v + kv_head * Sk * HDV, k0, Sk, HDV, 1.f);
+
+  float dka[4][NC], dva[4][NCV];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dka[a][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCV; ++c) dva[a][c] = 0.f;
+  }
+
+  const int nq = (Sq + BQ - 1) / BQ;
+  // causal (top-left): query i sees key j when j <= i, so the query tiles
+  // from the key tile's index on see some of its keys (BQ == BK)
+  const int qt0 = causal ? k0 / BQ : 0;
+  for (int g = 0; g < G; ++g) {
+    const size_t head = (size_t)b * Hq + hk * G + g;
+    for (int qt = qt0; qt < nq; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();  // the previous tile's products are done
+      load_tile_f32(Qs, LD, q + head * Sq * HD, q0, Sq, HD, scale);
+      load_tile_f32(dOs, LDV, dout + head * Sq * HDV, q0, Sq, HDV, 1.f);
+      for (int i = tid; i < BQ; i += THREADS) {
+        lse_s[i] = q0 + i < Sq ? lse[head * Sq + q0 + i] : 0.f;
+        D_s[i] = q0 + i < Sq ? Dsum[head * Sq + q0 + i] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4] = {}, dp[4][4] = {};
+      dot_4x4<HD>(s, Ks, Qs, LD, r, cg);
+      dot_4x4<HDV>(dp, Vs, dOs, LDV, r, cg);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int j = k0 + 4 * r + a;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int ii = cg + 16 * c, i = q0 + ii;
+          const bool keep = i < Sq && j < Sk && (!causal || j <= i);
+          const float p = keep ? expf(s[a][c] - lse_s[ii]) : 0.f;
+          // dV takes P as the forward's PV product does: in V's dtype
+          Ps[(4 * r + a) * LDP + ii] = round_to<T>(p);
+          dSs[(4 * r + a) * LDP + ii] = p * (dp[a][c] - D_s[ii]);
+        }
+      }
+      __syncthreads();
+      tile_mac<NCV>(dva, Ps, dOs, LDV, r, cg);
+      tile_mac<NC>(dka, dSs, Qs, LD, r, cg);
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = k0 + 4 * r + a;
+    if (j >= Sk) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      dk[(kv_head * Sk + j) * HD + cg + 16 * c] = from_f<T>(dka[a][c]);
+#pragma unroll
+    for (int c = 0; c < NCV; ++c)
+      dv[(kv_head * Sk + j) * HDV + cg + 16 * c] = from_f<T>(dva[a][c]);
+  }
+}
+
+// dQ of one (64-query tile, query head, batch): the block walks the key
+// tiles its queries see.  dQ = scale * dS K, dS = P o (dP - D), with P
+// recomputed from the forward's lse.
+template <typename T, int HD, int HDV>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ Dsum, T* __restrict__ dq,
+                        int Hq, int Hkv, int Sq, int Sk, int causal,
+                        float scale) {
+  constexpr int LD = HD + 4, LDV = HDV + 4;
+  constexpr int NC = HD / 16;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][LD], scaled
+  float* Ks = Qs + BQ * LD;                     // [BK][LD]
+  float* dOs = Ks + BK * LD;                    // [BQ][LDV]
+  float* Vs = dOs + BQ * LDV;                   // [BK][LDV]
+  float* dSs = Vs + BK * LDV;                   // [BQ][LDP]
+  float* lse_s = dSs + BQ * LDP;                // [BQ]
+  float* D_s = lse_s + BQ;                      // [BQ]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest walks first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, r = tid >> 4, cg = tid & 15;
+  const size_t head = (size_t)b * Hq + h, kv_head = (size_t)b * Hkv + hk;
+  load_tile_f32(Qs, LD, q + head * Sq * HD, q0, Sq, HD, scale);
+  load_tile_f32(dOs, LDV, dout + head * Sq * HDV, q0, Sq, HDV, 1.f);
+  for (int i = tid; i < BQ; i += THREADS) {
+    lse_s[i] = q0 + i < Sq ? lse[head * Sq + q0 + i] : 0.f;
+    D_s[i] = q0 + i < Sq ? Dsum[head * Sq + q0 + i] : 0.f;
+  }
+
+  float dqa[4][NC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dqa[a][c] = 0.f;
+
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal)  // tiles past the block's last query are all masked
+    n_tiles = min(n_tiles, (min(q0 + BQ, Sq) - 1) / BK + 1);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    __syncthreads();  // the previous tile's dQ product is done
+    load_tile_f32(Ks, LD, k + kv_head * Sk * HD, k0, Sk, HD, 1.f);
+    load_tile_f32(Vs, LDV, v + kv_head * Sk * HDV, k0, Sk, HDV, 1.f);
+    __syncthreads();
+
+    float s[4][4] = {}, dp[4][4] = {};
+    dot_4x4<HD>(s, Qs, Ks, LD, r, cg);
+    dot_4x4<HDV>(dp, dOs, Vs, LDV, r, cg);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int ii = 4 * r + a, i = q0 + ii;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = k0 + cg + 16 * c;
+        const bool keep = i < Sq && j < Sk && (!causal || j <= i);
+        const float p = keep ? expf(s[a][c] - lse_s[ii]) : 0.f;
+        dSs[ii * LDP + cg + 16 * c] = p * (dp[a][c] - D_s[ii]);
+      }
+    }
+    __syncthreads();
+    tile_mac<NC>(dqa, dSs, Ks, LD, r, cg);
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = q0 + 4 * r + a;
+    if (i >= Sq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      dq[(head * Sq + i) * HD + cg + 16 * c] = from_f<T>(dqa[a][c] * scale);
+  }
+}
+
+template <typename T, int HD, int HDV>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, float* D, void* dq,
+               void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
+               int causal, float scale, cudaStream_t st) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const long long rows = (long long)B * Hq * Sq;
+  flash_bwd_dot_kernel<T, HDV>
+      <<<(unsigned)((rows + DOT_WARPS - 1) / DOT_WARPS), 32 * DOT_WARPS, 0,
+         st>>>(static_cast<const T*>(out), dot, D, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t kv_bytes = bwd_dkdv_smem_bytes<HD, HDV>();
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD, HDV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_kernel<T, HD, HDV>
+      <<<dim3((Sk + BK - 1) / BK, Hkv, B), THREADS, kv_bytes, st>>>(
+          qt, kt, vt, dot, lse, D, static_cast<T*>(dk), static_cast<T*>(dv),
+          Hq, Hkv, Sq, Sk, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t q_bytes = bwd_dq_smem_bytes<HD, HDV>();
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD, HDV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)q_bytes);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_kernel<T, HD, HDV>
+      <<<dim3((Sq + BQ - 1) / BQ, Hq, B), THREADS, q_bytes, st>>>(
+          qt, kt, vt, dot, lse, D, static_cast<T*>(dq), Hq, Hkv, Sq, Sk,
+          causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, int HDV>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+               float scale, cudaStream_t st) {
   const size_t bytes = smem_bytes<HD, HDV>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -512,14 +886,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_f32_kernel<HD, HDV><<<grid, THREADS, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Sq,
-      Sk, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Hq, Hkv,
+      Sq, Sk, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+                float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
                 float scale, cudaStream_t st) {
   const size_t bytes = tc_smem_bytes<HD, HDV>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -532,7 +906,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), Hq, Hkv, Sq, Sk, causal, scale);
+      static_cast<__nv_bfloat16*>(out), lse, Hq, Hkv, Sq, Sk, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -540,11 +915,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 #define REPRO_FLASH_PAIRS(X) \
   X(32, 32) X(64, 64) X(128, 128) X(48, 32) X(192, 128)
 
-#define REPRO_FLASH_ARGS q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, scale, st
+#define REPRO_FLASH_ARGS \
+  q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, causal, scale, st
 
 int dispatch(int dtype, int hd, int hd_v, const void* q, const void* k,
-             const void* v, void* out, int B, int Hq, int Hkv, int Sq,
-             int Sk, int causal, float scale, cudaStream_t st) {
+             const void* v, void* out, float* lse, int B, int Hq, int Hkv,
+             int Sq, int Sk, int causal, float scale, cudaStream_t st) {
 #define REPRO_FLASH_CASE(HD, HDV)                                 \
   if (hd == HD && hd_v == HDV) {                                  \
     if (dtype == DTYPE_F32) return launch_f32<HD, HDV>(REPRO_FLASH_ARGS);  \
@@ -556,6 +932,41 @@ int dispatch(int dtype, int hd, int hd_v, const void* q, const void* k,
 }
 
 #undef REPRO_FLASH_ARGS
+
+#define REPRO_FLASH_BWD_ARGS \
+  q, k, v, out, dout, lse, D, dq, dk, dv, B, Hq, Hkv, Sq, Sk, causal, scale, st
+
+int dispatch_bwd(int dtype, int hd, int hd_v, const void* q, const void* k,
+                 const void* v, const void* out, const void* dout,
+                 const float* lse, float* D, void* dq, void* dk, void* dv,
+                 int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+                 float scale, cudaStream_t st) {
+#define REPRO_FLASH_CASE(HD, HDV)                                          \
+  if (hd == HD && hd_v == HDV) {                                           \
+    if (dtype == DTYPE_F32)                                                \
+      return launch_bwd<float, HD, HDV>(REPRO_FLASH_BWD_ARGS);             \
+    if (dtype == DTYPE_BF16)                                               \
+      return launch_bwd<__nv_bfloat16, HD, HDV>(REPRO_FLASH_BWD_ARGS);     \
+  }
+  REPRO_FLASH_PAIRS(REPRO_FLASH_CASE)
+#undef REPRO_FLASH_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+#undef REPRO_FLASH_BWD_ARGS
+
+template <typename T, int HD, int HDV>
+int bwd_attrs(int which, int* out) {
+  if (which == 0)
+    return (int)repro_block_attrs(
+        (const void*)flash_bwd_dkdv_kernel<T, HD, HDV>, THREADS,
+        (int)bwd_dkdv_smem_bytes<HD, HDV>(), out);
+  if (which == 1)
+    return (int)repro_block_attrs(
+        (const void*)flash_bwd_dq_kernel<T, HD, HDV>, THREADS,
+        (int)bwd_dq_smem_bytes<HD, HDV>(), out);
+  return (int)cudaErrorInvalidValue;
+}
 
 template <int HD, int HDV>
 int attrs(int dtype, int* out) {
@@ -574,19 +985,20 @@ int attrs(int dtype, int* out) {
 extern "C" {
 
 // q [B,Hq,Sq,hd], k [B,Hkv,Sk,hd], v [B,Hkv,Sk,hd_v], out [B,Hq,Sq,hd_v],
-// contiguous, all of dtype `dtype` (0 f32: CUDA-core kernel, 1 bf16:
+// contiguous, all of dtype `dtype`; lse [B,Hq,Sq] f32 (m + log l of every
+// row, for the backward pass) or null, which skips its store (0 f32: CUDA-core kernel, 1 bf16:
 // tensor-core kernel); (hd, hd_v) one of REPRO_FLASH_PAIRS; Hq % Hkv == 0;
 // B, Hq < 65536; Sq, Sk >= 1.  `scale` is the logits' scale rounded to the
 // dtype (hd^-0.5 unless the caller gives its own).
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, int B, int Hq, int Hkv, int Sq, int Sk,
-                          int hd, int hd_v, int causal, int dtype,
-                          float scale, void* stream) {
+                          void* out, float* lse, int B, int Hq, int Hkv,
+                          int Sq, int Sk, int hd, int hd_v, int causal,
+                          int dtype, float scale, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 ||
       B > 65535 || Hq > 65535)
     return (int)cudaErrorInvalidValue;
-  return dispatch(dtype, hd, hd_v, q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,
-                  scale, (cudaStream_t)stream);
+  return dispatch(dtype, hd, hd_v, q, k, v, out, lse, B, Hq, Hkv, Sq, Sk,
+                  causal, scale, (cudaStream_t)stream);
 }
 
 // The block of the kernel a call of `dtype` and head dims (`hd`, `hd_v`)
@@ -595,6 +1007,40 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
 int repro_flash_block_attrs(int dtype, int hd, int hd_v, int* out) {
 #define REPRO_FLASH_CASE(HD, HDV) \
   if (hd == HD && hd_v == HDV) return attrs<HD, HDV>(dtype, out);
+  REPRO_FLASH_PAIRS(REPRO_FLASH_CASE)
+#undef REPRO_FLASH_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward pass of repro_flash_attention: q, k, v, out and dout (the
+// cotangent of out) as above, lse [B,Hq,Sq] f32 from the forward, D
+// [B,Hq,Sq] f32 workspace; writes dq [B,Hq,Sq,hd], dk [B,Hkv,Sk,hd] and
+// dv [B,Hkv,Sk,hd_v] in `dtype`.  Three launches on `stream`: D, dK/dV,
+// dQ.
+int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                              const void* out, const void* dout,
+                              const float* lse, float* D, void* dq, void* dk,
+                              void* dv, int B, int Hq, int Hkv, int Sq,
+                              int Sk, int hd, int hd_v, int causal, int dtype,
+                              float scale, void* stream) {
+  if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 ||
+      B > 65535 || Hq > 65535)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_bwd(dtype, hd, hd_v, q, k, v, out, dout, lse, D, dq, dk,
+                      dv, B, Hq, Hkv, Sq, Sk, causal, scale,
+                      (cudaStream_t)stream);
+}
+
+// The blocks of the backward kernels (`which` 0: dK/dV, 1: dQ) at `dtype`
+// and head dims (`hd`, `hd_v`): out [ATTR_CELLS] as repro_block_attrs.
+int repro_flash_bwd_block_attrs(int dtype, int hd, int hd_v, int which,
+                                int* out) {
+#define REPRO_FLASH_CASE(HD, HDV)                                  \
+  if (hd == HD && hd_v == HDV) {                                   \
+    if (dtype == DTYPE_F32) return bwd_attrs<float, HD, HDV>(which, out); \
+    if (dtype == DTYPE_BF16)                                        \
+      return bwd_attrs<__nv_bfloat16, HD, HDV>(which, out);         \
+  }
   REPRO_FLASH_PAIRS(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
   return (int)cudaErrorInvalidValue;

@@ -59,8 +59,37 @@
 // bound it.  For f32 inputs it is 0.049 ms at the CUDA cores' 67 TFLOP/s:
 // operations bound it.  The measured times are in PERF.md (chip_smoke.py).
 //
-// The entry point launches on the given stream, allocates nothing, does
-// not synchronise, and returns cudaGetLastError() of its launch.
+// The backward pass, repro_ssd_chunk_dual_bwd, replaces no TPU kernel: the
+// reference trains through jax.grad of ssd_chunked's einsums
+// (repro/models/mamba.py).  From the cotangents (dy, dstate) it gives
+// dx̄, dcum, dB and dC in f32.  ssd_bwd_kernel runs one block of 256
+// threads per (chunk-batch row bn, group of heads): the block alone owns
+// its heads' dx̄ and dcum, and writes the dB and dC that its heads add up
+// to, shared by all heads, into a partial of its own ([BN, groups, c, N]);
+// ssd_bwd_fold_kernel then sums the groups' partials in their order (no
+// float atomics, the same sums on every run).  A group is as many heads
+// as leave one wave of blocks, one a SM (bwd_heads_per_block); with one
+// group the block writes dB and dC itself and nothing is folded.  dx̄,
+// dcum and dC are summed into in place, each element by one thread
+// between barriers, in a fixed order.  For each 64-row
+// j-tile J: per head the state's share (d_j = exp(cum_last - cum_j) <= 1;
+// dx̄ += d (B dstate), dB += d (x̄ dstate^T), dcum from dd_j = sum
+// dstate o (B_j (x) x̄_j)); then per strip I >= J the C.B tile once, and
+// per head dM = dy x̄^T, L = exp(cum_i - cum_j) masked to j <= i BEFORE
+// the exponential (so a strong decay, a span past ~88 where the
+// reference's where(mask, exp(seg), 0) overflows and its gradient turns
+// NaN, stays finite), M = CB o L, dx̄ += M^T dy, dcum += rows of dM o M
+// minus its columns, and dCB = dM o L summed over the group's heads; then
+// dC += dCB B, dB += dCB^T C.  f32 FMA on the CUDA cores for both dtypes.
+// What bounds it: at mamba2's training shape (BN 16, c 256, H 48, P 64,
+// N 128) 13.3 GFLOP against 132 MB, so bytes at 3.35 TB/s (0.04 ms) for
+// bf16 inputs.  There a group is 6 heads: 16 x 8 = 128 blocks on the 132
+// SMs, each recomputing C.B and the dC/dB products for its group (1.4x
+// the FLOP of one block a chunk, which left 116 SMs idle); the time is in
+// PERF.md.
+//
+// The entry points launch on the given stream, allocate nothing, do not
+// synchronise, and return cudaGetLastError() of their launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -559,6 +588,401 @@ int launch_bf16(const void* xbar, const float* cum, const void* Bm,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the backward pass (f32, CUDA cores)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// sum over the 16 threads of a half-warp (the threads of one row group)
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o, 16);
+  return x;
+}
+
+size_t bwd_smem_floats(int N, int P) {
+  const int ldn = ((N + 3) & ~3) + 4, ldp = ((P + 3) & ~3) + 4;
+  return (size_t)2 * TILE * ldn + (size_t)2 * TILE * ldp + (size_t)N * ldp +
+         (size_t)TILE * LDM + 16 * TILE + 3 * TILE;
+}
+
+// One block a (chunk bn, group g of heads) walks the group's heads and
+// writes the rows of dB and dC that they add up to into its partial (row
+// (bn * groups + g) * c of dBp and dCp).  For the j-tile J (64 rows) and
+// each head of the group: the state's share, then for every strip I >= J
+// the tile of C.B (once for the group), and per head dM = dy x̄^T, the
+// decay L (masked to j <= i BEFORE the exponential: exp(cum_i - cum_j)
+// with i < j is never formed, so a strong decay cannot overflow), M = CB
+// o L, dx̄ += M^T dy, dcum from Q = dM o M (rows +, columns -), and dCB =
+// dM o L summed over the group; then dC[I] += dCB B[J], dB[J] += dCB^T
+// C[I].  Thread (r, cg) owns rows 4r..4r+3 of a tile and columns cg +
+// 16k.  dx̄, dcum and dC are summed into in place, each element by one
+// thread between barriers, in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    ssd_bwd_kernel(const T* __restrict__ xbar, const float* __restrict__ cum,
+                   const T* __restrict__ Bm, const T* __restrict__ Cm,
+                   const float* __restrict__ dy,
+                   const float* __restrict__ dstate,
+                   float* __restrict__ dxbar, float* __restrict__ dcum,
+                   float* __restrict__ dBp, float* __restrict__ dCp, int c,
+                   int H, int P, int N, int HB) {
+  const int ldn = ((N + 3) & ~3) + 4, np4 = (N + 3) & ~3;
+  const int ldp = ((P + 3) & ~3) + 4, pp4 = (P + 3) & ~3;
+  extern __shared__ float4 smem4[];
+  float* Bs = reinterpret_cast<float*>(smem4);  // [TILE][ldn]: B[J]
+  float* Cs = Bs + TILE * ldn;                  // [TILE][ldn]: C[I]
+  float* Xs = Cs + TILE * ldn;                  // [TILE][ldp]: x̄[J, h]
+  float* Ys = Xs + TILE * ldp;                  // [TILE][ldp]: dy[I, h]
+  float* Ss = Ys + TILE * ldp;                  // [N][ldp]: dstate[h]
+  float* Ms = Ss + N * ldp;                     // [TILE][LDM]
+  float* colpart = Ms + TILE * LDM;             // [16][TILE]
+  float* rowv = colpart + 16 * TILE;            // [TILE]
+  float* cum_i = rowv + TILE;                   // [TILE]
+  float* cum_j = cum_i + TILE;                  // [TILE]
+
+  const int bn = blockIdx.x;
+  const int h0 = blockIdx.y * HB, h1 = min(H, h0 + HB), hw = h1 - h0;
+  const int tid = threadIdx.x, r = tid >> 4, cg = tid & 15;
+  const size_t row0 = (size_t)bn * c;
+  // the block's rows of the dB / dC partials
+  const size_t part0 = ((size_t)bn * gridDim.y + blockIdx.y) * c * N;
+  float* __restrict__ dB = dBp + part0;
+  float* __restrict__ dC = dCp + part0;
+  const int n_tiles = (c + TILE - 1) / TILE;
+
+  for (size_t idx = tid; idx < (size_t)c * hw * P; idx += THREADS) {
+    const size_t i = idx / ((size_t)hw * P), rest = idx % ((size_t)hw * P);
+    dxbar[((row0 + i) * H + h0) * P + rest] = 0.f;
+  }
+  for (size_t idx = tid; idx < (size_t)c * hw; idx += THREADS)
+    dcum[(row0 + idx / hw) * H + h0 + idx % hw] = 0.f;
+  for (size_t idx = tid; idx < (size_t)c * N; idx += THREADS) dC[idx] = 0.f;
+
+  // rows [t0, t0 + TILE) of a [c, width] slice into shared rows of stride
+  // ld, zero past c and in the columns up to `padded`
+  auto load_rows = [&](float* dst, int ld, auto src, size_t stride,
+                       int t0, int width, int padded) {
+    for (int idx = tid; idx < TILE * padded; idx += THREADS) {
+      const int i = idx / padded, d = idx % padded;
+      const int row = t0 + i;
+      dst[i * ld + d] =
+          (row < c && d < width) ? to_f(src[(row0 + row) * stride + d]) : 0.f;
+    }
+  };
+
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int j0 = jt * TILE;
+    __syncthreads();  // the previous tile is done with Bs
+    load_rows(Bs, ldn, Bm, (size_t)N, j0, N, np4);
+    float dBa[4][MC] = {};
+
+    // (1) the state's share: state = sum_j d_j B_j (x) x̄_j, d_j =
+    // exp(cum_last - cum_j) <= 1
+    for (int h = h0; h < h1; ++h) {
+      __syncthreads();  // Xs, Ss, cum_j and rowv are free
+      load_rows(Xs, ldp, xbar + h * P, (size_t)H * P, j0, P, pp4);
+      for (int idx = tid; idx < N * pp4; idx += THREADS) {
+        const int n = idx / pp4, p = idx % pp4;
+        Ss[n * ldp + p] =
+            p < P ? dstate[(((size_t)bn * H + h) * N + n) * P + p] : 0.f;
+      }
+      for (int i = tid; i < TILE; i += THREADS)
+        cum_j[i] = j0 + i < c ? cum[(row0 + j0 + i) * H + h] : 0.f;
+      const float cum_last = cum[(row0 + c - 1) * H + h];
+      __syncthreads();
+      // tt[j][n] = sum_p x̄[j][p] dstate[n][p]; uu[j][p] = sum_n B[j][n]
+      // dstate[n][p]
+      float tt[4][MC] = {}, uu[4][MC] = {};
+      for (int p = 0; p < pp4; p += 4) {
+        float4 x[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          x[a] = *reinterpret_cast<const float4*>(&Xs[(4 * r + a) * ldp + p]);
+#pragma unroll
+        for (int k = 0; k < MC; ++k) {
+          const int n = cg + 16 * k;
+          if (n >= N) break;
+          const float4 sv = *reinterpret_cast<const float4*>(&Ss[n * ldp + p]);
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+            tt[a][k] += x[a].x * sv.x + x[a].y * sv.y + x[a].z * sv.z +
+                        x[a].w * sv.w;
+        }
+      }
+      for (int n = 0; n < N; ++n) {
+        float bv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) bv[a] = Bs[(4 * r + a) * ldn + n];
+#pragma unroll
+        for (int k = 0; k < MC; ++k) {
+          const int p = cg + 16 * k;
+          if (p >= P) break;
+          const float sv = Ss[n * ldp + p];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) uu[a][k] = fmaf(bv[a], sv, uu[a][k]);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int j = j0 + 4 * r + a;
+        const float d = j < c ? expf(cum_last - cum_j[4 * r + a]) : 0.f;
+        float dd = 0.f;
+#pragma unroll
+        for (int k = 0; k < MC; ++k) {
+          const int n = cg + 16 * k;
+          if (n >= N) break;
+          dd = fmaf(Bs[(4 * r + a) * ldn + n], tt[a][k], dd);
+          dBa[a][k] = fmaf(d, tt[a][k], dBa[a][k]);
+        }
+        dd = half_warp_sum(dd);
+        if (cg == 0) rowv[4 * r + a] = dd * d;
+        if (j < c) {
+          float* dst = dxbar + ((row0 + j) * H + h) * P;
+#pragma unroll
+          for (int k = 0; k < MC; ++k) {
+            const int p = cg + 16 * k;
+            if (p >= P) break;
+            dst[p] = fmaf(d, uu[a][k], dst[p]);
+          }
+        }
+      }
+      __syncthreads();
+      if (tid < TILE && j0 + tid < c)
+        dcum[(row0 + j0 + tid) * H + h] -= rowv[tid];
+      __syncthreads();
+      if (tid == 0) {  // d/dcum_last of every d_j in the tile
+        float total = 0.f;
+        for (int i = 0; i < TILE; ++i) total += rowv[i];
+        dcum[(row0 + c - 1) * H + h] += total;
+      }
+    }
+
+    // (2) the strips I >= J
+    for (int it = jt; it < n_tiles; ++it) {
+      const int i0 = it * TILE;
+      __syncthreads();  // Cs and Ms are free
+      load_rows(Cs, ldn, Cm, (size_t)N, i0, N, np4);
+      __syncthreads();
+      float cb[4][4] = {}, dcbt[4][4] = {};
+      for (int n = 0; n < np4; n += 4) {
+        float4 x[4], y4[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          x[a] = *reinterpret_cast<const float4*>(&Cs[(4 * r + a) * ldn + n]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          y4[q] =
+              *reinterpret_cast<const float4*>(&Bs[(cg + 16 * q) * ldn + n]);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            cb[a][q] += x[a].x * y4[q].x + x[a].y * y4[q].y +
+                        x[a].z * y4[q].z + x[a].w * y4[q].w;
+      }
+
+      for (int h = h0; h < h1; ++h) {
+        __syncthreads();  // Xs, Ys, Ms, cum_i/j, rowv, colpart are free
+        load_rows(Ys, ldp, dy + h * P, (size_t)H * P, i0, P, pp4);
+        load_rows(Xs, ldp, xbar + h * P, (size_t)H * P, j0, P, pp4);
+        for (int i = tid; i < TILE; i += THREADS) {
+          cum_i[i] = i0 + i < c ? cum[(row0 + i0 + i) * H + h] : 0.f;
+          cum_j[i] = j0 + i < c ? cum[(row0 + j0 + i) * H + h] : 0.f;
+        }
+        __syncthreads();
+        float dm[4][4] = {};
+        for (int p = 0; p < pp4; p += 4) {
+          float4 x[4], y4[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+            x[a] =
+                *reinterpret_cast<const float4*>(&Ys[(4 * r + a) * ldp + p]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            y4[q] =
+                *reinterpret_cast<const float4*>(&Xs[(cg + 16 * q) * ldp + p]);
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              dm[a][q] += x[a].x * y4[q].x + x[a].y * y4[q].y +
+                          x[a].z * y4[q].z + x[a].w * y4[q].w;
+        }
+        float colq[4] = {};
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int ii = 4 * r + a, i = i0 + ii;
+          float rowq = 0.f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int jj = cg + 16 * q, j = j0 + jj;
+            const bool keep = i < c && j <= i;
+            const float L = keep ? expf(cum_i[ii] - cum_j[jj]) : 0.f;
+            const float m = cb[a][q] * L;
+            const float qv = dm[a][q] * m;
+            dcbt[a][q] = fmaf(dm[a][q], L, dcbt[a][q]);
+            Ms[ii * LDM + jj] = m;
+            rowq += qv;
+            colq[q] += qv;
+          }
+          rowq = half_warp_sum(rowq);
+          if (cg == 0) rowv[ii] = rowq;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) colpart[r * TILE + cg + 16 * q] = colq[q];
+        __syncthreads();
+        if (tid < TILE) {
+          if (i0 + tid < c) dcum[(row0 + i0 + tid) * H + h] += rowv[tid];
+          float cs = 0.f;
+          for (int rr = 0; rr < 16; ++rr) cs += colpart[rr * TILE + tid];
+          if (j0 + tid < c) dcum[(row0 + j0 + tid) * H + h] -= cs;
+        }
+        // dx̄[J, h] += M^T dy[I, h]
+        float acc[4][MC] = {};
+        for (int i = 0; i < TILE; ++i) {
+          float mv[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) mv[a] = Ms[i * LDM + 4 * r + a];
+#pragma unroll
+          for (int k = 0; k < MC; ++k) {
+            const int p = cg + 16 * k;
+            if (p >= P) break;
+            const float yv = Ys[i * ldp + p];
+#pragma unroll
+            for (int a = 0; a < 4; ++a) acc[a][k] = fmaf(mv[a], yv, acc[a][k]);
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int j = j0 + 4 * r + a;
+          if (j >= c) continue;
+          float* dst = dxbar + ((row0 + j) * H + h) * P;
+#pragma unroll
+          for (int k = 0; k < MC; ++k) {
+            const int p = cg + 16 * k;
+            if (p >= P) break;
+            dst[p] += acc[a][k];
+          }
+        }
+      }
+
+      // dC[I] += dCB B[J], dB[J] += dCB^T C[I], dCB summed over the group
+      __syncthreads();
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) Ms[(4 * r + a) * LDM + cg + 16 * q] =
+            dcbt[a][q];
+      __syncthreads();
+      float acc[4][MC] = {};
+      for (int j = 0; j < TILE; ++j) {
+        float w[4], u[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          w[a] = Ms[(4 * r + a) * LDM + j];  // dCB[i = 4r+a][j]
+          u[a] = Ms[j * LDM + 4 * r + a];    // dCB[i = j][j' = 4r+a]
+        }
+#pragma unroll
+        for (int k = 0; k < MC; ++k) {
+          const int n = cg + 16 * k;
+          if (n >= N) break;
+          const float bv = Bs[j * ldn + n], cv = Cs[j * ldn + n];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            acc[a][k] = fmaf(w[a], bv, acc[a][k]);
+            dBa[a][k] = fmaf(u[a], cv, dBa[a][k]);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = i0 + 4 * r + a;
+        if (i >= c) continue;
+#pragma unroll
+        for (int k = 0; k < MC; ++k) {
+          const int n = cg + 16 * k;
+          if (n >= N) break;
+          dC[(size_t)i * N + n] += acc[a][k];
+        }
+      }
+    }
+
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j = j0 + 4 * r + a;
+      if (j >= c) continue;
+#pragma unroll
+      for (int k = 0; k < MC; ++k) {
+        const int n = cg + 16 * k;
+        if (n >= N) break;
+        dB[(size_t)j * N + n] = dBa[a][k];
+      }
+    }
+  }
+}
+
+// dB, dC [BN][c * N] = the sums over g of part[2][BN][groups][c * N] (dB's
+// partials, then dC's), g in order
+__global__ void ssd_bwd_fold_kernel(const float* __restrict__ part,
+                                    float* __restrict__ dB,
+                                    float* __restrict__ dC, int BN,
+                                    int groups, int cN) {
+  const size_t per = (size_t)BN * cN;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= per) return;
+  const float* src = part + blockIdx.y * per * groups +
+                     (idx / cN) * groups * (size_t)cN + idx % cN;
+  float acc = 0.f;
+  for (int g = 0; g < groups; ++g) acc += src[(size_t)g * cN];
+  (blockIdx.y ? dC : dB)[idx] = acc;
+}
+
+// Heads a backward block walks: few enough that BN x groups fills one
+// wave of blocks, one a SM (its shared memory holds one).
+constexpr int BWD_TARGET_BLOCKS = 132;
+int bwd_heads_per_block(int BN, int H) {
+  const int want = (BWD_TARGET_BLOCKS + BN - 1) / BN;
+  const int groups = want < H ? want : H;
+  return (H + groups - 1) / groups;
+}
+
+int bwd_groups(int BN, int H) {
+  const int HB = bwd_heads_per_block(BN, H);
+  return (H + HB - 1) / HB;
+}
+
+template <typename T>
+int launch_bwd(const void* xbar, const float* cum, const void* Bm,
+               const void* Cm, const float* dy, const float* dstate,
+               float* dxbar, float* dcum, float* dB, float* dC, float* work,
+               int BN, int c, int H, int P, int N, cudaStream_t st) {
+  const int HB = bwd_heads_per_block(BN, H), groups = bwd_groups(BN, H);
+  if (groups > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t bytes = bwd_smem_floats(N, P) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const size_t per = (size_t)BN * groups * c * N;
+  ssd_bwd_kernel<T><<<dim3(BN, groups), THREADS, bytes, st>>>(
+      static_cast<const T*>(xbar), cum, static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), dy, dstate, dxbar, dcum,
+      groups > 1 ? work : dB, groups > 1 ? work + per : dC, c, H, P, N, HB);
+  if (groups > 1) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t out = (size_t)BN * c * N;
+    ssd_bwd_fold_kernel<<<dim3((unsigned)((out + 255) / 256), 2), 256, 0,
+                          st>>>(work, dB, dC, BN, groups, c * N);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -598,6 +1022,52 @@ int repro_ssd_block_attrs(int dtype, int BN, int c, int H, int P, int N,
     return (int)repro_block_attrs(
         (const void*)ssd_bf16_kernel, TC_THREADS,
         (int)TcLayout(c, N, P).bytes(heads_per_block(BN, c, H, N)), out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Head groups of a backward call at (BN, H): with more than one, the call
+// needs a work buffer of 2 * BN * groups * c * N floats.
+int repro_ssd_bwd_groups(int BN, int H) {
+  if (BN < 1 || H < 1) return -1;
+  return bwd_groups(BN, H);
+}
+
+// The backward pass of repro_ssd_chunk_dual: the inputs as above, dy
+// [BN,c,H,P] and dstate [BN,H,N,P] f32 (the cotangents of y and state)
+// -> dxbar [BN,c,H,P], dcum [BN,c,H], dB, dC [BN,c,N], all f32.  `work`
+// holds the head groups' dB / dC partials (repro_ssd_bwd_groups; null for
+// one group).  A launch of BN x groups blocks on `stream`, then, for more
+// than one group, one that folds the partials.
+int repro_ssd_chunk_dual_bwd(const void* xbar, const float* cum,
+                             const void* Bm, const void* Cm, const float* dy,
+                             const float* dstate, float* dxbar, float* dcum,
+                             float* dB, float* dC, float* work, int BN, int c,
+                             int H, int P, int N, int dtype, void* stream) {
+  if (BN < 1 || c < 1 || H < 1 || P < 1 || N < 1 || P > MAX_NP ||
+      N > MAX_NP || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32)
+    return launch_bwd<float>(xbar, cum, Bm, Cm, dy, dstate, dxbar, dcum, dB,
+                             dC, work, BN, c, H, P, N, st);
+  if (dtype == DTYPE_BF16)
+    return launch_bwd<__nv_bfloat16>(xbar, cum, Bm, Cm, dy, dstate, dxbar,
+                                     dcum, dB, dC, work, BN, c, H, P, N, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward kernel's block for `dtype` at (P, N): out [ATTR_CELLS] as
+// repro_block_attrs.
+int repro_ssd_bwd_block_attrs(int dtype, int P, int N, int* out) {
+  if (P < 1 || N < 1 || P > MAX_NP || N > MAX_NP)
+    return (int)cudaErrorInvalidValue;
+  const int bytes = (int)(bwd_smem_floats(N, P) * sizeof(float));
+  if (dtype == DTYPE_F32)
+    return (int)repro_block_attrs((const void*)ssd_bwd_kernel<float>,
+                                  THREADS, bytes, out);
+  if (dtype == DTYPE_BF16)
+    return (int)repro_block_attrs((const void*)ssd_bwd_kernel<__nv_bfloat16>,
+                                  THREADS, bytes, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,6 +19,24 @@ at ``-1e30``, P rounded to V's dtype before the PV product, and
 ``acc / max(l, 1e-30)`` rounded to q's dtype.  Unlike the reference's
 ``ops.attention`` no padding is needed: ragged ``Sq``/``Sk`` are masked in
 the kernel.
+
+Training differentiates through :class:`FlashAttention`, which
+:func:`flash_attention` takes when an input requires a gradient.  Its
+forward launches the same kernel with the optional ``lse [B,Hq,Sq]``
+output (``m + log l`` of every row, float32; serving passes none and the
+kernel skips the store), and its backward is FlashAttention-2's:
+``D = rowsum(dO ∘ O)``, P recomputed as ``exp(s - lse)`` under the same
+mask, ``dS = P ∘ (dP - D)``, ``dV = Pᵀ dO`` (P rounded to V's dtype, as
+the forward's PV product takes it), ``dK = dSᵀ (q·scale)`` and ``dQ =
+scale · dS K``.  :func:`flash_attention_bwd` launches
+``repro_flash_attention_bwd`` for CUDA tensors (a D kernel, a dK/dV kernel
+with one block per (batch, KV head, key tile) that walks its G query heads
+and their query tiles, so no float atomics, and a dQ kernel with one
+block per (batch, query head, query tile); f32 sums on the CUDA cores for
+both dtypes) and :func:`flash_attention_bwd_plain`, the same formulas on
+whole tensors, for CPU tensors.  The reference has no backward kernel: it
+trains through ``jax.grad`` of ``blocked_attention``, the XLA oracle of
+its forward.
 """
 
 from __future__ import annotations
@@ -59,50 +77,180 @@ def scale_for(hd: int, dtype: torch.dtype, scale=None) -> float:
                               dtype=dtype))
 
 
+def _keep(Sq: int, Sk: int, device) -> torch.Tensor:
+    """The causal mask, top-left: query ``i`` sees keys ``j <= i``."""
+    return (torch.arange(Sq, device=device)[:, None]
+            >= torch.arange(Sk, device=device)[None, :])
+
+
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' sums: float32, or float64 for float64 inputs
+    (gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _scaled_logits(q, k, causal: bool, scale):
+    """``(q·scale rounded to q's dtype, as float32 [B,Hkv,G,Sq,hd], the
+    masked float32 logits [B,Hkv,G,Sq,Sk])``."""
+    acc = _acc_dtype(q)
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    qs = (q.to(acc) * scale_for(hd, q.dtype, scale)).to(q.dtype)
+    qg = qs.reshape(B, Hkv, Hq // Hkv, Sq, hd).to(acc)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(acc))
+    if causal:
+        s = s.masked_fill(~_keep(Sq, Sk, q.device), NEG_INF)
+    return qg, s
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          scale=None) -> torch.Tensor:
+                          *, causal: bool = True, scale=None,
+                          return_lse: bool = False):
     """The plain version: the whole ``[Sq, Sk]`` softmax at once, with the
-    reference kernel's rounding points."""
+    reference kernel's rounding points.  With ``return_lse`` it returns
+    ``(out, lse [B,Hq,Sq] float32)`` as the kernel's training launch
+    does."""
+    B, Hq, Hkv, Sq, Sk, hd, hd_v = _shapes(q, k, v)
+    _, s = _scaled_logits(q, k, causal, scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    pv = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).to(s.dtype),
+                      v.to(s.dtype))
+    l = p.sum(-1)
+    out = (pv / l.clamp_min(1e-30)[..., None]).reshape(
+        B, Hq, Sq, hd_v).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m[..., 0] + torch.log(l)).reshape(B, Hq, Sq)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,
+                              scale=None):
+    """The backward pass as explicit formulas on whole tensors: P from the
+    forward's ``lse``, ``D = rowsum(dO ∘ O)``, ``dS = P ∘ (dP - D)``;
+    ``dV = Pᵀ dO`` with P rounded to V's dtype, ``dK = dSᵀ (q·scale)``,
+    ``dQ = scale · dS K``.  Returns ``(dq, dk, dv)`` in the inputs'
+    dtypes; sums in float32."""
+    acc = _acc_dtype(q)
     B, Hq, Hkv, Sq, Sk, hd, hd_v = _shapes(q, k, v)
     G = Hq // Hkv
-    qs = (q.float() * scale_for(hd, q.dtype, scale)).to(q.dtype)
-    qg = qs.reshape(B, Hkv, G, Sq, hd).float()
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    qg, s = _scaled_logits(q, k, causal, scale)
+    p = torch.exp(s - lse.reshape(B, Hkv, G, Sq, 1).to(acc))
     if causal:
-        keep = (torch.arange(Sq, device=q.device)[:, None]
-                >= torch.arange(Sk, device=q.device)[None, :])
-        s = s.masked_fill(~keep, NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
-    out = acc / p.sum(-1).clamp_min(1e-30)[..., None]
-    return out.reshape(B, Hq, Sq, hd_v).to(q.dtype)
+        p = p.masked_fill(~_keep(Sq, Sk, q.device), 0.0)
+    do = dout.reshape(B, Hkv, G, Sq, hd_v).to(acc)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(v.dtype).to(acc), do)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", do, v.to(acc))
+    D = (do * o.reshape(B, Hkv, G, Sq, hd_v).to(acc)).sum(-1,
+                                                          keepdim=True)
+    ds = p * (dp - D)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.to(acc)) \
+        * scale_for(hd, q.dtype, scale)
+    return (dq.reshape(B, Hq, Sq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
-def _flash_attention_cuda(q, k, v, causal: bool, scale) -> torch.Tensor:
+def _check_kernel_args(q, k, v, name: str):
     B, Hq, Hkv, Sq, Sk, hd, hd_v = _shapes(q, k, v)
     dev, dtype = q.device, q.dtype
     if dtype not in DTYPE_CODES:
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
-                        f"{dtype}")
+        raise TypeError(f"{name} takes float32 or bfloat16, got {dtype}")
     if (hd, hd_v) not in HEAD_DIMS:
-        raise ValueError(f"flash_attention's kernel takes (head_dim, "
-                         f"v head_dim) in {HEAD_DIMS}, got {(hd, hd_v)}")
+        raise ValueError(f"{name}'s kernel takes (head_dim, v head_dim) in "
+                         f"{HEAD_DIMS}, got {(hd, hd_v)}")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"batch {B} or heads {Hq} exceed the grid")
     check_dense("q", q, dev, dtype, (B, Hq, Sq, hd))
     check_dense("k", k, dev, dtype, (B, Hkv, Sk, hd))
     check_dense("v", v, dev, dtype, (B, Hkv, Sk, hd_v))
+    return B, Hq, Hkv, Sq, Sk, hd, hd_v
+
+
+def _flash_attention_cuda(q, k, v, causal: bool, scale,
+                          with_lse: bool = False):
+    B, Hq, Hkv, Sq, Sk, hd, hd_v = _check_kernel_args(q, k, v,
+                                                      "flash_attention")
+    dev, dtype = q.device, q.dtype
     if dtype == torch.bfloat16:
         check_aligned(q=q, k=k, v=v)
     out = q.new_empty(B, Hq, Sq, hd_v)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     with torch.cuda.device(dev):
         _build.check("flash_attention", _build.lib().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-            Hkv, Sq, Sk, hd, hd_v, int(causal), DTYPE_CODES[dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Hq, Hkv, Sq, Sk, hd,
+            hd_v, int(causal), DTYPE_CODES[dtype],
             scale_for(hd, dtype, scale), _build.stream_of(dev)))
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal: bool, scale):
+    B, Hq, Hkv, Sq, Sk, hd, hd_v = _check_kernel_args(
+        q, k, v, "flash_attention_bwd")
+    dev, dtype = q.device, q.dtype
+    check_dense("o", o, dev, dtype, (B, Hq, Sq, hd_v))
+    check_dense("dout", dout, dev, dtype, (B, Hq, Sq, hd_v))
+    check_dense("lse", lse, dev, torch.float32, (B, Hq, Sq))
+    D = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    with torch.cuda.device(dev):
+        _build.check("flash_attention_bwd",
+                     _build.lib().repro_flash_attention_bwd(
+                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                         D.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                         dv.data_ptr(), B, Hq, Hkv, Sq, Sk, hd, hd_v,
+                         int(causal), DTYPE_CODES[dtype],
+                         scale_for(hd, dtype, scale),
+                         _build.stream_of(dev)))
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
+                        scale=None):
+    """``(dq, dk, dv)`` of :func:`flash_attention` at cotangent ``dout``,
+    from the forward's output ``o`` and ``lse``, on the tensors' device:
+    the CUDA kernels for CUDA tensors (the forward kernel's head-dim pairs
+    and dtypes; anything else raises), the plain version for CPU
+    tensors."""
+    if q.device.type == "cuda":
+        return _flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal,
+                                         scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, dout,
+                                         causal=causal, scale=scale)
+    raise ValueError(f"no flash_attention_bwd for device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward keeps its
+    ``lse``, the backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale):
+        if q.device.type == "cuda":
+            out, lse = _flash_attention_cuda(q, k, v, causal, scale,
+                                             with_lse=True)
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                             scale=scale, return_lse=True)
+        else:
+            raise ValueError(f"no flash_attention for device {q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(),
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -110,7 +258,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA attention, on the tensors' device: the CUDA kernel for CUDA
     tensors (``(hd, hd_v)`` in :data:`HEAD_DIMS`, float32 or bfloat16,
     contiguous; anything else raises), the plain version for CPU tensors.
-    ``scale`` multiplies q (default ``hd^-0.5``), rounded to q's dtype."""
+    ``scale`` multiplies q (default ``hd^-0.5``), rounded to q's dtype.
+    Where gradients are on and an input requires one, it runs as
+    :class:`FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale)
     if q.device.type == "cuda":
         return _flash_attention_cuda(q, k, v, causal, scale)
     if q.device.type == "cpu":

@@ -15,9 +15,16 @@ periodic body and scans it; :meth:`LanguageModel.structure` gives that
 period, which :func:`repro_torch.models.params.from_reference` needs to
 read the reference's stacked tree).  The multi-token-prediction block
 (``cfg.mtp_depth``) is held, so the parameter tree is the reference's
-whole; only the training loss reads it, and training is not ported yet
-(ROADMAP A15): ``mode="train"`` and :meth:`LanguageModel.loss` raise
-``NotImplementedError``.
+whole; only the training loss reads it.
+
+Serving (:meth:`LanguageModel.forward`, :meth:`LanguageModel.decode_step`)
+runs under ``torch.no_grad``.  Training goes through
+:meth:`LanguageModel.loss` (``mode="train"``): the same blocks with
+gradients, each under ``torch.utils.checkpoint`` where ``cfg.remat``, so
+B4 and B5 run as their autograd Functions (``FlashAttention``,
+``SSDChunkDual``) with hand-written backward kernels on the card.  The
+loss is the reference's: cross-entropy (chunked along the sequence where
+``cfg.loss_chunk`` divides it), the MoE routing losses and the MTP loss.
 
 A zero-width FFN (``d_ff = 0``, as mamba2_780m has) is kept: it adds
 exact zeros after ``ln2``, as in the reference.
@@ -28,7 +35,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.models import attention as attn
@@ -38,19 +47,22 @@ from repro_torch.models.layers import ffn, ffn_specs, rmsnorm, rmsnorm_specs
 from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.models.params import ParamSpec, init_params, map_tree
 
-#: the modes the port runs
-MODES = ("prefill", "decode")
+#: the modes the port runs: ``forward`` prefills, ``decode_step`` decodes,
+#: ``loss`` trains
+MODES = ("prefill", "decode", "train")
+#: the loss's weights of the MoE routing losses and of the MTP loss (the
+#: reference's)
+MOE_LB_COEF = 0.01
+MOE_Z_COEF = 1e-3
+MTP_COEF = 0.3
 
 
 def check_supported(cfg: ModelConfig, mode: str = "prefill") -> None:
-    """Raise for what the port does not run yet: training (the trainer,
-    the optimizer and the loss with MTP's, ROADMAP A15).  Every config is
-    served."""
+    """Raise for a mode the port does not know.  Every config is served
+    and trained."""
     if mode not in MODES:
-        raise NotImplementedError(
-            f"{cfg.name}: mode={mode!r} (training: trainer, optim, the "
-            f"loss with MTP's) is not ported to repro_torch yet "
-            f"(ROADMAP A15)")
+        raise ValueError(f"{cfg.name}: mode={mode!r} is not one of "
+                         f"{MODES}")
 
 
 def layer_sigs(cfg: ModelConfig) -> list:
@@ -114,7 +126,8 @@ def model_param_specs(cfg: ModelConfig) -> dict:
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: dict entries become
-    submodules, tensors become parameters (no gradients: the port serves).
+    submodules, tensors become parameters (created without gradients:
+    training turns them on, ``LanguageModel.requires_grad_``).
     ``tree[key]`` reads like the reference's parameter dicts."""
 
     def __init__(self, tree: dict):
@@ -155,7 +168,6 @@ class LanguageModel(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.sigs = layer_sigs(cfg)
-        self.kinds = [sig[0] for sig in self.sigs]
         self.is_moe = [sig[1] for sig in self.sigs]
         self.is_cross = [sig[2] for sig in self.sigs]
         params = init_params(model_param_specs(cfg),
@@ -249,8 +261,8 @@ class LanguageModel(nn.Module):
             return torch.einsum("bsd,kdv->bskv", h, self.lm_head)
         return h @ self.lm_head
 
-    def _mixer(self, i: int, hn, positions, c, mode: str, position):
-        cfg, p, kind = self.cfg, self.layers[i]["mixer"], self.kinds[i]
+    def _mixer(self, p, kind: str, hn, positions, c, mode: str, position):
+        cfg = self.cfg
         if kind != "attn":
             if mode == "decode":
                 return mb.mamba_decode(p, cfg, hn, c)[0]
@@ -263,11 +275,11 @@ class LanguageModel(nn.Module):
             return attn.gqa_decode(p, cfg, hn, position, c)[0]
         return attn.gqa_forward(p, cfg, hn, positions, c)[0]
 
-    def _cross(self, i: int, h, vision, c, mode: str):
-        """The gated cross-attention of layer ``i``; its cache is the
+    def _cross(self, p, h, vision, c, mode: str):
+        """The gated cross-attention of a block ``p``; its cache is the
         layer's ``cross_k``/``cross_v`` (the same tensors, written in
         place)."""
-        cfg, p = self.cfg, self.layers[i]
+        cfg = self.cfg
         hc = rmsnorm(p["ln_cross"], h)
         cc = None if c is None else {"k": c["cross_k"], "v": c["cross_v"]}
         if mode == "decode":
@@ -278,14 +290,22 @@ class LanguageModel(nn.Module):
                vision=None):
         """Layer ``i`` -> ``(h, aux)``: ``aux`` is :func:`moe_ffn`'s for an
         MoE layer (its routing included), else None."""
-        cfg, p = self.cfg, self.layers[i]
         c = cache["layers"][i] if cache is not None else None
-        h = h + self._mixer(i, rmsnorm(p["ln1"], h), positions, c, mode,
-                            position)
-        if self.is_cross[i]:
-            h = h + self._cross(i, h, vision, c, mode)
+        return self._apply_block(self.layers[i], self.sigs[i], h,
+                                 positions, c, mode, position, vision)
+
+    def _apply_block(self, p, sig, h, positions, c, mode: str, position,
+                     vision=None):
+        """The block of parameters ``p`` and signature ``sig`` (kind,
+        is_moe, is_cross) -> ``(h, aux)``."""
+        cfg = self.cfg
+        kind, is_moe, is_cross = sig
+        h = h + self._mixer(p["mixer"], kind, rmsnorm(p["ln1"], h),
+                            positions, c, mode, position)
+        if is_cross:
+            h = h + self._cross(p, h, vision, c, mode)
         hn = rmsnorm(p["ln2"], h)
-        if not self.is_moe[i]:
+        if not is_moe:
             return h + ffn(p["ffn"], hn, activation=cfg.ffn_activation), None
         out, aux = moe_ffn(p["moe"], cfg, hn)
         return h + out, aux
@@ -303,7 +323,7 @@ class LanguageModel(nn.Module):
         check_supported(self.cfg, mode)
         if mode != "prefill":
             raise ValueError("forward runs a prefill: decode through "
-                             "decode_step")
+                             "decode_step, train through loss")
         if any(self.is_cross) and vision_embeds is None:
             raise ValueError(f"{self.cfg.name} has cross-attention layers: "
                              f"pass vision_embeds [B,T,D]")
@@ -331,5 +351,114 @@ class LanguageModel(nn.Module):
         h = rmsnorm(self.final_norm, h)
         return self.unembed(h), cache
 
-    def loss(self, *args, **kwargs):
-        check_supported(self.cfg, "train")
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def aux_layers(self) -> list:
+        """The layers whose MoE routing losses enter the loss: the
+        reference adds each prefix layer's, but of its scanned body only
+        the last block of each period (``aux_c = _acc(aux_c, aux)`` after
+        the loop over the period's blocks), so a period with several MoE
+        layers (jamba) contributes one of them.  The port keeps that
+        rule, since it is the loss the two packages compare."""
+        prefix, period = self.structure()
+        return [i for i in range(self.cfg.num_layers)
+                if i < prefix or (i - prefix) % period == period - 1]
+
+    def _train_block(self, i: int, h, positions, vision):
+        """Layer ``i`` with gradients -> ``(h, lb_loss, z_loss)``, the
+        routing losses zero for a dense layer."""
+        h, aux = self._block(i, h, positions, None, "train", None, vision)
+        if aux is None:
+            zero = torch.zeros((), dtype=torch.float32, device=h.device)
+            return h, zero, zero
+        return h, aux["lb_loss"], aux["z_loss"]
+
+    def hidden(self, tokens: torch.Tensor, vision_embeds=None):
+        """The training trunk: tokens [B,S] (audio [B,S,K]) -> (the final
+        normed hidden states [B,S,D], lb_loss, z_loss summed under
+        :meth:`aux_layers`' rule), with gradients; each layer under
+        ``torch.utils.checkpoint`` (non-reentrant) where ``cfg.remat``."""
+        if any(self.is_cross) and vision_embeds is None:
+            raise ValueError(f"{self.cfg.name} has cross-attention layers: "
+                             f"pass vision_embeds [B,T,D]")
+        if vision_embeds is not None:
+            vision_embeds = vision_embeds.to(self.embed.dtype)
+        h = self.embed_tokens(tokens)
+        B, S = tokens.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+        counted = set(self.aux_layers())
+        lb = z = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(self.cfg.num_layers):
+            if self.cfg.remat:
+                h, lb_i, z_i = checkpoint(self._train_block, i, h, positions,
+                                          vision_embeds, use_reentrant=False)
+            else:
+                h, lb_i, z_i = self._train_block(i, h, positions,
+                                                 vision_embeds)
+            if i in counted:
+                lb, z = lb + lb_i, z + z_i
+        return rmsnorm(self.final_norm, h), lb, z
+
+    def loss(self, batch: dict):
+        """The training objective of ``batch`` (``tokens``, ``labels``
+        [B,S] (audio [B,S,K]), ``vision_embeds`` for a vision config) ->
+        ``(total, metrics)``: mean cross-entropy (``ce_loss``), plus
+        ``MOE_LB_COEF·lb_loss + MOE_Z_COEF·z_loss`` for an MoE config and
+        ``MTP_COEF·mtp_loss`` where ``cfg.mtp_depth``; ``metrics`` holds
+        each term and ``loss`` (detached, float32 0-d tensors)."""
+        cfg = self.cfg
+        labels = batch["labels"]
+        h, lb, z = self.hidden(batch["tokens"], batch.get("vision_embeds"))
+        S = labels.shape[1]
+        if cfg.loss_chunk and S % cfg.loss_chunk == 0:
+            main = self._chunked_xent(h, labels, cfg.loss_chunk)
+        else:
+            main = _xent(self.unembed(h), labels)
+        total = main
+        metrics = {"ce_loss": main}
+        if cfg.moe:
+            total = total + MOE_LB_COEF * lb + MOE_Z_COEF * z
+            metrics.update(lb_loss=lb, z_loss=z)
+        if cfg.mtp_depth:
+            mtp = self._mtp_loss(batch["tokens"], labels)
+            total = total + MTP_COEF * mtp
+            metrics["mtp_loss"] = mtp
+        metrics["loss"] = total
+        return total, {k: v.detach() for k, v in metrics.items()}
+
+    def _chunked_xent(self, h, labels, chunk: int):
+        """Mean cross-entropy over sequence chunks: the logits exist one
+        [B,chunk,V] tile at a time (each tile's share weighted chunk/S, as
+        the reference sums them)."""
+        S = h.shape[1]
+        acc = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(S // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            acc = acc + _xent(self.unembed(h[:, sl]), labels[:, sl]) \
+                * (chunk / S)
+        return acc
+
+    def _mtp_loss(self, tokens, labels):
+        """The reference's multi-token prediction (depth 1) on the
+        embedding stream: the MTP block over ``proj([norm_h(emb(t));
+        norm_e(emb(t+1))])`` predicts ``label_{t+1}``."""
+        mp = self.mtp
+        h = self.embed_tokens(tokens)
+        B, S = tokens.shape[:2]
+        positions = torch.arange(S - 1, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S - 1)
+        hh = rmsnorm(mp["norm_h"], h[:, :-1])
+        he = rmsnorm(mp["norm_e"], self.embed_tokens(tokens[:, 1:]).to(
+            hh.dtype))
+        x = torch.cat([hh, he], dim=-1) @ mp["proj"]
+        x, _ = self._apply_block(mp["block"], self.sigs[-1], x, positions,
+                                 None, "train", None)
+        return _xent(self.unembed(x), labels[:, 1:])
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` in float32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, labels[..., None].long())[..., 0].mean()

@@ -125,13 +125,14 @@ def to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def from_reference(model, tree) -> None:
-    """Load the reference's parameter tree (``LanguageModel.param_specs()``
-    layout, leaves as numpy arrays) into the port ``model`` in place.
+def reference_leaves(model, tree) -> dict:
+    """The reference's parameter-shaped tree (``LanguageModel.param_specs()``
+    layout: parameters, gradients or optimizer moments, leaves as numpy
+    arrays) as ``{port path: array}`` in the port's layout.
 
     The reference stacks its periodic body as ``[n_repeats, ...]``; layer
     ``prefix_len + r·period + j`` of the port takes entry ``r`` of body
-    block ``j``.  Shapes and dtypes must match the port's exactly."""
+    block ``j``.  The paths must be exactly the port's."""
     prefix_len, period = model.structure()
     layers = [None] * model.cfg.num_layers
     for i, blk in enumerate(tree["prefix"]):
@@ -149,11 +150,39 @@ def from_reference(model, tree) -> None:
         raise ValueError(f"reference tree does not match the port's: "
                          f"missing {sorted(set(want) - set(got))[:5]}, "
                          f"extra {sorted(set(got) - set(want))[:5]}")
+    return got
+
+
+def _load(targets: dict, arrays: dict, what: str) -> None:
+    """Copy ``arrays`` (numpy, by path) into the tensors ``targets`` (by
+    path) in place; shapes and dtypes must match exactly."""
     with torch.no_grad():
-        for path, p in want.items():
-            t = to_tensor(got[path])
+        for path, p in targets.items():
+            t = to_tensor(arrays[path])
             if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
-                raise ValueError(f"{path}: reference {tuple(t.shape)} "
-                                 f"{t.dtype}, port {tuple(p.shape)} "
-                                 f"{p.dtype}")
+                raise ValueError(f"{what} {path}: reference "
+                                 f"{tuple(t.shape)} {t.dtype}, port "
+                                 f"{tuple(p.shape)} {p.dtype}")
             p.copy_(t)
+
+
+def from_reference(model, tree) -> None:
+    """Load the reference's parameter tree (``LanguageModel.param_specs()``
+    layout, leaves as numpy arrays) into the port ``model`` in place
+    (:func:`reference_leaves`' mapping).  Shapes and dtypes must match the
+    port's exactly."""
+    _load(dict(leaves(model.param_tree())), reference_leaves(model, tree),
+          "parameter")
+
+
+def opt_state_from_reference(model, opt_state, state: dict) -> None:
+    """Carry the reference's AdamW state (``{"m": tree, "v": tree,
+    "step": int}``, the trees in the parameter layout, leaves as numpy
+    arrays) into the port's optimizer ``state`` (``optim.AdamW.init``'s
+    ``{"m": {path: tensor}, "v": {path: tensor}, "step": tensor}``) in
+    place, through :func:`from_reference`'s mapping."""
+    for key in ("m", "v"):
+        _load(state[key], reference_leaves(model, opt_state[key]),
+              f"optimizer {key}")
+    with torch.no_grad():
+        state["step"].fill_(int(np.asarray(opt_state["step"])))

@@ -1,1 +1,1 @@
-"""Runtime loops of the port (serving)."""
+"""Runtime loops of the port (serving and training)."""

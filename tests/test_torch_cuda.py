@@ -963,6 +963,194 @@ def test_flash_attention_refuses_other_head_dim_pairs(dev):
     assert fa.LAUNCHES["flash_attention"] == before
 
 
+#: the backward kernels' cases: B, Hq, Hkv, Sq, Sk, hd, hd_v, causal.
+#: Every head-dim pair of ``HEAD_DIMS``, G in {1, 2, 3}, ragged and
+#: unequal lengths both ways, and qwen3_0_6b's training shape (B 4, 16
+#: heads over 8, S 2048)
+ATTN_BWD_CASES = [
+    (2, 4, 2, 40, 40, 32, 32, True),
+    (1, 3, 1, 65, 129, 32, 32, False),
+    (1, 6, 2, 129, 65, 64, 64, True),
+    (2, 6, 2, 200, 200, 64, 64, False),
+    (1, 16, 8, 1000, 1000, 128, 128, True),
+    (1, 4, 4, 63, 130, 128, 128, True),
+    (2, 4, 2, 129, 129, 48, 32, True),
+    (1, 8, 8, 100, 77, 192, 128, True),
+    (1, 8, 8, 70, 300, 192, 128, False),
+    (4, 16, 8, 2048, 2048, 128, 128, True),
+]
+
+
+def _bwd_inputs(case, dtype, dev):
+    B, Hq, Hkv, Sq, Sk, hd, hd_v, _ = case
+    g = torch.Generator().manual_seed(sum(case[:7]))
+    return tuple(torch.randn(s, generator=g).to(dev, dtype) for s in
+                 [(B, Hq, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd_v),
+                  (B, Hq, Sq, hd_v)])
+
+
+def _close_scaled(got, want, tol):
+    """|got - want| <= tol * max|want|, elementwise."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * max(scale, 1e-30), (err, scale)
+
+
+@pytest.mark.parametrize("case", ATTN_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain(dev, case, dtype):
+    """B4's backward kernels against ``flash_attention_bwd_plain`` on the
+    same card tensors, at the forward kernel's ``lse``: each gradient
+    within 1e-4 (f32) or 2e-2 (bf16) of its largest magnitude."""
+    from repro_torch.kernels import flash_attention as fa
+    causal = case[-1]
+    q, k, v, do = _bwd_inputs(case, dtype, dev)
+    o, lse = fa._flash_attention_cuda(q, k, v, causal, None, with_lse=True)
+    o_plain, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                  return_lse=True)
+    _close_scaled(lse, lse_plain, 1e-5)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    for a, b in zip(got, want):
+        _close_scaled(a, b, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("pair", [(32, 32), (64, 64), (128, 128), (48, 32),
+                                  (192, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_leaves_the_output_unchanged(dev, pair, dtype):
+    """The forward with and without its ``lse`` output: bit-identical
+    outputs (the store is the only difference)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _bwd_inputs((2, 4, 2, 130, 130, *pair, True), dtype, dev)
+    for causal in (True, False):
+        plain = fa.flash_attention(q, k, v, causal=causal)
+        with_lse, lse = fa._flash_attention_cuda(q, k, v, causal, None,
+                                                 with_lse=True)
+        assert torch.equal(plain, with_lse)
+        assert lse.shape == q.shape[:3] and bool(torch.isfinite(lse).all())
+
+
+def test_flash_attention_autograd_runs_the_kernels(dev):
+    """``flash_attention`` on inputs that require gradients: one forward
+    launch with ``lse`` and one backward launch, gradients equal to the
+    plain backward's."""
+    from repro_torch.kernels import flash_attention as fa
+    case = (2, 6, 2, 100, 100, 64, 64, True)
+    q, k, v, do = _bwd_inputs(case, torch.float32, dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    f0, b0 = fa.LAUNCHES["flash_attention"], fa.LAUNCHES["flash_attention_bwd"]
+    out = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert (fa.LAUNCHES["flash_attention"], fa.LAUNCHES["flash_attention_bwd"]
+            ) == (f0 + 1, b0 + 1)
+    o, lse = fa.flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                      return_lse=True)
+    want = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                        o, lse, do)
+    for a, b in zip(grads, want):
+        _close_scaled(a, b, 1e-4)
+
+
+SSD_BWD_CASES = [
+    # BN, c, H, P, N, decay: the smoke shape, ragged c, N/P not multiples
+    # of 16, mamba2_780m's training shape (c 256, H 48, P 64, N 128), a
+    # strong decay (a chunk's cum spans > 88), one head group (BN >= 132:
+    # no partials to fold) and a last group of fewer heads (7 groups of 2
+    # heads for 13)
+    (3, 32, 4, 16, 16, 0.05), (2, 77, 3, 24, 40, 0.05),
+    (2, 130, 5, 64, 128, 0.05), (1, 64, 2, 128, 128, 0.05),
+    (16, 256, 48, 64, 128, 0.05), (2, 256, 8, 64, 128, 1.0),
+    (140, 64, 3, 16, 16, 0.05), (20, 64, 13, 16, 24, 0.05),
+]
+
+
+def _ssd_bwd_inputs(case, dtype, dev):
+    BN, c, H, P, N, decay = case
+    g = torch.Generator().manual_seed(BN + c + H + P + N)
+    xb = (torch.randn(BN, c, H, P, generator=g) * 0.1).to(dev, dtype)
+    cum = torch.cumsum(-torch.randn(BN, c, H, generator=g).abs() * decay,
+                       1).to(dev)
+    Bm = (torch.randn(BN, c, N, generator=g) * 0.3).to(dev, dtype)
+    Cm = (torch.randn(BN, c, N, generator=g) * 0.3).to(dev, dtype)
+    dy = torch.randn(BN, c, H, P, generator=g).to(dev)
+    ds = torch.randn(BN, H, N, P, generator=g).to(dev)
+    return xb, cum, Bm, Cm, dy, ds
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_bwd_kernel_matches_plain(dev, case, dtype):
+    """B5's backward kernel against ``ssd_chunk_dual_bwd_plain`` on the
+    same card tensors: each gradient within 1e-4 (f32) or 2e-2 (bf16) of
+    its largest magnitude, finite under strong decay, and the same bits
+    on a second call (the head groups' partials fold in a fixed order)."""
+    from repro_torch.kernels import ssd_chunk as sc
+    xb, cum, Bm, Cm, dy, ds = _ssd_bwd_inputs(case, dtype, dev)
+    if case[-1] > 0.5:
+        assert float(-cum[:, -1].min()) > 88
+    before = sc.LAUNCHES["ssd_chunk_dual_bwd"]
+    got = sc.ssd_chunk_dual_bwd(xb, cum, Bm, Cm, dy, ds)
+    assert sc.LAUNCHES["ssd_chunk_dual_bwd"] == before + 1
+    again = sc.ssd_chunk_dual_bwd(xb, cum, Bm, Cm, dy, ds)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = sc.ssd_chunk_dual_bwd_plain(xb, cum, Bm, Cm, dy, ds)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        _close_scaled(a, b, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "mamba2_780m"])
+def test_smoke_train_step_on_the_card_equals_the_cpu(dev, arch):
+    """One ``build_train_step`` step of the smoke config in float32 on the
+    card and on the CPU from the same seeded weights: the loss within
+    1e-5, every gradient leaf within 1e-4 (qwen3) or 2e-3 (mamba2) of its
+    largest |g|, the parameters after AdamW within 1e-5; the card ran
+    B4's or B5's forward and backward kernels.  Mamba-2's SSD layers
+    amplify any float32 rounding: its gradients differ by 8e-4 of a
+    leaf's largest |g| (measured on an H100 80GB HBM3, 700 W), as on the
+    CPU the port's and the reference's float32 gradients lie 8.0e-4 and
+    1.4e-4 from their common float64 run (``tests/test_torch_train.py``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import build_train_step
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+    g = torch.Generator().manual_seed(9)
+    batch = {k: torch.randint(2, cfg.vocab_size, (2, 64), generator=g)
+             for k in ("tokens", "labels")}
+    kernels = (("flash_attention", "flash_attention_bwd")
+               if cfg.family != "ssm" else ("ssd_chunk_dual",
+                                            "ssd_chunk_dual_bwd"))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        before = {k: LAUNCHES[k] for k in kernels}
+        step = build_train_step(cfg, ShapeSpec("t", 64, 2, "train"),
+                                device=device)
+        state = step.init_state()
+        b = {k: v.to(device) for k, v in batch.items()}
+        grads, metrics = step._grads(state["params"], b)
+        grads = {k: v.float().cpu() for k, v in grads.items()}
+        step.opt.update({k: v.to(device) for k, v in grads.items()},
+                        state["opt"], state["params"])
+        out[device.type] = (float(metrics["loss"]), grads, {
+            k: p.detach().cpu() for k, p in state["params"].items()})
+        launched = [LAUNCHES[k] - before[k] for k in kernels]
+        assert all(n > 0 for n in launched) == (device.type == "cuda")
+    (loss_g, grads_g, params_g), (loss_c, grads_c, params_c) = (
+        out["cuda"], out["cpu"])
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for k, want in grads_c.items():
+        _close_scaled(grads_g[k], want, 1e-4 if arch == "qwen3_0_6b"
+                      else 2e-3)
+        _close_scaled(params_g[k], params_c[k], 1e-5)
+
+
 SSD_CASES = [
     # BN, c, H, P, N — tests/test_kernels.py's cases, a ragged c, the
     # serving path's heads
@@ -1311,7 +1499,8 @@ def test_measured_ad_on_the_card_matches_cpu(dev, mode):
 
 def test_calibration_and_block_feasibility_on_the_card(dev, tmp_path):
     """Calibration on the card: one fused launch a timed step, a cache
-    miss then a hit, finite coefficients; every block shape feasible."""
+    miss then a hit, finite coefficients; every block shape feasible,
+    B4's and B5's backward kernels' included."""
     from repro_torch.core import costmodel
     g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
     m1, hit1 = costmodel.calibrate(g, device=dev, cache_dir=str(tmp_path),
@@ -1327,12 +1516,15 @@ def test_calibration_and_block_feasibility_on_the_card(dev, tmp_path):
     assert {row["kernel"] for row in rows.values()} == {
         "wd_relax_lanes", "relax_lanes", "wd_relax_union", "find_offsets",
         "fused_fixed_point", "fused_delta", "flash_attention",
-        "ssd_chunk_dual"}
+        "ssd_chunk_dual", "flash_attention_bwd_dkdv",
+        "flash_attention_bwd_dq", "ssd_chunk_dual_bwd"}
     for row in rows.values():
         assert row["feasible"] and row["blocks_per_sm"] >= 1
-        # the bf16 B4/B5 kernels run four mma.sync warps; every other 256
-        assert row["threads"] == (
-            128 if row.get("dtype") == "bfloat16" else 256), row
+        # the bf16 B4/B5 forward kernels run four mma.sync warps; every
+        # other kernel (the backward ones in both dtypes included) 256
+        tensor_cores = (row.get("dtype") == "bfloat16" and row["kernel"] in
+                        ("flash_attention", "ssd_chunk_dual"))
+        assert row["threads"] == (128 if tensor_cores else 256), row
     # B4 at MLA's head dims: 128 threads (bf16) and 256 (f32); the bf16
     # kernel keeps two blocks a SM, the f32 one (115 KB) one
     mla = {dt: rows[f"flash_attention {dt} hd192/128"]
@@ -1472,15 +1664,7 @@ def test_smem_model_equals_the_card(dev):
     from repro_torch.analysis import smem
     from repro_torch.core import costmodel
     for name, row in costmodel.block_feasibility(dev).items():
-        kernel = row["kernel"]
-        if kernel == "flash_attention":
-            fp = smem.footprint(kernel, dtype=row["dtype"], hd=row["hd"],
-                                hd_v=row["hd_v"])
-        elif kernel == "ssd_chunk_dual":
-            fp = smem.footprint(kernel, dtype=row["dtype"], shape=tuple(
-                row[k] for k in ("BN", "c", "H", "P", "N")))
-        else:
-            fp = smem.footprint(kernel)
+        fp = smem.row_footprint(row)
         assert (row["threads"], row["static_smem_bytes"],
                 row["dynamic_smem_bytes"]) == (
             fp.threads, fp.static_smem, fp.dynamic_smem), name

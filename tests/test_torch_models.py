@@ -219,15 +219,44 @@ def test_full_width_mamba_has_zero_width_ffn():
     assert get_config("mamba2_780m").smoke().d_ff == 256
 
 
+def _loss_against_reference(arch, **overrides):
+    """The smoke config's float32 loss through both packages on one set of
+    weights (``test_torch_train._init``) and one batch: (port, reference).
+    A vision config gets seeded image embeddings."""
+    from test_torch_train import _init
+    jm = JModel(j_get_config(arch).smoke(dtype="float32", **overrides))
+    jparams = _init(jm.param_specs())
+    tm = LanguageModel(get_config(arch).smoke(dtype="float32", **overrides),
+                       device="cpu")
+    from_reference(tm, jax.tree_util.tree_map(np.asarray, jparams))
+    cfg = tm.cfg
+    rng = np.random.default_rng(5)
+    shape = (2, 12) + ((cfg.num_codebooks,) if cfg.num_codebooks else ())
+    batch = {k: rng.integers(2, cfg.vocab_size, shape).astype(np.int32)
+             for k in ("tokens", "labels")}
+    if cfg.cross_attn_every:
+        batch["vision_embeds"] = rng.standard_normal(
+            (2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    want, _ = jax.jit(jm.loss)(jparams, {k: jnp.asarray(v)
+                                         for k, v in batch.items()})
+    with torch.no_grad():
+        got, _ = tm.loss({k: torch.from_numpy(v) if v.dtype == np.float32
+                          else torch.from_numpy(v).long()
+                          for k, v in batch.items()})
+    return float(got), float(want)
+
+
 @pytest.mark.parametrize("arch,what", [
     ("deepseek_v3_671b", "MLA"),
     ("llama_3_2_vision_11b", "cross-attention"),
     ("musicgen_large", "audio")])
 def test_unported_features_raise(arch, what):
-    """The configs whose features were not ported before (MLA,
-    cross-attention, the audio frontend) build, with their features in
-    the parameter tree as the reference's specs have them; what is still
-    not ported, training, raises naming ROADMAP A15."""
+    """The configs whose features were ported last (MLA, cross-attention,
+    the audio frontend) build, with their features in the parameter tree
+    as the reference's specs have them; training, ported since, gives
+    the reference's loss (finite, within 1e-5; deepseek's with its MTP
+    loss), and ``forward`` refuses ``mode="train"`` (training goes through
+    ``loss``)."""
     cfg = get_config(arch).smoke()
     tm = LanguageModel(cfg, device="cpu")
     jm = JModel(j_get_config(arch).smoke())
@@ -245,11 +274,11 @@ def test_unported_features_raise(arch, what):
                 if "cross" in blk] == [4]
     else:
         assert tree["embed"].dim() == 3 and tree["lm_head"].dim() == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP A15") as e:
+    with pytest.raises(ValueError, match="loss"):
         tm(torch.zeros(1, 4, dtype=torch.long), mode="train")
-    assert "training" in str(e.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        tm.loss({})
+    got, want = _loss_against_reference(arch)
+    assert np.isfinite(got)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ["granite_moe_3b_a800m",
@@ -273,21 +302,24 @@ def test_moe_configs_build(arch):
 
 def test_pad_heads_and_training_raise():
     """``pad_heads`` builds the padded layout (qwen3's smoke 4/2 heads:
-    16 query slots over 16 KV heads); training still raises (ROADMAP
-    A15), also the MTP loss's."""
+    16 query slots over 16 KV heads); training, ported since, runs on it
+    and gives the reference's padded-head loss (finite, within 1e-5), and
+    so does the MTP loss (deepseek's ``mtp_loss`` term)."""
     cfg = get_config("qwen3_0_6b").smoke(pad_heads=True)
     m = LanguageModel(cfg, device="cpu")
     mixer = m.param_tree()["layers"][0]["mixer"]
     assert tuple(mixer["wq"].shape[1:]) == (16, 32)
     assert tuple(mixer["wk"].shape[1:]) == (2, 32)
     assert tuple(m.new_cache(1, 8)["layers"][0]["k"].shape) == (1, 16, 8, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        m(torch.zeros(1, 4, dtype=torch.long), mode="train")
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        m.loss({})
+    got, want = _loss_against_reference("qwen3_0_6b", pad_heads=True)
+    assert np.isfinite(got)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
     mtp = LanguageModel(get_config("deepseek_v3_671b").smoke(), device="cpu")
-    with pytest.raises(NotImplementedError, match="MTP"):
-        mtp.loss({"tokens": None, "labels": None})
+    tokens = torch.randint(2, mtp.cfg.vocab_size, (1, 8))
+    with torch.no_grad():
+        total, metrics = mtp.loss({"tokens": tokens, "labels": tokens})
+    assert set(metrics) >= {"mtp_loss", "lb_loss", "z_loss", "ce_loss"}
+    assert bool(torch.isfinite(total)) and float(metrics["mtp_loss"]) > 0
 
 
 @pytest.mark.parametrize("arch", ARCHITECTURES)

@@ -2,7 +2,7 @@
 ``tests/test_torch_shard.py`` and ``tests/test_torch_dist.py``:
 
     python tests/torch_shard_ranks.py --rank R --world W --store FILE \\
-        --inputs IN.npz --out OUT.npz --what shard|dist|moe
+        --inputs IN.npz --out OUT.npz --what shard|dist|moe|train
 
 It joins a gloo group through a ``FileStore`` at ``--store`` (no TCP
 port, so parallel test workers cannot collide; a 60 s timeout, so a
@@ -12,8 +12,10 @@ the error of a shard count that is not the world size, and what a WD
 plan holds on this rank (its shards, their tensors' storage); ``dist``:
 ``distributed_sssp``; ``moe`` (started by
 ``tests/test_torch_moe_sharded.py``): ``sharded_moe_dispatch`` over the
-whole batch, and ``ep_global_dispatch`` over this rank's rows of it.  It
-imports nothing of JAX or ``repro``."""
+whole batch, and ``ep_global_dispatch`` over this rank's rows of it;
+``train`` (started by ``tests/test_torch_train.py``): one data-parallel
+train step of the smoke ``qwen3_0_6b`` in float32 on this rank's rows of
+the batch.  It imports nothing of JAX or ``repro``."""
 
 import argparse
 import datetime
@@ -68,6 +70,37 @@ def moe(inputs, rank: int, world: int) -> dict:
     return out
 
 
+def train(inputs, rank: int, world: int) -> dict:
+    """One train step over the group, this rank's rows of the batch:
+    the metrics, the parameters and the first moments after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import data_group
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import build_train_step
+    cfg = get_config("qwen3_0_6b").smoke(dtype="float32")
+    tokens = torch.from_numpy(inputs["tokens"])
+    rows = tokens.shape[0] // world
+    mine = slice(rank * rows, (rank + 1) * rows)
+    batch = {k: torch.from_numpy(inputs[k])[mine].long()
+             for k in ("tokens", "labels")}
+    shape = ShapeSpec("host", tokens.shape[1], tokens.shape[0], "train")
+    step = build_train_step(cfg, shape, data_group("cpu"))
+    state, metrics = step(step.init_state(), batch)
+    out = {f"metric.{k}": v.numpy() for k, v in metrics.items()}
+    out.update({f"param.{k}": v.detach().numpy()
+                for k, v in state["params"].items()})
+    out.update({f"m.{k}": v.numpy() for k, v in state["opt"]["m"].items()})
+    # the compressed all-reduce over the process group, this rank's
+    # gradient a seeded draw of its own
+    from repro_torch.runtime.compression import allreduce_compressed
+    g = torch.from_numpy(inputs["grads"][rank])
+    mean, residual = allreduce_compressed(g, data_group("cpu").process_group,
+                                          torch.zeros_like(g))
+    out.update({"compressed.mean": mean.numpy(),
+                "compressed.residual": residual.numpy()})
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     for name in ("--rank", "--world"):
@@ -80,8 +113,9 @@ def main() -> None:
         world_size=args.world, timeout=datetime.timedelta(seconds=60))
     try:
         inputs = np.load(args.inputs)
-        if args.what == "moe":
-            np.savez(args.out, **moe(inputs, args.rank, args.world))
+        if args.what in ("moe", "train"):
+            fn = moe if args.what == "moe" else train
+            np.savez(args.out, **fn(inputs, args.rank, args.world))
             return
         g = CSRGraph.from_arrays(inputs["row_ptr"], inputs["col"],
                                  inputs["wt"], device="cpu")

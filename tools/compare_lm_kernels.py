@@ -100,8 +100,9 @@ def main() -> int:
 
         def b4(lib, q=q, k=k, v=v, out=out, causal=causal, dtype=dtype):
             check(lib.repro_flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                Hq, Hkv, q.shape[2], k.shape[2], hd, v.shape[3], int(causal),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None, B, Hq, Hkv, q.shape[2], k.shape[2], hd, v.shape[3],
+                int(causal),
                 DTYPE_CODES[dtype], fa.scale_for(hd, dtype), stream))
             return (out,)
         want = (fa.flash_attention_plain(q, k, v, causal=causal),)

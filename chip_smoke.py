@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
 2. build  — compiles ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
    prints each kernel's registers and spill bytes, and counts the
    tensor-core instructions in the bf16 kernels' SASS (``cuobjdump``):
-   it fails if either bf16 kernel has none, or if cuobjdump is missing;
+   B4's forward and its dK/dV and dQ backward kernels at every head-dim
+   pair, and B5's forward; it fails if one is missing or has none, or if
+   cuobjdump is missing;
 3. kernels — B1 ``wd_relax_lanes``, B2 ``relax_lanes`` and B3
    ``find_offsets`` at the main path's shapes (rmat20: N = 2^20, frontiers
    of 2^10..2^20 slots, up to 2^23 lanes), each held for exact equality
@@ -244,7 +246,10 @@ Phases, each printing one JSON line:
    against ``ssd_chunk_dual_bwd_plain`` at mamba2's training shape (BN
    16, c 256, H 48, P 64, N 128; bf16 and f32) and under a strong decay
    (a chunk's span > 88), finite; f32 within 1e-4 and bf16 within 2e-2
-   of each output's largest magnitude.  train_cpu qwen3_0_6b — one
+   of each output's largest magnitude; B4's second call gives the same
+   bits, and each case's line gives its dK/dV and dQ kernels' registers
+   and spill bytes (bf16: the tensor-core kernels, f32: the CUDA-core
+   ones).  train_cpu qwen3_0_6b — one
    ``build_train_step`` step at full width, 2 of 28 layers, float32,
    card against CPU: the loss within 1e-4, every gradient leaf within
    1e-3 of its largest |g|, the parameters after AdamW within 1e-3.
@@ -288,6 +293,10 @@ PEAK_OPS_PER_S = 67e12
 #: dense bf16 tensor-core rate (the bound of the bf16 B4 and B5 kernels)
 PEAK_BF16_OPS_PER_S = 989e12
 CSRC_FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
+#: B4's bf16 kernels, each of which the build line must show on the
+#: tensor cores at every head-dim pair (B5's ``ssd_bf16_kernel`` too)
+TC_FLASH_KERNELS = ("flash_bf16_kernel", "flash_bwd_dkdv_bf16_kernel",
+                    "flash_bwd_dq_bf16_kernel")
 CSRC_SSD = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
 #: cycles of the spin kernel ``time_ms`` queues ahead of each timed call
 #: (about 1 ms at the H100's 1.98 GHz boost clock)
@@ -4035,11 +4044,24 @@ def ssd_bwd_cost(BN, c, H, P, N, dtype) -> tuple:
     return nbytes, ops
 
 
-def train_kernel_phase(dev, reps: int = 5) -> list:
+def bwd_attn_kernels(dtype_name: str, hd: int, hd_v: int) -> tuple:
+    """The names (as ``ptxas_summary`` keys them) of B4's dK/dV and dQ
+    kernels a backward call of ``dtype_name`` at (hd, hd_v) launches."""
+    if dtype_name == "bfloat16":
+        return tuple(f"flash_bwd_{part}_bf16_kernel<{hd},{hd_v}>"
+                     for part in ("dkdv", "dq"))
+    return tuple(f"flash_bwd_{part}_kernel<f32,{hd},{hd_v}>"
+                 for part in ("dkdv", "dq"))
+
+
+def train_kernel_phase(dev, reps: int = 5, ptxas=None) -> list:
     """B4's and B5's backward kernels against their plain backward
     versions on the same card tensors, each timed beside the plain
-    version and its bound (B4 also beside SDPA's backward).  Returns the
-    kernel line's two rows (launches filled in by the training phases)."""
+    version and its bound (B4 also beside SDPA's backward); B4's second
+    call must give the same bits, and each case's line carries its dK/dV
+    and dQ kernels' registers and spill bytes from ``ptxas`` (the build
+    line's summary).  Returns the kernel line's two rows (launches filled
+    in by the training phases)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -4065,11 +4087,17 @@ def train_kernel_phase(dev, reps: int = 5) -> list:
             lse_err, lse_rel = _scaled_err(lse, lse_want, LSE_TOL)
             del o_want, lse_want
             got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal)
+            same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+            if not same_bits:
+                raise AssertionError(f"B4 backward, {name} {dtype_name}: a "
+                                     f"second call gave other bits")
             want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                 causal=causal)
             err, rel = map(max, zip(*(_scaled_err(a, b, BWD_TOL[dtype_name])
                                       for a, b in zip(got, want))))
-            del got, want
+            del got, again, want
             nbytes, ops = attention_bwd_cost(heads, B, S, Sk, causal, dtype)
             t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
                             if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
@@ -4096,7 +4124,9 @@ def train_kernel_phase(dev, reps: int = 5) -> list:
                     q, k, v, o, lse, do, causal=causal), reps=2,
                     flush=flush),
                 library_ms=library_ms, bound_ms=t_b, bound_by=by,
-                bytes=nbytes, flop=ops)
+                bytes=nbytes, flop=ops, same_bits=same_bits,
+                kernels={kname: (ptxas or {}).get(kname) for kname in
+                         bwd_attn_kernels(dtype_name, hd, hd_v)})
             if library_ms is None:
                 case["library_error"] = sdpa
             emit("train_kernel_case", kernel="flash_attention_bwd", **case)
@@ -4349,6 +4379,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.data import rmat_graph
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
 
     dev = torch.device("cuda")
     # float32 comparisons run in full float32: no TF32 in matmuls or cuDNN
@@ -4367,13 +4398,18 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     sass = sass_mma_counts(_build.library_path())
+    ptxas = ptxas_summary(_build.BUILD_LOG)
     emit("build", seconds=time.perf_counter() - t0,
          library=str(_build.library_path().relative_to(ROOT)),
-         ptxas=ptxas_summary(_build.BUILD_LOG), sass_mma=sass)
-    # the bf16 kernels run on the tensor cores
+         ptxas=ptxas, sass_mma=sass)
+    # the bf16 kernels run on the tensor cores: B4's forward and its two
+    # backward kernels at every head-dim pair, and B5's forward
     bf16 = {k: v for k, v in sass.items() if "bf16_kernel" in k}
-    if len(bf16) < 2 or not all(v["HMMA"] + v["HGMMA"] for v in
-                                bf16.values()):
+    required = {"ssd_bf16_kernel"} | {f"{name}<{hd},{hd_v}>"
+                                      for name in TC_FLASH_KERNELS
+                                      for hd, hd_v in HEAD_DIMS}
+    if not required <= set(bf16) or not all(v["HMMA"] + v["HGMMA"]
+                                            for v in bf16.values()):
         raise AssertionError(f"bf16 kernels without tensor-core "
                              f"instructions: {bf16}")
 
@@ -4471,7 +4507,8 @@ def main() -> int:
         row["launches"] = served[row["config"]][row["name"]]
     rows += lm_rows
     # phase 9: training
-    train_rows = timed("train_kernels", train_kernel_phase, dev)
+    train_rows = timed("train_kernels", train_kernel_phase, dev,
+                       ptxas=ptxas)
     timed("train_cpu qwen3_0_6b", train_cpu_phase, dev)
     trained = {arch: timed(f"train {arch}", train_phase, dev, arch)
                for arch in TRAIN_RUNS}

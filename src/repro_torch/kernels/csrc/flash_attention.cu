@@ -83,28 +83,74 @@
 // The backward pass, repro_flash_attention_bwd, replaces no TPU kernel:
 // the reference trains through jax.grad of blocked_attention
 // (repro/models/layers.py), the XLA oracle of its forward.  It is
-// FlashAttention-2's, three launches, no float atomics:
-//   * flash_bwd_dot_kernel: D = rowsum(dO o O) in f32, a warp a row;
-//   * flash_bwd_dkdv_kernel: one block of 256 threads per (64-key tile,
-//     KV head, batch) keeps its K and V tiles in shared memory and walks
-//     the G query heads of its group and, for each, the query tiles that
-//     see its keys (causal: from the key tile's own on); per query tile
-//     it recomputes S^T = K (q*scale)^T, P = exp(S - lse) under the
-//     forward's mask, dP^T = V dO^T and dS = P o (dP - D), and sums dV +=
-//     P^T dO (P rounded to V's dtype, as the forward's PV product takes
-//     it) and dK += dS^T (q*scale) in registers; so the block alone writes
-//     its rows of dK and dV;
-//   * flash_bwd_dq_kernel: one block per (64-query tile, query head,
-//     batch) walks the key tiles its queries see and sums dQ = scale * dS K.
-// Both keep every tile as f32 in shared memory and run f32 FMA on the
-// CUDA cores for both dtypes (a bf16 input is widened on load, q*scale
-// rounded to bf16 first as in the forward): dK/dV 170 KB at 128/128 and
-// 203 KB at 192/128, dQ 153 and 186 KB, one block a SM.  What bounds it:
-// operations, 2 FLOP a multiply-add of the recomputed logits (hd), dV,
-// dP (hd_v each), dQ and dK (hd each) over the kept pairs: 172 GFLOP at
-// qwen3's training shape (4 x 2048, 16/8 heads, hd 128, causal), 0.17 ms
-// at the bf16 tensor cores' rate; this first kernel runs on the CUDA
-// cores (PERF.md has its time); mma.sync/wgmma is later work.
+// FlashAttention-2's, three launches, no float atomics: D = rowsum(dO o
+// O) in f32, a warp a row (flash_bwd_dot_kernel), then a dK/dV kernel and
+// a dQ kernel, chosen by dtype as the forward's are (neither falls back
+// to the other).  Both recompute P = exp(S - lse) from the forward's lse
+// under the forward's mask, with q*scale rounded to q's dtype as the
+// forward rounds it, and dS = P o (dP - D); dV = P^T dO takes P rounded
+// to V's dtype, as the forward's PV product does.
+//
+// bf16: flash_bwd_dkdv_bf16_kernel and flash_bwd_dq_bf16_kernel, every
+// product on mma.sync.m16n8k16 (mma.cuh), every sum in f32; P and dS are
+// rounded to bf16 where they enter their products (A fragments straight
+// from the C fragments, as the forward's P).
+//   * dK/dV: one block of 4 warps per (64-key tile, KV head, batch), 16
+//     keys a warp, walks the G query heads of its group and, for each, the
+//     query tiles that see its keys (causal: from the key tile's own on),
+//     so it alone writes its rows of dK and dV.  K and V stay in shared
+//     memory; tiles of q (scaled and rounded in shared memory by the
+//     thread that copied them), dO, lse and D arrive through cp.async into
+//     a two-stage ring, the next tile's copies running under this tile's
+//     products.  Per tile: S^T = K (q*scale)^T, P^T, dP^T = V dO^T, dS^T,
+//     dV += P^T dO and dK += dS^T (q*scale), dO and q*scale read by
+//     ldmatrix.trans for the last two.  A thread sums 16 x HD of dK and 16
+//     x HDV of dV in registers: 64 + 64 at 128/128, 96 + 64 at 192/128,
+//     where the query tile is 32 rows (tc_bwd_span) so that S^T and dP^T
+//     take 16 registers each, not 32.  Shared memory: K, V and two stages
+//     of QT rows of Q and dO, 105,472 bytes at 128/128 (QT 64) and 86,528
+//     at 192/128 (QT 32): two blocks a SM.
+//   * dQ: one block of 4 warps per 64 packed rows of one (KV head, batch),
+//     packed as the forward packs them, so the G heads of a group share
+//     every K/V tile; q*scale sits in registers as A fragments, each
+//     row's lse and D in registers, the block's dO rows in their own
+//     shared tile (A fragments read per sub-step: 8 ldmatrix against ~190
+//     mma a tile at 128/128; held in registers as well they made the
+//     192/128 instance spill), and 64-key tiles of K and V come through a
+//     two-stage cp.async ring (the staged q borrows its second stage).
+//     Per tile, in sub-steps of tc_bwd_span keys: S, dP = dO V^T, dS, dQ
+//     += dS K with K by ldmatrix.trans; out dQ*scale.  Causal tiles
+//     wholly above the diagonal are skipped, as in the forward.
+//     Registers: 32 of q fragments and 64 of dQ at 128/128, 48 and 96 at
+//     192/128 (32-key sub-steps).  Shared memory: 87,040 bytes at
+//     128/128, 103,424 at 192/128: two blocks a SM.
+//   Both grids are (KV head, batch, tile), the tile slowest, so the
+//   longest causal walks of every (KV head, batch) are issued first: key
+//   tile 0 for dK/dV, the last 64 packed rows for dQ (on the H100 at
+//   qwen3's shape 1.025 ms, against 1.191 with the tile fastest; PERF.md).
+//   The grid's z caps the tiles at 65535: Sk, and G * Sq, at most
+//   4,194,240.  At 32/32, 48/32, 64/64, 128/128 and 192/128: shared
+//   bytes dK/dV 31,744, 37,888, 56,320, 105,472, 86,528 and dQ 25,600,
+//   29,696, 46,080, 87,040, 103,424 (analysis/smem.py models them);
+//   ptxas's registers a thread, no spill in any instance, dK/dV 158, 182,
+//   202, 255, 255 and dQ 162, 201, 212, 244, 251 (chip_smoke.py's build
+//   line prints them).
+//
+// f32: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, unchanged since
+// they were written: the same walks with 256 threads, every tile widened
+// to f32 in shared memory and f32 FMA on the CUDA cores, because float32
+// gradients need f32 products to meet 1e-4 and neither bf16 nor TF32
+// tensor cores give that.  dK/dV 170 KB at 128/128 and 203 KB at 192/128,
+// dQ 153 and 186 KB, one block a SM; dQ one block per (64-query tile,
+// query head, batch).
+//
+// What bounds it: operations, 2 FLOP a multiply-add of the recomputed
+// logits (hd), dV, dP (hd_v each), dQ and dK (hd each) over the kept
+// pairs: 171.9 GFLOP at qwen3's training shape (4 x 2048, 16/8 heads, hd
+// 128, causal), 0.174 ms at the bf16 tensor cores' 989 TFLOP/s.  The two
+// bf16 kernels recompute S and dP, so they issue 7 products against the
+// bound's 5, about 1.4x its FLOP, on mma.sync, which reaches a part of
+// that rate (wgmma alone reaches all of it); PERF.md has the times.
 //
 // The entry points launch on the given stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError() of their launches.
@@ -836,6 +882,506 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the backward pass, bf16: dK/dV and dQ on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BWD_KEYS = 64;  // keys a dK/dV block owns; a dQ K/V tile
+constexpr int TC_BWD_WIDE = 32;  // the span below at q/k head dims > 128
+
+// Query rows of a dK/dV step, and keys of a dQ sub-step: 64, or 32 at q/k
+// head dims above 128 (MLA's 192), where dK's or dQ's 96 accumulators a
+// thread beside 64-wide S and dP tiles would spill, and 64-row dK/dV
+// stages would leave one block a SM.
+template <int HD>
+__host__ __device__ constexpr int tc_bwd_span() {
+  return HD > 128 ? TC_BWD_WIDE : TC_BWD_KEYS;
+}
+
+template <int HD, int HDV>
+constexpr size_t tc_bwd_dkdv_smem_bytes() {  // K, V; two stages of Q, dO;
+  constexpr int QT = tc_bwd_span<HD>();     // two of lse and D
+  return (size_t)(TC_BWD_KEYS + 2 * QT) * ((HD + 8) + (HDV + 8)) *
+             sizeof(__nv_bfloat16) +
+         (size_t)2 * 2 * QT * sizeof(float);
+}
+template <int HD, int HDV>
+constexpr size_t tc_bwd_dq_smem_bytes() {  // two stages of K and V; dO
+  return ((size_t)2 * TC_BWD_KEYS * ((HD + 8) + (HDV + 8)) +
+          (size_t)TC_ROWS * (HDV + 8)) *
+         sizeof(__nv_bfloat16);
+}
+
+// rows [r0, r0 + ROWS) of a [limit, WIDTH] bf16 tensor into shared rows of
+// stride LD by cp.async, 16 bytes a copy; rows at or past `limit` are
+// zero-filled
+template <int ROWS, int WIDTH, int LD>
+__device__ __forceinline__ void cp_rows(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* src, int r0,
+                                        int limit) {
+  constexpr int CHUNKS = WIDTH / 8;
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += TC_THREADS) {
+    const int r = idx / CHUNKS, ch = idx % CHUNKS;
+    const bool ok = r0 + r < limit;
+    repro_mma::cp_async16(dst + r * LD + ch * 8,
+                          src + (size_t)(ok ? r0 + r : 0) * WIDTH + ch * 8,
+                          ok);
+  }
+}
+
+// the 16-byte chunks this thread copied by cp_rows<ROWS, WIDTH, LD> (after
+// its cp.async wait), times `mul` and rounded back to bf16
+template <int ROWS, int WIDTH, int LD>
+__device__ __forceinline__ void scale_rows(__nv_bfloat16* dst, float mul) {
+  using namespace repro_mma;
+  constexpr int CHUNKS = WIDTH / 8;
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += TC_THREADS) {
+    const int r = idx / CHUNKS, ch = idx % CHUNKS;
+    uint4* p = reinterpret_cast<uint4*>(dst + r * LD + ch * 8);
+    uint4 x = *p;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = unpack_bf16(w[e]);
+      w[e] = pack_bf16(f.x * mul, f.y * mul);
+    }
+    *p = x;
+  }
+}
+
+// dK and dV of one (64-key tile, KV head, batch) on the tensor cores: the
+// block walks the G query heads of its group and, for each, the QT-row
+// query tiles that see its keys, so it alone writes its rows of dK and dV
+// (no atomics).  Each warp owns 16 keys; per step, with K and V rows as A
+// fragments and the step's tiles as B fragments:
+//   S^T = K (q*scale)^T, P^T = exp(S^T - lse) under the forward's mask,
+//   dP^T = V dO^T, dS^T = P^T o (dP^T - D),
+//   dV += P^T dO and dK += dS^T (q*scale), P^T and dS^T rounded to bf16 as
+//   A fragments straight from the C fragments, dO and q*scale by
+//   ldmatrix.trans.
+template <int HD, int HDV>
+__global__ void __launch_bounds__(
+    TC_THREADS, min_blocks(tc_bwd_dkdv_smem_bytes<HD, HDV>()))
+    flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ Dsum,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int Hq,
+                               int Hkv, int Sq, int Sk, int causal,
+                               float scale) {
+  using namespace repro_mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int QT = tc_bwd_span<HD>();  // query rows a step
+  constexpr int LDK = HD + 8;            // row stride of K and Q tiles
+  constexpr int LDV = HDV + 8;           // row stride of V and dO tiles
+  constexpr int KS = HD / 16, KSV = HDV / 16;  // k-steps of S^T, dP^T
+  constexpr int NQ = QT / 8;                   // 8-query tiles of S^T
+  constexpr int NT = HD / 8, NTV = HDV / 8;    // 8-column tiles of dK, dV
+  constexpr int Q_STAGE = QT * LDK, DO_STAGE = QT * LDV;
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [TC_BWD_KEYS][LDK]
+  bf16* Vs = Ks + TC_BWD_KEYS * LDK;          // [TC_BWD_KEYS][LDV]
+  bf16* Qs = Vs + TC_BWD_KEYS * LDV;          // [2][QT][LDK], q*scale
+  bf16* dOs = Qs + 2 * Q_STAGE;               // [2][QT][LDV]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * DO_STAGE);  // [2][QT]
+  float* D_s = lse_s + 2 * QT;                                   // [2][QT]
+
+  // the grid is (KV head, batch, key tile), the key tile slowest: under
+  // the causal mask key tile 0 has the longest walk, so every (KV head,
+  // batch)'s longest block is issued first
+  const int G = Hq / Hkv;
+  const int k0 = blockIdx.z * TC_BWD_KEYS, hk = blockIdx.x, b = blockIdx.y;
+  const size_t kv_head = (size_t)b * Hkv + hk;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tq = 2 * (lane & 3);  // first of the thread's column pair
+  // this thread's keys in the tile: kr and kr + 8
+  const int kr = warp * 16 + (lane >> 2);
+
+  // causal (top-left): query i sees key j when j <= i, so the query tiles
+  // from the one holding the key tile's first key on see some of its keys
+  const int nq = (Sq + QT - 1) / QT;
+  const int qt0 = causal ? min(k0 / QT, nq) : 0;
+  const int per_head = nq - qt0;
+  const int steps = G * per_head;
+
+  auto issue = [&](int s) {  // step s's Q, dO, lse and D into stage s & 1
+    const int g = s / per_head, q0 = (qt0 + s % per_head) * QT;
+    const size_t head = (size_t)b * Hq + hk * G + g;
+    const int st = s & 1;
+    cp_rows<QT, HD, LDK>(Qs + st * Q_STAGE, q + head * Sq * HD, q0, Sq);
+    cp_rows<QT, HDV, LDV>(dOs + st * DO_STAGE, dout + head * Sq * HDV, q0,
+                          Sq);
+    if (tid < QT) {
+      const bool ok = q0 + tid < Sq;
+      const size_t at = head * Sq + (ok ? q0 + tid : 0);
+      cp_async4(lse_s + st * QT + tid, lse + at, ok);
+      cp_async4(D_s + st * QT + tid, Dsum + at, ok);
+    }
+  };
+
+  cp_rows<TC_BWD_KEYS, HD, LDK>(Ks, k + kv_head * Sk * HD, k0, Sk);
+  cp_rows<TC_BWD_KEYS, HDV, LDV>(Vs, v + kv_head * Sk * HDV, k0, Sk);
+  if (steps > 0) issue(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  if (steps > 0) scale_rows<QT, HD, LDK>(Qs, scale);
+  __syncthreads();
+
+  float dka[NT][4], dva[NTV][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nt][e] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NTV; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[nt][e] = 0.f;
+  const bf16* Kw = Ks + warp * 16 * LDK;  // the warp's 16 keys
+  const bf16* Vw = Vs + warp * 16 * LDV;
+
+  for (int s = 0; s < steps; ++s) {
+    const int st = s & 1;
+    const bool more = s + 1 < steps;
+    if (more) {  // step s+1 into the stage step s-1 left
+      issue(s + 1);
+      cp_async_commit();
+    }
+    const bf16* Qt = Qs + st * Q_STAGE;
+    const bf16* dOt = dOs + st * DO_STAGE;
+    const float* lse_t = lse_s + st * QT;
+    const float* D_t = D_s + st * QT;
+    const int q0 = (qt0 + s % per_head) * QT;
+
+    // S^T = K (q*scale)^T and dP^T = V dO^T, 16 keys x QT queries a warp
+    float sT[NQ][4], dpT[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ka[4];
+      ldsm_x4(ka, Kw + (lane & 15) * LDK + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        uint32_t qb[4];
+        ldsm_x4(qb, Qt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDK +
+                        ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sT[2 * np], ka, qb[0], qb[1]);
+        mma_bf16(sT[2 * np + 1], ka, qb[2], qb[3]);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < KSV; ++ks) {
+      uint32_t va[4];
+      ldsm_x4(va, Vw + (lane & 15) * LDV + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        uint32_t ob[4];
+        ldsm_x4(ob, dOt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDV +
+                        ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(dpT[2 * np], va, ob[0], ob[1]);
+        mma_bf16(dpT[2 * np + 1], va, ob[2], ob[3]);
+      }
+    }
+
+    // P^T (in sT) and dS^T (in dpT) in f32; the mask only where the tile
+    // holds a ragged row or column or straddles the diagonal
+    const bool edge = q0 + QT > Sq || k0 + TC_BWD_KEYS > Sk ||
+                      (causal && q0 < k0 + TC_BWD_KEYS - 1);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + j * 8 + tq);
+      const float2 d2 = *reinterpret_cast<const float2*>(D_t + j * 8 + tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + j * 8 + tq + (e & 1);
+        const int key = k0 + kr + 8 * (e >> 1);
+        const bool keep =
+            !edge || (qi < Sq && key < Sk && (!causal || key <= qi));
+        const float p =
+            keep ? expf(sT[j][e] - ((e & 1) ? l2.y : l2.x)) : 0.f;
+        sT[j][e] = p;
+        dpT[j][e] = p * (dpT[j][e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T (q*scale), 16 queries a k-step
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(sT[2 * kk][0], sT[2 * kk][1]),
+          pack_bf16(sT[2 * kk][2], sT[2 * kk][3]),
+          pack_bf16(sT[2 * kk + 1][0], sT[2 * kk + 1][1]),
+          pack_bf16(sT[2 * kk + 1][2], sT[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < NTV / 2; ++dp) {
+        uint32_t ob[4];
+        ldsm_x4_t(ob, dOt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                LDV +
+                          dp * 16 + (lane >> 4) * 8);
+        mma_bf16(dva[2 * dp], pa, ob[0], ob[1]);
+        mma_bf16(dva[2 * dp + 1], pa, ob[2], ob[3]);
+      }
+      const uint32_t da[4] = {
+          pack_bf16(dpT[2 * kk][0], dpT[2 * kk][1]),
+          pack_bf16(dpT[2 * kk][2], dpT[2 * kk][3]),
+          pack_bf16(dpT[2 * kk + 1][0], dpT[2 * kk + 1][1]),
+          pack_bf16(dpT[2 * kk + 1][2], dpT[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < NT / 2; ++dp) {
+        uint32_t qb[4];
+        ldsm_x4_t(qb, Qt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               LDK +
+                          dp * 16 + (lane >> 4) * 8);
+        mma_bf16(dka[2 * dp], da, qb[0], qb[1]);
+        mma_bf16(dka[2 * dp + 1], da, qb[2], qb[3]);
+      }
+    }
+
+    if (more) {
+      cp_async_wait<0>();  // step s+1, issued before this step's products
+      scale_rows<QT, HD, LDK>(Qs + (st ^ 1) * Q_STAGE, scale);
+      __syncthreads();     // visible and scaled; every warp done with st
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int key = k0 + kr + 8 * a;
+    if (key >= Sk) continue;
+    bf16* dkr = dk + (kv_head * Sk + key) * HD;
+    bf16* dvr = dv + (kv_head * Sk + key) * HDV;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      *reinterpret_cast<uint32_t*>(dkr + nt * 8 + tq) =
+          pack_bf16(dka[nt][2 * a], dka[nt][2 * a + 1]);
+#pragma unroll
+    for (int nt = 0; nt < NTV; ++nt)
+      *reinterpret_cast<uint32_t*>(dvr + nt * 8 + tq) =
+          pack_bf16(dva[nt][2 * a], dva[nt][2 * a + 1]);
+  }
+}
+
+// dQ of 64 packed rows of one (KV head, batch) on the tensor cores, packed
+// as the forward packs them (row m: query m / G of query head hk*G + m % G),
+// so the G heads of a group share every K/V tile.  q*scale sits in
+// registers as A fragments, dO in its own shared tile (its A fragments
+// read per sub-step: held in registers they made dQ<192,128> spill), each
+// row's lse and D in registers; 64-key tiles of K and V arrive through a
+// two-stage cp.async ring.  Per KN-key sub-step: S = (q*scale) K^T, dP =
+// dO V^T, dS = P o (dP - D), dQ += dS K (dS rounded to bf16 as A
+// fragments, K by ldmatrix.trans); out dQ*scale.
+template <int HD, int HDV>
+__global__ void __launch_bounds__(
+    TC_THREADS, min_blocks(tc_bwd_dq_smem_bytes<HD, HDV>()))
+    flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ Dsum,
+                             __nv_bfloat16* __restrict__ dq, int Hq, int Hkv,
+                             int Sq, int Sk, int causal, float scale) {
+  using namespace repro_mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int KN = tc_bwd_span<HD>();        // keys a sub-step
+  constexpr int LDK = HD + 8, LDV = HDV + 8;   // row strides (bf16)
+  constexpr int KS = HD / 16, KSV = HDV / 16;  // k-steps of S, dP
+  constexpr int NK = KN / 8;                   // 8-key tiles of S
+  constexpr int NT = HD / 8;                   // 8-column tiles of dQ
+  constexpr int K_STAGE = TC_BWD_KEYS * LDK, V_STAGE = TC_BWD_KEYS * LDV;
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [2][TC_BWD_KEYS][LDK]
+  bf16* Vs = Ks + 2 * K_STAGE;                // [2][TC_BWD_KEYS][LDV]
+  bf16* dOs = Vs + 2 * V_STAGE;               // [TC_ROWS][LDV]
+
+  // the grid is (KV head, batch, row tile), the row tile slowest and the
+  // last rows first: under the causal mask they walk the most keys, so
+  // every (KV head, batch)'s longest block is issued first
+  const int G = Hq / Hkv;
+  const int rows = G * Sq;                                   // packed rows
+  const int m0 = (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const bf16* kh = k + ((size_t)b * Hkv + hk) * Sk * HD;
+  const bf16* vh = v + ((size_t)b * Hkv + hk) * Sk * HDV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // the block's rows of q into K's second stage (tile 1 fills it only
+  // after the fragments are read) and of dO into its tile, tile 0 into
+  // the first stages
+  auto cp_packed = [&](bf16* dst, const bf16* src, int width, int ld) {
+    const int chunks = width / 8;
+    for (int idx = tid; idx < TC_ROWS * chunks; idx += TC_THREADS) {
+      const int r = idx / chunks, ch = idx % chunks;
+      const int m = m0 + r;
+      const bool ok = m < rows;
+      const int qi = ok ? m / G : 0, g = ok ? m % G : 0;
+      cp_async16(dst + r * ld + ch * 8,
+                 src + (((size_t)b * Hq + hk * G + g) * Sq + qi) * width +
+                     ch * 8,
+                 ok);
+    }
+  };
+  cp_packed(Ks + K_STAGE, q, HD, LDK);
+  cp_packed(dOs, dout, HDV, LDV);
+  cp_rows<TC_BWD_KEYS, HD, LDK>(Ks, kh, 0, Sk);
+  cp_rows<TC_BWD_KEYS, HDV, LDV>(Vs, vh, 0, Sk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // q*scale as A fragments, rounded back to bf16 as the forward takes it
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    ldsm_x4(qf[ks], Ks + K_STAGE + (warp * 16 + (lane & 15)) * LDK +
+                        ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = unpack_bf16(qf[ks][e]);
+      qf[ks][e] = pack_bf16(f.x * scale, f.y * scale);
+    }
+  }
+
+  // this thread's rows: packed rows r0 and r0 + 8 of the warp's 16
+  const int r0 = m0 + warp * 16 + (lane >> 2);
+  const int tq = 2 * (lane & 3);
+  int qpos[2];
+  float lse_r[2], D_r[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int m = r0 + 8 * a;
+    const bool ok = m < rows;
+    const size_t row =
+        ok ? ((size_t)b * Hq + hk * G + m % G) * Sq + m / G : 0;
+    qpos[a] = m / G;
+    lse_r[a] = ok ? lse[row] : 0.f;
+    D_r[a] = ok ? Dsum[row] : 0.f;
+  }
+  __syncthreads();  // every warp has its q fragments: stage 1 is free
+  const bf16* dOw = dOs + warp * 16 * LDV;  // the warp's 16 rows of dO
+
+  // query positions: the block's first, and the last its rows reach
+  const int q_first = m0 / G;
+  const int q_last = (min(m0 + TC_ROWS, rows) - 1) / G;
+  int n_tiles = (Sk + TC_BWD_KEYS - 1) / TC_BWD_KEYS;
+  if (causal)  // tiles past the block's last query are all masked
+    n_tiles = min(n_tiles, q_last / TC_BWD_KEYS + 1);
+
+  float dqa[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[nt][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const bf16* Kt = Ks + (t & 1) * K_STAGE;
+    const bf16* Vt = Vs + (t & 1) * V_STAGE;
+    const bool more = t + 1 < n_tiles;
+    if (more) {  // tile t+1 into the stage tile t-1 left
+      const int k1 = (t + 1) * TC_BWD_KEYS;
+      cp_rows<TC_BWD_KEYS, HD, LDK>(Ks + ((t + 1) & 1) * K_STAGE, kh, k1,
+                                    Sk);
+      cp_rows<TC_BWD_KEYS, HDV, LDV>(Vs + ((t + 1) & 1) * V_STAGE, vh, k1,
+                                     Sk);
+      cp_async_commit();
+    }
+
+#pragma unroll
+    for (int h = 0; h < TC_BWD_KEYS / KN; ++h) {
+      const int kb0 = t * TC_BWD_KEYS + h * KN;  // the sub-step's first key
+      if (causal && kb0 > q_last) break;  // wholly above the diagonal
+      const bf16* Kh = Kt + h * KN * LDK;
+      const bf16* Vh = Vt + h * KN * LDV;
+
+      // S = (q*scale) K^T and dP = dO V^T, 16 rows x KN keys a warp
+      float s[NK][4], dp[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int np = 0; np < NK / 2; ++np) {
+          uint32_t kb[4];
+          ldsm_x4(kb, Kh + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDK +
+                          ks * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+        }
+#pragma unroll
+      for (int ks = 0; ks < KSV; ++ks) {
+        uint32_t oa[4];
+        ldsm_x4(oa, dOw + (lane & 15) * LDV + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < NK / 2; ++np) {
+          uint32_t vb[4];
+          ldsm_x4(vb, Vh + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDV +
+                          ks * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
+          mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
+        }
+      }
+
+      // P and dS (in dp) in f32, masked where the sub-step is ragged or
+      // straddles the diagonal
+      const bool edge =
+          kb0 + KN > Sk || (causal && kb0 + KN - 1 > q_first);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int a = e >> 1;
+          const int key = kb0 + 8 * j + tq + (e & 1);
+          const bool keep =
+              !edge || (key < Sk && (!causal || key <= qpos[a]));
+          const float p = keep ? expf(s[j][e] - lse_r[a]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - D_r[a]);
+        }
+
+      // dQ += dS K, 16 keys a k-step
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk) {
+        const uint32_t da[4] = {
+            pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+            pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+            pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+            pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+        for (int dd = 0; dd < NT / 2; ++dd) {
+          uint32_t kb[4];
+          ldsm_x4_t(kb, Kh + (kk * 16 + (lane & 7) +
+                              ((lane >> 3) & 1) * 8) * LDK +
+                            dd * 16 + (lane >> 4) * 8);
+          mma_bf16(dqa[2 * dd], da, kb[0], kb[1]);
+          mma_bf16(dqa[2 * dd + 1], da, kb[2], kb[3]);
+        }
+      }
+    }
+
+    if (more) {
+      cp_async_wait<0>();  // tile t+1, issued before this tile's products
+      __syncthreads();     // visible, and every warp is done with tile t
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int m = r0 + 8 * a;
+    if (m >= rows) continue;
+    bf16* dst = dq + (((size_t)b * Hq + hk * G + m % G) * Sq + m / G) * HD;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      *reinterpret_cast<uint32_t*>(dst + nt * 8 + tq) =
+          pack_bf16(dqa[nt][2 * a] * scale, dqa[nt][2 * a + 1] * scale);
+  }
+}
+
 template <typename T, int HD, int HDV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* D, void* dq,
@@ -870,6 +1416,54 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   flash_bwd_dq_kernel<T, HD, HDV>
       <<<dim3((Sq + BQ - 1) / BQ, Hq, B), THREADS, q_bytes, st>>>(
           qt, kt, vt, dot, lse, D, static_cast<T*>(dq), Hq, Hkv, Sq, Sk,
+          causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 backward: the D kernel, then the tensor-core dK/dV and dQ
+// kernels
+template <int HD, int HDV>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* out, const void* dout, const float* lse,
+                    float* D, void* dq, void* dk, void* dv, int B, int Hq,
+                    int Hkv, int Sq, int Sk, int causal, float scale,
+                    cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  const long long rows = (long long)B * Hq * Sq;
+  flash_bwd_dot_kernel<bf16, HDV>
+      <<<(unsigned)((rows + DOT_WARPS - 1) / DOT_WARPS), 32 * DOT_WARPS, 0,
+         st>>>(static_cast<const bf16*>(out), dot, D, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t kv_bytes = tc_bwd_dkdv_smem_bytes<HD, HDV>();
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<HD, HDV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  // the tiles are the grid's z: at most 65535 (Sk, and G * Sq packed
+  // rows, up to 4,194,240)
+  const long long kv_tiles = (Sk + TC_BWD_KEYS - 1) / TC_BWD_KEYS;
+  const long long q_tiles =
+      ((long long)(Hq / Hkv) * Sq + TC_ROWS - 1) / TC_ROWS;
+  if (kv_tiles > 65535 || q_tiles > 65535) return (int)cudaErrorInvalidValue;
+  flash_bwd_dkdv_bf16_kernel<HD, HDV>
+      <<<dim3(Hkv, B, (unsigned)kv_tiles), TC_THREADS, kv_bytes, st>>>(
+          qt, kt, vt, dot, lse, D, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), Hq, Hkv, Sq, Sk, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t q_bytes = tc_bwd_dq_smem_bytes<HD, HDV>();
+  err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<HD, HDV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)q_bytes);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_bf16_kernel<HD, HDV>
+      <<<dim3(Hkv, B, (unsigned)q_tiles), TC_THREADS, q_bytes, st>>>(
+          qt, kt, vt, dot, lse, D, static_cast<bf16*>(dq), Hq, Hkv, Sq, Sk,
           causal, scale);
   return (int)cudaGetLastError();
 }
@@ -946,7 +1540,7 @@ int dispatch_bwd(int dtype, int hd, int hd_v, const void* q, const void* k,
     if (dtype == DTYPE_F32)                                                \
       return launch_bwd<float, HD, HDV>(REPRO_FLASH_BWD_ARGS);             \
     if (dtype == DTYPE_BF16)                                               \
-      return launch_bwd<__nv_bfloat16, HD, HDV>(REPRO_FLASH_BWD_ARGS);     \
+      return launch_bwd_bf16<HD, HDV>(REPRO_FLASH_BWD_ARGS);               \
   }
   REPRO_FLASH_PAIRS(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
@@ -954,6 +1548,19 @@ int dispatch_bwd(int dtype, int hd, int hd_v, const void* q, const void* k,
 }
 
 #undef REPRO_FLASH_BWD_ARGS
+
+template <int HD, int HDV>
+int bwd_attrs_bf16(int which, int* out) {
+  if (which == 0)
+    return (int)repro_block_attrs(
+        (const void*)flash_bwd_dkdv_bf16_kernel<HD, HDV>, TC_THREADS,
+        (int)tc_bwd_dkdv_smem_bytes<HD, HDV>(), out);
+  if (which == 1)
+    return (int)repro_block_attrs(
+        (const void*)flash_bwd_dq_bf16_kernel<HD, HDV>, TC_THREADS,
+        (int)tc_bwd_dq_smem_bytes<HD, HDV>(), out);
+  return (int)cudaErrorInvalidValue;
+}
 
 template <typename T, int HD, int HDV>
 int bwd_attrs(int which, int* out) {
@@ -1016,7 +1623,8 @@ int repro_flash_block_attrs(int dtype, int hd, int hd_v, int* out) {
 // cotangent of out) as above, lse [B,Hq,Sq] f32 from the forward, D
 // [B,Hq,Sq] f32 workspace; writes dq [B,Hq,Sq,hd], dk [B,Hkv,Sk,hd] and
 // dv [B,Hkv,Sk,hd_v] in `dtype`.  Three launches on `stream`: D, dK/dV,
-// dQ.
+// dQ.  bf16 takes at most 65535 tiles of 64 keys and of 64 packed rows
+// (Sk and (Hq / Hkv) * Sq up to 4,194,240).
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               const void* out, const void* dout,
                               const float* lse, float* D, void* dq, void* dk,
@@ -1038,8 +1646,7 @@ int repro_flash_bwd_block_attrs(int dtype, int hd, int hd_v, int which,
 #define REPRO_FLASH_CASE(HD, HDV)                                  \
   if (hd == HD && hd_v == HDV) {                                   \
     if (dtype == DTYPE_F32) return bwd_attrs<float, HD, HDV>(which, out); \
-    if (dtype == DTYPE_BF16)                                        \
-      return bwd_attrs<__nv_bfloat16, HD, HDV>(which, out);         \
+    if (dtype == DTYPE_BF16) return bwd_attrs_bf16<HD, HDV>(which, out);  \
   }
   REPRO_FLASH_PAIRS(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE

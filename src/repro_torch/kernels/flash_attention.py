@@ -31,10 +31,13 @@ the forward's PV product takes it), ``dK = dSᵀ (q·scale)`` and ``dQ =
 scale · dS K``.  :func:`flash_attention_bwd` launches
 ``repro_flash_attention_bwd`` for CUDA tensors (a D kernel, a dK/dV kernel
 with one block per (batch, KV head, key tile) that walks its G query heads
-and their query tiles, so no float atomics, and a dQ kernel with one
-block per (batch, query head, query tile); f32 sums on the CUDA cores for
-both dtypes) and :func:`flash_attention_bwd_plain`, the same formulas on
-whole tensors, for CPU tensors.  The reference has no backward kernel: it
+and their query tiles, so no float atomics, and a dQ kernel; chosen by
+dtype as the forward is: bfloat16 on the tensor cores, with P and dS
+rounded to bf16 where they enter their products and the dQ block over
+the forward's 64 packed rows of a KV head, float32 in f32 on the CUDA
+cores with a dQ block per (batch, query head, query tile)) and
+:func:`flash_attention_bwd_plain`, the same formulas on whole tensors,
+for CPU tensors.  The reference has no backward kernel: it
 trains through ``jax.grad`` of ``blocked_attention``, the XLA oracle of
 its forward.
 """
@@ -194,6 +197,14 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal: bool, scale):
     check_dense("o", o, dev, dtype, (B, Hq, Sq, hd_v))
     check_dense("dout", dout, dev, dtype, (B, Hq, Sq, hd_v))
     check_dense("lse", lse, dev, torch.float32, (B, Hq, Sq))
+    if dtype == torch.bfloat16:
+        check_aligned(q=q, k=k, v=v, dout=dout)
+        # the tensor-core kernels' grids take the 64-row tiles as their z
+        if max(-(-Sk // 64), -(-(Hq // Hkv) * Sq // 64)) > 65535:
+            raise ValueError(f"the bf16 backward takes at most 65535 tiles "
+                             f"of 64 keys and of 64 packed query rows "
+                             f"(G·Sq), got Sk {Sk} and G·Sq "
+                             f"{(Hq // Hkv) * Sq}")
     D = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(dev):

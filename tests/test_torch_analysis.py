@@ -437,6 +437,36 @@ def test_smem_model_of_each_kernel():
         128, 64 * 264 * 4 + hg * 256 * 4 + 2 * 64 * 136 * 2)
 
 
+@pytest.mark.parametrize("hd,hd_v", [(32, 32), (64, 64), (128, 128),
+                                     (48, 32), (192, 128)])
+def test_smem_model_of_the_bf16_backward_kernels(hd, hd_v):
+    """B4's bf16 backward blocks, worked by hand from the sources: four
+    warps; dK/dV stages its 64 keys' K and V rows and two stages of QT
+    query rows of Q and dO (bf16 rows padded by 8) and of lse and D (f32),
+    QT 64, or 32 at q/k head dim 192; dQ two stages of 64 K and V rows
+    and its 64 packed rows of dO.
+    Every instance fits two blocks a SM.  The float32 blocks keep their
+    256 threads, f32 tiles and one block a SM."""
+    qt = 32 if hd > 128 else 64
+    row = (hd + 8) + (hd_v + 8)
+    kv = smem.footprint("flash_attention_bwd_dkdv", dtype="bfloat16", hd=hd,
+                        hd_v=hd_v)
+    assert (kv.threads, kv.static_smem, kv.dynamic_smem, kv.min_blocks) == (
+        128, 0, (64 + 2 * qt) * row * 2 + 2 * 2 * qt * 4, 2)
+    dq = smem.footprint("flash_attention_bwd_dq", dtype="bfloat16", hd=hd,
+                        hd_v=hd_v)
+    assert (dq.threads, dq.static_smem, dq.dynamic_smem, dq.min_blocks) == (
+        128, 0, (2 * 64 * row + 64 * (hd_v + 8)) * 2, 2)
+    for kernel, tiles in (("flash_attention_bwd_dkdv", 2),
+                          ("flash_attention_bwd_dq", 1)):
+        f32 = smem.footprint(kernel, dtype="float32", hd=hd, hd_v=hd_v)
+        assert (f32.threads, f32.dynamic_smem, f32.min_blocks) == (
+            256, (2 * 64 * (hd + 4) + 2 * 64 * (hd_v + 4) + tiles * 64 * 68
+                  + 2 * 64) * 4, 1)
+    if (hd, hd_v) == (128, 128):
+        assert (kv.dynamic_smem, dq.dynamic_smem) == (105472, 87040)
+
+
 def test_sm001_block_over_budget():
     fp = smem.footprint("flash_attention", dtype="bfloat16", hd=128)
     findings = smem.check_footprint(fp, shape_name="tiny",

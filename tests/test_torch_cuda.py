@@ -964,10 +964,13 @@ def test_flash_attention_refuses_other_head_dim_pairs(dev):
 
 
 #: the backward kernels' cases: B, Hq, Hkv, Sq, Sk, hd, hd_v, causal.
-#: Every head-dim pair of ``HEAD_DIMS``, G in {1, 2, 3}, ragged and
-#: unequal lengths both ways, and qwen3_0_6b's training shape (B 4, 16
-#: heads over 8, S 2048)
+#: Every head-dim pair of ``HEAD_DIMS``, G in {1, 2, 3, 4}, ragged and
+#: unequal lengths both ways (cross-attention's form: non-causal over
+#: ragged keys, G 4; causal G 3 over more keys than queries), and
+#: qwen3_0_6b's training shape (B 4, 16 heads over 8, S 2048)
 ATTN_BWD_CASES = [
+    (1, 8, 2, 300, 177, 128, 128, False),
+    (1, 6, 2, 150, 200, 64, 64, True),
     (2, 4, 2, 40, 40, 32, 32, True),
     (1, 3, 1, 65, 129, 32, 32, False),
     (1, 6, 2, 129, 65, 64, 64, True),
@@ -1002,7 +1005,8 @@ def _close_scaled(got, want, tol):
 def test_flash_attention_bwd_kernel_matches_plain(dev, case, dtype):
     """B4's backward kernels against ``flash_attention_bwd_plain`` on the
     same card tensors, at the forward kernel's ``lse``: each gradient
-    within 1e-4 (f32) or 2e-2 (bf16) of its largest magnitude."""
+    within 1e-4 (f32) or 2e-2 (bf16) of its largest magnitude, and the
+    same bits on a second call (no atomics, sums in a fixed order)."""
     from repro_torch.kernels import flash_attention as fa
     causal = case[-1]
     q, k, v, do = _bwd_inputs(case, dtype, dev)
@@ -1013,9 +1017,64 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, case, dtype):
     before = fa.LAUNCHES["flash_attention_bwd"]
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     for a, b in zip(got, want):
         _close_scaled(a, b, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_never_runs_the_plain_version(dev, dtype,
+                                                         monkeypatch):
+    """A CUDA input of either dtype goes through the backward kernels: with
+    the plain backward made to raise, the wrapper still returns one
+    launch's gradients."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs((1, 4, 2, 70, 70, 64, 64, True), dtype, dev)
+    o, lse = fa._flash_attention_cuda(q, k, v, True, None, with_lse=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a card tensor reached the plain backward")
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", forbidden)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+    for a, b in zip(got, want):
+        _close_scaled(a, b, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_flash_attention_bwd_refuses_misaligned_bf16(dev):
+    """The bf16 backward kernels copy rows in 16-byte pieces: a bf16
+    ``dout`` that starts off a 16-byte boundary raises before a launch."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs((1, 2, 2, 16, 16, 32, 32, True),
+                              torch.bfloat16, dev)
+    o, lse = fa._flash_attention_cuda(q, k, v, True, None, with_lse=True)
+    shifted = torch.empty(do.numel() + 1, dtype=do.dtype,
+                          device=dev)[1:].view_as(do)
+    shifted.copy_(do)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd(q, k, v, o, lse, shifted)
+    assert fa.LAUNCHES["flash_attention_bwd"] == before
+
+
+def test_flash_attention_bwd_refuses_more_tiles_than_its_grid(dev):
+    """The bf16 backward kernels' grids take the 64-key and 64-packed-row
+    tiles as their z (at most 65535): more keys raise before a launch."""
+    from repro_torch.kernels import flash_attention as fa
+    Sk = 64 * 65535 + 1
+    q, o, do = (torch.zeros(1, 1, 1, 32, dtype=torch.bfloat16, device=dev)
+                for _ in range(3))
+    k, v = (torch.zeros(1, 1, Sk, 32, dtype=torch.bfloat16, device=dev)
+            for _ in range(2))
+    lse = torch.zeros(1, 1, 1, device=dev)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="65535 tiles"):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    assert fa.LAUNCHES["flash_attention_bwd"] == before
 
 
 @pytest.mark.parametrize("pair", [(32, 32), (64, 64), (128, 128), (48, 32),
@@ -1520,10 +1579,13 @@ def test_calibration_and_block_feasibility_on_the_card(dev, tmp_path):
         "flash_attention_bwd_dq", "ssd_chunk_dual_bwd"}
     for row in rows.values():
         assert row["feasible"] and row["blocks_per_sm"] >= 1
-        # the bf16 B4/B5 forward kernels run four mma.sync warps; every
-        # other kernel (the backward ones in both dtypes included) 256
+        # the bf16 B4/B5 forward kernels and B4's two bf16 backward
+        # kernels run four mma.sync warps; every other kernel (B5's
+        # backward and the f32 ones included) 256
         tensor_cores = (row.get("dtype") == "bfloat16" and row["kernel"] in
-                        ("flash_attention", "ssd_chunk_dual"))
+                        ("flash_attention", "ssd_chunk_dual",
+                         "flash_attention_bwd_dkdv",
+                         "flash_attention_bwd_dq"))
         assert row["threads"] == (128 if tensor_cores else 256), row
     # B4 at MLA's head dims: 128 threads (bf16) and 256 (f32); the bf16
     # kernel keeps two blocks a SM, the f32 one (115 KB) one

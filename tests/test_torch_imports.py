@@ -5,7 +5,7 @@ launch, ...),
 (``tools/profile_torch_path.py``, ``tools/compare_lm_kernels.py``,
 ``tools/compare_relax_kernels.py``, ``tools/compare_fused_runs.py``,
 ``tools/compare_batch_runs.py``, ``tools/fused_column_profile.py``,
-``tools/profile_moe_path.py``) and
+``tools/profile_moe_path.py``, ``tools/compare_train_steps.py``) and
 the ranks of the sharded CPU tests (``tests/torch_shard_ranks.py``)
 import neither JAX,
 ``ml_dtypes`` nor the reference package ``repro`` (``repro_torch`` is the
@@ -30,7 +30,8 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
                                        "compare_fused_runs.py",
                                        "compare_batch_runs.py",
                                        "fused_column_profile.py",
-                                       "profile_moe_path.py")] + [
+                                       "profile_moe_path.py",
+                                       "compare_train_steps.py")] + [
     ROOT / "tests" / "torch_shard_ranks.py"]
 
 
@@ -111,14 +112,50 @@ def test_chip_smoke_fails_without_a_card():
      "K13__nv_bfloat16PKfS2_S2_PfS5_iiiii", "ssd_bf16_kernel"),
     ("_ZN12_GLOBAL__N_121wd_relax_lanes_kernelILi2ELi1EEEvPKiiS2_S2_",
      "wd_relax_lanes_kernel<2,1>"),
+    # B4's bf16 backward kernels, as nvcc names them
+    ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1826"
+     "flash_bwd_dkdv_bf16_kernelILi192ELi128EEEvPK13__nv_bfloat16S3_S3_S3_"
+     "PKfS5_PS1_S6_iiiiif", "flash_bwd_dkdv_bf16_kernel<192,128>"),
+    ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1824"
+     "flash_bwd_dq_bf16_kernelILi128ELi128EEEvPK13__nv_bfloat16S3_S3_S3_"
+     "PKfS5_PS1_iiiiif", "flash_bwd_dq_bf16_kernel<128,128>"),
     ("_Z3foov", None),
 ])
 def test_chip_smoke_reads_kernel_names_from_mangled_symbols(mangled, name):
     """``chip_smoke.py`` keys its registers, spills and SASS counts by the
     kernel names it reads from nvcc's mangled symbols."""
+    assert _chip_smoke().kernel_name(mangled) == name
+
+
+def _chip_smoke():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", ROOT / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    assert module.kernel_name(mangled) == name
+    return module
+
+
+@pytest.mark.parametrize("dtype_name", ["bfloat16", "float32"])
+def test_chip_smoke_names_the_backward_kernels_of_each_dtype(dtype_name):
+    """The registers and spills a ``train_kernel_case`` line carries are
+    those of the dK/dV and dQ kernels its dtype launches, keyed as
+    ``ptxas_summary`` keys nvcc's ``-Xptxas -v`` lines."""
+    cs = _chip_smoke()
+    tail = "EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_iiiiif"
+    symbols = {
+        "bfloat16": ("26flash_bwd_dkdv_bf16_kernelILi64ELi64" + tail,
+                     "24flash_bwd_dq_bf16_kernelILi64ELi64" + tail),
+        "float32": ("21flash_bwd_dkdv_kernelIfLi64ELi64" + tail,
+                    "19flash_bwd_dq_kernelIfLi64ELi64" + tail)}[dtype_name]
+    log = "".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{sym}'"
+        f"\nptxas info    : Function properties for x\n    0 bytes stack "
+        f"frame, {8 * i} bytes spill stores, 0 bytes spill loads\nptxas "
+        f"info    : Used {200 + i} registers\n"
+        for i, sym in enumerate(symbols))
+    summary = cs.ptxas_summary([log])
+    names = cs.bwd_attn_kernels(dtype_name, 64, 64)
+    assert [summary[n] for n in names] == [
+        {"registers": 200, "spill_bytes": 0},
+        {"registers": 201, "spill_bytes": 8}]

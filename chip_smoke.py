@@ -260,6 +260,13 @@ Phases, each printing one JSON line:
    and the launches of B4/B5 forward and backward (counts set to 0 just
    before the run); qwen3 checkpoints at step 4 and a fresh ``Trainer``
    restores it and replays steps 5-8 within 1e-5 of the first run.
+10. dryrun — ``launch.dryrun.count_cell``'s count of one training step of
+   each trained config at its run's batch on a 1 x 1 mesh, over meta
+   tensors on the host: its B4/B5 calls a step equal the train phase's
+   launches a step, each call's FLOPs the closed form of its kernel's
+   bound; prints the counted FLOPs, ``model_flops_for``, the roofline's
+   compute and memory terms and the measured share of the peak,
+   ``model_flops / (step_s x 989e12)``, beside the step ms.
 
 Every phase prints its seconds (``phase_seconds``).  Then one
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
@@ -285,13 +292,6 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CSRC = "src/repro_torch/kernels/csrc/relax.cu"
 
-#: H100 SXM peaks (NVIDIA data sheet, full 700 W power limit): HBM3 rate,
-#: and the float32 rate outside the tensor cores — the closest the data
-#: sheet gives to the integer ALU work of these kernels
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-#: dense bf16 tensor-core rate (the bound of the bf16 B4 and B5 kernels)
-PEAK_BF16_OPS_PER_S = 989e12
 CSRC_FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: B4's bf16 kernels, each of which the build line must show on the
 #: tensor cores at every head-dim pair (B5's ``ssd_bf16_kernel`` too)
@@ -443,10 +443,29 @@ def time_ms(fn, *, reps: int = 10, flush=None, spin: bool = True) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def hardware() -> dict:
+    """The H100 SXM data sheet's peaks (700 W), from
+    ``repro_torch.roofline.analysis``: ``hbm_bw``; ``peak_flops`` (dense
+    bf16 on the tensor cores, the bf16 B4 and B5 kernels' bound) and
+    ``peak_flops_f32`` (float32 outside the tensor cores, the closest the
+    data sheet gives to the integer ALU work of the graph kernels)."""
+    from repro_torch.roofline.analysis import HARDWARE
+    return HARDWARE
+
+
+def peak_rate(dtype) -> float:
+    """The peak rate of a float kernel of ``dtype``."""
+    hw = hardware()
+    return (hw["peak_flops"] if str(dtype).endswith("bfloat16")
+            else hw["peak_flops_f32"])
+
+
 def bound(nbytes: float, ops: float,
-          peak_ops: float = PEAK_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
+          peak_ops: float | None = None) -> tuple[float, str]:
+    hw = hardware()
+    t_bytes = nbytes / hw["hbm_bw"] * 1e3
+    t_ops = ops / (hw["peak_flops_f32"] if peak_ops is None
+                   else peak_ops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2938,33 +2957,6 @@ def _allclose_err(got, want, tol: float) -> float:
     return err
 
 
-def attention_cost(S: int, dtype, causal: bool, heads=ATTN_HEADS,
-                   Sk=None) -> tuple:
-    """(bytes, operations) of one B4 call at the path's heads: q, k, v
-    read once and out written once; 2 FLOP per multiply-add of QK^T (hd)
-    and PV (hd_v) over the (query, key) pairs the mask keeps (causal:
-    S = Sk, top-left)."""
-    hq, hkv, hd, *rest = heads
-    hd_v, Sk = (rest[0] if rest else hd), Sk or S
-    size = 2 if str(dtype).endswith("bfloat16") else 4
-    nbytes = size * (hq * S * (hd + hd_v) + hkv * Sk * (hd + hd_v))
-    pairs = S * (S + 1) // 2 if causal else S * Sk
-    return nbytes, 2 * hq * pairs * (hd + hd_v)
-
-
-def ssd_cost(BN, c, H, P, N, dtype) -> tuple:
-    """(bytes, operations) of one B5 call: x̄, cum, B, C read once, y and
-    the states written once (f32); C·B's causal half once per chunk (it
-    is shared by the heads), and per head M·x̄'s causal half and the
-    state product, 2 FLOP per multiply-add."""
-    size = 2 if str(dtype).endswith("bfloat16") else 4
-    nbytes = (size * BN * c * (H * P + 2 * N) + 4 * BN * c * H
-              + 4 * BN * c * H * P + 4 * BN * H * N * P)
-    tri = c * (c + 1) // 2
-    ops = BN * tri * N * 2 + BN * H * (tri * P * 2 + c * N * P * 2)
-    return nbytes, ops
-
-
 def lm_kernel_phase(dev, reps: int = 10) -> list:
     """Hold B4 and B5 against their plain versions on the card; time each
     case beside its plain version (and B4 beside SDPA).  Returns the two
@@ -2973,6 +2965,7 @@ def lm_kernel_phase(dev, reps: int = 10) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels.cost import attention_cost, ssd_cost
 
     g = torch.Generator().manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
@@ -2996,8 +2989,7 @@ def lm_kernel_phase(dev, reps: int = 10) -> list:
                             fa.flash_attention_plain(q, k, v, causal=causal),
                             tol)
         nbytes, ops = attention_cost(S, dtype, causal, heads, Sk)
-        t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
-                        if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
+        t_b, by = bound(nbytes, ops, peak_rate(dtype))
         case = dict(
             Hq=heads[0], Hkv=heads[1], hd=heads[2], hd_v=v.shape[-1],
             S=S, Sk=k.shape[2], dtype=str(dtype).split(".")[-1],
@@ -3044,8 +3036,7 @@ def lm_kernel_phase(dev, reps: int = 10) -> list:
         nbytes, ops = ssd_cost(BN, c_len, H, P, N, dtype)
         # the units that do the work: bf16 tensor cores for bf16 inputs,
         # the CUDA cores' f32 rate for f32 inputs
-        t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
-                        if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
+        t_b, by = bound(nbytes, ops, peak_rate(dtype))
         case = dict(
             BN=BN, c=c_len, H=H, P=P, N=N, dtype=str(dtype).split(".")[-1],
             max_abs_err=err, tolerance=tol,
@@ -4016,34 +4007,6 @@ def _scaled_err(got, want, tol: float) -> tuple:
     return err, rel
 
 
-def attention_bwd_cost(heads, B: int, S: int, Sk: int, causal: bool,
-                       dtype) -> tuple:
-    """(bytes, operations) of one B4 backward call: q, k, v, out, dout
-    and lse read once, dq, dk, dv written once; per kept (query, key)
-    pair the recomputed logits (hd), dV (hd_v), dP (hd_v), dQ and dK
-    (hd each), 2 FLOP a multiply-add."""
-    hq, hkv, hd, hd_v = heads
-    size = 2 if str(dtype).endswith("bfloat16") else 4
-    nbytes = B * (size * (2 * hq * S * (hd + hd_v) + 2 * hkv * Sk
-                          * (hd + hd_v)) + 4 * hq * S)
-    pairs = S * (S + 1) // 2 if causal else S * Sk
-    return nbytes, 2 * B * hq * pairs * (3 * hd + 2 * hd_v)
-
-
-def ssd_bwd_cost(BN, c, H, P, N, dtype) -> tuple:
-    """(bytes, operations) of one B5 backward call: x̄, cum, B, C, dy and
-    dstate read once, dx̄, dcum, dB and dC written once; C·B's causal half
-    once a chunk and dCB's two products with B and C (the heads' dCB
-    summed first), and per head dM and Mᵀdy over the causal half and the
-    state's two products, 2 FLOP a multiply-add."""
-    size = 2 if str(dtype).endswith("bfloat16") else 4
-    nbytes = (2 * size * BN * c * (H * P + 2 * N)
-              + 4 * BN * c * H * (P + 2) + 4 * BN * H * N * P)
-    tri = c * (c + 1) // 2
-    ops = 2 * BN * (3 * tri * N + H * (2 * tri * P + 2 * c * N * P))
-    return nbytes, ops
-
-
 def bwd_attn_kernels(dtype_name: str, hd: int, hd_v: int) -> tuple:
     """The names (as ``ptxas_summary`` keys them) of B4's dK/dV and dQ
     kernels a backward call of ``dtype_name`` at (hd, hd_v) launches."""
@@ -4066,6 +4029,7 @@ def train_kernel_phase(dev, reps: int = 5, ptxas=None) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels.cost import attention_bwd_cost, ssd_bwd_cost
 
     g = torch.Generator().manual_seed(3)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -4099,8 +4063,7 @@ def train_kernel_phase(dev, reps: int = 5, ptxas=None) -> list:
                                       for a, b in zip(got, want))))
             del got, again, want
             nbytes, ops = attention_bwd_cost(heads, B, S, Sk, causal, dtype)
-            t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
-                            if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
+            t_b, by = bound(nbytes, ops, peak_rate(dtype))
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
             try:
                 sdpa = F.scaled_dot_product_attention(
@@ -4151,8 +4114,7 @@ def train_kernel_phase(dev, reps: int = 5, ptxas=None) -> list:
         err, rel = map(max, zip(*(_scaled_err(a, b, BWD_TOL[dtype_name])
                                   for a, b in zip(got, want))))
         nbytes, ops = ssd_bwd_cost(BN, c, H, P, N, dtype)
-        t_b, by = bound(nbytes, ops, PEAK_BF16_OPS_PER_S
-                        if dtype == torch.bfloat16 else PEAK_OPS_PER_S)
+        t_b, by = bound(nbytes, ops, peak_rate(dtype))
         case = dict(
             config=name, BN=BN, c=c, H=H, P=P, N=N, dtype=dtype_name,
             decay_span=span, max_abs_err=err, rel_err=rel,
@@ -4362,7 +4324,84 @@ def train_phase(dev, arch: str) -> dict:
         raise AssertionError(f"{arch}: training run failed its checks")
     del step, state
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "steps": len(hist) + len(replayed),
+            "steady_step_ms": steady}
+
+
+def step_kernel_costs(cfg, B: int, S: int) -> dict:
+    """``name -> (bytes, FLOPs)`` of one call of each B4/B5 kernel a
+    training step of ``cfg`` at B x S launches: the closed forms that give
+    the kernels' bounds (``lm_kernel_phase``, ``train_kernel_phase``)."""
+    import torch
+    from repro_torch.kernels.cost import (attention_bwd_cost, attention_cost,
+                                          ssd_bwd_cost, ssd_cost)
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.family == "ssm":
+        c = cfg.ssm_chunk
+        shape = (B * S // c, c, cfg.ssm_heads, cfg.ssm_head_dim,
+                 cfg.ssm_state)
+        return {"ssd_chunk_dual": ssd_cost(*shape, dtype),
+                "ssd_chunk_dual_bwd": ssd_bwd_cost(*shape, dtype)}
+    hd = cfg.resolved_head_dim
+    heads = (cfg.num_heads, cfg.num_kv_heads, hd, hd)
+    nbytes, flops = attention_cost(S, dtype, True, heads)
+    return {"flash_attention": (B * nbytes, B * flops),
+            "flash_attention_bwd": attention_bwd_cost(heads, B, S, S, True,
+                                                      dtype)}
+
+
+def dryrun_phase(trained: dict) -> None:
+    """ROADMAP A15 item 5 on the host: ``count_cell``'s count of one
+    training step of each ``TRAIN_RUNS`` config at its run's batch on a
+    1 x 1 mesh, over meta tensors.  The dry run's B4/B5 calls must equal
+    the train phase's launches a step (its ``LAUNCHES`` reading over the
+    steps it covers, qwen3's replayed steps included), and each meta
+    call's FLOPs the closed form of its kernel's bound.  Prints the
+    counted FLOPs, ``model_flops_for``, the roofline's compute and memory
+    terms beside the measured step, and the measured share
+    ``model_flops / (step_s x 989e12)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.launch.mesh import ProductionMesh
+    from repro_torch.launch.shapes import ShapeSpec
+
+    mesh = ProductionMesh((1, 1), ("data", "model"))
+    peak = hardware()["peak_flops"]
+    smi = nvidia_smi()
+    for arch, (B, S, _) in TRAIN_RUNS.items():
+        run = trained[arch]
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        rec = count_cell(cfg, ShapeSpec("train_run", S, B, "train"), mesh)
+        seconds = time.perf_counter() - t0
+        calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+        per_step = {k: n / run["steps"]
+                    for k, n in run["launches"].items() if n}
+        closed = step_kernel_costs(cfg, B, S)
+        flops_ok = {k: v["flops"] == v["calls"] * closed[k][1]
+                    for k, v in rec["kernels"].items()}
+        step_s = run["steady_step_ms"] / 1e3
+        rf = rec["roofline"]
+        ok = (calls == per_step and set(calls) == set(closed)
+              and all(flops_ok.values()))
+        emit("dryrun", arch=arch, batch=[B, S], mesh=mesh.name,
+             trace_s=rec["trace_s"], seconds=seconds,
+             counted_flops=rec["per_device_flops"],
+             model_flops=rec["model_flops"],
+             kernel_calls_per_step=calls,
+             card_launches_per_step=per_step,
+             steps_read=run["steps"], kernel_flops=rec["kernels"],
+             closed_form_flops_equal=flops_ok,
+             compute_ms=rf["compute_s"] * 1e3,
+             memory_ms=rf["memory_s"] * 1e3, dominant=rf["dominant"],
+             step_ms=run["steady_step_ms"],
+             share=rec["model_flops"] / (step_s * peak),
+             bytes_per_device=rec["bytes_per_device"],
+             nvidia_smi=smi, ok=ok)
+        if not ok:
+            raise AssertionError(f"{arch}: the dry run's kernel calls "
+                                 f"{calls} != the card's {per_step} a "
+                                 f"step, or a closed form differs")
 
 
 def main() -> int:
@@ -4513,8 +4552,9 @@ def main() -> int:
     trained = {arch: timed(f"train {arch}", train_phase, dev, arch)
                for arch in TRAIN_RUNS}
     for row in train_rows:  # each row's launches: its config's training run
-        row["launches"] = trained[row["config"]][row["name"]]
+        row["launches"] = trained[row["config"]]["launches"][row["name"]]
     rows += train_rows
+    timed("dryrun", dryrun_phase, trained)
     emit("seconds", phases=seconds, total=sum(seconds.values()))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,3 +26,7 @@ def normalize(name: str) -> str:
 def get_config(name: str):
     mod = importlib.import_module(f"repro_torch.configs.{normalize(name)}")
     return mod.CONFIG
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCHITECTURES}

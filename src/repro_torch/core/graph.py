@@ -24,16 +24,19 @@ import torch
 INF = np.iinfo(np.int32).max // 2  # "infinity" that survives + weight
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, *, allow_meta: bool = False) -> torch.device:
     """The ``torch.device`` an entry point runs on.  A CUDA request on a
     machine without a usable card raises: the port never quietly carries
-    on on the CPU."""
+    on on the CPU.  ``"meta"`` (shapes only, nothing computed) is admitted
+    only with ``allow_meta``, where an abstract model is built for the
+    dry run."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} was requested but no CUDA device is "
             f"available; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu") and not (allow_meta
+                                                and dev.type == "meta"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
 

@@ -12,5 +12,7 @@
 #                     its backward kernel (training)
 #   fused           - the fused fixed point: a whole traversal in one
 #                     persistent cooperative launch (B1/B2's lane bodies)
+#   cost            - B4/B5's closed-form (bytes, FLOPs) a call, and the
+#                     counter their meta branches (the dry run) feed
 from repro_torch.kernels import (  # noqa: F401
     find_offsets, flash_attention, fused, ops, ref, relax, ssd_chunk)

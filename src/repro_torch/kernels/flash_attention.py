@@ -40,6 +40,14 @@ cores with a dQ block per (batch, query head, query tile)) and
 for CPU tensors.  The reference has no backward kernel: it
 trains through ``jax.grad`` of ``blocked_attention``, the XLA oracle of
 its forward.
+
+Meta tensors (the dry run's abstract step) take neither: the forward
+and the backward return empty outputs of the kernel's shapes and dtypes
+and add the call's closed-form bytes and FLOPs
+(:func:`repro_torch.kernels.cost.attention_call_cost`, which skips the
+causal half the kernel skips) to the active
+:func:`~repro_torch.kernels.cost.count_kernels` counter.  They add
+nothing to ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import (DTYPE_CODES, LAUNCHES, check_aligned,
                                         check_dense)
+from repro_torch.kernels.cost import attention_call_cost, record_meta_call
 
 NEG_INF = -1e30
 #: the kernel's (q/k head dim, v head dim) pairs: GQA's, MLA's prefill
@@ -190,6 +199,29 @@ def _flash_attention_cuda(q, k, v, causal: bool, scale,
     return (out, lse) if with_lse else out
 
 
+def _flash_attention_meta(q, k, v, causal: bool, with_lse: bool = False):
+    """The meta branch of the forward: the kernel's outputs, empty, and
+    its closed-form cost recorded."""
+    B, Hq, Hkv, Sq, Sk, hd, hd_v = _shapes(q, k, v)
+    record_meta_call("flash_attention", *attention_call_cost(
+        B, Hq, Hkv, Sq, Sk, hd, hd_v, causal, q.dtype))
+    out = torch.empty((B, Hq, Sq, hd_v), dtype=q.dtype, device=q.device)
+    if not with_lse:
+        return out
+    return out, torch.empty((B, Hq, Sq), dtype=torch.float32,
+                            device=q.device)
+
+
+def _flash_attention_bwd_meta(q, k, v, causal: bool):
+    """The meta branch of the backward: empty ``(dq, dk, dv)`` and the
+    closed-form cost recorded."""
+    B, Hq, Hkv, Sq, Sk, hd, hd_v = _shapes(q, k, v)
+    record_meta_call("flash_attention_bwd", *attention_call_cost(
+        B, Hq, Hkv, Sq, Sk, hd, hd_v, causal, q.dtype, backward=True))
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (q, k, v))
+
+
 def _flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal: bool, scale):
     B, Hq, Hkv, Sq, Sk, hd, hd_v = _check_kernel_args(
         q, k, v, "flash_attention_bwd")
@@ -234,6 +266,8 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, dout,
                                          causal=causal, scale=scale)
+    if q.device.type == "meta":
+        return _flash_attention_bwd_meta(q, k, v, causal)
     raise ValueError(f"no flash_attention_bwd for device {q.device}")
 
 
@@ -249,6 +283,8 @@ class FlashAttention(torch.autograd.Function):
         elif q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, causal=causal,
                                              scale=scale, return_lse=True)
+        elif q.device.type == "meta":
+            out, lse = _flash_attention_meta(q, k, v, causal, with_lse=True)
         else:
             raise ValueError(f"no flash_attention for device {q.device}")
         ctx.save_for_backward(q, k, v, out, lse)
@@ -279,4 +315,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _flash_attention_cuda(q, k, v, causal, scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "meta":
+        return _flash_attention_meta(q, k, v, causal)
     raise ValueError(f"no flash_attention for device {q.device}")

@@ -29,6 +29,13 @@ never formed.  Autograd through the forward's ``where(mask, exp(seg),
 0)`` (the reference's ``ssd_chunked`` and ``ssd_chunk_ref``) is NaN once
 a chunk's decay spans more than ~88: above the diagonal ``exp(seg)``
 overflows to inf, and the backward multiplies it by a zero cotangent.
+
+Meta tensors (the dry run's abstract step) take neither: the forward and
+the backward return empty outputs of the kernel's shapes and dtypes and
+add the call's closed-form bytes and FLOPs
+(:func:`repro_torch.kernels.cost.ssd_cost`, ``ssd_bwd_cost``) to the
+active :func:`~repro_torch.kernels.cost.count_kernels` counter.  They
+add nothing to ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import (DTYPE_CODES, LAUNCHES, check_aligned,
                                         check_dense)
+from repro_torch.kernels.cost import record_meta_call, ssd_bwd_cost, ssd_cost
 
 #: largest state size N and head dim P the kernel's register tiles hold
 MAX_NP = 128
@@ -140,6 +148,31 @@ def _check_kernel_args(xbar, cum, Bm, Cm, name: str):
     return BN, c, H, P, N
 
 
+def _empty(shape, dtype, like) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=like.device)
+
+
+def _ssd_chunk_dual_meta(xbar, cum, Bm, Cm):
+    """The meta branch of the forward: empty float32 ``(y, state)`` and
+    the closed-form cost recorded."""
+    BN, c, H, P, N = _shapes(xbar, cum, Bm, Cm)
+    record_meta_call("ssd_chunk_dual", *ssd_cost(BN, c, H, P, N,
+                                                 xbar.dtype))
+    return (_empty((BN, c, H, P), torch.float32, xbar),
+            _empty((BN, H, N, P), torch.float32, xbar))
+
+
+def _ssd_chunk_dual_bwd_meta(xbar, cum, Bm, Cm):
+    """The meta branch of the backward: empty ``(dxbar, dcum, dB, dC)``
+    and the closed-form cost recorded."""
+    BN, c, H, P, N = _shapes(xbar, cum, Bm, Cm)
+    record_meta_call("ssd_chunk_dual_bwd", *ssd_bwd_cost(BN, c, H, P, N,
+                                                         xbar.dtype))
+    return (_empty(xbar.shape, xbar.dtype, xbar),
+            _empty(cum.shape, torch.float32, xbar),
+            _empty(Bm.shape, Bm.dtype, xbar), _empty(Cm.shape, Cm.dtype, xbar))
+
+
 def _ssd_chunk_dual_bwd_cuda(xbar, cum, Bm, Cm, dy, dstate):
     BN, c, H, P, N = _check_kernel_args(xbar, cum, Bm, Cm,
                                         "ssd_chunk_dual_bwd")
@@ -177,6 +210,8 @@ def ssd_chunk_dual_bwd(xbar, cum, Bm, Cm, dy, dstate):
         return _ssd_chunk_dual_bwd_cuda(xbar, cum, Bm, Cm, dy, dstate)
     if xbar.device.type == "cpu":
         return ssd_chunk_dual_bwd_plain(xbar, cum, Bm, Cm, dy, dstate)
+    if xbar.device.type == "meta":
+        return _ssd_chunk_dual_bwd_meta(xbar, cum, Bm, Cm)
     raise ValueError(f"no ssd_chunk_dual_bwd for device {xbar.device}")
 
 
@@ -244,4 +279,6 @@ def _ssd_chunk_dual(xbar, cum, Bm, Cm):
         return _ssd_chunk_dual_cuda(xbar, cum, Bm, Cm)
     if xbar.device.type == "cpu":
         return ssd_chunk_dual_plain(xbar, cum, Bm, Cm)
+    if xbar.device.type == "meta":
+        return _ssd_chunk_dual_meta(xbar, cum, Bm, Cm)
     raise ValueError(f"no ssd_chunk_dual for device {xbar.device}")

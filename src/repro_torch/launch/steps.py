@@ -8,11 +8,16 @@ holds the model and updates its parameters and the optimizer's moments in
 place.  Its state is ``{"params": {path: parameter}, "opt": AdamW state}``
 (a tree of tensors, so :class:`repro_torch.runtime.trainer.Trainer`
 checkpoints and restores it).
+
+:func:`build_step` is the dry run's: the step of a production shape over
+an abstract (meta) model, its abstract arguments, the mesh, and the spec
+trees whose per-device shards make the step's resident state.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as tdist
@@ -21,7 +26,8 @@ from repro_torch.launch.mesh import DataGroup
 from repro_torch.launch.shapes import ShapeSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LanguageModel
-from repro_torch.models.params import leaves
+from repro_torch.models.model import model_param_specs
+from repro_torch.models.params import abstract_params, leaves
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedules import warmup_cosine
 
@@ -68,7 +74,9 @@ class TrainStep:
         return {k: torch.zeros_like(params[k]) if g is None else g
                 for k, g in zip(names, grads)}, metrics
 
-    def __call__(self, state: dict, batch: dict):
+    def gradients(self, state: dict, batch: dict):
+        """``(grads, metrics)`` of ``batch``: the loss's gradients by
+        parameter path (the group's mean) and the loss's metrics."""
         params = state["params"]
         mb = max(self.cfg.microbatches, 1)
         if mb == 1:
@@ -98,8 +106,12 @@ class TrainStep:
                 v = v.float().clone()
                 tdist.all_reduce(v, group=group.process_group)
                 metrics[k] = v / group.size
-        metrics = dict(metrics)
-        metrics.update(self.opt.update(grads, state["opt"], params))
+        return grads, dict(metrics)
+
+    def __call__(self, state: dict, batch: dict):
+        grads, metrics = self.gradients(state, batch)
+        metrics.update(self.opt.update(grads, state["opt"],
+                                       state["params"]))
         return state, metrics
 
 
@@ -134,3 +146,62 @@ def build_serve_step(model: LanguageModel):
         logits, cache = model.decode_step(cache, tokens, position)
         return logits.argmax(-1), cache
     return serve_step
+
+
+@dataclasses.dataclass
+class BuiltStep:
+    """A production step over an abstract model: ``fn(*args)`` runs it on
+    meta tensors; ``specs`` names the spec trees (``params``, ``opt``,
+    ``grads``, ``cache``) whose per-device shards are its resident state.
+    A train step's ``fn`` returns the gradients it applied, so the dry run
+    tells them from the activations."""
+    fn: Callable
+    args: tuple
+    mesh: Any
+    specs: dict
+
+
+def _abstract_batch(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    return {k: torch.empty(shp, dtype=dt, device="meta")
+            for k, (shp, dt) in batch_specs(cfg, shape).items()}
+
+
+def build_step(cfg: ModelConfig, shape: ShapeSpec, mesh) -> BuiltStep:
+    """The step of ``cfg`` at ``shape`` over an abstract (meta) model:
+
+    * train: :class:`TrainStep` (gradients, then AdamW in place) on the
+      batch of :func:`batch_specs`;
+    * prefill: :func:`build_prefill_step` into an abstract cache of the
+      prompt's length;
+    * decode: :func:`build_serve_step`, one token a sequence at the last
+      position of an abstract ``seq_len`` cache (one long sequence's cache
+      sharded over ``data`` along the sequence, as the reference's)."""
+    pspecs = model_param_specs(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        step = TrainStep(cfg, shape, None, "meta", 0)
+        state = step.init_state()
+
+        def train_step(state, batch):
+            grads, _ = step.gradients(state, batch)
+            step.opt.update(grads, state["opt"], state["params"])
+            return grads
+        return BuiltStep(train_step, (state, _abstract_batch(cfg, shape)),
+                         mesh, {"params": pspecs,
+                                "opt": step.opt.state_specs(pspecs),
+                                "grads": pspecs})
+    model = LanguageModel(cfg, device="meta")
+    if shape.kind == "prefill":
+        batch = _abstract_batch(cfg, shape)
+        batch.pop("labels")
+        cspecs = model.cache_specs(B, S)
+        return BuiltStep(build_prefill_step(model),
+                         (batch, abstract_params(cspecs)), mesh,
+                         {"params": pspecs, "cache": cspecs})
+    cspecs = model.cache_specs(B, S,
+                               seq_axis="data" if B % 16 else None)
+    tok = (B, 1, cfg.num_codebooks) if cfg.family == "audio" else (B, 1)
+    tokens = torch.empty(tok, dtype=torch.int32, device="meta")
+    return BuiltStep(build_serve_step(model),
+                     (abstract_params(cspecs), tokens, S - 1), mesh,
+                     {"params": pspecs, "cache": cspecs})

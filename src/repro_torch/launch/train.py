@@ -7,9 +7,16 @@
 
 On the card drop ``--smoke --device cpu`` (full width, seeded weights).
 Under an initialised ``torch.distributed`` (one rank a card) the batch is
-split over the ranks and the gradients averaged.  ``--production`` and
-``--dry-run`` (the reference's TPU mesh and its lower-and-compile) are
-ROADMAP A15 item 5.
+split over the ranks and the gradients averaged.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \
+        --production --dry-run [--shape train_4k] [--multi-pod]
+
+counts the production step without allocating it
+(:func:`repro_torch.launch.dryrun.count_cell`) and prints its FLOPs, bytes
+and memory a device; ``--dry-run`` alone counts the ``--batch`` x
+``--seq`` step on one card.  ``--production`` without ``--dry-run``
+raises ``NotImplementedError``: no 256-rank world exists to run it.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ import torch
 
 from repro_torch.configs import ARCHITECTURES, get_config
 from repro_torch.data.pipeline import TokenPipeline
-from repro_torch.launch.mesh import data_group, make_production_mesh
-from repro_torch.launch.shapes import ShapeSpec
+from repro_torch.launch.dryrun import count_cell
+from repro_torch.launch.mesh import (ProductionMesh, data_group,
+                                     make_production_mesh)
+from repro_torch.launch.shapes import SHAPES, ShapeSpec, skip_reason
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.model import model_param_specs
 from repro_torch.models.params import param_count
@@ -51,12 +60,16 @@ def stub_frontends(cfg, batch: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="train a config of the port")
     ap.add_argument("--arch", required=True, choices=ARCHITECTURES)
+    ap.add_argument("--shape", default="train_4k", choices=list(SHAPES))
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--production", action="store_true",
-                    help="the reference's production TPU mesh (not ported)")
+                    help="production mesh (requires the fleet or the "
+                         "dry run)")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower and compile only (not ported)")
+                    help="count the step over meta tensors; never "
+                         "allocates parameters")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=4)
@@ -66,14 +79,20 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.production or args.dry_run:
-        make_production_mesh()
-
+    if args.production:
+        if not args.dry_run:
+            raise NotImplementedError(
+                "--production needs a 256-rank (512 with --multi-pod) "
+                "world, which the port does not start; add --dry-run to "
+                "count the step without allocating it (the dry run, "
+                "ROADMAP A15 item 5)")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     if args.override:
         cfg = dataclasses.replace(cfg, **json.loads(args.override))
+    if args.dry_run:
+        return dry_run(cfg, args)
     group = data_group(args.device)
     if args.batch % group.size:
         raise ValueError(f"batch {args.batch} does not split over "
@@ -101,6 +120,31 @@ def main(argv=None) -> int:
               f"{hist[-1].metrics['loss']:.4f} over {len(hist)} steps")
     else:
         print(f"no step to run: restored at step {trainer.step}")
+    return 0
+
+
+def dry_run(cfg, args) -> int:
+    """``--dry-run``: the counts of ``cfg``'s step at ``--shape`` on the
+    production mesh (with ``--production``), else at ``--batch`` x
+    ``--seq`` on one card; its FLOPs, bytes and memory a device
+    printed."""
+    if args.production:
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+        shape = SHAPES[args.shape]
+    else:
+        mesh = ProductionMesh((1, 1), ("data", "model"))
+        shape = ShapeSpec("host", seq_len=args.seq, global_batch=args.batch,
+                          kind="train")
+    reason = skip_reason(cfg, shape)
+    if reason:
+        print(f"skipped: {reason}")
+        return 0
+    rec = count_cell(cfg, shape, mesh)
+    print(rec["memory_analysis"])
+    print({"flops": rec["per_device_flops"],
+           "bytes accessed": rec["per_device_bytes"],
+           "bytes_per_device": rec["bytes_per_device"],
+           "collective_bytes": rec["collective_bytes_per_device"]})
     return 0
 
 

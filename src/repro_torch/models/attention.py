@@ -27,7 +27,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_rope, attention, decode_attention, rmsnorm, rmsnorm_specs)
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, shard_if
 
 
 # ===========================================================================
@@ -84,23 +84,35 @@ def _q_mask(cfg: ModelConfig, dtype, device):
     return m.to(dtype)[None, :, None, None]
 
 
-def gqa_specs(cfg: ModelConfig) -> dict:
+def gqa_specs(cfg: ModelConfig, fsdp=None) -> dict:
+    """The projections; ``fsdp`` (``"data"`` or None) shards d_model.  The
+    partition specs are the reference's: query heads over ``model`` where
+    16 divide them (always, padded), KV heads likewise (never, padded:
+    their 8 tied heads are repeated at run time)."""
     d, hq, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.resolved_head_dim)
     lay = head_layout(cfg)
     if lay is not None:
         hq = lay[0]                      # query slots; KV heads stay tied
+        tp_q, tp_kv = "model", None
+    else:
+        tp_q = shard_if(hq, "model", 16)
+        tp_kv = shard_if(hkv, "model", 16)
     dt = cfg.dtype
     specs = {
-        "wq": ParamSpec((d, hq, hd), dt, "scaled"),
-        "wk": ParamSpec((d, hkv, hd), dt, "scaled"),
-        "wv": ParamSpec((d, hkv, hd), dt, "scaled"),
-        "wo": ParamSpec((hq, hd, d), dt, "scaled"),
+        "wq": ParamSpec((d, hq, hd), dt, "scaled", pspec=(fsdp, tp_q, None)),
+        "wk": ParamSpec((d, hkv, hd), dt, "scaled",
+                        pspec=(fsdp, tp_kv, None)),
+        "wv": ParamSpec((d, hkv, hd), dt, "scaled",
+                        pspec=(fsdp, tp_kv, None)),
+        "wo": ParamSpec((hq, hd, d), dt, "scaled", pspec=(tp_q, None, fsdp)),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((hq, hd), dt, "zeros")
-        specs["bk"] = ParamSpec((hkv, hd), dt, "zeros")
-        specs["bv"] = ParamSpec((hkv, hd), dt, "zeros")
+        specs["bq"] = ParamSpec((hq, hd), dt, "zeros", pspec=(tp_q, None))
+        specs["bk"] = ParamSpec((hkv, hd), dt, "zeros",
+                                pspec=(tp_kv, None) if lay is None else ())
+        specs["bv"] = ParamSpec((hkv, hd), dt, "zeros",
+                                pspec=(tp_kv, None) if lay is None else ())
     if cfg.qk_norm:
         specs["q_norm"] = rmsnorm_specs(hd)
         specs["k_norm"] = rmsnorm_specs(hd)
@@ -167,12 +179,17 @@ def gqa_decode(params, cfg: ModelConfig, x, position, cache):
     return _out_proj(params, cfg, out), cache
 
 
-def gqa_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+def gqa_cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                    seq_axis=None) -> dict:
+    """K/V [batch,Hkv,max_len,hd]: the batch over ``data`` where 16
+    divide it, else (one long sequence) the sequence over ``seq_axis``."""
     hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     lay = head_layout(cfg)
     if lay is not None:
         hkv = lay[1]
-    kv = ParamSpec((batch, hkv, max_len, hd), cfg.dtype, "zeros")
+    kv = ParamSpec((batch, hkv, max_len, hd), cfg.dtype, "zeros",
+                   pspec=("data" if batch % 16 == 0 else None,
+                          shard_if(hkv, "model", 16), seq_axis, None))
     return {"k": kv, "v": kv}
 
 
@@ -180,20 +197,25 @@ def gqa_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 # MLA (deepseek-v3)
 # ===========================================================================
 
-def mla_specs(cfg: ModelConfig) -> dict:
+def mla_specs(cfg: ModelConfig, fsdp=None) -> dict:
     d, h = cfg.d_model, cfg.num_heads
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    tp_h = shard_if(h, "model", 16)
     dt = cfg.dtype
     return {
-        "wq_a": ParamSpec((d, qr), dt, "scaled"),
+        "wq_a": ParamSpec((d, qr), dt, "scaled",
+                          pspec=(fsdp, shard_if(qr, "model", 16))),
         "q_norm": rmsnorm_specs(qr),
-        "wq_b": ParamSpec((qr, h, dn + dr), dt, "scaled"),
-        "wkv_a": ParamSpec((d, kvr + dr), dt, "scaled"),
+        "wq_b": ParamSpec((qr, h, dn + dr), dt, "scaled",
+                          pspec=(fsdp, tp_h, None)),
+        "wkv_a": ParamSpec((d, kvr + dr), dt, "scaled", pspec=(fsdp, None)),
         "kv_norm": rmsnorm_specs(kvr),
-        "wk_b": ParamSpec((kvr, h, dn), dt, "scaled"),
-        "wv_b": ParamSpec((kvr, h, dv), dt, "scaled"),
-        "wo": ParamSpec((h, dv, d), dt, "scaled"),
+        "wk_b": ParamSpec((kvr, h, dn), dt, "scaled",
+                          pspec=(fsdp, tp_h, None)),
+        "wv_b": ParamSpec((kvr, h, dv), dt, "scaled",
+                          pspec=(fsdp, tp_h, None)),
+        "wo": ParamSpec((h, dv, d), dt, "scaled", pspec=(tp_h, None, fsdp)),
     }
 
 
@@ -273,12 +295,14 @@ def mla_decode(params, cfg: ModelConfig, x, position, cache):
     return out, cache
 
 
-def mla_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+def mla_cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                    seq_axis=None) -> dict:
+    b_ax = "data" if batch % 16 == 0 else None
     return {
         "c_kv": ParamSpec((batch, max_len, cfg.kv_lora_rank), cfg.dtype,
-                          "zeros"),
+                          "zeros", pspec=(b_ax, seq_axis, None)),
         "k_rope": ParamSpec((batch, max_len, cfg.qk_rope_head_dim),
-                            cfg.dtype, "zeros"),
+                            cfg.dtype, "zeros", pspec=(b_ax, seq_axis, None)),
     }
 
 
@@ -286,15 +310,18 @@ def mla_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 # Cross-attention (llama-3.2-vision image layers)
 # ===========================================================================
 
-def cross_attn_specs(cfg: ModelConfig) -> dict:
+def cross_attn_specs(cfg: ModelConfig, fsdp=None) -> dict:
     d, hq, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.resolved_head_dim)
+    tp_q, tp_kv = shard_if(hq, "model", 16), shard_if(hkv, "model", 16)
     dt = cfg.dtype
     return {
-        "wq": ParamSpec((d, hq, hd), dt, "scaled"),
-        "wk": ParamSpec((d, hkv, hd), dt, "scaled"),
-        "wv": ParamSpec((d, hkv, hd), dt, "scaled"),
-        "wo": ParamSpec((hq, hd, d), dt, "scaled"),
+        "wq": ParamSpec((d, hq, hd), dt, "scaled", pspec=(fsdp, tp_q, None)),
+        "wk": ParamSpec((d, hkv, hd), dt, "scaled",
+                        pspec=(fsdp, tp_kv, None)),
+        "wv": ParamSpec((d, hkv, hd), dt, "scaled",
+                        pspec=(fsdp, tp_kv, None)),
+        "wo": ParamSpec((hq, hd, d), dt, "scaled", pspec=(tp_q, None, fsdp)),
         "q_norm": rmsnorm_specs(hd),
         "k_norm": rmsnorm_specs(hd),
         "gate": ParamSpec((), "float32", "zeros"),
@@ -335,6 +362,9 @@ def cross_attn_decode(params, cfg: ModelConfig, x, cache):
 
 
 def cross_cache_specs(cfg: ModelConfig, batch: int) -> dict:
-    kv = ParamSpec((batch, cfg.num_kv_heads, cfg.num_image_tokens,
-                    cfg.resolved_head_dim), cfg.dtype, "zeros")
+    hkv = cfg.num_kv_heads
+    kv = ParamSpec((batch, hkv, cfg.num_image_tokens,
+                    cfg.resolved_head_dim), cfg.dtype, "zeros",
+                   pspec=("data" if batch % 16 == 0 else None,
+                          shard_if(hkv, "model", 16), None, None))
     return {"k": kv, "v": kv}

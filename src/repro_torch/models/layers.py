@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, shard_if
 
 NEG_INF = -1e30
 
@@ -89,14 +89,18 @@ def decode_attention(q, k_cache, v_cache, length, *,
     return out.reshape(B, Hq, 1, hdv).to(q.dtype)
 
 
-def ffn_specs(d_model: int, d_ff: int, *, activation: str,
+def ffn_specs(d_model: int, d_ff: int, *, activation: str, fsdp=None,
               dtype: str = "bfloat16") -> dict:
+    tp16 = shard_if(d_ff, "model", 16)
     specs = {
-        "w_up": ParamSpec((d_model, d_ff), dtype, "scaled"),
-        "w_down": ParamSpec((d_ff, d_model), dtype, "scaled"),
+        "w_up": ParamSpec((d_model, d_ff), dtype, "scaled",
+                          pspec=(fsdp, tp16)),
+        "w_down": ParamSpec((d_ff, d_model), dtype, "scaled",
+                            pspec=(tp16, fsdp)),
     }
     if activation == "swiglu":
-        specs["w_gate"] = ParamSpec((d_model, d_ff), dtype, "scaled")
+        specs["w_gate"] = ParamSpec((d_model, d_ff), dtype, "scaled",
+                                    pspec=(fsdp, tp16))
     return specs
 
 

@@ -17,31 +17,32 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_chunk import ssd_chunk_dual
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, shard_if
 
 
 def _dims(cfg: ModelConfig):
     return cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
 
 
-def mamba_specs(cfg: ModelConfig) -> dict:
+def mamba_specs(cfg: ModelConfig, fsdp=None) -> dict:
     d = cfg.d_model
     h, p, n, k = _dims(cfg)
+    tp_h = shard_if(h, "model", 16)
     dt = cfg.dtype
     return {
-        "wz": ParamSpec((d, h, p), dt, "scaled"),
-        "wx": ParamSpec((d, h, p), dt, "scaled"),
-        "wB": ParamSpec((d, n), dt, "scaled"),
-        "wC": ParamSpec((d, n), dt, "scaled"),
-        "wdt": ParamSpec((d, h), dt, "scaled"),
-        "conv_x": ParamSpec((k, h, p), dt, "scaled"),
+        "wz": ParamSpec((d, h, p), dt, "scaled", pspec=(fsdp, tp_h, None)),
+        "wx": ParamSpec((d, h, p), dt, "scaled", pspec=(fsdp, tp_h, None)),
+        "wB": ParamSpec((d, n), dt, "scaled", pspec=(fsdp, None)),
+        "wC": ParamSpec((d, n), dt, "scaled", pspec=(fsdp, None)),
+        "wdt": ParamSpec((d, h), dt, "scaled", pspec=(fsdp, tp_h)),
+        "conv_x": ParamSpec((k, h, p), dt, "scaled", pspec=(None, tp_h, None)),
         "conv_B": ParamSpec((k, n), dt, "scaled"),
         "conv_C": ParamSpec((k, n), dt, "scaled"),
-        "A_log": ParamSpec((h,), "float32", "zeros"),
-        "D": ParamSpec((h,), "float32", "ones"),
-        "dt_bias": ParamSpec((h,), "float32", "zeros"),
-        "norm": ParamSpec((h, p), "float32", "ones"),
-        "wo": ParamSpec((h, p, d), dt, "scaled"),
+        "A_log": ParamSpec((h,), "float32", "zeros", pspec=(tp_h,)),
+        "D": ParamSpec((h,), "float32", "ones", pspec=(tp_h,)),
+        "dt_bias": ParamSpec((h,), "float32", "zeros", pspec=(tp_h,)),
+        "norm": ParamSpec((h, p), "float32", "ones", pspec=(tp_h, None)),
+        "wo": ParamSpec((h, p, d), dt, "scaled", pspec=(tp_h, None, fsdp)),
     }
 
 
@@ -193,10 +194,16 @@ def mamba_decode(params, cfg: ModelConfig, x, cache):
 
 def mamba_cache_specs(cfg: ModelConfig, batch: int) -> dict:
     h, p, n, k = _dims(cfg)
+    tp_h = shard_if(h, "model", 16)
+    b_ax = "data" if batch % 16 == 0 else None
     dt = cfg.dtype
     return {
-        "ssm": ParamSpec((batch, h, n, p), "float32", "zeros"),
-        "conv_x": ParamSpec((batch, k - 1, h, p), dt, "zeros"),
-        "conv_B": ParamSpec((batch, k - 1, n), dt, "zeros"),
-        "conv_C": ParamSpec((batch, k - 1, n), dt, "zeros"),
+        "ssm": ParamSpec((batch, h, n, p), "float32", "zeros",
+                         pspec=(b_ax, tp_h, None, None)),
+        "conv_x": ParamSpec((batch, k - 1, h, p), dt, "zeros",
+                            pspec=(b_ax, None, tp_h, None)),
+        "conv_B": ParamSpec((batch, k - 1, n), dt, "zeros",
+                            pspec=(b_ax, None, None)),
+        "conv_C": ParamSpec((batch, k - 1, n), dt, "zeros",
+                            pspec=(b_ax, None, None)),
     }

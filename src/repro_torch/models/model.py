@@ -45,7 +45,8 @@ from repro_torch.models import mamba as mb
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ffn, ffn_specs, rmsnorm, rmsnorm_specs
 from repro_torch.models.moe import moe_ffn, moe_specs
-from repro_torch.models.params import ParamSpec, init_params, map_tree
+from repro_torch.models.params import (ParamSpec, init_params, map_tree,
+                                      shard_if)
 
 #: the modes the port runs: ``forward`` prefills, ``decode_step`` decodes,
 #: ``loss`` trains
@@ -72,40 +73,54 @@ def layer_sigs(cfg: ModelConfig) -> list:
              cfg.layer_is_cross_attn(i)) for i in range(cfg.num_layers)]
 
 
+def _fsdp(cfg: ModelConfig):
+    """ZeRO-3-style parameter sharding over the data axis for the giants
+    (the reference's ``LanguageModel._fsdp``)."""
+    return "data" if cfg.fsdp else None
+
+
 def block_specs(cfg: ModelConfig, kind: str, is_moe: bool,
                 is_cross: bool = False) -> dict:
+    fsdp = _fsdp(cfg)
     if kind != "attn":
-        mixer = mb.mamba_specs(cfg)
+        mixer = mb.mamba_specs(cfg, fsdp)
     elif cfg.attention == "mla":
-        mixer = attn.mla_specs(cfg)
+        mixer = attn.mla_specs(cfg, fsdp)
     else:
-        mixer = attn.gqa_specs(cfg)
+        mixer = attn.gqa_specs(cfg, fsdp)
     block = {"ln1": rmsnorm_specs(cfg.d_model), "mixer": mixer,
              "ln2": rmsnorm_specs(cfg.d_model)}
     if is_moe:
-        block["moe"] = moe_specs(cfg)
+        block["moe"] = moe_specs(cfg, fsdp)
     else:
         block["ffn"] = ffn_specs(cfg.d_model, cfg.d_ff,
-                                 activation=cfg.ffn_activation,
+                                 activation=cfg.ffn_activation, fsdp=fsdp,
                                  dtype=cfg.dtype)
     if is_cross:
         block["ln_cross"] = rmsnorm_specs(cfg.d_model)
-        block["cross"] = attn.cross_attn_specs(cfg)
+        block["cross"] = attn.cross_attn_specs(cfg, fsdp)
     return block
 
 
 def model_param_specs(cfg: ModelConfig) -> dict:
     """The spec tree: ``embed`` ([V,D], audio [K,V,D]), ``final_norm``,
     ``layers`` (one block per layer), ``lm_head`` ([D,V], audio [K,D,V])
-    unless the embeddings are tied, and ``mtp`` where ``cfg.mtp_depth``."""
+    unless the embeddings are tied, and ``mtp`` where ``cfg.mtp_depth``.
+    The vocabulary lies over ``model`` where 16 divide it, else d_model
+    does; ``fsdp`` takes d_model first."""
     v, d = cfg.vocab_size, cfg.d_model
+    fsdp = _fsdp(cfg)
+    tp_v = shard_if(v, "model", 16)
+    d_ax = fsdp or (None if tp_v else shard_if(d, "model", 16))
     if cfg.family == "audio":
         embed = ParamSpec((cfg.num_codebooks, v, d), cfg.dtype, "scaled",
-                          scale=d ** 0.5)
-        head = ParamSpec((cfg.num_codebooks, d, v), cfg.dtype, "scaled")
+                          scale=d ** 0.5, pspec=(None, tp_v, d_ax))
+        head = ParamSpec((cfg.num_codebooks, d, v), cfg.dtype, "scaled",
+                         pspec=(None, d_ax, tp_v))
     else:
-        embed = ParamSpec((v, d), cfg.dtype, "scaled", scale=d ** 0.5)
-        head = ParamSpec((d, v), cfg.dtype, "scaled")
+        embed = ParamSpec((v, d), cfg.dtype, "scaled", scale=d ** 0.5,
+                          pspec=(tp_v, d_ax))
+        head = ParamSpec((d, v), cfg.dtype, "scaled", pspec=(d_ax, tp_v))
     sigs = layer_sigs(cfg)
     specs = {
         "embed": embed,
@@ -118,7 +133,8 @@ def model_param_specs(cfg: ModelConfig) -> dict:
         specs["mtp"] = {
             "norm_h": rmsnorm_specs(d),
             "norm_e": rmsnorm_specs(d),
-            "proj": ParamSpec((2 * d, d), cfg.dtype, "scaled"),
+            "proj": ParamSpec((2 * d, d), cfg.dtype, "scaled",
+                              pspec=(fsdp, None)),
             "block": block_specs(cfg, *sigs[-1]),
         }
     return specs
@@ -152,26 +168,24 @@ class ParamTree(nn.Module):
                                  recurse=False))}.items()}
 
 
-def _zeros(specs: dict, device) -> dict:
-    return map_tree(lambda _, s: torch.zeros(s.shape, dtype=s.torch_dtype,
-                                             device=device), specs)
-
-
 class LanguageModel(nn.Module):
     """``LanguageModel(cfg, seed=0, device="cuda")``: the model with
     weights from :func:`init_params` (seeded, made on the CPU and moved to
     ``device``, so a seed gives the same weights on every device).
-    ``device="cuda"`` without a card raises."""
+    ``device="cuda"`` without a card raises.  ``device="meta"`` builds the
+    abstract model of the dry run: every weight a meta tensor, none
+    drawn."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         super().__init__()
-        dev = resolve_device(device)
+        dev = resolve_device(device, allow_meta=True)
         self.cfg = cfg
         self.sigs = layer_sigs(cfg)
         self.is_moe = [sig[1] for sig in self.sigs]
         self.is_cross = [sig[2] for sig in self.sigs]
         params = init_params(model_param_specs(cfg),
-                             torch.Generator().manual_seed(seed))
+                             torch.Generator().manual_seed(seed),
+                             device="meta" if dev.type == "meta" else "cpu")
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
         self.final_norm = ParamTree(params["final_norm"])
         self.layers = nn.ModuleList(ParamTree(b) for b in params["layers"])
@@ -220,27 +234,33 @@ class LanguageModel(nn.Module):
         return best
 
     # ------------------------------------------------------------------
-    def new_cache(self, batch: int, max_len: int) -> dict:
-        """A zeroed cache on the model's device: one flat dict per layer
-        (GQA ``k``/``v`` [batch,Hkv,max_len,hd]; MLA ``c_kv``
-        [batch,max_len,kvr] and ``k_rope`` [batch,max_len,dr]; Mamba
-        ``ssm`` and conv windows; a cross layer also ``cross_k``/
-        ``cross_v`` [batch,Hkv,T,hd] of the image tokens); every leaf has
-        the batch on axis 0."""
+    def cache_specs(self, batch: int, max_len: int, seq_axis=None) -> dict:
+        """The cache's spec tree: one flat dict per layer (GQA ``k``/``v``
+        [batch,Hkv,max_len,hd]; MLA ``c_kv`` [batch,max_len,kvr] and
+        ``k_rope`` [batch,max_len,dr]; Mamba ``ssm`` and conv windows; a
+        cross layer also ``cross_k``/``cross_v`` [batch,Hkv,T,hd] of the
+        image tokens); every leaf has the batch on axis 0.  ``seq_axis``
+        shards an attention cache's sequence (one long sequence)."""
         cfg = self.cfg
         layers = []
         for kind, _, is_cross in self.sigs:
             if kind != "attn":
                 specs = mb.mamba_cache_specs(cfg, batch)
             elif cfg.attention == "mla":
-                specs = attn.mla_cache_specs(cfg, batch, max_len)
+                specs = attn.mla_cache_specs(cfg, batch, max_len, seq_axis)
             else:
-                specs = attn.gqa_cache_specs(cfg, batch, max_len)
+                specs = attn.gqa_cache_specs(cfg, batch, max_len, seq_axis)
             if is_cross:
                 specs.update({f"cross_{k}": s for k, s in
                               attn.cross_cache_specs(cfg, batch).items()})
-            layers.append(_zeros(specs, self.device))
+            layers.append(specs)
         return {"layers": layers}
+
+    def new_cache(self, batch: int, max_len: int) -> dict:
+        """A zeroed cache of :meth:`cache_specs` on the model's device."""
+        return map_tree(lambda _, s: torch.zeros(
+            s.shape, dtype=s.torch_dtype, device=self.device),
+            self.cache_specs(batch, max_len))
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B,S] -> [B,S,D]; audio [B,S,K] -> the sum of the K

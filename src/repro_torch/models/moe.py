@@ -16,22 +16,34 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ffn, ffn_specs
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, shard_if
 from repro_torch.moe import sharded
 from repro_torch.moe.balancing import moe_dispatch, topk_route
 
 
-def moe_specs(cfg: ModelConfig) -> dict:
+def moe_specs(cfg: ModelConfig, fsdp=None) -> dict:
     """The router (float32 ``[D, E]``), the experts (``w_up``/``w_gate``
     ``[E, D, F]``, ``w_down`` ``[E, F, D]``; no ``w_gate`` unless SwiGLU)
-    and the shared experts' FFN, when the config has any."""
+    and the shared experts' FFN, when the config has any.  The experts
+    lie over ``model`` where 16 divide them, else their inner dim does
+    (granite: 40 experts); ``serve_ep`` puts one expert group a device on
+    the ``data`` x ``model`` grid (the reference's specs)."""
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    if cfg.serve_ep:
+        tp_e, tp_f = ("data", "model"), None
+        fsdp = None              # the expert dim takes both axes
+    else:
+        tp_e = shard_if(e, "model", 16)
+        tp_f = None if tp_e else shard_if(f, "model", 16)
     specs = {
-        "router": ParamSpec((d, e), "float32", "scaled"),
+        "router": ParamSpec((d, e), "float32", "scaled", pspec=(fsdp, None)),
         "experts": {
-            "w_up": ParamSpec((e, d, f), cfg.dtype, "scaled"),
-            "w_gate": ParamSpec((e, d, f), cfg.dtype, "scaled"),
-            "w_down": ParamSpec((e, f, d), cfg.dtype, "scaled"),
+            "w_up": ParamSpec((e, d, f), cfg.dtype, "scaled",
+                              pspec=(tp_e, fsdp, tp_f)),
+            "w_gate": ParamSpec((e, d, f), cfg.dtype, "scaled",
+                                pspec=(tp_e, fsdp, tp_f)),
+            "w_down": ParamSpec((e, f, d), cfg.dtype, "scaled",
+                                pspec=(tp_e, tp_f, fsdp)),
         },
     }
     if cfg.ffn_activation != "swiglu":
@@ -39,7 +51,7 @@ def moe_specs(cfg: ModelConfig) -> dict:
     if cfg.num_shared_experts:
         specs["shared"] = ffn_specs(
             d, cfg.moe_d_ff * cfg.num_shared_experts,
-            activation=cfg.ffn_activation, dtype=cfg.dtype)
+            activation=cfg.ffn_activation, fsdp=fsdp, dtype=cfg.dtype)
     return specs
 
 

@@ -2,10 +2,15 @@
 the JAX package.
 
 A model describes its parameters once as a nested dict of
-:class:`ParamSpec` leaves (shape, dtype name, init rule), as
-:mod:`repro.models.params` does, without the sharding specs.
-:func:`init_params` materialises them with the reference's rules
-(``normal``, ``zeros``, ``ones``, ``scaled`` with fan_in = ``shape[-2]``).
+:class:`ParamSpec` leaves (shape, dtype name, init rule, partition spec),
+as :mod:`repro.models.params` does.  :func:`init_params` materialises them
+with the reference's rules (``normal``, ``zeros``, ``ones``, ``scaled``
+with fan_in = ``shape[-2]``); on the meta device it draws nothing, as
+:func:`abstract_params` does, for the dry run.  ``pspec`` is the
+reference's ``PartitionSpec`` as a tuple (None, an axis name or a tuple
+of them per dimension): the port shards no parameter, but the dry run
+reads each leaf's per-device shape from it
+(:func:`repro_torch.launch.mesh.shard_shape`).
 The numbers come from ``torch.Generator`` s, so they are not JAX's: to run
 both packages on the same weights, :func:`from_reference` loads the
 reference's parameter tree (as numpy arrays) into a port model.
@@ -30,10 +35,19 @@ class ParamSpec:
     dtype: str = "bfloat16"
     init: str = "normal"       # normal | zeros | ones | scaled(fan_in)
     scale: float = 1.0
+    pspec: tuple = ()          # the reference's PartitionSpec entries
 
     @property
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
+
+
+def shard_if(dim: int, axis, divisor: int):
+    """Shard ``dim`` over ``axis`` only when evenly divisible (the
+    reference's rule: indivisible dims stay replicated)."""
+    if axis is None or dim % divisor != 0 or dim < divisor:
+        return None
+    return axis
 
 
 def leaves(tree, prefix: str = ""):
@@ -63,6 +77,18 @@ def param_count(specs) -> int:
     return int(sum(int(np.prod(s.shape)) for _, s in leaves(specs)))
 
 
+def param_bytes(specs) -> int:
+    return int(sum(int(np.prod(s.shape)) * s.torch_dtype.itemsize
+                   for _, s in leaves(specs)))
+
+
+def abstract_params(specs):
+    """The spec tree as meta tensors: shapes and dtypes, no storage (the
+    dry run never allocates the 671B model)."""
+    return map_tree(lambda _, s: torch.empty(s.shape, dtype=s.torch_dtype,
+                                             device="meta"), specs)
+
+
 #: a leaf of more elements is drawn in pieces along its leading axis,
 #: a piece of at most this many elements each (a float32 piece is 256 MB)
 PIECE = 1 << 26
@@ -81,7 +107,8 @@ def _pieces(shape: tuple, seed: int) -> list:
 
 
 def init_params(specs, generator: torch.Generator, device="cpu"):
-    """Materialise the spec tree on ``device``.  Leaf *i* (in
+    """Materialise the spec tree on ``device`` (on ``"meta"``: empty meta
+    tensors, nothing drawn).  Leaf *i* (in
     :func:`leaves` order) is drawn on the CPU in float32 by generators
     seeded from ``generator``'s seed and *i* (a large leaf in pieces of
     whole rows, :func:`_pieces`), so a leaf's values do not depend on the
@@ -89,6 +116,8 @@ def init_params(specs, generator: torch.Generator, device="cpu"):
     a thread pool into the leaves, so the host holds a float32 piece a
     thread beside the weights (deepseek's ``[256, 7168, 2048]`` experts
     are 15 GB in float32)."""
+    if torch.device(device).type == "meta":
+        return abstract_params(specs)
     seed = generator.initial_seed()
     out = map_tree(lambda _, s: torch.empty(s.shape, dtype=s.torch_dtype),
                    specs)

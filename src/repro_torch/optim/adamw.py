@@ -5,8 +5,8 @@ The state is ``{"m": {path: tensor}, "v": {path: tensor}, "step": 0-d
 int32 tensor on the CPU}``; ``state_dtype="bfloat16"`` keeps the moments
 in bf16 (the giant configs' ``opt_state_dtype``), else float32.  Every
 update is computed in float32 and rounded to each tensor's dtype, as the
-reference computes it.  The reference's ``state_specs`` (the moments'
-PartitionSpecs) has no counterpart: the port shards no parameter.
+reference computes it.  :meth:`AdamW.state_specs` gives the moments'
+specs, sharded as their parameters are (the dry run's per-device state).
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+
+from repro_torch.models.params import ParamSpec, map_tree
 
 
 def clip_by_global_norm(grads: dict, max_norm: float):
@@ -51,6 +53,18 @@ class AdamW:
                     for k, p in params.items()}
         return {"m": zeros(), "v": zeros(),
                 "step": torch.zeros((), dtype=torch.int32)}
+
+    def state_specs(self, param_specs):
+        """The state's spec tree: ``m`` and ``v`` mirror the parameters'
+        shapes and partition specs in the state's dtype, ``step`` is a
+        replicated int32 scalar (the reference's ``state_specs``)."""
+        sdt = self.state_dtype or "float32"
+
+        def mom(_, s: ParamSpec) -> ParamSpec:
+            return ParamSpec(s.shape, sdt, "zeros", pspec=s.pspec)
+        return {"m": map_tree(mom, param_specs),
+                "v": map_tree(mom, param_specs),
+                "step": ParamSpec((), "int32", "zeros")}
 
     def lr_at(self, step: int) -> float:
         if callable(self.learning_rate):

@@ -222,7 +222,8 @@ def test_batch_specs_and_the_thin_steps():
     """``batch_specs`` gives the stubbed batch's shapes (audio codebooks,
     vision embeddings); ``build_prefill_step``/``build_serve_step`` give
     the greedy tokens of ``forward``/``decode_step``; one process is a
-    data group of one."""
+    data group of one; the production mesh is the reference's 16 x 16
+    (a plain record: no device, no process group)."""
     shape = tshapes.ShapeSpec("t", 16, 2, "train")
     audio = get_config("musicgen_large").smoke()
     assert batch_specs(audio, shape)["labels"] == ((2, 16, 4), torch.int32)
@@ -247,5 +248,6 @@ def test_batch_specs_and_the_thin_steps():
     assert tok.shape == (2, 1)
     group = data_group("cpu")
     assert (group.rank, group.size, group.process_group) == (0, 1, None)
-    with pytest.raises(NotImplementedError, match="A15 item 5"):
-        make_production_mesh()
+    mesh = make_production_mesh()
+    assert (mesh.shape, mesh.axis_names, mesh.chips) == (
+        (16, 16), ("data", "model"), 256)

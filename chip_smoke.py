@@ -153,6 +153,26 @@ Phases, each printing one JSON line:
    CUDA tensors on one), sssp WD and BS at rmat16 from a graph on the
    host, equal to the one-process run, each rank holding one shard's
    slice on the card.
+   custom_ops (ROADMAP queue C): user-defined operators, their
+   callables lowered to C++ (``kernels/opgen.py``) and B1, B2, B1's batch
+   contract and the fused kernel (BSP and delta) built for each at first
+   use, four libraries at once (``_build.custom_lib``): each build's
+   seconds and each custom instantiation's registers, spill bytes and
+   blocks a SM.  The reference's slack operator (an update predicate), a
+   penalty doubling weights above 50 and a budget spent along the path
+   (max), each in B1, B2 and the batch contract against the plain
+   versions on the same card tensors, bit for bit, int32 extremes among
+   the values and weights; the penalty and the budget through the six
+   strategies stepped and fused on rmat20, each equal to its oracle
+   (Dijkstra over the penalised weights, max(B - d, 0)); slack stepped
+   equal to fused; all three at rmat16 card against CPU (six strategies
+   and a K = 4 batch, stepped and fused); a K = 8 penalty batch equal to
+   its single runs; penalty delta-stepping on road1024 against Dijkstra;
+   two shards against one device; the fused kernel against its plain
+   loop; every custom instantiation timed for the kernel line (a row an
+   operator and kernel, its launches those of the operator's entry
+   calls); and fused WD sssp with ``shortest_path`` against the penalty
+   above the heaviest weight (the same distances), interleaved.
    (The analysis phase runs right after the build: ``python -m
    repro_torch.analysis src/repro_torch`` in-process, which must report
    no finding, and the ``smem`` pass's footprint model of every kernel
@@ -1631,11 +1651,12 @@ def zero_counts() -> None:
             counts[key] = 0
 
 
-def batch_calls(g, dev, sources, widest_only: bool = False) -> list:
-    """The B1 batch launches of a stepped sssp batch on ``g``: each
-    launch's node-major ``dist_t``/``front_t`` and union slot tables as
-    the batch gave them (cloned); with ``widest_only``, only the launch
-    of the most union lanes."""
+def batch_calls(g, dev, sources, widest_only: bool = False,
+                op="shortest_path") -> list:
+    """The B1 batch launches of a stepped batch of ``op`` (sssp by
+    default) on ``g``: each launch's node-major ``dist_t``/``front_t``
+    and union slot tables as the batch gave them (cloned); with
+    ``widest_only``, only the launch of the most union lanes."""
     import torch
     from repro_torch.core import engine
     from repro_torch.kernels import relax
@@ -1653,7 +1674,7 @@ def batch_calls(g, dev, sources, widest_only: bool = False) -> list:
 
     relax.wd_apply_relax_union = recording
     try:
-        engine.run_batch(g, sources, mode="stepped", device=dev)
+        engine.run_batch(g, sources, mode="stepped", op=op, device=dev)
     finally:
         relax.wd_apply_relax_union = real
     torch.cuda.synchronize()
@@ -1765,7 +1786,7 @@ def b1_batch_check(g, dev, kept, wide) -> tuple:
     return cases, err
 
 
-def b1_batch_time(g, c, reps: int = 10) -> dict:
+def b1_batch_time(g, c, reps: int = 10, op=None) -> dict:
     """B1's batch contract as a stepped iteration runs it (the copy of
     dist_t, a zeroed frontier, the launch), timed L2-cold and warm on the
     kept launch ``c`` beside its plain version, with two bounds.
@@ -1779,7 +1800,7 @@ def b1_batch_time(g, c, reps: int = 10) -> dict:
     from repro_torch.core import multi_source as ms
     from repro_torch.core import operators
     from repro_torch.kernels import relax
-    op = operators.shortest_path
+    op = operators.shortest_path if op is None else op
     dist_t, front_t, k = c["dist_t"], c["front_t"], c["rows"]
     n, kp = dist_t.shape
     cap_work, tables = c["cap_work"], c["tables"]
@@ -2889,6 +2910,483 @@ def shard_phase(g, dev, stepped, *, small_scale: int) -> dict:
 def _op(name: str):
     from repro_torch.core import operators
     return operators.OPERATORS[name]
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: user-defined operators on the card (ROADMAP queue C)
+# ---------------------------------------------------------------------------
+
+#: the penalty's weight threshold, inside rmat20's weights [1, 100]
+CUSTOM_T = 50
+#: the strategies each operator runs through, stepped and fused
+CUSTOM_STRATEGIES = ("BS", "EP", "WD", "NS", "HP", "AD")
+#: interleaved rounds of the fused shortest_path / penalty timing
+CUSTOM_TIMING_ROUNDS = 5
+#: the kernels each custom library holds, with the TPU kernel each
+#: replaces: (name, LAUNCHES key, source, replaces)
+CUSTOM_KERNELS = (
+    ("relax_lanes", "relax_lanes", CSRC, "src/repro/kernels/relax.py:243"),
+    ("wd_relax_lanes", "wd_relax_lanes", CSRC,
+     "src/repro/kernels/relax.py:349"),
+    ("wd_relax_lanes_batch", "wd_relax_lanes_batch", CSRC,
+     "src/repro/core/multi_source.py:111"),
+    ("fused_fixed_point", "fused_fixed_point",
+     "src/repro_torch/kernels/csrc/fused.cu", "src/repro/core/fused.py:389"))
+
+
+def penalty_op(threshold: int):
+    """SSSP whose edges above ``threshold`` cost double:
+    ``where(w > T, v + 2w, v + w)``, weight-additive."""
+    import torch
+    from repro_torch.core.operators import INF, EdgeOp
+    return EdgeOp(name=f"penalty{threshold}", combine="min", identity=INF,
+                  source_value=0, weight_additive=True,
+                  message=lambda v, w: torch.where(w > threshold, v + 2 * w,
+                                                   v + w))
+
+
+def custom_ops(budget: int, heaviest: int) -> dict:
+    """The phase's operators: the reference's slack operator
+    (``tests/test_kernels.py``: min, ``v + w``, update ``cand + 2 <
+    cur``), the penalty at ``CUSTOM_T``, a budget ``budget`` spent along
+    the path (max, identity 0, ``(v - w).clamp(min=0)``), and the penalty
+    above the heaviest weight (``heaviest``), which computes SSSP."""
+    from repro_torch.core.operators import INF, EdgeOp
+    return {
+        "slack": EdgeOp(name="slack", combine="min", identity=INF,
+                        source_value=0, message=lambda v, w: v + w,
+                        update=lambda cand, cur: cand + 2 < cur),
+        "penalty": penalty_op(CUSTOM_T),
+        "budget": EdgeOp(name="budget", combine="max", identity=0,
+                         source_value=budget, value_min=0,
+                         message=lambda v, w: (v - w).clamp(min=0)),
+        "penalty_off": penalty_op(heaviest),
+    }
+
+
+def penalised(g, threshold: int):
+    """``g``'s arrays with every weight above ``threshold`` doubled, for
+    ``dijkstra_oracle``."""
+    import types
+    import torch
+    return types.SimpleNamespace(
+        row_ptr=g.row_ptr, col=g.col, num_nodes=g.num_nodes,
+        num_edges=g.num_edges,
+        wt=torch.where(g.wt > threshold, 2 * g.wt, g.wt))
+
+
+def with_extremes(rng, t, share: float = 0.1):
+    """``t`` with ``share`` of its entries set to int32 extremes (INT_MIN,
+    INT_MAX, INF, 0, -1)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graph import INF
+    a = t.cpu().numpy().copy()
+    at = rng.random(a.size) < share
+    a[at] = rng.choice([-2 ** 31, 2 ** 31 - 1, INF, 0, -1], int(at.sum()))
+    return torch.from_numpy(a).to(t.device)
+
+
+def in_domain(op, t):
+    """``t`` inside ``op``'s value domain: a min monoid's values lie at or
+    below its identity, a max monoid's at or above (the identity is the
+    unreached value).  The fold into a copy of dist equals the proposal
+    folded by ``apply_proposal`` only there: above INF, ``min(dist, INF)``
+    lowers an untouched entry that the fold leaves alone."""
+    if op.combine == "min":
+        return t.clamp(max=op.identity)
+    if op.combine == "max":
+        return t.clamp(min=op.identity)
+    return t
+
+
+def custom_builds(ops: dict) -> dict:
+    """Build every operator's library, all at once (one thread an
+    operator, each running nvcc on relax.cu and fused.cu); print each
+    build's seconds, and each custom instantiation's registers and spill
+    bytes (``-Xptxas -v``) and blocks a SM (the occupancy of the
+    instantiation the launch uses).  Returns name -> that line."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _build, opgen
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(ops)) as pool:
+        libs = dict(zip(ops, pool.map(_build.custom_lib, ops.values())))
+    wall = time.perf_counter() - t0
+    out = {}
+    for name, op in ops.items():
+        lowered = opgen.lower(op)
+        built = _build.CUSTOM_BUILDS.get(lowered.digest)
+        ptxas = ({k: v for k, v in ptxas_summary(built["log"]).items()
+                  if f"<{op.kernel_codes()[0]}," in k} if built else {})
+        attrs = {}
+        for fn, which, kernel in (
+                ("repro_relax_block_attrs", 0, "relax_lanes"),
+                ("repro_relax_block_attrs", 1, "wd_relax_lanes"),
+                ("repro_relax_block_attrs", 2, "wd_relax_union"),
+                ("repro_fused_block_attrs", 0, "fused_fixed_point"),
+                ("repro_fused_block_attrs", 1, "fused_delta")):
+            cells = (ctypes.c_int * _build.ATTR_CELLS)()
+            _build.check(fn, getattr(libs[name], fn)(which, cells))
+            attrs[kernel] = dict(registers=cells[2], local_bytes=cells[3],
+                                 blocks_per_sm=cells[4])
+            if cells[4] < 1:
+                raise AssertionError(f"{name}: {kernel} cannot be resident "
+                                     f"({attrs[kernel]})")
+        out[name] = dict(op=op.name, digest=lowered.digest,
+                         library=str(_build.custom_library_path(
+                             lowered.header).name),
+                         seconds=built["seconds"] if built else None,
+                         ptxas=ptxas, attrs=attrs)
+        emit("custom_build", **out[name], wall_seconds=wall)
+    return out
+
+
+def custom_kernel_checks(g, dev, ops: dict, rng) -> dict:
+    """B2, B1 (both contracts each) and B1's batch contract built for each
+    operator, against their plain versions on the same card tensors, bit
+    for bit: rmat20's node count, values and weights with int32 extremes
+    among them (B2: 1,001 and N + 3 lanes; B1: frontiers of N/64 and N/8
+    slots; the batch: K = 8 rows of ~N/100 nodes, whole and cut).  The
+    proposal contract takes every extreme; the folds into dist take the
+    values in the operator's domain (``in_domain``).  Returns (operator,
+    kernel) -> max_abs_err; raises on a difference."""
+    import torch
+    from repro_torch.core import multi_source as ms
+    from repro_torch.kernels import relax
+    n = g.num_nodes
+    err, bad, cases = {}, [], 0
+
+    def check(key, case, got, want):
+        nonlocal cases
+        e = max_abs_err(got, want)
+        err[key] = max(err.get(key, 0), e)
+        cases += 1
+        if e:
+            bad.append((*key, case, e))
+
+    wt = with_extremes(rng, g.wt)
+    for name, op in ops.items():
+        for lanes in (1001, n + 3):
+            b = lane_inputs(rng, n, lanes, dev)
+            dist = with_extremes(rng, random_dist(rng, op, n, dev))
+            args = (dist, b["src"], b["dst"], with_extremes(rng, b["w"]),
+                    b["valid"])
+            check((name, "relax_lanes"), lanes, relax.relax_lanes(
+                *args, op=op), relax.relax_lanes_plain(*args, op=op))
+            mask = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+            dist = in_domain(op, dist)
+            want = relax.apply_relax_plain(dist, mask.clone(), *args[1:],
+                                           op=op)
+            check((name, "relax_lanes"), (lanes, "apply"),
+                  relax.apply_relax(dist, mask, *args[1:], op=op), want)
+        for f_slots, cursor_max in ((n >> 6, 0), (n >> 3, 2)):
+            a = wd_inputs(g, rng, f_slots, cursor_max, dev)
+            dist = with_extremes(rng, random_dist(rng, op, n, dev))
+            args = (a["prefix"], a["exclusive"], a["start"], a["src_ids"],
+                    g.col, wt)
+            kw = dict(cap_work=a["cap_work"], op=op)
+            check((name, "wd_relax_lanes"), f_slots, relax.wd_relax_lanes(
+                dist, *args, **kw), relax.wd_relax_lanes_plain(
+                    dist, *args, **kw))
+            mask = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+            dist = in_domain(op, dist)
+            want = relax.wd_apply_relax_plain(dist, mask.clone(), *args,
+                                              **kw)
+            check((name, "wd_relax_lanes"), (f_slots, "apply"),
+                  relax.wd_apply_relax(dist, mask, *args, **kw), want)
+        k = BATCH_K
+        mask_b = torch.from_numpy(rng.random((k, n)) < 0.01).to(dev)
+        dist_b = in_domain(op, with_extremes(rng, random_dist(rng, op, k * n,
+                                                            dev)))
+        dist_t = ms.to_node_major(dist_b.reshape(k, n), op.identity)
+        front_t = ms.to_node_major(mask_b, False)
+        totals = torch.where(mask_b, g.degrees, 0).sum(1)
+        widest = int(mask_b.sum(1).max())
+        for cap, cap_work, cut in ((widest, int(totals.max()), False),
+                                   (widest // 2, int(totals.max()) // 2 + 1,
+                                    True)):
+            e = union_check(g, dist_t, front_t, k, op, cap=cap,
+                            cap_work=cap_work, cut=cut)
+            err[(name, "wd_relax_lanes_batch")] = max(
+                err.get((name, "wd_relax_lanes_batch"), 0), e)
+            cases += 1
+            if e:
+                bad.append((name, "wd_relax_lanes_batch", cap, e))
+    emit("custom_kernels_check", cases=cases, mismatches=bad,
+         operators=list(ops))
+    if bad:
+        raise AssertionError(f"custom kernel != plain version: {bad}")
+    return err
+
+
+def custom_ops_phase(g, dev, *, small_scale: int = 16,
+                     road_side: int = ROAD_SIDE,
+                     small_road_side: int = 256) -> list:
+    """User-defined operators on the card: their callables lowered to
+    C++ and B1, B2, B1's batch contract and the fused kernel (both modes)
+    built for each at first use (``custom_builds``), held bit for bit
+    against their plain versions (``custom_kernel_checks``).  On ``g``
+    (rmat20) from its highest-degree source, the penalty and the budget
+    through the six strategies stepped and fused, each equal to its
+    oracle (Dijkstra over the penalised weights; ``max(B - d, 0)``) and
+    stepped equal to fused; slack likewise, stepped equal to fused and no
+    smaller than the distances.  The three at rmat-``small_scale`` card
+    against CPU,
+    the six strategies and a K = 4 batch, stepped and fused; a K = 8
+    penalty batch stepped and fused equal to the single runs;
+    penalty delta-stepping on road1024 against Dijkstra; a two-shard
+    lockstep penalty run against one device.  (Delta at Δ = ``ROAD_DELTA``:
+    the penalty is weight-additive, so its heavy edges are deferred.)
+    These entry calls run with
+    the counts set to 0 before each operator's calls and read after them:
+    the kernel line's rows of each operator's instantiations.  Then the
+    fused kernel against its plain loop (rmat16, all six; rmat20 WD,
+    timed; road256 delta), each kernel timed beside its plain version,
+    and fused WD sssp with ``shortest_path`` against the penalty above
+    the heaviest weight (the same distances), interleaved."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, fused, operators, priority
+    from repro_torch.core.graph import INF
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import rmat_graph, road_grid_graph
+    from repro_torch.kernels import fused as fused_kernel
+    from repro_torch.kernels.relax import LAUNCHES
+
+    rng = np.random.default_rng(28)
+    gname = f"rmat{g.num_nodes.bit_length() - 1}"
+    source = int(g.degrees.argmax())
+    d = dijkstra_oracle(g, source, weighted=True)
+    budget = int(np.median(d[d < INF]))
+    ops = custom_ops(budget, int(g.wt.max()))
+    builds = custom_builds(ops)
+    err = custom_kernel_checks(g, dev, {k: ops[k] for k in
+                                        ("slack", "penalty", "budget")}, rng)
+
+    oracle = {"penalty": dijkstra_oracle(penalised(g, CUSTOM_T), source,
+                                         weighted=True),
+              "budget": np.maximum(budget - d.astype(np.int64),
+                                   0).astype(np.int32)}
+    launches, stepped = {}, {}
+
+    def counted(name, calls):
+        """Run ``calls`` with the counts from 0; add the launches to
+        ``name``'s."""
+        zero_counts()
+        calls()
+        for key, v in LAUNCHES.items():
+            launches.setdefault(name, {}).setdefault(key, 0)
+            launches[name][key] += v
+
+    def rmat20_runs(name):
+        op = ops[name]
+        for strategy in CUSTOM_STRATEGIES:
+            runs = {mode: engine.run(g, source, make_strategy(strategy),
+                                     op=op, mode=mode, device=dev)
+                    for mode in ("stepped", "fused")}
+            if not same_run(runs["stepped"], runs["fused"]):
+                raise AssertionError(f"{name} {strategy}: stepped != fused")
+            r = runs["fused"]
+            if name in oracle:
+                if not np.array_equal(r.dist, oracle[name]):
+                    raise AssertionError(f"{name} {strategy} != oracle")
+            elif not (r.dist >= d).all():
+                raise AssertionError(f"slack {strategy} below Dijkstra")
+            stepped[(name, strategy)] = runs["stepped"]
+            emit("custom_run", graph=gname, op=op.name, strategy=strategy,
+                 iterations=r.iterations, edges_relaxed=r.edges_relaxed,
+                 stepped_seconds=runs["stepped"].traversal_seconds,
+                 fused_seconds=r.traversal_seconds,
+                 equals_oracle=name in oracle, stepped_equals_fused=True)
+
+    for name in ("penalty", "budget", "slack"):
+        counted(name, lambda name=name: rmat20_runs(name))
+
+    small = rmat_graph(scale=small_scale, edge_factor=8, weighted=True,
+                       seed=1, device=dev)
+    s_src = int(small.degrees.argmax())
+    small_sources = batch_sources(small, 4)
+
+    def cpu_runs(name):
+        op = ops[name]
+        for strategy in CUSTOM_STRATEGIES:
+            for mode in ("stepped", "fused"):
+                card, cpu = (engine.run(small, s_src, make_strategy(strategy),
+                                        op=op, mode=mode, device=dv)
+                             for dv in (dev, "cpu"))
+                if not same_run(card, cpu):
+                    raise AssertionError(f"rmat{small_scale} {name} "
+                                         f"{strategy} {mode}: cuda != cpu")
+        for mode in ("stepped", "fused"):
+            card, cpu = (engine.run_batch(small, small_sources, op=op,
+                                          mode=mode, device=dv)
+                         for dv in (dev, "cpu"))
+            if not (np.array_equal(card.dist, cpu.dist)
+                    and (card.iterations, card.edges_relaxed)
+                    == (cpu.iterations, cpu.edges_relaxed)):
+                raise AssertionError(f"rmat{small_scale} {name} {mode} "
+                                     f"batch: cuda != cpu")
+        emit("custom_cpu_compare", graph=f"rmat{small_scale}", op=op.name,
+             strategies=list(CUSTOM_STRATEGIES), modes=["stepped", "fused"],
+             batch_k=len(small_sources), equal=True)
+
+    for name in ("slack", "penalty", "budget"):
+        counted(name, lambda name=name: cpu_runs(name))
+
+    pen = ops["penalty"]
+    sources = batch_sources(g, BATCH_K)
+    road = road_grid_graph(side=road_side, weighted=True, seed=4,
+                           device=dev)
+    road_src = int(road.degrees.argmax())
+    road_oracle = dijkstra_oracle(penalised(road, CUSTOM_T), road_src,
+                                  weighted=True)
+
+    def penalty_paths():
+        singles = [engine.run(g, int(s), make_strategy("WD"), op=pen,
+                              mode="fused", device=dev) for s in sources]
+        batch = {mode: engine.run_batch(g, sources, op=pen, mode=mode,
+                                        device=dev)
+                 for mode in ("stepped", "fused")}
+        for mode, b in batch.items():
+            if not all(np.array_equal(row, r.dist)
+                       for row, r in zip(b.dist, singles)):
+                raise AssertionError(f"penalty K = {BATCH_K} {mode} batch "
+                                     f"!= its single runs")
+            if (b.iterations, b.edges_relaxed) != (
+                    max(r.iterations for r in singles),
+                    sum(r.edges_relaxed for r in singles)):
+                raise AssertionError(f"penalty {mode} batch counts")
+        delta = {mode: engine.run(road, road_src, make_strategy("WD"),
+                                  op=pen, mode=mode, schedule="delta",
+                                  delta=ROAD_DELTA, device=dev)
+                 for mode in ("stepped", "fused")}
+        if not (np.array_equal(delta["fused"].dist, road_oracle)
+                and same_run(delta["stepped"], delta["fused"])):
+            raise AssertionError("penalty delta on road != Dijkstra or "
+                                 "stepped != fused")
+        sharded = engine.run(g, source, make_strategy("WD"), op=pen,
+                             mode="fused", shards=2, device=dev)
+        if not same_run(sharded, stepped[("penalty", "WD")]):
+            raise AssertionError("penalty at 2 shards != one device")
+        emit("custom_paths", op=pen.name, batch_k=BATCH_K,
+             batch_iterations=batch["fused"].iterations,
+             batch_edges=batch["fused"].edges_relaxed,
+             batch_equals_singles=True, delta_graph=f"road{road_side}",
+             delta=ROAD_DELTA, delta_epochs=delta["fused"].iterations,
+             delta_equals_oracle=True, shards=2, sharded_equal=True)
+
+    counted("penalty", penalty_paths)
+    for name in ("penalty", "budget", "slack"):
+        emit("custom_launches", op=ops[name].name, launches=launches[name])
+        for _, key, _, _ in CUSTOM_KERNELS:
+            if launches[name][key] < 1:
+                raise AssertionError(f"{name} never launched {key}: "
+                                     f"{launches[name]}")
+
+    # the fused kernel against its plain loop on the same card tensors
+    fused_err = {}
+    for name in ("slack", "penalty", "budget"):
+        op = ops[name]
+        for graph, strategy, src in (
+                [(small, s, s_src) for s in CUSTOM_STRATEGIES]
+                + [(g, "WD", source)]):
+            args, kw = fused_args(graph, strategy, src, op, dev)
+            got = fused_kernel.fixed_point(*args, **kw)
+            want = fused._fixed_point_plain(*args, **kw)
+            if got[1:] != want[1:] or not torch.equal(got[0], want[0]):
+                raise AssertionError(f"fused {name} {strategy} != plain")
+            fused_err[name] = max(fused_err.get(name, 0),
+                                  max_abs_err([got[0]], [want[0]]))
+    road_small = road_grid_graph(side=small_road_side, weighted=True, seed=4,
+                                 device=dev)
+    strat = make_strategy("WD")
+    plan = priority.plan_delta(strat, strat.setup(road_small), road_small,
+                               op=pen, delta=ROAD_DELTA)
+    s0 = int(road_small.degrees.argmax())
+    dist0 = torch.full((road_small.num_nodes,), INF, dtype=torch.int32,
+                       device=dev)
+    dist0[s0] = 0
+    mask0 = torch.zeros(road_small.num_nodes, dtype=torch.bool, device=dev)
+    mask0[s0] = True
+    dargs = (plan.kernel, plan.light, plan.heavy_graph, plan.aux, dist0,
+             mask0)
+    dkw = dict(op=pen, sched=plan.sched, delta=plan.delta,
+               max_iterations=100000)
+    got = fused_kernel.delta_fixed_point(*dargs, **dkw)
+    want = priority._delta_fixed_point_plain(*dargs, **dkw)
+    if not (torch.equal(got[0], want[0]) and got[2:] == want[2:]):
+        raise AssertionError("penalty delta kernel != plain loop")
+    emit("custom_fused_vs_plain",
+         graphs=[f"rmat{small_scale}", gname,
+                 f"road{small_road_side} delta"],
+         max_abs_err=fused_err, delta_heavy_edges=(
+             0 if plan.heavy_graph is None else plan.heavy_graph.num_edges),
+         equal=True)
+
+    # the fused kernel's time with the built-in and with a lowered message
+    # that computes the same distances
+    off = ops["penalty_off"]
+    pair = {op.name: fused_args(g, "WD", source, op, dev)
+            for op in (operators.shortest_path, off)}
+    outs = {k: fused_kernel.fixed_point(*a, **kw)
+            for k, (a, kw) in pair.items()}
+    if not torch.equal(outs[off.name][0],
+                       outs["shortest_path"][0]) or outs[off.name][1:3] != \
+            outs["shortest_path"][1:3]:
+        raise AssertionError(f"{off.name} != shortest_path")
+    times = {k: [] for k in pair}
+    for i in range(CUSTOM_TIMING_ROUNDS):
+        for k in (list(pair) if i % 2 == 0 else list(pair)[::-1]):
+            a, kw = pair[k]
+            times[k].append(time_ms(
+                lambda a=a, kw=kw: fused_kernel.fixed_point(*a, **kw),
+                reps=1))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    emit("custom_fused_timing", graph=gname, strategy="WD",
+         nvidia_smi=nvidia_smi(), rounds=CUSTOM_TIMING_ROUNDS, ms=times,
+         median_ms=med, lowered=off.name,
+         ratio=med[off.name] / med["shortest_path"])
+
+    # the kernel line's rows, each custom instantiation timed
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)   # > L2
+    kept = batch_calls(g, dev, sources, widest_only=True, op=pen)[0]
+    rows = []
+    for name in ("penalty", "budget", "slack"):
+        op = ops[name]
+        timed_rows = {
+            "relax_lanes": time_b2(lane_inputs(rng, g.num_nodes,
+                                               8 * g.num_nodes, dev),
+                                   random_dist(rng, op, g.num_nodes, dev),
+                                   op, 10, flush),
+            "wd_relax_lanes": time_b1(g, wd_inputs(g, rng, g.num_nodes, 0,
+                                                   dev),
+                                      random_dist(rng, op, g.num_nodes, dev),
+                                      op, 10, flush),
+            "wd_relax_lanes_batch": b1_batch_time(g, kept, op=op)}
+        args, kw = fused_args(g, "WD", source, op, dev)
+        wd = stepped[(name, "WD")]
+        bound_ms, bound_by = bound(run_bytes(g, wd), 0)
+        timed_rows["fused_fixed_point"] = dict(
+            ms=time_ms(lambda: fused_kernel.fixed_point(*args, **kw)),
+            plain_ms=time_ms(lambda: fused._fixed_point_plain(*args, **kw),
+                             reps=3),
+            bound_ms=bound_ms, bound_by=bound_by,
+            shape=dict(graph=gname, run="WD", iterations=wd.iterations,
+                       edges_relaxed=wd.edges_relaxed))
+        for kernel, key, src_file, replaces in CUSTOM_KERNELS:
+            rows.append(dict(
+                name=f"{kernel}<{op.name}>", route="cuda", source=src_file,
+                replaces=replaces, launches=launches[name][key],
+                max_abs_err=(fused_err[name] if kernel == "fused_fixed_point"
+                             else err[(name, kernel)]),
+                library_ms=None, op=op.name,
+                registers=builds[name]["attrs"][
+                    "wd_relax_union" if kernel == "wd_relax_lanes_batch"
+                    else kernel]["registers"],
+                **timed_rows[kernel]))
+    emit("custom_kernels_time", rows=rows)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4495,6 +4993,7 @@ def main() -> int:
         row["launches"] += row["shard_launches"]
     del results
     timed("algos", algos_phase, g, dev, small_scale=16)
+    rows += timed("custom_ops", custom_ops_phase, g, dev)
     del g
 
     lm_rows = timed("lm_kernels", lm_kernel_phase, dev)

@@ -9,9 +9,10 @@ into the destination's value, and an activation predicate
 The hand-written CUDA relax kernels cannot call Python, so
 :meth:`EdgeOp.kernel_codes` maps the built-in message functions (by
 identity) and ``combine`` to the integer codes the kernels switch on.  An
-operator with a message of its own or an ``update`` predicate has no such
-codes: it runs on CPU tensors only, and on CUDA tensors raises
-``NotImplementedError``.
+operator with a message of its own or an ``update`` predicate takes the
+code :data:`MSG_CUSTOM`: on CUDA tensors its callables are lowered to C++
+(:mod:`repro_torch.kernels.opgen`) and the kernels are built once more
+for it at first use (``kernels._build.custom_lib``).
 
 Built-ins (same semantics as the reference):
 
@@ -43,9 +44,9 @@ KERNEL_COMBINES = {"min": 0, "max": 1, "add": 2}
 
 _SCATTER_REDUCE = {"min": "amin", "max": "amax", "add": "sum"}
 
-#: where custom operators on CUDA tensors are tracked
-CUSTOM_OP_ROADMAP = ("ROADMAP.md queue C: custom EdgeOp callables raise on "
-                     "CUDA tensors")
+#: where the operator features the CUDA kernels lack are tracked
+DTYPE_ROADMAP = ("ROADMAP.md queue C: operators of another dtype than "
+                     "int32")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,22 +107,23 @@ class EdgeOp:
         return self.combine in ("min", "max")
 
     def kernel_codes(self) -> tuple[int, int]:
-        """``(message code, combine code)`` for the CUDA kernels; raises
-        ``NotImplementedError`` for an operator the kernels cannot
-        evaluate (a custom message or ``update`` predicate)."""
-        msg = KERNEL_MESSAGES.get(self.message)
-        if msg is None or self.update is not None:
-            raise NotImplementedError(
-                f"operator {self.name!r} has a custom message/update "
-                f"callable, which the CUDA relax kernels cannot evaluate; "
-                f"run it with device='cpu' ({CUSTOM_OP_ROADMAP})")
-        # the kernels hard-code the add activation test as cand != 0
+        """``(message code, combine code)`` for the CUDA kernels: a
+        built-in message with no ``update`` keeps its own code
+        (:data:`KERNEL_MESSAGES`), any other operator takes
+        :data:`MSG_CUSTOM` and runs its lowered callables.  Raises
+        ``NotImplementedError`` for what no kernel takes: a non-int32
+        ``dtype``, or ``add`` with a nonzero identity."""
+        # the kernels hold int32 values, and 0 is the only neutral
+        # element of int32 addition
         if self.dtype != torch.int32 or (self.combine == "add"
                                          and self.identity != 0):
             raise NotImplementedError(
                 f"operator {self.name!r}: the CUDA relax kernels take "
                 f"int32 values and the additive identity 0 "
-                f"({CUSTOM_OP_ROADMAP})")
+                f"({DTYPE_ROADMAP})")
+        msg = KERNEL_MESSAGES.get(self.message)
+        if msg is None or self.update is not None:
+            msg = MSG_CUSTOM
         return msg, KERNEL_COMBINES[self.combine]
 
 
@@ -137,9 +139,12 @@ def _bottleneck_message(v, w):
     return torch.minimum(v, w)
 
 
-#: message codes shared with kernels/csrc/relax.cu (MSG_*), keyed by the
-#: built-in message functions themselves
+#: message codes shared with kernels/csrc/relax_lanes.cuh (MSG_*), keyed
+#: by the built-in message functions themselves
 KERNEL_MESSAGES = {_sum_message: 0, _copy_message: 1, _bottleneck_message: 2}
+#: the message code of an operator whose callables are lowered to C++
+#: (``MSG_CUSTOM``)
+MSG_CUSTOM = 3
 
 
 shortest_path = EdgeOp(

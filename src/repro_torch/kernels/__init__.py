@@ -14,5 +14,7 @@
 #                     persistent cooperative launch (B1/B2's lane bodies)
 #   cost            - B4/B5's closed-form (bytes, FLOPs) a call, and the
 #                     counter their meta branches (the dry run) feed
+#   opgen           - a user-defined EdgeOp lowered to C++, for the relax
+#                     and fused kernels built for it at first use
 from repro_torch.kernels import (  # noqa: F401
-    find_offsets, flash_attention, fused, ops, ref, relax, ssd_chunk)
+    find_offsets, flash_attention, fused, opgen, ops, ref, relax, ssd_chunk)

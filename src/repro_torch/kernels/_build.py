@@ -7,16 +7,27 @@ hash of the sources, under ``kernels/build/`` (listed in ``.gitignore``),
 and loaded with ``ctypes``.  A library whose hash matches is reused, so a
 process builds at most once per source change.  Nothing is built or
 loaded at import time.
+
+A user-defined operator (:data:`~repro_torch.core.operators.MSG_CUSTOM`)
+gets a library of its own at first use (:func:`custom_lib`): its
+callables lowered to a header (:mod:`repro_torch.kernels.opgen`),
+``relax.cu`` and ``fused.cu`` compiled once more with it for that one
+operator, named by the hash of the header, the sources and the flags, and
+cached in the process and on disk, so two callables of the same body
+share one.  :func:`op_library` gives each launch site its library and
+codes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -46,6 +57,18 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: compiler output of the build this process ran (``-Xptxas -v``
 #: registers and spills), empty when the library was already built
 BUILD_LOG: list[str] = []
+
+#: header digest -> ``{"op", "seconds", "log"}`` of each custom build this
+#: process ran (the operator's name, the build's wall seconds and its
+#: compiler output)
+CUSTOM_BUILDS: dict[str, dict] = {}
+
+#: the sources a custom build compiles, and the entry points it exports
+CUSTOM_SOURCES = ("relax.cu", "fused.cu")
+CUSTOM_ENTRIES = ("repro_relax_lanes", "repro_wd_relax_lanes",
+                  "repro_wd_relax_union", "repro_fused_fixed_point",
+                  "repro_fused_delta", "repro_relax_block_attrs",
+                  "repro_fused_block_attrs")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,18 +114,20 @@ _SIGNATURES = {
                                     ctypes.POINTER(ctypes.c_longlong)],
     # row_ptr, col, wt, n, e, aux, dist0, mask0, kernel, msg, comb,
     # max_iterations, mdt, switch_threshold, small_frontier,
-    # imbalance_threshold, hp_edges_threshold, tail_width, coeffs, dist,
-    # workspace, workspace_bytes, result, stream
+    # imbalance_threshold, hp_edges_threshold, tail_width,
+    # tail_min_columns, coeffs, dist, workspace, workspace_bytes, result,
+    # stream
     "repro_fused_fixed_point": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
-                                _F, _P, _P, ctypes.c_longlong, _P, _P],
+                                _I, _F, _P, _P, ctypes.c_longlong, _P, _P],
     # light row_ptr, col, wt, e; heavy row_ptr, col, wt, e; n, aux, dist0,
     # mask0, kernel, msg, comb, delta, max_epochs, mdt, switch_threshold,
     # small_frontier, imbalance_threshold, hp_edges_threshold, tail_width,
-    # narrow_edges, dist, mask, workspace, workspace_bytes, result, stream
+    # tail_min_columns, narrow_edges, dist, mask, workspace,
+    # workspace_bytes, result, stream
     "repro_fused_delta": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                          _I, _I, _I, _P, _P, _P, ctypes.c_longlong, _P,
+                          _I, _I, _I, _I, _P, _P, _P, ctypes.c_longlong, _P,
                           _P],
     # which, out [ATTR_CELLS]: threads, static shared bytes, registers,
     # local bytes, blocks per SM, SMs, dynamic shared bytes requested
@@ -138,35 +163,45 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def _digest(*texts: str) -> str:
+    """The hash of ``texts``, every source and the flags."""
     digest = hashlib.sha256()
+    for text in texts:
+        digest.update(text.encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"librepro_kernels_{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources unless a library of the same hash exists."""
-    out = library_path()
-    if out.exists():
-        return out
+def library_path() -> Path:
+    return BUILD_DIR / f"librepro_kernels_{_digest()}.so"
+
+
+def _nvcc_build(out: Path, units: dict, log: list) -> None:
+    """Compile each unit (``stem -> source path``, or ``stem -> the text``
+    of a unit) by its own nvcc, all started together, and link the objects
+    into ``out``.  Compiling and linking happen in a private directory and
+    the library is renamed into place: a concurrent build never loads a
+    half-written library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    # compile and link in a private directory, then rename: a concurrent
-    # build never loads a half-written library
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
-        for src in (s for s in _sources() if s.suffix == ".cu"):
-            obj = str(Path(tmp) / f"{src.stem}.o")
+        for stem, src in units.items():
+            if not isinstance(src, Path):
+                path = Path(tmp) / f"{stem}.cu"
+                path.write_text(src)
+                src = path
+            obj = str(Path(tmp) / f"{stem}.o")
             jobs.append((src.name, obj, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         failed = []
         for name, _, proc in jobs:
             stdout, stderr = proc.communicate()
-            BUILD_LOG.append(stdout + stderr)
+            log.append(stdout + stderr)
             if proc.returncode != 0:
                 failed.append(f"nvcc {name} failed ({proc.returncode}):\n"
                               f"{stdout}\n{stderr}")
@@ -180,22 +215,100 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(lib_tmp, out)
+
+
+def build() -> Path:
+    """Compile the sources unless a library of the same hash exists."""
+    out = library_path()
+    if not out.exists():
+        _nvcc_build(out, {s.stem: s for s in _sources() if s.suffix == ".cu"},
+                    BUILD_LOG)
     return out
+
+
+def _load(path: Path, names) -> ctypes.CDLL:
+    handle = ctypes.CDLL(str(path))
+    for name in names:
+        fn = getattr(handle, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    handle.repro_error_string.argtypes = [ctypes.c_int]
+    handle.repro_error_string.restype = ctypes.c_char_p
+    return handle
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        handle.repro_error_string.argtypes = [ctypes.c_int]
-        handle.repro_error_string.restype = ctypes.c_char_p
-        _lib = handle
+        _lib = _load(build(), _SIGNATURES)
     return _lib
+
+
+#: custom libraries loaded by this process, by path and by operator
+_custom_by_path: dict[Path, ctypes.CDLL] = {}
+_custom_by_op: dict = {}
+
+
+def custom_library_path(header: str) -> Path:
+    """Where the custom library of a lowered header lies."""
+    return BUILD_DIR / f"librepro_op_{_digest(header)}.so"
+
+
+def _custom_units(header: Path) -> dict:
+    """One unit a source of :data:`CUSTOM_SOURCES`: it names ``header`` in
+    ``REPRO_CUSTOM_OP_HEADER`` and includes the source, which then
+    instantiates its kernels for that operator only."""
+    return {f"{Path(name).stem}_op":
+            f"#define REPRO_CUSTOM_OP_HEADER {json.dumps(str(header))}\n"
+            f"#include {json.dumps(str(CSRC / name))}\n"
+            for name in CUSTOM_SOURCES}
+
+
+def custom_lib(op) -> ctypes.CDLL:
+    """The relax and fused kernels built for the user-defined operator
+    ``op`` (message code ``MSG_CUSTOM``), built at its first call unless
+    a library of the same hash exists, and cached by operator.  Raises
+    ``NotImplementedError`` before any build if ``op`` cannot be lowered,
+    and ``RuntimeError`` with the compiler's output if nvcc fails."""
+    handle = _custom_by_op.get(op)
+    if handle is not None:
+        return handle
+    from repro_torch.kernels import opgen   # imports core.operators
+
+    lowered = opgen.lower(op)
+    out = custom_library_path(lowered.header)
+    handle = _custom_by_path.get(out)
+    if handle is None:
+        if not out.exists():
+            t0 = time.perf_counter()
+            log: list[str] = []
+            # the header lies beside its library (a concurrent build of
+            # the same operator renames the same text into place)
+            header = out.with_suffix(".h")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with tempfile.NamedTemporaryFile(
+                    "w", dir=BUILD_DIR, suffix=".h", delete=False) as f:
+                f.write(lowered.header)
+            os.replace(f.name, header)
+            _nvcc_build(out, _custom_units(header), log)
+            CUSTOM_BUILDS[lowered.digest] = {
+                "op": op.name, "seconds": time.perf_counter() - t0,
+                "log": log}
+        handle = _custom_by_path[out] = _load(out, CUSTOM_ENTRIES)
+    _custom_by_op[op] = handle
+    return handle
+
+
+def op_library(op) -> tuple[ctypes.CDLL, int, int]:
+    """``(library, message code, combine code)`` of a kernel launch for
+    ``op``: the built-in messages run the base library (:func:`lib`),
+    any other operator its own (:func:`custom_lib`).  Every relax and
+    fused launch site resolves its operator here."""
+    from repro_torch.core.operators import MSG_CUSTOM
+
+    msg, comb = op.kernel_codes()
+    return (custom_lib(op) if msg == MSG_CUSTOM else lib()), msg, comb
 
 
 def check(name: str, status: int) -> None:

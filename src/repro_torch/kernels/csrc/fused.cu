@@ -52,7 +52,8 @@
 // (a 32-bin histogram, read by every block after the compaction's
 // barrier); the tail starts at column 0 when at most tail_width slots have
 // edges, else at the least power of two D with at most tail_width slots of
-// degree >= D, and is taken when it has at least TAIL_MIN_COLUMNS columns.
+// degree >= D, and is taken when it has at least tail_min_columns columns
+// (a launch argument: kernels/fused.py TAIL_MIN_COLUMNS holds the value).
 // Columns below D run grid-wide; the slots of degree > D are
 // gathered into a list meanwhile, and after one barrier (which also
 // settles the buffers) block 0 runs every column from D on alone, each
@@ -201,10 +202,6 @@ constexpr int TAIL_MAX = B1_TILE;
 constexpr int TAIL_LANES = TAIL_MAX / THREADS;
 // lanes a thread of the tail loads before it folds
 constexpr int TAIL_GROUP = 2;
-// the fewest columns a one-block tail takes (kernels/fused.py
-// TAIL_MIN_COLUMNS): it costs two grid barriers of its own (one before,
-// one after) and saves about one a column
-constexpr int TAIL_MIN_COLUMNS = 4;
 // int64 cells of a launch's result
 constexpr int RESULT_CELLS = 8;
 // resident blocks a SM the fused fixed point is built for (at most 80
@@ -231,6 +228,7 @@ struct Params {
   float coeffs[9];           // AD's [3, 3] cost model: (a, b, c) per kernel
   int32_t delta;             // delta mode: the bucket width
   int32_t tail_width;        // most live slots of a one-block BS column
+  int32_t tail_min_columns;  // fewest columns a one-block BS tail takes
   int32_t narrow_edges;      // delta mode: most edges of a narrow phase
   int32_t* val[2];           // the two value buffers; val[0] is the result
   int32_t* stamp;            // [n] the chunk that last noted a destination
@@ -1064,7 +1062,7 @@ __device__ void bs_step(const Params& p, const Graph& gr, const Frontier& f,
                         const Sc& sc) {
   const int par = ch.last_compaction();
   int32_t d0 = min(tail_start(p, par, f.count), f.maxdeg);
-  if (f.maxdeg - d0 < TAIL_MIN_COLUMNS) d0 = f.maxdeg;
+  if (f.maxdeg - d0 < p.tail_min_columns) d0 = f.maxdeg;
   if (d0 < f.maxdeg) gather_tail(p, f.count, d0, par, sc);
   for (int32_t d = 0; d < d0; ++d) {
     const Chunk<Sc> c = begin_chunk<COMB>(p, ch, sc);
@@ -2065,26 +2063,12 @@ cudaError_t launch_t(Params p, cudaStream_t st) {
                      st);
 }
 
-template <int MSG>
-cudaError_t launch_msg(int comb, const Params& p, cudaStream_t st) {
-  if (comb == COMB_MIN) return launch_t<MSG, COMB_MIN>(p, st);
-  if (comb == COMB_MAX) return launch_t<MSG, COMB_MAX>(p, st);
-  return launch_t<MSG, COMB_ADD>(p, st);
-}
-
 // delta mode: idempotent operators only (no COMB_ADD instances)
 template <int MSG, int COMB>
 cudaError_t launch_delta_t(Params p, Graph heavy, cudaStream_t st) {
   Graph light = graph_of(p);
   void* args[] = {&p, &heavy, &light};
   return launch_coop((const void*)fused_delta_kernel<MSG, COMB>, args, st);
-}
-
-template <int MSG>
-cudaError_t launch_delta_msg(int comb, const Params& p, const Graph& heavy,
-                             cudaStream_t st) {
-  if (comb == COMB_MIN) return launch_delta_t<MSG, COMB_MIN>(p, heavy, st);
-  return launch_delta_t<MSG, COMB_MAX>(p, heavy, st);
 }
 
 // The Params of one launch over n nodes, the workspace
@@ -2096,7 +2080,8 @@ cudaError_t make_params(Params& p, const int32_t* row_ptr, const int32_t* col,
                         const uint8_t* mask0, int kernel, int max_iterations,
                         int mdt, int switch_threshold, int small_frontier,
                         float imbalance_threshold, int hp_edges_threshold,
-                        int tail_width, int32_t* dist, void* workspace,
+                        int tail_width, int tail_min_columns,
+                        int32_t* dist, void* workspace,
                         long long workspace_bytes, long long* result,
                         cudaStream_t st, bool delta = false,
                         int32_t narrow_edges = 0) {
@@ -2123,6 +2108,7 @@ cudaError_t make_params(Params& p, const int32_t* row_ptr, const int32_t* col,
   p.hp_edges_threshold = hp_edges_threshold;
   p.imbalance_threshold = imbalance_threshold;
   p.tail_width = tail_width;
+  p.tail_min_columns = tail_min_columns;
   p.narrow_edges = narrow_edges;
   p.val[0] = dist;
   p.val[1] = reinterpret_cast<int32_t*>(ws + l.B);
@@ -2153,6 +2139,16 @@ cudaError_t make_params(Params& p, const int32_t* row_ptr, const int32_t* col,
   return cudaMemsetAsync(p.ctrl, 0, CTRL_WORDS * sizeof(unsigned), st);
 }
 
+template <int MSG, int COMB>
+int delta_block_attrs(int* out) {
+  if constexpr (COMB == COMB_ADD) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return (int)repro_block_attrs((const void*)fused_delta_kernel<MSG, COMB>,
+                                  THREADS, 0, out);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -2179,8 +2175,9 @@ int repro_fused_workspace_bytes(int32_t n, int delta, int narrow_edges,
 // coeffs (host memory, 9 floats, row-major (a, b, c) for BS, WD, HP) makes
 // AD take the measured model; nullptr keeps the fixed tree.  tail_width
 // (0..TAIL_MAX) is the most live slots of a BS/NS column run inside one
-// block (0: none).  workspace holds repro_fused_workspace_bytes(n, 0, 0)
-// bytes.
+// block (0: none), and tail_min_columns (>= 1) the fewest columns such a
+// one-block tail takes.  workspace holds repro_fused_workspace_bytes(n, 0,
+// 0) bytes.
 // Returns the status of the launch (cudaErrorCooperativeLaunchTooLarge
 // if the grid cannot be resident).
 int repro_fused_fixed_point(
@@ -2189,27 +2186,29 @@ int repro_fused_fixed_point(
     const uint8_t* mask0, int kernel, int msg, int comb, int max_iterations,
     int mdt, int switch_threshold, int small_frontier,
     float imbalance_threshold, int hp_edges_threshold, int tail_width,
-    const float* coeffs, int32_t* dist, void* workspace,
-    long long workspace_bytes, long long* result, void* stream) {
+    int tail_min_columns, const float* coeffs, int32_t* dist,
+    void* workspace, long long workspace_bytes, long long* result,
+    void* stream) {
   if (!codes_ok(msg, comb) || kernel < K_BS || kernel > K_AD || n < 1 ||
       e < 0 || mdt < 1 || dist == dist0 || tail_width < 0 ||
-      tail_width > TAIL_MAX ||
+      tail_width > TAIL_MAX || tail_min_columns < 1 ||
       ((kernel == K_EP || kernel == K_NS) && aux == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Params p;
   cudaError_t err = make_params(
-      p, row_ptr, col, wt, n, e, aux, dist0, mask0, kernel, max_iterations, mdt, switch_threshold, small_frontier,
-      imbalance_threshold, hp_edges_threshold, tail_width, dist, workspace,
+      p, row_ptr, col, wt, n, e, aux, dist0, mask0, kernel, max_iterations,
+      mdt, switch_threshold, small_frontier, imbalance_threshold,
+      hp_edges_threshold, tail_width, tail_min_columns, dist, workspace,
       workspace_bytes, result, st);
   if (err != cudaSuccess) return (int)err;
   if (coeffs != nullptr) {
     p.measured = 1;
     for (int k = 0; k < 9; ++k) p.coeffs[k] = coeffs[k];
   }
-  if (msg == MSG_SUM) err = launch_msg<MSG_SUM>(comb, p, st);
-  else if (msg == MSG_COPY) err = launch_msg<MSG_COPY>(comb, p, st);
-  else err = launch_msg<MSG_BOTTLENECK>(comb, p, st);
+  with_codes(msg, comb, [&](auto m, auto c) {
+    err = launch_t<decltype(m)::value, decltype(c)::value>(p, st);
+  });
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -2224,8 +2223,9 @@ int repro_fused_fixed_point(
 // relax rounds, the last bucket settled and the frontier's count, then the
 // grid-wide rounds, the narrow rounds (in one block) and the grid
 // barriers.  tail_width (0..TAIL_MAX) is the most nodes of a narrow round
-// and of a one-block BS tail (0: neither), narrow_edges (>= 0) the most
-// edges of a narrow round.  workspace holds
+// and of a one-block BS tail (0: neither), tail_min_columns (>= 1) the
+// fewest columns of such a tail, narrow_edges (>= 0) the most edges of a
+// narrow round.  workspace holds
 // repro_fused_workspace_bytes(n, 1, narrow_edges) bytes.
 int repro_fused_delta(
     const int32_t* row_ptr, const int32_t* col, const int32_t* wt, int32_t e,
@@ -2234,11 +2234,13 @@ int repro_fused_delta(
     const uint8_t* mask0, int kernel, int msg, int comb, int delta,
     int max_epochs, int mdt, int switch_threshold, int small_frontier,
     float imbalance_threshold, int hp_edges_threshold, int tail_width,
-    int narrow_edges, int32_t* dist, uint8_t* mask, void* workspace,
-    long long workspace_bytes, long long* result, void* stream) {
+    int tail_min_columns, int narrow_edges, int32_t* dist, uint8_t* mask,
+    void* workspace, long long workspace_bytes, long long* result,
+    void* stream) {
   if (!codes_ok(msg, comb) || comb == COMB_ADD || kernel < K_BS ||
       kernel > K_AD || kernel == K_EP || n < 1 || e < 0 || he < 0 ||
-      tail_width < 0 || tail_width > TAIL_MAX || narrow_edges < 0 ||
+      tail_width < 0 || tail_width > TAIL_MAX || tail_min_columns < 1 ||
+      narrow_edges < 0 ||
       (he > 0 && hrow_ptr == nullptr) || delta < 1 || mdt < 1 ||
       dist == dist0 || (kernel == K_NS && aux == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -2247,17 +2249,17 @@ int repro_fused_delta(
   cudaError_t err = make_params(
       p, row_ptr, col, wt, n, e, aux, dist0, mask0, kernel, max_epochs,
       mdt, switch_threshold, small_frontier, imbalance_threshold,
-      hp_edges_threshold, tail_width, dist, workspace, workspace_bytes,
-      result, st, true, narrow_edges);
+      hp_edges_threshold, tail_width, tail_min_columns, dist, workspace,
+      workspace_bytes, result, st, true, narrow_edges);
   if (err != cudaSuccess) return (int)err;
   p.delta = delta;
   p.live = mask;
   const Graph heavy = he > 0 ? Graph{hrow_ptr, hcol, hwt, he}
                              : Graph{nullptr, nullptr, nullptr, 0};
-  if (msg == MSG_SUM) err = launch_delta_msg<MSG_SUM>(comb, p, heavy, st);
-  else if (msg == MSG_COPY)
-    err = launch_delta_msg<MSG_COPY>(comb, p, heavy, st);
-  else err = launch_delta_msg<MSG_BOTTLENECK>(comb, p, heavy, st);
+  with_codes<true>(msg, comb, [&](auto m, auto c) {
+    err = launch_delta_t<decltype(m)::value, decltype(c)::value>(p, heavy,
+                                                                  st);
+  });
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -2277,27 +2279,30 @@ int repro_fused_ad_choice_probe(const float* coeffs, const int32_t* count,
 }
 
 // k grid barriers by a cooperative grid the size of the fused kernel's
-// (shortest_path's instance); bar: two zeroed words (the barrier and its
-// count).
+// (the build's AttrCodes instance); bar: two zeroed words (the barrier
+// and its count).
 int repro_fused_barrier_probe(int k, unsigned* bar, void* stream) {
   if (k < 0 || bar == nullptr) return (int)cudaErrorInvalidValue;
   void* args[] = {&bar, &k};
   const cudaError_t err = launch_coop(
       (const void*)barrier_probe_kernel, args, (cudaStream_t)stream,
-      (const void*)fused_fixed_point_kernel<MSG_SUM, COMB_MIN>);
+      (const void*)fused_fixed_point_kernel<AttrCodes::msg,
+                                            AttrCodes::comb>);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// which 0: the fused kernel (shortest_path's instance), 1: its delta mode;
-// The fused fixed point (which 0) or the delta kernel (1), shortest_path's
-// instance: out [ATTR_CELLS] as repro_block_attrs (attrs.cuh).
+// The fused fixed point (which 0) or the delta kernel (1), the build's
+// AttrCodes instance (shortest_path's, or a custom build's operator; an
+// add operator has no delta kernel): out [ATTR_CELLS] as
+// repro_block_attrs (attrs.cuh).
 int repro_fused_block_attrs(int which, int* out) {
-  if (which < 0 || which > 1) return (int)cudaErrorInvalidValue;
-  const void* kernel =
-      which == 0 ? (const void*)fused_fixed_point_kernel<MSG_SUM, COMB_MIN>
-                 : (const void*)fused_delta_kernel<MSG_SUM, COMB_MIN>;
-  return (int)repro_block_attrs(kernel, THREADS, 0, out);
+  constexpr int M = AttrCodes::msg, C = AttrCodes::comb;
+  if (which == 0)
+    return (int)repro_block_attrs(
+        (const void*)fused_fixed_point_kernel<M, C>, THREADS, 0, out);
+  if (which == 1) return delta_block_attrs<M, C>(out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

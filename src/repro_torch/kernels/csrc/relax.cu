@@ -90,7 +90,9 @@
 // 7% in HP, for a second code path.  PERF.md has the tables.
 // The lane bodies (message, activation test, fold, B2's gather-and-fold
 // and B1's rank-and-relax tile) live in relax_lanes.cuh, which the fused
-// fixed point (fused.cu) shares.
+// fixed point (fused.cu) shares.  A user-defined operator's build
+// (REPRO_CUSTOM_OP_HEADER, MSG_CUSTOM there) instantiates each kernel here
+// for that operator alone.
 // Each entry point launches on the given stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() of its launch.
 
@@ -218,7 +220,7 @@ __device__ __forceinline__ void fold_quad(uint32_t fr, int4 ds, int4 dd,
     if (!((fr >> (8 * b)) & 0xffu)) continue;
     if (row_excl && (int64_t)rxv[b] + off >= cap_work) continue;
     const int32_t cand = message<MSG>(dsv[b], w);
-    if (!improves<COMB>(cand, ddv[b])) continue;
+    if (!improves<MSG, COMB>(cand, ddv[b])) continue;
     fold<COMB>(target + at + b, cand);
     upd[at + b] = 1;
   }
@@ -441,22 +443,6 @@ void launch_lanes_t(cudaStream_t st, const int32_t* dist, int32_t n,
       dist, n, src, dst, w, valid, lanes, target, upd, imp);
 }
 
-template <int MSG>
-void launch_lanes(int comb, cudaStream_t st, const int32_t* dist, int32_t n,
-                  const int32_t* src, const int32_t* dst, const int32_t* w,
-                  const uint8_t* valid, int32_t lanes, int32_t* target,
-                  uint8_t* upd, uint8_t* imp) {
-  if (comb == COMB_MIN)
-    launch_lanes_t<MSG, COMB_MIN>(st, dist, n, src, dst, w, valid, lanes,
-                                  target, upd, imp);
-  else if (comb == COMB_MAX)
-    launch_lanes_t<MSG, COMB_MAX>(st, dist, n, src, dst, w, valid, lanes,
-                                  target, upd, imp);
-  else
-    launch_lanes_t<MSG, COMB_ADD>(st, dist, n, src, dst, w, valid, lanes,
-                                  target, upd, imp);
-}
-
 template <int MSG, int COMB>
 void launch_wd_t(cudaStream_t st, const int32_t* dist, int32_t n,
                  const int32_t* prefix, const int32_t* excl,
@@ -471,23 +457,6 @@ void launch_wd_t(cudaStream_t st, const int32_t* dist, int32_t n,
   wd_relax_lanes_kernel<MSG, COMB><<<grid, THREADS, 0, st>>>(
       dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work, target,
       upd, imp);
-}
-
-template <int MSG>
-void launch_wd(int comb, cudaStream_t st, const int32_t* dist, int32_t n,
-               const int32_t* prefix, const int32_t* excl,
-               const int32_t* start, const int32_t* src_ids, int32_t f,
-               const int32_t* col, const int32_t* wt, int32_t e,
-               int32_t cap_work, int32_t* target, uint8_t* upd, uint8_t* imp) {
-  if (comb == COMB_MIN)
-    launch_wd_t<MSG, COMB_MIN>(st, dist, n, prefix, excl, start, src_ids, f,
-                               col, wt, e, cap_work, target, upd, imp);
-  else if (comb == COMB_MAX)
-    launch_wd_t<MSG, COMB_MAX>(st, dist, n, prefix, excl, start, src_ids, f,
-                               col, wt, e, cap_work, target, upd, imp);
-  else
-    launch_wd_t<MSG, COMB_ADD>(st, dist, n, prefix, excl, start, src_ids, f,
-                               col, wt, e, cap_work, target, upd, imp);
 }
 
 template <int MSG, int COMB>
@@ -508,28 +477,6 @@ void launch_union_t(cudaStream_t st, const int32_t* dist, int32_t n,
       cap_work, col, wt, e, target, upd);
 }
 
-template <int MSG>
-void launch_union(int comb, cudaStream_t st, const int32_t* dist, int32_t n,
-                  int32_t kp, const uint8_t* front, const int32_t* prefix,
-                  const int32_t* excl, const int32_t* start,
-                  const int32_t* src_ids, int32_t f, const int32_t* row_excl,
-                  int32_t cap_work, const int32_t* col, const int32_t* wt,
-                  int32_t e, int64_t max_lanes, int32_t* target,
-                  uint8_t* upd) {
-  if (comb == COMB_MIN)
-    launch_union_t<MSG, COMB_MIN>(st, dist, n, kp, front, prefix, excl,
-                                  start, src_ids, f, row_excl, cap_work, col,
-                                  wt, e, max_lanes, target, upd);
-  else if (comb == COMB_MAX)
-    launch_union_t<MSG, COMB_MAX>(st, dist, n, kp, front, prefix, excl,
-                                  start, src_ids, f, row_excl, cap_work, col,
-                                  wt, e, max_lanes, target, upd);
-  else
-    launch_union_t<MSG, COMB_ADD>(st, dist, n, kp, front, prefix, excl,
-                                  start, src_ids, f, row_excl, cap_work, col,
-                                  wt, e, max_lanes, target, upd);
-}
-
 }  // namespace
 
 extern "C" {
@@ -544,15 +491,10 @@ int repro_relax_lanes(const int32_t* dist, int32_t n, const int32_t* src,
   if (!codes_ok(msg, comb) || lanes < 1 || n < 1 || target == dist)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (msg == MSG_SUM)
-    launch_lanes<MSG_SUM>(comb, st, dist, n, src, dst, w, valid, lanes,
-                          target, upd, imp);
-  else if (msg == MSG_COPY)
-    launch_lanes<MSG_COPY>(comb, st, dist, n, src, dst, w, valid, lanes,
-                           target, upd, imp);
-  else
-    launch_lanes<MSG_BOTTLENECK>(comb, st, dist, n, src, dst, w, valid, lanes,
-                                 target, upd, imp);
+  with_codes(msg, comb, [&](auto m, auto c) {
+    launch_lanes_t<decltype(m)::value, decltype(c)::value>(
+        st, dist, n, src, dst, w, valid, lanes, target, upd, imp);
+  });
   return (int)cudaGetLastError();
 }
 
@@ -569,15 +511,11 @@ int repro_wd_relax_lanes(const int32_t* dist, int32_t n,
       target == dist)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (msg == MSG_SUM)
-    launch_wd<MSG_SUM>(comb, st, dist, n, prefix, excl, start, src_ids, f,
-                       col, wt, e, cap_work, target, upd, imp);
-  else if (msg == MSG_COPY)
-    launch_wd<MSG_COPY>(comb, st, dist, n, prefix, excl, start, src_ids, f,
-                        col, wt, e, cap_work, target, upd, imp);
-  else
-    launch_wd<MSG_BOTTLENECK>(comb, st, dist, n, prefix, excl, start, src_ids,
-                              f, col, wt, e, cap_work, target, upd, imp);
+  with_codes(msg, comb, [&](auto m, auto c) {
+    launch_wd_t<decltype(m)::value, decltype(c)::value>(
+        st, dist, n, prefix, excl, start, src_ids, f, col, wt, e, cap_work,
+        target, upd, imp);
+  });
   return (int)cudaGetLastError();
 }
 
@@ -599,18 +537,11 @@ int repro_wd_relax_union(const int32_t* dist, int32_t n, int32_t kp,
       kp % 4 != 0 || max_lanes < 0 || cap_work < 0 || target == dist)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (msg == MSG_SUM)
-    launch_union<MSG_SUM>(comb, st, dist, n, kp, front, prefix, excl, start,
-                          src_ids, f, row_excl, cap_work, col, wt, e,
-                          max_lanes, target, upd);
-  else if (msg == MSG_COPY)
-    launch_union<MSG_COPY>(comb, st, dist, n, kp, front, prefix, excl, start,
-                           src_ids, f, row_excl, cap_work, col, wt, e,
-                           max_lanes, target, upd);
-  else
-    launch_union<MSG_BOTTLENECK>(comb, st, dist, n, kp, front, prefix, excl,
-                                 start, src_ids, f, row_excl, cap_work, col,
-                                 wt, e, max_lanes, target, upd);
+  with_codes(msg, comb, [&](auto m, auto c) {
+    launch_union_t<decltype(m)::value, decltype(c)::value>(
+        st, dist, n, kp, front, prefix, excl, start, src_ids, f, row_excl,
+        cap_work, col, wt, e, max_lanes, target, upd);
+  });
   return (int)cudaGetLastError();
 }
 
@@ -627,15 +558,16 @@ int repro_find_offsets(const int32_t* prefix, int32_t f, int32_t cap_work,
 }
 
 // The block shape of B2 (which 0), B1 (1), B1's batch contract (2) or B3
-// (3), shortest_path's instance where templated, for the block-feasibility
-// report: out [ATTR_CELLS] as repro_block_attrs (attrs.cuh); none of them
-// takes dynamic shared memory.
+// (3), the build's AttrCodes instance where templated (shortest_path's,
+// or a custom build's operator), for the block-feasibility report: out
+// [ATTR_CELLS] as repro_block_attrs (attrs.cuh); none of them takes
+// dynamic shared memory.
 int repro_relax_block_attrs(int which, int* out) {
-  const void* kernels[] = {
-      (const void*)relax_lanes_kernel<MSG_SUM, COMB_MIN>,
-      (const void*)wd_relax_lanes_kernel<MSG_SUM, COMB_MIN>,
-      (const void*)wd_relax_union_kernel<MSG_SUM, COMB_MIN>,
-      (const void*)find_offsets_kernel};
+  constexpr int M = AttrCodes::msg, C = AttrCodes::comb;
+  const void* kernels[] = {(const void*)relax_lanes_kernel<M, C>,
+                           (const void*)wd_relax_lanes_kernel<M, C>,
+                           (const void*)wd_relax_union_kernel<M, C>,
+                           (const void*)find_offsets_kernel};
   if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
   return (int)repro_block_attrs(kernels[which], THREADS, 0, out);
 }

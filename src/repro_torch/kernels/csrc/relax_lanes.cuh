@@ -15,18 +15,33 @@
 //     B1/B2, a note of the destination in the fused kernel, which carries
 //     the improved entries into its other value buffer after the chunk.
 // `col` and `wt` are never written by any launch and always take __ldg.
+//
+// A user-defined operator (repro_torch.kernels.opgen) is one more message
+// code, MSG_CUSTOM: its message and activation test are the functions
+// repro_op_message and repro_op_improves of a generated header, which a
+// custom build (kernels/_build.py custom_lib) names in
+// REPRO_CUSTOM_OP_HEADER before it includes relax.cu or fused.cu.  Such a
+// build instantiates every kernel for that one operator, <MSG_CUSTOM,
+// REPRO_OP_COMB>, and nothing else; the base build never sees MSG_CUSTOM.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#ifdef REPRO_CUSTOM_OP_HEADER
+#include REPRO_CUSTOM_OP_HEADER
+#endif
+
 namespace relax_lanes {
 
-// message codes (repro_torch.core.operators.KERNEL_MESSAGES)
+// message codes (repro_torch.core.operators.KERNEL_MESSAGES, MSG_CUSTOM)
 constexpr int MSG_SUM = 0;         // v + w (wrapping)
 constexpr int MSG_COPY = 1;        // v
 constexpr int MSG_BOTTLENECK = 2;  // min(v, w)
+constexpr int MSG_CUSTOM = 3;      // repro_op_message, repro_op_improves
 // combine codes (repro_torch.core.operators.KERNEL_COMBINES)
 constexpr int COMB_MIN = 0;
 constexpr int COMB_MAX = 1;
@@ -39,10 +54,53 @@ constexpr int B1_TILE = THREADS * B1_LANES;
 // B1: slots a tile stages in shared memory (4 int32 tables: 32 KB)
 constexpr int B1_SLOTS = 2 * B1_TILE;
 
+// the (msg, comb) pairs the build has instances for: the nine built-in
+// pairs, or a custom build's one
 inline bool codes_ok(int msg, int comb) {
+#ifdef REPRO_CUSTOM_OP_HEADER
+  return msg == MSG_CUSTOM && comb == REPRO_OP_COMB;
+#else
   return msg >= MSG_SUM && msg <= MSG_BOTTLENECK && comb >= COMB_MIN &&
          comb <= COMB_ADD;
+#endif
 }
+
+template <int V>
+using Code = std::integral_constant<int, V>;
+
+// Calls f(Code<MSG>{}, Code<COMB>{}) with the build's instance of the
+// codes codes_ok accepted, so that each entry point names its launch once.
+// IDEMPOTENT: min and max only (the delta mode has no add instances).
+template <bool IDEMPOTENT = false, class F>
+inline void with_codes(int msg, int comb, F&& f) {
+#ifdef REPRO_CUSTOM_OP_HEADER
+  (void)msg;
+  (void)comb;
+  if constexpr (!IDEMPOTENT || REPRO_OP_COMB != COMB_ADD)
+    f(Code<MSG_CUSTOM>{}, Code<REPRO_OP_COMB>{});
+#else
+  const auto by_comb = [&](auto m) {
+    if (comb == COMB_MIN) f(m, Code<COMB_MIN>{});
+    else if (comb == COMB_MAX) f(m, Code<COMB_MAX>{});
+    else if constexpr (!IDEMPOTENT) f(m, Code<COMB_ADD>{});
+  };
+  if (msg == MSG_SUM) by_comb(Code<MSG_SUM>{});
+  else if (msg == MSG_COPY) by_comb(Code<MSG_COPY>{});
+  else by_comb(Code<MSG_BOTTLENECK>{});
+#endif
+}
+
+// the instance the block-attribute reports describe: shortest_path's in
+// the base build, the operator's in a custom build
+template <int M, int C>
+struct Codes {
+  static constexpr int msg = M, comb = C;
+};
+#ifdef REPRO_CUSTOM_OP_HEADER
+using AttrCodes = Codes<MSG_CUSTOM, REPRO_OP_COMB>;
+#else
+using AttrCodes = Codes<MSG_SUM, COMB_MIN>;
+#endif
 
 struct ReadOnly {
   static __device__ __forceinline__ int32_t ld(const int32_t* p) {
@@ -84,10 +142,22 @@ __device__ __forceinline__ int32_t message(int32_t v, int32_t w) {
   return v < w ? v : w;
 }
 
-// the activation test of the built-in operators; for add the identity is
-// 0, so "a real contribution" is cand != 0
-template <int COMB>
+#ifdef REPRO_CUSTOM_OP_HEADER
+template <>
+__device__ __forceinline__ int32_t message<MSG_CUSTOM>(int32_t v,
+                                                       int32_t w) {
+  return repro_op_message(v, w);
+}
+#endif
+
+// the activation test: the operator's own for MSG_CUSTOM (its update
+// predicate, or the combine's default), else the built-in operators'; for
+// add the identity is 0, so "a real contribution" is cand != 0
+template <int MSG, int COMB>
 __device__ __forceinline__ bool improves(int32_t cand, int32_t cur) {
+#ifdef REPRO_CUSTOM_OP_HEADER
+  if (MSG == MSG_CUSTOM) return repro_op_improves(cand, cur);
+#endif
   if (COMB == COMB_MIN) return cand < cur;
   if (COMB == COMB_MAX) return cand > cur;
   return cand != 0;
@@ -111,7 +181,7 @@ __device__ __forceinline__ bool fold_lane(int32_t dsrc, int32_t ddst,
                                           int32_t* target, uint8_t* upd,
                                           const Hook& hook) {
   const int32_t cand = message<MSG>(dsrc, w);
-  if (!improves<COMB>(cand, ddst)) return false;
+  if (!improves<MSG, COMB>(cand, ddst)) return false;
   fold<COMB>(target + d, cand);
   upd[d] = 1;
   hook(d);

@@ -7,7 +7,8 @@ its fixed point.  For CUDA tensors it makes ONE cooperative launch of
 ``LAUNCHES["fused_fixed_point"]`` and reads back iterations, the edge
 total, AD's three counts and the traversal's :class:`Chunks` with one host
 sync; nothing of B1 or B2 is launched (the kernel carries their lane
-bodies).  For CPU tensors it runs the plain version,
+bodies).  A user-defined operator launches the kernel of its own library
+(``_build.op_library``), built for it at first use.  For CPU tensors it runs the plain version,
 :func:`repro_torch.core.fused._fixed_point_plain`.
 :func:`batch_fixed_point` runs K WD traversals (ROADMAP A8) as K launches
 of the same kernel, one a row.  :func:`delta_fixed_point`
@@ -48,9 +49,10 @@ RESULT_CELLS = 8
 #: it; the width sweep's outcome is in PERF.md (1,024 within 1% of the
 #: best).
 TAIL_WIDTH = 1024
-#: the fewest columns a one-block tail takes: a copy of ``csrc/fused.cu``
-#: TAIL_MIN_COLUMNS for the plain loop's count (``core.fused.bs_split``),
-#: held to the kernel's by the card tests' chunk comparison
+#: the fewest columns a one-block BS/NS tail takes: it costs two grid
+#: barriers of its own (one before, one after) and saves about one a
+#: column.  Passed to each launch and read by the plain loop's count
+#: (``core.fused.bs_split``); the kernel holds no copy
 TAIL_MIN_COLUMNS = 4
 #: the most edges of a delta phase run inside one block (with at most
 #: ``TAIL_WIDTH`` nodes), passed to each delta launch and read by the
@@ -216,10 +218,9 @@ def _launch(kernel: str, graph: CSRGraph, aux, dist, mask, out, workspace,
     ``[RESULT_CELLS]``) receives iterations, the edge total, AD's three
     counts, the grid-wide and block-local chunks and the grid barriers.
     Does not sync."""
-    msg, comb = op.kernel_codes()
+    lib, msg, comb = _build.op_library(op)
     dev = dist.device
     n, e = graph.num_nodes, graph.num_edges
-    lib = _build.lib()
     with torch.cuda.device(dev):
         _build.check("fused_fixed_point", lib.repro_fused_fixed_point(
             graph.row_ptr.data_ptr(), graph.col.data_ptr(),
@@ -229,8 +230,9 @@ def _launch(kernel: str, graph: CSRGraph, aux, dist, mask, out, workspace,
             min(int(max_iterations), 2 ** 31 - 1), sched.mdt or 1,
             sched.switch_threshold, sched.small_frontier,
             sched.imbalance_threshold, sched.hp_edges_threshold, TAIL_WIDTH,
-            _coeff_array(coeffs), out.data_ptr(), workspace.data_ptr(),
-            workspace.numel(), result.data_ptr(), stream_of(dev)))
+            TAIL_MIN_COLUMNS, _coeff_array(coeffs), out.data_ptr(),
+            workspace.data_ptr(), workspace.numel(), result.data_ptr(),
+            stream_of(dev)))
     LAUNCHES["fused_fixed_point"] += 1
 
 
@@ -271,8 +273,7 @@ def delta_fixed_point(kernel: str, light: CSRGraph,
                              "nodes and at least one edge")
     if kernel == "NS":
         check_tensor("aux", aux, dev, torch.int32, n)
-    msg, comb = op.kernel_codes()
-    lib = _build.lib()
+    lib, msg, comb = _build.op_library(op)
     workspace, result = _workspace(n, dev, delta=True)
     out = torch.empty_like(dist)
     out_mask = torch.empty_like(mask)
@@ -291,9 +292,9 @@ def delta_fixed_point(kernel: str, light: CSRGraph,
             msg, comb, int(delta), min(int(max_iterations), 2 ** 31 - 1),
             sched.mdt or 1, sched.switch_threshold, sched.small_frontier,
             sched.imbalance_threshold, sched.hp_edges_threshold, TAIL_WIDTH,
-            NARROW_EDGES, out.data_ptr(), out_mask.data_ptr(),
-            workspace.data_ptr(),
-            workspace.numel(), result.data_ptr(), stream_of(dev)))
+            TAIL_MIN_COLUMNS, NARROW_EDGES, out.data_ptr(),
+            out_mask.data_ptr(), workspace.data_ptr(), workspace.numel(),
+            result.data_ptr(), stream_of(dev)))
     LAUNCHES["fused_fixed_point"] += 1
     epochs, edges, rounds, b, count, grid, narrow, barriers = (
         result[0].tolist())                                 # host sync

@@ -35,7 +35,10 @@ edges_relaxed)`` equal the reference's bit for bit:
 A wrapper takes its device from its tensors: for CUDA tensors it launches
 its kernel (``csrc/relax.cu``) and counts the launch in :data:`LAUNCHES`,
 for CPU tensors it runs its plain PyTorch version (``*_plain``), which
-is the reference's XLA lowering written in PyTorch.
+is the reference's XLA lowering written in PyTorch.  A user-defined
+operator launches the same kernels from its own library, built for it at
+first use (``_build.op_library``; its callables lowered by
+:mod:`repro_torch.kernels.opgen`), or raises before the launch.
 """
 
 from __future__ import annotations
@@ -65,11 +68,12 @@ def _dispatch(dist: torch.Tensor, name: str):
     return dist.device.type == "cuda"
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call the C entry point ``repro_<name>`` on ``dev``'s current stream
-    and raise if it reports an error; every launch goes through here."""
+def _launch(name: str, dev: torch.device, library, *args) -> None:
+    """Call the C entry point ``repro_<name>`` of ``library`` (the
+    operator's, ``_build.op_library``) on ``dev``'s current stream and
+    raise if it reports an error; every launch goes through here."""
     with torch.cuda.device(dev):
-        _build.check(name, getattr(_build.lib(), f"repro_{name}")(
+        _build.check(name, getattr(library, f"repro_{name}")(
             *args, stream_of(dev)))
 
 
@@ -110,7 +114,7 @@ def _relax_lanes_cuda(dist, src, dst, w, valid, target, updated,
                       op: EdgeOp):
     """Launch B2 folding into ``target`` (the wrapper's own buffer, never
     ``dist``) and ``updated``; returns ``improve``."""
-    msg, comb = op.kernel_codes()
+    library, msg, comb = _build.op_library(op)
     dev = dist.device
     n, lanes = dist.numel(), src.numel()
     check_tensor("dist", dist, dev, torch.int32)
@@ -123,7 +127,7 @@ def _relax_lanes_cuda(dist, src, dst, w, valid, target, updated,
         return imp
     if n == 0:
         raise ValueError("relax_lanes needs a non-empty dist")
-    _launch("relax_lanes", dev, dist.data_ptr(), n, src.data_ptr(),
+    _launch("relax_lanes", dev, library, dist.data_ptr(), n, src.data_ptr(),
             dst.data_ptr(), w.data_ptr(), valid.data_ptr(), lanes, msg, comb,
             target.data_ptr(), updated.data_ptr(), imp.data_ptr())
     LAUNCHES["relax_lanes"] += 1
@@ -193,7 +197,7 @@ def _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col, wt,
                          cap_work: int, target, updated, op: EdgeOp):
     """Launch B1 folding into ``target`` (the wrapper's own buffer, never
     ``dist``) and ``updated``; returns ``improve``."""
-    msg, comb = op.kernel_codes()
+    library, msg, comb = _build.op_library(op)
     dev = dist.device
     n, f, e = dist.numel(), prefix.numel(), col.numel()
     check_tensor("dist", dist, dev, torch.int32)
@@ -209,11 +213,11 @@ def _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col, wt,
     if n == 0 or e == 0:
         raise ValueError("wd_relax_lanes needs a non-empty dist and col")
     imp = torch.empty(cap_work, dtype=torch.bool, device=dev)
-    _launch("wd_relax_lanes", dev, dist.data_ptr(), n, prefix.data_ptr(),
-            exclusive.data_ptr(), start.data_ptr(), src_ids.data_ptr(), f,
-            col.data_ptr(), None if wt is None else wt.data_ptr(), e,
-            cap_work, msg, comb, target.data_ptr(), updated.data_ptr(),
-            imp.data_ptr())
+    _launch("wd_relax_lanes", dev, library, dist.data_ptr(), n,
+            prefix.data_ptr(), exclusive.data_ptr(), start.data_ptr(),
+            src_ids.data_ptr(), f, col.data_ptr(),
+            None if wt is None else wt.data_ptr(), e, cap_work, msg, comb,
+            target.data_ptr(), updated.data_ptr(), imp.data_ptr())
     LAUNCHES["wd_relax_lanes"] += 1
     LANES["wd_relax_lanes"] += cap_work
     return imp
@@ -380,7 +384,7 @@ def wd_apply_relax_union(dist_t, front_t, prefix, exclusive, start,
         return wd_apply_relax_union_plain(
             dist_t, front_t, prefix, exclusive, start, src_ids, col, wt,
             cap_work=cap_work, row_excl=row_excl, op=op)
-    msg, comb = op.kernel_codes()
+    library, msg, comb = _build.op_library(op)
     slots = (prefix, exclusive, start, src_ids)
     n, kp, f, e = _check_node_major(dist_t, front_t, slots, row_excl, col,
                                     wt)
@@ -391,8 +395,8 @@ def wd_apply_relax_union(dist_t, front_t, prefix, exclusive, start,
     if n == 0 or e == 0:
         raise ValueError("wd_apply_relax_union needs a non-empty dist_t "
                          "and col")
-    _launch("wd_relax_union", dist_t.device, dist_t.data_ptr(), n, kp,
-            front_t.data_ptr(), *(t.data_ptr() for t in slots), f,
+    _launch("wd_relax_union", dist_t.device, library, dist_t.data_ptr(), n,
+            kp, front_t.data_ptr(), *(t.data_ptr() for t in slots), f,
             None if row_excl is None else row_excl.data_ptr(), cap_work,
             col.data_ptr(), None if wt is None else wt.data_ptr(), e,
             max_lanes, msg, comb, target.data_ptr(), upd.data_ptr())

@@ -185,8 +185,10 @@ def _as_if_on_the_card(monkeypatch):
     for counts in ("LAUNCHES", "LANES"):
         monkeypatch.setattr(relax, counts, dict(getattr(relax, counts)))
     monkeypatch.setattr(relax, "_dispatch", lambda dist, name: True)
+    monkeypatch.setattr(relax._build, "op_library",
+                        lambda op: (None, *op.kernel_codes()))
     monkeypatch.setattr(relax, "_launch",
-                        lambda name, dev, *args: launched.append(
+                        lambda name, dev, library, *args: launched.append(
                             (name, args)))
     return launched
 

@@ -245,14 +245,117 @@ def test_wrappers_reject_bad_arguments(dev):
         fo.find_offsets(torch.arange(5, device=dev), 8)
 
 
+#: user-defined operators, whose callables are lowered to C++ and whose
+#: kernels are built for them at first use (one library each, cached by
+#: operator): the reference's slack operator (its update predicate in the
+#: kernel), a weight penalty above T = 20 (weight_additive) and a budget
+#: spent along the path (max, value_min 0)
+CUSTOM_OPS = {
+    "slack": operators.EdgeOp(
+        name="slack", combine="min", identity=operators.INF,
+        source_value=0, message=lambda v, w: v + w,
+        update=lambda cand, cur: cand + 2 < cur),
+    "penalty": operators.EdgeOp(
+        name="penalty", combine="min", identity=operators.INF,
+        source_value=0, weight_additive=True,
+        message=lambda v, w: torch.where(w > 20, v + 2 * w, v + w)),
+    "budget": operators.EdgeOp(
+        name="budget", combine="max", identity=0, source_value=200,
+        value_min=0, message=lambda v, w: (v - w).clamp(min=0)),
+}
+
+#: int32 extremes planted among the lanes' values and weights
+EXTREMES = (-2 ** 31, 2 ** 31 - 1, operators.INF, 0, -1)
+
+
 def test_custom_operator_on_cuda_raises(dev):
-    op = operators.EdgeOp(name="slack", combine="min",
-                          identity=operators.INF, source_value=0,
-                          message=lambda v, w: v + w,
-                          update=lambda cand, cur: cand + 2 < cur)
-    args = _lanes(np.random.default_rng(1), op, 50, 80, dev)
+    """An operator outside the lowered op set (true division) and one of
+    a non-int32 ``dtype`` raise on CUDA tensors before any build or
+    launch; neither runs the plain version."""
+    div = operators.EdgeOp(name="halved", combine="min",
+                           identity=operators.INF, source_value=0,
+                           message=lambda v, w: v / 2 + w)
+    f32 = operators.EdgeOp(name="f32", combine="min",
+                           identity=operators.INF, source_value=0,
+                           message=lambda v, w: v + w, dtype=torch.float32)
+    args = _lanes(np.random.default_rng(1), div, 50, 80, dev)
+    before = dict(relax.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="'truediv'.*device='cpu'"):
+        relax.relax_lanes(*args, op=div)
     with pytest.raises(NotImplementedError, match="queue C"):
-        relax.relax_lanes(*args, op=op)
+        relax.apply_relax(args[0], torch.zeros_like(args[4][:50]), *args[1:],
+                          op=f32)
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    g = rmat_graph(scale=8, weighted=True, seed=1, device="cpu")
+    for mode in ("stepped", "fused"):
+        with pytest.raises(NotImplementedError, match="'truediv'"):
+            engine.run(g, 0, make_strategy("WD"), op=div, mode=mode,
+                       device=dev)
+    assert relax.LAUNCHES == before
+
+
+def _with_extremes(rng, t):
+    """``t`` with a tenth of its entries set to int32 extremes."""
+    a = t.cpu().numpy().copy()
+    at = rng.random(a.size) < 0.1
+    a[at] = rng.choice(EXTREMES, int(at.sum()))
+    return torch.from_numpy(a).to(t.device)
+
+
+def _in_domain(op, t):
+    """``t`` inside ``op``'s value domain (a min monoid's values at or
+    below its identity, a max monoid's at or above): only there does the
+    fold into a copy of dist equal ``apply_proposal``'s
+    ``min(dist, proposal)``, which lowers an untouched entry above INF."""
+    if op.combine == "min":
+        return t.clamp(max=op.identity)
+    return t.clamp(min=op.identity) if op.combine == "max" else t
+
+
+@pytest.mark.parametrize("opname", list(CUSTOM_OPS))
+def test_custom_operator_kernels_match_plain(dev, opname):
+    """B2, B1 and B1's batch contract built for a user-defined operator,
+    against their plain versions on the same card tensors bit for bit,
+    values and weights with int32 extremes among them (the folds into
+    dist: the values in the operator's domain); one launch each."""
+    from repro_torch.core import multi_source
+    op = CUSTOM_OPS[opname]
+    rng = np.random.default_rng(17)
+    for n, lanes in ((257, 2050), (5000, 100000)):
+        dist, src, dst, w, valid = _lanes(rng, op, n, lanes, dev)
+        args = (_with_extremes(rng, dist), src, dst, _with_extremes(rng, w),
+                valid)
+        before = relax.LAUNCHES["relax_lanes"]
+        got = relax.relax_lanes(*args, op=op)
+        assert relax.LAUNCHES["relax_lanes"] == before + 1
+        _same(got, relax.relax_lanes_plain(*args, op=op))
+        _check_apply_relax(dev, op, (_in_domain(op, args[0]), *args[1:]),
+                           _running_mask(rng, n, dev))
+    g = rmat_graph(scale=10, weighted=True, seed=3, device=dev)
+    nodes = np.sort(rng.choice(g.num_nodes, 300, replace=False))
+    f = torch.from_numpy(nodes.astype(np.int32)).to(dev)
+    deg = g.row_ptr[f + 1] - g.row_ptr[f]
+    prefix = torch.cumsum(deg, 0, dtype=torch.int32)
+    dist = _with_extremes(rng, _lanes(rng, op, g.num_nodes, 1, dev)[0])
+    args = (dist, prefix, prefix - deg, g.row_ptr[f], f, g.col, g.wt)
+    cap = int(prefix[-1]) + 100
+    before = relax.LAUNCHES["wd_relax_lanes"]
+    got = relax.wd_relax_lanes(*args, cap_work=cap, op=op)
+    assert relax.LAUNCHES["wd_relax_lanes"] == before + 1
+    _same(got, relax.wd_relax_lanes_plain(*args, cap_work=cap, op=op))
+    _check_wd_apply_relax(op, (_in_domain(op, dist), *args[1:]), cap,
+                          _running_mask(rng, g.num_nodes, dev))
+    _, _, dist_t, front_t = _union_case(g, rng, op, [300, 0, 17, 90, 300],
+                                        dev)
+    tables = multi_source.union_tables(g, front_t.any(1), g.num_nodes)
+    uargs = (dist_t, front_t, *tables, g.col, g.wt)
+    before = relax.LAUNCHES["wd_relax_lanes_batch"]
+    got = relax.wd_apply_relax_union(*uargs, cap_work=g.num_edges,
+                                     max_lanes=int(tables[0][-1]), op=op)
+    assert relax.LAUNCHES["wd_relax_lanes_batch"] == before + 1
+    _same(got, relax.wd_apply_relax_union_plain(
+        *uargs, cap_work=g.num_edges, op=op))
 
 
 #: (strategy, its kwargs) of the engine runs held card against CPU
@@ -280,6 +383,26 @@ def test_engine_on_the_card_matches_cpu(dev, run):
                                                    b.edges_relaxed)
         assert _trace(a) == _trace(b)
         assert a.state_bytes == b.state_bytes
+
+
+@pytest.mark.parametrize("run", list(ENGINE_RUNS))
+def test_custom_operator_engine_on_the_card_matches_cpu(dev, run):
+    """``engine.run`` with the penalty operator, stepped and fused, on the
+    card equals the CPU's run: its B1/B2 (stepped) or its fused kernel
+    (fused) built for it."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    strategy, kwargs = ENGINE_RUNS[run]
+    op = CUSTOM_OPS["penalty"]
+    g = rmat_graph(scale=12, weighted=True, seed=1, device="cpu")
+    src = int(g.degrees.argmax())
+    # the unchunked EP push has no fused lowering
+    for mode in ("stepped", "fused")[:1 if run == "EP-unchunked" else 2]:
+        a, b = (engine.run(g, src, make_strategy(strategy, **kwargs),
+                           op=op, mode=mode, device=d) for d in (dev, "cpu"))
+        np.testing.assert_array_equal(a.dist, b.dist)
+        assert (a.iterations, a.edges_relaxed) == (b.iterations,
+                                                   b.edges_relaxed)
 
 
 def _symmetrized(g):

@@ -26,6 +26,7 @@ from repro_torch.core import operators as tops
 from repro_torch.core.graph import CSRGraph
 from repro_torch.core.strategies import wd_relax
 from repro_torch.kernels import find_offsets as tfo
+from repro_torch.kernels import opgen
 from repro_torch.kernels import ops as tkops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import relax as trelax
@@ -229,11 +230,16 @@ def test_custom_update_operator_on_cpu_matches_reference():
 
 
 def test_custom_operator_has_no_kernel_codes():
-    """The CUDA kernels cannot evaluate Python callables: a custom op
-    names no kernel codes, so a CUDA launch raises before it starts."""
+    """The CUDA kernels cannot call Python: a custom op resolves to
+    ``MSG_CUSTOM`` and its callables lowered to C++ (the update predicate
+    in ``repro_op_improves``), for which its own kernels are built; the
+    built-ins keep their codes."""
     _, top = _slack_ops()
-    with pytest.raises(NotImplementedError, match="custom message/update"):
-        top.kernel_codes()
+    assert top.kernel_codes() == (tops.MSG_CUSTOM, 0) == (3, 0)
+    header = opgen.lower(top).header
+    assert "repro_op_message(int32_t v, int32_t w)" in header
+    assert "repro_op_add(cand, 2)" in header and "#define REPRO_OP_COMB 0" \
+        in header
     assert tops.shortest_path.kernel_codes() == (0, 0)
     assert tops.widest_path.kernel_codes() == (2, 1)
     assert tops.reach_count.kernel_codes() == (1, 2)
@@ -242,11 +248,15 @@ def test_custom_operator_has_no_kernel_codes():
 def test_builtin_with_custom_message_has_no_kernel_codes():
     """The kernel's message follows the callable itself: a built-in whose
     message is swapped for a custom one (same name, combine and identity)
-    must not keep the built-in's kernel code."""
+    must not keep the built-in's kernel code; it takes the lowered path,
+    whose header holds its own message."""
     top = dataclasses.replace(tops.shortest_path,
                               message=lambda v, w: v + 2 * w)
-    with pytest.raises(NotImplementedError, match="custom message/update"):
-        top.kernel_codes()
+    assert top.kernel_codes() == (tops.MSG_CUSTOM, 0)
+    header = opgen.lower(top).header
+    assert "repro_op_mul(2, w)" in header
+    assert opgen.lower(top).digest != opgen.lower(
+        tops.shortest_path).digest
     same = dataclasses.replace(tops.shortest_path, name="sp_copy")
     assert same.kernel_codes() == tops.shortest_path.kernel_codes()
 
@@ -408,8 +418,11 @@ def _as_if_on_the_card(monkeypatch):
     for counts in ("LAUNCHES", "LANES"):    # the fake launches count apart
         monkeypatch.setattr(trelax, counts, dict(getattr(trelax, counts)))
     monkeypatch.setattr(trelax, "_dispatch", lambda dist, name: True)
+    monkeypatch.setattr(trelax._build, "op_library",
+                        lambda op: (None, *op.kernel_codes()))
     monkeypatch.setattr(trelax, "_launch",
-                        lambda name, dev, *args: launched.append(name))
+                        lambda name, dev, library, *args: launched.append(
+                            name))
     return launched
 
 

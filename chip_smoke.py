@@ -173,6 +173,19 @@ Phases, each printing one JSON line:
    operator and kernel, its launches those of the operator's entry
    calls); and fused WD sssp with ``shortest_path`` against the penalty
    above the heaviest weight (the same distances), interleaved.
+   float_ops (ROADMAP queue C): float32 operators, each its own build of
+   B1, B2, B1's batch contract and the fused kernel (BSP, batch, delta)
+   with float values, three libraries at once: SSSP in hundredths (min,
+   ``v + w * 0.01``), the most reliable path (max, ``v * (w / (w +
+   1.0))``) and damped path counts (add, ``v * 0.5``, on a layered DAG).
+   The lowered message's SASS has no FFMA; each kernel against its plain
+   version on CPU copies (min/max bit for bit, add at rtol 1e-4), float
+   extremes among the values; on rmat20 the six strategies stepped and
+   fused agree and equal the plain loop; at rmat16 card against CPU and
+   the float SSSP against a float32 Dijkstra; a K = 8 batch equal to its
+   single runs; delta on road256 against the CPU and on road1024 against
+   Dijkstra; two shards against one device; each float kernel timed for
+   the kernel line (``<kernel><op>`` rows with ``dtype`` float32).
    (The analysis phase runs right after the build: ``python -m
    repro_torch.analysis src/repro_torch`` in-process, which must report
    no finding, and the ``smem`` pass's footprint model of every kernel
@@ -1400,7 +1413,7 @@ def fused_args(g, strategy: str, source: int, op, dev):
     strat = make_strategy(strategy)
     plan = fused._plan(strat, strat.setup(g), g)
     n = plan.graph.num_nodes
-    dist = torch.full((n,), op.identity, dtype=torch.int32, device=dev)
+    dist = torch.full((n,), op.identity, dtype=op.dtype, device=dev)
     dist[source] = op.seed(source)
     mask = torch.zeros(n, dtype=torch.bool, device=dev)
     mask[source] = True
@@ -2988,19 +3001,18 @@ def with_extremes(rng, t, share: float = 0.1):
 
 
 def in_domain(op, t):
-    """``t`` inside ``op``'s value domain: a min monoid's values lie at or
-    below its identity, a max monoid's at or above (the identity is the
-    unreached value).  The fold into a copy of dist equals the proposal
-    folded by ``apply_proposal`` only there: above INF, ``min(dist, INF)``
-    lowers an untouched entry that the fold leaves alone."""
-    if op.combine == "min":
-        return t.clamp(max=op.identity)
-    if op.combine == "max":
-        return t.clamp(min=op.identity)
-    return t
+    """``t`` inside ``op``'s value domain, ``t`` folded with the identity
+    (``EdgeOp.fold_values``): a min monoid's values lie at or below its
+    identity, a max monoid's at or above (the identity is the unreached
+    value; −0.0 lies below a float max's or add's +0.0).  The fold into a
+    copy of dist equals the proposal folded by ``apply_proposal`` only
+    there: above INF, ``min(dist, INF)`` lowers an untouched entry that
+    the fold leaves alone."""
+    import torch
+    return op.fold_values(t, torch.full_like(t, op.identity))
 
 
-def custom_builds(ops: dict) -> dict:
+def custom_builds(ops: dict, line: str = "custom_build") -> dict:
     """Build every operator's library, all at once (one thread an
     operator, each running nvcc on relax.cu and fused.cu); print each
     build's seconds, and each custom instantiation's registers and spill
@@ -3025,7 +3037,8 @@ def custom_builds(ops: dict) -> dict:
                 ("repro_relax_block_attrs", 1, "wd_relax_lanes"),
                 ("repro_relax_block_attrs", 2, "wd_relax_union"),
                 ("repro_fused_block_attrs", 0, "fused_fixed_point"),
-                ("repro_fused_block_attrs", 1, "fused_delta")):
+                ("repro_fused_block_attrs", 1, "fused_delta"))[
+                    :4 if op.combine == "add" else 5]:    # no add delta
             cells = (ctypes.c_int * _build.ATTR_CELLS)()
             _build.check(fn, getattr(libs[name], fn)(which, cells))
             attrs[kernel] = dict(registers=cells[2], local_bytes=cells[3],
@@ -3038,7 +3051,7 @@ def custom_builds(ops: dict) -> dict:
                              lowered.header).name),
                          seconds=built["seconds"] if built else None,
                          ptxas=ptxas, attrs=attrs)
-        emit("custom_build", **out[name], wall_seconds=wall)
+        emit(line, **out[name], wall_seconds=wall)
     return out
 
 
@@ -3386,6 +3399,555 @@ def custom_ops_phase(g, dev, *, small_scale: int = 16,
                     else kernel]["registers"],
                 **timed_rows[kernel]))
     emit("custom_kernels_time", rows=rows)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: float32 operators on the card (ROADMAP queue C)
+# ---------------------------------------------------------------------------
+
+#: the float SSSP's scale: a distance in hundredths of a weight
+FLOAT_SCALE = 0.01
+#: the layered DAG of the damped path counts: layers, width, out-degree
+FLOAT_DAG = (16, 1 << 16, 8)
+FLOAT_SMALL_DAG = (16, 1 << 12, 8)
+#: the float kernels' tolerance for add (the order of a float sum)
+FLOAT_ADD_RTOL = 1e-4
+#: float extremes planted among the values (add: the non-negative ones,
+#: which no order of a sum overflows)
+FLOAT_EXTREMES = (0.0, -0.0, 2.0 ** 30, float("nan"), float("inf"),
+                  float("-inf"), 1e-45, -1e-40, 3.4e38, -3.4e38, -1.0)
+FLOAT_ADD_EXTREMES = (0.0, -0.0, 2.0 ** 30, 1e-45, 1e-40, float("inf"))
+
+
+def float_ops() -> dict:
+    """The phase's float32 operators: SSSP in hundredths of a weight (a
+    multiply-add nvcc would contract into an FMA), the most reliable path
+    (max of products of w / (w + 1), a quotient) and damped path counts
+    (add, v / 2 an edge)."""
+    import torch
+    from repro_torch.core.graph import INF
+    from repro_torch.core.operators import EdgeOp
+    return {
+        "scaled_sssp": EdgeOp(
+            name="scaled_sssp", combine="min", identity=float(INF),
+            source_value=0.0, weight_additive=True, dtype=torch.float32,
+            message=lambda v, w: v + w * FLOAT_SCALE),
+        "reliable": EdgeOp(
+            name="reliable", combine="max", identity=0.0, source_value=1.0,
+            value_min=0, dtype=torch.float32,
+            message=lambda v, w: v * (w / (w + 1.0))),
+        "damped": EdgeOp(
+            name="damped", combine="add", identity=0.0, source_value=1.0,
+            dtype=torch.float32, message=lambda v, w: v * 0.5),
+    }
+
+
+def float32_dijkstra(g, source: int, scale: float):
+    """Dijkstra over float32 values with ``v + float32(w) * float32(scale)``,
+    each operation rounded once to float32, as the port computes it:
+    exact for this message, which is monotone and never below ``v``."""
+    import heapq
+    import struct
+    import numpy as np
+    from repro_torch.core.graph import INF
+    f32 = struct.Struct("f")
+
+    def r32(x):
+        return f32.unpack(f32.pack(x))[0]
+    rp = g.row_ptr.cpu().numpy().tolist()
+    col = g.col.cpu().numpy().tolist()
+    step = (g.wt.cpu().numpy().astype(np.float32)
+            * np.float32(scale)).astype(np.float32).tolist()
+    inf = float(np.float32(INF))
+    dist = [inf] * g.num_nodes
+    dist[source] = 0.0
+    done = bytearray(g.num_nodes)
+    heap = [(0.0, source)]
+    while heap:
+        d, u = heapq.heappop(heap)
+        if done[u]:
+            continue
+        done[u] = 1
+        for e in range(rp[u], rp[u + 1]):
+            nd = r32(d + step[e])
+            v = col[e]
+            if nd < dist[v]:
+                dist[v] = nd
+                heapq.heappush(heap, (nd, v))
+    return np.asarray(dist, np.float32)
+
+
+def float_values(rng, op, shape):
+    """Random float32 values of ``op``'s domain, a tenth of them planted
+    extremes."""
+    import numpy as np
+    if op.combine == "max":
+        a = rng.random(shape).astype(np.float32)
+    else:
+        a = (rng.random(shape) * 60).astype(np.float32)
+        if op.combine == "min":
+            a[rng.random(shape) < 0.4] = op.identity
+    at = rng.random(shape) < 0.1
+    pool = FLOAT_ADD_EXTREMES if op.combine == "add" else FLOAT_EXTREMES
+    a[at] = rng.choice(np.array(pool, np.float32), int(at.sum()))
+    return a
+
+
+def float_err(got, want, op) -> tuple[float, float]:
+    """The card's outputs against the CPU's: bools and ints exactly;
+    float32 values of min and max bit for bit and NaN for NaN (a NaN's
+    payload is the hardware's), of add within ``FLOAT_ADD_RTOL``.
+    Returns the largest absolute and relative differences of the float
+    values; raises on any other difference."""
+    import torch
+    abs_err = rel_err = 0.0
+    for a, b in zip(got, want):
+        a, b = a.cpu(), b.cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"output {tuple(a.shape)}/{a.dtype} vs "
+                                 f"{tuple(b.shape)}/{b.dtype}")
+        if a.dtype != torch.float32:
+            if not torch.equal(a, b):
+                raise AssertionError("a flag or count differs")
+            continue
+        if not torch.equal(a.isnan(), b.isnan()):
+            raise AssertionError("NaN at other places")
+        x, y = a[~a.isnan()], b[~b.isnan()]
+        if op.combine != "add":
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                raise AssertionError("float values differ in their bits")
+            continue
+        if not torch.equal(torch.isinf(x), torch.isinf(y)) or not \
+                torch.equal(x[torch.isinf(x)], y[torch.isinf(y)]):
+            raise AssertionError("infinities differ")
+        fin = torch.isfinite(y)
+        d = (x[fin].double() - y[fin].double()).abs()
+        if d.numel():
+            abs_err = max(abs_err, float(d.max()))
+            rel = d / y[fin].double().abs().clamp(min=1e-300)
+            rel_err = max(rel_err, float(rel[y[fin] != 0].max())
+                          if bool((y[fin] != 0).any()) else 0.0)
+    if rel_err > FLOAT_ADD_RTOL:
+        raise AssertionError(f"add beyond rtol {FLOAT_ADD_RTOL}: {rel_err}")
+    return abs_err, rel_err
+
+
+def float_sass(library) -> dict:
+    """FFMA, FMUL and FADD instructions of each kernel of ``library``
+    (``cuobjdump -sass``): the float builds round every product and sum
+    on its own (``__fmul_rn``, ``__fadd_rn``), so no kernel may hold an
+    FFMA."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = kernel_name(m.group(1)) or m.group(1)
+            out[cur] = {"FFMA": 0, "FMUL": 0, "FADD": 0}
+            continue
+        if cur:
+            for k in out[cur]:
+                if re.search(rf"\b{k}\b", line):
+                    out[cur][k] += 1
+    return out
+
+
+def check_float_sass(sssp: dict, damped: dict) -> None:
+    """The float SSSP's lowered multiply-add stays two instructions: B1,
+    B2 and the union contract of its build hold an FMUL and an FADD and no
+    FFMA, and its fused fixed point as many FFMA as the damped count's
+    (whose message, a product alone, has nothing to contract): those
+    come from the IEEE divisions of AD's selector, which SASS computes
+    with FFMA steps.  Raises otherwise."""
+    def pick(counts, kernel):
+        found = [v for k, v in counts.items() if k.startswith(kernel)]
+        if len(found) != 1:
+            raise AssertionError(f"{kernel}: {len(found)} kernels in SASS")
+        return found[0]
+    relax = {k: pick(sssp, k) for k in ("relax_lanes_kernel",
+                                         "wd_relax_lanes_kernel",
+                                         "wd_relax_union_kernel")}
+    fused = {name: pick(c, "fused_fixed_point_kernel")["FFMA"]
+             for name, c in (("scaled_sssp", sssp), ("damped", damped))}
+    emit("float_sass", op="scaled_sssp", relax_kernels=relax,
+         fused_ffma=fused)
+    if any(v["FFMA"] or not (v["FMUL"] and v["FADD"])
+           for v in relax.values()) or fused["scaled_sssp"] != fused[
+               "damped"]:
+        raise AssertionError(f"the float SSSP's multiply-add was "
+                             f"contracted: {relax} {fused}")
+
+
+def float_kernel_checks(g, dev, ops: dict, rng) -> dict:
+    """B2 and B1 (both contracts each) and B1's batch contract built for
+    each float32 operator, against their plain versions on CPU copies:
+    rmat20's node count, float extremes among the values and int32
+    extremes among the weights (B2: 1,001 and N + 3 lanes; B1: frontiers
+    of N/64 and N/8 slots; the batch: K = 8 rows of ~N/100 nodes).  The
+    proposal contracts take every extreme, the folds into dist the values
+    of the operator's domain (``in_domain``).
+    Returns (operator, kernel) -> (max abs, max rel) error; raises on a
+    difference."""
+    import torch
+    from repro_torch.core import multi_source as ms
+    from repro_torch.kernels import relax
+    n = g.num_nodes
+    err, cases = {}, 0
+
+    def cpu(args):
+        return tuple(None if a is None else a.cpu() for a in args)
+
+    def check(key, got, want, op):
+        nonlocal cases
+        e = float_err(got, want, op)
+        old = err.get(key, (0.0, 0.0))
+        err[key] = (max(old[0], e[0]), max(old[1], e[1]))
+        cases += 1
+
+    wt = with_extremes(rng, g.wt)
+    col_c, wt_c = g.col.cpu(), wt.cpu()
+    for name, op in ops.items():
+        for lanes in (1001, n + 3):
+            b = lane_inputs(rng, n, lanes, dev)
+            dist = torch.from_numpy(float_values(rng, op, n)).to(dev)
+            args = (dist, b["src"], b["dst"], with_extremes(rng, b["w"]),
+                    b["valid"])
+            check((name, "relax_lanes"), relax.relax_lanes(*args, op=op),
+                  relax.relax_lanes_plain(*cpu(args), op=op), op)
+            mask = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+            dist = in_domain(op, dist)
+            want = relax.apply_relax_plain(dist.cpu(), mask.cpu(),
+                                           *cpu(args[1:]), op=op)
+            check((name, "relax_lanes"),
+                  relax.apply_relax(dist, mask, *args[1:], op=op), want, op)
+        for f_slots, cursor_max in ((n >> 6, 0), (n >> 3, 2)):
+            a = wd_inputs(g, rng, f_slots, cursor_max, dev)
+            dist = torch.from_numpy(float_values(rng, op, n)).to(dev)
+            args = (a["prefix"], a["exclusive"], a["start"], a["src_ids"],
+                    g.col, wt)
+            cargs = cpu(args[:4]) + (col_c, wt_c)
+            kw = dict(cap_work=a["cap_work"], op=op)
+            check((name, "wd_relax_lanes"),
+                  relax.wd_relax_lanes(dist, *args, **kw),
+                  relax.wd_relax_lanes_plain(dist.cpu(), *cargs, **kw), op)
+            mask = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+            dist = in_domain(op, dist)
+            want = relax.wd_apply_relax_plain(dist.cpu(), mask.cpu(),
+                                              *cargs, **kw)
+            check((name, "wd_relax_lanes"),
+                  relax.wd_apply_relax(dist, mask, *args, **kw), want, op)
+        k = BATCH_K
+        mask_b = torch.from_numpy(rng.random((k, n)) < 0.01).to(dev)
+        dist_b = in_domain(op, torch.from_numpy(
+            float_values(rng, op, (k, n))).to(dev))
+        dist_t = ms.to_node_major(dist_b, op.identity)
+        front_t = ms.to_node_major(mask_b, False)
+        tables = ms.union_tables(g, front_t.any(1), n)
+        uargs = (dist_t, front_t, *tables, g.col, wt)
+        check((name, "wd_relax_lanes_batch"),
+              relax.wd_apply_relax_union(*uargs, cap_work=g.num_edges,
+                                         max_lanes=int(tables[0][-1]), op=op),
+              relax.wd_apply_relax_union_plain(
+                  *cpu(uargs[:6]), col_c, wt_c, cap_work=g.num_edges,
+                  op=op), op)
+    emit("float_kernels_check", cases=cases, operators=list(ops),
+         max_err={f"{a}/{b}": v for (a, b), v in err.items()},
+         add_rtol=FLOAT_ADD_RTOL)
+    return err
+
+
+def float_ops_phase(g, dev, *, small_scale: int = 16,
+                    road_side: int = ROAD_SIDE,
+                    small_road_side: int = 256) -> list:
+    """float32 operators on the card (module docstring, ``float_ops``).
+    The entry calls of each operator run with the counts set to 0 before
+    them and read after them: the kernel line's ``<kernel><op>`` rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, fused, priority
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import rmat_graph, road_grid_graph
+    from repro_torch.kernels import _build, opgen
+    from repro_torch.kernels import fused as fused_kernel
+    from repro_torch.kernels.relax import LAUNCHES
+
+    rng = np.random.default_rng(29)
+    steps, t_step = {}, [time.perf_counter()]
+
+    def step(name):
+        """The seconds since the last step, as ``name``'s."""
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    gname = f"rmat{g.num_nodes.bit_length() - 1}"
+    source = int(g.degrees.argmax())
+    ops = float_ops()
+    builds = custom_builds(ops, line="float_build")
+    sass = {name: float_sass(_build.custom_library_path(
+        opgen.lower(ops[name]).header)) for name in ("scaled_sssp", "damped")}
+    check_float_sass(sass["scaled_sssp"], sass["damped"])
+    step("builds")
+    err = float_kernel_checks(g, dev, ops, rng)
+    step("kernel_checks")
+
+    launches, stepped, fused_err = {}, {}, {}
+
+    def counted(name, calls):
+        zero_counts()
+        calls()
+        for key, v in LAUNCHES.items():
+            launches.setdefault(name, {}).setdefault(key, 0)
+            launches[name][key] += v
+
+    def agree(name, a, b, counts=True):
+        """Two runs equal bit for bit (min, max) or within the add's
+        tolerance; with ``counts``, in iterations and edges too."""
+        float_err([torch.from_numpy(a.dist)], [torch.from_numpy(b.dist)],
+                  ops[name])
+        if counts and (a.iterations, a.edges_relaxed) != (b.iterations,
+                                                          b.edges_relaxed):
+            raise AssertionError(f"{name}: counts differ")
+
+    dag = layered_dag(*FLOAT_DAG, dev)
+    graphs = {"scaled_sssp": (g, source), "reliable": (g, source),
+              "damped": (dag, 0)}
+
+    def big_runs(name):
+        op = ops[name]
+        graph, src = graphs[name]
+        runs = []
+        for strategy in CUSTOM_STRATEGIES:
+            for mode in ("stepped", "fused"):
+                r = engine.run(graph, src, make_strategy(strategy), op=op,
+                               mode=mode, device=dev)
+                if r.dist.dtype != np.float32:
+                    raise AssertionError(f"{name}: dist {r.dist.dtype}")
+                runs.append(r)
+                if strategy == "WD":
+                    stepped.setdefault((name, mode), r)
+            emit("float_run", graph=gname if graph is g else "dag",
+                 op=op.name, strategy=strategy,
+                 iterations=runs[-1].iterations,
+                 edges_relaxed=runs[-1].edges_relaxed,
+                 stepped_seconds=runs[-2].traversal_seconds,
+                 fused_seconds=runs[-1].traversal_seconds)
+        for i in range(0, len(runs), 2):      # stepped, fused a strategy
+            agree(name, runs[i], runs[i + 1])
+            agree(name, runs[i], runs[0], counts=False)
+
+    for name in ops:
+        counted(name, lambda name=name: big_runs(name))
+    step("full_size_runs")
+
+    small = rmat_graph(scale=small_scale, edge_factor=8, weighted=True,
+                       seed=1, device=dev)
+    s_src = int(small.degrees.argmax())
+    small_dag = layered_dag(*FLOAT_SMALL_DAG, dev)
+    small_graphs = {"scaled_sssp": (small, s_src), "reliable": (small, s_src),
+                    "damped": (small_dag, 0)}
+
+    def cpu_runs(name):
+        """Each strategy stepped and fused on the card, equal to each
+        other and to an oracle off the card: the float SSSP to the float32
+        Dijkstra, the others to the CPU's stepped run (the CPU's fused
+        loop costs more there and equals its stepped run in the CPU
+        tests)."""
+        op = ops[name]
+        graph, src = small_graphs[name]
+        for strategy in CUSTOM_STRATEGIES:
+            card = [engine.run(graph, src, make_strategy(strategy), op=op,
+                               mode=mode, device=dev)
+                    for mode in ("stepped", "fused")]
+            agree(name, card[0], card[1])
+            if name == "scaled_sssp":
+                if not np.array_equal(card[1].dist.view(np.int32),
+                                      oracle.view(np.int32)):
+                    raise AssertionError(f"scaled_sssp {strategy} != "
+                                         f"float32 Dijkstra")
+            else:
+                agree(name, card[1], engine.run(
+                    graph, src, make_strategy(strategy), op=op,
+                    mode="stepped", device="cpu"))
+        sources = [src, 0, 3, 3]
+        for mode in ("stepped", "fused"):
+            card, cpu = (engine.run_batch(graph, sources, op=op, mode=mode,
+                                          device=dv) for dv in (dev, "cpu"))
+            agree(name, card, cpu)
+        emit("float_cpu_compare", graph=(f"rmat{small_scale}"
+                                         if graph is small else "small_dag"),
+             op=op.name, strategies=list(CUSTOM_STRATEGIES),
+             card_modes=["stepped", "fused"],
+             cpu_modes=[] if name == "scaled_sssp" else ["stepped"],
+             batch_k=4, batch_modes=["stepped", "fused"], equal=True,
+             dijkstra=name == "scaled_sssp")
+
+    oracle = float32_dijkstra(small, s_src, FLOAT_SCALE)
+    for name in ops:
+        counted(name, lambda name=name: cpu_runs(name))
+    step("cpu_compare")
+
+    sssp_op = ops["scaled_sssp"]
+    sources = batch_sources(g, BATCH_K)
+    road = road_grid_graph(side=road_side, weighted=True, seed=4,
+                           device=dev)
+    road_src = int(road.degrees.argmax())
+    road_small = road_grid_graph(side=small_road_side, weighted=True,
+                                 seed=4, device=dev)
+
+    def paths(name):
+        op = ops[name]
+        singles = [engine.run(g, int(s), make_strategy("WD"), op=op,
+                              mode="fused", device=dev) for s in sources]
+        for mode in ("stepped", "fused"):
+            b = engine.run_batch(g, sources, op=op, mode=mode, device=dev)
+            if not all(np.array_equal(row.view(np.int32),
+                                      r.dist.view(np.int32))
+                       for row, r in zip(b.dist, singles)):
+                raise AssertionError(f"{name} K = {BATCH_K} {mode} batch "
+                                     f"!= its single runs")
+        rs = int(road_small.degrees.argmax())
+        agree(name, *(engine.run(road_small, rs, make_strategy("WD"), op=op,
+                                 mode=mode, schedule="delta", device=dev)
+                      for mode in ("stepped", "fused")))
+        sharded = engine.run(small, s_src, make_strategy("WD"), op=op,
+                             mode="fused", shards=2, device=dev)
+        one = engine.run(small, s_src, make_strategy("WD"), op=op,
+                         mode="fused", device=dev)
+        agree(name, sharded, one)
+        out = dict(op=op.name, batch_k=BATCH_K, batch_equals_singles=True,
+                   delta_graph=f"road{small_road_side}",
+                   delta_stepped_equals_fused=True,
+                   shard_graph=f"rmat{small_scale}", shards=2,
+                   sharded_equal=True)
+        if name == "scaled_sssp":
+            t0 = time.perf_counter()
+            r = engine.run(road, road_src, make_strategy("WD"), op=op,
+                           mode="fused", schedule="delta", device=dev)
+            run_s = time.perf_counter() - t0
+            want = float32_dijkstra(road, road_src, FLOAT_SCALE)
+            if not np.array_equal(r.dist.view(np.int32),
+                                  want.view(np.int32)):
+                raise AssertionError("float SSSP delta on road != "
+                                     "float32 Dijkstra")
+            out.update(road=f"road{road_side}", road_delta=r.delta,
+                       road_epochs=r.iterations, road_run_seconds=run_s,
+                       road_equals_dijkstra=True)
+        emit("float_paths", **out)
+
+    for name in ("scaled_sssp", "reliable"):
+        counted(name, lambda name=name: paths(name))
+
+    def damped_batch():
+        for mode in ("stepped", "fused"):
+            card, cpu = (engine.run_batch(small_dag, [0, 1, 5, 5], op=ops[
+                "damped"], mode=mode, device=dv) for dv in (dev, "cpu"))
+            agree("damped", card, cpu)
+
+    counted("damped", damped_batch)
+    step("paths")
+    for name in ops:
+        emit("float_launches", op=ops[name].name, launches=launches[name])
+        for _, key, _, _ in CUSTOM_KERNELS:
+            if launches[name][key] < 1:
+                raise AssertionError(f"{name} never launched {key}: "
+                                     f"{launches[name]}")
+
+    # the fused kernel against its plain loop (AD's choices and the chunks
+    # too) at full size, WD on rmat20 (the dag for add), on the same card
+    # tensors: these messages divide by a tensor, if at all, which the
+    # card's torch divides as IEEE does (its reciprocal is for a scalar
+    # divisor); every strategy at rmat16 met the CPU's plain loop above
+    for name, op in ops.items():
+        graph, src = graphs[name]
+        args, kw = fused_args(graph, "WD", src, op, dev)
+        got = fused_kernel.fixed_point(*args, **kw)
+        want = fused._fixed_point_plain(*args, **kw)
+        if got[1:] != want[1:]:
+            raise AssertionError(f"fused {name} WD counts")
+        fused_err[name] = float_err([got[0]], [want[0]], op)
+    strat = make_strategy("WD")
+    for name in ("scaled_sssp", "reliable"):
+        op = ops[name]
+        plan = priority.plan_delta(strat, strat.setup(road_small),
+                                   road_small, op=op, delta=ROAD_DELTA)
+        s0 = int(road_small.degrees.argmax())
+        dist0 = torch.full((road_small.num_nodes,), op.identity,
+                           dtype=op.dtype, device=dev)
+        dist0[s0] = op.seed(s0)
+        mask0 = torch.zeros(road_small.num_nodes, dtype=torch.bool,
+                            device=dev)
+        mask0[s0] = True
+        dkw = dict(op=op, sched=plan.sched, delta=plan.delta,
+                   max_iterations=100000)
+        got = fused_kernel.delta_fixed_point(
+            plan.kernel, plan.light, plan.heavy_graph, plan.aux, dist0, mask0,
+            **dkw)
+        heavy = plan.heavy_graph
+        want = priority._delta_fixed_point_plain(
+            plan.kernel, plan.light.to("cpu"),
+            None if heavy is None else heavy.to("cpu"),
+            None if plan.aux is None else plan.aux.cpu(), dist0.cpu(),
+            mask0.cpu(), **dkw)
+        float_err(got[:2], want[:2], op)
+        if got[2:] != want[2:]:
+            raise AssertionError(f"{name} delta kernel != plain loop")
+    emit("float_fused_vs_plain",
+         graphs=[gname, "dag", f"road{small_road_side} delta (CPU copies)"],
+         max_err=fused_err, equal=True)
+    step("fused_vs_plain")
+
+    # the kernel line's rows, each float instance timed
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)   # > L2
+    kept = batch_calls(g, dev, sources, widest_only=True, op=sssp_op)[0]
+    rows = []
+    for name, op in ops.items():
+        graph, src = graphs[name]
+        fvals = torch.from_numpy(float_values(
+            rng, op, g.num_nodes)).to(dev)
+        fvals = torch.where(fvals.isnan() | fvals.isinf(),
+                            torch.zeros_like(fvals), fvals)
+        c = dict(kept, dist_t=kept["dist_t"].clone())
+        if op.combine == "max":     # reliable's domain: [0, 1]
+            c["dist_t"] = c["dist_t"].clamp(max=1.0)
+        timed_rows = {
+            "relax_lanes": time_b2(lane_inputs(rng, g.num_nodes,
+                                               8 * g.num_nodes, dev),
+                                   fvals, op, 10, flush),
+            "wd_relax_lanes": time_b1(g, wd_inputs(g, rng, g.num_nodes, 0,
+                                                   dev), fvals, op, 10, flush),
+            "wd_relax_lanes_batch": b1_batch_time(g, c, op=op)}
+        args, kw = fused_args(graph, "WD", src, op, dev)
+        wd = stepped[(name, "stepped")]
+        bound_ms, bound_by = bound(run_bytes(graph, wd), 0)
+        timed_rows["fused_fixed_point"] = dict(
+            ms=time_ms(lambda: fused_kernel.fixed_point(*args, **kw)),
+            ms_warm=time_ms(lambda: fused_kernel.fixed_point(*args, **kw)),
+            plain_ms=time_ms(lambda: fused._fixed_point_plain(*args, **kw),
+                             reps=3),
+            bound_ms=bound_ms, bound_by=bound_by,
+            shape=dict(graph=gname if graph is g else "dag", run="WD",
+                       iterations=wd.iterations,
+                       edges_relaxed=wd.edges_relaxed))
+        for kernel, key, src_file, replaces in CUSTOM_KERNELS:
+            e = (fused_err[name] if kernel == "fused_fixed_point"
+                 else err[(name, kernel)])
+            rows.append(dict(
+                name=f"{kernel}<{op.name}>", route="cuda", source=src_file,
+                replaces=replaces, launches=launches[name][key],
+                max_abs_err=e[0], max_rel_err=e[1], library_ms=None,
+                op=op.name, dtype="float32",
+                registers=builds[name]["attrs"][
+                    "wd_relax_union" if kernel == "wd_relax_lanes_batch"
+                    else kernel]["registers"],
+                **timed_rows[kernel]))
+    emit("float_kernels_time", rows=rows, nvidia_smi=nvidia_smi())
+    step("timing")
+    emit("float_phase_steps", seconds=steps)
     return rows
 
 
@@ -4994,6 +5556,7 @@ def main() -> int:
     del results
     timed("algos", algos_phase, g, dev, small_scale=16)
     rows += timed("custom_ops", custom_ops_phase, g, dev)
+    rows += timed("float_ops", float_ops_phase, g, dev)
     del g
 
     lm_rows = timed("lm_kernels", lm_kernel_phase, dev)

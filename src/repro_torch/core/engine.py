@@ -190,6 +190,15 @@ def _original(dist: torch.Tensor, strategy: StrategyBase) -> np.ndarray:
     return dist.cpu().numpy()
 
 
+def check_kernels(op: operators.EdgeOp, dev: torch.device) -> None:
+    """On a CUDA device, raise ``NotImplementedError`` before anything is
+    allocated for an operator no kernel takes (``EdgeOp.kernel_codes``:
+    its dtype, or add with a nonzero identity); a callable the lowering
+    refuses raises at its first launch, before the build."""
+    if dev.type == "cuda":
+        op.kernel_codes()
+
+
 def _planning_graph(graph: CSRGraph, dev: torch.device,
                     shards: Optional[int]) -> CSRGraph:
     """The graph a run plans on: on ``dev``, but a sharded run plans and
@@ -252,11 +261,13 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
     _check_sharding(strategy, mode, shards)
     _check_schedule(strategy, schedule, delta, op, shards, async_shards)
     dev = resolve_device(device)
+    check_kernels(op, dev)
     if not 0 <= int(source) < graph.num_nodes:
         raise ValueError(f"source {source} outside [0, {graph.num_nodes})")
     if graph.num_edges == 0:        # degenerate: nothing to relax
-        dist = np.full(graph.num_nodes, op.identity, np.int32)
+        dist = torch.full((graph.num_nodes,), op.identity, dtype=op.dtype)
         dist[source] = op.seed(source)
+        dist = dist.numpy()         # the operator's dtype, as every run's
         return RunResult(dist=dist, iterations=0, total_seconds=0.0,
                          setup_seconds=0.0, kernel_seconds=0.0,
                          overhead_seconds=0.0, edges_relaxed=0,
@@ -415,6 +426,7 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
     _check_sharding(strategy, mode, shards)
     _check_schedule(strategy, schedule, delta, op, shards, async_shards)
     dev = resolve_device(device)
+    check_kernels(op, dev)
     graph = _planning_graph(graph, dev, shards)
     state = strategy.setup(graph)
     values, mask = init(_n_alloc(graph, strategy))

@@ -286,7 +286,7 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
     delta batch, a sharded delta batch and a source outside ``[0, N)``
     raise ``ValueError`` (the reference drops such a source silently)."""
     from repro_torch.core.engine import (_check_mode, _check_schedule,
-                                         _check_sharding)
+                                         _check_sharding, check_kernels)
     _check_mode(mode)
     _check_sharding(None, mode, shards)
     op = operators.resolve(op)
@@ -296,6 +296,7 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
             "batched delta-stepping runs whole per-row traversals, a "
             "fused-only construction; pass mode='fused'")
     dev = resolve_device(device)
+    check_kernels(op, dev)
     n = graph.num_nodes
     sources = np.asarray(sources, np.int32).reshape(-1)
     if np.any((sources < 0) | (sources >= n)):
@@ -307,11 +308,13 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
                 shards=shards or 1, schedule=schedule, delta=delta,
                 pad_lanes=pad_lanes)
     if k == 0:
-        return BatchRunResult(dist=np.zeros((0, n), np.int32), **done)
-    if graph.num_edges == 0:
-        dist = np.full((k, n), op.identity, np.int32)
-        dist[np.arange(k), sources] = op.seed(sources)
-        return BatchRunResult(dist=dist, **done)
+        return BatchRunResult(
+            dist=torch.zeros((0, n), dtype=op.dtype).numpy(), **done)
+    if graph.num_edges == 0:        # the operator's dtype, as every run's
+        dist = torch.full((k, n), op.identity, dtype=op.dtype)
+        dist[torch.arange(k), torch.from_numpy(sources).long()] = \
+            torch.as_tensor(op.seed(sources), dtype=op.dtype)
+        return BatchRunResult(dist=dist.numpy(), **done)
 
     sched = work_schedule if work_schedule is not None else DEFAULT_SCHEDULE
     if shards is None:      # a sharded batch holds its shards alone on dev

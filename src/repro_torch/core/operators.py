@@ -4,15 +4,24 @@ load-balancing schedule (the port of :mod:`repro.core.operators`).
 An :class:`EdgeOp` is a per-edge ``message`` plus a commutative monoid
 (``combine`` ∈ min/max/add with neutral ``identity``) that folds messages
 into the destination's value, and an activation predicate
-(:meth:`EdgeOp.improves`).  Callables take and return int32 tensors.
+(:meth:`EdgeOp.improves`).  Callables take values of the operator's
+``dtype`` and int32 weights, as the reference passes them.
 
 The hand-written CUDA relax kernels cannot call Python, so
 :meth:`EdgeOp.kernel_codes` maps the built-in message functions (by
 identity) and ``combine`` to the integer codes the kernels switch on.  An
-operator with a message of its own or an ``update`` predicate takes the
-code :data:`MSG_CUSTOM`: on CUDA tensors its callables are lowered to C++
-(:mod:`repro_torch.kernels.opgen`) and the kernels are built once more
-for it at first use (``kernels._build.custom_lib``).
+operator with a message of its own or an ``update`` predicate, and every
+float32 operator, takes the code :data:`MSG_CUSTOM`: on CUDA tensors its
+callables are lowered to C++ (:mod:`repro_torch.kernels.opgen`) and the
+kernels are built once more for it, with its value type, at first use
+(``kernels._build.custom_lib``).
+
+A float32 ``min`` or ``max`` folds as IEEE 754-2019 ``minimum`` and
+``maximum`` do, and as the reference's ``.at[].min/max`` does: −0.0
+ranks below +0.0 and a NaN absorbs every other value
+(:meth:`EdgeOp.scatter`, :meth:`EdgeOp.fold_values`).  Float ``add``
+depends on the order of its terms, on the card (a compare-and-swap of
+the rounded sum) as in the reference.
 
 Built-ins (same semantics as the reference):
 
@@ -45,8 +54,17 @@ KERNEL_COMBINES = {"min": 0, "max": 1, "add": 2}
 _SCATTER_REDUCE = {"min": "amin", "max": "amax", "add": "sum"}
 
 #: where the operator features the CUDA kernels lack are tracked
-DTYPE_ROADMAP = ("ROADMAP.md queue C: operators of another dtype than "
-                     "int32")
+DTYPE_ROADMAP = ("ROADMAP.md queue C: operators of a sub-word or 64-bit "
+                 "dtype")
+
+#: the value types the CUDA kernels are built for
+KERNEL_DTYPES = (torch.int32, torch.float32)
+
+#: the NaN a float32 fold writes where a candidate is NaN, by combine: the
+#: card's sign-split atomics keep it against every later candidate
+#: (``fold`` in kernels/csrc/relax_lanes.cuh), and the plain fold writes
+#: the same
+FOLD_NAN_BITS = {"min": -1, "max": 0x7FFFFFFF}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,10 +75,10 @@ class EdgeOp:
     #: the fold monoid: "min" | "max" | "add"
     combine: str
     #: neutral element of ``combine``; also the "unreached" value
-    identity: int
+    identity: float
     #: value seeded at an active source; ``None`` = the node's own id
-    source_value: Optional[int]
-    #: ``(val_src, w) -> candidate`` on int32 tensors
+    source_value: Optional[float]
+    #: ``(val_src, w) -> candidate``: values of ``dtype``, int32 weights
     message: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     #: optional activation override ``(candidate, current) -> bool``
     update: Optional[Callable[[torch.Tensor, torch.Tensor],
@@ -71,7 +89,7 @@ class EdgeOp:
     #: deferred (``priority.plan_delta`` splits only such operators)
     weight_additive: bool = False
     #: lower bound of the value domain, as in the reference
-    value_min: Optional[int] = None
+    value_min: Optional[float] = None
 
     def __post_init__(self):
         if self.combine not in _COMBINES:
@@ -92,11 +110,31 @@ class EdgeOp:
                 cand: torch.Tensor, improve: torch.Tensor) -> torch.Tensor:
         """Fold improving candidates into ``dist[dst]`` **in place** and
         return ``dist``.  Masked lanes contribute ``identity``, which is
-        neutral for the monoid."""
-        vals = torch.where(improve, cand, self.identity)
+        neutral for the monoid.  A float ``min``/``max`` folds by
+        :func:`_scatter_ordered`: ``scatter_reduce_`` would keep whichever
+        of −0.0 and +0.0 comes first."""
+        vals = torch.where(improve, cand, self.identity).to(dist.dtype)
+        if dist.is_floating_point() and self.combine != "add":
+            return _scatter_ordered(dist, dst.long(), vals, self.combine)
         return dist.scatter_reduce_(0, dst.long(), vals,
                                     _SCATTER_REDUCE[self.combine],
                                     include_self=True)
+
+    def fold_values(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The monoid of ``a`` and ``b`` elementwise.  A float ``min`` or
+        ``max`` of −0.0 and +0.0 gives −0.0 or +0.0 whatever their order
+        (``torch.minimum``/``maximum`` return either, by the loop that
+        evaluates the element); NaN propagates."""
+        if self.combine == "add":
+            return a + b
+        low = self.combine == "min"
+        out = (torch.minimum if low else torch.maximum)(a, b)
+        if a.is_floating_point():
+            neg = (a.signbit() | b.signbit()) if low else \
+                (a.signbit() & b.signbit())
+            out = torch.where((a == 0) & (b == 0),
+                              torch.where(neg, -0.0, 0.0), out)
+        return out
 
     def seed(self, source: int) -> int:
         """Initial value planted at an active source."""
@@ -106,25 +144,59 @@ class EdgeOp:
     def idempotent(self) -> bool:
         return self.combine in ("min", "max")
 
-    def kernel_codes(self) -> tuple[int, int]:
-        """``(message code, combine code)`` for the CUDA kernels: a
-        built-in message with no ``update`` keeps its own code
-        (:data:`KERNEL_MESSAGES`), any other operator takes
-        :data:`MSG_CUSTOM` and runs its lowered callables.  Raises
-        ``NotImplementedError`` for what no kernel takes: a non-int32
-        ``dtype``, or ``add`` with a nonzero identity."""
-        # the kernels hold int32 values, and 0 is the only neutral
-        # element of int32 addition
-        if self.dtype != torch.int32 or (self.combine == "add"
-                                         and self.identity != 0):
+    def kernel_codes(self) -> tuple[int, int, torch.dtype]:
+        """``(message code, combine code, value type)`` for the CUDA
+        kernels: an int32 operator whose message is a built-in one and
+        which has no ``update`` keeps its message's code
+        (:data:`KERNEL_MESSAGES`); any other int32 operator, and every
+        float32 one, takes :data:`MSG_CUSTOM` and runs its lowered
+        callables (a float32 build of its own).  Raises
+        ``NotImplementedError`` for what no kernel takes: a ``dtype``
+        outside :data:`KERNEL_DTYPES`, or ``add`` with a nonzero
+        identity."""
+        # the kernels hold int32 or float32 values, and 0 is the only
+        # neutral element of their addition
+        if self.dtype not in KERNEL_DTYPES or (self.combine == "add"
+                                               and self.identity != 0):
             raise NotImplementedError(
-                f"operator {self.name!r}: the CUDA relax kernels take "
-                f"int32 values and the additive identity 0 "
-                f"({DTYPE_ROADMAP})")
+                f"operator {self.name!r} ({self.dtype}): the CUDA relax "
+                f"kernels take int32 or float32 values and the additive "
+                f"identity 0 ({DTYPE_ROADMAP})")
         msg = KERNEL_MESSAGES.get(self.message)
-        if msg is None or self.update is not None:
+        if msg is None or self.update is not None or \
+                self.dtype != torch.int32:
             msg = MSG_CUSTOM
-        return msg, KERNEL_COMBINES[self.combine]
+        return msg, KERNEL_COMBINES[self.combine], self.dtype
+
+
+def _order_keys(bits: torch.Tensor) -> torch.Tensor:
+    """float32 bits (as int32) to int32 keys in the values' order, −0.0
+    below +0.0: the negative values' bits reflected.  The same map takes
+    keys back to bits."""
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def _scatter_ordered(dist: torch.Tensor, dst: torch.Tensor,
+                     vals: torch.Tensor, combine: str) -> torch.Tensor:
+    """``dist[dst]`` folded with ``vals`` by IEEE 754-2019 ``minimum``
+    (``maximum``), in place: as the reference's ``.at[].min/max`` and the
+    card's fold, whatever the order of the lanes.  An entry that was NaN
+    stays as it was; one that takes a NaN becomes
+    :data:`FOLD_NAN_BITS`."""
+    reduce = _SCATTER_REDUCE[combine]
+    neutral = 2 ** 31 - 1 if combine == "min" else -2 ** 31
+    bits = dist.view(torch.int32)
+    was_nan, nan = torch.isnan(dist), torch.isnan(vals)
+    keys = _order_keys(bits).masked_fill(was_nan, neutral)
+    keys.scatter_reduce_(0, dst, _order_keys(vals.view(torch.int32))
+                         .masked_fill(nan, neutral), reduce,
+                         include_self=True)
+    took_nan = torch.zeros(dist.shape, dtype=torch.uint8,
+                           device=dist.device).scatter_reduce_(
+        0, dst, nan.to(torch.uint8), "amax").bool()
+    out = torch.where(took_nan, FOLD_NAN_BITS[combine], _order_keys(keys))
+    bits.copy_(torch.where(was_nan, bits, out))
+    return dist
 
 
 def _sum_message(v, w):

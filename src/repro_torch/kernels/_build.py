@@ -8,12 +8,14 @@ and loaded with ``ctypes``.  A library whose hash matches is reused, so a
 process builds at most once per source change.  Nothing is built or
 loaded at import time.
 
-A user-defined operator (:data:`~repro_torch.core.operators.MSG_CUSTOM`)
-gets a library of its own at first use (:func:`custom_lib`): its
-callables lowered to a header (:mod:`repro_torch.kernels.opgen`),
-``relax.cu`` and ``fused.cu`` compiled once more with it for that one
-operator, named by the hash of the header, the sources and the flags, and
-cached in the process and on disk, so two callables of the same body
+A user-defined operator, and every float32 one
+(:data:`~repro_torch.core.operators.MSG_CUSTOM`), gets a library of its
+own at first use (:func:`custom_lib`): its callables lowered to a header
+(:mod:`repro_torch.kernels.opgen`) that also names the value type
+(``REPRO_OP_FLOAT``: ``float`` values), ``relax.cu`` and ``fused.cu``
+compiled once more with it for that one operator and value type, named
+by the hash of the header, the sources and the flags, and cached in the
+process and on disk, so two callables of the same body and value type
 share one.  :func:`op_library` gives each launch site its library and
 codes.
 """
@@ -307,7 +309,7 @@ def op_library(op) -> tuple[ctypes.CDLL, int, int]:
     fused launch site resolves its operator here."""
     from repro_torch.core.operators import MSG_CUSTOM
 
-    msg, comb = op.kernel_codes()
+    msg, comb, _ = op.kernel_codes()
     return (custom_lib(op) if msg == MSG_CUSTOM else lib()), msg, comb
 
 

@@ -25,8 +25,9 @@
 // and AD's choices equal it bit for bit: one chunk per BS or NS column,
 // per HP tile and for HP's cursor-aware WD tail, one per WD or EP
 // iteration; AD takes BS, WD or HP.  A chunk's lanes read a snapshot that
-// no lane of the chunk writes and fold improving candidates with int32
-// atomics into the other of two value buffers; an improving lane notes its
+// no lane of the chunk writes and fold improving candidates with atomics
+// (relax_lanes.cuh fold: int32, or a float32 build's sign split) into the
+// other of two value buffers; an improving lane notes its
 // destination once (a per-node stamp of the chunk number, into one of two
 // lists by the chunk's parity).  What a chunk costs:
 //   * min and max (shortest_path, min_label, widest_path): ONE grid
@@ -218,7 +219,7 @@ struct Params {
   const int32_t* col;
   const int32_t* wt;         // null: weight 1
   const int32_t* aux;        // EP: edge sources [e]; NS: child -> parent [n]
-  const int32_t* dist0;
+  const Val* dist0;
   const uint8_t* mask0;
   int32_t n, e;
   int kernel, max_iterations, mdt, switch_threshold, small_frontier,
@@ -230,7 +231,7 @@ struct Params {
   int32_t tail_width;        // most live slots of a one-block BS column
   int32_t tail_min_columns;  // fewest columns a one-block BS tail takes
   int32_t narrow_edges;      // delta mode: most edges of a narrow phase
-  int32_t* val[2];           // the two value buffers; val[0] is the result
+  Val* val[2];               // the two value buffers; val[0] is the result
   int32_t* stamp;            // [n] the chunk that last noted a destination
   int32_t* dirty[2];         // [n] destinations noted, by chunk parity
   int32_t* list;             // [n] the frontier's nodes, ascending
@@ -673,8 +674,8 @@ struct PhaseNote {
 // note of an improving lane, the scope and the chunk's control slot.
 template <class Sc>
 struct Chunk {
-  const int32_t* snap;
-  int32_t* tgt;
+  const Val* snap;
+  Val* tgt;
   NoteHook note;
   Sc sc;
   unsigned* slot;
@@ -692,8 +693,8 @@ __device__ Chunk<Sc> begin_chunk(const Params& p, const Chunking& ch,
     next[0] = 0;
     next[1] = 0;
   }
-  const int32_t* snap = p.val[ch.cur()];
-  int32_t* tgt = p.val[ch.cur() ^ 1];
+  const Val* snap = p.val[ch.cur()];
+  Val* tgt = p.val[ch.cur() ^ 1];
   if (ch.pending()) {
     unsigned noted;
     const int32_t* dirty;
@@ -739,8 +740,8 @@ __device__ void settle(const Params& p, Chunking& ch, const Sc& sc) {
   unsigned noted;
   const int32_t* dirty;
   sc.last_noted(p, ch, noted, dirty);
-  const int32_t* from = p.val[ch.cur()];
-  int32_t* to = p.val[ch.cur() ^ 1];
+  const Val* from = p.val[ch.cur()];
+  Val* to = p.val[ch.cur() ^ 1];
   for (int64_t k = s_tid(sc); k < noted; k += s_threads(sc)) {
     const int32_t d = __ldcg(dirty + k);
     to[d] = __ldcg(from + d);
@@ -1004,8 +1005,8 @@ __device__ void tail_columns(const Params& p, const Graph& gr, int32_t d0,
   }
   __syncthreads();
   for (int32_t d = d0; d < d1; ++d) {
-    const int32_t* snap = p.val[cur];
-    int32_t* tgt = p.val[cur ^ 1];
+    const Val* snap = p.val[cur];
+    Val* tgt = p.val[cur ^ 1];
 #pragma unroll
     for (int j0 = 0; j0 < TAIL_LANES; j0 += TAIL_GROUP) {
       bool v[TAIL_GROUP], imp[TAIL_GROUP];
@@ -1089,7 +1090,7 @@ __device__ __forceinline__ void ns_gather(const Params& p,
   for (int64_t i = gtid(); i < p.n; i += gthreads()) {
     const int32_t par = __ldg(p.aux + i);
     if (par != i) {
-      const int32_t v = __ldcg(p.val[ch.cur()] + par);
+      const Val v = __ldcg(p.val[ch.cur()] + par);
       p.val[0][i] = v;
       p.val[1][i] = v;
       if (__ldcg(M + par)) M[i] = 1;
@@ -1148,7 +1149,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_fixed_point_kernel(Params p) {
   __shared__ WdSmem sm;
   for (int64_t i = gtid(); i < p.n; i += gthreads()) {
-    const int32_t v = __ldg(p.dist0 + i);
+    const Val v = __ldg(p.dist0 + i);
     p.val[0][i] = v;
     p.val[1][i] = v;
     p.stamp[i] = -1;
@@ -1238,6 +1239,23 @@ __device__ __forceinline__ int32_t bucket_of(int32_t v, int32_t delta) {
   const int32_t r = min(max(v, 0), VALUE_INF);
   return (COMB == COMB_MAX ? VALUE_INF - r : r) / delta;
 }
+
+#ifdef REPRO_OP_FLOAT
+// The same over float values, as torch computes worklist.bucket_index on
+// them: the clip's bounds are float32 (INF rounds to 2^30), a NaN stays
+// NaN; the reflection and the floor division by float32(delta) each round
+// once (c10's div_floor_floating, the lowered header's
+// repro_op_ffloordiv); then .to(int32), NaN giving INT32_MIN
+// (repro_op_f2i).  For ranks in [0, 2^30] and delta >= 1 this is also the
+// reference's jnp floor_divide.
+template <int COMB>
+__device__ __forceinline__ int32_t bucket_of(float v, int32_t delta) {
+  constexpr float inf = (float)VALUE_INF;
+  const float r = v < 0.0f ? 0.0f : (v > inf ? inf : v);
+  return repro_op_f2i(repro_op_ffloordiv(
+      COMB == COMB_MAX ? repro_op_fsub(inf, r) : r, repro_op_i2f(delta)));
+}
+#endif
 
 // A delta stage's scope: the grid, or block 0 alone.  A phase's improved
 // nodes go into U, and U is the only note.  A grid-wide phase lists a
@@ -1505,7 +1523,7 @@ __device__ __forceinline__ void epoch_stage(const Params& p,
   unsigned* const ctrl = p.ctrl;
   const int lane = threadIdx.x & 31, ep = st.it & 1, pq = st.q & 1;
   const unsigned nxt = st.msel() ^ 1;
-  const int32_t* vals = p.val[st.ch.cur()];
+  const Val* vals = p.val[st.ch.cur()];
   const int32_t* ml = p.mlist[st.msel()];
   const int32_t m = (int32_t)__ldcg(ctrl + CTRL_MCOUNT + st.msel());
   const int32_t s_last = (int32_t)__ldcg(ctrl + CTRL_SCOUNT + (ep ^ 1));
@@ -1596,9 +1614,9 @@ __device__ __forceinline__ void epoch_stage(const Params& p,
 __device__ __noinline__ void ns_mirror(const Params& p, const Graph& light,
                                        const DeltaState& st,
                                        const DeltaScope& sc) {
-  const int32_t* cur = p.val[st.ch.cur()];
+  const Val* cur = p.val[st.ch.cur()];
   const NoteHook note = sc.hook(p, st.ch);
-  auto mirror = [&](int32_t c, int32_t v) {
+  auto mirror = [&](int32_t c, Val v) {
     const bool moved = v != __ldcg(cur + c);
     p.val[0][c] = v;
     p.val[1][c] = v;
@@ -1615,7 +1633,7 @@ __device__ __noinline__ void ns_mirror(const Params& p, const Graph& light,
   const int32_t* last = p.ulist[(st.q - 1) & 1];
   for (int64_t k = gtid(); k < u; k += gthreads()) {
     const int32_t v = __ldcg(last + k);
-    const int32_t x = __ldcg(cur + v);
+    const Val x = __ldcg(cur + v);
     const int32_t c1 = __ldcg(p.dirty[1] + v);
     for (int32_t c = __ldcg(p.dirty[0] + v); c < c1; ++c) mirror(c, x);
   }
@@ -1707,14 +1725,14 @@ __device__ __forceinline__ void filter_stage(const Params& p,
   unsigned* const ctrl = p.ctrl;
   const int lane = threadIdx.x & 31, ep = st.it & 1, pn = (st.q & 1) ^ 1;
   const int32_t u = (int32_t)__ldcg(ctrl + CTRL_UCOUNT + st.q % 3);
-  const int32_t* vals = p.val[st.ch.cur()];
+  const Val* vals = p.val[st.ch.cur()];
   const int32_t b = NO_BUCKET - (int32_t)__ldcg(ctrl + CTRL_LIVE + 2 + ep);
   __shared__ int32_t bins[32];
   const bool binned = !heavy_turn && (p.kernel == K_BS || p.kernel == K_AD ||
                                       p.kernel == K_NS);
   const int par = binned ? bins_begin(p, st.ch, bins) : 0;
   int32_t sdeg = 0, mx = 0, unused = 0;
-  int32_t* const other = p.val[st.ch.cur() ^ 1];
+  Val* const other = p.val[st.ch.cur() ^ 1];
   for (int64_t i0 = s_tid(sc) - lane; i0 < u; i0 += s_threads(sc)) {
     const int64_t i = i0 + lane;
     int32_t v = 0, sl = 0, dl = 0;
@@ -1724,7 +1742,7 @@ __device__ __forceinline__ void filter_stage(const Params& p,
       // every load (and the narrow phase's stamp) the node may need, at
       // once
       const bool again = sc.alone && atomicExch(p.ustamp + v, st.q) == st.q;
-      const int32_t x = __ldcg(vals + v);
+      const Val x = __ldcg(vals + v);
       const bool in_m = __ldcg(p.live + v), in_s = __ldcg(p.settled + v),
                  held = __ldcg(p.listed + v);
       sl = __ldg(light.row_ptr + v);
@@ -1879,7 +1897,7 @@ fused_delta_kernel(const __grid_constant__ Params p,
     const int64_t i = i0 + lane;
     bool on = false;
     if (i < p.n) {
-      const int32_t v = __ldg(p.dist0 + i);
+      const Val v = __ldg(p.dist0 + i);
       p.val[0][i] = v;
       p.val[1][i] = v;
       p.ustamp[i] = -1;
@@ -2076,12 +2094,12 @@ cudaError_t launch_delta_t(Params p, Graph heavy, cudaStream_t st) {
 // control words.
 cudaError_t make_params(Params& p, const int32_t* row_ptr, const int32_t* col,
                         const int32_t* wt, int32_t n, int32_t e,
-                        const int32_t* aux, const int32_t* dist0,
+                        const int32_t* aux, const Val* dist0,
                         const uint8_t* mask0, int kernel, int max_iterations,
                         int mdt, int switch_threshold, int small_frontier,
                         float imbalance_threshold, int hp_edges_threshold,
                         int tail_width, int tail_min_columns,
-                        int32_t* dist, void* workspace,
+                        Val* dist, void* workspace,
                         long long workspace_bytes, long long* result,
                         cudaStream_t st, bool delta = false,
                         int32_t narrow_edges = 0) {
@@ -2111,7 +2129,7 @@ cudaError_t make_params(Params& p, const int32_t* row_ptr, const int32_t* col,
   p.tail_min_columns = tail_min_columns;
   p.narrow_edges = narrow_edges;
   p.val[0] = dist;
-  p.val[1] = reinterpret_cast<int32_t*>(ws + l.B);
+  p.val[1] = reinterpret_cast<Val*>(ws + l.B);
   p.stamp = reinterpret_cast<int32_t*>(ws + l.stamp);
   p.dirty[0] = reinterpret_cast<int32_t*>(ws + l.dirty0);
   p.dirty[1] = reinterpret_cast<int32_t*>(ws + l.dirty1);
@@ -2182,11 +2200,11 @@ int repro_fused_workspace_bytes(int32_t n, int delta, int narrow_edges,
 // if the grid cannot be resident).
 int repro_fused_fixed_point(
     const int32_t* row_ptr, const int32_t* col, const int32_t* wt,
-    int32_t n, int32_t e, const int32_t* aux, const int32_t* dist0,
+    int32_t n, int32_t e, const int32_t* aux, const Val* dist0,
     const uint8_t* mask0, int kernel, int msg, int comb, int max_iterations,
     int mdt, int switch_threshold, int small_frontier,
     float imbalance_threshold, int hp_edges_threshold, int tail_width,
-    int tail_min_columns, const float* coeffs, int32_t* dist,
+    int tail_min_columns, const float* coeffs, Val* dist,
     void* workspace, long long workspace_bytes, long long* result,
     void* stream) {
   if (!codes_ok(msg, comb) || kernel < K_BS || kernel > K_AD || n < 1 ||
@@ -2230,11 +2248,11 @@ int repro_fused_fixed_point(
 int repro_fused_delta(
     const int32_t* row_ptr, const int32_t* col, const int32_t* wt, int32_t e,
     const int32_t* hrow_ptr, const int32_t* hcol, const int32_t* hwt,
-    int32_t he, int32_t n, const int32_t* aux, const int32_t* dist0,
+    int32_t he, int32_t n, const int32_t* aux, const Val* dist0,
     const uint8_t* mask0, int kernel, int msg, int comb, int delta,
     int max_epochs, int mdt, int switch_threshold, int small_frontier,
     float imbalance_threshold, int hp_edges_threshold, int tail_width,
-    int tail_min_columns, int narrow_edges, int32_t* dist, uint8_t* mask,
+    int tail_min_columns, int narrow_edges, Val* dist, uint8_t* mask,
     void* workspace, long long workspace_bytes, long long* result,
     void* stream) {
   if (!codes_ok(msg, comb) || comb == COMB_ADD || kernel < K_BS ||

@@ -20,7 +20,9 @@
 // The Pallas kernels fake every gather and scatter with broadcast compares
 // over 128-wide VMEM chunks because the TPU vector unit cannot gather per
 // lane.  Hopper gathers natively, so B1 and B2 gather per lane and fold
-// with int32 atomics into a target buffer the caller gives.
+// with atomics into a target buffer the caller gives: int32 ones, or a
+// float32 operator's sign-split fold (relax_lanes.cuh, whose Val is the
+// value type of the build).
 //
 // Parity with the reference (bit for bit on int32):
 //   * every lane reads dist[src] and dist[dst] from the unmodified `dist`
@@ -33,8 +35,10 @@
 //     No lane of a launch sees another lane's write.
 //   * int32 atomicMin/atomicMax do not depend on order, and atomicAdd wraps
 //     like the reference's int32 add, so any atomic order gives the same
-//     bits.  The `sum` message v + w wraps through unsigned arithmetic
-//     (signed overflow is undefined in C++).
+//     bits; so does the float fold of min and max (a float add's sum
+//     depends on the order of its terms, in the reference too).  The
+//     `sum` message v + w wraps through unsigned arithmetic (signed
+//     overflow is undefined in C++).
 //   * updated[dst] = 1 wherever a lane improves dst: a benign race, every
 //     writer stores the same byte, into the caller's running mask.
 //
@@ -116,12 +120,12 @@ constexpr int B2_TILE = THREADS * B2_LANES;
 // t + THREADS of it, so every load of a warp is one coalesced run.
 template <int MSG, int COMB>
 __global__ void __launch_bounds__(THREADS)
-relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
+relax_lanes_kernel(const Val* __restrict__ dist, int32_t n,
                    const int32_t* __restrict__ src,
                    const int32_t* __restrict__ dst,
                    const int32_t* __restrict__ w,
                    const uint8_t* __restrict__ valid, int32_t lanes,
-                   int32_t* __restrict__ target, uint8_t* __restrict__ upd,
+                   Val* __restrict__ target, uint8_t* __restrict__ upd,
                    uint8_t* __restrict__ imp) {
   constexpr int L = B2_LANES;
   const int64_t tiles = ((int64_t)lanes + B2_TILE - 1) / B2_TILE;
@@ -157,14 +161,14 @@ relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
 // ---------------------------------------------------------------- B1 ---
 template <int MSG, int COMB>
 __global__ void __launch_bounds__(THREADS)
-wd_relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
+wd_relax_lanes_kernel(const Val* __restrict__ dist, int32_t n,
                       const int32_t* __restrict__ prefix,
                       const int32_t* __restrict__ excl,
                       const int32_t* __restrict__ start,
                       const int32_t* __restrict__ src_ids, int32_t f,
                       const int32_t* __restrict__ col,
                       const int32_t* __restrict__ wt, int32_t e,
-                      int32_t cap_work, int32_t* __restrict__ target,
+                      int32_t cap_work, Val* __restrict__ target,
                       uint8_t* __restrict__ upd, uint8_t* __restrict__ imp) {
   __shared__ WdSmem sm;
   const int64_t total = __ldg(prefix + f - 1);    // valid lanes: k < total
@@ -179,7 +183,8 @@ wd_relax_lanes_kernel(const int32_t* __restrict__ dist, int32_t n,
 // B1's batch contract over the union frontier, node-major.  The K rows'
 // values and frontier bytes are node-major, dist/target [n, kp] int32 and
 // front/upd [n, kp] bytes with kp = K rounded up to 4, so one node's
-// values of four rows are one 16-byte int4 and their frontier bytes one
+// values of four rows are one 16-byte Val4 (int4; float4 in a float
+// build) and their frontier bytes one
 // 4-byte word.  A slot is a node active in any row (the union frontier)
 // and a lane one out-edge of a slot: the merge path runs once over the
 // union's lanes, not once a row.  A lane takes kp / 4 items, one a thread,
@@ -204,22 +209,22 @@ constexpr int UB_ITEMS = 2;                   // items a thread takes
 constexpr int UB_TILE = THREADS * UB_ITEMS;   // items a block tile covers
 
 template <int MSG, int COMB>
-__device__ __forceinline__ void fold_quad(uint32_t fr, int4 ds, int4 dd,
+__device__ __forceinline__ void fold_quad(uint32_t fr, Val4 ds, Val4 dd,
                                           int32_t w, int64_t at,
                                           const int32_t* row_excl,
                                           int64_t rx_at, int32_t off,
-                                          int32_t cap_work, int32_t* target,
+                                          int32_t cap_work, Val* target,
                                           uint8_t* upd) {
   int4 rx = make_int4(0, 0, 0, 0);
   if (row_excl) rx = __ldg(reinterpret_cast<const int4*>(row_excl + rx_at));
-  const int32_t dsv[4] = {ds.x, ds.y, ds.z, ds.w};
-  const int32_t ddv[4] = {dd.x, dd.y, dd.z, dd.w};
+  const Val dsv[4] = {ds.x, ds.y, ds.z, ds.w};
+  const Val ddv[4] = {dd.x, dd.y, dd.z, dd.w};
   const int32_t rxv[4] = {rx.x, rx.y, rx.z, rx.w};
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
     if (!((fr >> (8 * b)) & 0xffu)) continue;
     if (row_excl && (int64_t)rxv[b] + off >= cap_work) continue;
-    const int32_t cand = message<MSG>(dsv[b], w);
+    const Val cand = message<MSG>(dsv[b], w);
     if (!improves<MSG, COMB>(cand, ddv[b])) continue;
     fold<COMB>(target + at + b, cand);
     upd[at + b] = 1;
@@ -228,7 +233,7 @@ __device__ __forceinline__ void fold_quad(uint32_t fr, int4 ds, int4 dd,
 
 template <int MSG, int COMB>
 __global__ void __launch_bounds__(THREADS)
-wd_relax_union_kernel(const int32_t* __restrict__ dist, int32_t n,
+wd_relax_union_kernel(const Val* __restrict__ dist, int32_t n,
                       int32_t kp, const uint8_t* __restrict__ front,
                       const int32_t* __restrict__ prefix,
                       const int32_t* __restrict__ excl,
@@ -237,7 +242,7 @@ wd_relax_union_kernel(const int32_t* __restrict__ dist, int32_t n,
                       const int32_t* __restrict__ row_excl, int32_t cap_work,
                       const int32_t* __restrict__ col,
                       const int32_t* __restrict__ wt, int32_t e,
-                      int32_t* __restrict__ target,
+                      Val* __restrict__ target,
                       uint8_t* __restrict__ upd) {
   constexpr int L = UB_ITEMS;
   __shared__ WdSmem sm;
@@ -302,13 +307,13 @@ wd_relax_union_kernel(const int32_t* __restrict__ dist, int32_t n,
       fr[j] = __ldg(reinterpret_cast<const unsigned int*>(
           front + (int64_t)s[j] * kp + 4 * q[j]));
     }
-    int4 ds[L], dd[L];
+    Val4 ds[L], dd[L];
 #pragma unroll
     for (int j = 0; j < L; ++j) {
       if (v[j] && fr[j]) {
-        ds[j] = __ldg(reinterpret_cast<const int4*>(
+        ds[j] = __ldg(reinterpret_cast<const Val4*>(
             dist + (int64_t)s[j] * kp + 4 * q[j]));
-        dd[j] = __ldg(reinterpret_cast<const int4*>(
+        dd[j] = __ldg(reinterpret_cast<const Val4*>(
             dist + (int64_t)c[j] * kp + 4 * q[j]));
       }
     }
@@ -431,9 +436,9 @@ inline unsigned grid_for(int64_t blocks, int64_t wave) {
 }
 
 template <int MSG, int COMB>
-void launch_lanes_t(cudaStream_t st, const int32_t* dist, int32_t n,
+void launch_lanes_t(cudaStream_t st, const Val* dist, int32_t n,
                     const int32_t* src, const int32_t* dst, const int32_t* w,
-                    const uint8_t* valid, int32_t lanes, int32_t* target,
+                    const uint8_t* valid, int32_t lanes, Val* target,
                     uint8_t* upd, uint8_t* imp) {
   static int per_sm = 0;
   const int64_t tiles = ((int64_t)lanes + B2_TILE - 1) / B2_TILE;
@@ -444,11 +449,11 @@ void launch_lanes_t(cudaStream_t st, const int32_t* dist, int32_t n,
 }
 
 template <int MSG, int COMB>
-void launch_wd_t(cudaStream_t st, const int32_t* dist, int32_t n,
+void launch_wd_t(cudaStream_t st, const Val* dist, int32_t n,
                  const int32_t* prefix, const int32_t* excl,
                  const int32_t* start, const int32_t* src_ids, int32_t f,
                  const int32_t* col, const int32_t* wt, int32_t e,
-                 int32_t cap_work, int32_t* target, uint8_t* upd,
+                 int32_t cap_work, Val* target, uint8_t* upd,
                  uint8_t* imp) {
   static int per_sm = 0;
   const int64_t tiles = ((int64_t)cap_work + B1_TILE - 1) / B1_TILE;
@@ -460,13 +465,13 @@ void launch_wd_t(cudaStream_t st, const int32_t* dist, int32_t n,
 }
 
 template <int MSG, int COMB>
-void launch_union_t(cudaStream_t st, const int32_t* dist, int32_t n,
+void launch_union_t(cudaStream_t st, const Val* dist, int32_t n,
                     int32_t kp, const uint8_t* front, const int32_t* prefix,
                     const int32_t* excl, const int32_t* start,
                     const int32_t* src_ids, int32_t f,
                     const int32_t* row_excl, int32_t cap_work,
                     const int32_t* col, const int32_t* wt, int32_t e,
-                    int64_t max_lanes, int32_t* target, uint8_t* upd) {
+                    int64_t max_lanes, Val* target, uint8_t* upd) {
   static int per_sm = 0;
   const int64_t tiles = (max_lanes * (kp >> 2) + UB_TILE - 1) / UB_TILE;
   const unsigned grid = grid_for(
@@ -481,12 +486,12 @@ void launch_union_t(cudaStream_t st, const int32_t* dist, int32_t n,
 
 extern "C" {
 
-// B2: lanes >= 1, n >= 1; target [n] (not dist) and upd [n] are folded
-// into, not initialised.
-int repro_relax_lanes(const int32_t* dist, int32_t n, const int32_t* src,
+// B2: lanes >= 1, n >= 1; dist and target [n] hold the build's Val;
+// target (not dist) and upd [n] are folded into, not initialised.
+int repro_relax_lanes(const Val* dist, int32_t n, const int32_t* src,
                       const int32_t* dst, const int32_t* w,
                       const uint8_t* valid, int32_t lanes, int msg, int comb,
-                      int32_t* target, uint8_t* upd, uint8_t* imp,
+                      Val* target, uint8_t* upd, uint8_t* imp,
                       void* stream) {
   if (!codes_ok(msg, comb) || lanes < 1 || n < 1 || target == dist)
     return (int)cudaErrorInvalidValue;
@@ -500,12 +505,12 @@ int repro_relax_lanes(const int32_t* dist, int32_t n, const int32_t* src,
 
 // B1: f >= 1, e >= 1, cap_work >= 1; wt == nullptr means weight 1;
 // target [n] (not dist) and upd [n] are folded into, not initialised.
-int repro_wd_relax_lanes(const int32_t* dist, int32_t n,
+int repro_wd_relax_lanes(const Val* dist, int32_t n,
                          const int32_t* prefix, const int32_t* excl,
                          const int32_t* start, const int32_t* src_ids,
                          int32_t f, const int32_t* col, const int32_t* wt,
                          int32_t e, int32_t cap_work, int msg, int comb,
-                         int32_t* target, uint8_t* upd, uint8_t* imp,
+                         Val* target, uint8_t* upd, uint8_t* imp,
                          void* stream) {
   if (!codes_ok(msg, comb) || f < 1 || e < 1 || n < 1 || cap_work < 1 ||
       target == dist)
@@ -520,19 +525,19 @@ int repro_wd_relax_lanes(const int32_t* dist, int32_t n,
 }
 
 // B1's batch contract over the union frontier: dist, target [n, kp]
-// int32 and front, upd [n, kp] bytes (kp a multiple of 4, each row of 16
+// Val and front, upd [n, kp] bytes (kp a multiple of 4, each row of 16
 // bytes' alignment), the union's slot tables [f], row_excl [f, kp] or
 // nullptr (no row cut); f, e, n >= 1; max_lanes (>= 0) bounds the union's
 // lanes and sizes the grid only.  target (a copy of dist, not dist) and
 // upd are folded into, not initialised.
-int repro_wd_relax_union(const int32_t* dist, int32_t n, int32_t kp,
+int repro_wd_relax_union(const Val* dist, int32_t n, int32_t kp,
                          const uint8_t* front, const int32_t* prefix,
                          const int32_t* excl, const int32_t* start,
                          const int32_t* src_ids, int32_t f,
                          const int32_t* row_excl, int32_t cap_work,
                          const int32_t* col, const int32_t* wt, int32_t e,
                          long long max_lanes, int msg, int comb,
-                         int32_t* target, uint8_t* upd, void* stream) {
+                         Val* target, uint8_t* upd, void* stream) {
   if (!codes_ok(msg, comb) || f < 1 || e < 1 || n < 1 || kp < 4 ||
       kp % 4 != 0 || max_lanes < 0 || cap_work < 0 || target == dist)
     return (int)cudaErrorInvalidValue;

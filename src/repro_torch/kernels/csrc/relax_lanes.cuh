@@ -23,6 +23,18 @@
 // REPRO_CUSTOM_OP_HEADER before it includes relax.cu or fused.cu.  Such a
 // build instantiates every kernel for that one operator, <MSG_CUSTOM,
 // REPRO_OP_COMB>, and nothing else; the base build never sees MSG_CUSTOM.
+//
+// The value type.  The values (dist, the proposal, the fused kernel's two
+// buffers) are `Val`: int32_t in the base build and an int32 operator's,
+// float in a float32 operator's build (its header defines REPRO_OP_FLOAT).
+// Indices, slot tables and weights stay int32 everywhere: a float message
+// takes its int32 weight and converts it as torch promotes it (the
+// lowered header's repro_op_i2f, __int2float_rn).  A float min or max
+// folds as IEEE 754-2019 minimum/maximum (-0.0 below +0.0, NaN absorbing),
+// which is what the reference's .at[].min/max and the port's
+// EdgeOp.scatter give, whatever the lanes' order; a float add folds by a
+// compare-and-swap of the rounded sum, which depends on the order of its
+// terms.
 
 #pragma once
 
@@ -36,6 +48,14 @@
 #endif
 
 namespace relax_lanes {
+
+#ifdef REPRO_OP_FLOAT
+using Val = float;
+using Val4 = float4;
+#else
+using Val = int32_t;
+using Val4 = int4;
+#endif
 
 // message codes (repro_torch.core.operators.KERNEL_MESSAGES, MSG_CUSTOM)
 constexpr int MSG_SUM = 0;         // v + w (wrapping)
@@ -103,7 +123,8 @@ using AttrCodes = Codes<MSG_SUM, COMB_MIN>;
 #endif
 
 struct ReadOnly {
-  static __device__ __forceinline__ int32_t ld(const int32_t* p) {
+  template <class T>
+  static __device__ __forceinline__ T ld(const T* p) {
     return __ldg(p);
   }
   static __device__ __forceinline__ void stage(int32_t* smem,
@@ -120,7 +141,8 @@ struct ReadOnly {
 };
 
 struct Coherent {
-  static __device__ __forceinline__ int32_t ld(const int32_t* p) {
+  template <class T>
+  static __device__ __forceinline__ T ld(const T* p) {
     return __ldcg(p);
   }
   // cp.async.cg copies 16 bytes only; a slot slice starts anywhere
@@ -136,7 +158,7 @@ struct NoHook {
 };
 
 template <int MSG>
-__device__ __forceinline__ int32_t message(int32_t v, int32_t w) {
+__device__ __forceinline__ Val message(Val v, int32_t w) {
   if (MSG == MSG_SUM) return (int32_t)((uint32_t)v + (uint32_t)w);
   if (MSG == MSG_COPY) return v;
   return v < w ? v : w;
@@ -144,8 +166,7 @@ __device__ __forceinline__ int32_t message(int32_t v, int32_t w) {
 
 #ifdef REPRO_CUSTOM_OP_HEADER
 template <>
-__device__ __forceinline__ int32_t message<MSG_CUSTOM>(int32_t v,
-                                                       int32_t w) {
+__device__ __forceinline__ Val message<MSG_CUSTOM>(Val v, int32_t w) {
   return repro_op_message(v, w);
 }
 #endif
@@ -154,7 +175,7 @@ __device__ __forceinline__ int32_t message<MSG_CUSTOM>(int32_t v,
 // predicate, or the combine's default), else the built-in operators'; for
 // add the identity is 0, so "a real contribution" is cand != 0
 template <int MSG, int COMB>
-__device__ __forceinline__ bool improves(int32_t cand, int32_t cur) {
+__device__ __forceinline__ bool improves(Val cand, Val cur) {
 #ifdef REPRO_CUSTOM_OP_HEADER
   if (MSG == MSG_CUSTOM) return repro_op_improves(cand, cur);
 #endif
@@ -170,17 +191,63 @@ __device__ __forceinline__ void fold(int32_t* p, int32_t cand) {
   else atomicAdd(p, cand);
 }
 
+#ifdef REPRO_OP_FLOAT
+// A float fold.  min and max by the sign split: the bits of a float with
+// the sign clear order as int32 as the values do, those of a float with
+// it set order as uint32 in reverse, and every set sign's bits exceed
+// every clear sign's as uint32 and fall below them as int32.  So min
+// takes atomicMin on the int32 bits of a candidate >= +0.0 and atomicMax
+// on the uint32 bits of one <= -0.0 (max the other way round), which
+// ranks -0.0 below +0.0, and the fold does not depend on the lanes' order.
+// A NaN candidate writes the combine's NaN, the one pattern each of those
+// atomics keeps (min: 0xffffffff, -1 as int32 and the largest uint32;
+// max: 0x7fffffff); a target that holds a NaN already (an operand the
+// chunk began with) is left alone, read first.  operators.FOLD_NAN_BITS
+// holds the same two patterns.
+template <int COMB>
+__device__ __forceinline__ void fold(float* p, float cand) {
+  if (COMB == COMB_ADD) {
+    // a CAS loop with __fadd_rn, not atomicAdd(float*): the atomic's add
+    // flushes subnormal inputs and results to zero (PTX atom.add.f32),
+    // where torch's CPU sum keeps them
+    unsigned* const pu = reinterpret_cast<unsigned*>(p);
+    unsigned old = __float_as_uint(__ldcg(p)), seen;
+    do {
+      seen = old;
+      old = atomicCAS(pu, seen,
+                      __float_as_uint(__fadd_rn(__uint_as_float(seen), cand)));
+    } while (old != seen);
+    return;
+  }
+  if (isnan(__ldcg(p))) return;
+  int32_t* const pi = reinterpret_cast<int32_t*>(p);
+  unsigned* const pu = reinterpret_cast<unsigned*>(p);
+  if (isnan(cand)) {
+    if (COMB == COMB_MIN) atomicMax(pu, 0xffffffffu);
+    else atomicMax(pi, 0x7fffffff);
+    return;
+  }
+  const int32_t b = __float_as_int(cand);
+  if (COMB == COMB_MIN) {
+    if (b >= 0) atomicMin(pi, b);
+    else atomicMax(pu, (unsigned)b);
+  } else {
+    if (b >= 0) atomicMax(pi, b);
+    else atomicMin(pu, (unsigned)b);
+  }
+}
+#endif
+
 __device__ __forceinline__ int32_t clamp_index(int64_t i, int32_t n) {
   return (int32_t)(i < 0 ? 0 : (i >= n ? n - 1 : i));
 }
 
 // the fold of one lane whose gathers are done; returns "improves"
 template <int MSG, int COMB, class Hook>
-__device__ __forceinline__ bool fold_lane(int32_t dsrc, int32_t ddst,
-                                          int32_t w, int32_t d,
-                                          int32_t* target, uint8_t* upd,
-                                          const Hook& hook) {
-  const int32_t cand = message<MSG>(dsrc, w);
+__device__ __forceinline__ bool fold_lane(Val dsrc, Val ddst, int32_t w,
+                                          int32_t d, Val* target,
+                                          uint8_t* upd, const Hook& hook) {
+  const Val cand = message<MSG>(dsrc, w);
   if (!improves<MSG, COMB>(cand, ddst)) return false;
   fold<COMB>(target + d, cand);
   upd[d] = 1;
@@ -194,10 +261,10 @@ __device__ __forceinline__ bool fold_lane(int32_t dsrc, int32_t ddst,
 // into `target`; imp[j] says which improved.
 template <int L, int MSG, int COMB, class Ld, class Hook>
 __device__ __forceinline__ void relax_group(
-    const int32_t* dist, int32_t n, const bool (&v)[L], int32_t (&s)[L],
-    int32_t (&d)[L], const int32_t (&w)[L], int32_t* target, uint8_t* upd,
+    const Val* dist, int32_t n, const bool (&v)[L], int32_t (&s)[L],
+    int32_t (&d)[L], const int32_t (&w)[L], Val* target, uint8_t* upd,
     bool (&imp)[L], const Hook& hook) {
-  int32_t ds[L] = {}, dd[L] = {};
+  Val ds[L] = {}, dd[L] = {};
 #pragma unroll
   for (int j = 0; j < L; ++j) {
     if (v[j]) {
@@ -279,10 +346,10 @@ struct WdSmem {
 // improve flag.
 template <int MSG, int COMB, class Ld, class Hook>
 __device__ __forceinline__ void wd_tile(
-    int64_t t, const int32_t* dist, int32_t n, const int32_t* prefix,
+    int64_t t, const Val* dist, int32_t n, const int32_t* prefix,
     const int32_t* excl, const int32_t* start, const int32_t* src_ids,
     int32_t f, const int32_t* col, const int32_t* wt, int32_t e,
-    int32_t cap_work, int64_t total, int32_t* target, uint8_t* upd,
+    int32_t cap_work, int64_t total, Val* target, uint8_t* upd,
     uint8_t* imp, WdSmem& sm, const Hook& hook) {
   constexpr int L = B1_LANES;
   const int64_t k0 = t * B1_TILE;

@@ -7,8 +7,9 @@ its fixed point.  For CUDA tensors it makes ONE cooperative launch of
 ``LAUNCHES["fused_fixed_point"]`` and reads back iterations, the edge
 total, AD's three counts and the traversal's :class:`Chunks` with one host
 sync; nothing of B1 or B2 is launched (the kernel carries their lane
-bodies).  A user-defined operator launches the kernel of its own library
-(``_build.op_library``), built for it at first use.  For CPU tensors it runs the plain version,
+bodies).  A user-defined operator, and every float32 one, launches the
+kernel of its own library (``_build.op_library``), built for it at first
+use; ``dist`` holds the operator's dtype.  For CPU tensors it runs the plain version,
 :func:`repro_torch.core.fused._fixed_point_plain`.
 :func:`batch_fixed_point` runs K WD traversals (ROADMAP A8) as K launches
 of the same kernel, one a row.  :func:`delta_fixed_point`
@@ -121,7 +122,7 @@ def fixed_point(kernel: str, graph: CSRGraph, aux: Optional[torch.Tensor],
         raise ValueError(f"no fused_fixed_point for device {dist.device}")
     dev = dist.device
     n, e = graph.num_nodes, graph.num_edges
-    check_tensor("dist", dist, dev, torch.int32, n)
+    check_tensor("dist", dist, dev, op.dtype, n)
     check_tensor("mask", mask, dev, torch.bool, n)
     if kernel in ("EP", "NS"):
         check_tensor("aux", aux, dev, torch.int32, e if kernel == "EP" else n)
@@ -160,7 +161,7 @@ def batch_fixed_point(graph: CSRGraph, dist: torch.Tensor,
         raise ValueError(f"dist has shape {tuple(dist.shape)}, expected "
                          f"[K, N]")
     k, n = dist.shape
-    check_dense("dist", dist, dev, torch.int32, (k, graph.num_nodes))
+    check_dense("dist", dist, dev, op.dtype, (k, graph.num_nodes))
     check_dense("mask", mask, dev, torch.bool, (k, n))
     _check_graph(graph, dev)
     out = torch.empty_like(dist)
@@ -263,7 +264,7 @@ def delta_fixed_point(kernel: str, light: CSRGraph,
                          f"got {op.name!r}")
     dev = dist.device
     n = light.num_nodes
-    check_tensor("dist", dist, dev, torch.int32, n)
+    check_tensor("dist", dist, dev, op.dtype, n)
     check_tensor("mask", mask, dev, torch.bool, n)
     _check_graph(light, dev)
     if heavy is not None:

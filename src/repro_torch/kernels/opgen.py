@@ -6,30 +6,43 @@ The reference traces an operator's ``message`` and ``update`` into its
 Pallas kernels and its fused ``lax.while_loop``.  A hand-written CUDA
 kernel cannot call Python, so the port traces the same pure elementwise
 callables with :func:`torch.fx.symbolic_trace`, gives every node its
-dtype with :class:`~torch.fx.passes.shape_prop.ShapeProp` on int32
-samples, and emits one header of two functions, each
-``__host__ __device__ __forceinline__``::
+dtype with :class:`~torch.fx.passes.shape_prop.ShapeProp` on samples of
+the operator's value type (values of ``op.dtype``, int32 weights), and
+emits one header of two functions, each ``__host__ __device__
+__forceinline__``::
 
-    int32_t repro_op_message(int32_t v, int32_t w);
-    bool repro_op_improves(int32_t cand, int32_t cur);
+    V repro_op_message(V v, int32_t w);
+    bool repro_op_improves(V cand, V cur);
 
-and the combine's code (``REPRO_OP_COMB``).  ``kernels._build.custom_lib``
+with ``V`` the value type (``int32_t``; ``float`` for a float32
+operator, whose header also defines ``REPRO_OP_FLOAT``), and the
+combine's code (``REPRO_OP_COMB``).  ``kernels._build.custom_lib``
 compiles ``csrc/relax.cu`` and ``csrc/fused.cu`` once more with it, for
 that one operator (``MSG_CUSTOM`` in ``csrc/relax_lanes.cuh``).
 
-Every supported node computes what torch computes on int32 and bool
-tensors on the CPU, bit for bit on every input (docs/operators_torch.md):
+Every supported node computes what torch computes on CPU tensors, bit for
+bit on every input (docs/operators_torch.md).  On int32 and bool:
 ``+ - *`` and negation wrap (in ``uint32_t``), ``//`` rounds down and
 ``%`` takes the divisor's sign (only by a nonzero int constant;
 ``INT_MIN // -1`` wraps), ``fmod`` takes the dividend's, shifts take a
 constant in [0, 31], ``abs(INT_MIN)`` is ``INT_MIN``, ``& | ^ ~`` work on
 int32 and bool, and so do comparisons, ``minimum``/``maximum``,
-``clamp``, ``where``, the logical ops and ``.to(int32 | bool)``.
-Anything else (a float anywhere, true division, a reduction, indexing,
-``.item()``, control flow on values, division by a tensor, a constant
-outside int32) raises :class:`NotImplementedError` naming the operator
-and the fx node, before anything is built: such an operator runs with
-``device="cpu"``.
+``clamp``, ``where``, the logical ops and ``.to(int32 | bool)``.  A
+float32 operator adds float32 nodes, promoted as torch promotes them: ``+
+- * /`` each rounded once (``__fadd_rn`` and its kin on the card, so that
+nvcc contracts nothing into an FMA), unary ``-``, ``abs``,
+``minimum``/``maximum`` (NaN propagates; −0.0 ranks below +0.0),
+``clamp`` by constants, ``where``, comparisons, ``//`` by a nonzero
+constant (c10's ``div_floor_floating``; a float ``%`` or ``fmod`` raises:
+torch's scalar and vector loops compute it differently),
+``.float()``, ``.to(float32 | int32 | bool)`` (float to int32 truncates;
+NaN and values outside int32 give ``INT_MIN``, as x86 does), and float
+constants, emitted exactly as hex-float literals of their float32
+value.  Anything else (another dtype, a reduction, indexing,
+``.item()``, control flow on values, an integer division or a shift by a
+tensor, an integer constant outside int32) raises
+:class:`NotImplementedError` naming the operator and the fx node, before
+anything is built: such an operator runs with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ import operator
 import threading
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.fx as fx
 from torch.fx.passes.shape_prop import ShapeProp
@@ -91,6 +105,103 @@ REPRO_OP_FN int32_t repro_op_max(int32_t a, int32_t b) {
 }
 """
 
+#: helpers of a float32 operator's header: each operation rounded once
+#: (the card's ``__f*_rn`` intrinsics, which nvcc never contracts into an
+#: FMA; plain operators on the host, compiled with ``-ffp-contract=off``),
+#: the conversions torch makes, and the rules of torch's float
+#: ``minimum``, ``maximum``, ``clamp`` and ``//`` (c10's
+#: ``div_floor_floating``)
+FLOAT_PRELUDE = """\
+#define REPRO_OP_FLOAT 1
+#include <math.h>
+#include <string.h>
+
+REPRO_OP_FN float repro_op_fadd(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+REPRO_OP_FN float repro_op_fsub(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+REPRO_OP_FN float repro_op_fmul(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+REPRO_OP_FN float repro_op_fdiv(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fdiv_rn(a, b);
+#else
+  return a / b;
+#endif
+}
+REPRO_OP_FN float repro_op_i2f(int32_t a) {
+#ifdef __CUDA_ARCH__
+  return __int2float_rn(a);
+#else
+  return (float)a;
+#endif
+}
+REPRO_OP_FN float repro_op_bits2f(uint32_t u) {
+#ifdef __CUDA_ARCH__
+  return __int_as_float((int)u);
+#else
+  float a;
+  memcpy(&a, &u, 4);
+  return a;
+#endif
+}
+REPRO_OP_FN bool repro_op_fsign(float a) {
+#ifdef __CUDA_ARCH__
+  return __float_as_int(a) < 0;
+#else
+  uint32_t u;
+  memcpy(&u, &a, 4);
+  return (u >> 31) != 0;
+#endif
+}
+REPRO_OP_FN int32_t repro_op_f2i(float a) {
+  return (a >= -2147483648.0f && a < 2147483648.0f) ? (int32_t)a
+                                                    : (-2147483647 - 1);
+}
+REPRO_OP_FN float repro_op_fnan() { return repro_op_bits2f(0x7fc00000u); }
+REPRO_OP_FN float repro_op_fminimum(float a, float b) {
+  if (a != a || b != b) return repro_op_fnan();
+  if (a == b) return repro_op_fsign(a) ? a : b;
+  return a < b ? a : b;
+}
+REPRO_OP_FN float repro_op_fmaximum(float a, float b) {
+  if (a != a || b != b) return repro_op_fnan();
+  if (a == b) return repro_op_fsign(a) ? b : a;
+  return a > b ? a : b;
+}
+REPRO_OP_FN float repro_op_fclamp_min(float a, float lo) {
+  return a < lo ? lo : a;
+}
+REPRO_OP_FN float repro_op_fclamp_max(float a, float hi) {
+  return a > hi ? hi : a;
+}
+REPRO_OP_FN float repro_op_ffloordiv(float a, float b) {
+  const float mod = fmodf(a, b);
+  float div = repro_op_fdiv(repro_op_fsub(a, mod), b);
+  if (mod != 0.0f && (b < 0.0f) != (mod < 0.0f))
+    div = repro_op_fsub(div, 1.0f);
+  if (div == 0.0f) return copysignf(0.0f, repro_op_fdiv(a, b));
+  float q = floorf(div);
+  if (repro_op_fsub(div, q) > 0.5f) q = repro_op_fadd(q, 1.0f);
+  return q;
+}
+"""
+
 
 @dataclasses.dataclass(frozen=True)
 class Lowered:
@@ -106,8 +217,10 @@ class _Unsupported(Exception):
     operator around it."""
 
     def __init__(self, node: fx.Node, reason: str):
-        super().__init__(f"node {node.name!r} ({_target_name(node)}): "
-                         f"{reason}")
+        # fx's interpreter may add lines to the exception on its way out;
+        # the error names only this
+        self.detail = f"node {node.name!r} ({_target_name(node)}): {reason}"
+        super().__init__(self.detail)
 
 
 def _target_name(node: fx.Node) -> str:
@@ -126,6 +239,7 @@ def _target_name(node: fx.Node) -> str:
 _OPERATOR_FNS = {
     operator.add: "add", operator.sub: "sub", operator.mul: "mul",
     operator.floordiv: "floordiv", operator.mod: "remainder",
+    operator.truediv: "div",
     operator.lshift: "lshift", operator.rshift: "rshift",
     operator.and_: "and", operator.or_: "or", operator.xor: "xor",
     operator.invert: "invert", operator.neg: "neg", operator.abs: "abs",
@@ -135,6 +249,7 @@ _OPERATOR_FNS = {
 _TORCH_FNS = {
     torch.add: "add", torch.sub: "sub", torch.mul: "mul",
     torch.floor_divide: "floordiv", torch.div: "div",
+    torch.true_divide: "div",
     torch.remainder: "remainder", torch.fmod: "fmod",
     torch.bitwise_and: "and", torch.bitwise_or: "or",
     torch.bitwise_xor: "xor", torch.bitwise_not: "invert",
@@ -151,7 +266,8 @@ _TORCH_FNS = {
 }
 _METHODS = {
     "add": "add", "sub": "sub", "mul": "mul", "floor_divide": "floordiv",
-    "div": "div", "remainder": "remainder", "fmod": "fmod",
+    "div": "div", "true_divide": "div", "remainder": "remainder",
+    "fmod": "fmod",
     "bitwise_and": "and", "bitwise_or": "or", "bitwise_xor": "xor",
     "bitwise_not": "invert", "neg": "neg", "abs": "abs",
     "minimum": "minimum", "maximum": "maximum", "clamp": "clamp",
@@ -159,7 +275,7 @@ _METHODS = {
     "lt": "lt", "le": "le", "gt": "gt", "ge": "ge", "eq": "eq", "ne": "ne",
     "logical_and": "logical_and", "logical_or": "logical_or",
     "logical_xor": "logical_xor", "logical_not": "logical_not",
-    "to": "to", "int": "int", "bool": "bool",
+    "to": "to", "int": "int", "bool": "bool", "float": "float",
 }
 
 # each canonical op's parameters, as torch names them (binding fx's
@@ -183,6 +299,7 @@ _PARAMS = {
     "logical_and": ("input", "other"), "logical_or": ("input", "other"),
     "logical_xor": ("input", "other"), "logical_not": ("input",),
     "to": ("input", "dtype"), "int": ("input",), "bool": ("input",),
+    "float": ("input",),
 }
 
 _COMPARE = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
@@ -191,6 +308,11 @@ _BITWISE = {"and": "&", "or": "|", "xor": "^"}
 _LOGICAL = {"logical_and": "&&", "logical_or": "||", "logical_xor": "!="}
 _WRAPPING = {"add": "repro_op_add", "sub": "repro_op_sub",
              "mul": "repro_op_mul"}
+_ROUNDED = {"add": "repro_op_fadd", "sub": "repro_op_fsub",
+            "mul": "repro_op_fmul", "div": "repro_op_fdiv"}
+#: the C type of each node kind: int32, float32, bool
+_CTYPES = {"i": "int32_t", "f": "float", "b": "bool"}
+_KINDS = {torch.int32: "i", torch.float32: "f", torch.bool: "b"}
 
 
 def _canonical(node: fx.Node) -> str:
@@ -204,7 +326,7 @@ def _canonical(node: fx.Node) -> str:
     else:
         name = None
     if name is None:
-        raise _Unsupported(node, "not an elementwise int32 operation the "
+        raise _Unsupported(node, "not an elementwise operation the "
                                  "lowering knows")
     return name
 
@@ -221,19 +343,25 @@ def _bind(node: fx.Node, name: str) -> dict:
     return bound
 
 
-#: ops whose second operand must be a Python int constant
+#: ops whose second operand must be a Python constant
 _CONSTANT_OTHER = {"floordiv": "the divisor", "div": "the divisor",
                    "remainder": "the divisor", "fmod": "the divisor",
                    "lshift": "the shift", "rshift": "the shift"}
 
 
-def _check_operands(node: fx.Node, name: str) -> None:
+def _check_operands(node: fx.Node, name: str, value: str) -> None:
     """Refuse, before any sample runs, a divisor or shift that is a
-    tensor (the kernels divide and shift by constants only)."""
-    other = _bind(node, name).get("other")
+    tensor (the kernels divide and shift by constants only), and a zero
+    divisor.  A float32 operator's true division (``value`` ``"f"``)
+    takes any divisor, with IEEE results."""
+    bound = _bind(node, name)
+    other = bound.get("other")
+    if (name == "div" and value == "f"
+            and bound.get("rounding_mode") is None):
+        return
     if name in _CONSTANT_OTHER and isinstance(other, fx.Node):
         raise _Unsupported(node, f"{_CONSTANT_OTHER[name]} is a tensor; "
-                                 f"only a Python int constant is lowered")
+                                 f"only a Python constant is lowered")
     if _CONSTANT_OTHER.get(name) == "the divisor" and other == 0:
         raise _Unsupported(node, "divides by zero")
 
@@ -251,22 +379,38 @@ class _Prop(ShapeProp):
             fx.Interpreter.run_node(self, n)
         except Exception as e:        # torch raises many kinds here
             first = (str(e).splitlines() or [""])[0]
-            raise _Unsupported(n, f"fails on int32 samples "
+            raise _Unsupported(n, f"fails on samples "
                                   f"({type(e).__name__}: {first})") from e
         return super().run_node(n)
 
 
-def _propagate(gm: fx.GraphModule) -> None:
-    """Every node's dtype on int32 samples (``node.meta``); a node that
-    fails on them raises :class:`_Unsupported`."""
-    sample = torch.tensor([0, 1, -1, 7], dtype=torch.int32)
-    _Prop(gm).propagate(sample, sample.flip(0))
+def _propagate(gm: fx.GraphModule, kinds: tuple) -> None:
+    """Every node's dtype on samples of the parameters' ``kinds``
+    (``node.meta``); a node that fails on them raises
+    :class:`_Unsupported`."""
+    sample = {"i": torch.tensor([0, 1, -1, 7], dtype=torch.int32),
+              "f": torch.tensor([0.0, 1.0, -1.0, 7.5])}
+    _Prop(gm).propagate(sample[kinds[0]], sample[kinds[1]].flip(0))
+
+
+def _float_literal(x) -> str:
+    """``x`` as torch uses a Python scalar in a float32 operation: rounded
+    to float32, written exactly (a hex-float literal)."""
+    with np.errstate(over="ignore"):
+        f = float(np.float32(x))
+    if f != f:
+        return "repro_op_fnan()"
+    if f in (float("inf"), float("-inf")):
+        return (f"repro_op_bits2f(0x{'7' if f > 0 else 'f'}f800000u)")
+    return f"({f.hex()}f)"
 
 
 @dataclasses.dataclass
 class _Emitter:
     """C++ statements for one traced callable; every node becomes one
-    ``const`` local of its dtype (``int32_t`` or ``bool``)."""
+    ``const`` local of its dtype (``int32_t`` or ``bool``, and ``float``
+    in a float32 operator: ``value`` ``"f"``)."""
+    value: str = "i"
     lines: list = dataclasses.field(default_factory=list)
     names: dict = dataclasses.field(default_factory=dict)
     kinds: dict = dataclasses.field(default_factory=dict)
@@ -274,25 +418,38 @@ class _Emitter:
     def kind(self, node: fx.Node) -> str:
         meta = node.meta.get("tensor_meta")
         dtype = getattr(meta, "dtype", None)
-        if dtype == torch.int32:
-            return "i"
-        if dtype == torch.bool:
-            return "b"
+        kind = _KINDS.get(dtype)
+        if kind == "f" and self.value == "f" or kind in ("i", "b"):
+            return kind
+        if self.value == "f":
+            raise _Unsupported(node, f"gives {dtype or 'no tensor'}; a "
+                                     f"float32 operator's kernels evaluate "
+                                     f"float32, int32 and bool only")
         raise _Unsupported(node, f"gives {dtype or 'no tensor'}; the "
                                  f"kernels evaluate int32 and bool only")
 
-    # an operand (a node or a Python constant) as an int32 or a bool
-    # expression
+    # an operand (a node or a Python constant) as an int32, float32 or
+    # bool expression, converted as torch converts it
     def operand(self, node: fx.Node, x, want: str) -> str:
         if isinstance(x, fx.Node):
             name, kind = self.names[x], self.kinds[x]
             if kind == want:
                 return name
-            return f"(int32_t){name}" if want == "i" else f"({name} != 0)"
+            if want == "b":
+                return f"({name} != 0)"
+            if want == "f":
+                return (f"({name} ? 1.0f : 0.0f)" if kind == "b"
+                        else f"repro_op_i2f({name})")
+            return (f"repro_op_f2i({name})" if kind == "f"
+                    else f"(int32_t){name}")
         if isinstance(x, bool):
             if want == "b":
                 return "true" if x else "false"
+            if want == "f":
+                return "1.0f" if x else "0.0f"
             return "1" if x else "0"
+        if want == "f" and isinstance(x, (int, float)):
+            return _float_literal(x)
         if isinstance(x, int):
             if not INT32_MIN <= x <= INT32_MAX:
                 raise _Unsupported(node, f"constant {x} lies outside int32")
@@ -310,9 +467,82 @@ class _Emitter:
         self.operand(node, x, "i")            # range check
         return x
 
+    def const_float(self, node: fx.Node, x, what: str) -> str:
+        """A Python constant operand of a float32 node, not NaN."""
+        if isinstance(x, fx.Node) or not isinstance(x, (int, float)):
+            raise _Unsupported(node, f"{what} must be a Python constant, "
+                                     f"got {x!r}")
+        if x != x:
+            raise _Unsupported(node, f"{what} is NaN")
+        return self.operand(node, x, "f")
+
+    def is_float(self, x) -> bool:
+        """Does operand ``x`` make torch compute in float32?"""
+        if isinstance(x, fx.Node):
+            return self.kinds[x] == "f"
+        return isinstance(x, float)
+
+    def float_expr(self, node: fx.Node, name: str, a: dict) -> str:
+        """A float32 node's expression."""
+        f = lambda x: self.operand(node, x, "f")          # noqa: E731
+        if name == "div" and a.get("rounding_mode") is not None:
+            if a["rounding_mode"] != "floor":
+                raise _Unsupported(node, "only true division and "
+                                         "rounding_mode='floor' are lowered")
+            name = "floordiv"
+        if name in _ROUNDED:
+            return f"{_ROUNDED[name]}({f(a['input'])}, {f(a['other'])})"
+        if name == "neg":
+            return f"(-{f(a['input'])})"
+        if name == "abs":
+            return f"fabsf({f(a['input'])})"
+        if name in ("remainder", "fmod"):
+            # torch's vector loop computes a float fmod that its scalar
+            # loop does not (3.4e38 % 0.75: NaN or 0.5, by the element's
+            # place), so no lowering equals both
+            raise _Unsupported(node, "a float remainder or fmod is not "
+                                     "lowered: torch's scalar and vector "
+                                     "loops disagree on it")
+        if name == "floordiv":
+            c = self.const_float(node, a["other"], "the divisor")
+            return f"repro_op_ffloordiv({f(a['input'])}, {c})"
+        if name in ("minimum", "maximum", "min2", "max2"):
+            if not isinstance(a.get("other"), fx.Node):
+                raise _Unsupported(node, "takes two tensors (a reduction "
+                                         "or a scalar bound is not lowered)")
+            fn = "repro_op_fminimum" if name in ("minimum", "min2") \
+                else "repro_op_fmaximum"
+            return f"{fn}({f(a['input'])}, {f(a['other'])})"
+        if name in ("clamp", "clamp_min", "clamp_max"):
+            out = f(a["input"])
+            lo, hi = a.get("min"), a.get("max")
+            if lo is None and hi is None:
+                raise _Unsupported(node, "clamp without a bound")
+            if lo is not None:
+                out = (f"repro_op_fclamp_min({out}, "
+                       f"{self.const_float(node, lo, 'a float bound')})")
+            if hi is not None:
+                out = (f"repro_op_fclamp_max({out}, "
+                       f"{self.const_float(node, hi, 'a float bound')})")
+            return out
+        if name == "where":
+            return (f"({self.operand(node, a['condition'], 'b')} ? "
+                    f"{f(a['input'])} : {f(a['other'])})")
+        if name in ("to", "float"):
+            return f(a["input"])
+        raise _Unsupported(node, "not lowered for float32 values")
+
     def expr(self, node: fx.Node, name: str, a: dict, kind: str) -> str:
         i = lambda x: self.operand(node, x, "i")          # noqa: E731
         b = lambda x: self.operand(node, x, "b")          # noqa: E731
+        if name == "to":
+            allowed = ((torch.int32, torch.bool, torch.float32)
+                       if self.value == "f" else (torch.int32, torch.bool))
+            if a.get("dtype") not in allowed:
+                raise _Unsupported(node, "only .to(" + " | ".join(
+                    str(d) for d in allowed) + ") is lowered")
+        if kind == "f":
+            return self.float_expr(node, name, a)
         if name in ("add", "sub", "mul", "neg", "abs", "floordiv", "div",
                     "remainder", "fmod", "lshift", "rshift", "minimum",
                     "maximum", "min2", "max2", "clamp", "clamp_min",
@@ -377,17 +607,16 @@ class _Emitter:
             return (f"({b(a['condition'])} ? {pick(a['input'])} : "
                     f"{pick(a['other'])})")
         if name in _COMPARE:
-            return f"({i(a['input'])} {_COMPARE[name]} {i(a['other'])})"
+            x, y = a["input"], a["other"]
+            at = "f" if self.is_float(x) or self.is_float(y) else "i"
+            return (f"({self.operand(node, x, at)} {_COMPARE[name]} "
+                    f"{self.operand(node, y, at)})")
         if name in _LOGICAL:
             return (f"({b(a['input'])} {_LOGICAL[name]} "
                     f"{b(a['other'])})")
         if name == "logical_not":
             return f"(!{b(a['input'])})"
         if name in ("to", "int", "bool"):
-            if name == "to" and a.get("dtype") not in (torch.int32,
-                                                       torch.bool):
-                raise _Unsupported(node, "only .to(torch.int32) and "
-                                         ".to(torch.bool) are lowered")
             return i(a["input"]) if kind == "i" else b(a["input"])
         raise _Unsupported(node, "not lowered")      # pragma: no cover
 
@@ -396,8 +625,7 @@ class _Emitter:
         args = _bind(node, name)
         kind = self.kind(node)
         var = f"t{len(self.lines)}"
-        ctype = "int32_t" if kind == "i" else "bool"
-        self.lines.append(f"  const {ctype} {var} = "
+        self.lines.append(f"  const {_CTYPES[kind]} {var} = "
                           f"{self.expr(node, name, args, kind)};")
         self.names[node], self.kinds[node] = var, kind
 
@@ -411,45 +639,49 @@ def _trace(fn: Callable) -> fx.GraphModule:
 
 
 def _function(op: EdgeOp, what: str, fn: Callable, params: tuple,
-              ret: str) -> str:
-    """One C++ function ``repro_op_<what>(params)`` of the traced
-    ``fn``, returning ``ret`` (``int32_t`` or ``bool``)."""
+              kinds: tuple, ret: str, value: str) -> str:
+    """One C++ function ``repro_op_<what>(params)`` of the traced ``fn``,
+    whose parameters have ``kinds`` and which returns kind ``ret``
+    (``"i"``, ``"f"`` or ``"b"``); ``value`` is the operator's value
+    kind."""
+    dtype = "float32" if value == "f" else "int32"
     try:
         gm = _trace(fn)
     except Exception as e:   # fx raises TraceError, TypeError and others
         raise NotImplementedError(
             f"operator {op.name!r}: its {what} cannot be traced by "
             f"torch.fx ({type(e).__name__}: {e}); the CUDA kernels take "
-            f"elementwise int32 callables without data-dependent control "
+            f"elementwise {dtype} callables without data-dependent control "
             f"flow, so run it with device='cpu'") from e
     nodes = list(gm.graph.nodes)
-    em = _Emitter()
-    want = "i" if ret == "int32_t" else "b"
+    em = _Emitter(value=value)
     try:
         for node in nodes:
             if node.op not in ("placeholder", "output"):
-                _check_operands(node, _canonical(node))
-        _propagate(gm)
-        inputs = iter(params)
+                _check_operands(node, _canonical(node), value)
+        _propagate(gm, kinds)
+        inputs = iter(zip(params, kinds))
         for node in nodes:
             if node.op == "placeholder":
-                em.names[node], em.kinds[node] = next(inputs), "i"
+                em.names[node], em.kinds[node] = next(inputs)
             elif node.op == "output":
                 out = node.args[0]
-                if not isinstance(out, fx.Node) or em.kinds.get(out) != want:
+                if not isinstance(out, fx.Node) or em.kinds.get(out) != ret:
                     raise _Unsupported(
                         node, f"the {what} must return one "
-                              f"{'int32' if want == 'i' else 'bool'} tensor")
+                              f"{ {'i': 'int32', 'f': 'float32'}.get(ret, 'bool')} "
+                              f"tensor")
                 em.lines.append(f"  return {em.names[out]};")
             else:
                 em.node(node)
     except _Unsupported as e:
         raise NotImplementedError(
             f"operator {op.name!r}: its {what} cannot be lowered to CUDA: "
-            f"{e}; run it with device='cpu'") from None
+            f"{e.detail}; run it with device='cpu'") from None
     body = "\n".join(em.lines)
-    return (f"REPRO_OP_FN {ret} repro_op_{what}(int32_t {params[0]}, "
-            f"int32_t {params[1]}) {{\n{body}\n}}\n")
+    args = ", ".join(f"{_CTYPES[k]} {p}" for p, k in zip(params, kinds))
+    return (f"REPRO_OP_FN {_CTYPES[ret]} repro_op_{what}({args}) "
+            f"{{\n{body}\n}}\n")
 
 
 _DEFAULT_IMPROVES = {"min": "cand < cur", "max": "cand > cur",
@@ -464,24 +696,27 @@ _TRACE_LOCK = threading.Lock()
 def lower(op: EdgeOp) -> Lowered:
     """The C++ header of ``op``'s ``message`` and activation test (its
     ``update``, or the combine's default as :meth:`EdgeOp.improves` has
-    it).  Raises :class:`NotImplementedError` for an operator the kernels
-    cannot take: non-int32 ``dtype``, ``add`` with a nonzero identity
-    (both from :meth:`EdgeOp.kernel_codes`), or a callable outside the
-    lowered op set.  Safe to call from several threads."""
+    it), for its value type (int32 or float32).  Raises
+    :class:`NotImplementedError` for an operator the kernels cannot take:
+    another ``dtype``, ``add`` with a nonzero identity (both from
+    :meth:`EdgeOp.kernel_codes`), or a callable outside the lowered op
+    set.  Safe to call from several threads."""
     with _TRACE_LOCK:
         return _lower(op)
 
 
 def _lower(op: EdgeOp) -> Lowered:
-    _, comb = op.kernel_codes()
-    parts = [PRELUDE, f"#define REPRO_OP_COMB {comb}\n",
-             _function(op, "message", op.message, ("v", "w"), "int32_t")]
+    _, comb, dtype = op.kernel_codes()
+    v = "f" if dtype == torch.float32 else "i"
+    parts = [PRELUDE] + ([FLOAT_PRELUDE] if v == "f" else []) + [
+        f"#define REPRO_OP_COMB {comb}\n",
+        _function(op, "message", op.message, ("v", "w"), (v, "i"), v, v)]
     if op.update is not None:
         parts.append(_function(op, "improves", op.update, ("cand", "cur"),
-                               "bool"))
+                               (v, v), "b", v))
     else:
-        parts.append(f"REPRO_OP_FN bool repro_op_improves(int32_t cand, "
-                     f"int32_t cur) {{\n  return "
+        parts.append(f"REPRO_OP_FN bool repro_op_improves({_CTYPES[v]} cand, "
+                     f"{_CTYPES[v]} cur) {{\n  return "
                      f"{_DEFAULT_IMPROVES[op.combine]};\n}}\n")
     header = "\n".join(parts)
     return Lowered(header=header,

@@ -34,6 +34,8 @@ edges_relaxed)`` equal the reference's bit for bit:
 
 A wrapper takes its device from its tensors: for CUDA tensors it launches
 its kernel (``csrc/relax.cu``) and counts the launch in :data:`LAUNCHES`,
+the values of the operator's dtype (int32, or float32 from the
+operator's own build) and every index and weight int32;
 for CPU tensors it runs its plain PyTorch version (``*_plain``), which
 is the reference's XLA lowering written in PyTorch.  A user-defined
 operator launches the same kernels from its own library, built for it at
@@ -78,15 +80,11 @@ def _launch(name: str, dev: torch.device, library, *args) -> None:
 
 
 def apply_proposal(dist, proposal, op: EdgeOp):
-    """Fold a dense proposal into ``dist`` elementwise: the proposal holds
-    the identity for untouched destinations and the monoid is
-    associative, so this equals scattering every candidate into
-    ``dist``."""
-    if op.combine == "min":
-        return torch.minimum(dist, proposal)
-    if op.combine == "max":
-        return torch.maximum(dist, proposal)
-    return dist + proposal
+    """Fold a dense proposal into ``dist`` elementwise
+    (:meth:`EdgeOp.fold_values`): the proposal holds the identity for
+    untouched destinations and the monoid is associative, so this equals
+    scattering every candidate into ``dist``."""
+    return op.fold_values(dist, proposal)
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +115,7 @@ def _relax_lanes_cuda(dist, src, dst, w, valid, target, updated,
     library, msg, comb = _build.op_library(op)
     dev = dist.device
     n, lanes = dist.numel(), src.numel()
-    check_tensor("dist", dist, dev, torch.int32)
+    check_tensor("dist", dist, dev, op.dtype)
     for name, t in (("src", src), ("dst", dst), ("w", w)):
         check_tensor(name, t, dev, torch.int32, lanes)
     check_tensor("valid", valid, dev, torch.bool, lanes)
@@ -137,8 +135,9 @@ def _relax_lanes_cuda(dist, src, dst, w, valid, target, updated,
 
 def relax_lanes(dist, src, dst, w, valid, *,
                 op: EdgeOp = operators.shortest_path):
-    """One relax over ``L`` direct-mapped lanes: ``dist [N]`` int32;
-    ``src``/``dst``/``w`` ``[L]`` int32 (indices are clamped into
+    """One relax over ``L`` direct-mapped lanes: ``dist [N]`` of the
+    operator's dtype; ``src``/``dst``/``w`` ``[L]`` int32 (indices are
+    clamped into
     ``[0, N)``); ``valid [L]`` bool.  Returns ``(proposal [N],
     updated [N] bool, improve [L] bool)``."""
     if not _dispatch(dist, "relax_lanes"):
@@ -200,7 +199,7 @@ def _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col, wt,
     library, msg, comb = _build.op_library(op)
     dev = dist.device
     n, f, e = dist.numel(), prefix.numel(), col.numel()
-    check_tensor("dist", dist, dev, torch.int32)
+    check_tensor("dist", dist, dev, op.dtype)
     for name, t in (("prefix", prefix), ("exclusive", exclusive),
                     ("start", start), ("src_ids", src_ids)):
         check_tensor(name, t, dev, torch.int32, f)
@@ -330,9 +329,10 @@ def wd_apply_relax_union_plain(dist_t, front_t, prefix, exclusive, start,
     return target, upd
 
 
-def _check_node_major(dist_t, front_t, slots, row_excl, col, wt):
-    """The union contract's arguments on the card; returns ``(n, kp, f,
-    e)``."""
+def _check_node_major(dist_t, front_t, slots, row_excl, col, wt,
+                      dtype: torch.dtype):
+    """The union contract's arguments on the card (``dist_t`` of the
+    operator's ``dtype``); returns ``(n, kp, f, e)``."""
     dev = dist_t.device
     if dist_t.dim() != 2:
         raise ValueError(f"dist_t has shape {tuple(dist_t.shape)}, "
@@ -341,7 +341,7 @@ def _check_node_major(dist_t, front_t, slots, row_excl, col, wt):
     if kp % 4:
         raise ValueError(f"dist_t has {kp} columns; the kernel takes rows "
                          f"in fours (pad K to a multiple of 4)")
-    check_dense("dist_t", dist_t, dev, torch.int32, (n, kp))
+    check_dense("dist_t", dist_t, dev, dtype, (n, kp))
     check_dense("front_t", front_t, dev, torch.bool, (n, kp))
     f = slots[0].numel()
     for name, t in zip(("prefix", "exclusive", "start", "src_ids"), slots):
@@ -364,7 +364,8 @@ def wd_apply_relax_union(dist_t, front_t, prefix, exclusive, start,
                          cap_work: int, max_lanes: int, row_excl=None,
                          op: EdgeOp = operators.shortest_path):
     """B1's batch contract, node-major: one relax of ``K`` rows over the
-    union of their frontiers.  ``dist_t [N, Kp]`` int32 and ``front_t
+    union of their frontiers.  ``dist_t [N, Kp]`` (the operator's dtype)
+    and ``front_t
     [N, Kp]`` bool hold row ``r`` in column ``r`` (``Kp`` = ``K`` rounded
     up to 4; the padded columns' frontier is empty); ``prefix``,
     ``exclusive``, ``start`` and ``src_ids`` ``[F]`` are the WD slot
@@ -387,7 +388,7 @@ def wd_apply_relax_union(dist_t, front_t, prefix, exclusive, start,
     library, msg, comb = _build.op_library(op)
     slots = (prefix, exclusive, start, src_ids)
     n, kp, f, e = _check_node_major(dist_t, front_t, slots, row_excl, col,
-                                    wt)
+                                    wt, op.dtype)
     target = dist_t.clone()
     upd = torch.zeros_like(front_t)
     if kp == 0 or f == 0:

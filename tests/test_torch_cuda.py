@@ -269,22 +269,30 @@ EXTREMES = (-2 ** 31, 2 ** 31 - 1, operators.INF, 0, -1)
 
 
 def test_custom_operator_on_cuda_raises(dev):
-    """An operator outside the lowered op set (true division) and one of
-    a non-int32 ``dtype`` raise on CUDA tensors before any build or
-    launch; neither runs the plain version."""
+    """An operator outside the lowered op set (true division of int32
+    values) and one of a dtype no kernel holds (float16, bfloat16,
+    int16, uint8, float64) raise on CUDA tensors before any build or
+    launch, naming the fx node or the ROADMAP item; neither runs the plain
+    version.  A float32 operator is accepted: its own build, one launch."""
+    import dataclasses
     div = operators.EdgeOp(name="halved", combine="min",
                            identity=operators.INF, source_value=0,
                            message=lambda v, w: v / 2 + w)
     f32 = operators.EdgeOp(name="f32", combine="min",
-                           identity=operators.INF, source_value=0,
+                           identity=float(operators.INF), source_value=0.0,
                            message=lambda v, w: v + w, dtype=torch.float32)
     args = _lanes(np.random.default_rng(1), div, 50, 80, dev)
     before = dict(relax.LAUNCHES)
     with pytest.raises(NotImplementedError, match="'truediv'.*device='cpu'"):
         relax.relax_lanes(*args, op=div)
-    with pytest.raises(NotImplementedError, match="queue C"):
-        relax.apply_relax(args[0], torch.zeros_like(args[4][:50]), *args[1:],
-                          op=f32)
+    for dtype in (torch.float16, torch.bfloat16, torch.int16, torch.uint8,
+                  torch.float64):
+        op = dataclasses.replace(f32, name=str(dtype), dtype=dtype)
+        with pytest.raises(NotImplementedError,
+                           match="queue C: operators of a sub-word"):
+            relax.apply_relax(args[0].to(dtype),
+                              torch.zeros_like(args[4][:50]), *args[1:],
+                              op=op)
     from repro_torch.core import engine
     from repro_torch.core.strategies import make_strategy
     g = rmat_graph(scale=8, weighted=True, seed=1, device="cpu")
@@ -292,7 +300,14 @@ def test_custom_operator_on_cuda_raises(dev):
         with pytest.raises(NotImplementedError, match="'truediv'"):
             engine.run(g, 0, make_strategy("WD"), op=div, mode=mode,
                        device=dev)
+        with pytest.raises(NotImplementedError, match="sub-word"):
+            engine.run(g, 0, make_strategy("WD"), mode=mode, device=dev,
+                       op=dataclasses.replace(f32, dtype=torch.float16))
     assert relax.LAUNCHES == before
+    got = relax.apply_relax(args[0].float(), torch.zeros_like(args[4][:50]),
+                            *args[1:], op=f32)
+    assert got[0].dtype == torch.float32
+    assert relax.LAUNCHES["relax_lanes"] == before["relax_lanes"] + 1
 
 
 def _with_extremes(rng, t):
@@ -304,13 +319,12 @@ def _with_extremes(rng, t):
 
 
 def _in_domain(op, t):
-    """``t`` inside ``op``'s value domain (a min monoid's values at or
-    below its identity, a max monoid's at or above): only there does the
-    fold into a copy of dist equal ``apply_proposal``'s
-    ``min(dist, proposal)``, which lowers an untouched entry above INF."""
-    if op.combine == "min":
-        return t.clamp(max=op.identity)
-    return t.clamp(min=op.identity) if op.combine == "max" else t
+    """``t`` inside ``op``'s value domain, ``t`` folded with the identity
+    (a min monoid's values at or below its identity, a max monoid's at or
+    above; −0.0 lies below a float max's or add's +0.0): only there does
+    the fold into a copy of dist equal ``apply_proposal``'s ``min(dist,
+    proposal)``, which lowers an untouched entry above INF."""
+    return op.fold_values(t, torch.full_like(t, op.identity))
 
 
 @pytest.mark.parametrize("opname", list(CUSTOM_OPS))
@@ -458,7 +472,7 @@ def _fused_pair(g, strategy, kwargs, op, source, max_iterations):
     strat = make_strategy(strategy, **kwargs)
     plan = core_fused._plan(strat, strat.setup(g), g)
     n = plan.graph.num_nodes
-    dist = torch.full((n,), op.identity, dtype=torch.int32, device=g.device)
+    dist = torch.full((n,), op.identity, dtype=op.dtype, device=g.device)
     dist[source] = op.seed(source)
     mask = torch.zeros(n, dtype=torch.bool, device=g.device)
     mask[source] = True
@@ -1473,7 +1487,7 @@ def _delta_pair(g, strategy, op, source, delta, max_iterations):
     strat = make_strategy(strategy)
     plan = priority.plan_delta(strat, strat.setup(g), g, op=op, delta=delta)
     n = plan.light.num_nodes
-    dist = torch.full((n,), op.identity, dtype=torch.int32, device=g.device)
+    dist = torch.full((n,), op.identity, dtype=op.dtype, device=g.device)
     dist[source] = op.seed(source)
     mask = torch.zeros(n, dtype=torch.bool, device=g.device)
     mask[source] = True
@@ -2002,3 +2016,310 @@ def test_distributed_sssp_on_the_card_matches_cpu(dev, shards):
     np.testing.assert_array_equal(card, cpu)
     np.testing.assert_array_equal(card, engine.reference_distances(g, src))
     assert launched > 0 and launched % shards == 0
+
+
+# ---------------------------------------------------------------------------
+# float32 operators: their own builds of B1, B2, B1's batch contract and the
+# fused kernel, against the plain versions on CPU copies
+# ---------------------------------------------------------------------------
+
+#: the float32 operators of the card tests: SSSP in hundredths (a
+#: multiply-add the card must not contract), the most reliable path (a
+#: quotient), damped path counts (add), and a min whose update admits NaN
+FLOAT_OPS = {
+    "scaled_sssp": operators.EdgeOp(
+        name="scaled_sssp", combine="min", identity=float(operators.INF),
+        source_value=0.0, message=lambda v, w: v + w * 0.01,
+        weight_additive=True, dtype=torch.float32),
+    "reliable": operators.EdgeOp(
+        name="reliable", combine="max", identity=0.0, source_value=1.0,
+        message=lambda v, w: v * (w / (w + 1.0)), value_min=0,
+        dtype=torch.float32),
+    "damped": operators.EdgeOp(
+        name="damped", combine="add", identity=0.0, source_value=1.0,
+        message=lambda v, w: v * 0.5, dtype=torch.float32),
+    "nan_min": operators.EdgeOp(
+        name="nan_min", combine="min", identity=float("inf"),
+        source_value=0.0, message=lambda v, w: v - w * 0.5,
+        update=lambda cand, cur: (cand < cur) | (cand != cand),
+        dtype=torch.float32),
+}
+
+#: float extremes planted among the values, as EXTREMES plants int32 ones:
+#: both zeros, 2^30, NaN, infinities, subnormals and the largest floats;
+#: add takes the non-negative ones that no order of its sum overflows
+FLOAT_EXTREMES = (0.0, -0.0, 2.0 ** 30, float("nan"), float("inf"),
+                  float("-inf"), 1e-45, -1e-40, 3.4e38, -3.4e38, -1.0)
+ADD_EXTREMES = (0.0, -0.0, 2.0 ** 30, 1e-45, 1e-40, float("inf"))
+
+
+def _float_values(rng, op, shape):
+    """Random values of ``op``'s domain with a tenth planted extremes."""
+    if op.combine == "max":
+        a = rng.random(shape).astype(np.float32)
+    else:
+        a = (rng.random(shape) * 60).astype(np.float32)
+        if op.combine == "min":
+            a[rng.random(shape) < 0.4] = op.identity
+    at = rng.random(shape) < 0.1
+    pool = ADD_EXTREMES if op.combine == "add" else FLOAT_EXTREMES
+    a[at] = rng.choice(np.array(pool, np.float32), int(at.sum()))
+    return a
+
+
+def _float_same(got, want, op):
+    """Tensors of the card against the CPU's: bools and ints exactly;
+    float32 values of min and max bit for bit and NaN for NaN (a NaN's
+    payload is the hardware's), of add at rtol 1e-4 (the order of a float
+    sum).  Returns the largest relative error of the float values."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.cpu(), b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype != torch.float32:
+            assert torch.equal(a, b)
+            continue
+        an, bn = a.isnan(), b.isnan()
+        assert torch.equal(an, bn)
+        x, y = a[~an], b[~bn]
+        if op.combine == "add":
+            torch.testing.assert_close(x, y, rtol=1e-4, atol=0,
+                                       equal_nan=False)
+            fin = torch.isfinite(y) & (y != 0)
+            if fin.any():
+                worst = max(worst, float(((x - y).abs() / y.abs())[fin]
+                                         .max()))
+        else:
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    return worst
+
+
+def _cpu(t):
+    return None if t is None else t.cpu()
+
+
+@pytest.mark.parametrize("opname", list(FLOAT_OPS))
+def test_float_operator_kernels_match_plain(dev, opname):
+    """B2 (both contracts), B1 (both) and B1's batch contract built for a
+    float32 operator, against their plain versions on CPU copies (the
+    card's torch may divide by a reciprocal): values with float extremes
+    planted (the folds into dist: the values of the operator's domain),
+    int32 weights with int32 extremes; one launch each."""
+    from repro_torch.core import multi_source
+    op = FLOAT_OPS[opname]
+    rng = np.random.default_rng(29)
+    for n, lanes in ((257, 2050), (5000, 100000)):
+        _, src, dst, w, valid = _lanes(rng, operators.shortest_path, n,
+                                       lanes, dev)
+        dist = torch.from_numpy(_float_values(rng, op, n)).to(dev)
+        args = (dist, src, dst, _with_extremes(rng, w), valid)
+        before = relax.LAUNCHES["relax_lanes"]
+        got = relax.relax_lanes(*args, op=op)
+        assert relax.LAUNCHES["relax_lanes"] == before + 1
+        _float_same(got, relax.relax_lanes_plain(
+            *(_cpu(a) for a in args), op=op), op)
+        mask = _running_mask(rng, n, dev)
+        dist = _in_domain(op, dist)
+        want = relax.apply_relax_plain(*(_cpu(a) for a in (dist, mask)),
+                                       *(_cpu(a) for a in args[1:]), op=op)
+        got = relax.apply_relax(dist, mask, *args[1:], op=op)
+        assert relax.LAUNCHES["relax_lanes"] == before + 2
+        _float_same(got, want, op)
+    g = rmat_graph(scale=10, weighted=True, seed=3, device=dev)
+    nodes = np.sort(rng.choice(g.num_nodes, 300, replace=False))
+    f = torch.from_numpy(nodes.astype(np.int32)).to(dev)
+    deg = g.row_ptr[f + 1] - g.row_ptr[f]
+    prefix = torch.cumsum(deg, 0, dtype=torch.int32)
+    dist = torch.from_numpy(_float_values(rng, op, g.num_nodes)).to(dev)
+    wt = _with_extremes(rng, g.wt)
+    args = (dist, prefix, prefix - deg, g.row_ptr[f], f, g.col, wt)
+    cpu_args = tuple(_cpu(a) for a in args)
+    cap = int(prefix[-1]) + 100
+    before = relax.LAUNCHES["wd_relax_lanes"]
+    got = relax.wd_relax_lanes(*args, cap_work=cap, op=op)
+    assert relax.LAUNCHES["wd_relax_lanes"] == before + 1
+    _float_same(got, relax.wd_relax_lanes_plain(*cpu_args, cap_work=cap,
+                                                op=op), op)
+    mask = _running_mask(rng, g.num_nodes, dev)
+    dist = _in_domain(op, dist)
+    want = relax.wd_apply_relax_plain(dist.cpu(), mask.cpu(), *cpu_args[1:],
+                                      cap_work=cap, op=op)
+    _float_same(relax.wd_apply_relax(dist, mask, *args[1:], cap_work=cap,
+                                     op=op), want, op)
+    k, n = 5, g.num_nodes
+    mask_b = torch.from_numpy(rng.random((k, n)) < 0.05).to(dev)
+    mask_b[1] = False
+    dist_b = _in_domain(op, torch.from_numpy(
+        _float_values(rng, op, (k, n))).to(dev))
+    dist_t = multi_source.to_node_major(dist_b, op.identity)
+    front_t = multi_source.to_node_major(mask_b, False)
+    tables = multi_source.union_tables(g, front_t.any(1), g.num_nodes)
+    uargs = (dist_t, front_t, *tables, g.col, wt)
+    before = relax.LAUNCHES["wd_relax_lanes_batch"]
+    got = relax.wd_apply_relax_union(*uargs, cap_work=g.num_edges,
+                                     max_lanes=int(tables[0][-1]), op=op)
+    assert relax.LAUNCHES["wd_relax_lanes_batch"] == before + 1
+    _float_same(got, relax.wd_apply_relax_union_plain(
+        *(_cpu(a) for a in uargs), cap_work=g.num_edges, op=op), op)
+
+
+def test_float_fold_orders_zeros_and_keeps_nan(dev):
+    """The card's float fold on a hand-made case: every lane into one
+    destination, −0.0 and +0.0 candidates in both orders (min keeps −0.0,
+    max +0.0), and a NaN candidate (admitted by nan_min's update) that no
+    later candidate displaces."""
+    op = FLOAT_OPS["nan_min"]
+    for order in ([-0.0, 0.0, 5.0], [0.0, -0.0, 5.0],
+                  [3.0, float("nan"), -7.0, 0.0]):
+        lanes = len(order)
+        dist = torch.tensor([float("inf")] + order, device=dev)
+        src = torch.arange(1, lanes + 1, dtype=torch.int32, device=dev)
+        dst = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        w = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        valid = torch.ones(lanes, dtype=torch.bool, device=dev)
+        prop = relax.relax_lanes(dist, src, dst, w, valid, op=op)[0]
+        want = relax.relax_lanes_plain(*(a.cpu() for a in (
+            dist, src, dst, w, valid)), op=op)[0]
+        _float_same([prop], [want], op)
+        if any(x != x for x in order):
+            assert bool(prop[0].isnan())
+        else:
+            assert float(prop[0]) == 0.0 and bool(prop[0].signbit())
+
+
+def _float_graph(opname, dev):
+    """rmat12 from its highest-degree node; damped path counts on the
+    layered DAG from node 0."""
+    if opname == "damped":
+        return _layered_dag(dev), 0
+    g = rmat_graph(scale=12, weighted=True, seed=1, device=dev)
+    return g, int(g.degrees.argmax())
+
+
+def _fused_float_pair(g, strategy, kwargs, op, source):
+    """The fused kernel for a float operator and its plain loop on CPU
+    copies; returns both and the kernel run's launches."""
+    from repro_torch.core import fused as core_fused
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.kernels import fused as kernel_fused
+    strat = make_strategy(strategy, **kwargs)
+    plan = core_fused._plan(strat, strat.setup(g), g)
+    n = plan.graph.num_nodes
+    dist = torch.full((n,), op.identity, dtype=op.dtype, device=g.device)
+    dist[source] = op.seed(source)
+    mask = torch.zeros(n, dtype=torch.bool, device=g.device)
+    mask[source] = True
+    kw = dict(op=op, sched=plan.sched, max_iterations=100000)
+    before = dict(relax.LAUNCHES)
+    got = kernel_fused.fixed_point(plan.kernel, plan.graph, plan.aux, dist,
+                                   mask, **kw)
+    launched = {k: relax.LAUNCHES[k] - before[k] for k in before}
+    want = core_fused._fixed_point_plain(
+        plan.kernel, plan.graph.to("cpu"), _cpu(plan.aux), dist.cpu(),
+        mask.cpu(), **kw)
+    return got, want, launched
+
+
+@pytest.mark.parametrize("opname", ["scaled_sssp", "reliable", "damped"])
+@pytest.mark.parametrize("run", list(FUSED_RUNS))
+def test_float_fused_kernel_matches_plain(dev, run, opname):
+    """Every strategy: the float32 fused kernel's (dist, iterations,
+    edges, AD's choices, chunks) equal the plain loop's on CPU copies,
+    in one fused launch and no B1/B2 launch."""
+    strategy, kwargs = FUSED_RUNS[run]
+    op = FLOAT_OPS[opname]
+    g, source = _float_graph(opname, dev)
+    got, want, launched = _fused_float_pair(g, strategy, kwargs, op, source)
+    _float_same([got[0]], [want[0]], op)
+    assert got[1:] == want[1:]
+    assert launched["fused_fixed_point"] == 1
+    assert launched["relax_lanes"] == launched["wd_relax_lanes"] == 0
+
+
+@pytest.mark.parametrize("delta", [None, 25])
+@pytest.mark.parametrize("opname", ["scaled_sssp", "reliable"])
+@pytest.mark.parametrize("strategy", ["BS", "WD", "NS", "HP", "AD"])
+def test_float_fused_delta_kernel_matches_plain(dev, strategy, opname,
+                                                delta):
+    """Road side 128: the float32 delta mode's (dist, mask, epochs, rounds,
+    edges, last bucket, frontier count, rounds by kind) equal the plain
+    epoch loop's on CPU copies, whole and capped at one epoch, in one
+    launch: the buckets of float values as worklist.bucket_index has
+    them."""
+    from repro_torch.core import priority
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import road_grid_graph
+    from repro_torch.kernels import fused as kernel_fused
+    op = FLOAT_OPS[opname]
+    g = road_grid_graph(side=128, weighted=True, seed=4, device=dev)
+    source = 128 * 64 + 17
+    strat = make_strategy(strategy)
+    plan = priority.plan_delta(strat, strat.setup(g), g, op=op, delta=delta)
+    n = plan.light.num_nodes
+    dist = torch.full((n,), op.identity, dtype=op.dtype, device=dev)
+    dist[source] = op.seed(source)
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[source] = True
+    for cap in (100000, 1):
+        kw = dict(op=op, sched=plan.sched, delta=plan.delta,
+                  max_iterations=cap)
+        before = relax.LAUNCHES["fused_fixed_point"]
+        got = kernel_fused.delta_fixed_point(
+            plan.kernel, plan.light, plan.heavy_graph, plan.aux, dist, mask,
+            **kw)
+        assert relax.LAUNCHES["fused_fixed_point"] == before + 1
+        heavy = plan.heavy_graph
+        want = priority._delta_fixed_point_plain(
+            plan.kernel, plan.light.to("cpu"),
+            None if heavy is None else heavy.to("cpu"), _cpu(plan.aux),
+            dist.cpu(), mask.cpu(), **kw)
+        _float_same(got[:2], want[:2], op)
+        assert got[2:] == want[2:]
+
+
+@pytest.mark.parametrize("run", list(ENGINE_RUNS))
+@pytest.mark.parametrize("opname", ["scaled_sssp", "reliable", "damped"])
+def test_float_engine_on_the_card_matches_cpu(dev, monkeypatch, opname, run):
+    """``engine.run`` with a float32 operator, stepped and fused, on the
+    card equals the CPU's run, and the card run reaches no plain relax:
+    only the operator's own kernels launch."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    strategy, kwargs = ENGINE_RUNS[run]
+    op = FLOAT_OPS[opname]
+    g, src = _float_graph(opname, "cpu")
+    for mode in ("stepped", "fused")[:1 if run == "EP-unchunked" else 2]:
+        b = engine.run(g, src, make_strategy(strategy, **kwargs), op=op,
+                       mode=mode, device="cpu")
+        with monkeypatch.context() as m:
+            _no_plain_relax(m)
+            a = engine.run(g, src, make_strategy(strategy, **kwargs), op=op,
+                           mode=mode, device=dev)
+        assert a.dist.dtype == np.float32
+        _float_same([torch.from_numpy(a.dist)], [torch.from_numpy(b.dist)],
+                    op)
+        assert (a.iterations, a.edges_relaxed) == (b.iterations,
+                                                   b.edges_relaxed)
+
+
+@pytest.mark.parametrize("mode", ["stepped", "fused"])
+@pytest.mark.parametrize("opname", ["scaled_sssp", "reliable"])
+def test_float_batch_and_shards_on_the_card_match_cpu(dev, opname, mode):
+    """A K = 8 batch (B1's union contract stepped, a fused launch a row
+    fused) and a two-shard lockstep WD run with a float32 operator: the
+    card equals the CPU."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    op = FLOAT_OPS[opname]
+    g, src = _float_graph(opname, "cpu")
+    sources = [src, 0, 3, 3, 100, 7, 2048, 4095]
+    a, b = (engine.run_batch(g, sources, op=op, mode=mode, device=d)
+            for d in (dev, "cpu"))
+    _float_same([torch.from_numpy(a.dist)], [torch.from_numpy(b.dist)], op)
+    assert (a.iterations, a.edges_relaxed) == (b.iterations,
+                                               b.edges_relaxed)
+    a, b = (engine.run(g, src, make_strategy("WD"), op=op, mode="fused",
+                       shards=2, device=d) for d in (dev, "cpu"))
+    _float_same([torch.from_numpy(a.dist)], [torch.from_numpy(b.dist)], op)
+    assert (a.iterations, a.edges_relaxed) == (b.iterations,
+                                               b.edges_relaxed)

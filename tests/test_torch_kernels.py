@@ -235,14 +235,15 @@ def test_custom_operator_has_no_kernel_codes():
     in ``repro_op_improves``), for which its own kernels are built; the
     built-ins keep their codes."""
     _, top = _slack_ops()
-    assert top.kernel_codes() == (tops.MSG_CUSTOM, 0) == (3, 0)
+    assert top.kernel_codes() == (tops.MSG_CUSTOM, 0, torch.int32)
+    assert tops.MSG_CUSTOM == 3
     header = opgen.lower(top).header
     assert "repro_op_message(int32_t v, int32_t w)" in header
     assert "repro_op_add(cand, 2)" in header and "#define REPRO_OP_COMB 0" \
         in header
-    assert tops.shortest_path.kernel_codes() == (0, 0)
-    assert tops.widest_path.kernel_codes() == (2, 1)
-    assert tops.reach_count.kernel_codes() == (1, 2)
+    assert tops.shortest_path.kernel_codes() == (0, 0, torch.int32)
+    assert tops.widest_path.kernel_codes() == (2, 1, torch.int32)
+    assert tops.reach_count.kernel_codes() == (1, 2, torch.int32)
 
 
 def test_builtin_with_custom_message_has_no_kernel_codes():
@@ -252,7 +253,7 @@ def test_builtin_with_custom_message_has_no_kernel_codes():
     whose header holds its own message."""
     top = dataclasses.replace(tops.shortest_path,
                               message=lambda v, w: v + 2 * w)
-    assert top.kernel_codes() == (tops.MSG_CUSTOM, 0)
+    assert top.kernel_codes() == (tops.MSG_CUSTOM, 0, torch.int32)
     header = opgen.lower(top).header
     assert "repro_op_mul(2, w)" in header
     assert opgen.lower(top).digest != opgen.lower(
@@ -419,7 +420,7 @@ def _as_if_on_the_card(monkeypatch):
         monkeypatch.setattr(trelax, counts, dict(getattr(trelax, counts)))
     monkeypatch.setattr(trelax, "_dispatch", lambda dist, name: True)
     monkeypatch.setattr(trelax._build, "op_library",
-                        lambda op: (None, *op.kernel_codes()))
+                        lambda op: (None, *op.kernel_codes()[:2]))
     monkeypatch.setattr(trelax, "_launch",
                         lambda name, dev, library, *args: launched.append(
                             name))

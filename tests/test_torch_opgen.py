@@ -11,8 +11,22 @@ small ones and every pair of {INT_MIN, INT_MIN + 1, -1, 0, 1, INF,
 INT_MAX}, and each result must equal the callable evaluated by torch on
 the CPU bit for bit.  Every unsupported form raises
 ``NotImplementedError`` naming its fx node, and the digest follows the
-body, not the callable."""
+body, not the callable.
 
+A float32 operator's header is compiled the same way with
+``-ffp-contract=off`` (the host's stand-in for the card's ``__f*_rn``
+intrinsics) and ``-fsanitize=float-cast-overflow`` besides, and held to
+torch on random float32 values, the specials (±0, 2^30, NaN, ±inf,
+subnormals), values whose ``v + w * c`` rounds differently from its FMA,
+and random and extreme int32 weights: bit for bit, NaN for NaN (a NaN's
+payload is the hardware's: x86 keeps an operand's, the card writes its
+own), and, for the operators that take ``minimum``/``maximum`` of two
+zeros (``ZERO_TIE``), a zero for a zero of either sign: torch's own
+kernels return either zero of such a tie by the loop (scalar or vector)
+that evaluates the element, and the lowered form returns IEEE 754-2019's
+(−0.0 below +0.0)."""
+
+import dataclasses
 import itertools
 import shutil
 import subprocess
@@ -222,12 +236,265 @@ def test_digest_follows_the_body():
 
 
 def test_non_int32_and_nonzero_add_identity_still_raise():
-    """What no kernel takes raises before any lowering, naming ROADMAP
-    queue C."""
+    """float32 is lowered (a float header, MSG_CUSTOM even for the
+    built-in sum); the sub-word and 64-bit dtypes, and add with a nonzero
+    identity (int32 or float32), raise before any lowering, naming the
+    ROADMAP item."""
     f32 = tops.EdgeOp(name="f32", combine="min", identity=INF,
-                      source_value=0, message=lambda v, w: v + w,
+                      source_value=0, message=tops._sum_message,
                       dtype=torch.float32)
-    add1 = _op("add1", "add", lambda v, w: v, identity=1)
-    for op in (f32, add1):
-        with pytest.raises(NotImplementedError, match="queue C"):
+    assert f32.kernel_codes() == (tops.MSG_CUSTOM, 0, torch.float32)
+    assert "#define REPRO_OP_FLOAT" in opgen.lower(f32).header
+    bad = [_op("add1", "add", lambda v, w: v, identity=1),
+           dataclasses.replace(f32, name="fadd1", combine="add",
+                               identity=1.0)]
+    bad += [dataclasses.replace(f32, name=str(d), dtype=d)
+            for d in (torch.float16, torch.bfloat16, torch.int16,
+                      torch.uint8, torch.float64)]
+    for op in bad:
+        with pytest.raises(NotImplementedError,
+                           match="queue C: operators of a sub-word"):
             opgen.lower(op)
+
+
+# ---------------------------------------------------------------------------
+# float32 operators
+# ---------------------------------------------------------------------------
+
+FLOAT_HARNESS = r"""
+#include "op.h"
+#include <stdio.h>
+#include <stdlib.h>
+
+int main(int argc, char** argv) {
+  FILE* in = fopen(argv[1], "rb");
+  FILE* out = fopen(argv[2], "wb");
+  int32_t n = 0;
+  if (!in || !out || fread(&n, 4, 1, in) != 1) return 2;
+  float* v = (float*)malloc(4 * (size_t)n);
+  int32_t* w = (int32_t*)malloc(4 * (size_t)n);
+  float* u = (float*)malloc(4 * (size_t)n);
+  if (fread(v, 4, n, in) != (size_t)n || fread(w, 4, n, in) != (size_t)n ||
+      fread(u, 4, n, in) != (size_t)n)
+    return 2;
+  for (int32_t i = 0; i < n; ++i) {
+    const float m = repro_op_message(v[i], w[i]);
+    const uint8_t ok = repro_op_improves(v[i], u[i]) ? 1 : 0;
+    fwrite(&m, 4, 1, out);
+    fwrite(&ok, 1, 1, out);
+  }
+  fclose(out);
+  return 0;
+}
+"""
+
+F_SPECIALS = (0.0, -0.0, 2.0 ** 30, float("nan"), float("inf"),
+              float("-inf"), 1e-45, -1e-45, 1e-40, -3e-39, 0.5, -1.0,
+              0.97, 3.4e38)
+
+
+def _fop(name, combine, message, update=None, identity=None):
+    ident = {"min": float(INF), "max": 0.0, "add": 0.0}[combine]
+    return tops.EdgeOp(name=name, combine=combine,
+                       identity=ident if identity is None else identity,
+                       source_value=0.0, message=message, update=update,
+                       dtype=torch.float32)
+
+
+#: float32 operators: the smoke's three, the built-in sum on float
+#: values, and one operator per op family
+FLOAT_SUPPORTED = {
+    "scaled_sssp": _fop("scaled_sssp", "min", lambda v, w: v + w * 0.01),
+    "sum_f": _fop("sum_f", "min", tops._sum_message),
+    "max_product": _fop("max_product", "max",
+                        lambda v, w: v * (w / (w + 1.0))),
+    "damped": _fop("damped", "add", lambda v, w: v * 0.5),
+    "arith": _fop("arith", "min",
+                  lambda v, w: (v - w) * 1.5 / 3.0 + (-v) + abs(v - 2)
+                  - torch.neg(v) / (w + 0.5) + torch.abs(w * 0.1)),
+    "min_max_clamp": _fop(
+        "min_max_clamp", "max",
+        lambda v, w: torch.maximum(v, w * 0.5) - torch.minimum(v, w.float())
+        + v.clamp(-10.5, 1e3) + torch.clamp_min(v, 0) + torch.clamp_max(
+            v, 7) + torch.max(v, -v) + v.clamp(min=3.0, max=-3.0)),
+    "floor_mod": _fop(
+        "floor_mod", "min",
+        lambda v, w: v // 2.5 + torch.div(v, 4, rounding_mode="floor")
+        + v // -0.1 + torch.floor_divide(v, 1e-3) + w // 3.0),
+    "where_compare": _fop(
+        "where_compare", "min",
+        lambda v, w: torch.where(v > w, v - w, v + w * 0.25),
+        update=lambda cand, cur: ((cand < cur) & (cand == cand))
+        | (cur > 1e30) | torch.logical_and(cand != cand, cur >= 0)),
+    "conversions": _fop(
+        "conversions", "min",
+        lambda v, w: (v.to(torch.int32) // 3 + w).float()
+        + v.bool().float() + (v > w).to(torch.float32)
+        + torch.where(w.bool(), v, 2) + v.int().to(torch.float32)),
+    "int_mix": _fop("int_mix", "max",
+                    lambda v, w: v + (w // 3 - w % 5) * 2 + (w > 3)),
+    "constants": _fop(
+        "constants", "max",
+        lambda v, w: v * 1e-45 + (v + 16777217) - 0.1 + (v + (-0.0))
+        + torch.where(v > 0, float("inf"), -3e38)),
+    "nan_update": _fop(
+        "nan_update", "min", lambda v, w: v - w,
+        update=lambda cand, cur: torch.logical_or(
+            cand < cur, torch.logical_and(cand != cand, ~(cur != cur)))),
+}
+
+#: the operators whose results may be a tie of two zeros under
+#: minimum/maximum (see the module docstring)
+ZERO_TIE = {"min_max_clamp"}
+
+
+def _float_inputs():
+    """(v, w, u): random float32 values of every scale, the specials,
+    v + w * 0.01 where it rounds apart from its FMA, and int32 weights."""
+    rng = np.random.default_rng(29)
+    n = 6000
+    v = np.concatenate([
+        rng.standard_normal(1500) * 10.0 ** rng.integers(-6, 9, 1500),
+        rng.uniform(-2.0 ** 31, 2.0 ** 31, 500),
+        rng.uniform(0, 200, 2000),
+        rng.choice(F_SPECIALS, 2000)]).astype(np.float32)
+    w = np.concatenate([
+        rng.integers(INT_MIN, INT_MAX + 1, 1000, dtype=np.int64),
+        rng.integers(-40, 41, 1500),
+        rng.integers(1, 101, 3000),
+        rng.choice(EXTREMES, 500)]).astype(np.int32)
+    u = np.concatenate([v[::-1][:3000], rng.choice(F_SPECIALS, 3000)]
+                       ).astype(np.float32)
+    assert v.size == w.size == u.size == n
+    rng.shuffle(u)
+    return v, w, u
+
+
+def _fma_differs(v, w, c):
+    """Where v + w * c (two roundings in float32) differs from its FMA
+    (one rounding of the exact value)."""
+    wf = w.astype(np.float32).astype(np.float64)
+    exact = v.astype(np.float64) + wf * np.float64(np.float32(c))
+    two = (v + (w.astype(np.float32) * np.float32(c))).astype(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        one = exact.astype(np.float32)
+    return np.isfinite(two) & (two != one)
+
+
+def _run_float_harness(header: str, v, w, u, tmp_path):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the generated header")
+    (tmp_path / "op.h").write_text(header)
+    (tmp_path / "harness.cc").write_text(FLOAT_HARNESS)
+    exe = tmp_path / "harness"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O1", "-ffp-contract=off",
+         "-fsanitize=undefined,float-cast-overflow",
+         "-fno-sanitize-recover=all", "-D__host__=", "-D__device__=",
+         "-D__forceinline__=inline", f"-I{tmp_path}", "-o", str(exe),
+         str(tmp_path / "harness.cc")],
+        check=True, capture_output=True, text=True, timeout=120)
+    (tmp_path / "in.bin").write_bytes(
+        np.int32(v.size).tobytes() + v.tobytes() + w.tobytes()
+        + u.tobytes())
+    run = subprocess.run([str(exe), str(tmp_path / "in.bin"),
+                          str(tmp_path / "out.bin")],
+                         capture_output=True, text=True, timeout=60)
+    assert run.returncode == 0, run.stderr
+    rec = np.frombuffer((tmp_path / "out.bin").read_bytes(),
+                        dtype=[("m", "<f4"), ("ok", "u1")])
+    return rec["m"], rec["ok"].astype(bool)
+
+
+def _same_floats(got, want, zero_tie: bool):
+    """Bit for bit, NaN for NaN, and (``zero_tie``) a zero for a zero."""
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    g, t = got[~nan], want[~nan]
+    same = g.view(np.int32) == t.view(np.int32)
+    if zero_tie:
+        same |= (g == 0) & (t == 0)
+    bad = np.flatnonzero(~same)
+    assert bad.size == 0, (g[bad[:5]], t[bad[:5]])
+
+
+@pytest.mark.parametrize("name", list(FLOAT_SUPPORTED))
+def test_lowered_float_operator_matches_torch(name, tmp_path):
+    op = FLOAT_SUPPORTED[name]
+    v, w, u = _float_inputs()
+    header = opgen.lower(op).header
+    assert "#define REPRO_OP_FLOAT" in header
+    msg, ok = _run_float_harness(header, v, w, u, tmp_path)
+    tv, tw, tu = (torch.from_numpy(x.copy()) for x in (v, w, u))
+    want_msg = op.message(tv, tw)
+    want_ok = op.improves(tv, tu)
+    assert want_msg.dtype == torch.float32 and want_ok.dtype == torch.bool
+    _same_floats(msg, want_msg.numpy(), name in ZERO_TIE)
+    np.testing.assert_array_equal(ok, want_ok.numpy())
+
+
+def test_float_inputs_separate_fma_from_two_roundings():
+    """The inputs hold many pairs where ``v + w * 0.01`` and its FMA round
+    apart, so the scaled SSSP's case above would see a contraction."""
+    v, w, _ = _float_inputs()
+    assert _fma_differs(v, w, 0.01).sum() >= 100
+
+
+def test_float_header_rounds_each_operation():
+    """The float header never leaves a float operator to the compiler:
+    every ``+ - * /`` of a float node goes through ``repro_op_f*``, whose
+    card branch is ``__f*_rn`` (never contracted into an FMA)."""
+    header = opgen.lower(FLOAT_SUPPORTED["scaled_sssp"]).header
+    body = header[header.index("repro_op_message("):]
+    assert "repro_op_fmul(repro_op_i2f(w)" in body
+    assert "repro_op_fadd(v, " in body
+    for fn, intrinsic in (("fadd", "__fadd_rn"), ("fsub", "__fsub_rn"),
+                          ("fmul", "__fmul_rn"), ("fdiv", "__fdiv_rn"),
+                          ("i2f", "__int2float_rn")):
+        at = header.index(f"float repro_op_{fn}(")
+        assert intrinsic in header[at:at + 200]
+
+
+#: (message, update, what the error must name) for float32 operators
+FLOAT_UNSUPPORTED = {
+    "float_shift": (lambda v, w: v << 2, None, "'lshift'"),
+    "tensor_floordiv": (lambda v, w: v // w, None, "'floordiv'.*tensor"),
+    "tensor_remainder": (lambda v, w: v % (w + 1.0), None, "'mod'.*tensor"),
+    "zero_divisor": (lambda v, w: v // 0.0, None, "'floordiv'.*zero"),
+    "reduction": (lambda v, w: v.sum() + w, None, "'sum_1'"),
+    "indexing": (lambda v, w: v[0] + w, None, "'getitem'"),
+    "float64": (lambda v, w: v.double() + w, None, "'double'"),
+    "tensor_bound": (lambda v, w: v.clamp(min=w * 1.0), None,
+                     "'clamp'.*Python constant"),
+    "nan_bound": (lambda v, w: v.clamp(max=float("nan")), None,
+                  "'clamp'.*NaN"),
+    "trunc_div": (lambda v, w: torch.div(v, 2, rounding_mode="trunc"),
+                  None, "'div'.*floor"),
+    "exp": (lambda v, w: torch.exp(v), None, "'exp'"),
+    "float_remainder": (lambda v, w: v % 3.0, None, "'mod'.*disagree"),
+    "float_fmod": (lambda v, w: torch.fmod(v, 7), None, "'fmod'.*disagree"),
+    "int_message": (lambda v, w: (v > 0).int() + w, None,
+                    "'output'.*float32"),
+    "float_update": (lambda v, w: v, lambda cand, cur: cand - cur,
+                     "'output'.*bool"),
+}
+
+
+@pytest.mark.parametrize("name", list(FLOAT_UNSUPPORTED))
+def test_unsupported_float_form_raises_naming_its_node(name):
+    message, update, what = FLOAT_UNSUPPORTED[name]
+    op = _fop(f"bad_{name}", "min", message, update=update)
+    with pytest.raises(NotImplementedError,
+                       match=f"bad_{name}.*{what}.*device='cpu'"):
+        opgen.lower(op)
+
+
+def test_float_and_int_headers_differ():
+    """The value type is in the header, so in the digest: one body of int32
+    and float32 values builds two libraries."""
+    f = FLOAT_SUPPORTED["sum_f"]
+    i = _op("sum_i", "min", lambda v, w: v + w)
+    assert opgen.lower(f).digest != opgen.lower(i).digest
+    assert "float repro_op_message(float v, int32_t w)" in \
+        opgen.lower(f).header

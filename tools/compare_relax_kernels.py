@@ -157,7 +157,7 @@ def main() -> int:
     shapes = path_launches(g, dev, strategies)
     print(json.dumps({"path_shapes": shapes}), flush=True)
     op = operators.shortest_path
-    msg, comb = op.kernel_codes()
+    msg, comb, _ = op.kernel_codes()
 
     def check(status: int) -> None:
         if status != 0:

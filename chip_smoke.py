@@ -186,6 +186,29 @@ Phases, each printing one JSON line:
    single runs; delta on road256 against the CPU and on road1024 against
    Dijkstra; two shards against one device; each float kernel timed for
    the kernel line (``<kernel><op>`` rows with ``dtype`` float32).
+   subword_ops (ROADMAP queue C): sub-word operators, each its own build
+   of B1, B2, B1's batch contract and the fused kernel (BSP, batch,
+   delta) with values of its type, seven libraries: SSSP in bfloat16 and
+   in int16 (an int32 message the fold narrows), the most reliable path
+   in float16 (a float32 message), BFS levels in int8, the widest path in
+   uint8, path counts in uint8 (add, wrapping) and damped counts in
+   bfloat16 (add, on a layered DAG).  The 16-bit float builds' B1, B2
+   and union hold no FFMA and their fused kernel as many as the int16
+   build's; each kernel against its plain version on CPU copies at
+   rmat20's N (min, max and integer add bit for bit, the bfloat16 add
+   at rtol 4e-2), each type's extremes, ±0 and NaN among the values; on
+   rmat20
+   the six strategies fused agree, and WD stepped with fused; at rmat16
+   the six stepped and fused agree, card against the CPU's stepped WD,
+   a K = 8 batch equal to its rows, two shards
+   against one device; delta on road256, stepped equal to fused, the two
+   SSSPs against a Dijkstra in their type; the fused kernel against its
+   plain loop (rmat20 WD; road64 delta on CPU copies); each instance
+   timed for the kernel line (``<kernel><op>`` rows with its ``dtype``).
+   Every operator library of custom_ops, float_ops and subword_ops
+   starts building beside the base build (``start_prebuilds``: nvcc
+   subprocesses, ``PREBUILD_WORKERS`` operators at a time, nothing
+   loaded); each phase waits for its own and loads them.
    (The analysis phase runs right after the build: ``python -m
    repro_torch.analysis src/repro_torch`` in-process, which must report
    no finding, and the ``smem`` pass's footprint model of every kernel
@@ -595,16 +618,18 @@ def time_pair(fn, plain, reps, flush) -> dict:
                 plain_ms=time_ms(plain, reps=reps, flush=flush))
 
 
-def fold_bytes(n: int, contract: str, improving: int) -> int:
-    """The bytes over ``dist [n]`` and the outputs of a B1/B2 call with
-    ``improving`` improving lanes.  The proposal contract reads dist once
-    and writes the whole proposal and ``updated``: 9n.  The fold into a
-    copy of dist (``apply_relax``, ``wd_apply_relax``) reads dist once
-    and writes the next dist once, 8n, and writes ``updated`` only where
-    a lane improves: the running mask is neither read nor cleared."""
+def fold_bytes(n: int, contract: str, improving: int,
+               width: int = 4) -> int:
+    """The bytes over ``dist [n]`` (values ``width`` bytes wide) and the
+    outputs of a B1/B2 call with ``improving`` improving lanes.  The
+    proposal contract reads dist once and writes the whole proposal and
+    ``updated``: 9n for int32.  The fold into a copy of dist
+    (``apply_relax``, ``wd_apply_relax``) reads dist once and writes the
+    next dist once, 8n for int32, and writes ``updated`` only where a lane
+    improves: the running mask is neither read nor cleared."""
     if contract in ("relax_lanes", "wd_relax_lanes"):
-        return 9 * n
-    return 8 * n + improving
+        return (2 * width + 1) * n
+    return 2 * width * n + improving
 
 
 def b1_work(prefix, total) -> tuple[int, int]:
@@ -657,8 +682,8 @@ def time_b1(g, a, dist, op, reps, flush, contract="wd_relax_lanes") -> dict:
     improving = int(plain()[2].sum())
     slot_bytes, ops = b1_work(a["prefix"], a["prefix"][-1].clamp(max=cap))
     # + cap: the improve flag of every lane, which this contract writes
-    t_b, by = bound(fold_bytes(n, contract, improving) + slot_bytes
-                    + 8 * total + cap, ops)
+    t_b, by = bound(fold_bytes(n, contract, improving, dist.element_size())
+                    + slot_bytes + 8 * total + cap, ops)
     return dict(contract=contract, **time_pair(fn, plain, reps, flush),
                 bound_ms=t_b, bound_by=by,
                 shape=dict(n=n, f=f_slots, cap_work=cap, edges=total,
@@ -692,8 +717,8 @@ def time_b2(b, dist, op, reps, flush, contract="relax_lanes") -> dict:
     improving = int(plain()[2].sum())
     # valid read and improve written per lane, src/dst/w per valid lane
     # (an invalid lane needs nothing else)
-    nbytes = fold_bytes(n, contract, improving) + 2 * lanes \
-        + 12 * valid_lanes
+    nbytes = fold_bytes(n, contract, improving, dist.element_size()) \
+        + 2 * lanes + 12 * valid_lanes
     t_b, by = bound(nbytes, 6 * valid_lanes)
     return dict(contract=contract, **time_pair(fn, plain, reps, flush),
                 bound_ms=t_b, bound_by=by,
@@ -1435,14 +1460,14 @@ def barrier_us(dev) -> float:
     return (t[BARRIER_PROBE_K] - t[0]) * 1e3 / BARRIER_PROBE_K
 
 
-def run_bytes(graph, r) -> int:
+def run_bytes(graph, r, width: int = 4) -> int:
     """The least bytes of a traversal of ``graph`` whose stepped run is
-    ``r``: col, the weight (a weighted graph only) and the destination's
-    value of each relaxed edge, row_ptr (2) and the value of each frontier
-    node, the mask each iteration."""
+    ``r`` (values ``width`` bytes wide): col, the weight (a weighted graph
+    only) and the destination's value of each relaxed edge, row_ptr (2)
+    and the value of each frontier node, the mask each iteration."""
     frontier_nodes = sum(st.frontier_size for st in r.iter_stats)
-    per_edge = 8 if graph.wt is None else 12
-    return (per_edge * r.edges_relaxed + 12 * frontier_nodes
+    per_edge = (4 if graph.wt is None else 8) + width
+    return (per_edge * r.edges_relaxed + (8 + width) * frontier_nodes
             + graph.num_nodes * r.iterations)
 
 
@@ -1831,15 +1856,16 @@ def b1_batch_time(g, c, reps: int = 10, op=None) -> dict:
     improved = int(plain()[1].sum())
     slot_bytes, ops = b1_work(tables[0], tables[0][-1])
     slots = slot_bytes // 16
-    t_b, by = bound(8 * n * kp + slot_bytes + kp * slots + 8 * union_lanes
-                    + improved, ops * (kp // 4))
+    width = dist_t.element_size()
+    t_b, by = bound(2 * width * n * kp + slot_bytes + kp * slots
+                    + 8 * union_lanes + improved, ops * (kp // 4))
     mask_b = ms.from_node_major(front_t, k)
     rows = ms.row_tables(g, mask_b, max(int(mask_b.sum(1).max()), 1))
     totals = rows[0][:, -1].clamp(max=cap_work)
     row_improving = (ms.from_node_major(plain()[0], k)
                      != ms.from_node_major(dist_t, k)).sum(1).tolist()
     row_slot_bytes, row_ops = b1_work(rows[0], totals)
-    row_b, row_by = bound(sum(fold_bytes(n, "wd_apply_relax", imp)
+    row_b, row_by = bound(sum(fold_bytes(n, "wd_apply_relax", imp, width)
                               for imp in row_improving)
                           + row_slot_bytes + 8 * int(totals.sum()), row_ops)
     return dict(contract="wd_apply_relax_union",
@@ -3012,6 +3038,29 @@ def in_domain(op, t):
     return op.fold_values(t, torch.full_like(t, op.identity))
 
 
+#: digest of a lowered operator -> the future of its library's build,
+#: started beside the base build (``start_prebuilds``)
+PREBUILDS: dict = {}
+#: builds of operator libraries at once beside the base build
+PREBUILD_WORKERS = 4
+
+
+def start_prebuilds(g):
+    """Start the builds of every operator library the custom, float and
+    sub-word phases load (``_build.custom_build``: nvcc subprocesses, no
+    load), ``PREBUILD_WORKERS`` at a time, while the base library builds;
+    each phase then waits for its own and loads them.  Returns the
+    pool."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _build, opgen
+    pool = ThreadPoolExecutor(PREBUILD_WORKERS)
+    for op in (*custom_ops(0, int(g.wt.max())).values(),
+               *float_ops().values(), *subword_ops().values()):
+        PREBUILDS[opgen.lower(op).digest] = pool.submit(
+            _build.custom_build, op)
+    return pool
+
+
 def custom_builds(ops: dict, line: str = "custom_build") -> dict:
     """Build every operator's library, all at once (one thread an
     operator, each running nvcc on relax.cu and fused.cu); print each
@@ -3022,6 +3071,10 @@ def custom_builds(ops: dict, line: str = "custom_build") -> dict:
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build, opgen
     t0 = time.perf_counter()
+    for op in ops.values():     # started beside the base build (main)
+        started = PREBUILDS.get(opgen.lower(op).digest)
+        if started is not None:
+            started.result()
     with ThreadPoolExecutor(len(ops)) as pool:
         libs = dict(zip(ops, pool.map(_build.custom_lib, ops.values())))
     wall = time.perf_counter() - t0
@@ -3494,12 +3547,13 @@ def float_values(rng, op, shape):
     return a
 
 
-def float_err(got, want, op) -> tuple[float, float]:
-    """The card's outputs against the CPU's: bools and ints exactly;
-    float32 values of min and max bit for bit and NaN for NaN (a NaN's
-    payload is the hardware's), of add within ``FLOAT_ADD_RTOL``.
-    Returns the largest absolute and relative differences of the float
-    values; raises on any other difference."""
+def float_err(got, want, op, rtol: float = FLOAT_ADD_RTOL
+              ) -> tuple[float, float]:
+    """The card's outputs against the CPU's: bools and integers exactly;
+    float values (float32, bfloat16, float16) of min and max bit for bit
+    and NaN for NaN (a NaN's payload is the hardware's), of add within
+    ``rtol``.  Returns the largest absolute and relative differences of
+    the float values; raises on any other difference."""
     import torch
     abs_err = rel_err = 0.0
     for a, b in zip(got, want):
@@ -3507,29 +3561,33 @@ def float_err(got, want, op) -> tuple[float, float]:
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"output {tuple(a.shape)}/{a.dtype} vs "
                                  f"{tuple(b.shape)}/{b.dtype}")
-        if a.dtype != torch.float32:
+        if not a.is_floating_point():
             if not torch.equal(a, b):
-                raise AssertionError("a flag or count differs")
+                raise AssertionError(f"{op.name}: a flag or value differs")
             continue
         if not torch.equal(a.isnan(), b.isnan()):
-            raise AssertionError("NaN at other places")
+            raise AssertionError(f"{op.name}: NaN at other places")
         x, y = a[~a.isnan()], b[~b.isnan()]
         if op.combine != "add":
-            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
-                raise AssertionError("float values differ in their bits")
+            bits = {2: torch.int16, 4: torch.int32}[x.element_size()]
+            if not torch.equal(x.view(bits), y.view(bits)):
+                raise AssertionError(f"{op.name}: float values differ in "
+                                     f"their bits")
             continue
+        x, y = x.double(), y.double()
         if not torch.equal(torch.isinf(x), torch.isinf(y)) or not \
                 torch.equal(x[torch.isinf(x)], y[torch.isinf(y)]):
-            raise AssertionError("infinities differ")
+            raise AssertionError(f"{op.name}: infinities differ")
         fin = torch.isfinite(y)
-        d = (x[fin].double() - y[fin].double()).abs()
+        d = (x[fin] - y[fin]).abs()
         if d.numel():
             abs_err = max(abs_err, float(d.max()))
-            rel = d / y[fin].double().abs().clamp(min=1e-300)
+            rel = d / y[fin].abs().clamp(min=1e-300)
             rel_err = max(rel_err, float(rel[y[fin] != 0].max())
                           if bool((y[fin] != 0).any()) else 0.0)
-    if rel_err > FLOAT_ADD_RTOL:
-        raise AssertionError(f"add beyond rtol {FLOAT_ADD_RTOL}: {rel_err}")
+    if rel_err > rtol:
+        raise AssertionError(f"{op.name}: add beyond rtol {rtol}: "
+                             f"{rel_err}")
     return abs_err, rel_err
 
 
@@ -3582,19 +3640,25 @@ def check_float_sass(sssp: dict, damped: dict) -> None:
                              f"contracted: {relax} {fused}")
 
 
-def float_kernel_checks(g, dev, ops: dict, rng) -> dict:
+def float_kernel_checks(g, dev, ops: dict, rng, values=None,
+                        rtol: float = FLOAT_ADD_RTOL,
+                        line: str = "float_kernels_check") -> dict:
     """B2 and B1 (both contracts each) and B1's batch contract built for
-    each float32 operator, against their plain versions on CPU copies:
-    rmat20's node count, float extremes among the values and int32
-    extremes among the weights (B2: 1,001 and N + 3 lanes; B1: frontiers
-    of N/64 and N/8 slots; the batch: K = 8 rows of ~N/100 nodes).  The
-    proposal contracts take every extreme, the folds into dist the values
-    of the operator's domain (``in_domain``).
-    Returns (operator, kernel) -> (max abs, max rel) error; raises on a
-    difference."""
+    each operator of a float (or sub-word) value type, against their plain
+    versions on CPU copies: ``g``'s node count, ``values(rng, op, shape)``
+    on the card (default: float32 extremes among them, ``float_values``)
+    and int32 extremes among the weights (B2: 1,001 and N + 3 lanes; B1:
+    frontiers of N/64 and N/8 slots; the batch: K = 8 rows of ~N/100
+    nodes).  The proposal contracts take every extreme, the folds into
+    dist the values of the operator's domain (``in_domain``); add is held
+    at ``rtol``.  Returns (operator, kernel) -> (max abs, max rel) error;
+    raises on a difference."""
     import torch
     from repro_torch.core import multi_source as ms
     from repro_torch.kernels import relax
+    if values is None:
+        def values(rng, op, shape):
+            return torch.from_numpy(float_values(rng, op, shape)).to(dev)
     n = g.num_nodes
     err, cases = {}, 0
 
@@ -3603,60 +3667,67 @@ def float_kernel_checks(g, dev, ops: dict, rng) -> dict:
 
     def check(key, got, want, op):
         nonlocal cases
-        e = float_err(got, want, op)
+        e = float_err(got, want, op, rtol)
         old = err.get(key, (0.0, 0.0))
         err[key] = (max(old[0], e[0]), max(old[1], e[1]))
         cases += 1
 
+    # the lanes, frontiers and masks do not depend on the operator: built
+    # once, each operator's values on them
     wt = with_extremes(rng, g.wt)
     col_c, wt_c = g.col.cpu(), wt.cpu()
+    b2 = []
+    for lanes in (1001, n + 3):
+        b = lane_inputs(rng, n, lanes, dev)
+        args = (b["src"], b["dst"], with_extremes(rng, b["w"]), b["valid"])
+        b2.append((args, cpu(args),
+                   torch.from_numpy(rng.random(n) < 0.2).to(dev)))
+    b1 = []
+    for f_slots, cursor_max in ((n >> 6, 0), (n >> 3, 2)):
+        a = wd_inputs(g, rng, f_slots, cursor_max, dev)
+        args = (a["prefix"], a["exclusive"], a["start"], a["src_ids"],
+                g.col, wt)
+        b1.append((args, cpu(args[:4]) + (col_c, wt_c), a["cap_work"],
+                   torch.from_numpy(rng.random(n) < 0.2).to(dev)))
+    k = BATCH_K
+    mask_b = torch.from_numpy(rng.random((k, n)) < 0.01).to(dev)
+    front_t = ms.to_node_major(mask_b, False)
+    tables = ms.union_tables(g, front_t.any(1), n)
+    front_c, tables_c = front_t.cpu(), cpu(tables)
     for name, op in ops.items():
-        for lanes in (1001, n + 3):
-            b = lane_inputs(rng, n, lanes, dev)
-            dist = torch.from_numpy(float_values(rng, op, n)).to(dev)
-            args = (dist, b["src"], b["dst"], with_extremes(rng, b["w"]),
-                    b["valid"])
-            check((name, "relax_lanes"), relax.relax_lanes(*args, op=op),
-                  relax.relax_lanes_plain(*cpu(args), op=op), op)
-            mask = torch.from_numpy(rng.random(n) < 0.2).to(dev)
-            dist = in_domain(op, dist)
-            want = relax.apply_relax_plain(dist.cpu(), mask.cpu(),
-                                           *cpu(args[1:]), op=op)
+        for args, cargs, mask in b2:
+            dist = values(rng, op, n)
             check((name, "relax_lanes"),
-                  relax.apply_relax(dist, mask, *args[1:], op=op), want, op)
-        for f_slots, cursor_max in ((n >> 6, 0), (n >> 3, 2)):
-            a = wd_inputs(g, rng, f_slots, cursor_max, dev)
-            dist = torch.from_numpy(float_values(rng, op, n)).to(dev)
-            args = (a["prefix"], a["exclusive"], a["start"], a["src_ids"],
-                    g.col, wt)
-            cargs = cpu(args[:4]) + (col_c, wt_c)
-            kw = dict(cap_work=a["cap_work"], op=op)
+                  relax.relax_lanes(dist, *args, op=op),
+                  relax.relax_lanes_plain(dist.cpu(), *cargs, op=op), op)
+            dist = in_domain(op, dist)
+            want = relax.apply_relax_plain(dist.cpu(), mask.cpu(), *cargs,
+                                           op=op)
+            check((name, "relax_lanes"),
+                  relax.apply_relax(dist, mask, *args, op=op), want, op)
+        for args, cargs, cap_work, mask in b1:
+            dist = values(rng, op, n)
+            kw = dict(cap_work=cap_work, op=op)
             check((name, "wd_relax_lanes"),
                   relax.wd_relax_lanes(dist, *args, **kw),
                   relax.wd_relax_lanes_plain(dist.cpu(), *cargs, **kw), op)
-            mask = torch.from_numpy(rng.random(n) < 0.2).to(dev)
             dist = in_domain(op, dist)
             want = relax.wd_apply_relax_plain(dist.cpu(), mask.cpu(),
                                               *cargs, **kw)
             check((name, "wd_relax_lanes"),
                   relax.wd_apply_relax(dist, mask, *args, **kw), want, op)
-        k = BATCH_K
-        mask_b = torch.from_numpy(rng.random((k, n)) < 0.01).to(dev)
-        dist_b = in_domain(op, torch.from_numpy(
-            float_values(rng, op, (k, n))).to(dev))
+        dist_b = in_domain(op, values(rng, op, (k, n)))
         dist_t = ms.to_node_major(dist_b, op.identity)
-        front_t = ms.to_node_major(mask_b, False)
-        tables = ms.union_tables(g, front_t.any(1), n)
         uargs = (dist_t, front_t, *tables, g.col, wt)
         check((name, "wd_relax_lanes_batch"),
               relax.wd_apply_relax_union(*uargs, cap_work=g.num_edges,
                                          max_lanes=int(tables[0][-1]), op=op),
               relax.wd_apply_relax_union_plain(
-                  *cpu(uargs[:6]), col_c, wt_c, cap_work=g.num_edges,
-                  op=op), op)
-    emit("float_kernels_check", cases=cases, operators=list(ops),
+                  dist_t.cpu(), front_c, *tables_c, col_c, wt_c,
+                  cap_work=g.num_edges, op=op), op)
+    emit(line, cases=cases, operators=list(ops),
          max_err={f"{a}/{b}": v for (a, b), v in err.items()},
-         add_rtol=FLOAT_ADD_RTOL)
+         add_rtol=rtol)
     return err
 
 
@@ -3948,6 +4019,438 @@ def float_ops_phase(g, dev, *, small_scale: int = 16,
     emit("float_kernels_time", rows=rows, nvidia_smi=nvidia_smi())
     step("timing")
     emit("float_phase_steps", seconds=steps)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: sub-word operators on the card (ROADMAP queue C)
+# ---------------------------------------------------------------------------
+
+#: the sub-word add operators' layered DAG: layers, width, out-degree
+SUBWORD_DAG = (8, 1 << 14, 4)
+#: the bfloat16 add's tolerance against its plain version: a float sum
+#: depends on the order of its terms, and bfloat16 keeps 8 bits
+SUBWORD_ADD_RTOL = 4e-2
+#: the road side of the sub-word delta runs (a Python Dijkstra in the
+#: value type checks them; at 1024 it alone would take the phase's time)
+SUBWORD_ROAD_SIDE = 256
+
+
+def subword_ops() -> dict:
+    """The phase's sub-word operators (ROADMAP queue C): SSSP in bfloat16
+    (``v + w``: the weight rounds to bfloat16, the sum once), the most
+    reliable path in float16 (a float32 message the fold narrows), SSSP
+    in int16 (an int32 message the fold narrows), BFS levels in int8
+    (``v + 1``), the widest path in uint8 (its weights clamped and
+    narrowed), and path counts in uint8 (add, wrapping) and damped in
+    bfloat16 (add, ``v * 0.5``)."""
+    import torch
+    from repro_torch.core.operators import EdgeOp
+    bf16, f16 = torch.bfloat16, torch.float16
+    return {
+        "bf16_sssp": EdgeOp(name="bf16_sssp", combine="min",
+                            identity=float("inf"), source_value=0.0,
+                            weight_additive=True, dtype=bf16,
+                            message=lambda v, w: v + w),
+        "f16_reliable": EdgeOp(name="f16_reliable", combine="max",
+                               identity=0.0, source_value=1.0, value_min=0,
+                               dtype=f16,
+                               message=lambda v, w: v * (w / (w + 1.0))),
+        "i16_sssp": EdgeOp(name="i16_sssp", combine="min", identity=32767,
+                           source_value=0, weight_additive=True,
+                           dtype=torch.int16, message=lambda v, w: v + w),
+        "i8_levels": EdgeOp(name="i8_levels", combine="min", identity=127,
+                            source_value=0, dtype=torch.int8,
+                            message=lambda v, w: v + 1),
+        "u8_widest": EdgeOp(name="u8_widest", combine="max", identity=0,
+                            source_value=255, value_min=0, dtype=torch.uint8,
+                            message=lambda v, w: torch.minimum(
+                                v, w.clamp(0, 255).to(torch.uint8))),
+        "u8_count": EdgeOp(name="u8_count", combine="add", identity=0,
+                           source_value=1, dtype=torch.uint8,
+                           message=lambda v, w: v),
+        "bf16_damped": EdgeOp(name="bf16_damped", combine="add",
+                              identity=0.0, source_value=1.0, dtype=bf16,
+                              message=lambda v, w: v * 0.5),
+    }
+
+
+def subword_values(rng, op, shape, dev):
+    """Random values of ``op``'s type and domain on ``dev``, a tenth of
+    them the type's extremes (a 16-bit float's ±0, NaN, ±inf, largest and
+    least values; an integer type's least and largest, 0 and -1)."""
+    import numpy as np
+    import torch
+    dtype = op.dtype
+    if dtype.is_floating_point:
+        fi = torch.finfo(dtype)
+        a = (rng.random(shape) * (1.0 if op.combine == "max" else 60.0))
+        pool = [0.0, -0.0, float("nan"), float("inf"), -float("inf"),
+                fi.max, -fi.max, fi.tiny, fi.smallest_normal / 8, -1.0]
+        if op.combine == "add":
+            pool = [0.0, -0.0, fi.tiny, fi.smallest_normal / 8, 2.0 ** 10]
+    else:
+        ii = torch.iinfo(dtype)
+        a = rng.integers(0, min(ii.max, 100), shape).astype(np.float64)
+        pool = [ii.min, ii.max, 0, -1 if ii.min < 0 else 1]
+    if op.combine == "min":
+        a[rng.random(shape) < 0.4] = op.identity
+    at = rng.random(shape) < 0.1
+    a[at] = rng.choice(np.array(pool, np.float64), int(at.sum()))
+    t = torch.from_numpy(a)
+    return (t.to(dtype) if dtype.is_floating_point
+            else t.to(torch.int64).to(dtype)).to(dev)
+
+
+def bf16_dijkstra(g, source: int):
+    """Dijkstra over bfloat16 values with ``v + w`` as torch computes it
+    (the weight rounded to bfloat16, the float32 sum rounded to bfloat16
+    once, to nearest even): exact for this message, which is monotone and
+    never below ``v``.  Returns float32 values."""
+    import heapq
+    import numpy as np
+
+    def bf16(x):
+        u = np.array([x], np.float32).view(np.uint32)[0]
+        u = (int(u) + 0x7fff + ((int(u) >> 16) & 1)) & 0xffff0000
+        return float(np.array([u], np.uint32).view(np.float32)[0])
+    rp = g.row_ptr.cpu().numpy().tolist()
+    col = g.col.cpu().numpy().tolist()
+    # every weight rounded as bf16() rounds one, at once
+    u = g.wt.cpu().numpy().astype(np.float32).view(np.uint32).astype(
+        np.int64)
+    u = (u + 0x7fff + ((u >> 16) & 1)) & 0xffff0000
+    wt = u.astype(np.uint32).view(np.float32).astype(np.float64).tolist()
+    cache = {}
+    dist = [float("inf")] * g.num_nodes
+    dist[source] = 0.0
+    done = bytearray(g.num_nodes)
+    heap = [(0.0, source)]
+    while heap:
+        d, u = heapq.heappop(heap)
+        if done[u]:
+            continue
+        done[u] = 1
+        for e in range(rp[u], rp[u + 1]):
+            s = d + wt[e]
+            nd = cache.get(s)
+            if nd is None:
+                nd = cache[s] = bf16(s)
+            v = col[e]
+            if nd < dist[v]:
+                dist[v] = nd
+                heapq.heappush(heap, (nd, v))
+    return np.asarray(dist, np.float32)
+
+
+def subword_sass(builds: dict, ops: dict) -> dict:
+    """FFMA of each 16-bit float build's kernels (``float_sass``): B1, B2
+    and the union contract of the operators whose messages divide nothing
+    hold none, and their fused fixed point as many as the int16 build's
+    (those come from AD's IEEE divisions).  Raises otherwise."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _build, opgen
+    names = ("bf16_sssp", "bf16_damped", "i16_sssp")
+    with ThreadPoolExecutor(len(names)) as pool:      # cuobjdump at once
+        counts = dict(zip(names, pool.map(
+            float_sass, (_build.custom_library_path(
+                opgen.lower(ops[name]).header) for name in names))))
+
+    def ffma(c, kernel):
+        return sum(v["FFMA"] for k, v in c.items() if k.startswith(kernel))
+    out = {name: {k: ffma(c, k) for k in (
+        "relax_lanes_kernel", "wd_relax_lanes_kernel",
+        "wd_relax_union_kernel", "fused_fixed_point_kernel")}
+        for name, c in counts.items()}
+    emit("subword_sass", ffma=out)
+    for name in ("bf16_sssp", "bf16_damped"):
+        c = out[name]
+        if c["relax_lanes_kernel"] or c["wd_relax_lanes_kernel"] or \
+                c["wd_relax_union_kernel"] or c["fused_fixed_point_kernel"] \
+                != out["i16_sssp"]["fused_fixed_point_kernel"]:
+            raise AssertionError(f"{name}: an FFMA in its SASS: {out}")
+    return out
+
+
+def subword_ops_phase(g, dev, *, small_scale: int = 16,
+                      road_side: int = SUBWORD_ROAD_SIDE) -> list:
+    """Sub-word operators on the card (module docstring, ``subword_ops``):
+    bfloat16, float16, int16, int8 and uint8 values through B1, B2, B1's
+    batch contract and the fused kernel (BSP, batch, delta).  The entry
+    calls of each operator run with the counts set to 0 before them and
+    read after them: the kernel line's ``<kernel><op>`` rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, fused, priority
+    from repro_torch.core.graph import INF
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import rmat_graph, road_grid_graph
+    from repro_torch.kernels import fused as fused_kernel
+    from repro_torch.kernels.relax import LAUNCHES
+
+    rng = np.random.default_rng(30)
+    steps, t_step = {}, [time.perf_counter()]
+
+    def step(name):
+        """The seconds since the last step, as ``name``'s."""
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    gname = f"rmat{g.num_nodes.bit_length() - 1}"
+    source = int(g.degrees.argmax())
+    ops = subword_ops()
+    builds = custom_builds(ops, line="subword_build")
+    subword_sass(builds, ops)
+    step("builds")
+    # each kernel against its plain version at the main path's N
+    err = float_kernel_checks(
+        g, dev, ops, rng,
+        values=lambda rng, op, shape: subword_values(rng, op, shape, dev),
+        rtol=SUBWORD_ADD_RTOL, line="subword_kernels_check")
+    step("kernel_checks")
+    small = rmat_graph(scale=small_scale, edge_factor=8, weighted=True,
+                       seed=1, device=dev)
+    s_src = int(small.degrees.argmax())
+
+    launches, stepped, fused_err = {}, {}, {}
+
+    def counted(name, calls):
+        zero_counts()
+        calls()
+        for key, v in LAUNCHES.items():
+            launches.setdefault(name, {}).setdefault(key, 0)
+            launches[name][key] += v
+
+    def agree(name, a, b, counts=True):
+        """Two runs equal bit for bit (min, max, integer add) or within
+        the bfloat16 add's tolerance; with ``counts``, in iterations and
+        edges too."""
+        float_err([torch.from_numpy(a.dist)], [torch.from_numpy(b.dist)],
+                  ops[name], SUBWORD_ADD_RTOL)
+        if counts and (a.iterations, a.edges_relaxed) != (b.iterations,
+                                                          b.edges_relaxed):
+            raise AssertionError(f"{name}: counts differ")
+
+    dag = layered_dag(*SUBWORD_DAG, dev)
+    adds = [name for name, op in ops.items() if op.combine == "add"]
+    graphs = {name: (dag, 0) if name in adds else (g, source)
+              for name in ops}
+
+    def big_runs(name):
+        """The six strategies fused on rmat20, WD stepped too (the DAG
+        for add: all six stepped too), every strategy equal to the first
+        and stepped equal to fused.  (rmat16 runs all six stepped,
+        ``paths``: on rmat20 BS, NS and AD stepped cost seconds an
+        operator.)"""
+        op = ops[name]
+        graph, src = graphs[name]
+        fused_runs = []
+        for strategy in CUSTOM_STRATEGIES:
+            fused_runs.append(engine.run(graph, src, make_strategy(strategy),
+                                         op=op, mode="fused", device=dev))
+            if strategy == "WD" or graph is not g:
+                r = engine.run(graph, src, make_strategy(strategy), op=op,
+                               mode="stepped", device=dev)
+                agree(name, r, fused_runs[-1])
+                if strategy == "WD":
+                    stepped[(name, "stepped")] = r
+            agree(name, fused_runs[-1], fused_runs[0], counts=False)
+        emit("subword_run", graph=gname if graph is g else "dag",
+             op=op.name, dtype=str(op.dtype).removeprefix("torch."),
+             strategies=list(CUSTOM_STRATEGIES),
+             stepped=["WD"] if graph is g else list(CUSTOM_STRATEGIES),
+             iterations=[r.iterations for r in fused_runs],
+             edges_relaxed=[r.edges_relaxed for r in fused_runs],
+             fused_seconds=[r.traversal_seconds for r in fused_runs])
+
+    for name in ops:
+        counted(name, lambda name=name: big_runs(name))
+    step("full_size_runs")
+
+    small_dag = layered_dag(SUBWORD_DAG[0], SUBWORD_DAG[1] >> 4,
+                            SUBWORD_DAG[2], dev)
+    small_graphs = {name: (small_dag, 0) if name in adds else (small, s_src)
+                    for name in ops}
+    road = road_grid_graph(side=road_side, weighted=True, seed=4, device=dev)
+    road_src = int(road.degrees.argmax())
+    sources = batch_sources(small, BATCH_K)
+
+    path_steps = {}
+
+    def path_step(what, t0):
+        """Adds the seconds since ``t0`` to ``what``'s, over the
+        operators; returns now."""
+        now = time.perf_counter()
+        path_steps[what] = path_steps.get(what, 0.0) + now - t0
+        return now
+
+    def paths(name):
+        """rmat16: the six strategies on the card, stepped equal to fused,
+        equal to each other and WD to the CPU's stepped run; a K = 8
+        batch, stepped and fused, equal to its rows; two shards equal to
+        one device; a min or max operator's delta runs, stepped equal to
+        fused, and the two SSSPs' to a Dijkstra in their type."""
+        op = ops[name]
+        graph, src = small_graphs[name]
+        card = []
+        t0 = time.perf_counter()
+        for s in CUSTOM_STRATEGIES:
+            card.append(engine.run(graph, src, make_strategy(s), op=op,
+                                   mode="fused", device=dev))
+            agree(name, engine.run(graph, src, make_strategy(s), op=op,
+                                   mode="stepped", device=dev), card[-1])
+            agree(name, card[0], card[-1], counts=False)
+        t0 = path_step("card_runs", t0)
+        agree(name, card[CUSTOM_STRATEGIES.index("WD")], engine.run(
+            graph, src, make_strategy("WD"), op=op, mode="stepped",
+            device="cpu"))
+        t0 = path_step("cpu_run", t0)
+        batch_src = [0, 1, 5, 5] if name in adds else sources
+        singles = [engine.run(graph, int(s), make_strategy("WD"), op=op,
+                              mode="fused", device=dev) for s in batch_src]
+        for mode in ("stepped", "fused"):
+            b = engine.run_batch(graph, batch_src, op=op, mode=mode,
+                                 device=dev)
+            for row, r in zip(b.dist, singles):
+                float_err([torch.from_numpy(row)],
+                          [torch.from_numpy(r.dist)], op, SUBWORD_ADD_RTOL)
+        t0 = path_step("batch", t0)
+        agree(name, engine.run(graph, src, make_strategy("WD"), op=op,
+                               mode="fused", shards=2, device=dev),
+              card[CUSTOM_STRATEGIES.index("WD")])
+        t0 = path_step("shards", t0)
+        out = dict(op=op.name, graph=f"rmat{small_scale}"
+                   if graph is small else "small_dag",
+                   cpu_equal=True, batch_k=len(batch_src),
+                   batch_equals_rows=True, shards=2, sharded_equal=True)
+        if name not in adds:
+            delta = [engine.run(road, road_src, make_strategy("WD"), op=op,
+                                mode=mode, schedule="delta",
+                                delta=ROAD_DELTA, device=dev)
+                     for mode in ("stepped", "fused")]
+            agree(name, *delta)
+            t0 = path_step("delta", t0)
+            out.update(road=f"road{road_side}", delta=ROAD_DELTA,
+                       epochs=delta[1].iterations)
+            if name in ("bf16_sssp", "i16_sssp"):
+                if name == "bf16_sssp":
+                    want = bf16_dijkstra(road, road_src)
+                else:       # the distances fit int16; unreached: identity
+                    d = dijkstra_oracle(road, road_src, True)
+                    want = np.where(d >= INF, op.identity, d).astype(
+                        np.int16)
+                if not np.array_equal(delta[1].dist, want):
+                    raise AssertionError(f"{name} delta != Dijkstra in "
+                                         f"its type")
+                out.update(equals_dijkstra=True)
+                path_step("dijkstra", t0)
+        emit("subword_paths", **out)
+
+    for name in ops:
+        counted(name, lambda name=name: paths(name))
+    step("paths")
+    emit("subword_path_steps", seconds=path_steps)
+    for name in ops:
+        emit("subword_launches", op=ops[name].name, launches=launches[name])
+        for _, key, _, _ in CUSTOM_KERNELS:
+            if launches[name][key] < 1:
+                raise AssertionError(f"{name} never launched {key}: "
+                                     f"{launches[name]}")
+
+    # the fused kernel against its plain loop on the same card tensors:
+    # WD on rmat20 (the DAG for add), and the delta kernel on road64
+    # against its plain loop on CPU copies (the card tests take road128,
+    # every strategy)
+    strat = make_strategy("WD")
+    road = road_grid_graph(side=road_side // 4, weighted=True, seed=4,
+                           device=dev)
+    road_src = int(road.degrees.argmax())
+    for name, op in ops.items():
+        graph, src = graphs[name]
+        args, kw = fused_args(graph, "WD", src, op, dev)
+        got = fused_kernel.fixed_point(*args, **kw)
+        want = fused._fixed_point_plain(*args, **kw)
+        if got[1:] != want[1:]:
+            raise AssertionError(f"fused {name} WD counts")
+        fused_err[name] = float_err([got[0]], [want[0]], op,
+                                    SUBWORD_ADD_RTOL)
+        if name in adds:
+            continue
+        plan = priority.plan_delta(strat, strat.setup(road), road, op=op,
+                                   delta=ROAD_DELTA)
+        dist0 = torch.full((road.num_nodes,), op.identity, dtype=op.dtype,
+                           device=dev)
+        dist0[road_src] = op.seed(road_src)
+        mask0 = torch.zeros(road.num_nodes, dtype=torch.bool, device=dev)
+        mask0[road_src] = True
+        dkw = dict(op=op, sched=plan.sched, delta=plan.delta,
+                   max_iterations=100000)
+        got = fused_kernel.delta_fixed_point(
+            plan.kernel, plan.light, plan.heavy_graph, plan.aux, dist0,
+            mask0, **dkw)
+        heavy = plan.heavy_graph
+        want = priority._delta_fixed_point_plain(
+            plan.kernel, plan.light.to("cpu"),
+            None if heavy is None else heavy.to("cpu"),
+            None if plan.aux is None else plan.aux.cpu(), dist0.cpu(),
+            mask0.cpu(), **dkw)
+        float_err(got[:2], want[:2], op, SUBWORD_ADD_RTOL)
+        if got[2:] != want[2:]:
+            raise AssertionError(f"{name} delta kernel != plain loop")
+    emit("subword_fused_vs_plain",
+         graphs=[gname, "dag", f"road{road_side // 4} delta (CPU copies)"],
+         max_err=fused_err, equal=True)
+    step("fused_vs_plain")
+
+    # the kernel line's rows, each sub-word instance timed
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)   # > L2
+    kept = batch_calls(g, dev, batch_sources(g, BATCH_K), widest_only=True)[0]
+    # the lanes and the frontier of the B2 and B1 rows, one set for every
+    # operator
+    lanes = lane_inputs(rng, g.num_nodes, 8 * g.num_nodes, dev)
+    front = wd_inputs(g, rng, g.num_nodes, 0, dev)
+    rows = []
+    for name, op in ops.items():
+        graph, src = graphs[name]
+        vals = subword_values(rng, op, g.num_nodes, dev)
+        if vals.is_floating_point():
+            vals = torch.where(vals.isnan() | vals.isinf(),
+                               torch.zeros_like(vals), vals)
+        c = dict(kept, dist_t=kept["dist_t"].clamp(
+            max=30000 if op.dtype == torch.int16 else 100).to(op.dtype))
+        timed_rows = {
+            "relax_lanes": time_b2(lanes, vals, op, 5, flush),
+            "wd_relax_lanes": time_b1(g, front, vals, op, 5, flush),
+            "wd_relax_lanes_batch": b1_batch_time(g, c, reps=5, op=op)}
+        args, kw = fused_args(graph, "WD", src, op, dev)
+        wd = stepped[(name, "stepped")]
+        bound_ms, bound_by = bound(run_bytes(graph, wd,
+                                             args[3].element_size()), 0)
+        timed_rows["fused_fixed_point"] = dict(
+            ms=time_ms(lambda: fused_kernel.fixed_point(*args, **kw),
+                       reps=5),
+            plain_ms=time_ms(lambda: fused._fixed_point_plain(*args, **kw),
+                             reps=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+            shape=dict(graph=gname if graph is g else "dag", run="WD",
+                       iterations=wd.iterations,
+                       edges_relaxed=wd.edges_relaxed))
+        for kernel, key, src_file, replaces in CUSTOM_KERNELS:
+            e = (fused_err[name] if kernel == "fused_fixed_point"
+                 else err[(name, kernel)])
+            rows.append(dict(
+                name=f"{kernel}<{op.name}>", route="cuda", source=src_file,
+                replaces=replaces, launches=launches[name][key],
+                max_abs_err=e[0], max_rel_err=e[1], library_ms=None,
+                op=op.name, dtype=str(op.dtype).removeprefix("torch."),
+                registers=builds[name]["attrs"][
+                    "wd_relax_union" if kernel == "wd_relax_lanes_batch"
+                    else kernel]["registers"],
+                **timed_rows[kernel]))
+    emit("subword_kernels_time", rows=rows, nvidia_smi=nvidia_smi())
+    step("timing")
+    emit("subword_phase_steps", seconds=steps)
     return rows
 
 
@@ -5495,6 +5998,11 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
+    g = rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1,
+                   device=dev)
+    graph_s = time.perf_counter() - t0
+    prebuild = start_prebuilds(g)
+    t0 = time.perf_counter()
     _build.lib()
     sass = sass_mma_counts(_build.library_path())
     ptxas = ptxas_summary(_build.BUILD_LOG)
@@ -5512,11 +6020,8 @@ def main() -> int:
         raise AssertionError(f"bf16 kernels without tensor-core "
                              f"instructions: {bf16}")
 
-    t0 = time.perf_counter()
-    g = rmat_graph(scale=20, edge_factor=8, weighted=True, seed=1,
-                   device=dev)
     emit("graph", name="rmat20", nodes=g.num_nodes, edges=g.num_edges,
-         max_degree=g.max_degree, seconds=time.perf_counter() - t0)
+         max_degree=g.max_degree, seconds=graph_s)
 
     seconds = {}
 
@@ -5557,6 +6062,8 @@ def main() -> int:
     timed("algos", algos_phase, g, dev, small_scale=16)
     rows += timed("custom_ops", custom_ops_phase, g, dev)
     rows += timed("float_ops", float_ops_phase, g, dev)
+    rows += timed("subword_ops", subword_ops_phase, g, dev)
+    prebuild.shutdown()
     del g
 
     lm_rows = timed("lm_kernels", lm_kernel_phase, dev)

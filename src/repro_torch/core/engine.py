@@ -187,7 +187,7 @@ def _original(dist: torch.Tensor, strategy: StrategyBase) -> np.ndarray:
     """The values of the original nodes, on the host."""
     if isinstance(strategy, NodeSplitting):
         dist = strategy.split_info.extract_original(dist)
-    return dist.cpu().numpy()
+    return operators.host_values(dist)
 
 
 def check_kernels(op: operators.EdgeOp, dev: torch.device) -> None:
@@ -265,9 +265,10 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
     if not 0 <= int(source) < graph.num_nodes:
         raise ValueError(f"source {source} outside [0, {graph.num_nodes})")
     if graph.num_edges == 0:        # degenerate: nothing to relax
-        dist = torch.full((graph.num_nodes,), op.identity, dtype=op.dtype)
+        dist = torch.full((graph.num_nodes,), op.identity,
+                          dtype=operators.value_dtype(op))
         dist[source] = op.seed(source)
-        dist = dist.numpy()         # the operator's dtype, as every run's
+        dist = operators.host_values(dist)   # as every run's
         return RunResult(dist=dist, iterations=0, total_seconds=0.0,
                          setup_seconds=0.0, kernel_seconds=0.0,
                          overhead_seconds=0.0, edges_relaxed=0,
@@ -299,7 +300,8 @@ def run(graph: CSRGraph, source: int, strategy: StrategyBase, *,
         state_bytes += dplan.device_bytes()
 
     n = _n_alloc(graph, strategy)
-    dist = torch.full((n,), op.identity, dtype=op.dtype, device=dev)
+    dist = torch.full((n,), op.identity, dtype=operators.value_dtype(op),
+                      device=dev)
     dist[source] = op.seed(source)
     mask = torch.zeros(n, dtype=torch.bool, device=dev)
     mask[source] = True
@@ -405,8 +407,8 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
     the strategy's allocation (``n_alloc`` counts NS's children too; the
     first ``ns_activate`` mirror overwrites whatever they were seeded
     with).  Both are moved to the run's device, the values as
-    ``op.dtype``.  ``connected_components`` seeds every node with its own
-    label this way.
+    ``operators.value_dtype(op)``.  ``connected_components`` seeds every
+    node with its own label this way.
 
     Needs a strategy declaring :data:`FRONTIER_INIT` (EP's edge worklist
     cannot hold an arbitrary dense frontier), checked right after the mode
@@ -430,7 +432,7 @@ def fixed_point(graph: CSRGraph, strategy: StrategyBase, init, *,
     graph = _planning_graph(graph, dev, shards)
     state = strategy.setup(graph)
     values, mask = init(_n_alloc(graph, strategy))
-    dist = torch.as_tensor(values).to(dev, op.dtype)
+    dist = torch.as_tensor(values).to(dev, operators.value_dtype(op))
     mask = torch.as_tensor(mask).to(dev, torch.bool)
     if shards is not None:
         splan = _shard.plan_shards(strategy, state, graph, shards,

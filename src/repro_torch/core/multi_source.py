@@ -225,9 +225,9 @@ def init_batch(num_nodes: int, sources: torch.Tensor,
     k, dev = sources.numel(), sources.device
     rows = torch.arange(k, device=dev)
     src = sources.long()
-    dist = torch.full((k, num_nodes), op.identity, dtype=op.dtype,
-                      device=dev)
-    dist[rows, src] = torch.as_tensor(op.seed(sources), dtype=op.dtype,
+    dtype = operators.value_dtype(op)
+    dist = torch.full((k, num_nodes), op.identity, dtype=dtype, device=dev)
+    dist[rows, src] = torch.as_tensor(op.seed(sources), dtype=dtype,
                                       device=dev)
     mask = torch.zeros((k, num_nodes), dtype=torch.bool, device=dev)
     mask[rows, src] = True
@@ -307,14 +307,15 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
                 edges_relaxed=0, iter_stats=[], mode=mode, device=dev.type,
                 shards=shards or 1, schedule=schedule, delta=delta,
                 pad_lanes=pad_lanes)
+    dtype = operators.value_dtype(op)
     if k == 0:
-        return BatchRunResult(
-            dist=torch.zeros((0, n), dtype=op.dtype).numpy(), **done)
+        return BatchRunResult(dist=operators.host_values(
+            torch.zeros((0, n), dtype=dtype)), **done)
     if graph.num_edges == 0:        # the operator's dtype, as every run's
-        dist = torch.full((k, n), op.identity, dtype=op.dtype)
+        dist = torch.full((k, n), op.identity, dtype=dtype)
         dist[torch.arange(k), torch.from_numpy(sources).long()] = \
-            torch.as_tensor(op.seed(sources), dtype=op.dtype)
-        return BatchRunResult(dist=dist.numpy(), **done)
+            torch.as_tensor(op.seed(sources), dtype=dtype)
+        return BatchRunResult(dist=operators.host_values(dist), **done)
 
     sched = work_schedule if work_schedule is not None else DEFAULT_SCHEDULE
     if shards is None:      # a sharded batch holds its shards alone on dev
@@ -330,7 +331,8 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
         dist_b, iterations, rounds, edges = priority.run_batch_fixed_point(
             dplan, dist_b, mask_b, op=op, max_iterations=max_iterations)
         total_s = _elapsed(t0, dist_b)
-        return BatchRunResult(dist=dist_b.cpu().numpy(), sources=sources,
+        return BatchRunResult(dist=operators.host_values(dist_b),
+                              sources=sources,
                               iterations=iterations, total_seconds=total_s,
                               edges_relaxed=edges, iter_stats=[],
                               mode="fused", device=dev.type,
@@ -343,7 +345,8 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
             sharded, dist_b, mask_b, group=shard.shard_group(shards, dev),
             op=op, max_iterations=max_iterations)
         total_s = _elapsed(t0, dist_b)
-        return BatchRunResult(dist=dist_b.cpu().numpy(), sources=sources,
+        return BatchRunResult(dist=operators.host_values(dist_b),
+                              sources=sources,
                               iterations=iterations, total_seconds=total_s,
                               edges_relaxed=edges, iter_stats=[],
                               mode="fused", shards=shards, device=dev.type,
@@ -354,7 +357,8 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
             graph, dist_b, mask_b, op=op, max_iterations=max_iterations,
             sched=sched)
         total_s = _elapsed(t0, dist_b)
-        return BatchRunResult(dist=dist_b.cpu().numpy(), sources=sources,
+        return BatchRunResult(dist=operators.host_values(dist_b),
+                              sources=sources,
                               iterations=iterations, total_seconds=total_s,
                               edges_relaxed=edges, iter_stats=[],
                               mode="fused", device=dev.type,
@@ -397,7 +401,8 @@ def run_batch(graph: CSRGraph, sources, *, max_iterations: int = 100000,
         it += 1
     dist_b = from_node_major(dist_t, k)
     total_s = _elapsed(t0, dist_b)
-    return BatchRunResult(dist=dist_b.cpu().numpy(), sources=sources,
-                          iterations=it, total_seconds=total_s,
+    return BatchRunResult(dist=operators.host_values(dist_b),
+                          sources=sources, iterations=it,
+                          total_seconds=total_s,
                           edges_relaxed=edges, iter_stats=iter_stats,
                           device=dev.type, pad_lanes=pad_lanes)

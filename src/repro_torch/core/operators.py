@@ -11,17 +11,24 @@ The hand-written CUDA relax kernels cannot call Python, so
 :meth:`EdgeOp.kernel_codes` maps the built-in message functions (by
 identity) and ``combine`` to the integer codes the kernels switch on.  An
 operator with a message of its own or an ``update`` predicate, and every
-float32 operator, takes the code :data:`MSG_CUSTOM`: on CUDA tensors its
-callables are lowered to C++ (:mod:`repro_torch.kernels.opgen`) and the
-kernels are built once more for it, with its value type, at first use
-(``kernels._build.custom_lib``).
+operator of another value type than int32, takes the code
+:data:`MSG_CUSTOM`: on CUDA tensors its callables are lowered to C++
+(:mod:`repro_torch.kernels.opgen`) and the kernels are built once more
+for it, with its value type, at first use (``kernels._build.custom_lib``).
 
-A float32 ``min`` or ``max`` folds as IEEE 754-2019 ``minimum`` and
-``maximum`` do, and as the reference's ``.at[].min/max`` does: −0.0
-ranks below +0.0 and a NaN absorbs every other value
-(:meth:`EdgeOp.scatter`, :meth:`EdgeOp.fold_values`).  Float ``add``
-depends on the order of its terms, on the card (a compare-and-swap of
-the rounded sum) as in the reference.
+The value type (:func:`value_dtype`) is the operator's ``dtype``, except
+that float64 and int64 run as float32 and int32: the reference runs them
+so (JAX with x64 off), and the port returns its answers, not float64's.
+A bfloat16 ``dist`` reaches the host as a float32 array that holds the
+exact bfloat16 values (:func:`host_values`: numpy has no bfloat16).
+
+A float ``min`` or ``max`` (float32, bfloat16, float16) folds as IEEE
+754-2019 ``minimum`` and ``maximum`` do, and as the reference's
+``.at[].min/max`` does: −0.0 ranks below +0.0 and a NaN absorbs every
+other value (:meth:`EdgeOp.scatter`, :meth:`EdgeOp.fold_values`).  Float
+``add`` depends on the order of its terms, on the card (a
+compare-and-swap of the rounded sum) as in the reference.  Integer
+``add`` wraps at the value type's width.
 
 Built-ins (same semantics as the reference):
 
@@ -42,6 +49,7 @@ import dataclasses
 import os
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.graph import INF
@@ -53,18 +61,46 @@ KERNEL_COMBINES = {"min": 0, "max": 1, "add": 2}
 
 _SCATTER_REDUCE = {"min": "amin", "max": "amax", "add": "sum"}
 
-#: where the operator features the CUDA kernels lack are tracked
-DTYPE_ROADMAP = ("ROADMAP.md queue C: operators of a sub-word or 64-bit "
-                 "dtype")
+#: why ``add`` with a nonzero identity has no kernel: the reference's
+#: answer for it depends on its schedule, so there is nothing to port
+ADD_IDENTITY_FAULT = ("ROADMAP.md queue C, \"The reference's faults\": add "
+                      "with a nonzero identity")
 
 #: the value types the CUDA kernels are built for
-KERNEL_DTYPES = (torch.int32, torch.float32)
+KERNEL_DTYPES = (torch.int32, torch.float32, torch.bfloat16, torch.float16,
+                 torch.int16, torch.int8, torch.uint8)
 
-#: the NaN a float32 fold writes where a candidate is NaN, by combine: the
-#: card's sign-split atomics keep it against every later candidate
-#: (``fold`` in kernels/csrc/relax_lanes.cuh), and the plain fold writes
-#: the same
-FOLD_NAN_BITS = {"min": -1, "max": 0x7FFFFFFF}
+#: the value type a 64-bit operator runs in, as the reference (JAX with
+#: x64 off) runs it
+_NARROWED = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+#: the NaN a float fold writes where a candidate is NaN, by the value
+#: type's width in bits and by combine: the card's fold keeps it against
+#: every later candidate (``fold`` in kernels/csrc/relax_lanes.cuh), and
+#: the plain fold writes the same
+FOLD_NAN_BITS = {32: {"min": -1, "max": 0x7FFFFFFF},
+                 16: {"min": -1, "max": 0x7FFF}}
+
+#: the integer type whose bits a float type's values are viewed as
+_BITS_DTYPE = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+               torch.float16: torch.int16}
+
+
+def value_dtype(op: "EdgeOp") -> torch.dtype:
+    """The type of ``op``'s values: its ``dtype``, but float32 for
+    float64 and int32 for int64, as the reference (JAX with x64 off)
+    runs them.  Every ``dist`` of a run is allocated with it."""
+    return _NARROWED.get(op.dtype, op.dtype)
+
+
+def host_values(values: torch.Tensor) -> np.ndarray:
+    """``values`` as a numpy array on the host: the same dtype, except
+    that bfloat16 (which numpy lacks) widens to float32, exactly (NaN and
+    −0.0 kept)."""
+    values = values.cpu()
+    if values.dtype == torch.bfloat16:
+        values = values.float()
+    return values.numpy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +150,8 @@ class EdgeOp:
         :func:`_scatter_ordered`: ``scatter_reduce_`` would keep whichever
         of −0.0 and +0.0 comes first."""
         vals = torch.where(improve, cand, self.identity).to(dist.dtype)
+        # a message wider than the values (int16 + int32 weights) is
+        # narrowed before the fold, as the reference's .at[] casts it
         if dist.is_floating_point() and self.combine != "add":
             return _scatter_ordered(dist, dst.long(), vals, self.combine)
         return dist.scatter_reduce_(0, dst.long(), vals,
@@ -133,7 +171,7 @@ class EdgeOp:
             neg = (a.signbit() | b.signbit()) if low else \
                 (a.signbit() & b.signbit())
             out = torch.where((a == 0) & (b == 0),
-                              torch.where(neg, -0.0, 0.0), out)
+                              torch.where(neg, -0.0, 0.0).to(out.dtype), out)
         return out
 
     def seed(self, source: int) -> int:
@@ -146,55 +184,63 @@ class EdgeOp:
 
     def kernel_codes(self) -> tuple[int, int, torch.dtype]:
         """``(message code, combine code, value type)`` for the CUDA
-        kernels: an int32 operator whose message is a built-in one and
-        which has no ``update`` keeps its message's code
-        (:data:`KERNEL_MESSAGES`); any other int32 operator, and every
-        float32 one, takes :data:`MSG_CUSTOM` and runs its lowered
-        callables (a float32 build of its own).  Raises
-        ``NotImplementedError`` for what no kernel takes: a ``dtype``
-        outside :data:`KERNEL_DTYPES`, or ``add`` with a nonzero
-        identity."""
-        # the kernels hold int32 or float32 values, and 0 is the only
-        # neutral element of their addition
-        if self.dtype not in KERNEL_DTYPES or (self.combine == "add"
-                                               and self.identity != 0):
+        kernels: an int32 operator (or an int64 one, which runs as int32)
+        whose message is a built-in one and which has no ``update`` keeps
+        its message's code (:data:`KERNEL_MESSAGES`); any other operator
+        takes :data:`MSG_CUSTOM` and runs its lowered callables (a build of
+        its own, for its value type, :func:`value_dtype`).  Raises
+        ``NotImplementedError`` for what no kernel takes: a value type
+        outside :data:`KERNEL_DTYPES`, or ``add`` with a nonzero identity
+        (:data:`ADD_IDENTITY_FAULT`)."""
+        dtype = value_dtype(self)
+        if dtype not in KERNEL_DTYPES:
             raise NotImplementedError(
                 f"operator {self.name!r} ({self.dtype}): the CUDA relax "
-                f"kernels take int32 or float32 values and the additive "
-                f"identity 0 ({DTYPE_ROADMAP})")
+                f"kernels take values of "
+                f"{', '.join(str(d) for d in KERNEL_DTYPES)}")
+        if self.combine == "add" and self.identity != 0:
+            # every masked lane adds the identity, so the reference's
+            # answer depends on its schedule: no fold to port
+            raise NotImplementedError(
+                f"operator {self.name!r}: add with the nonzero identity "
+                f"{self.identity} is not a monoid fold, in the reference "
+                f"either ({ADD_IDENTITY_FAULT}); run it with device='cpu'")
         msg = KERNEL_MESSAGES.get(self.message)
-        if msg is None or self.update is not None or \
-                self.dtype != torch.int32:
+        if msg is None or self.update is not None or dtype != torch.int32:
             msg = MSG_CUSTOM
-        return msg, KERNEL_COMBINES[self.combine], self.dtype
+        return msg, KERNEL_COMBINES[self.combine], dtype
 
 
-def _order_keys(bits: torch.Tensor) -> torch.Tensor:
-    """float32 bits (as int32) to int32 keys in the values' order, −0.0
-    below +0.0: the negative values' bits reflected.  The same map takes
-    keys back to bits."""
-    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+def _order_keys(bits: torch.Tensor, width: int) -> torch.Tensor:
+    """The bits of floats ``width`` wide (as int32, sign-extended) to int32
+    keys in the values' order, −0.0 below +0.0: the negative values' bits
+    reflected.  The same map takes keys back to bits."""
+    return torch.where(bits < 0, bits ^ ((1 << (width - 1)) - 1), bits)
 
 
 def _scatter_ordered(dist: torch.Tensor, dst: torch.Tensor,
                      vals: torch.Tensor, combine: str) -> torch.Tensor:
     """``dist[dst]`` folded with ``vals`` by IEEE 754-2019 ``minimum``
-    (``maximum``), in place: as the reference's ``.at[].min/max`` and the
-    card's fold, whatever the order of the lanes.  An entry that was NaN
-    stays as it was; one that takes a NaN becomes
-    :data:`FOLD_NAN_BITS`."""
+    (``maximum``), in place, at the width of ``dist``'s float type: as the
+    reference's ``.at[].min/max`` and the card's fold, whatever the order
+    of the lanes.  An entry that was NaN stays as it was; one that takes a
+    NaN becomes :data:`FOLD_NAN_BITS`."""
     reduce = _SCATTER_REDUCE[combine]
     neutral = 2 ** 31 - 1 if combine == "min" else -2 ** 31
-    bits = dist.view(torch.int32)
+    bits_dtype = _BITS_DTYPE[dist.dtype]
+    width = torch.iinfo(bits_dtype).bits
+    bits = dist.view(bits_dtype)
     was_nan, nan = torch.isnan(dist), torch.isnan(vals)
-    keys = _order_keys(bits).masked_fill(was_nan, neutral)
-    keys.scatter_reduce_(0, dst, _order_keys(vals.view(torch.int32))
-                         .masked_fill(nan, neutral), reduce,
-                         include_self=True)
+    keys = _order_keys(bits.to(torch.int32), width).masked_fill(was_nan,
+                                                                neutral)
+    keys.scatter_reduce_(0, dst, _order_keys(
+        vals.view(bits_dtype).to(torch.int32), width).masked_fill(
+            nan, neutral), reduce, include_self=True)
     took_nan = torch.zeros(dist.shape, dtype=torch.uint8,
                            device=dist.device).scatter_reduce_(
         0, dst, nan.to(torch.uint8), "amax").bool()
-    out = torch.where(took_nan, FOLD_NAN_BITS[combine], _order_keys(keys))
+    out = torch.where(took_nan, FOLD_NAN_BITS[width][combine],
+                      _order_keys(keys, width)).to(bits_dtype)
     bits.copy_(torch.where(was_nan, bits, out))
     return dist
 

@@ -65,20 +65,43 @@ def run_fill(starts: torch.Tensor, lengths: torch.Tensor, total_hint: int,
 # priority (value) buckets: delta-stepping (repro_torch.core.priority)
 # ---------------------------------------------------------------------------
 
+def value_inf(dtype: torch.dtype) -> torch.Tensor:
+    """:data:`INF` converted to values of ``dtype`` as the reference's
+    weak-typed ``jnp.clip`` bound converts it: an integer type keeps INF's
+    low bits (int16 and int8: -1; uint8: 255), a float type rounds it
+    (float32 and bfloat16: 2^30; float16: inf)."""
+    return torch.tensor(INF, dtype=torch.int64).to(dtype)
+
+
 def bucket_rank(vals: torch.Tensor, *, descending: bool = False
                 ) -> torch.Tensor:
     """Tentative values to a non-negative rank, smaller settling earlier:
     values clipped to ``[0, INF]``; a ``max`` monoid (``descending``)
-    settles large values first, so its rank is ``INF - v``."""
-    v = vals.clamp(0, INF)
-    return (INF - v) if descending else v
+    settles large values first, so its rank is ``INF - v``.  Computed in
+    the values' dtype, as the reference computes it: the clip takes the
+    lower bound first and :func:`value_inf` as its upper bound (so an
+    int16 or int8 rank is -1 and its reflection 0), and the reflection
+    wraps (integers) or rounds once (floats)."""
+    hi = value_inf(vals.dtype).to(vals.device)
+    v = torch.minimum(torch.maximum(vals, torch.zeros_like(hi)), hi)
+    return (hi - v) if descending else v
 
 
 def bucket_index(vals: torch.Tensor, delta: int, *,
                  descending: bool = False) -> torch.Tensor:
-    """Delta-stepping bucket of each value: ``rank // delta``, int32."""
-    return torch.div(bucket_rank(vals, descending=descending), delta,
-                     rounding_mode="floor").to(torch.int32)
+    """Delta-stepping bucket of each value: ``rank // delta``, int32.  An
+    integer rank is divided as int32; a float rank by ``delta`` converted
+    to its dtype, rounded once.  A bfloat16 or float16 rank that is not
+    finite (float16's INF is inf) gives bucket 0, as the reference's
+    conversion gives it; a float32 NaN gives INT32_MIN."""
+    rank = bucket_rank(vals, descending=descending)
+    if not rank.is_floating_point():
+        return torch.div(rank.to(torch.int32), delta, rounding_mode="floor")
+    d = float(torch.tensor(delta, dtype=torch.int64).to(rank.dtype))
+    out = torch.div(rank, d, rounding_mode="floor")
+    if rank.dtype != torch.float32:
+        out = torch.where(torch.isfinite(out), out, 0)
+    return out.to(torch.int32)
 
 
 def min_live_bucket(mask: torch.Tensor, bkt: torch.Tensor) -> int:

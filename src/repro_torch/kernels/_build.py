@@ -267,36 +267,44 @@ def _custom_units(header: Path) -> dict:
             for name in CUSTOM_SOURCES}
 
 
-def custom_lib(op) -> ctypes.CDLL:
-    """The relax and fused kernels built for the user-defined operator
-    ``op`` (message code ``MSG_CUSTOM``), built at its first call unless
-    a library of the same hash exists, and cached by operator.  Raises
-    ``NotImplementedError`` before any build if ``op`` cannot be lowered,
-    and ``RuntimeError`` with the compiler's output if nvcc fails."""
-    handle = _custom_by_op.get(op)
-    if handle is not None:
-        return handle
+def custom_build(op) -> Path:
+    """The path of the library of the user-defined operator ``op``
+    (message code ``MSG_CUSTOM``), compiled unless a library of the same
+    hash exists; not loaded.  Safe to call from several threads (builds
+    of several operators at once).  Raises ``NotImplementedError`` before
+    any build if ``op`` cannot be lowered, and ``RuntimeError`` with the
+    compiler's output if nvcc fails."""
     from repro_torch.kernels import opgen   # imports core.operators
 
     lowered = opgen.lower(op)
     out = custom_library_path(lowered.header)
+    if not out.exists():
+        t0 = time.perf_counter()
+        log: list[str] = []
+        # the header lies beside its library (a concurrent build of the
+        # same operator renames the same text into place)
+        header = out.with_suffix(".h")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.NamedTemporaryFile(
+                "w", dir=BUILD_DIR, suffix=".h", delete=False) as f:
+            f.write(lowered.header)
+        os.replace(f.name, header)
+        _nvcc_build(out, _custom_units(header), log)
+        CUSTOM_BUILDS[lowered.digest] = {
+            "op": op.name, "seconds": time.perf_counter() - t0, "log": log}
+    return out
+
+
+def custom_lib(op) -> ctypes.CDLL:
+    """The relax and fused kernels built for the user-defined operator
+    ``op`` (:func:`custom_build`, at its first call unless a library of
+    the same hash exists), loaded and cached by operator."""
+    handle = _custom_by_op.get(op)
+    if handle is not None:
+        return handle
+    out = custom_build(op)
     handle = _custom_by_path.get(out)
     if handle is None:
-        if not out.exists():
-            t0 = time.perf_counter()
-            log: list[str] = []
-            # the header lies beside its library (a concurrent build of
-            # the same operator renames the same text into place)
-            header = out.with_suffix(".h")
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            with tempfile.NamedTemporaryFile(
-                    "w", dir=BUILD_DIR, suffix=".h", delete=False) as f:
-                f.write(lowered.header)
-            os.replace(f.name, header)
-            _nvcc_build(out, _custom_units(header), log)
-            CUSTOM_BUILDS[lowered.digest] = {
-                "op": op.name, "seconds": time.perf_counter() - t0,
-                "log": log}
         handle = _custom_by_path[out] = _load(out, CUSTOM_ENTRIES)
     _custom_by_op[op] = handle
     return handle

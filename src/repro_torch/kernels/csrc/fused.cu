@@ -443,6 +443,9 @@ __device__ __forceinline__ void warp_take(unsigned* count, int32_t* list,
 }
 
 // a, b summed and c maximised over the block; every thread gets them
+// c's maximum is taken as unsigned: the delta mode's bucket key
+// (epoch_stage) lies above 2^31 for a negative bucket; every other
+// caller's c is non-negative, where the two orders agree.
 __device__ __forceinline__ void block_reduce3(int32_t& a, int32_t& b,
                                               int32_t& c) {
   __shared__ int32_t r[3][WARPS];
@@ -451,7 +454,7 @@ __device__ __forceinline__ void block_reduce3(int32_t& a, int32_t& b,
   for (int o = 16; o; o >>= 1) {
     a += __shfl_xor_sync(FULL, a, o);
     b += __shfl_xor_sync(FULL, b, o);
-    c = max(c, __shfl_xor_sync(FULL, c, o));
+    c = (int32_t)max((unsigned)c, (unsigned)__shfl_xor_sync(FULL, c, o));
   }
   if (lane == 0) {
     r[0][w] = a;
@@ -464,7 +467,7 @@ __device__ __forceinline__ void block_reduce3(int32_t& a, int32_t& b,
   for (int i = 0; i < WARPS; ++i) {
     a += r[0][i];
     b += r[1][i];
-    c = max(c, r[2][i]);
+    c = (int32_t)max((unsigned)c, (unsigned)r[2][i]);
   }
   __syncthreads();
 }
@@ -1222,7 +1225,6 @@ fused_fixed_point_kernel(Params p) {
 // one block
 // ---------------------------------------------------------------------------
 
-constexpr int32_t VALUE_INF = 1073741823;     // core/graph.py INF
 constexpr int32_t NO_BUCKET = 2147483647;     // core/worklist.py NO_BUCKET
 // how long block 0 runs narrow stages alone before the grid meets again
 // (~0.5 s at 2 GHz; one stage takes microseconds to milliseconds): the
@@ -1231,31 +1233,6 @@ constexpr int32_t NO_BUCKET = 2147483647;     // core/worklist.py NO_BUCKET
 constexpr long long NARROW_CYCLES = 1LL << 30;
 // a stage: an epoch's passes over M, a light round, the heavy pass; done
 constexpr unsigned ST_EPOCH = 0, ST_ROUND = 1, ST_HEAVY = 2, ST_DONE = 3;
-
-// worklist.bucket_index: the rank clipped to [0, INF], reflected for a max
-// monoid, over delta
-template <int COMB>
-__device__ __forceinline__ int32_t bucket_of(int32_t v, int32_t delta) {
-  const int32_t r = min(max(v, 0), VALUE_INF);
-  return (COMB == COMB_MAX ? VALUE_INF - r : r) / delta;
-}
-
-#ifdef REPRO_OP_FLOAT
-// The same over float values, as torch computes worklist.bucket_index on
-// them: the clip's bounds are float32 (INF rounds to 2^30), a NaN stays
-// NaN; the reflection and the floor division by float32(delta) each round
-// once (c10's div_floor_floating, the lowered header's
-// repro_op_ffloordiv); then .to(int32), NaN giving INT32_MIN
-// (repro_op_f2i).  For ranks in [0, 2^30] and delta >= 1 this is also the
-// reference's jnp floor_divide.
-template <int COMB>
-__device__ __forceinline__ int32_t bucket_of(float v, int32_t delta) {
-  constexpr float inf = (float)VALUE_INF;
-  const float r = v < 0.0f ? 0.0f : (v > inf ? inf : v);
-  return repro_op_f2i(repro_op_ffloordiv(
-      COMB == COMB_MAX ? repro_op_fsub(inf, r) : r, repro_op_i2f(delta)));
-}
-#endif
 
 // A delta stage's scope: the grid, or block 0 alone.  A phase's improved
 // nodes go into U, and U is the only note.  A grid-wide phase lists a
@@ -1541,7 +1518,12 @@ __device__ __forceinline__ void epoch_stage(const Params& p,
     const int32_t v = __ldcg(ml + i);
     if (__ldcg(p.live + v)) {
       ++live;
-      top = max(top, NO_BUCKET - bucket_of<COMB>(__ldcg(vals + v), p.delta));
+      // NO_BUCKET - b in unsigned arithmetic, so that the smallest bucket
+      // has the largest key even below 0 (an int16 or int8 rank is -1)
+      top = (int32_t)max((unsigned)top,
+                         (unsigned)NO_BUCKET -
+                             (unsigned)bucket_of<COMB>(__ldcg(vals + v),
+                                                       p.delta));
     }
   }
   block_reduce3(live, unused, top);
@@ -1556,7 +1538,8 @@ __device__ __forceinline__ void epoch_stage(const Params& p,
     st.set_stage(ST_DONE);
     return;
   }
-  const int32_t b = NO_BUCKET - (int32_t)__ldcg(ctrl + CTRL_LIVE + 2 + ep);
+  const int32_t b =
+      (int32_t)((unsigned)NO_BUCKET - __ldcg(ctrl + CTRL_LIVE + 2 + ep));
   if (gtid() == 0) p.result[3] = b;
   __shared__ int32_t bins[32];
   const bool binned =
@@ -1617,7 +1600,7 @@ __device__ __noinline__ void ns_mirror(const Params& p, const Graph& light,
   const Val* cur = p.val[st.ch.cur()];
   const NoteHook note = sc.hook(p, st.ch);
   auto mirror = [&](int32_t c, Val v) {
-    const bool moved = v != __ldcg(cur + c);
+    const bool moved = val_ne(v, __ldcg(cur + c));
     p.val[0][c] = v;
     p.val[1][c] = v;
     if (moved && __ldcg(p.live + c)) note(c);
@@ -1726,7 +1709,8 @@ __device__ __forceinline__ void filter_stage(const Params& p,
   const int lane = threadIdx.x & 31, ep = st.it & 1, pn = (st.q & 1) ^ 1;
   const int32_t u = (int32_t)__ldcg(ctrl + CTRL_UCOUNT + st.q % 3);
   const Val* vals = p.val[st.ch.cur()];
-  const int32_t b = NO_BUCKET - (int32_t)__ldcg(ctrl + CTRL_LIVE + 2 + ep);
+  const int32_t b =
+      (int32_t)((unsigned)NO_BUCKET - __ldcg(ctrl + CTRL_LIVE + 2 + ep));
   __shared__ int32_t bins[32];
   const bool binned = !heavy_turn && (p.kernel == K_BS || p.kernel == K_AD ||
                                       p.kernel == K_NS);

@@ -224,9 +224,9 @@ __device__ __forceinline__ void fold_quad(uint32_t fr, Val4 ds, Val4 dd,
   for (int b = 0; b < 4; ++b) {
     if (!((fr >> (8 * b)) & 0xffu)) continue;
     if (row_excl && (int64_t)rxv[b] + off >= cap_work) continue;
-    const Val cand = message<MSG>(dsv[b], w);
+    const auto cand = message<MSG>(dsv[b], w);
     if (!improves<MSG, COMB>(cand, ddv[b])) continue;
-    fold<COMB>(target + at + b, cand);
+    fold<COMB>(target + at + b, narrow<MSG>(cand));
     upd[at + b] = 1;
   }
 }

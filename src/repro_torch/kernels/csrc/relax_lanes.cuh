@@ -25,8 +25,9 @@
 // REPRO_OP_COMB>, and nothing else; the base build never sees MSG_CUSTOM.
 //
 // The value type.  The values (dist, the proposal, the fused kernel's two
-// buffers) are `Val`: int32_t in the base build and an int32 operator's,
-// float in a float32 operator's build (its header defines REPRO_OP_FLOAT).
+// buffers) are `Val` (values.cuh): int32_t in the base build and an int32
+// operator's, float in a float32 operator's build (its header defines
+// REPRO_OP_FLOAT).
 // Indices, slot tables and weights stay int32 everywhere: a float message
 // takes its int32 weight and converts it as torch promotes it (the
 // lowered header's repro_op_i2f, __int2float_rn).  A float min or max
@@ -35,6 +36,21 @@
 // EdgeOp.scatter give, whatever the lanes' order; a float add folds by a
 // compare-and-swap of the rounded sum, which depends on the order of its
 // terms.
+//
+// A sub-word operator's header (REPRO_OP_SUBWORD) names its value type,
+// repro_op_val: int16_t, int8_t, uint8_t, or a bfloat16 or float16 held as
+// its bits (uint16_t), and the type of its message's result, repro_op_msg,
+// which may be wider (int16 + an int32 weight is int32, as torch and the
+// reference promote it).  The activation test compares the wide candidate;
+// repro_op_narrow then narrows it to the value type as .to(dist.dtype)
+// does, before the fold.  No 8- or 16-bit atomic exists, so the fold is a
+// compare-and-swap loop on the aligned 32-bit word that holds the value,
+// which rewrites only the value's own bytes of it, with values.cuh's
+// fold_value (min, max or add in that type: integers wrap, a 16-bit
+// float's min and max are IEEE minimum and maximum, -0.0 below +0.0 and
+// NaN absorbing, its add rounds float(a) + float(b) to the type once).
+// A quad of the batch contract is 8 bytes of 16-bit values and 4 of 8-bit
+// ones.
 
 #pragma once
 
@@ -46,26 +62,32 @@
 #ifdef REPRO_CUSTOM_OP_HEADER
 #include REPRO_CUSTOM_OP_HEADER
 #endif
+#include "values.cuh"
 
 namespace relax_lanes {
 
-#ifdef REPRO_OP_FLOAT
-using Val = float;
-using Val4 = float4;
-#else
-using Val = int32_t;
-using Val4 = int4;
-#endif
+// four values of one node's rows, loaded at once (the batch contract)
+template <class T>
+struct Quad;
+template <>
+struct Quad<int32_t> { using type = int4; };
+template <>
+struct Quad<float> { using type = float4; };
+template <>
+struct Quad<int16_t> { using type = short4; };
+template <>
+struct Quad<uint16_t> { using type = ushort4; };
+template <>
+struct Quad<int8_t> { using type = char4; };
+template <>
+struct Quad<uint8_t> { using type = uchar4; };
+using Val4 = typename Quad<Val>::type;
 
 // message codes (repro_torch.core.operators.KERNEL_MESSAGES, MSG_CUSTOM)
 constexpr int MSG_SUM = 0;         // v + w (wrapping)
 constexpr int MSG_COPY = 1;        // v
 constexpr int MSG_BOTTLENECK = 2;  // min(v, w)
 constexpr int MSG_CUSTOM = 3;      // repro_op_message, repro_op_improves
-// combine codes (repro_torch.core.operators.KERNEL_COMBINES)
-constexpr int COMB_MIN = 0;
-constexpr int COMB_MAX = 1;
-constexpr int COMB_ADD = 2;
 
 constexpr int THREADS = 256;
 // B1: lanes a thread takes, and the lanes a block tile covers
@@ -157,31 +179,52 @@ struct NoHook {
   __device__ __forceinline__ void operator()(int32_t) const {}
 };
 
+// the candidate of an edge: of the value type, or of the operator's
+// message type (repro_op_msg) in a sub-word build
 template <int MSG>
-__device__ __forceinline__ Val message(Val v, int32_t w) {
-  if (MSG == MSG_SUM) return (int32_t)((uint32_t)v + (uint32_t)w);
-  if (MSG == MSG_COPY) return v;
-  return v < w ? v : w;
-}
-
+__device__ __forceinline__ auto message(Val v, int32_t w) {
 #ifdef REPRO_CUSTOM_OP_HEADER
-template <>
-__device__ __forceinline__ Val message<MSG_CUSTOM>(Val v, int32_t w) {
-  return repro_op_message(v, w);
-}
+  if constexpr (MSG == MSG_CUSTOM) {
+    return repro_op_message(v, w);
+  } else
 #endif
+  if constexpr (MSG == MSG_SUM) {
+    return (Val)(int32_t)((uint32_t)v + (uint32_t)w);
+  } else if constexpr (MSG == MSG_COPY) {
+    return v;
+  } else {
+    return (Val)(v < w ? v : w);
+  }
+}
 
 // the activation test: the operator's own for MSG_CUSTOM (its update
 // predicate, or the combine's default), else the built-in operators'; for
 // add the identity is 0, so "a real contribution" is cand != 0
-template <int MSG, int COMB>
-__device__ __forceinline__ bool improves(Val cand, Val cur) {
+template <int MSG, int COMB, class M>
+__device__ __forceinline__ bool improves(M cand, Val cur) {
 #ifdef REPRO_CUSTOM_OP_HEADER
-  if (MSG == MSG_CUSTOM) return repro_op_improves(cand, cur);
+  if constexpr (MSG == MSG_CUSTOM) {
+    return repro_op_improves(cand, cur);
+  } else
 #endif
-  if (COMB == COMB_MIN) return cand < cur;
-  if (COMB == COMB_MAX) return cand > cur;
-  return cand != 0;
+  {
+    if (COMB == COMB_MIN) return cand < cur;
+    if (COMB == COMB_MAX) return cand > cur;
+    return cand != 0;
+  }
+}
+
+// a candidate narrowed to the value type, as .to(dist.dtype) narrows it
+template <int MSG, class M>
+__device__ __forceinline__ Val narrow(M cand) {
+#ifdef REPRO_OP_SUBWORD
+  if constexpr (MSG == MSG_CUSTOM) {
+    return repro_op_narrow(cand);
+  } else
+#endif
+  {
+    return cand;
+  }
 }
 
 template <int COMB>
@@ -238,6 +281,32 @@ __device__ __forceinline__ void fold(float* p, float cand) {
 }
 #endif
 
+#ifdef REPRO_OP_SUBWORD
+// A sub-word fold: a compare-and-swap loop on the aligned 32-bit word that
+// holds *p, which rewrites only *p's bytes (the other values of the word
+// are read and written back as they were, so a concurrent fold or store
+// of a neighbour fails the swap and the loop retries).  fold_value
+// (values.cuh) is the combine in the value type; a fold that changes nothing stores
+// nothing.  Order-free for min and max (and for integer add, which
+// wraps); a 16-bit float add depends on the order of its terms.
+template <int COMB>
+__device__ __forceinline__ void fold(Val* p, Val cand) {
+  using U = std::make_unsigned_t<Val>;
+  constexpr unsigned MASK = (1u << (8 * sizeof(Val))) - 1u;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  unsigned* const word = reinterpret_cast<unsigned*>(at & ~(uintptr_t)3);
+  const unsigned shift = (unsigned)(at & 3) * 8u;
+  unsigned old = __ldcg(word), seen;
+  do {
+    seen = old;
+    const unsigned bits = (seen >> shift) & MASK;
+    const unsigned next = (U)fold_value<COMB>((Val)(U)bits, cand);
+    if (next == bits) return;
+    old = atomicCAS(word, seen, (seen & ~(MASK << shift)) | (next << shift));
+  } while (old != seen);
+}
+#endif
+
 __device__ __forceinline__ int32_t clamp_index(int64_t i, int32_t n) {
   return (int32_t)(i < 0 ? 0 : (i >= n ? n - 1 : i));
 }
@@ -247,9 +316,9 @@ template <int MSG, int COMB, class Hook>
 __device__ __forceinline__ bool fold_lane(Val dsrc, Val ddst, int32_t w,
                                           int32_t d, Val* target,
                                           uint8_t* upd, const Hook& hook) {
-  const Val cand = message<MSG>(dsrc, w);
+  const auto cand = message<MSG>(dsrc, w);
   if (!improves<MSG, COMB>(cand, ddst)) return false;
-  fold<COMB>(target + d, cand);
+  fold<COMB>(target + d, narrow<MSG>(cand));
   upd[d] = 1;
   hook(d);
   return true;

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import CSRGraph
-from repro_torch.core.operators import EdgeOp
+from repro_torch.core.operators import EdgeOp, value_dtype
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import (LAUNCHES, check_dense, check_tensor,
                                         stream_of)
@@ -122,7 +122,7 @@ def fixed_point(kernel: str, graph: CSRGraph, aux: Optional[torch.Tensor],
         raise ValueError(f"no fused_fixed_point for device {dist.device}")
     dev = dist.device
     n, e = graph.num_nodes, graph.num_edges
-    check_tensor("dist", dist, dev, op.dtype, n)
+    check_tensor("dist", dist, dev, value_dtype(op), n)
     check_tensor("mask", mask, dev, torch.bool, n)
     if kernel in ("EP", "NS"):
         check_tensor("aux", aux, dev, torch.int32, e if kernel == "EP" else n)
@@ -161,7 +161,7 @@ def batch_fixed_point(graph: CSRGraph, dist: torch.Tensor,
         raise ValueError(f"dist has shape {tuple(dist.shape)}, expected "
                          f"[K, N]")
     k, n = dist.shape
-    check_dense("dist", dist, dev, op.dtype, (k, graph.num_nodes))
+    check_dense("dist", dist, dev, value_dtype(op), (k, graph.num_nodes))
     check_dense("mask", mask, dev, torch.bool, (k, n))
     _check_graph(graph, dev)
     out = torch.empty_like(dist)
@@ -264,7 +264,7 @@ def delta_fixed_point(kernel: str, light: CSRGraph,
                          f"got {op.name!r}")
     dev = dist.device
     n = light.num_nodes
-    check_tensor("dist", dist, dev, op.dtype, n)
+    check_tensor("dist", dist, dev, value_dtype(op), n)
     check_tensor("mask", mask, dev, torch.bool, n)
     _check_graph(light, dev)
     if heavy is not None:

@@ -115,7 +115,7 @@ def _relax_lanes_cuda(dist, src, dst, w, valid, target, updated,
     library, msg, comb = _build.op_library(op)
     dev = dist.device
     n, lanes = dist.numel(), src.numel()
-    check_tensor("dist", dist, dev, op.dtype)
+    check_tensor("dist", dist, dev, operators.value_dtype(op))
     for name, t in (("src", src), ("dst", dst), ("w", w)):
         check_tensor(name, t, dev, torch.int32, lanes)
     check_tensor("valid", valid, dev, torch.bool, lanes)
@@ -199,7 +199,7 @@ def _wd_relax_lanes_cuda(dist, prefix, exclusive, start, src_ids, col, wt,
     library, msg, comb = _build.op_library(op)
     dev = dist.device
     n, f, e = dist.numel(), prefix.numel(), col.numel()
-    check_tensor("dist", dist, dev, op.dtype)
+    check_tensor("dist", dist, dev, operators.value_dtype(op))
     for name, t in (("prefix", prefix), ("exclusive", exclusive),
                     ("start", start), ("src_ids", src_ids)):
         check_tensor(name, t, dev, torch.int32, f)
@@ -353,6 +353,9 @@ def _check_node_major(dist_t, front_t, slots, row_excl, col, wt,
     e = col.numel()
     if wt is not None:
         check_tensor("wt", wt, dev, torch.int32, e)
+    # a 16-byte start keeps each row's quads aligned for every value
+    # width (a quad is 16 bytes of int32/float32, 8 of a 16-bit type, 4
+    # of an 8-bit one, and Kp is a multiple of 4)
     check_aligned(dist_t=dist_t)
     if front_t.data_ptr() % 4:
         raise ValueError("front_t must start on a 4-byte boundary")
@@ -388,7 +391,7 @@ def wd_apply_relax_union(dist_t, front_t, prefix, exclusive, start,
     library, msg, comb = _build.op_library(op)
     slots = (prefix, exclusive, start, src_ids)
     n, kp, f, e = _check_node_major(dist_t, front_t, slots, row_excl, col,
-                                    wt, op.dtype)
+                                    wt, operators.value_dtype(op))
     target = dist_t.clone()
     upd = torch.zeros_like(front_t)
     if kp == 0 or f == 0:

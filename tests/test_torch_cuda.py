@@ -8,7 +8,9 @@ row, against their plain versions, ``run_batch`` and ``GraphServer`` against
 the CPU), delta-stepping (the fused kernel's delta mode against its plain
 epoch loop, the engines, batch and server against the CPU), measured AD
 (``ad_choice`` against ``CostModel.choose``, calibration, block
-feasibility), the serving loop, the expert-parallel MoE dispatch, and
+feasibility), user-defined, float32 and sub-word operators (their own
+builds of B1, B2, B1's batch contract and the fused kernel against the
+plain versions), the serving loop, the expert-parallel MoE dispatch, and
 the MLA, vision, audio and padded-head models on the card against the
 CPU.  Every test here needs a CUDA
 device and skips
@@ -268,46 +270,68 @@ CUSTOM_OPS = {
 EXTREMES = (-2 ** 31, 2 ** 31 - 1, operators.INF, 0, -1)
 
 
-def test_custom_operator_on_cuda_raises(dev):
-    """An operator outside the lowered op set (true division of int32
-    values) and one of a dtype no kernel holds (float16, bfloat16,
-    int16, uint8, float64) raise on CUDA tensors before any build or
-    launch, naming the fx node or the ROADMAP item; neither runs the plain
-    version.  A float32 operator is accepted: its own build, one launch."""
+_DIV = operators.EdgeOp(name="halved", combine="min",
+                        identity=operators.INF, source_value=0,
+                        message=lambda v, w: v / 2 + w)
+_F32 = operators.EdgeOp(name="f32", combine="min",
+                        identity=float(operators.INF), source_value=0.0,
+                        message=lambda v, w: v + w, dtype=torch.float32)
+
+
+def _replace(op, **kw):
     import dataclasses
-    div = operators.EdgeOp(name="halved", combine="min",
-                           identity=operators.INF, source_value=0,
-                           message=lambda v, w: v / 2 + w)
-    f32 = operators.EdgeOp(name="f32", combine="min",
-                           identity=float(operators.INF), source_value=0.0,
-                           message=lambda v, w: v + w, dtype=torch.float32)
-    args = _lanes(np.random.default_rng(1), div, 50, 80, dev)
+    return dataclasses.replace(op, name=str(kw.get("dtype", op.name)), **kw)
+
+
+#: what the card takes: (operator, the error it raises before any build
+#: or launch, or None if it is accepted with one launch of its build)
+CARD_OPERATOR_CASES = {
+    "truediv": (_DIV, "'truediv'.*device='cpu'"),
+    "add1_int32": (operators.EdgeOp(name="add1", combine="add", identity=1,
+                                    source_value=1,
+                                    message=lambda v, w: v),
+                   "nonzero identity.*reference's faults"),
+    "add1_float32": (_replace(_F32, combine="add", identity=1.0),
+                     "nonzero identity.*reference's faults"),
+    "float32": (_F32, None),
+    "float16": (_replace(_F32, dtype=torch.float16), None),
+    "bfloat16": (_replace(_F32, dtype=torch.bfloat16), None),
+    "int16": (_replace(_F32, dtype=torch.int16, identity=32767), None),
+    "uint8": (_replace(_F32, dtype=torch.uint8, identity=255), None),
+    "float64": (_replace(_F32, dtype=torch.float64), None),
+}
+
+
+@pytest.mark.parametrize("case", list(CARD_OPERATOR_CASES))
+def test_custom_operator_on_cuda_raises(dev, case):
+    """An operator outside the lowered op set (true division of int32
+    values) and add with a nonzero identity (int32 or float32: the
+    reference's fault) raise on CUDA tensors before any build or launch,
+    naming the fx node or the fault; neither runs the plain version.
+    Every kernel value type is accepted (float64 as float32): its own
+    build, one launch, the value type's proposal."""
+    op, error = CARD_OPERATOR_CASES[case]
+    args = _lanes(np.random.default_rng(1), _DIV, 50, 80, dev)
+    value = operators.value_dtype(op)
     before = dict(relax.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="'truediv'.*device='cpu'"):
-        relax.relax_lanes(*args, op=div)
-    for dtype in (torch.float16, torch.bfloat16, torch.int16, torch.uint8,
-                  torch.float64):
-        op = dataclasses.replace(f32, name=str(dtype), dtype=dtype)
-        with pytest.raises(NotImplementedError,
-                           match="queue C: operators of a sub-word"):
-            relax.apply_relax(args[0].to(dtype),
-                              torch.zeros_like(args[4][:50]), *args[1:],
-                              op=op)
+    if error is None:
+        got = relax.apply_relax(args[0].to(value),
+                                torch.zeros_like(args[4][:50]), *args[1:],
+                                op=op)
+        assert got[0].dtype == value
+        assert relax.LAUNCHES["relax_lanes"] == before["relax_lanes"] + 1
+        return
+    with pytest.raises(NotImplementedError, match=error):
+        relax.apply_relax(args[0].to(value), torch.zeros_like(args[4][:50]),
+                          *args[1:], op=op)
     from repro_torch.core import engine
     from repro_torch.core.strategies import make_strategy
     g = rmat_graph(scale=8, weighted=True, seed=1, device="cpu")
     for mode in ("stepped", "fused"):
-        with pytest.raises(NotImplementedError, match="'truediv'"):
-            engine.run(g, 0, make_strategy("WD"), op=div, mode=mode,
+        with pytest.raises(NotImplementedError, match=error):
+            engine.run(g, 0, make_strategy("WD"), op=op, mode=mode,
                        device=dev)
-        with pytest.raises(NotImplementedError, match="sub-word"):
-            engine.run(g, 0, make_strategy("WD"), mode=mode, device=dev,
-                       op=dataclasses.replace(f32, dtype=torch.float16))
     assert relax.LAUNCHES == before
-    got = relax.apply_relax(args[0].float(), torch.zeros_like(args[4][:50]),
-                            *args[1:], op=f32)
-    assert got[0].dtype == torch.float32
-    assert relax.LAUNCHES["relax_lanes"] == before["relax_lanes"] + 1
 
 
 def _with_extremes(rng, t):
@@ -2277,6 +2301,51 @@ def test_float_fused_delta_kernel_matches_plain(dev, strategy, opname,
         assert got[2:] == want[2:]
 
 
+@pytest.mark.parametrize("delta", [None, 25])
+@pytest.mark.parametrize("strategy", ["BS", "WD", "NS"])
+def test_float_delta_takes_a_nan_bucket_first(dev, strategy, delta):
+    """A NaN admitted by a custom ``update`` under the float32 delta mode:
+    the message is 0/0 on the edges of weight 33, and a NaN candidate
+    improves every value but a NaN.  A NaN rank's bucket is INT32_MIN
+    (``worklist.bucket_index``), so once a NaN appears the kernel's
+    unsigned bucket key takes its bucket before every other, as the plain
+    epoch loop's ``min_live_bucket`` does.  Road side 128: (dist, mask,
+    epochs, rounds, edges, last bucket, frontier count, rounds by kind)
+    equal the plain loop's on CPU copies, and the NaN has spread."""
+    import dataclasses
+    from repro_torch.core import priority
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import road_grid_graph
+    from repro_torch.kernels import fused as kernel_fused
+    op = dataclasses.replace(
+        FLOAT_OPS["nan_min"], name="nan_at_33",
+        message=lambda v, w: (v + w * 0.5) * (w - 33) / (w - 33),
+        update=lambda cand, cur: (cand < cur) | ((cand != cand)
+                                                 & (cur == cur)))
+    g = road_grid_graph(side=128, weighted=True, seed=4, device=dev)
+    source = 128 * 64 + 17
+    strat = make_strategy(strategy)
+    plan = priority.plan_delta(strat, strat.setup(g), g, op=op, delta=delta)
+    n = plan.light.num_nodes
+    dist = torch.full((n,), op.identity, dtype=op.dtype, device=dev)
+    dist[source] = op.seed(source)
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[source] = True
+    kw = dict(op=op, sched=plan.sched, delta=plan.delta,
+              max_iterations=100000)
+    got = kernel_fused.delta_fixed_point(
+        plan.kernel, plan.light, plan.heavy_graph, plan.aux, dist, mask,
+        **kw)
+    heavy = plan.heavy_graph
+    want = priority._delta_fixed_point_plain(
+        plan.kernel, plan.light.to("cpu"),
+        None if heavy is None else heavy.to("cpu"), _cpu(plan.aux),
+        dist.cpu(), mask.cpu(), **kw)
+    _float_same(got[:2], want[:2], op)
+    assert got[2:] == want[2:]
+    assert want[2] > 1 and int(want[0].isnan().sum()) > 1
+
+
 @pytest.mark.parametrize("run", list(ENGINE_RUNS))
 @pytest.mark.parametrize("opname", ["scaled_sssp", "reliable", "damped"])
 def test_float_engine_on_the_card_matches_cpu(dev, monkeypatch, opname, run):
@@ -2323,3 +2392,325 @@ def test_float_batch_and_shards_on_the_card_match_cpu(dev, opname, mode):
     _float_same([torch.from_numpy(a.dist)], [torch.from_numpy(b.dist)], op)
     assert (a.iterations, a.edges_relaxed) == (b.iterations,
                                                b.edges_relaxed)
+
+
+# ---------------------------------------------------------------------------
+# sub-word operators: their own builds of B1, B2, B1's batch contract and
+# the fused kernel, against the plain versions on CPU copies
+# ---------------------------------------------------------------------------
+
+#: the sub-word operators of the card tests (chip_smoke.subword_ops): SSSP
+#: in bfloat16 and int16 (an int32 message the fold narrows), the most
+#: reliable path in float16 (a float32 message), BFS levels in int8, the
+#: widest path in uint8, path counts in uint8 (add, wrapping), damped
+#: counts in bfloat16 (add), and a bfloat16 min whose update admits NaN
+SUBWORD_OPS = {
+    "bf16_sssp": operators.EdgeOp(
+        name="bf16_sssp", combine="min", identity=float("inf"),
+        source_value=0.0, message=lambda v, w: v + w, weight_additive=True,
+        dtype=torch.bfloat16),
+    "f16_reliable": operators.EdgeOp(
+        name="f16_reliable", combine="max", identity=0.0, source_value=1.0,
+        message=lambda v, w: v * (w / (w + 1.0)), value_min=0,
+        dtype=torch.float16),
+    "i16_sssp": operators.EdgeOp(
+        name="i16_sssp", combine="min", identity=32767, source_value=0,
+        message=lambda v, w: v + w, weight_additive=True,
+        dtype=torch.int16),
+    "i8_levels": operators.EdgeOp(
+        name="i8_levels", combine="min", identity=127, source_value=0,
+        message=lambda v, w: v + 1, dtype=torch.int8),
+    "u8_widest": operators.EdgeOp(
+        name="u8_widest", combine="max", identity=0, source_value=255,
+        message=lambda v, w: torch.minimum(
+            v, w.clamp(0, 255).to(torch.uint8)), value_min=0,
+        dtype=torch.uint8),
+    "u8_count": operators.EdgeOp(
+        name="u8_count", combine="add", identity=0, source_value=1,
+        message=lambda v, w: v, dtype=torch.uint8),
+    "bf16_damped": operators.EdgeOp(
+        name="bf16_damped", combine="add", identity=0.0, source_value=1.0,
+        message=lambda v, w: v * 0.5, dtype=torch.bfloat16),
+    "bf16_nan_min": operators.EdgeOp(
+        name="bf16_nan_min", combine="min", identity=float("inf"),
+        source_value=0.0, message=lambda v, w: v - w,
+        update=lambda cand, cur: (cand < cur) | (cand != cand),
+        dtype=torch.bfloat16),
+}
+SUBWORD_MINMAX = [name for name, op in SUBWORD_OPS.items()
+                  if op.combine != "add" and name != "bf16_nan_min"]
+
+
+def _subword_values(rng, op, shape):
+    """Random values of ``op``'s type and domain (CPU), a tenth of them
+    the type's extremes (±0, NaN, ±inf, the largest and least floats; the
+    least and largest integers, 0, -1)."""
+    if op.dtype.is_floating_point:
+        fi = torch.finfo(op.dtype)
+        a = rng.random(shape) * (1.0 if op.combine == "max" else 60.0)
+        pool = [0.0, -0.0, float("nan"), float("inf"), -float("inf"),
+                fi.max, -fi.max, fi.tiny, fi.smallest_normal / 8, -1.0]
+        if op.combine == "add":
+            pool = [0.0, -0.0, fi.tiny, fi.smallest_normal / 8, 1024.0]
+    else:
+        ii = torch.iinfo(op.dtype)
+        a = rng.integers(0, min(ii.max, 100), shape).astype(np.float64)
+        pool = [ii.min, ii.max, 0, -1 if ii.min < 0 else 1]
+    if op.combine == "min":
+        a[rng.random(shape) < 0.4] = op.identity
+    at = rng.random(shape) < 0.1
+    a[at] = rng.choice(np.array(pool, np.float64), int(at.sum()))
+    t = torch.from_numpy(a)
+    return (t.to(op.dtype) if op.dtype.is_floating_point
+            else t.to(torch.int64).to(op.dtype))
+
+
+def _subword_same(got, want, op):
+    """Tensors of the card against the CPU's: bools exactly; values of
+    min and max, and of an integer add, bit for bit and NaN for NaN; a
+    bfloat16 add at rtol 4e-2 (the order of a float sum; 8 bits)."""
+    for a, b in zip(got, want):
+        a, b = a.cpu(), b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if not a.is_floating_point():
+            assert torch.equal(a, b)
+            continue
+        an, bn = a.isnan(), b.isnan()
+        assert torch.equal(an, bn)
+        x, y = a[~an], b[~bn]
+        if op.combine == "add":
+            torch.testing.assert_close(x.float(), y.float(), rtol=4e-2,
+                                       atol=0)
+        else:
+            assert torch.equal(x.view(torch.int16), y.view(torch.int16))
+
+
+@pytest.mark.parametrize("opname", list(SUBWORD_OPS))
+def test_subword_operator_kernels_match_plain(dev, opname):
+    """B2 (both contracts), B1 (both) and B1's batch contract built for a
+    sub-word operator, against their plain versions on CPU copies: values
+    with the type's extremes planted (the folds into dist: the values of
+    the operator's domain), int32 weights with int32 extremes; one launch
+    each.  The batch's quads are 8 bytes (16-bit values) or 4 (8-bit)."""
+    from repro_torch.core import multi_source
+    op = SUBWORD_OPS[opname]
+    rng = np.random.default_rng(30)
+    for n, lanes in ((257, 2050), (5000, 100000)):
+        _, src, dst, w, valid = _lanes(rng, operators.shortest_path, n,
+                                       lanes, dev)
+        dist = _subword_values(rng, op, n).to(dev)
+        args = (dist, src, dst, _with_extremes(rng, w), valid)
+        before = relax.LAUNCHES["relax_lanes"]
+        got = relax.relax_lanes(*args, op=op)
+        assert relax.LAUNCHES["relax_lanes"] == before + 1
+        _subword_same(got, relax.relax_lanes_plain(
+            *(_cpu(a) for a in args), op=op), op)
+        mask = _running_mask(rng, n, dev)
+        dist = _in_domain(op, dist)
+        want = relax.apply_relax_plain(*(_cpu(a) for a in (dist, mask)),
+                                       *(_cpu(a) for a in args[1:]), op=op)
+        got = relax.apply_relax(dist, mask, *args[1:], op=op)
+        assert relax.LAUNCHES["relax_lanes"] == before + 2
+        _subword_same(got, want, op)
+    g = rmat_graph(scale=10, weighted=True, seed=3, device=dev)
+    nodes = np.sort(rng.choice(g.num_nodes, 300, replace=False))
+    f = torch.from_numpy(nodes.astype(np.int32)).to(dev)
+    deg = g.row_ptr[f + 1] - g.row_ptr[f]
+    prefix = torch.cumsum(deg, 0, dtype=torch.int32)
+    dist = _subword_values(rng, op, g.num_nodes).to(dev)
+    wt = _with_extremes(rng, g.wt)
+    args = (dist, prefix, prefix - deg, g.row_ptr[f], f, g.col, wt)
+    cpu_args = tuple(_cpu(a) for a in args)
+    cap = int(prefix[-1]) + 100
+    before = relax.LAUNCHES["wd_relax_lanes"]
+    got = relax.wd_relax_lanes(*args, cap_work=cap, op=op)
+    assert relax.LAUNCHES["wd_relax_lanes"] == before + 1
+    _subword_same(got, relax.wd_relax_lanes_plain(*cpu_args, cap_work=cap,
+                                                  op=op), op)
+    mask = _running_mask(rng, g.num_nodes, dev)
+    dist = _in_domain(op, dist)
+    want = relax.wd_apply_relax_plain(dist.cpu(), mask.cpu(), *cpu_args[1:],
+                                      cap_work=cap, op=op)
+    _subword_same(relax.wd_apply_relax(dist, mask, *args[1:], cap_work=cap,
+                                       op=op), want, op)
+    for k in (1, 5, 8):
+        n = g.num_nodes
+        mask_b = torch.from_numpy(rng.random((k, n)) < 0.05).to(dev)
+        dist_b = _in_domain(op, _subword_values(rng, op, (k, n)).to(dev))
+        dist_t = multi_source.to_node_major(dist_b, op.identity)
+        front_t = multi_source.to_node_major(mask_b, False)
+        tables = multi_source.union_tables(g, front_t.any(1), n)
+        uargs = (dist_t, front_t, *tables, g.col, wt)
+        before = relax.LAUNCHES["wd_relax_lanes_batch"]
+        got = relax.wd_apply_relax_union(*uargs, cap_work=g.num_edges,
+                                         max_lanes=int(tables[0][-1]), op=op)
+        assert relax.LAUNCHES["wd_relax_lanes_batch"] == before + 1
+        _subword_same(got, relax.wd_apply_relax_union_plain(
+            *(_cpu(a) for a in uargs), cap_work=g.num_edges, op=op), op)
+
+
+@pytest.mark.parametrize("opname", ["u8_count", "i8_levels", "bf16_sssp",
+                                    "bf16_nan_min", "u8_widest"])
+def test_subword_fold_keeps_its_neighbours(dev, opname):
+    """Every lane into the four values of one 32-bit word (or the two of a
+    16-bit type's), many lanes each: the compare-and-swap on the enclosing
+    word changes only its own value's bytes, whatever the neighbours'
+    folds do meanwhile, and the result equals the plain fold."""
+    op = SUBWORD_OPS[opname]
+    rng = np.random.default_rng(31)
+    n, lanes = 64, 4096
+    dist = _in_domain(op, _subword_values(rng, op, n)).to(dev)
+    src = torch.from_numpy(rng.integers(0, n, lanes).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(8, 12, lanes).astype(np.int32))
+    w = torch.from_numpy(rng.integers(0, 9, lanes).astype(np.int32))
+    valid = torch.ones(lanes, dtype=torch.bool)
+    args = [a.to(dev) for a in (src, dst, w, valid)]
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    got = relax.apply_relax(dist, mask, *args, op=op)
+    want = relax.apply_relax_plain(dist.cpu(), mask.cpu(), src, dst, w,
+                                   valid, op=op)
+    _subword_same(got, want, op)
+    outside = torch.ones(n, dtype=torch.bool)
+    outside[8:12] = False
+    _subword_same([got[0].cpu()[outside]], [dist.cpu()[outside]], op)
+
+
+def _subword_graph(opname, dev):
+    """rmat12 from its highest-degree node; the add operators on the
+    layered DAG from node 0."""
+    if SUBWORD_OPS[opname].combine == "add":
+        return _layered_dag(dev), 0
+    g = rmat_graph(scale=12, weighted=True, seed=1, device=dev)
+    return g, int(g.degrees.argmax())
+
+
+@pytest.mark.parametrize("opname", ["bf16_sssp", "f16_reliable", "i16_sssp",
+                                    "i8_levels", "u8_widest", "u8_count",
+                                    "bf16_damped"])
+@pytest.mark.parametrize("run", list(FUSED_RUNS))
+def test_subword_fused_kernel_matches_plain(dev, run, opname):
+    """Every strategy: the sub-word fused kernel's (dist, iterations,
+    edges, AD's choices, chunks) equal the plain loop's on CPU copies, in
+    one fused launch and no B1/B2 launch."""
+    strategy, kwargs = FUSED_RUNS[run]
+    op = SUBWORD_OPS[opname]
+    g, source = _subword_graph(opname, dev)
+    got, want, launched = _fused_float_pair(g, strategy, kwargs, op, source)
+    _subword_same([got[0]], [want[0]], op)
+    assert got[1:] == want[1:]
+    assert launched["fused_fixed_point"] == 1
+    assert launched["relax_lanes"] == launched["wd_relax_lanes"] == 0
+
+
+@pytest.mark.parametrize("delta", [4, 25])
+@pytest.mark.parametrize("opname", ["bf16_sssp", "i16_sssp", "u8_widest",
+                                    "f16_reliable"])
+@pytest.mark.parametrize("strategy", ["BS", "WD", "NS", "HP", "AD"])
+def test_subword_fused_delta_kernel_matches_plain(dev, strategy, opname,
+                                                  delta):
+    """Road side 128: the sub-word delta mode's (dist, mask, epochs,
+    rounds, edges, last bucket, frontier count, rounds by kind) equal the
+    plain epoch loop's on CPU copies, whole and capped at one epoch, in
+    one launch: the buckets in the value type, as worklist.bucket_index
+    has them (int16's all -1, uint8's reflected in uint8, float16's
+    reflections of inf in bucket 0)."""
+    from repro_torch.core import priority
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import road_grid_graph
+    from repro_torch.kernels import fused as kernel_fused
+    op = SUBWORD_OPS[opname]
+    g = road_grid_graph(side=128, weighted=True, seed=4, device=dev)
+    source = 128 * 64 + 17
+    strat = make_strategy(strategy)
+    plan = priority.plan_delta(strat, strat.setup(g), g, op=op, delta=delta)
+    n = plan.light.num_nodes
+    dist = torch.full((n,), op.identity, dtype=op.dtype, device=dev)
+    dist[source] = op.seed(source)
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[source] = True
+    for cap in (100000, 1):
+        kw = dict(op=op, sched=plan.sched, delta=plan.delta,
+                  max_iterations=cap)
+        before = relax.LAUNCHES["fused_fixed_point"]
+        got = kernel_fused.delta_fixed_point(
+            plan.kernel, plan.light, plan.heavy_graph, plan.aux, dist, mask,
+            **kw)
+        assert relax.LAUNCHES["fused_fixed_point"] == before + 1
+        heavy = plan.heavy_graph
+        want = priority._delta_fixed_point_plain(
+            plan.kernel, plan.light.to("cpu"),
+            None if heavy is None else heavy.to("cpu"), _cpu(plan.aux),
+            dist.cpu(), mask.cpu(), **kw)
+        _subword_same(got[:2], want[:2], op)
+        assert got[2:] == want[2:]
+
+
+@pytest.mark.parametrize("run", ["WD", "BS", "EP", "NS", "AD"])
+@pytest.mark.parametrize("opname", ["bf16_sssp", "i16_sssp", "i8_levels",
+                                    "u8_widest", "u8_count"])
+def test_subword_engine_on_the_card_matches_cpu(dev, monkeypatch, opname,
+                                                run):
+    """``engine.run`` with a sub-word operator, stepped and fused, on the
+    card equals the CPU's run, and the card run reaches no plain relax:
+    only the operator's own kernels launch."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    strategy, kwargs = ENGINE_RUNS[run]
+    op = SUBWORD_OPS[opname]
+    g, src = _subword_graph(opname, "cpu")
+    for mode in ("stepped", "fused"):
+        b = engine.run(g, src, make_strategy(strategy, **kwargs), op=op,
+                       mode=mode, device="cpu")
+        with monkeypatch.context() as m:
+            _no_plain_relax(m)
+            a = engine.run(g, src, make_strategy(strategy, **kwargs), op=op,
+                           mode=mode, device=dev)
+        assert a.dist.dtype == b.dist.dtype
+        np.testing.assert_array_equal(a.dist, b.dist)
+        assert (a.iterations, a.edges_relaxed) == (b.iterations,
+                                                   b.edges_relaxed)
+
+
+@pytest.mark.parametrize("mode", ["stepped", "fused"])
+@pytest.mark.parametrize("opname", SUBWORD_MINMAX)
+def test_subword_batch_and_shards_on_the_card_match_cpu(dev, opname, mode):
+    """A K = 8 batch (B1's union contract stepped, a fused launch a row
+    fused), its rows against single runs, and a two-shard lockstep WD run
+    with a sub-word operator: the card equals the CPU."""
+    from repro_torch.core import engine
+    from repro_torch.core.strategies import make_strategy
+    op = SUBWORD_OPS[opname]
+    g, src = _subword_graph(opname, "cpu")
+    sources = [src, 0, 3, 3, 100, 7, 2048, 4095]
+    a, b = (engine.run_batch(g, sources, op=op, mode=mode, device=d)
+            for d in (dev, "cpu"))
+    np.testing.assert_array_equal(a.dist, b.dist)
+    assert (a.iterations, a.edges_relaxed) == (b.iterations,
+                                               b.edges_relaxed)
+    for row, s in zip(a.dist, sources):
+        np.testing.assert_array_equal(row, engine.run(
+            g, s, make_strategy("WD"), op=op, mode="fused",
+            device=dev).dist)
+    a, b = (engine.run(g, src, make_strategy("WD"), op=op, mode="fused",
+                       shards=2, device=d) for d in (dev, "cpu"))
+    np.testing.assert_array_equal(a.dist, b.dist)
+    assert (a.iterations, a.edges_relaxed) == (b.iterations,
+                                               b.edges_relaxed)
+
+
+def test_subword_union_refuses_a_misaligned_quad(dev):
+    """The batch contract loads a node's four values of a 16-bit type as
+    one 8-byte quad: a node-major view off that alignment raises."""
+    from repro_torch.core import multi_source
+    op = SUBWORD_OPS["i16_sssp"]
+    g = rmat_graph(scale=8, weighted=True, seed=3, device=dev)
+    n = g.num_nodes
+    dist_t = torch.full((n * 4 + 1,), 7, dtype=torch.int16,
+                        device=dev)[1:].view(n, 4)
+    front_t = torch.zeros((n, 4), dtype=torch.bool, device=dev)
+    front_t[0] = True
+    tables = multi_source.union_tables(g, front_t.any(1), n)
+    with pytest.raises(ValueError, match="boundary"):
+        relax.wd_apply_relax_union(dist_t, front_t, *tables, g.col, g.wt,
+                                   cap_work=g.num_edges,
+                                   max_lanes=int(tables[0][-1]), op=op)

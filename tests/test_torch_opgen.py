@@ -38,6 +38,7 @@ import torch
 from repro_torch.core import operators as tops
 from repro_torch.core.graph import INF
 from repro_torch.kernels import opgen
+from repro_torch.kernels._build import CSRC
 
 INT_MIN, INT_MAX = -2 ** 31, 2 ** 31 - 1
 EXTREMES = (INT_MIN, INT_MIN + 1, -1, 0, 1, INF, INT_MAX)
@@ -235,26 +236,69 @@ def test_digest_follows_the_body():
     assert opgen.lower(c).digest == opgen.lower(SUPPORTED["sum_copy"]).digest
 
 
-def test_non_int32_and_nonzero_add_identity_still_raise():
-    """float32 is lowered (a float header, MSG_CUSTOM even for the
-    built-in sum); the sub-word and 64-bit dtypes, and add with a nonzero
-    identity (int32 or float32), raise before any lowering, naming the
-    ROADMAP item."""
-    f32 = tops.EdgeOp(name="f32", combine="min", identity=INF,
-                      source_value=0, message=tops._sum_message,
-                      dtype=torch.float32)
-    assert f32.kernel_codes() == (tops.MSG_CUSTOM, 0, torch.float32)
-    assert "#define REPRO_OP_FLOAT" in opgen.lower(f32).header
-    bad = [_op("add1", "add", lambda v, w: v, identity=1),
-           dataclasses.replace(f32, name="fadd1", combine="add",
-                               identity=1.0)]
-    bad += [dataclasses.replace(f32, name=str(d), dtype=d)
-            for d in (torch.float16, torch.bfloat16, torch.int16,
-                      torch.uint8, torch.float64)]
-    for op in bad:
+_F32 = tops.EdgeOp(name="f32", combine="min", identity=INF, source_value=0,
+                   message=tops._sum_message, dtype=torch.float32)
+
+#: what lowers and what still raises: float32 (a float header, MSG_CUSTOM
+#: even for the built-in sum), the sub-word dtypes (a header of their own
+#: value type, MSG_CUSTOM even for the built-in sum), float64 and int64
+#: (lowered as float32 and int32, as the reference runs them: an int64 sum
+#: keeps the built-in MSG_SUM, an int64 lambda takes MSG_CUSTOM); add with
+#: a nonzero identity, int32 or float32, raises before any lowering, naming
+#: the reference's fault
+_CUSTOM_MIN = (tops.MSG_CUSTOM, tops.KERNEL_COMBINES["min"])
+KERNEL_DTYPE_CASES = {
+    "float32": (_F32, "#define REPRO_OP_FLOAT", (*_CUSTOM_MIN, torch.float32)),
+    "float16": (dataclasses.replace(_F32, name="f16", dtype=torch.float16),
+                "typedef repro_op_f16 repro_op_val;",
+                (*_CUSTOM_MIN, torch.float16)),
+    "bfloat16": (dataclasses.replace(_F32, name="bf16",
+                                     dtype=torch.bfloat16),
+                 "typedef repro_op_bf16 repro_op_val;",
+                 (*_CUSTOM_MIN, torch.bfloat16)),
+    "int16": (dataclasses.replace(_F32, name="i16", dtype=torch.int16,
+                                  identity=32767),
+              "typedef int16_t repro_op_val;", (*_CUSTOM_MIN, torch.int16)),
+    "int8": (dataclasses.replace(_F32, name="i8", dtype=torch.int8,
+                                 identity=127),
+             "typedef int8_t repro_op_val;", (*_CUSTOM_MIN, torch.int8)),
+    "uint8": (dataclasses.replace(_F32, name="u8", dtype=torch.uint8,
+                                  identity=255),
+              "typedef uint8_t repro_op_val;", (*_CUSTOM_MIN, torch.uint8)),
+    "float64": (dataclasses.replace(_F32, name="f64", dtype=torch.float64),
+                "#define REPRO_OP_FLOAT", (*_CUSTOM_MIN, torch.float32)),
+    "int64_sum": (dataclasses.replace(_F32, name="i64s", dtype=torch.int64),
+                  "int32_t repro_op_message(int32_t v, int32_t w)",
+                  (tops.KERNEL_MESSAGES[tops._sum_message],
+                   tops.KERNEL_COMBINES["min"], torch.int32)),
+    "int64": (dataclasses.replace(_F32, name="i64", dtype=torch.int64,
+                                  message=lambda v, w: v + w),
+              "int32_t repro_op_message(int32_t v, int32_t w)",
+              (*_CUSTOM_MIN, torch.int32)),
+    "add1_int32": (_op("add1", "add", lambda v, w: v, identity=1), None,
+                   None),
+    "add1_float32": (dataclasses.replace(_F32, name="fadd1", combine="add",
+                                         identity=1.0), None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(KERNEL_DTYPE_CASES))
+def test_non_int32_and_nonzero_add_identity_still_raise(case):
+    """Every kernel value type lowers, to a header of its own value type,
+    with the full ``(message, combine, value type)`` codes; only add with a
+    nonzero identity still raises, naming the reference's fault (ROADMAP
+    queue C, "The reference's faults")."""
+    op, marker, codes = KERNEL_DTYPE_CASES[case]
+    if marker is None:
         with pytest.raises(NotImplementedError,
-                           match="queue C: operators of a sub-word"):
+                           match="nonzero identity.*reference's faults"):
+            op.kernel_codes()
+        with pytest.raises(NotImplementedError,
+                           match="nonzero identity.*reference's faults"):
             opgen.lower(op)
+        return
+    assert op.kernel_codes() == codes
+    assert marker in opgen.lower(op).header
 
 
 # ---------------------------------------------------------------------------
@@ -498,3 +542,348 @@ def test_float_and_int_headers_differ():
     assert opgen.lower(f).digest != opgen.lower(i).digest
     assert "float repro_op_message(float v, int32_t w)" in \
         opgen.lower(f).header
+
+
+# ---------------------------------------------------------------------------
+# sub-word operators
+# ---------------------------------------------------------------------------
+
+SUBWORD_HARNESS = r"""
+#include "op.h"
+#include "values.cuh"
+#include <stdio.h>
+#include <stdlib.h>
+
+int main(int argc, char** argv) {
+  FILE* in = fopen(argv[1], "rb");
+  FILE* out = fopen(argv[2], "wb");
+  int32_t n = 0;
+  if (!in || !out || fread(&n, 4, 1, in) != 1) return 2;
+  const size_t vs = sizeof(repro_op_val);
+  repro_op_val* v = (repro_op_val*)malloc(vs * (size_t)n);
+  int32_t* w = (int32_t*)malloc(4 * (size_t)n);
+  repro_op_val* u = (repro_op_val*)malloc(vs * (size_t)n);
+  if (fread(v, vs, n, in) != (size_t)n || fread(w, 4, n, in) != (size_t)n ||
+      fread(u, vs, n, in) != (size_t)n)
+    return 2;
+  for (int32_t i = 0; i < n; ++i) {
+    const repro_op_msg m = repro_op_message(v[i], w[i]);
+    const uint8_t ok = repro_op_improves(m, u[i]) ? 1 : 0;
+    const repro_op_val nv = repro_op_narrow(m);
+    const repro_op_val f = relax_lanes::fold_value<REPRO_OP_COMB>(u[i], nv);
+    const int32_t b[2] = {
+        relax_lanes::bucket_of<relax_lanes::COMB_MIN>(v[i], 4),
+        relax_lanes::bucket_of<relax_lanes::COMB_MAX>(v[i], 4)};
+    const uint8_t ne = relax_lanes::val_ne(v[i], u[i]) ? 1 : 0;
+    fwrite(&m, sizeof m, 1, out);
+    fwrite(&ok, 1, 1, out);
+    fwrite(&nv, vs, 1, out);
+    fwrite(&f, vs, 1, out);
+    fwrite(b, 4, 2, out);
+    fwrite(&ne, 1, 1, out);
+  }
+  fclose(out);
+  return 0;
+}
+"""
+
+BF16, F16 = torch.bfloat16, torch.float16
+
+
+def _sop(name, combine, dtype, message, update=None):
+    ident = {"min": 32767 if dtype == torch.int16 else 127
+             if dtype == torch.int8 else 255 if dtype == torch.uint8
+             else float("inf"), "max": 0, "add": 0}[combine]
+    return tops.EdgeOp(name=name, combine=combine, identity=ident,
+                       source_value=0, message=message, update=update,
+                       dtype=dtype)
+
+
+#: sub-word operators: the smoke's seven and one operator per op family
+#: and type (promotion of a wider message, rounding, wrapping,
+#: conversions, comparisons across types, an update predicate)
+SUBWORD_SUPPORTED = {
+    "bf16_sssp": _sop("bf16_sssp", "min", BF16, lambda v, w: v + w),
+    "bf16_damped": _sop("bf16_damped", "add", BF16, lambda v, w: v * 0.5),
+    "bf16_arith": _sop(
+        "bf16_arith", "min", BF16,
+        lambda v, w: (v - 2.5) * 0.5 + torch.abs(v) - (-v) / 4.0 + v // 2.0
+        + torch.div(v, 0.75, rounding_mode="floor") + v * v),
+    "bf16_conv": _sop(
+        "bf16_conv", "max", BF16,
+        lambda v, w: v.to(F16).to(BF16) + (v > 0).to(BF16) + w.to(BF16)
+        + torch.where(v < w, v, w.to(BF16)) + v.float().to(BF16)),
+    "f16_reliable": _sop("f16_reliable", "max", F16,
+                         lambda v, w: v * (w / (w + 1.0))),
+    "f16_minmax": _sop(
+        "f16_minmax", "max", F16,
+        lambda v, w: torch.maximum(v, (w * 0.5).to(F16))
+        - torch.minimum(v, -v) + v.clamp(-10.5, 1000.0)
+        + torch.clamp_min(v, 0.25)),
+    "f16_where": _sop(
+        "f16_where", "min", F16,
+        lambda v, w: torch.where(v > w, v - w, v + 1.0),
+        update=lambda cand, cur: (cand < cur) | (cand != cand)),
+    "i16_sssp": _sop("i16_sssp", "min", torch.int16, lambda v, w: v + w),
+    "i16_arith": _sop(
+        "i16_arith", "min", torch.int16,
+        lambda v, w: (v * 3 - v // -3 + v % 7 + ((v << 2) ^ (v >> 1))
+                      + abs(v) - (-v) + torch.fmod(v, -5))),
+    "i16_update": _sop("i16_update", "min", torch.int16,
+                       lambda v, w: v + w,
+                       update=lambda cand, cur: (cand + 2 < cur)
+                       | (cur == 32767)),
+    "i8_levels": _sop("i8_levels", "min", torch.int8, lambda v, w: v + 1),
+    "i8_bits": _sop(
+        "i8_bits", "max", torch.int8,
+        lambda v, w: ((v & 0x3C) | (~v ^ 5)) + torch.where(w > 0, v, -v)
+        + (v << 7) + (v >> 6)),
+    "u8_widest": _sop("u8_widest", "max", torch.uint8,
+                      lambda v, w: torch.minimum(
+                          v, w.clamp(0, 255).to(torch.uint8))),
+    "u8_count": _sop("u8_count", "add", torch.uint8, lambda v, w: v),
+    "u8_mix": _sop("u8_mix", "min", torch.uint8,
+                   lambda v, w: v * 2 + (w > 3) + v.to(torch.int32) // 5
+                   + torch.maximum(v, v // 3)),
+}
+
+#: weights against every 8-bit value, and against every 16-bit pattern
+WEIGHTS_8 = (INT_MIN, -129, -1, 0, 1, 2, 7, 100, 127, 128, 255, 256, 1000,
+             32767, 32768, 65536, INF, INT_MAX)
+WEIGHTS_16 = (0, 1, -5, 255, 1000, INT_MAX)
+
+
+def _subword_inputs(dtype):
+    """(v, w, u): every value of the type against the weights, and random
+    values of the type as the current values."""
+    rng = np.random.default_rng(30)
+    bits = torch.iinfo(dtype).bits if not dtype.is_floating_point else 16
+    every = torch.arange(1 << bits, dtype=torch.int32)
+    every = (every.to(torch.uint8).view(dtype) if bits == 8 else
+             every.to(torch.int16).view(dtype))
+    weights = WEIGHTS_8 if bits == 8 else WEIGHTS_16
+    v = every.repeat(len(weights))
+    w = torch.tensor(weights, dtype=torch.int64).repeat_interleave(
+        every.numel()).to(torch.int32)
+    u = every[torch.from_numpy(rng.integers(0, every.numel(), v.numel()))]
+    return v, w, u
+
+
+def _raw(t: torch.Tensor) -> np.ndarray:
+    if t.dtype in (BF16, F16):
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _run_subword_harness(header, v, w, u, want_msg, tmp_path):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the generated header")
+    (tmp_path / "op.h").write_text(header)
+    (tmp_path / "harness.cc").write_text(SUBWORD_HARNESS)
+    exe = tmp_path / "harness"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O1", "-ffp-contract=off",
+         "-fsanitize=undefined,float-cast-overflow",
+         "-fno-sanitize-recover=all", "-D__host__=", "-D__device__=",
+         "-D__forceinline__=inline", f"-I{tmp_path}", f"-I{CSRC}", "-o",
+         str(exe), str(tmp_path / "harness.cc")],
+        check=True, capture_output=True, text=True, timeout=120)
+    (tmp_path / "in.bin").write_bytes(
+        np.int32(v.numel()).tobytes() + _raw(v).tobytes()
+        + w.numpy().tobytes() + _raw(u).tobytes())
+    run = subprocess.run([str(exe), str(tmp_path / "in.bin"),
+                          str(tmp_path / "out.bin")],
+                         capture_output=True, text=True, timeout=60)
+    assert run.returncode == 0, run.stderr
+    vt = _raw(v).dtype
+    mt = {torch.bfloat16: "<u2", torch.float16: "<u2"}.get(
+        want_msg.dtype, _raw(want_msg[:1]).dtype.str)
+    return np.frombuffer((tmp_path / "out.bin").read_bytes(), dtype=[
+        ("m", mt), ("ok", "u1"), ("nv", vt), ("f", vt), ("b", "<i4", 2),
+        ("ne", "u1")])
+
+
+def _same_values(got_raw, want: torch.Tensor, zero_tie: bool = False):
+    """Raw values of ``want``'s type bit for bit, NaN for NaN (a NaN's
+    payload is the hardware's)."""
+    if want.is_floating_point():
+        got = torch.from_numpy(np.ascontiguousarray(got_raw).view(
+            {torch.bfloat16: np.int16, torch.float16: np.int16,
+             torch.float32: np.int32}[want.dtype])).view(want.dtype)
+        nan = want.isnan()
+        assert torch.equal(got.isnan(), nan)
+        same = got[~nan].view(torch.int16 if want.element_size() == 2
+                              else torch.int32) == want[~nan].view(
+            torch.int16 if want.element_size() == 2 else torch.int32)
+        if zero_tie:
+            same |= (got[~nan] == 0) & (want[~nan] == 0)
+        bad = (~same).nonzero().flatten()
+        assert bad.numel() == 0, (got[~nan][bad[:5]], want[~nan][bad[:5]])
+    else:
+        np.testing.assert_array_equal(got_raw, want.numpy())
+
+
+#: operators whose messages take minimum/maximum of two zeros
+SUBWORD_ZERO_TIE = {"f16_minmax", "bf16_conv"}
+
+
+@pytest.mark.parametrize("name", list(SUBWORD_SUPPORTED))
+def test_lowered_subword_operator_matches_torch(name, tmp_path):
+    """The sub-word header compiled by g++ against torch: every 8-bit
+    value against a spread of int32 weights, or every 16-bit pattern
+    against a few; the message (its own type, which may be wider than
+    the values), the activation test against random current values, the
+    narrowing to the value type, the fold of the narrowed candidate into
+    the current value (``EdgeOp.scatter``), the delta-stepping bucket of
+    the value at Δ = 4 both ways (``worklist.bucket_index``) and the
+    value comparison."""
+    from repro_torch.core import worklist
+    op = SUBWORD_SUPPORTED[name]
+    v, w, u = _subword_inputs(op.dtype)
+    want_msg = op.message(v, w)
+    rec = _run_subword_harness(opgen.lower(op).header, v, w, u, want_msg,
+                               tmp_path)
+    _same_values(rec["m"], want_msg, name in SUBWORD_ZERO_TIE)
+    np.testing.assert_array_equal(rec["ok"].astype(bool),
+                                  op.improves(want_msg, u).numpy())
+    narrowed = want_msg.to(op.dtype)
+    _same_values(rec["nv"], narrowed, name in SUBWORD_ZERO_TIE)
+    folded = op.scatter(u.clone(), torch.arange(u.numel()), narrowed,
+                        torch.ones(u.numel(), dtype=torch.bool))
+    _same_values(rec["f"], folded, name in SUBWORD_ZERO_TIE)
+    for k, descending in enumerate((False, True)):
+        np.testing.assert_array_equal(
+            rec["b"][:, k],
+            worklist.bucket_index(v, 4, descending=descending).numpy())
+    np.testing.assert_array_equal(rec["ne"].astype(bool), (v != u).numpy())
+
+
+#: (dtype, message, what the error must name) for sub-word operators
+SUBWORD_UNSUPPORTED = {
+    "inexact_constant": (BF16, lambda v, w: v * 0.1,
+                         "'mul'.*not a value of torch.bfloat16"),
+    "narrow_constant": (torch.int8, lambda v, w: v + 300,
+                        "'add'.*outside torch.int8"),
+    "narrow_shift": (torch.int16, lambda v, w: v << 16,
+                     "'lshift'.*outside \\[0, 15\\]"),
+    "float_to_int8": (F16, lambda v, w: (v.to(torch.int8) + 1).to(F16),
+                      "converts torch.float16 to torch.int8"),
+    "half_fmod": (BF16, lambda v, w: torch.fmod(v, 3.0), "'fmod'.*disagree"),
+    "narrower_message": (torch.int16, lambda v, w: (v + w).to(torch.int8),
+                         "'output'.*torch.int16 \\(or a type"),
+    "float_into_int": (torch.int16, lambda v, w: v * 0.5,
+                       "narrowed to torch.int16.*converts torch.float32"),
+    "float64": (BF16, lambda v, w: v.double() + w, "'double'"),
+}
+
+
+@pytest.mark.parametrize("name", list(SUBWORD_UNSUPPORTED))
+def test_unsupported_subword_form_raises_naming_its_node(name):
+    dtype, message, what = SUBWORD_UNSUPPORTED[name]
+    op = _sop(f"bad_{name}", "min", dtype, message)
+    with pytest.raises(NotImplementedError,
+                       match=f"bad_{name}.*{what}.*device='cpu'"):
+        opgen.lower(op)
+
+
+def test_subword_headers_name_their_types():
+    """The value type is in the header, so in the digest (one library an
+    operator and value type); a wider message's type too, with the
+    fold's narrowing."""
+    sssp = {d: _sop("s", "min", d, lambda v, w: v + w)
+            for d in (BF16, F16, torch.int16, torch.int8, torch.uint8)}
+    digests = {opgen.lower(op).digest for op in sssp.values()}
+    assert len(digests) == len(sssp)
+    header = opgen.lower(sssp[torch.int16]).header
+    assert "int32_t repro_op_message(int16_t v, int32_t w)" in header
+    assert "typedef int32_t repro_op_msg;" in header
+    assert "return repro_op_to_s((int32_t)m);" in header
+    header = opgen.lower(SUBWORD_SUPPORTED["f16_reliable"]).header
+    assert "typedef float repro_op_msg;" in header
+    assert "return repro_op_f2h(m);" in header
+
+
+VALUES_HARNESS = r"""
+#include "op.h"
+#include "values.cuh"
+#include <stdio.h>
+#include <stdlib.h>
+
+int main(int argc, char** argv) {
+  using namespace relax_lanes;
+  FILE* in = fopen(argv[1], "rb");
+  FILE* out = fopen(argv[2], "wb");
+  int32_t n = 0;
+  if (!in || !out || fread(&n, 4, 1, in) != 1) return 2;
+  Val* v = (Val*)malloc(sizeof(Val) * (size_t)n);
+  if (fread(v, sizeof(Val), n, in) != (size_t)n) return 2;
+  for (int32_t i = 0; i < n; ++i) {
+    const int32_t b[4] = {bucket_of<COMB_MIN>(v[i], 4),
+                          bucket_of<COMB_MAX>(v[i], 4),
+                          bucket_of<COMB_MIN>(v[i], 25),
+                          bucket_of<COMB_MAX>(v[i], 25)};
+    const uint8_t ne = val_ne(v[i], v[(i + 1) % n]) ? 1 : 0;
+    fwrite(b, 4, 4, out);
+    fwrite(&ne, 1, 1, out);
+  }
+  fclose(out);
+  return 0;
+}
+"""
+
+
+def _values_32(dtype):
+    rng = np.random.default_rng(31)
+    if dtype == torch.int32:
+        v = np.concatenate([rng.integers(INT_MIN, INT_MAX + 1, 4096),
+                            rng.integers(-60, 60, 1024), EXTREMES,
+                            [INF - 1, INF - 4, INF - 25, INF + 1]])
+        return torch.from_numpy(v.astype(np.int32))
+    v = np.concatenate([rng.standard_normal(2048) * 1e3,
+                        rng.uniform(0, 2.0 ** 31, 2048),
+                        rng.uniform(-100, 100, 1024).round(), F_SPECIALS,
+                        np.repeat(F_SPECIALS, 2)])
+    return torch.from_numpy(v.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32],
+                         ids=["int32", "float32"])
+def test_value_helpers_of_32_bit_builds_match_worklist(dtype, tmp_path):
+    """``csrc/values.cuh`` with the base build's int32 values (no
+    header) and a float32 operator's header, compiled by g++ against
+    torch: the delta-stepping bucket at Δ = 4 and 25, both ways
+    (``worklist.bucket_index``, float32 NaN to INT32_MIN), and the value
+    comparison (the sub-word types are held in
+    ``test_lowered_subword_operator_matches_torch``)."""
+    from repro_torch.core import worklist
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile csrc/values.cuh")
+    header = "" if dtype == torch.int32 else opgen.lower(_F32).header
+    (tmp_path / "op.h").write_text(header)
+    (tmp_path / "harness.cc").write_text(VALUES_HARNESS)
+    exe = tmp_path / "harness"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O1", "-ffp-contract=off",
+         "-fsanitize=undefined,float-cast-overflow",
+         "-fno-sanitize-recover=all", "-D__host__=", "-D__device__=",
+         "-D__forceinline__=inline", f"-I{tmp_path}", f"-I{CSRC}", "-o",
+         str(exe), str(tmp_path / "harness.cc")],
+        check=True, capture_output=True, text=True, timeout=120)
+    v = _values_32(dtype)
+    (tmp_path / "in.bin").write_bytes(np.int32(v.numel()).tobytes()
+                                      + v.numpy().tobytes())
+    run = subprocess.run([str(exe), str(tmp_path / "in.bin"),
+                          str(tmp_path / "out.bin")],
+                         capture_output=True, text=True, timeout=60)
+    assert run.returncode == 0, run.stderr
+    rec = np.frombuffer((tmp_path / "out.bin").read_bytes(),
+                        dtype=[("b", "<i4", 4), ("ne", "u1")])
+    for k, (delta, descending) in enumerate(
+            ((4, False), (4, True), (25, False), (25, True))):
+        np.testing.assert_array_equal(
+            rec["b"][:, k],
+            worklist.bucket_index(v, delta, descending=descending).numpy())
+    np.testing.assert_array_equal(rec["ne"].astype(bool),
+                                  (v != v.roll(-1)).numpy())
